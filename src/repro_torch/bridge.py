@@ -1,0 +1,82 @@
+"""Conversions between the reference's JAX trees (as numpy arrays) and the
+port's tensors, so that the same parameters and the same pool contents can
+be fed to both packages.
+
+The reference stacks each stack's pattern positions over their scan
+repeats (a leading ``repeats`` dim on every leaf); the port keeps one
+entry per layer, in execution order (stack, repeat, pattern position).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: exact via fp32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(stacks) -> list:
+    """Per-layer trees, execution order, from stacked pattern positions."""
+    layers = []
+    for stack in stacks:
+        repeats = len(next(iter(_leaves(stack[0]))))
+        for r in range(repeats):
+            for pat in stack:
+                layers.append(_map(lambda a, r=r: _to_torch(np.asarray(a)[r]),
+                                   pat))
+    return layers
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def params_from_jax(tree) -> dict:
+    """The port's parameter dict from a reference ``T.init_params`` tree
+    whose leaves were converted to numpy (``jax.tree.map(np.asarray, ...)``)."""
+    return {"embed": _map(_to_torch, tree["embed"]),
+            "final_norm": _map(_to_torch, tree["final_norm"]),
+            "layers": _unstack(tree["stacks"])}
+
+
+def pool_from_numpy(tree) -> dict:
+    """The port's paged cache ``{"layers": [pool per layer]}`` from a
+    reference paged cache whose leaves are numpy arrays."""
+    return {"layers": _unstack(tree["layers"])}
+
+
+def pool_to_numpy(cache: dict, cfg: ModelConfig) -> dict:
+    """The reference's stacked paged-cache layout, as numpy arrays, from
+    the port's per-layer pools (bf16 pools come back as float32)."""
+    stacks, base = [], 0
+    layers = cache["layers"]
+    for stack in cfg.stacks:
+        n = len(stack.pattern)
+        stacks.append(tuple(
+            {k: np.stack([_to_numpy(layers[base + r * n + pi][k])
+                          for r in range(stack.repeats)])
+             for k in layers[base + pi]}
+            for pi in range(n)))
+        base += stack.num_layers
+    return {"layers": tuple(stacks)}

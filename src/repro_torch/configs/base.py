@@ -1,0 +1,115 @@
+"""Model/config system (the port's copy of ``repro.configs.base``).
+
+A model is described by a :class:`ModelConfig`, which is a sequence of
+*stacks*.  Each stack is a repeating *pattern* of :class:`LayerSpec`s; the
+port runs the layers one after another in the order
+``for stack: for repeat: for pattern position`` (see
+:func:`layer_specs`), the same order the reference scans them in.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Layer specification
+# ---------------------------------------------------------------------------
+
+# mixer kinds
+ATTN = "attn"          # softmax attention (GQA), optional sliding window
+MLA = "mla"            # DeepSeek multi-head latent attention
+MLSTM = "mlstm"        # xLSTM matrix-memory block
+SLSTM = "slstm"        # xLSTM scalar-memory block
+HYBRID = "hybrid"      # Hymba parallel attention + SSM heads
+
+# ffn kinds
+DENSE_FFN = "dense"
+MOE_FFN = "moe"
+NO_FFN = "none"        # xLSTM blocks carry their own projection; no FFN
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer position inside a stack pattern."""
+
+    mixer: str = ATTN
+    ffn: str = DENSE_FFN
+    window: Optional[int] = None  # sliding-window size; None = global attention
+
+    def __post_init__(self):
+        assert self.mixer in (ATTN, MLA, MLSTM, SLSTM, HYBRID), self.mixer
+        assert self.ffn in (DENSE_FFN, MOE_FFN, NO_FFN), self.ffn
+
+
+@dataclass(frozen=True)
+class Stack:
+    """``repeats`` x ``pattern`` layers."""
+
+    pattern: Tuple[LayerSpec, ...]
+    repeats: int
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.pattern) * self.repeats
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    source: str = ""                # citation for the assigned config
+
+    d_model: int = 512
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: int = 0               # 0 -> d_model // num_heads
+    d_ff: int = 2048
+    vocab_size: int = 32000
+    stacks: Tuple[Stack, ...] = ()
+
+    # attention details
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    pos_emb: str = "rope"           # rope | learned | none
+    max_seq_len: int = 1 << 19      # for learned positions / rope tables
+    attn_scale: Optional[float] = None        # None -> 1/sqrt(head_dim)
+
+    # block structure
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    activation: str = "swiglu"      # swiglu | geglu | gelu
+    tie_embeddings: bool = True
+    embed_scale: bool = False
+
+    # long-context: window applied to *global* layers when serving >
+    # native_context tokens
+    long_context_override: Optional[int] = None
+    native_context: int = 1 << 17
+
+    def __post_init__(self):
+        if not self.stacks:
+            object.__setattr__(
+                self, "stacks", (Stack((LayerSpec(),), 2),))
+
+    # -- derived ------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def num_layers(self) -> int:
+        return sum(s.num_layers for s in self.stacks)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def layer_specs(cfg: ModelConfig) -> Iterator[LayerSpec]:
+    """Every layer's spec in execution order (stack, repeat, position)."""
+    for stack in cfg.stacks:
+        for _ in range(stack.repeats):
+            yield from stack.pattern
+
+
+def uniform_stack(n_layers: int, spec: LayerSpec) -> Tuple[Stack, ...]:
+    return (Stack((spec,), n_layers),)

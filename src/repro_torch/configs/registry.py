@@ -1,0 +1,24 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's
+launchers.  Lists only the architectures the port serves so far."""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "unimo-text": "repro_torch.configs.unimo_text",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    return importlib.import_module(_MODULES[arch]).config()
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return importlib.import_module(_MODULES[arch]).reduced()
+
+
+def list_archs() -> List[str]:
+    return list(_MODULES)

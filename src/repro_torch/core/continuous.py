@@ -1,0 +1,519 @@
+"""Continuous (in-flight) batching bookkeeping (the port's copy of
+``repro.core.continuous``, without preemption, the host KV tier and fault
+injection, which the port does not serve yet).
+
+A fixed set of decode *slots* runs forever; requests are admitted into
+free slots mid-flight and retired at EOS.  KV memory is a shared pool of
+fixed-size, refcounted pages, shared across requests with a common prompt
+prefix through :class:`~repro_torch.core.prefix_cache.RadixPrefixCache`.
+Each iteration is a unified token budget: one decode token per live slot
+plus prefill-chunk tokens from admitting slots (FCFS), flattened into one
+token-packed stream (:meth:`ContinuousScheduler.pack_batch`).
+
+This module is host-side bookkeeping only; the device side lives in
+``engine.serve_continuous`` and ``kernels/decode_attention``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.scheduler import Request, RequestOutcome
+
+
+class PageAllocator:
+    """Refcounted free-list allocator over ``num_pages`` physical pages.
+
+    Page ids are 0..num_pages-1; the engine reserves one extra pool page
+    (id num_pages) as the dump page, which is never handed out.
+    """
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._ref: Dict[int, int] = {}
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def allocated_count(self) -> int:
+        return len(self._ref)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n pages at refcount 1, or None (and no change) if the pool
+        can't cover it."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def incref(self, page: int) -> None:
+        if page not in self._ref:
+            raise ValueError(f"incref of unallocated page {page}")
+        self._ref[page] += 1
+
+    def decref(self, page: int) -> None:
+        if not (0 <= page < self.num_pages):
+            raise ValueError(f"bad page id {page}")
+        c = self._ref.get(page, 0)
+        if c <= 0:
+            raise ValueError(f"refcount of page {page} would go negative")
+        if c == 1:
+            del self._ref[page]
+            self._free.append(page)
+        else:
+            self._ref[page] = c - 1
+
+    def check(self) -> None:
+        """Pool accounting invariant: every page is either free or has a
+        positive refcount, exactly once."""
+        if len(set(self._free)) != len(self._free):
+            raise AssertionError("duplicate pages in the free list")
+        if set(self._free) & set(self._ref):
+            raise AssertionError("page both free and allocated")
+        if len(self._free) + len(self._ref) != self.num_pages:
+            raise AssertionError(
+                f"leak: {len(self._free)} free + {len(self._ref)} resident "
+                f"!= {self.num_pages} pool pages")
+        if any(c <= 0 for c in self._ref.values()):
+            raise AssertionError("non-positive refcount")
+
+
+@dataclass
+class SlotState:
+    request: Request
+    pages: List[int]                   # block-table order (shared + fresh)
+    fresh_pages: List[int] = field(default_factory=list)  # refcount-1, ours
+    matched_len: int = 0               # tokens served from the prefix cache
+    shared_count: int = 0              # leading fully-shared pages
+    cow_src: int = -1                  # partial tail page to copy, or -1
+    emitted: List[int] = field(default_factory=list)
+    submitted_at: float = 0.0          # queued (arrival) time
+    admitted_at: float = 0.0
+    finished_at: Optional[float] = None
+    prefill_pos: int = 0               # prompt tokens written so far (abs)
+    admit_seq: int = 0                 # FCFS tiebreak for prefill chunks
+    needs_init: bool = True            # fresh pages not yet reset / COW'd
+    last_token_at: Optional[float] = None   # wall time of last emit (ITL)
+
+    @property
+    def ctx(self) -> List[int]:
+        """Tokens the slot must have written before it can decode."""
+        return self.request.tokens
+
+    @property
+    def ctx_len(self) -> int:
+        return len(self.ctx)
+
+    @property
+    def prefill_done(self) -> bool:
+        return self.prefill_pos >= self.ctx_len
+
+
+@dataclass
+class ChunkPlan:
+    """One prefill chunk scheduled into a mixed iteration: ``length``
+    prompt tokens of ``slot``'s request starting at absolute prompt
+    position ``start``."""
+    slot: int
+    start: int
+    length: int
+
+
+@dataclass
+class MixedPlan:
+    """One token-budget iteration: every decoding slot contributes
+    ``decode_cost`` tokens, admitting slots share the remainder as
+    prefill chunks (FCFS)."""
+    decode_slots: List[int]
+    chunks: List[ChunkPlan]
+    decode_cost: int = 1
+
+    @property
+    def total_tokens(self) -> int:
+        return (self.decode_cost * len(self.decode_slots)
+                + sum(c.length for c in self.chunks))
+
+
+@dataclass
+class PackedBatch:
+    """One mixed iteration flattened into a single token-packed stream
+    (decode tokens first, then prefill-chunk tokens, FCFS).  Stream arrays
+    are ``width`` long (lanes past ``n_tokens`` are padding: slot_ids /
+    positions -1, tokens 0); segment arrays are ``max_slots`` long."""
+    tokens: np.ndarray       # (T,) int32, 0-padded
+    slot_ids: np.ndarray     # (T,) int32, -1-padded
+    positions: np.ndarray    # (T,) int32 absolute, -1-padded
+    seg_slots: np.ndarray    # (S,) int32 owning slot, -1-padded
+    seg_start: np.ndarray    # (S,) int32 stream offset of the segment
+    seg_len: np.ndarray      # (S,) int32 real tokens in the segment
+    last_idx: np.ndarray     # (S,) int32 stream index of the last token
+    n_decode: int            # leading decode segments
+    n_segments: int          # live segments (decode + chunks)
+    n_tokens: int            # real lanes (== plan.total_tokens)
+
+
+@dataclass
+class ServeMetrics:
+    """Per-run counters for the continuous path."""
+    steps: int = 0                   # decode steps + packed iterations
+    slot_steps_active: int = 0       # slot-steps that carried a live request
+    slot_steps_total: int = 0
+    prefill_tokens: int = 0          # prompt tokens actually computed
+    prefill_padded: int = 0          # padded prompt tokens
+    generated_tokens: int = 0
+    admitted: int = 0
+    retired: int = 0
+    rejected: int = 0                # could never fit the page pool
+    latency_s: List[float] = field(default_factory=list)
+    # -- prefix cache -------------------------------------------------------
+    prefix_hits: int = 0             # admissions with a non-empty match
+    prefix_matched_tokens: int = 0   # prefill tokens saved by sharing
+    pages_shared: int = 0            # zero-copy page mappings
+    cow_copies: int = 0              # partial tail pages copied on write
+    prefix_evicted_pages: int = 0    # trie pages reclaimed under pressure
+    # -- storage ------------------------------------------------------------
+    kv_dtype: str = "auto"
+    kv_pool_bytes: int = 0
+    kv_bytes_per_token: float = 0.0
+    weight_dtype: str = "auto"
+    weight_bytes: int = 0
+    weight_bytes_saved: int = 0
+    peak_pages_in_use: int = 0
+    admission_stalls: int = 0        # iterations a free slot waited on pages
+    decode_tokens: int = 0           # tokens emitted by decode steps
+    # -- unified token-budget scheduler -------------------------------------
+    scheduler: str = "unified"
+    max_batched_tokens: int = 0
+    prefill_chunks: int = 0
+    ttft_s: List[float] = field(default_factory=list)   # submit->first tok
+    itl_s: List[float] = field(default_factory=list)    # inter-token gaps
+    # -- packed execution ---------------------------------------------------
+    host_s: float = 0.0              # serve-loop wall time minus device time
+    device_s: float = 0.0            # time inside synchronized device spans
+    host_syncs: int = 0
+    mixed_iters: int = 0             # iterations that carried prefill chunks
+    mixed_dispatches: int = 0        # device dispatches those iterations made
+    packed_tokens_real: int = 0
+    packed_tokens_padded: int = 0
+    # -- outcomes -----------------------------------------------------------
+    timed_out: int = 0
+    deadline_misses: int = 0
+    outcome_counts: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def decode_idle_frac(self) -> float:
+        if not self.slot_steps_total:
+            return 0.0
+        return 1.0 - self.slot_steps_active / self.slot_steps_total
+
+    @property
+    def tokens_per_forward(self) -> float:
+        if not self.slot_steps_active:
+            return 0.0
+        return self.decode_tokens / self.slot_steps_active
+
+    @property
+    def prefill_pad_frac(self) -> float:
+        if not self.prefill_padded:
+            return 0.0
+        return 1.0 - self.prefill_tokens / self.prefill_padded
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        total = self.prefix_matched_tokens + self.prefill_tokens
+        return self.prefix_matched_tokens / total if total else 0.0
+
+    @property
+    def host_frac(self) -> float:
+        total = self.host_s + self.device_s
+        return self.host_s / total if total else 0.0
+
+    @property
+    def dispatches_per_iter(self) -> float:
+        if not self.mixed_iters:
+            return 0.0
+        return self.mixed_dispatches / self.mixed_iters
+
+    @property
+    def padded_token_frac(self) -> float:
+        if not self.packed_tokens_padded:
+            return 0.0
+        return 1.0 - self.packed_tokens_real / self.packed_tokens_padded
+
+    @staticmethod
+    def percentile(values, q: float) -> float:
+        if len(values) == 0:
+            return 0.0
+        return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+    def percentile_latency(self, q: float) -> float:
+        return self.percentile(self.latency_s, q)
+
+    @property
+    def ttft_p50(self) -> float:
+        return self.percentile(self.ttft_s, 50)
+
+    @property
+    def ttft_p99(self) -> float:
+        return self.percentile(self.ttft_s, 99)
+
+    @property
+    def itl_p50(self) -> float:
+        return self.percentile(self.itl_s, 50)
+
+    @property
+    def itl_p99(self) -> float:
+        return self.percentile(self.itl_s, 99)
+
+
+class ContinuousScheduler:
+    """FCFS admission control over decode slots + the refcounted page pool.
+
+    ``waiting`` holds not-yet-admitted requests; ``try_admit`` claims a
+    slot + pages, ``retire`` releases them.  With a ``prefix_cache``,
+    admission first matches the request's longest cached prefix:
+    fully-covered pages are mapped shared, a partially-covered tail page
+    is flagged for copy-on-write, and only the fresh remainder is
+    allocated — evicting LRU unreferenced trie leaves if the pool runs dry.
+    """
+
+    def __init__(self, max_slots: int, allocator: PageAllocator,
+                 page_size: int, max_pages_per_slot: Optional[int] = None,
+                 prefix_cache=None, match_prefix: bool = True):
+        self.max_slots = max_slots
+        self.allocator = allocator
+        self.page_size = page_size
+        self.max_pages_per_slot = max_pages_per_slot
+        self.prefix_cache = prefix_cache
+        self.match_prefix = match_prefix and prefix_cache is not None
+        self.waiting: List[Request] = []
+        self.slots: Dict[int, SlotState] = {}      # slot idx -> state
+        self._submit_t: Dict[int, float] = {}      # uid -> queued time
+        self._admit_seq = 0                        # FCFS chunk ordering
+
+    # -- queue --------------------------------------------------------------
+    def submit(self, req: Request, now: float = 0.0) -> None:
+        self.waiting.append(req)
+        self._submit_t[req.uid] = now
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.slots)
+
+    def free_slots(self) -> List[int]:
+        return [s for s in range(self.max_slots) if s not in self.slots]
+
+    def pages_needed(self, req: Request) -> int:
+        n = -(-(req.prompt_len + req.max_new_tokens) // self.page_size)
+        if self.max_pages_per_slot is not None:
+            # generation is clamped to the slot's max context at admission
+            n = min(n, self.max_pages_per_slot)
+        return n
+
+    def _alloc_with_eviction(self, n: int) -> Optional[List[int]]:
+        pages = self.allocator.alloc(n)
+        if pages is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.allocator.free_count)
+            pages = self.allocator.alloc(n)
+        return pages
+
+    # -- deadlines / backpressure -------------------------------------------
+    def _finalize(self, req: Request, status: str, detail: str = "",
+                  deadline_missed: bool = False) -> None:
+        req.result = []
+        req.outcome = RequestOutcome(status=status,
+                                     deadline_missed=deadline_missed,
+                                     detail=detail)
+
+    def cancel_expired(self, now: float = 0.0) -> List[Request]:
+        """Cancel queued requests whose deadline or ``max_queue_wait`` has
+        passed (``timed_out``) and requests that can never fit the pool
+        (``rejected``).  Running slots are never cancelled."""
+        kept, cancelled = [], []
+        for req in self.waiting:
+            status = detail = None
+            missed = False
+            waited = now - self._submit_t.get(req.uid, 0.0)
+            if req.deadline is not None and now > req.deadline:
+                status, missed = "timed_out", True
+                detail = f"deadline {req.deadline:.3f}s passed in queue"
+            elif req.max_queue_wait is not None \
+                    and waited > req.max_queue_wait:
+                status, missed = "timed_out", True
+                detail = (f"queued {waited:.3f}s > max_queue_wait "
+                          f"{req.max_queue_wait:.3f}s")
+            elif self.pages_needed(req) > self.allocator.num_pages:
+                status = "rejected"
+                detail = (f"needs {self.pages_needed(req)} pages, "
+                          f"pool holds {self.allocator.num_pages}")
+            if status is None:
+                kept.append(req)
+                continue
+            self._finalize(req, status, detail, deadline_missed=missed)
+            cancelled.append(req)
+        self.waiting = kept
+        return cancelled
+
+    def fail_head(self, detail: str = "") -> Optional[Request]:
+        """Reject the head-of-line request (nothing is running, eviction
+        already ran, and the head still cannot fit)."""
+        if not self.waiting:
+            return None
+        req = self.waiting.pop(0)
+        self._finalize(req, "rejected", detail)
+        return req
+
+    # -- admit / retire -----------------------------------------------------
+    def try_admit(self, now: float = 0.0) -> Optional[tuple]:
+        """Pop the head-of-line request into a free slot if the pool can
+        hold it.  Returns (slot_idx, SlotState) or None."""
+        if not self.waiting:
+            return None
+        free = self.free_slots()
+        if not free:
+            return None
+        req = self.waiting[0]
+        total = self.pages_needed(req)
+        matched, mpages = (0, [])
+        if self.match_prefix and req.prompt_len > 1:
+            # always leave >= 1 suffix token: its logits seed sampling
+            matched, mpages = self.prefix_cache.match(
+                req.tokens[:req.prompt_len - 1])
+        shared = matched // self.page_size           # fully-covered pages
+        cow_src = mpages[shared] if matched % self.page_size else -1
+        # take references on every matched page BEFORE allocating: the
+        # allocation may evict LRU trie leaves
+        for p in mpages[:shared]:
+            self.allocator.incref(p)                 # zero-copy mapping
+        if cow_src >= 0:
+            self.allocator.incref(cow_src)           # pin the COW source
+        fresh = self._alloc_with_eviction(total - shared)
+        if fresh is None:
+            for p in mpages[:shared]:
+                self.allocator.decref(p)
+            if cow_src >= 0:
+                self.allocator.decref(cow_src)
+            return None
+        self.waiting.pop(0)
+        slot = free[0]
+        st = SlotState(request=req, pages=mpages[:shared] + fresh,
+                       fresh_pages=fresh, matched_len=matched,
+                       shared_count=shared, cow_src=cow_src,
+                       admitted_at=now,
+                       submitted_at=self._submit_t.get(req.uid, 0.0),
+                       prefill_pos=matched, admit_seq=self._admit_seq)
+        self._admit_seq += 1
+        req.prefix_tokens_matched = matched
+        self.slots[slot] = st
+        return slot, st
+
+    # -- unified token-budget iteration planning ----------------------------
+    def next_batch(self, budget: int, decode_cost: int = 1) -> MixedPlan:
+        """Plan one mixed iteration under ``budget`` total tokens: every
+        decoding slot first, then FCFS prefill chunks of
+        ``min(remaining prompt, remaining budget)`` tokens."""
+        decode = [s for s in sorted(self.slots)
+                  if self.slots[s].prefill_done]
+        admitting = sorted((s for s in self.slots
+                            if not self.slots[s].prefill_done),
+                           key=lambda s: self.slots[s].admit_seq)
+        rem = budget - decode_cost * len(decode)
+        chunks: List[ChunkPlan] = []
+        for s in admitting:
+            if rem <= 0:
+                break
+            st = self.slots[s]
+            c = min(st.ctx_len - st.prefill_pos, rem)
+            chunks.append(ChunkPlan(slot=s, start=st.prefill_pos, length=c))
+            rem -= c
+        return MixedPlan(decode_slots=decode, chunks=chunks,
+                         decode_cost=decode_cost)
+
+    def pack_batch(self, plan: MixedPlan, pending_tok, lengths,
+                   width: int) -> PackedBatch:
+        """Flatten a :meth:`next_batch` plan into one token-packed ragged
+        stream: decode segments first — slot s contributes its pending
+        token ``pending_tok[s]`` at position ``lengths[s]`` — then each
+        prefill chunk's prompt tokens, in plan (FCFS) order."""
+        if plan.decode_cost != 1:
+            raise ValueError("packed execution streams exactly one decode "
+                             "token per slot")
+        if plan.total_tokens > width:
+            raise ValueError(f"plan of {plan.total_tokens} tokens exceeds "
+                             f"bucket {width}")
+        S = self.max_slots
+        tokens = np.zeros(width, np.int32)
+        slot_ids = np.full(width, -1, np.int32)
+        positions = np.full(width, -1, np.int32)
+        seg_slots = np.full(S, -1, np.int32)
+        seg_start = np.zeros(S, np.int32)
+        seg_len = np.zeros(S, np.int32)
+        last_idx = np.zeros(S, np.int32)
+        t = i = 0
+        for s in plan.decode_slots:
+            tokens[t] = pending_tok[s]
+            slot_ids[t] = s
+            positions[t] = lengths[s]
+            seg_slots[i], seg_start[i], seg_len[i], last_idx[i] = s, t, 1, t
+            t += 1
+            i += 1
+        for c in plan.chunks:
+            ctx = self.slots[c.slot].ctx
+            tokens[t:t + c.length] = ctx[c.start:c.start + c.length]
+            slot_ids[t:t + c.length] = c.slot
+            positions[t:t + c.length] = np.arange(c.start,
+                                                  c.start + c.length)
+            seg_slots[i], seg_start[i] = c.slot, t
+            seg_len[i], last_idx[i] = c.length, t + c.length - 1
+            t += c.length
+            i += 1
+        return PackedBatch(tokens=tokens, slot_ids=slot_ids,
+                           positions=positions, seg_slots=seg_slots,
+                           seg_start=seg_start, seg_len=seg_len,
+                           last_idx=last_idx,
+                           n_decode=len(plan.decode_slots),
+                           n_segments=i, n_tokens=t)
+
+    def release_cow_source(self, st: SlotState) -> None:
+        """Drop the pin on the COW source page once the engine has copied
+        it into the request's own tail page."""
+        if st.cow_src >= 0:
+            self.allocator.decref(st.cow_src)
+            st.cow_src = -1
+
+    def insert_prefix(self, st: SlotState, valid_len: int) -> int:
+        """Index ``valid_len`` tokens of the slot's context (prompt, plus
+        generated tokens at retire) into the prefix cache."""
+        if self.prefix_cache is None or not self.match_prefix \
+                or valid_len <= 0:
+            return 0
+        toks = list(st.request.tokens) + st.emitted
+        return self.prefix_cache.insert(toks[:valid_len], st.pages,
+                                        valid_len)
+
+    def retire(self, slot: int, now: float = 0.0) -> SlotState:
+        st = self.slots.pop(slot)
+        st.finished_at = now
+        req = st.request
+        req.result = st.emitted[:req.max_new_tokens]
+        req.outcome = RequestOutcome(
+            status="truncated" if req.truncated else "completed",
+            deadline_missed=(req.deadline is not None
+                             and st.finished_at > req.deadline))
+        self.release_cow_source(st)
+        # finalized context -> cache it for future requests; the last
+        # emitted token's KV may never have been written, so it is excluded
+        cached_gen = max(len(st.emitted) - 1, 0)
+        self.insert_prefix(st, req.prompt_len + cached_gen)
+        for p in st.pages:
+            self.allocator.decref(p)
+        return st

@@ -1,0 +1,191 @@
+"""Paged KV pools for continuous batching (the port's counterpart of the
+paged half of ``repro.core.kv_cache``).
+
+K/V live in a shared pool of fixed-size pages, one pool per attention
+layer:
+
+  pk / pv : (P, page, H_kv, D)   physical page pool
+  ppos    : (P, page)            absolute position per entry, -1 = empty
+
+plus one global block table (slots, pages_per_slot) of physical page ids
+shared by every layer (page id p belongs to the same request in all
+layers' pools).  Page P-1 is the reserved "dump" page: writes from padding
+lanes, inactive slots and unallocated table entries land there with
+pos = -1, so masking stays exact without branching.
+
+A model cache is ``{"layers": [pool per layer]}`` in execution order.
+
+Unlike the reference, whose updates are functional, every update here
+writes the pool tensors **in place** (``index_put_``) and returns the same
+cache object: the engine owns one persistent pool and never needs the
+previous contents.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.core.precision import kv_store_dtype
+
+PAGED_KEYS = ("pk", "pv", "ppos")
+PAGED_DATA_KEYS = ("pk", "pv")
+
+
+def effective_window(cfg: ModelConfig, spec: LayerSpec,
+                     max_len: int) -> Optional[int]:
+    """Layer window, with the long-context override applied to global
+    attention layers when serving beyond the native context."""
+    w = spec.window
+    if (w is None and spec.mixer == ATTN
+            and cfg.long_context_override is not None
+            and max_len > cfg.native_context):
+        w = cfg.long_context_override
+    return w
+
+
+def paged_pool_bytes(cache: dict) -> int:
+    """Total bytes of every paged-pool tensor (K/V pages + positions)
+    across a full model cache."""
+    return sum(c[k].numel() * c[k].element_size()
+               for c in cache["layers"] for k in PAGED_KEYS if k in c)
+
+
+def paged_layer_cache_shape(cfg: ModelConfig, spec: LayerSpec,
+                            num_pages: int, page_size: int, dtype,
+                            kv_dtype: str = "auto", *,
+                            device="cpu") -> dict:
+    """Paged pool for one attention layer: ``num_pages`` + 1 dump page."""
+    if spec.mixer != ATTN:
+        raise NotImplementedError(
+            f"paged pools for layer family '{spec.mixer}' are not ported")
+    hd = cfg.resolved_head_dim
+    pool_dtype = kv_store_dtype(kv_dtype, dtype)
+    P = num_pages + 1                                  # +1 dump page
+    shape = (P, page_size, cfg.num_kv_heads, hd)
+    return {"pk": torch.zeros(shape, dtype=pool_dtype, device=device),
+            "pv": torch.zeros(shape, dtype=pool_dtype, device=device),
+            "ppos": torch.full((P, page_size), -1, dtype=torch.int32,
+                               device=device)}
+
+
+def paged_ring_len(window: Optional[int], page_size: int,
+                   pages_per_slot: int) -> int:
+    """Logical ring length (multiple of page_size) a layer writes into.
+    Full attention uses the whole per-slot page range; windowed layers
+    cycle through ceil((window+1)/page) logical pages."""
+    if window is None:
+        return pages_per_slot * page_size
+    pages_w = -(-(window + 1) // page_size)
+    return min(pages_w, pages_per_slot) * page_size
+
+
+def _scatter(cache: dict, new: dict, phys, off, pos) -> None:
+    """Write K/V rows ``new["k"/"v"]`` (..., H, D) and their positions at
+    pool entries (phys, off), in place."""
+    for key, pool_key in (("k", "pk"), ("v", "pv")):
+        pool = cache[pool_key]
+        pool[phys, off] = new[key].to(pool.dtype)
+    cache["ppos"][phys, off] = pos.to(torch.int32)
+
+
+def paged_write_decode(cache: dict, new: dict, lengths, block_tables,
+                       active=None, *, ring_len: int) -> dict:
+    """Write one token per slot at absolute position ``lengths`` (B,).
+    Inactive slots (active == False) are routed to the dump page.
+    ``new``: {"k"/"v": (B, 1, H, D)}.  Updates the pool in place."""
+    page = cache["ppos"].shape[1]
+    dump = cache["ppos"].shape[0] - 1
+    lengths = lengths.long()
+    B = lengths.shape[0]
+    rp = lengths % ring_len
+    lp, off = rp // page, rp % page
+    phys = block_tables.long()[torch.arange(B, device=lengths.device), lp]
+    ok = phys >= 0
+    if active is not None:
+        ok &= active
+    phys = torch.where(ok, phys, dump)
+    _scatter(cache, {key: new[key][:, 0] for key in ("k", "v")}, phys, off,
+             torch.where(ok, lengths, -1))
+    return cache
+
+
+def paged_write_packed(cache: dict, new: dict, slot_ids, positions,
+                       block_tables, *, ring_len: int) -> dict:
+    """Scatter a token-packed stream's K/V: token t of the flat stream
+    belongs to slot ``slot_ids[t]`` at absolute position ``positions[t]``
+    and lands in that slot's pages via ``block_tables``.
+
+    new: {"k"/"v": (1, T, H, D)}; slot_ids/positions: (T,) with -1 =
+    padding lane.  Positions at or beyond ``ring_len`` are dumped, never
+    wrapped.  Padding lanes, unallocated pages and out-of-range positions
+    all route to the dump page.  Updates the pool in place.
+    """
+    page = cache["ppos"].shape[1]
+    dump = cache["ppos"].shape[0] - 1
+    B = block_tables.shape[0]
+    slot_ids, positions = slot_ids.long(), positions.long()
+    ok = (slot_ids >= 0) & (positions >= 0) & (positions < ring_len)
+    rp = torch.where(ok, positions, 0)
+    lp, off = rp // page, rp % page
+    phys = block_tables.long()[slot_ids.clamp(0, B - 1), lp]      # (T,)
+    ok &= phys >= 0
+    phys = torch.where(ok, phys, dump)
+    _scatter(cache, {key: new[key][0] for key in ("k", "v")}, phys, off,
+             torch.where(ok, positions, -1))
+    return cache
+
+
+def paged_gather(cache: dict, block_tables):
+    """Dense per-slot view of the pool: (B, pages*page, H, D) k/v plus
+    (B, pages*page) positions.  Unallocated table entries read the dump
+    page and are masked to pos = -1."""
+    dump = cache["ppos"].shape[0] - 1
+    bt = block_tables.long()
+    safe = torch.where(bt >= 0, bt, dump)
+    k = cache["pk"][safe]                      # (B, pages, page, H, D)
+    v = cache["pv"][safe]
+    kp = torch.where((bt >= 0)[..., None], cache["ppos"][safe], -1)
+    B, npg, page = kp.shape
+    return (k.reshape(B, npg * page, *k.shape[3:]),
+            v.reshape(B, npg * page, *v.shape[3:]),
+            kp.reshape(B, npg * page))
+
+
+def copy_pages(cache: dict, src, dst, keep_below) -> dict:
+    """Copy-on-write clone: page ``dst[i]`` becomes a copy of ``src[i]``
+    with only the entries at absolute positions ``0 <= pos <
+    keep_below[i]`` kept valid (the rest are masked to pos = -1).  Rows
+    may be padded with src = dst = dump, keep_below = 0.  In place."""
+    src, dst = src.long(), dst.long()
+    pos = cache["ppos"][src]                             # (N, page)
+    keep = (pos >= 0) & (pos < keep_below[:, None])
+    data = {k: cache[k][src] for k in PAGED_DATA_KEYS}   # read before write
+    cache["ppos"][dst] = torch.where(keep, pos, -1)
+    for k, v in data.items():
+        cache[k][dst] = v
+    return cache
+
+
+def copy_pages_all(cache: dict, src, dst, keep_below) -> dict:
+    """:func:`copy_pages` over every layer of a full model cache."""
+    for c in cache["layers"]:
+        copy_pages(c, src, dst, keep_below)
+    return cache
+
+
+def reset_pages(cache: dict, pages) -> dict:
+    """Mark freshly (re)allocated physical pages empty (``pages`` may be
+    padded with the dump page id).  Only ``ppos`` needs clearing: stale
+    K/V from a page's previous owner is unreachable once its positions
+    are -1.  In place."""
+    cache["ppos"][pages.long()] = -1
+    return cache
+
+
+def reset_pages_all(cache: dict, pages) -> dict:
+    """:func:`reset_pages` over every layer of a full model cache."""
+    for c in cache["layers"]:
+        reset_pages(c, pages)
+    return cache

@@ -1,0 +1,301 @@
+// Paged attention kernels for Hopper (sm_90a), bound to PyTorch through a
+// plain C interface (ctypes); see repro_torch/kernels/decode_attention.py.
+//
+// Replaces two Pallas TPU kernels of the reference package:
+//   * paged_decode_kernel  <- repro/kernels/decode_attention.py
+//                             paged_decode_attention (body _paged_kernel):
+//                             one query token per slot against that slot's
+//                             paged K/V history.
+//   * paged_packed_kernel  <- repro/kernels/decode_attention.py
+//                             paged_packed_attention (body
+//                             _paged_packed_kernel): a token-packed ragged
+//                             stream of decode tokens and prefill-chunk
+//                             tokens, each lane against its own slot's pages.
+//
+// Bound: both are bound by device-memory bytes, chiefly the K/V pages they
+// stream (page x Hkv x (D + Dv) x dtype bytes per page), plus positions,
+// queries and outputs; a decode token does 2 x (D + Dv) flops per key, far
+// below the card's ~295 flops-per-byte ridge.  Design: one block per
+// (slot or query window, kv head) so the g = Hq / Hkv query heads that
+// share a kv head read each page once; every page is staged through
+// shared memory in 16-key tiles, whose positions are read first so tiles
+// with no visible key (unwritten tails of a slot's pages, keys beyond a
+// window) are skipped without reading their K/V.  Scores, the online
+// softmax and the accumulator are fp32, with the same -inf-safe rescaling
+// as the reference's _attend_block_mq.  This first version uses CUDA
+// cores only; wgmma, TMA and split-K come later.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeyTile = 16;
+constexpr int kPackedBlockQ = 8;  // lanes per packed work row (PACKED_BLOCK_Q)
+constexpr size_t kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+struct Params {
+  const void* q;       // decode (B,1,Hq,D) | packed (1,T,Hq,D)
+  const void* kpool;   // (P,page,Hkv,D)
+  const void* vpool;   // (P,page,Hkv,Dv)
+  const int* ppos;     // (P,page)
+  const int* bt;       // (rows of the block table, npages)
+  const int* q_pos;    // decode (B,1) | packed (1,T)
+  const int* meta;     // packed only: (n_work,4) slot, tile, win_start, win_end
+  void* out;           // like q with Dv
+  int Hq, Hkv, g, D, Dv, page, npages;
+  float scale, softcap;  // softcap <= 0: none
+  int window;            // window <= 0: none
+};
+
+__host__ __device__ inline size_t smem_floats(int rows, int D, int Dv) {
+  // q rows, K tile (padded rows), V tile, score tile, accumulator,
+  // m / l / alpha per row, then key and row positions as ints
+  return (size_t)rows * D + (size_t)kKeyTile * (D + 1) +
+         (size_t)kKeyTile * Dv + (size_t)rows * kKeyTile +
+         (size_t)rows * Dv + 3 * (size_t)rows + kKeyTile + rows;
+}
+
+__device__ __forceinline__ bool visible(int kp, int qp, int window) {
+  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  return v;
+}
+
+// Attend n_rows query rows (row r = lane r / g, head r % g of kv head h)
+// to every page of one block-table row.  q/o point at the first lane's
+// first query head of the group; lanes are q_lane / o_lane elements apart.
+template <typename T>
+__device__ void attend_rows(const Params& p, int n_rows, const T* q,
+                            long q_lane, T* o, long o_lane, const int* qpos,
+                            const int* bt_row, int h, float* smem) {
+  const int D = p.D, Dv = p.Dv, g = p.g, page = p.page, KT = kKeyTile;
+  float* qs = smem;                        // [n_rows][D]
+  float* ks = qs + (size_t)n_rows * D;     // [KT][D + 1]
+  float* vs = ks + (size_t)KT * (D + 1);   // [KT][Dv]
+  float* ss = vs + (size_t)KT * Dv;        // [n_rows][KT]
+  float* acc = ss + (size_t)n_rows * KT;   // [n_rows][Dv]
+  float* ms = acc + (size_t)n_rows * Dv;   // running max
+  float* ls = ms + n_rows;                 // running denominator
+  float* al = ls + n_rows;                 // this tile's rescale factor
+  int* kp = reinterpret_cast<int*>(al + n_rows);  // [KT]
+  int* qp = kp + KT;                               // [n_rows]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* kpool = static_cast<const T*>(p.kpool);
+  const T* vpool = static_cast<const T*>(p.vpool);
+
+  for (int i = tid; i < n_rows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    qs[i] = to_f(q[(r / g) * q_lane + (r % g) * D + d]);
+  }
+  for (int i = tid; i < n_rows * Dv; i += kThreads) acc[i] = 0.f;
+  for (int r = tid; r < n_rows; r += kThreads) {
+    ms[r] = -INFINITY;
+    ls[r] = 0.f;
+    qp[r] = qpos[r / g];
+  }
+  __syncthreads();
+
+  for (int j = 0; j < p.npages; ++j) {
+    const int pid = bt_row[j];
+    if (pid < 0) continue;  // unallocated: the reference masks it out
+    for (int t0 = 0; t0 < page; t0 += KT) {
+      const int nk = min(KT, page - t0);
+      const long row0 = (long)pid * page + t0;  // first pool entry of tile
+      if (tid < nk) kp[tid] = p.ppos[row0 + tid];
+      __syncthreads();
+      int any = 0;
+      for (int i = tid; i < n_rows * nk; i += kThreads)
+        any |= visible(kp[i % nk], qp[i / nk], p.window);
+      if (!__syncthreads_or(any)) continue;  // nothing visible: skip K/V
+
+      for (int i = tid; i < nk * D; i += kThreads) {
+        const int t = i / D, d = i % D;
+        ks[t * (D + 1) + d] = to_f(kpool[((row0 + t) * p.Hkv + h) * D + d]);
+      }
+      for (int i = tid; i < nk * Dv; i += kThreads) {
+        const int t = i / Dv, d = i % Dv;
+        vs[i] = to_f(vpool[((row0 + t) * p.Hkv + h) * Dv + d]);
+      }
+      __syncthreads();
+
+      for (int i = tid; i < n_rows * nk; i += kThreads) {
+        const int r = i / nk, t = i % nk;
+        float s = -INFINITY;
+        if (visible(kp[t], qp[r], p.window)) {
+          const float* qr = qs + (size_t)r * D;
+          const float* kt = ks + (size_t)t * (D + 1);
+          float dot = 0.f;
+          for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kt[d], dot);
+          s = dot * p.scale;
+          if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
+        }
+        ss[r * KT + t] = s;
+      }
+      __syncthreads();
+
+      for (int r = warp; r < n_rows; r += kWarps) {
+        float mx = -INFINITY;
+        for (int t = lane; t < nk; t += 32) mx = fmaxf(mx, ss[r * KT + t]);
+        mx = warp_max(mx);
+        const float m_prev = ms[r];
+        const float m_new = fmaxf(m_prev, mx);
+        const float m_safe = isinf(m_new) ? 0.f : m_new;
+        const float alpha = isinf(m_prev) ? 0.f : expf(m_prev - m_safe);
+        float sum = 0.f;
+        for (int t = lane; t < nk; t += 32) {
+          const float s = ss[r * KT + t];
+          const float e = isinf(s) ? 0.f : expf(s - m_safe);
+          ss[r * KT + t] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          ms[r] = m_new;
+          ls[r] = ls[r] * alpha + sum;
+          al[r] = alpha;
+        }
+      }
+      __syncthreads();
+
+      for (int i = tid; i < n_rows * Dv; i += kThreads) {
+        const int r = i / Dv, d = i % Dv;
+        float a = acc[i] * al[r];
+        for (int t = 0; t < nk; ++t) a = fmaf(ss[r * KT + t], vs[t * Dv + d], a);
+        acc[i] = a;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < n_rows * Dv; i += kThreads) {
+    const int r = i / Dv, d = i % Dv;
+    // a row with no visible key has l == 0 and acc == 0: it writes 0
+    o[(r / g) * o_lane + (r % g) * Dv + d] =
+        from_f<T>(acc[i] / fmaxf(ls[r], 1e-37f));
+  }
+}
+
+// grid (B, Hkv): slot b's single query token, query heads h*g .. h*g+g-1
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const T* q = static_cast<const T*>(p.q) + ((long)b * p.Hq + h * p.g) * p.D;
+  T* o = static_cast<T*>(p.out) + ((long)b * p.Hq + h * p.g) * p.Dv;
+  attend_rows<T>(p, p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                 p.q_pos + b, p.bt + (long)b * p.npages, h, smem);
+}
+
+// grid (n_work, Hkv): work row w serves stream lanes [win_start, win_end)
+// of slot meta[w, 0]; rows with slot < 0 are unused.  Each lane is owned
+// by exactly one row, so rows write disjoint outputs.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int w = blockIdx.x, h = blockIdx.y;
+  const int slot = p.meta[4 * w], ws = p.meta[4 * w + 2];
+  const int lanes = min(p.meta[4 * w + 3] - ws, kPackedBlockQ);
+  if (slot < 0 || lanes <= 0) return;
+  const T* q = static_cast<const T*>(p.q) + ((long)ws * p.Hq + h * p.g) * p.D;
+  T* o = static_cast<T*>(p.out) + ((long)ws * p.Hq + h * p.g) * p.Dv;
+  attend_rows<T>(p, lanes * p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                 p.q_pos + ws, p.bt + (long)slot * p.npages, h, smem);
+}
+
+template <typename T>
+cudaError_t launch(bool packed, int blocks, int max_rows, const Params& p,
+                   cudaStream_t stream) {
+  if (blocks == 0) return cudaSuccess;
+  const size_t smem = smem_floats(max_rows, p.D, p.Dv) * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  void (*kernel)(Params) =
+      packed ? paged_packed_kernel<T> : paged_decode_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(blocks, p.Hkv), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, bool packed, int blocks, int max_rows,
+                     const Params& p, cudaStream_t stream) {
+  switch (dtype) {
+    case 0: return launch<float>(packed, blocks, max_rows, p, stream);
+    case 1: return launch<__half>(packed, blocks, max_rows, p, stream);
+    case 2: return launch<__nv_bfloat16>(packed, blocks, max_rows, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, pools and out alike).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* kpool, const void* vpool, const void* ppos,
+    const void* block_tables, const void* q_pos, void* out, int dtype, int B,
+    int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    float softcap, int window, void* stream) {
+  Params p{q, kpool, vpool, static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), nullptr, out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
+  return (int)dispatch(dtype, false, B, p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int paged_packed_attention_launch(
+    const void* q, const void* kpool, const void* vpool, const void* ppos,
+    const void* block_tables, const void* q_pos, const void* meta, void* out,
+    int dtype, int n_work, int Hq, int Hkv, int D, int Dv, int page,
+    int npages, float scale, float softcap, int window, void* stream) {
+  Params p{q, kpool, vpool, static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
+  return (int)dispatch(dtype, true, n_work, kPackedBlockQ * p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Shared-memory bytes a launch needs for rows query rows per block.
+extern "C" long paged_attention_smem_bytes(int rows, int D, int Dv) {
+  return (long)(smem_floats(rows, D, Dv) * sizeof(float));
+}
+
+extern "C" const char* paged_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

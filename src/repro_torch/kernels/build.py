@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, into
+``build/repro_torch_kernels/`` at the root of the checkout, and the
+library is named after a hash of the sources and flags, so an edit to a
+source rebuilds it.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or under CUDA_HOME)")
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libpaged_attention_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the kernels if the library for these sources is missing.
+    Returns {"path", "seconds", "built", "log"} (``log`` holds nvcc's
+    register / shared-memory report when it built)."""
+    path = library_path()
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, cu)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return {"path": str(path), "seconds": time.perf_counter() - t0,
+            "built": True, "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library and declare its entry
+    points (every pointer and the stream as ``c_void_p``)."""
+    lib = ctypes.CDLL(build()["path"])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_decode_attention_launch.argtypes = (
+        [P] * 7 + [I] * 8 + [F, F, I, P])
+    lib.paged_decode_attention_launch.restype = I
+    lib.paged_packed_attention_launch.argtypes = (
+        [P] * 8 + [I] * 8 + [F, F, I, P])
+    lib.paged_packed_attention_launch.restype = I
+    lib.paged_attention_smem_bytes.argtypes = [I, I, I]
+    lib.paged_attention_smem_bytes.restype = ctypes.c_long
+    lib.paged_attention_error_string.argtypes = [I]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,201 @@
+"""Paged attention on the card: wrappers around the hand-written CUDA
+kernels in ``repro_torch/csrc/paged_attention.cu`` (built for ``sm_90a``
+by :mod:`repro_torch.kernels.build`), with their plain PyTorch versions
+beside them.
+
+  * :func:`paged_decode_attention` replaces the reference's Pallas kernel
+    ``repro.kernels.decode_attention.paged_decode_attention``: one query
+    token per slot against the slot's pages (every decode step).
+  * :func:`paged_packed_attention` replaces
+    ``repro.kernels.decode_attention.paged_packed_attention``: one flat
+    (1, T) stream of decode tokens and prefill-chunk tokens, each lane
+    against its own slot's pages (every mixed iteration).
+
+A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
+shapes, allocates the output, launches on the current stream and raises if
+the launch failed.  It never falls back to the plain version; dispatch by
+device lives in :mod:`repro_torch.kernels.ops`.  Each wrapper counts its
+launches in a plain integer attribute, ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ref import (paged_decode_attention_ref,  # noqa: F401
+                                     paged_packed_attention_ref)
+
+PACKED_BLOCK_Q = 8          # stream lanes per packed work row
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_SMEM_LIMIT = 227 * 1024
+
+
+def packed_meta_table(seg_starts, seg_lengths, seg_slots, n_tokens,
+                      n_work):
+    """Host-side helper: cut each packed segment into PACKED_BLOCK_Q-wide
+    query windows and emit the (n_work, 4) int32 work table the packed
+    kernel walks — rows ``(slot, tile_start, win_start, win_end)`` in
+    global stream coordinates, where tile_start is the window's start
+    clamped to ``n_tokens - PACKED_BLOCK_Q``.  Unused rows carry slot = -1.
+    (The CUDA kernel reads only slot and the window; tile_start is kept so
+    the table equals the reference's.)"""
+    bq = PACKED_BLOCK_Q
+    meta = np.full((n_work, 4), -1, np.int32)
+    meta[:, 1:] = 0
+    w = 0
+    for s0, ln, slot in zip(seg_starts, seg_lengths, seg_slots):
+        for blk in range(0, int(ln), bq):
+            ws = int(s0) + blk
+            we = min(int(s0) + int(ln), ws + bq)
+            meta[w] = (int(slot), min(ws, n_tokens - bq), ws, we)
+            w += 1
+    if w > n_work:
+        raise ValueError(f"packed meta overflow: {w} windows > n_work "
+                         f"{n_work}")
+    return meta
+
+
+def _check_common(q, kpool, vpool, ppos, block_tables, q_pos):
+    tensors = (q, kpool, vpool, ppos, block_tables, q_pos)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the CUDA paged-attention kernels take CUDA tensors "
+                         "only (CPU tensors go to the plain version through "
+                         "repro_torch.kernels.ops)")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the paged-attention kernels need contiguous inputs")
+    if q.dtype not in _DTYPE_CODES or kpool.dtype != q.dtype \
+            or vpool.dtype != q.dtype:
+        raise ValueError(f"q/pool dtypes must match and be fp32, fp16 or "
+                         f"bf16 (got {q.dtype}, {kpool.dtype}, {vpool.dtype})")
+    for t in (ppos, block_tables, q_pos):
+        if t.dtype != torch.int32:
+            raise ValueError("positions and block tables must be int32")
+    P, page, Hkv, D = kpool.shape
+    Dv = vpool.shape[3]
+    Hq = q.shape[2]
+    if vpool.shape[:3] != kpool.shape[:3] or ppos.shape != (P, page):
+        raise ValueError("kpool/vpool/ppos disagree on (P, page, Hkv)")
+    if q.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools with "
+                         f"Hkv={Hkv}, D={D}")
+    for n, v in (("D", D), ("Dv", Dv)):
+        if v % 8 or not 0 < v <= MAX_HEAD_DIM:
+            raise ValueError(f"{n}={v}: head dims must be multiples of 8 "
+                             f"up to {MAX_HEAD_DIM}")
+    if page % 8:
+        raise ValueError(f"page size {page} must be a multiple of 8")
+    return Hq, Hkv, D, Dv, page
+
+
+def _check_smem(lib, rows: int, D: int, Dv: int):
+    if lib.paged_attention_smem_bytes(rows, D, Dv) > _SMEM_LIMIT:
+        raise ValueError(f"{rows} query rows at D={D}, Dv={Dv} need more "
+                         f"shared memory than a block has")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err:
+        msg = lib.paged_attention_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _softcap_window(attn_softcap, window):
+    return (float(attn_softcap) if attn_softcap is not None else 0.0,
+            int(window) if window is not None else 0)
+
+
+def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
+                           window: Optional[int], scale: float,
+                           attn_softcap: Optional[float] = None):
+    """Decode attention over a paged KV pool, on the card.
+
+    q: (B,1,Hq,D); kpool/vpool: (P,page,Hkv,D[v]); ppos: (P,page) int32
+    absolute positions (-1 empty); block_tables: (B,npages) int32 physical
+    page ids with -1 = unallocated; q_pos: (B,1) int32.  Keys are visible
+    when ``0 <= kp <= q_pos`` (and ``kp > q_pos - window`` with a window);
+    a row with no visible key returns zeros.  Returns (B,1,Hq,Dv) at q's
+    dtype.
+    """
+    from repro_torch.kernels import build
+    Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
+                                         block_tables, q_pos)
+    B = q.shape[0]
+    if q.shape[1] != 1 or block_tables.shape[0] != B \
+            or q_pos.shape != (B, 1):
+        raise ValueError("decode attention takes q (B,1,Hq,D), "
+                         "block_tables (B,npages) and q_pos (B,1)")
+    lib = build.load()
+    _check_smem(lib, Hq // Hkv, D, Dv)
+    out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
+    cap, win = _softcap_window(attn_softcap, window)
+    with torch.cuda.device(q.device):
+        err = lib.paged_decode_attention_launch(
+            q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            ppos.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, page,
+            block_tables.shape[1], float(scale), cap, win,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
+                           meta, *, window: Optional[int], scale: float,
+                           attn_softcap: Optional[float] = None):
+    """Token-packed ragged attention over a paged KV pool, on the card.
+
+    q: (1, T, Hq, D) flat token stream; q_pos: (1, T) int32 absolute
+    positions (-1 = padding lane); block_tables: (slots, npages) int32;
+    meta: (n_work, 4) int32 work table from :func:`packed_meta_table`.
+    The stream's own K/V must already be in the pool.  Each work row
+    writes only its own lanes, and the output starts as zeros, so padding
+    lanes (owned by no row) come back as zeros.
+    """
+    from repro_torch.kernels import build
+    Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
+                                         block_tables, q_pos)
+    T = q.shape[1]
+    if q.shape[0] != 1 or q_pos.shape != (1, T):
+        raise ValueError("packed attention takes q (1,T,Hq,D) and "
+                         "q_pos (1,T)")
+    if not (meta.is_cuda and meta.device == q.device and meta.is_contiguous()
+            and meta.dtype == torch.int32 and meta.dim() == 2
+            and meta.shape[1] == 4):
+        raise ValueError("meta must be a contiguous (n_work, 4) int32 CUDA "
+                         "tensor on q's device")
+    lib = build.load()
+    _check_smem(lib, PACKED_BLOCK_Q * (Hq // Hkv), D, Dv)
+    out = torch.zeros((1, T, Hq, Dv), dtype=q.dtype, device=q.device)
+    cap, win = _softcap_window(attn_softcap, window)
+    with torch.cuda.device(q.device):
+        err = lib.paged_packed_attention_launch(
+            q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            ppos.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
+            meta.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+            meta.shape[0], Hq, Hkv, D, Dv, page, block_tables.shape[1],
+            float(scale), cap, win, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "paged_packed_attention")
+    paged_packed_attention.launches += 1
+    return out
+
+
+paged_packed_attention.launches = 0
+
+
+def reset_launch_counts() -> None:
+    paged_decode_attention.launches = 0
+    paged_packed_attention.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"paged_decode_attention": paged_decode_attention.launches,
+            "paged_packed_attention": paged_packed_attention.launches}

@@ -1,0 +1,127 @@
+"""Serving launcher for the port:
+``python -m repro_torch.launch.serve --arch unimo-text --full --continuous``.
+
+Serves a synthetic request stream through continuous batching over the
+paged KV cache on the card (``--device cuda``, the default) and prints one
+JSON line of throughput, latency and scheduler metrics.  Weights are
+random, drawn from a seeded ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_config, get_reduced, list_archs
+from repro_torch.core.engine import InferenceEngine, resolve_device
+from repro_torch.core.precision import get_policy
+from repro_torch.core.sampling import SamplingParams
+from repro_torch.core.scheduler import Request
+from repro_torch.core.tokenizer import FastTokenizer
+from repro_torch.data.pipeline import synthetic_corpus
+from repro_torch.models import transformer as T
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="unimo-text", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over a paged KV cache (the "
+                         "only serving mode the port has)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--policy", default="bf16",
+                    choices=["fp32", "bf16", "fp16"])
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--steps-per-sync", type=int, default=4)
+    ap.add_argument("--max-batched-tokens", type=int, default=None,
+                    help="per-iteration token budget of the unified "
+                         "scheduler (default: engine default, 256)")
+    ap.add_argument("--prefix-cache", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="radix prefix cache: share identical prompt-prefix "
+                         "KV pages across requests (auto = on)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend one shared N-token system prompt to "
+                         "every request")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--max-len", type=int, default=256)
+    args = ap.parse_args(argv)
+    if not args.continuous:
+        raise SystemExit("the port serves only --continuous (the bucketed "
+                         "path is not ported)")
+
+    device = resolve_device(args.device)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    policy = get_policy(args.policy)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, policy)
+
+    corpus = synthetic_corpus(600)
+    tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
+    texts = synthetic_corpus(args.requests, seed=7, min_len=4, max_len=40)
+    engine = InferenceEngine(cfg, params, policy=policy,
+                             max_batch=args.max_batch, max_len=args.max_len,
+                             device=device)
+    sp = SamplingParams(temperature=args.temperature,
+                        top_k=40 if args.temperature > 0 else 0)
+    shared = tok.encode(" ".join(synthetic_corpus(
+        3, seed=11)))[:args.shared_prefix] if args.shared_prefix else []
+    reqs = [Request(uid=i, tokens=shared + tok.encode(t),
+                    max_new_tokens=args.max_new_tokens)
+            for i, t in enumerate(texts)]
+    prefix = {"auto": None, "on": True, "off": False}[args.prefix_cache]
+    t0 = time.time()
+    done, metrics = engine.serve_continuous(
+        reqs, sp, page_size=args.page_size,
+        steps_per_sync=args.steps_per_sync, prefix_cache=prefix,
+        max_batched_tokens=args.max_batched_tokens)
+    dt = time.time() - t0
+    for r in done[:3]:
+        print(f"[{r.uid}] {tok.decode(r.result or [])[:70]!r}")
+    print(json.dumps({
+        "requests": len(done), "wall_s": round(dt, 3),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "generated_tokens": metrics.generated_tokens,
+        "tokens_per_s": round(metrics.generated_tokens / dt, 1),
+        "p50_latency_s": round(metrics.percentile_latency(50), 3),
+        "p99_latency_s": round(metrics.percentile_latency(99), 3),
+        "ttft_p50_s": round(metrics.ttft_p50, 4),
+        "ttft_p99_s": round(metrics.ttft_p99, 4),
+        "itl_p50_s": round(metrics.itl_p50, 4),
+        "itl_p99_s": round(metrics.itl_p99, 4),
+        "scheduler": metrics.scheduler,
+        "max_batched_tokens": metrics.max_batched_tokens,
+        "prefill_chunks": metrics.prefill_chunks,
+        "decode_idle_frac": round(metrics.decode_idle_frac, 3),
+        "dispatches_per_iter": round(metrics.dispatches_per_iter, 3),
+        "padded_token_frac": round(metrics.padded_token_frac, 3),
+        "host_frac": round(metrics.host_frac, 3),
+        "host_s": round(metrics.host_s, 3),
+        "device_s": round(metrics.device_s, 3),
+        "prefix_hit_rate": round(metrics.prefix_hit_rate, 3),
+        "prefix_matched_tokens": metrics.prefix_matched_tokens,
+        "pages_shared": metrics.pages_shared,
+        "cow_copies": metrics.cow_copies,
+        "kv_dtype": metrics.kv_dtype,
+        "kv_pool_bytes": metrics.kv_pool_bytes,
+        "kv_bytes_per_token": round(metrics.kv_bytes_per_token, 1),
+        "weight_dtype": metrics.weight_dtype,
+        "weight_bytes": metrics.weight_bytes,
+        "host_syncs": metrics.host_syncs,
+        "peak_pages_in_use": metrics.peak_pages_in_use,
+        "admission_stalls": metrics.admission_stalls,
+        "outcomes": dict(sorted(metrics.outcome_counts.items())),
+        "mode": "continuous-paged"}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,171 @@
+"""Decoder forward for the serving path (the port's counterpart of
+``repro.models.transformer``), for attention + dense-FFN layers.
+
+Parameters are a dict ``{"embed": {"tokens", "pos"}, "final_norm",
+"layers": [per-layer dict]}`` with the layers in execution order
+(:func:`repro_torch.configs.base.layer_specs`); the reference stacks each
+pattern position over its scan repeats instead (``bridge.params_from_jax``
+converts).  Two modes of the reference's ``layer_apply`` are ported, both
+against the paged KV pool: ``"decode"`` (one token per slot) and
+``"packed"`` (one flat token stream per scheduler iteration).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import (ATTN, DENSE_FFN, LayerSpec,
+                                      ModelConfig, layer_specs)
+from repro_torch.core import kv_cache as KV
+from repro_torch.core.precision import FP32, Policy
+from repro_torch.models import layers as L
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for configs outside the ported slice."""
+    for spec in layer_specs(cfg):
+        if spec.mixer != ATTN or spec.ffn != DENSE_FFN:
+            raise NotImplementedError(
+                f"layer family {spec.mixer}/{spec.ffn} is not ported "
+                f"(attention + dense FFN only)")
+    if cfg.pos_emb != "learned" or cfg.qk_norm or cfg.activation != "gelu" \
+            or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: only learned positions, GELU FFNs and tied "
+            f"embeddings are ported")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                policy: Policy = FP32):
+    """Random parameters with the reference's shapes and init scales,
+    drawn from ``gen`` on ``gen.device``."""
+    check_supported(cfg)
+    dev = gen.device
+    params = {
+        "embed": {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model),
+                  "pos": L.embed_init(gen, cfg.max_seq_len, cfg.d_model)},
+        "final_norm": L.norm_init(cfg, dev),
+        "layers": [{"norm1": L.norm_init(cfg, dev),
+                    "attn": L.attn_init(gen, cfg),
+                    "norm2": L.norm_init(cfg, dev),
+                    "ffn": L.ffn_init(gen, cfg)}
+                   for _ in layer_specs(cfg)],
+    }
+    return policy.cast_params(params)
+
+
+def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
+                     dtype=torch.bfloat16, kv_dtype: str = "auto",
+                     device="cpu"):
+    """Paged-pool model cache: every attention layer gets ``num_pages``
+    fixed-size pages (+1 reserved dump page) indexed through per-slot
+    block tables."""
+    return {"layers": [KV.paged_layer_cache_shape(
+        cfg, spec, num_pages, page_size, dtype, kv_dtype, device=device)
+        for spec in layer_specs(cfg)]}
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+
+
+def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
+                cache, mode: str, max_len: int, paged):
+    """One attention + FFN block against the layer's paged pool (updated
+    in place).  paged: {"block_tables", "active"} for ``"decode"``;
+    {"block_tables", "slot_ids", "packed_meta"} for ``"packed"``."""
+    window = KV.effective_window(cfg, spec, max_len)
+    h = L.apply_norm(cfg, p["norm1"], x)
+    q, k, v = L.attn_qkv(cfg, p["attn"], h)
+    scale = L.attn_scale(cfg)
+    bt = paged["block_tables"]
+    ring = KV.paged_ring_len(window, cache["ppos"].shape[1], bt.shape[1])
+    if mode == "decode":
+        KV.paged_write_decode(cache, {"k": k, "v": v}, positions[:, 0], bt,
+                              paged.get("active"), ring_len=ring)
+        ctx = L.mha_attention_paged(q, cache, bt, positions, window=window,
+                                    scale=scale,
+                                    attn_softcap=cfg.attn_softcap)
+    elif mode == "packed":
+        # scatter every lane's K/V into its OWN slot's pages, then attend
+        # each lane to its slot's whole paged history
+        KV.paged_write_packed(cache, {"k": k, "v": v}, paged["slot_ids"],
+                              positions[0], bt, ring_len=ring)
+        ctx = L.mha_attention_paged_packed(
+            q, cache, bt, positions, paged["slot_ids"],
+            paged["packed_meta"], window=window, scale=scale,
+            attn_softcap=cfg.attn_softcap)
+    else:
+        raise NotImplementedError(f"layer mode {mode!r} is not ported")
+    x = x + L.attn_out(cfg, p["attn"], ctx)
+    h2 = L.apply_norm(cfg, p["norm2"], x)
+    return x + L.ffn_apply(cfg, p["ffn"], h2)
+
+
+def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged):
+    for spec, p, c in zip(layer_specs(cfg), params["layers"],
+                          cache["layers"]):
+        x = layer_apply(cfg, spec, p, x, positions=positions, cache=c,
+                        mode=mode, max_len=max_len, paged=paged)
+    return x
+
+
+def _embed(cfg, params, tokens, positions, policy):
+    x = L.embed_tokens(cfg, params, tokens)
+    pe = params["embed"]["pos"]
+    x = x + pe[positions.long().clamp(0, pe.shape[0] - 1)].to(x.dtype)
+    return x.to(policy.compute_dtype)
+
+
+def _logits(cfg, params, x, policy):
+    h_final = L.apply_norm(cfg, params["final_norm"], x)
+    return policy.output_cast(L.unembed(cfg, params, h_final))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
+                   policy: Policy = FP32, max_len: Optional[int] = None,
+                   paged=None):
+    """One new token per slot.  tokens: (B,1); lengths: (B,) current
+    context length (the new token's absolute position).  Writes the
+    tokens' K/V into the pool in place.  Returns (logits (B,1,V), cache)."""
+    max_len = max_len or cfg.max_seq_len
+    positions = lengths[:, None]
+    x = _embed(cfg, params, tokens, positions, policy)
+    x = _run_all(cfg, params, x, positions=positions, cache=cache,
+                 mode="decode", max_len=max_len, paged=paged)
+    return _logits(cfg, params, x, policy), cache
+
+
+def forward_packed(params, cfg: ModelConfig, tokens, cache, slot_ids,
+                   positions, seg_last, *, policy: Policy = FP32,
+                   max_len: Optional[int] = None, paged=None):
+    """Token-packed ragged forward: a whole scheduler iteration — every
+    live slot's decode token plus every admitting slot's prefill-chunk
+    tokens — as one (1, T) pass against the paged pool.
+
+    tokens: (1, T) flat stream; slot_ids: (T,) owning slot per lane (-1 =
+    padding); positions: (T,) absolute positions (-1 = padding);
+    seg_last: (S,) stream index of each segment's last real token;
+    paged: {"block_tables", "packed_meta"}.  Returns (logits (1, S, V) at
+    each segment's last token, cache)."""
+    max_len = max_len or cfg.max_seq_len
+    pos2 = positions[None, :]
+    paged = dict(paged or {})
+    paged["slot_ids"] = slot_ids
+    x = _embed(cfg, params, tokens, pos2, policy)
+    x = _run_all(cfg, params, x, positions=pos2, cache=cache, mode="packed",
+                 max_len=max_len, paged=paged)
+    x = x[:, seg_last.long()]
+    return _logits(cfg, params, x, policy), cache
