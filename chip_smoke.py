@@ -6,24 +6,32 @@
 Phases, one JSON line each; any failure exits non-zero before the last line:
 
   1. device   the card's name, power limit, torch / CUDA versions
-  2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-              sm_90a) and report the build seconds and ptxas resource use
+  2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
+              nvcc per source, in parallel, sm_90a: ``paged_attention.cu``
+              and ``quant_matmul.cu``) and report the build seconds and
+              ptxas resource use
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes (unimo-text: Hq = Hkv = 16, D = 64,
-              16-token bf16 pages, 8 slots, a 256-lane packed stream), plus a
-              GQA case (Hq 32, Hkv 8, D 128), a window + softcap case and fp32
-              pools; times the kernel, the plain version and
-              ``scaled_dot_product_attention`` over densely gathered K/V (a
-              yardstick the port never calls) with CUDA events
-  4. parity   reduced unimo-text in fp32: packed and decode forwards on the
-              card against the same forwards through the plain versions on
-              the CPU, and a short greedy serve on both, whose token
-              streams must be identical
-  5. serve    full-width unimo-text (24 layers, random weights from a seeded
-              torch.Generator, bf16) through ``serve_continuous``; the kernel
-              launch counts of this run must equal 24 x the packed
-              iterations and 24 x the decode steps.  The same serve then
-              runs once more under ``torch.profiler`` (``profile`` line):
+              the main path's shapes: the paged attention kernels at
+              unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
+              Hkv 8, D 128) heads, 16-token pages, 8 slots and a 256-lane
+              packed stream, over bf16 / fp32 pools and, for the ``_q8``
+              kernels, over int8 pools with q at bf16 and fp32, each with a
+              window + softcap case; ``quant_matmul`` at every qwen3-4b
+              decode shape (M = 8), at M = 256 and on a ragged shape.  Times
+              the kernel, the plain version and a PyTorch yardstick the
+              port never calls (``library_ms``) with CUDA events
+  4. parity   reduced unimo-text and reduced qwen3-4b in fp32 (TF32 off):
+              packed and decode forwards on the card against the same
+              forwards through the plain versions on the CPU, and a short
+              greedy serve on both; qwen3-4b also at int8 KV + int8 weights
+  5. serve    full-width unimo-text (24 layers, bf16) and full-width
+              qwen3-4b (36 layers, bf16, then int8 KV + int8 weights), random
+              weights from a seeded torch.Generator, through
+              ``serve_continuous``; the launch counts of each run must equal
+              layers x the packed iterations and layers x the decode steps
+              for the attention kernels of its pool, and 253 x the forwards
+              for ``quant_matmul`` under int8 weights.  Each serve then
+              runs once more under ``torch.profiler`` (``profile`` lines):
               device time by kernel and the device's idle share
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
@@ -48,8 +56,16 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:165",
     "paged_packed_attention": "src/repro/kernels/decode_attention.py:639",
+    "paged_decode_attention_q8": "src/repro/kernels/decode_attention.py:256",
+    "paged_packed_attention_q8": "src/repro/kernels/decode_attention.py:756",
+    "quant_matmul": "src/repro/kernels/quant_matmul.py:89",
 }
-SOURCE = "src/repro_torch/csrc/paged_attention.cu"
+SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
+          for name in REPLACES}
+SOURCE["quant_matmul"] = "src/repro_torch/csrc/quant_matmul.cu"
+# quant_matmul sums the plain version's fp32 products in another order:
+# its error is held to this fraction of the output's largest magnitude
+QM_REL_TOL = 1e-5
 
 
 def emit(phase, **kw):
@@ -86,10 +102,13 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 def paged_case(rng, *, slots, ctx_lens, Hq, Hkv, D, page, npages, dtype,
-               device):
+               device, quant=False):
     """Pools holding ``ctx_lens`` tokens per slot on pages scattered over
-    the pool (plus the dump page), and a block table per slot."""
+    the pool (plus the dump page), and a block table per slot.  With
+    ``quant`` the pools are int8 codes of random K/V with their fp32 scale
+    pools (``kv_cache.quantize_kv``), else random K/V at ``dtype``."""
     import torch
+    from repro_torch.core.kv_cache import quantize_kv
     P = slots * npages + 1
     k = torch.randn(P, page, Hkv, D, generator=rng, device=device)
     v = torch.randn(P, page, Hkv, D, generator=rng, device=device)
@@ -104,7 +123,12 @@ def paged_case(rng, *, slots, ctx_lens, Hq, Hkv, D, page, npages, dtype,
         nxt += used
         for t in range(n):
             ppos[bt[b, t // page], t % page] = t
-    return (k.to(dtype), v.to(dtype), torch.from_numpy(ppos).to(device),
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v, scales = k.to(dtype), v.to(dtype), {}
+    return (k, v, scales, torch.from_numpy(ppos).to(device),
             torch.from_numpy(bt).to(device), ppos, bt)
 
 
@@ -115,12 +139,13 @@ def visible(kp, qp, window):
     return m
 
 
-def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, elt, window,
-          extra_bytes, dtype):
+def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, entry_bytes,
+          window, extra_bytes, dtype):
     """Least time the card needs for this call: the K/V entries some query
-    can see (each read once per kv head), the positions of the pages the
-    block tables reference, and q/out/tables once; the flops those visible
-    keys need, at the peak rate of the inputs' type."""
+    can see (each read once per kv head, ``entry_bytes`` for its K and V
+    of one head: codes plus scales for int8 pools), the positions of the
+    pages the block tables reference, and q/out/tables once; the flops
+    those visible keys need, at the peak rate of q's type."""
     needed, flops = set(), 0
     for s, qp in zip(lane_slots, lane_pos):
         if s < 0 or qp < 0:
@@ -130,78 +155,119 @@ def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, elt, window,
             needed.update((int(pg), int(o)) for o in vis)
             flops += 2 * (2 * D) * Hq * len(vis)
     pages = {int(p) for row in bt for p in row if p >= 0}
-    nbytes = (len(needed) * Hkv * 2 * D * elt + len(pages) * ppos.shape[1] * 4
-              + extra_bytes)
+    nbytes = (len(needed) * Hkv * entry_bytes
+              + len(pages) * ppos.shape[1] * 4 + extra_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _attention_fns(quant, packed):
+    """The wrapper and plain version of one of the four attention kernels
+    as (name, kernel(q, k, v, scales, ppos, bt, q_pos, meta, **kw),
+    plain(q, k, v, scales, ppos, bt, q_pos, slot_ids, **kw))."""
+    from repro_torch.kernels import decode_attention as DA
+    name = ("paged_packed_attention" if packed
+            else "paged_decode_attention") + ("_q8" if quant else "")
+
+    def kernel(q, k, v, sc, ppos, bt, q_pos, meta, **kw):
+        extra = (meta,) if packed else ()
+        if quant:
+            return getattr(DA, name)(q, k, sc["k_scale"], v, sc["v_scale"],
+                                     ppos, bt, q_pos, *extra, **kw)
+        return getattr(DA, name)(q, k, v, ppos, bt, q_pos, *extra, **kw)
+
+    def plain(q, k, v, sc, ppos, bt, q_pos, sid, **kw):
+        if packed:
+            return DA.paged_packed_attention_ref(q, k, v, ppos, bt, q_pos,
+                                                 sid, **sc, **kw)
+        return DA.paged_decode_attention_ref(q, k, v, ppos, bt, q_pos, **sc,
+                                             **kw)
+    return name, kernel, plain
+
+
+def _gathered(k, v, sc, ppos, bt, dtype, g):
+    """Each slot's K/V gathered densely (and dequantized) beforehand, at
+    ``dtype``, each kv head repeated for its g query heads: the input of
+    the SDPA yardstick, which thus reads pre-dequantized data."""
+    from repro_torch.core.kv_cache import paged_gather
+    pool = {"pk": k, "pv": v, "ppos": ppos}
+    if sc:
+        pool["pk_scale"], pool["pv_scale"] = sc["k_scale"], sc["v_scale"]
+    kk, vv, kp = paged_gather(pool, bt)
+    return (kk.to(dtype).repeat_interleave(g, 2),
+            vv.to(dtype).repeat_interleave(g, 2), kp)
+
+
+def _entry_bytes(k, D, quant):
+    """Bytes of one entry's K and V for one kv head."""
+    return 2 * D * k.element_size() + (2 * 4 if quant else 0)
+
+
 def run_decode_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
-                    softcap=None, timed=False):
+                    softcap=None, timed=False, quant=False):
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.kv_cache import paged_gather
-    from repro_torch.kernels import decode_attention as DA
     dev = torch.device("cuda")
     slots, page, npages = 8, 16, 16
     ctx = [int(x) for x in torch.randint(1, npages * page + 1, (slots,),
                                          generator=rng, device=dev)]
-    k, v, ppos, bt, ppos_np, bt_np = paged_case(
+    k, v, sc, ppos, bt, ppos_np, bt_np = paged_case(
         rng, slots=slots, ctx_lens=ctx, Hq=Hq, Hkv=Hkv, D=D, page=page,
-        npages=npages, dtype=dtype, device=dev)
+        npages=npages, dtype=dtype, device=dev, quant=quant)
     q = torch.randn(slots, 1, Hq, D, generator=rng, device=dev).to(dtype)
     q_pos = torch.tensor([[n - 1] for n in ctx], dtype=torch.int32,
                          device=dev)
+    kname, kernel, plain = _attention_fns(quant, packed=False)
     kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
-    out = DA.paged_decode_attention(q, k, v, ppos, bt, q_pos, **kw)
-    ref = DA.paged_decode_attention_ref(q, k, v, ppos, bt, q_pos, **kw)
+    out = kernel(q, k, v, sc, ppos, bt, q_pos, None, **kw)
+    ref = plain(q, k, v, sc, ppos, bt, q_pos, None, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[str(dtype).removeprefix("torch.")]
     ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-    res = {"case": name, "kernel": "paged_decode_attention",
-           "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+    res = {"case": name, "kernel": kname, "max_abs_err": err, "tol": tol,
+           "ok": bool(ok)}
     if timed:
-        kk, vv, kp = paged_gather({"pk": k, "pv": v, "ppos": ppos}, bt)
+        kk, vv, kp = _gathered(k, v, sc, ppos, bt, dtype, Hq // Hkv)
         mask = visible(kp[:, None, None, :], q_pos[:, :, None, None], window)
         qs, ks, vs = (q.transpose(1, 2), kk.transpose(1, 2),
                       vv.transpose(1, 2))
-        elt = q.element_size()
         res.update(
-            kernel_ms=time_ms(lambda: DA.paged_decode_attention(
-                q, k, v, ppos, bt, q_pos, **kw)),
-            plain_ms=time_ms(lambda: DA.paged_decode_attention_ref(
-                q, k, v, ppos, bt, q_pos, **kw)),
+            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
+                                             None, **kw)),
+            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
+                                           None, **kw)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         res["bound_ms"], res["bound_by"] = bound(
             ppos=ppos_np, bt=bt_np, lane_slots=range(slots),
-            lane_pos=[n - 1 for n in ctx], Hq=Hq, Hkv=Hkv, D=D, elt=elt,
-            window=window, dtype=str(dtype).removeprefix("torch."),
-            extra_bytes=2 * q.numel() * elt + bt_np.nbytes + 4 * slots)
+            lane_pos=[n - 1 for n in ctx], Hq=Hq, Hkv=Hkv, D=D,
+            entry_bytes=_entry_bytes(k, D, quant), window=window,
+            dtype=str(dtype).removeprefix("torch."),
+            extra_bytes=2 * q.numel() * q.element_size() + bt_np.nbytes
+            + 4 * slots)
     return res
 
 
 def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
-                    softcap=None, timed=False):
+                    softcap=None, timed=False, quant=False):
     """A full 256-lane stream: decode lanes for four slots and prefill
     chunks for the other four (one continuing, three fresh), as a
     256-token budget iteration with 8 slots schedules them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.engine import packed_width_buckets
-    from repro_torch.core.kv_cache import paged_gather
     from repro_torch.kernels import decode_attention as DA
     dev = torch.device("cuda")
     slots, page, npages = 8, 16, 16
     T = packed_width_buckets(256)[-1]
     before = [100, 37, 201, 9, 60, 0, 0, 0]          # context in the pool
     seg = [1, 1, 1, 1, 90, 70, 50, 30]               # decode x4, chunks x4
-    k, v, ppos, bt, ppos_np, bt_np = paged_case(
+    k, v, sc, ppos, bt, ppos_np, bt_np = paged_case(
         rng, slots=slots, ctx_lens=[b + s for b, s in zip(before, seg)],
         Hq=Hq, Hkv=Hkv, D=D, page=page, npages=npages, dtype=dtype,
-        device=dev)
+        device=dev, quant=quant)
     slot_ids = np.full(T, -1, np.int32)
     pos = np.full(T, -1, np.int32)
     starts, t = [], 0
@@ -216,38 +282,75 @@ def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
     q_pos = torch.from_numpy(pos[None]).to(dev)
     sid = torch.from_numpy(slot_ids).to(dev)
     meta_t = torch.from_numpy(meta).to(dev)
+    kname, kernel, plain = _attention_fns(quant, packed=True)
     kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
-    out = DA.paged_packed_attention(q, k, v, ppos, bt, q_pos, meta_t, **kw)
-    ref = DA.paged_packed_attention_ref(q, k, v, ppos, bt, q_pos, sid, **kw)
+    out = kernel(q, k, v, sc, ppos, bt, q_pos, meta_t, **kw)
+    ref = plain(q, k, v, sc, ppos, bt, q_pos, sid, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[str(dtype).removeprefix("torch.")]
     ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
         and not out[0, t:].any().item()
-    res = {"case": name, "kernel": "paged_packed_attention",
-           "max_abs_err": err, "tol": tol, "ok": bool(ok), "T": T}
+    res = {"case": name, "kernel": kname, "max_abs_err": err, "tol": tol,
+           "ok": bool(ok), "T": T}
     if timed:
-        kk, vv, kp = paged_gather({"pk": k, "pv": v, "ppos": ppos}, bt)
+        kk, vv, kp = _gathered(k, v, sc, ppos, bt, dtype, Hq // Hkv)
         safe = sid.long().clamp(0, slots - 1)
         ks, vs = kk[safe].transpose(1, 2), vv[safe].transpose(1, 2)
         kpt = torch.where((sid >= 0)[:, None], kp[safe], -1)
         mask = visible(kpt[:, None, None, :], q_pos[0][:, None, None, None],
                        window)
         qs = q[0][:, None].transpose(1, 2)           # (T, Hq, 1, D)
-        elt = q.element_size()
         res.update(
-            kernel_ms=time_ms(lambda: DA.paged_packed_attention(
-                q, k, v, ppos, bt, q_pos, meta_t, **kw)),
-            plain_ms=time_ms(lambda: DA.paged_packed_attention_ref(
-                q, k, v, ppos, bt, q_pos, sid, **kw)),
+            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
+                                             meta_t, **kw)),
+            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
+                                           sid, **kw)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         res["bound_ms"], res["bound_by"] = bound(
             ppos=ppos_np, bt=bt_np, lane_slots=slot_ids, lane_pos=pos,
-            Hq=Hq, Hkv=Hkv, D=D, elt=elt, window=window,
-            dtype=str(dtype).removeprefix("torch."),
-            extra_bytes=(2 * q.numel() * elt + bt_np.nbytes + 4 * T
-                         + meta.nbytes))
+            Hq=Hq, Hkv=Hkv, D=D, entry_bytes=_entry_bytes(k, D, quant),
+            window=window, dtype=str(dtype).removeprefix("torch."),
+            extra_bytes=(2 * q.numel() * q.element_size() + bt_np.nbytes
+                         + 4 * T + meta.nbytes))
+    return res
+
+
+def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
+    """``quant_matmul`` on random int8 codes and scales against its plain
+    version; timed cases add ``torch.matmul`` against a bf16 weight that
+    was dequantized beforehand (a yardstick that reads pre-dequantized,
+    twice as many weight bytes)."""
+    import torch
+    from repro_torch.core.precision import dequantize_weights
+    from repro_torch.kernels import quant_matmul as QM
+    dev = torch.device("cuda")
+    x = torch.randn(M, K, generator=rng, device=dev).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=rng, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=rng, device=dev) * 0.02
+    out = QM.quant_matmul(x, q, s)
+    ref = QM.quant_matmul_ref(x, q, s)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    res = {"case": name, "kernel": "quant_matmul", "M": M, "K": K, "N": N,
+           "max_abs_err": err, "ref_max_abs": scale,
+           "tol": QM_REL_TOL * scale, "ok": bool(err <= QM_REL_TOL * scale)}
+    if timed:
+        w = dequantize_weights({"q": q, "s": s}, torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        res.update(kernel_ms=time_ms(lambda: QM.quant_matmul(x, q, s)),
+                   plain_ms=time_ms(lambda: QM.quant_matmul_ref(x, q, s)),
+                   library_ms=time_ms(lambda: torch.matmul(xb, w)))
+        nbytes = K * N + 4 * N + x.numel() * x.element_size() + 4 * M * N
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * M * K * N / PEAK_FLOPS[
+            str(dtype).removeprefix("torch.")] * 1e3
+        res["bound_ms"], res["bound_by"] = ((t_bytes, "bytes")
+                                            if t_bytes >= t_ops
+                                            else (t_ops, "operations"))
     return res
 
 
@@ -257,60 +360,117 @@ def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
 
 
 def phase_kernels():
+    """Every kernel against its plain version.  Returns, per kernel, its
+    timed case at qwen3-4b's shapes (the ``kernels`` summary); the
+    unimo-text timing of kernels 1-2 stays in its own line."""
     import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = torch.Generator(device="cuda")
     rng.manual_seed(1234)
     bf16, fp32 = torch.bfloat16, torch.float32
     unimo = dict(Hq=16, Hkv=16, D=64)
-    gqa = dict(Hq=32, Hkv=8, D=128)
+    qwen3 = dict(Hq=32, Hkv=8, D=128)
+    wsc = dict(window=64, softcap=30.0)
     cases = []
     for run in (run_decode_case, run_packed_case):
         cases.append(run(rng, "unimo-text bf16", dtype=bf16, timed=True,
                          **unimo))
-        cases.append(run(rng, "gqa bf16", dtype=bf16, **gqa))
+        cases.append(run(rng, "qwen3-4b bf16", dtype=bf16, timed=True,
+                         **qwen3))
         cases.append(run(rng, "window 64 + softcap 30 bf16", dtype=bf16,
-                         window=64, softcap=30.0, **unimo))
+                         **wsc, **unimo))
         cases.append(run(rng, "unimo-text fp32", dtype=fp32, **unimo))
-        cases.append(run(rng, "gqa window 64 + softcap 30 fp32", dtype=fp32,
-                         window=64, softcap=30.0, **gqa))
+        cases.append(run(rng, "qwen3-4b window 64 + softcap 30 fp32",
+                         dtype=fp32, **wsc, **qwen3))
+        # the _q8 kernels: int8 pools, q at bf16 and fp32
+        cases.append(run(rng, "qwen3-4b int8 pool, bf16 q", dtype=bf16,
+                         quant=True, timed=True, **qwen3))
+        cases.append(run(rng, "qwen3-4b int8 pool, fp32 q", dtype=fp32,
+                         quant=True, **qwen3))
+        cases.append(run(rng, "qwen3-4b int8 pool window 64 + softcap 30, "
+                         "bf16 q", dtype=bf16, quant=True, **wsc, **qwen3))
+        cases.append(run(rng, "unimo-text int8 pool window 64 + softcap "
+                         "30, fp32 q", dtype=fp32, quant=True, **wsc,
+                         **unimo))
+    # quant_matmul: every qwen3-4b decode shape (q / k+v / o / ffn in /
+    # ffn out / tied head), a 256-row packed stream, a ragged shape
+    shapes = [(8, 2560, 4096), (8, 2560, 1024), (8, 4096, 2560),
+              (8, 2560, 9728), (8, 9728, 2560), (8, 2560, 151936),
+              (256, 2560, 9728)]
+    for M, K, N in shapes:
+        cases.append(run_quant_matmul_case(
+            rng, f"qwen3-4b {K}->{N} M={M} bf16", M=M, K=K, N=N, dtype=bf16,
+            timed=True))
+    for dtype in (bf16, fp32):
+        name = str(dtype).removeprefix("torch.")
+        cases.append(run_quant_matmul_case(
+            rng, f"ragged 100->130 M=3 {name}", M=3, K=100, N=130,
+            dtype=dtype))
+        cases.append(run_quant_matmul_case(
+            rng, f"qwen3-4b 2560->4096 M=8 {name}", M=8, K=2560, N=4096,
+            dtype=dtype))
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
-    return {c["kernel"]: c for c in cases if "kernel_ms" in c}
+    summary = {c["kernel"]: c for c in cases
+               if "kernel_ms" in c and "unimo" not in c["case"]}
+    summary["quant_matmul"] = next(
+        c for c in cases if c["kernel"] == "quant_matmul"
+        and (c["M"], c["N"]) == (8, 151936))
+    return summary
 
 
-def phase_parity():
-    """Reduced unimo-text, fp32: a packed and a decode forward on the card
-    against the same forwards through the plain versions on the CPU, from
-    the same pools; then a short greedy serve on both devices, whose token
-    streams must be identical."""
+# int8 parity: where a K/V value the card computes differs from the CPU's
+# by an ulp and lies on a rounding boundary, its int8 code rounds the other
+# way and moves by one scale step (1/127 of its row's absmax); fp32
+# elsewhere.  The greedy match of int8 streams is recorded, not gated.
+PARITY_TOL = {"auto": 1e-3, "int8": 2e-2}
+
+
+def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
+    """Reduced ``arch``, fp32 (TF32 off): a packed and a decode forward
+    on the card against the same forwards through the plain versions on
+    the CPU, from the same pools and weights; then a short greedy serve on
+    both devices.  At (auto, auto) the streams must be identical."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.registry import get_reduced
     from repro_torch.core.engine import InferenceEngine
-    from repro_torch.core.precision import FP32
+    from repro_torch.core.kv_cache import quantize_kv
+    from repro_torch.core.precision import FP32, compress_weights, map_params
     from repro_torch.core.scheduler import Request
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced("unimo-text")
+    policy = dataclasses.replace(FP32, kv_dtype=kv_dtype,
+                                 weights_dtype=weights_dtype)
+    quant = kv_dtype == "int8"
+    cfg = get_reduced(arch)
     params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    fwd_params, _ = compress_weights(params, policy)
     rng = np.random.default_rng(3)
     slots, page, npages = 4, 8, 8
     P = slots * npages + 1
     ctx = [20, 9, 0, 33]
-    pk, pv = (rng.normal(size=(P, page, cfg.num_kv_heads,
-                               cfg.resolved_head_dim)).astype(np.float32)
-              for _ in range(2))
-    ppos = np.full((P, page), -1, np.int32)
+    kv = [torch.from_numpy(rng.normal(size=(
+        P, page, cfg.num_kv_heads, cfg.resolved_head_dim)).astype(
+        np.float32)) for _ in range(2)]
+    pool = {"ppos": np.full((P, page), -1, np.int32)}
+    if quant:
+        (pool["pk"], pool["pk_scale"]), (pool["pv"], pool["pv_scale"]) = \
+            (quantize_kv(t) for t in kv)
+    else:
+        pool["pk"], pool["pv"] = kv
     bt = np.full((slots, npages), -1, np.int32)
     for s, n in enumerate(ctx):
         used = -(-(n + 8) // page)
         bt[s, :used] = s * npages + np.arange(used)
         for t in range(n):
-            ppos[bt[s, t // page], t % page] = t
+            pool["ppos"][bt[s, t // page], t % page] = t
     # packed: decode lanes for slots 0 and 3, a 6-token chunk continuing
     # slot 1 and a 5-token chunk starting slot 2, 5 padding lanes
     segs = [(0, 20, 1), (3, 33, 1), (1, 9, 6), (2, 0, 5)]
@@ -319,47 +479,43 @@ def phase_parity():
     sid = np.full(W, -1, np.int32)
     pos = np.full(W, -1, np.int32)
     starts, last, t = [], [], 0
+    vocab = min(cfg.vocab_size, 400)
     for s, p0, ln in segs:
         starts.append(t)
-        toks[t:t + ln] = rng.integers(4, 400, size=ln)
+        toks[t:t + ln] = rng.integers(4, vocab, size=ln)
         sid[t:t + ln], pos[t:t + ln] = s, p0 + np.arange(ln)
         t += ln
         last.append(t - 1)
     meta = DA.packed_meta_table(starts, [g[2] for g in segs],
                                 [g[0] for g in segs], W,
                                 W // DA.PACKED_BLOCK_Q + slots)
-    dec_tok = rng.integers(4, 400, size=(slots, 1)).astype(np.int32)
+    dec_tok = rng.integers(4, vocab, size=(slots, 1)).astype(np.int32)
     dec_len = np.asarray([21, 15, 5, 34], np.int32)
     out = {}
     for dev in ("cuda", "cpu"):
         def put(a):                    # a copy: every layer owns its pool
-            return torch.tensor(a, device=dev)
-        p = {"layers": [{"pk": put(pk), "pv": put(pv), "ppos": put(ppos)}
+            return torch.as_tensor(np.asarray(a)).clone().to(dev)
+        p = {"layers": [{k: put(v) for k, v in pool.items()}
                         for _ in range(cfg.num_layers)]}
-        prm = {"embed": {k: v.to(dev) for k, v in params["embed"].items()},
-               "final_norm": {k: v.to(dev)
-                              for k, v in params["final_norm"].items()},
-               "layers": [{b: {k: v.to(dev) for k, v in d.items()}
-                           for b, d in layer.items()}
-                          for layer in params["layers"]]}
+        prm = map_params(lambda t: t.to(dev), fwd_params)
         with torch.no_grad():
             lp, _ = T.forward_packed(
                 prm, cfg, put(toks[None]), p, put(sid), put(pos),
-                put(np.asarray(last, np.int32)), policy=FP32, max_len=64,
+                put(np.asarray(last, np.int32)), policy=policy, max_len=64,
                 paged={"block_tables": put(bt), "packed_meta": put(meta)})
             ld, _ = T.forward_decode(
-                prm, cfg, put(dec_tok), p, put(dec_len), policy=FP32,
+                prm, cfg, put(dec_tok), p, put(dec_len), policy=policy,
                 max_len=64, paged={"block_tables": put(bt),
                                    "active": put(np.ones(slots, bool))})
         out[dev] = (lp.cpu(), ld.cpu())
     errs = [(a - b).abs().max().item() for a, b in zip(out["cuda"],
                                                        out["cpu"])]
-    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+    prompts = [[2] + [int(t) for t in rng.integers(4, vocab, size=n)]
                for n in (19, 30, 11, 23, 7, 15)]
     prompts += [prompts[0][:12] + [5, 6, 7, 8], prompts[1][:17] + [9, 10]]
     streams = {}
     for dev in ("cuda", "cpu"):
-        eng = InferenceEngine(cfg, params, policy=FP32, max_len=64,
+        eng = InferenceEngine(cfg, params, policy=policy, max_len=64,
                               max_batch=4, device=dev)
         reqs = [Request(uid=i, tokens=p, max_new_tokens=12)
                 for i, p in enumerate(prompts)]
@@ -369,17 +525,33 @@ def phase_parity():
     toks_all = sum(len(s) for s in streams["cpu"])
     same = sum(a == b for x, y in zip(streams["cuda"], streams["cpu"])
                for a, b in zip(x, y))
-    emit("parity", packed_logits_max_abs_err=errs[0],
-         decode_logits_max_abs_err=errs[1], logits_tol=1e-3,
+    tol = PARITY_TOL[kv_dtype if quant else weights_dtype]
+    emit("parity", arch=arch, kv_dtype=kv_dtype,
+         weights_dtype=weights_dtype, packed_logits_max_abs_err=errs[0],
+         decode_logits_max_abs_err=errs[1], logits_tol=tol,
          greedy_token_match=same / max(toks_all, 1), tokens=toks_all,
          streams_identical=streams["cuda"] == streams["cpu"])
-    if not all(np.isfinite(e) and e <= 1e-3 for e in errs):
-        raise SystemExit(f"card forwards differ from the plain path: {errs}")
-    if streams["cuda"] != streams["cpu"]:
-        raise SystemExit("greedy streams on the card differ from the CPU's")
+    if not all(np.isfinite(e) and e <= tol for e in errs):
+        raise SystemExit(f"{arch} ({kv_dtype}, {weights_dtype}): card "
+                         f"forwards differ from the plain path: {errs}")
+    if (kv_dtype, weights_dtype) == ("auto", "auto") \
+            and streams["cuda"] != streams["cpu"]:
+        raise SystemExit(f"{arch}: greedy streams on the card differ from "
+                         f"the CPU's")
 
 
-def phase_serve():
+def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
+                profile=False):
+    """Full-width ``arch`` (bf16 weights ``params``) through
+    ``serve_continuous``: 16 synthetic requests x 32 new tokens, 8 slots,
+    max_len 256, 16-token pages, a 256-token budget.  The launch counts of
+    this run (set to 0 just before it, read just after) must show every
+    attention call in the kernels of its pool and, under int8 weights,
+    every dense matmul in ``quant_matmul``.  With ``profile`` the same
+    serve runs once more under ``torch.profiler``.  Returns the run's
+    metrics, launch counts and greedy streams."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import InferenceEngine
@@ -387,12 +559,10 @@ def phase_serve():
     from repro_torch.core.scheduler import Request
     from repro_torch.core.tokenizer import FastTokenizer
     from repro_torch.data.pipeline import synthetic_corpus
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.models import transformer as T
-    cfg = get_config("unimo-text")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = T.init_params(gen, cfg, BF16)
+    from repro_torch.kernels import ops
+    cfg = get_config(arch)
+    policy = dataclasses.replace(BF16, kv_dtype=kv_dtype,
+                                 weights_dtype=weights_dtype)
     tok = FastTokenizer.train(synthetic_corpus(600), 4000)
     texts = synthetic_corpus(16, seed=7, min_len=4, max_len=40)
 
@@ -400,26 +570,30 @@ def phase_serve():
         return [Request(uid=i, tokens=tok.encode(t), max_new_tokens=max_new)
                 for i, t in enumerate(texts[:n])]
 
-    kw = dict(max_batch=8, max_len=256, device="cuda")
+    def engine():
+        return InferenceEngine(cfg, params, policy=policy, max_batch=8,
+                               max_len=256, device="cuda")
+
     # warm-up on its own engine (cuBLAS handles, allocator pools)
-    InferenceEngine(cfg, params, policy=BF16, **kw).serve_continuous(
-        requests(4, 4))
-    eng = InferenceEngine(cfg, params, policy=BF16, **kw)
+    engine().serve_continuous(requests(4, 4))
+    eng = engine()
     reqs = requests(16, 32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    DA.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     done, m = eng.serve_continuous(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = DA.launch_counts()
+    launches = ops.launch_counts()
     n_layers = cfg.num_layers
     decode_steps = m.steps - m.mixed_dispatches
+    forwards = m.mixed_dispatches + decode_steps
     out_ok = all(r.outcome is not None and r.outcome.status == "completed"
                  and all(0 <= t < cfg.vocab_size for t in r.result)
                  for r in done)
     emit("serve", arch=cfg.name, layers=n_layers, policy="bf16",
+         kv_dtype=m.kv_dtype, weights_dtype=m.weight_dtype,
          requests=len(done), generated_tokens=m.generated_tokens,
          wall_s=wall, tokens_per_s=m.generated_tokens / wall,
          ttft_p50_s=m.ttft_p50, ttft_p99_s=m.ttft_p99, itl_p50_s=m.itl_p50,
@@ -430,30 +604,49 @@ def phase_serve():
          padded_token_frac=m.padded_token_frac,
          prefix_hits=m.prefix_hits, cow_copies=m.cow_copies,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches, outcomes=m.outcome_counts)
+         kv_pool_bytes=m.kv_pool_bytes,
+         kv_bytes_per_token=m.kv_bytes_per_token,
+         weight_bytes=m.weight_bytes,
+         weight_bytes_saved=m.weight_bytes_saved, launches=launches,
+         outcomes=m.outcome_counts)
+    q8 = "_q8" if kv_dtype == "int8" else ""
+    other = "" if q8 else "_q8"
+    mm = (7 * n_layers + 1) * forwards if weights_dtype == "int8" else 0
     checks = {
         "all requests completed with in-vocab tokens": out_ok,
         "one dispatch per mixed iteration": m.dispatches_per_iter == 1.0,
-        "packed kernel ran 24 x mixed dispatches": (
-            launches["paged_packed_attention"]
+        f"packed{q8} kernel ran {n_layers} x mixed dispatches": (
+            launches["paged_packed_attention" + q8]
             == n_layers * m.mixed_dispatches > 0),
-        "decode kernel ran 24 x decode steps": (
-            launches["paged_decode_attention"]
+        f"decode{q8} kernel ran {n_layers} x decode steps": (
+            launches["paged_decode_attention" + q8]
             == n_layers * decode_steps > 0),
+        f"the{other} attention kernels did not run": (
+            launches["paged_packed_attention" + other]
+            == launches["paged_decode_attention" + other] == 0),
+        f"quant_matmul ran {mm} times": launches["quant_matmul"] == mm,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise SystemExit(f"serve phase failed: {failed}")
+        raise SystemExit(f"{arch} serve ({kv_dtype}, {weights_dtype}) "
+                         f"failed: {failed}")
+    if profile:
+        del eng
+        phase_profile(engine(), requests(16, 32), wall, arch, kv_dtype,
+                      weights_dtype)
+    return m, launches, [r.result for r in done]
 
-    # the same serve once more, under torch.profiler, on a fresh engine:
-    # device time by kernel, and the device's busy share of the measured
-    # (unprofiled) wall time above
+
+def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype):
+    """The same serve once more, on a fresh engine, under torch.profiler:
+    device time by kernel, and the device's busy share of the measured
+    (unprofiled) wall time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    eng = InferenceEngine(cfg, params, policy=BF16, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.serve_continuous(requests(16, 32))
+        eng.serve_continuous(reqs)
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -461,17 +654,62 @@ def phase_serve():
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    ours = {name: {"ms": us / 1e3, "count": n}
-            for name in ("paged_decode_kernel", "paged_packed_kernel")
-            for k, (us, n) in by_name.items() if name in k}
-    emit("profile", device_busy_s=busy_s, measured_wall_s=wall,
-         device_idle_frac=max(0.0, 1.0 - busy_s / wall),
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ours = {}
+    for name in ("paged_decode_kernel", "paged_packed_kernel",
+                 "quant_matmul_kernel", "quant_matmul_reduce_kernel"):
+        for k, (us, n) in by_name.items():
+            if name + "<" in k or k.endswith(name) or name + "(" in k:
+                ours[k[:90]] = {"ms": us / 1e3, "count": n}
+    emit("profile", arch=arch, kv_dtype=kv_dtype,
+         weights_dtype=weights_dtype, device_busy_s=busy_s,
+         measured_wall_s=wall, device_idle_frac=max(0.0, 1.0 - busy_s / wall),
          kernels_launched=sum(n for _, n in by_name.values()),
          port_kernels=ours,
          top=[{"kernel": k[:90], "ms": us / 1e3, "count": n}
               for k, (us, n) in top])
-    return launches
+
+
+def phase_serves():
+    """The unimo-text serve, then qwen3-4b at bf16 and at int8 KV + int8
+    weights, each with its profile, and the exact byte checks of the two
+    qwen3-4b runs.  Returns the launch counts of the qwen3-4b
+    runs, by kernel: the bf16 run's for kernels 1-2, the int8 run's for
+    the ``_q8`` kernels and ``quant_matmul``."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import BF16
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    for arch in ("unimo-text", "qwen3-4b"):
+        gen.manual_seed(0)
+        params = T.init_params(gen, get_config(arch), BF16)
+        if arch == "unimo-text":
+            phase_serve(arch, params, profile=True)
+            continue
+        m16, l16, s16 = phase_serve(arch, params, profile=True)
+        m8, l8, s8 = phase_serve(arch, params, kv_dtype="int8",
+                                 weights_dtype="int8", profile=True)
+    same = sum(a == b for x, y in zip(s16, s8) for a, b in zip(x, y))
+    checks = {
+        "int8 weight_bytes == 4,027,303,424": m8.weight_bytes == 4027303424,
+        "bf16 weight_bytes == 8,044,544,000": m16.weight_bytes == 8044544000,
+        "int8 kv_bytes_per_token == 76,176": m8.kv_bytes_per_token == 76176,
+        "bf16 kv_bytes_per_token == 147,600": m16.kv_bytes_per_token
+        == 147600,
+    }
+    emit("qwen3_int8_vs_bf16", weight_bytes_ratio=m8.weight_bytes
+         / m16.weight_bytes, kv_bytes_per_token_ratio=m8.kv_bytes_per_token
+         / m16.kv_bytes_per_token, greedy_token_match=same / max(
+             sum(len(x) for x in s16), 1), checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"qwen3-4b byte checks failed: {failed}")
+    return {**{k: l16[k] for k in ("paged_decode_attention",
+                                   "paged_packed_attention")},
+            **{k: l8[k] for k in ("paged_decode_attention_q8",
+                                  "paged_packed_attention_q8",
+                                  "quant_matmul")}}
 
 
 def main() -> int:
@@ -505,14 +743,16 @@ def main() -> int:
                 if "registers" in ln or "Compiling entry" in ln])
 
     timed = phase_kernels()
-    phase_parity()
-    launches = phase_serve()
+    phase_parity("unimo-text")
+    phase_parity("qwen3-4b")
+    phase_parity("qwen3-4b", kv_dtype="int8", weights_dtype="int8")
+    launches = phase_serves()
 
     kernels = []
-    for name in ("paged_decode_attention", "paged_packed_attention"):
+    for name in REPLACES:
         c = timed[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -71,6 +71,8 @@ class ModelConfig:
     qk_norm: bool = False
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
+    rope_theta: float = 10000.0
+    rope_theta_local: Optional[float] = None  # windowed layers' own theta
     pos_emb: str = "rope"           # rope | learned | none
     max_seq_len: int = 1 << 19      # for learned positions / rope tables
     attn_scale: Optional[float] = None        # None -> 1/sqrt(head_dim)

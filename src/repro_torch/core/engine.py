@@ -8,8 +8,8 @@ The engine runs on the card by default (``device="cuda"``) and raises when
 no CUDA device is present; pass ``device="cpu"`` to run the kernels'
 plain PyTorch versions.  Options of the reference that the port does not
 serve yet (speculative decoding, preemption and the host KV tier, fault
-injection, tracing, the non-packed and bucketed paths, int8 storage,
-vocabulary pruning) raise ``NotImplementedError``.
+injection, tracing, the non-packed and bucketed paths, vocabulary
+pruning) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,10 +70,6 @@ class InferenceEngine:
         if prune_maps is not None:
             raise NotImplementedError("vocabulary pruning is not ported")
         T.check_supported(cfg)
-        if policy.kv_cache_dtype() != policy.compute_dtype:
-            raise NotImplementedError(
-                "the port keeps the KV pool at the compute dtype (kv_dtype "
-                "'auto' or its name); other pool dtypes are not ported")
         self.cfg = cfg
         self.policy = policy
         self.params = policy.cast_params(

@@ -7,6 +7,14 @@ layer:
   pk / pv : (P, page, H_kv, D)   physical page pool
   ppos    : (P, page)            absolute position per entry, -1 = empty
 
+and, when ``kv_dtype="int8"``, ``pk``/``pv`` hold int8 codes beside
+
+  pk_scale / pv_scale : (P, page, H_kv)   fp32 absmax scale per entry/head
+
+(:func:`quantize_kv`).  A token's codes depend only on its own K/V, so a
+shared prefix stores the same bytes whoever wrote it, and the scales
+travel with their pages through COW copies.
+
 plus one global block table (slots, pages_per_slot) of physical page ids
 shared by every layer (page id p belongs to the same request in all
 layers' pools).  Page P-1 is the reserved "dump" page: writes from padding
@@ -29,8 +37,29 @@ import torch
 from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
 from repro_torch.core.precision import kv_store_dtype
 
-PAGED_KEYS = ("pk", "pv", "ppos")
-PAGED_DATA_KEYS = ("pk", "pv")
+PAGED_KEYS = ("pk", "pv", "ppos", "pk_scale", "pv_scale")
+PAGED_DATA_KEYS = ("pk", "pv", "pk_scale", "pv_scale")
+
+INT8_QMAX = 127.0
+
+
+def quantize_kv(x):
+    """Quantize K/V rows to int8 with per-entry, per-head absmax scales.
+
+    x: (..., H, D) float -> (int8 codes (..., H, D), fp32 scales (..., H)).
+    Codes round half to even into [-127, 127]; all-zero rows get scale 0
+    (codes 0, which dequantize to exact 0).
+    """
+    xf = x.float()
+    scale = xf.abs().amax(-1) / INT8_QMAX
+    q = torch.round(xf / scale.clamp_min(1e-30)[..., None])
+    return q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv` (up to rounding): one fp32 multiply
+    per element."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def effective_window(cfg: ModelConfig, spec: LayerSpec,
@@ -46,8 +75,8 @@ def effective_window(cfg: ModelConfig, spec: LayerSpec,
 
 
 def paged_pool_bytes(cache: dict) -> int:
-    """Total bytes of every paged-pool tensor (K/V pages + positions)
-    across a full model cache."""
+    """Total bytes of every paged-pool tensor (K/V pages, scale pools and
+    positions) across a full model cache."""
     return sum(c[k].numel() * c[k].element_size()
                for c in cache["layers"] for k in PAGED_KEYS if k in c)
 
@@ -56,7 +85,8 @@ def paged_layer_cache_shape(cfg: ModelConfig, spec: LayerSpec,
                             num_pages: int, page_size: int, dtype,
                             kv_dtype: str = "auto", *,
                             device="cpu") -> dict:
-    """Paged pool for one attention layer: ``num_pages`` + 1 dump page."""
+    """Paged pool for one attention layer: ``num_pages`` + 1 dump page;
+    int8 pools (``kv_dtype="int8"``) get their two scale pools."""
     if spec.mixer != ATTN:
         raise NotImplementedError(
             f"paged pools for layer family '{spec.mixer}' are not ported")
@@ -64,10 +94,15 @@ def paged_layer_cache_shape(cfg: ModelConfig, spec: LayerSpec,
     pool_dtype = kv_store_dtype(kv_dtype, dtype)
     P = num_pages + 1                                  # +1 dump page
     shape = (P, page_size, cfg.num_kv_heads, hd)
-    return {"pk": torch.zeros(shape, dtype=pool_dtype, device=device),
+    pool = {"pk": torch.zeros(shape, dtype=pool_dtype, device=device),
             "pv": torch.zeros(shape, dtype=pool_dtype, device=device),
             "ppos": torch.full((P, page_size), -1, dtype=torch.int32,
                                device=device)}
+    if pool_dtype == torch.int8:
+        for key in ("pk_scale", "pv_scale"):
+            pool[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                    device=device)
+    return pool
 
 
 def paged_ring_len(window: Optional[int], page_size: int,
@@ -83,10 +118,16 @@ def paged_ring_len(window: Optional[int], page_size: int,
 
 def _scatter(cache: dict, new: dict, phys, off, pos) -> None:
     """Write K/V rows ``new["k"/"v"]`` (..., H, D) and their positions at
-    pool entries (phys, off), in place."""
+    pool entries (phys, off), in place; an int8 pool stores the rows'
+    codes and scales (:func:`quantize_kv`)."""
     for key, pool_key in (("k", "pk"), ("v", "pv")):
         pool = cache[pool_key]
-        pool[phys, off] = new[key].to(pool.dtype)
+        if pool_key + "_scale" in cache:
+            q, sc = quantize_kv(new[key])
+            pool[phys, off] = q
+            cache[pool_key + "_scale"][phys, off] = sc
+        else:
+            pool[phys, off] = new[key].to(pool.dtype)
     cache["ppos"][phys, off] = pos.to(torch.int32)
 
 
@@ -140,12 +181,16 @@ def paged_write_packed(cache: dict, new: dict, slot_ids, positions,
 def paged_gather(cache: dict, block_tables):
     """Dense per-slot view of the pool: (B, pages*page, H, D) k/v plus
     (B, pages*page) positions.  Unallocated table entries read the dump
-    page and are masked to pos = -1."""
+    page and are masked to pos = -1.  Int8 pools are dequantized (fp32
+    out; callers cast to their compute dtype)."""
     dump = cache["ppos"].shape[0] - 1
     bt = block_tables.long()
     safe = torch.where(bt >= 0, bt, dump)
     k = cache["pk"][safe]                      # (B, pages, page, H, D)
     v = cache["pv"][safe]
+    if "pk_scale" in cache:
+        k = dequantize_kv(k, cache["pk_scale"][safe])
+        v = dequantize_kv(v, cache["pv_scale"][safe])
     kp = torch.where((bt >= 0)[..., None], cache["ppos"][safe], -1)
     B, npg, page = kp.shape
     return (k.reshape(B, npg * page, *k.shape[3:]),
@@ -161,7 +206,8 @@ def copy_pages(cache: dict, src, dst, keep_below) -> dict:
     src, dst = src.long(), dst.long()
     pos = cache["ppos"][src]                             # (N, page)
     keep = (pos >= 0) & (pos < keep_below[:, None])
-    data = {k: cache[k][src] for k in PAGED_DATA_KEYS}   # read before write
+    data = {k: cache[k][src] for k in PAGED_DATA_KEYS
+            if k in cache}                               # read before write
     cache["ppos"][dst] = torch.where(keep, pos, -1)
     for k, v in data.items():
         cache[k][dst] = v

@@ -1,21 +1,33 @@
 // Paged attention kernels for Hopper (sm_90a), bound to PyTorch through a
 // plain C interface (ctypes); see repro_torch/kernels/decode_attention.py.
 //
-// Replaces two Pallas TPU kernels of the reference package:
-//   * paged_decode_kernel  <- repro/kernels/decode_attention.py
-//                             paged_decode_attention (body _paged_kernel):
-//                             one query token per slot against that slot's
-//                             paged K/V history.
-//   * paged_packed_kernel  <- repro/kernels/decode_attention.py
-//                             paged_packed_attention (body
-//                             _paged_packed_kernel): a token-packed ragged
-//                             stream of decode tokens and prefill-chunk
-//                             tokens, each lane against its own slot's pages.
+// Replaces four Pallas TPU kernels of the reference package
+// (repro/kernels/decode_attention.py):
+//   * paged_decode_kernel<T, T>     <- paged_decode_attention (body
+//                                      _paged_kernel): one query token per
+//                                      slot against that slot's paged K/V.
+//   * paged_packed_kernel<T, T>     <- paged_packed_attention (body
+//                                      _paged_packed_kernel): a token-packed
+//                                      ragged stream of decode tokens and
+//                                      prefill-chunk tokens, each lane
+//                                      against its own slot's pages.
+//   * paged_decode_kernel<T, int8>  <- paged_decode_attention_q8 (body
+//                                      _paged_kernel_q8)
+//   * paged_packed_kernel<T, int8>  <- paged_packed_attention_q8 (body
+//                                      _paged_packed_kernel_q8): the same
+//                                      two over int8 pools, whose codes are
+//                                      dequantized as they are staged, with
+//                                      one fp32 multiply by the per-entry,
+//                                      per-kv-head scale (as the Pallas
+//                                      bodies do), so a dequantized value
+//                                      equals the plain version's bit for
+//                                      bit.  q and out stay at q's dtype.
 //
-// Bound: both are bound by device-memory bytes, chiefly the K/V pages they
-// stream (page x Hkv x (D + Dv) x dtype bytes per page), plus positions,
-// queries and outputs; a decode token does 2 x (D + Dv) flops per key, far
-// below the card's ~295 flops-per-byte ridge.  Design: one block per
+// Bound: all are bound by device-memory bytes, chiefly the K/V pages they
+// stream (page x Hkv x (D + Dv) x element bytes per page, plus 2 x 4-byte
+// scales per entry and kv head for int8 pools), plus positions, queries
+// and outputs; a decode token does 2 x (D + Dv) flops per key, far below
+// the card's ~295 flops-per-byte ridge.  Design: one block per
 // (slot or query window, kv head) so the g = Hq / Hkv query heads that
 // share a kv head read each page once; every page is staged through
 // shared memory in 16-key tiles, whose positions are read first so tiles
@@ -24,11 +36,11 @@
 // softmax and the accumulator are fp32, with the same -inf-safe rescaling
 // as the reference's _attend_block_mq.  This first version uses CUDA
 // cores only; wgmma, TMA and split-K come later.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -38,28 +50,24 @@ constexpr int kKeyTile = 16;
 constexpr int kPackedBlockQ = 8;  // lanes per packed work row (PACKED_BLOCK_Q)
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// One K/V element as fp32: pools at the compute dtype convert, int8 pools
+// dequantize with the entry's scale (scale unused otherwise).
+template <typename KV>
+__device__ __forceinline__ float kv_at(const KV* pool, long i, const float*,
+                                       long) {
+  return to_f(pool[i]);
 }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ float kv_at(const int8_t* pool, long i,
+                                       const float* scale, long si) {
+  return (float)pool[i] * scale[si];
 }
 
 struct Params {
   const void* q;       // decode (B,1,Hq,D) | packed (1,T,Hq,D)
   const void* kpool;   // (P,page,Hkv,D)
   const void* vpool;   // (P,page,Hkv,Dv)
+  const float* kscale; // int8 pools only: (P,page,Hkv)
+  const float* vscale; // int8 pools only: (P,page,Hkv)
   const int* ppos;     // (P,page)
   const int* bt;       // (rows of the block table, npages)
   const int* q_pos;    // decode (B,1) | packed (1,T)
@@ -95,7 +103,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Attend n_rows query rows (row r = lane r / g, head r % g of kv head h)
 // to every page of one block-table row.  q/o point at the first lane's
 // first query head of the group; lanes are q_lane / o_lane elements apart.
-template <typename T>
+// KV is the pools' element type: T, or int8_t with p.kscale / p.vscale.
+template <typename T, typename KV>
 __device__ void attend_rows(const Params& p, int n_rows, const T* q,
                             long q_lane, T* o, long o_lane, const int* qpos,
                             const int* bt_row, int h, float* smem) {
@@ -111,8 +120,8 @@ __device__ void attend_rows(const Params& p, int n_rows, const T* q,
   int* kp = reinterpret_cast<int*>(al + n_rows);  // [KT]
   int* qp = kp + KT;                               // [n_rows]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* kpool = static_cast<const T*>(p.kpool);
-  const T* vpool = static_cast<const T*>(p.vpool);
+  const KV* kpool = static_cast<const KV*>(p.kpool);
+  const KV* vpool = static_cast<const KV*>(p.vpool);
 
   for (int i = tid; i < n_rows * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -141,11 +150,13 @@ __device__ void attend_rows(const Params& p, int n_rows, const T* q,
 
       for (int i = tid; i < nk * D; i += kThreads) {
         const int t = i / D, d = i % D;
-        ks[t * (D + 1) + d] = to_f(kpool[((row0 + t) * p.Hkv + h) * D + d]);
+        const long e = (row0 + t) * p.Hkv + h;  // (entry, kv head)
+        ks[t * (D + 1) + d] = kv_at(kpool, e * D + d, p.kscale, e);
       }
       for (int i = tid; i < nk * Dv; i += kThreads) {
         const int t = i / Dv, d = i % Dv;
-        vs[i] = to_f(vpool[((row0 + t) * p.Hkv + h) * Dv + d]);
+        const long e = (row0 + t) * p.Hkv + h;
+        vs[i] = kv_at(vpool, e * Dv + d, p.vscale, e);
       }
       __syncthreads();
 
@@ -207,20 +218,20 @@ __device__ void attend_rows(const Params& p, int n_rows, const T* q,
 }
 
 // grid (B, Hkv): slot b's single query token, query heads h*g .. h*g+g-1
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const T* q = static_cast<const T*>(p.q) + ((long)b * p.Hq + h * p.g) * p.D;
   T* o = static_cast<T*>(p.out) + ((long)b * p.Hq + h * p.g) * p.Dv;
-  attend_rows<T>(p, p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
-                 p.q_pos + b, p.bt + (long)b * p.npages, h, smem);
+  attend_rows<T, KV>(p, p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                     p.q_pos + b, p.bt + (long)b * p.npages, h, smem);
 }
 
 // grid (n_work, Hkv): work row w serves stream lanes [win_start, win_end)
 // of slot meta[w, 0]; rows with slot < 0 are unused.  Each lane is owned
 // by exactly one row, so rows write disjoint outputs.
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
   extern __shared__ float smem[];
   const int w = blockIdx.x, h = blockIdx.y;
@@ -229,18 +240,19 @@ __global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
   if (slot < 0 || lanes <= 0) return;
   const T* q = static_cast<const T*>(p.q) + ((long)ws * p.Hq + h * p.g) * p.D;
   T* o = static_cast<T*>(p.out) + ((long)ws * p.Hq + h * p.g) * p.Dv;
-  attend_rows<T>(p, lanes * p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
-                 p.q_pos + ws, p.bt + (long)slot * p.npages, h, smem);
+  attend_rows<T, KV>(p, lanes * p.g, q, (long)p.Hq * p.D, o,
+                     (long)p.Hq * p.Dv, p.q_pos + ws,
+                     p.bt + (long)slot * p.npages, h, smem);
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(bool packed, int blocks, int max_rows, const Params& p,
                    cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
   const size_t smem = smem_floats(max_rows, p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   void (*kernel)(Params) =
-      packed ? paged_packed_kernel<T> : paged_decode_kernel<T>;
+      packed ? paged_packed_kernel<T, KV> : paged_decode_kernel<T, KV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,30 +263,44 @@ cudaError_t launch(bool packed, int blocks, int max_rows, const Params& p,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int dtype, bool packed, int blocks, int max_rows,
-                     const Params& p, cudaStream_t stream) {
+// Pools at q's dtype T (quant == false), or int8 codes with scales.
+template <typename T>
+cudaError_t launch_pools(bool quant, bool packed, int blocks, int max_rows,
+                         const Params& p, cudaStream_t stream) {
+  return quant ? launch<T, int8_t>(packed, blocks, max_rows, p, stream)
+               : launch<T, T>(packed, blocks, max_rows, p, stream);
+}
+
+cudaError_t dispatch(int dtype, bool quant, bool packed, int blocks,
+                     int max_rows, const Params& p, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch<float>(packed, blocks, max_rows, p, stream);
-    case 1: return launch<__half>(packed, blocks, max_rows, p, stream);
-    case 2: return launch<__nv_bfloat16>(packed, blocks, max_rows, p, stream);
+    case 0:
+      return launch_pools<float>(quant, packed, blocks, max_rows, p, stream);
+    case 1:
+      return launch_pools<__half>(quant, packed, blocks, max_rows, p, stream);
+    case 2:
+      return launch_pools<__nv_bfloat16>(quant, packed, blocks, max_rows, p,
+                                         stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, pools and out alike).
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q and out; the pools
+// too, except in the _q8 entry points, whose pools are int8 codes with
+// fp32 scale pools (P,page,Hkv)).  Each returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* kpool, const void* vpool, const void* ppos,
     const void* block_tables, const void* q_pos, void* out, int dtype, int B,
     int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
     float softcap, int window, void* stream) {
-  Params p{q, kpool, vpool, static_cast<const int*>(ppos),
+  Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, false, B, p.g, p,
+  return (int)dispatch(dtype, false, false, B, p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -283,11 +309,41 @@ extern "C" int paged_packed_attention_launch(
     const void* block_tables, const void* q_pos, const void* meta, void* out,
     int dtype, int n_work, int Hq, int Hkv, int D, int Dv, int page,
     int npages, float scale, float softcap, int window, void* stream) {
-  Params p{q, kpool, vpool, static_cast<const int*>(ppos),
+  Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, true, n_work, kPackedBlockQ * p.g, p,
+  return (int)dispatch(dtype, false, true, n_work, kPackedBlockQ * p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int paged_decode_attention_q8_launch(
+    const void* q, const void* kpool, const void* kscale, const void* vpool,
+    const void* vscale, const void* ppos, const void* block_tables,
+    const void* q_pos, void* out, int dtype, int B, int Hq, int Hkv, int D,
+    int Dv, int page, int npages, float scale, float softcap, int window,
+    void* stream) {
+  Params p{q, kpool, vpool, static_cast<const float*>(kscale),
+           static_cast<const float*>(vscale), static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), nullptr, out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
+  return (int)dispatch(dtype, true, false, B, p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int paged_packed_attention_q8_launch(
+    const void* q, const void* kpool, const void* kscale, const void* vpool,
+    const void* vscale, const void* ppos, const void* block_tables,
+    const void* q_pos, const void* meta, void* out, int dtype, int n_work,
+    int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    float softcap, int window, void* stream) {
+  Params p{q, kpool, vpool, static_cast<const float*>(kscale),
+           static_cast<const float*>(vscale), static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
+  return (int)dispatch(dtype, true, true, n_work, kPackedBlockQ * p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -296,6 +352,6 @@ extern "C" long paged_attention_smem_bytes(int rows, int D, int Dv) {
   return (long)(smem_floats(rows, D, Dv) * sizeof(float));
 }
 
-extern "C" const char* paged_attention_error_string(int err) {
+extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, loaded with
+``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout, and the
 library is named after a hash of the sources and flags, so an edit to a
@@ -21,8 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c")
 
 
 def _nvcc() -> str:
@@ -43,11 +45,11 @@ def _sources():
 
 def library_path() -> Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"libpaged_attention_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -59,17 +61,33 @@ def build() -> dict:
         return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{f.stem}.{tag}.o") for f in cu]
+    tmp = path.with_suffix(f".{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    try:
+        procs = [subprocess.Popen([_nvcc(), *COMPILE_FLAGS, "-o", str(o),
+                                   str(f)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(f.name, log) for f, p, log in zip(cu, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}:\n{log}" for name, log in failed))
+        link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n"
+                               f"{link.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "built": True, "log": proc.stdout + proc.stderr}
+            "built": True, "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,6 +104,16 @@ def load() -> ctypes.CDLL:
     lib.paged_packed_attention_launch.restype = I
     lib.paged_attention_smem_bytes.argtypes = [I, I, I]
     lib.paged_attention_smem_bytes.restype = ctypes.c_long
-    lib.paged_attention_error_string.argtypes = [I]
-    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    lib.paged_decode_attention_q8_launch.argtypes = (
+        [P] * 9 + [I] * 8 + [F, F, I, P])
+    lib.paged_decode_attention_q8_launch.restype = I
+    lib.paged_packed_attention_q8_launch.argtypes = (
+        [P] * 10 + [I] * 8 + [F, F, I, P])
+    lib.paged_packed_attention_q8_launch.restype = I
+    lib.cuda_error_string.argtypes = [I]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.quant_matmul_splits.argtypes = [I, I, I]
+    lib.quant_matmul_splits.restype = I
+    lib.quant_matmul_launch.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.quant_matmul_launch.restype = I
     return lib

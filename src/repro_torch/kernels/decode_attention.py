@@ -10,6 +10,11 @@ beside them.
     ``repro.kernels.decode_attention.paged_packed_attention``: one flat
     (1, T) stream of decode tokens and prefill-chunk tokens, each lane
     against its own slot's pages (every mixed iteration).
+  * :func:`paged_decode_attention_q8` and :func:`paged_packed_attention_q8`
+    replace ``paged_decode_attention_q8`` / ``paged_packed_attention_q8``:
+    the same two over int8 pools (``kv_dtype="int8"``), whose codes are
+    dequantized with their per-entry, per-kv-head fp32 scales as the
+    kernel stages them.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
 shapes, allocates the output, launches on the current stream and raises if
@@ -58,8 +63,13 @@ def packed_meta_table(seg_starts, seg_lengths, seg_slots, n_tokens,
     return meta
 
 
-def _check_common(q, kpool, vpool, ppos, block_tables, q_pos):
-    tensors = (q, kpool, vpool, ppos, block_tables, q_pos)
+def _check_common(q, kpool, vpool, ppos, block_tables, q_pos,
+                  k_scale=None, v_scale=None):
+    """Check the operands of one launch; with ``k_scale``/``v_scale`` the
+    pools hold int8 codes, else they are at q's dtype."""
+    quant = k_scale is not None
+    tensors = (q, kpool, vpool, ppos, block_tables, q_pos) + (
+        (k_scale, v_scale) if quant else ())
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA paged-attention kernels take CUDA tensors "
                          "only (CPU tensors go to the plain version through "
@@ -68,10 +78,12 @@ def _check_common(q, kpool, vpool, ppos, block_tables, q_pos):
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the paged-attention kernels need contiguous inputs")
-    if q.dtype not in _DTYPE_CODES or kpool.dtype != q.dtype \
-            or vpool.dtype != q.dtype:
-        raise ValueError(f"q/pool dtypes must match and be fp32, fp16 or "
-                         f"bf16 (got {q.dtype}, {kpool.dtype}, {vpool.dtype})")
+    pool_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPE_CODES or kpool.dtype != pool_dtype \
+            or vpool.dtype != pool_dtype:
+        raise ValueError(f"q/pool dtypes: q must be fp32, fp16 or bf16 and "
+                         f"the pools {'int8' if quant else 'at q dtype'} "
+                         f"(got {q.dtype}, {kpool.dtype}, {vpool.dtype})")
     for t in (ppos, block_tables, q_pos):
         if t.dtype != torch.int32:
             raise ValueError("positions and block tables must be int32")
@@ -80,6 +92,9 @@ def _check_common(q, kpool, vpool, ppos, block_tables, q_pos):
     Hq = q.shape[2]
     if vpool.shape[:3] != kpool.shape[:3] or ppos.shape != (P, page):
         raise ValueError("kpool/vpool/ppos disagree on (P, page, Hkv)")
+    if quant and not (k_scale.dtype == v_scale.dtype == torch.float32
+                      and k_scale.shape == v_scale.shape == (P, page, Hkv)):
+        raise ValueError("k_scale/v_scale must be fp32 (P, page, Hkv)")
     if q.shape[3] != D or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools with "
                          f"Hkv={Hkv}, D={D}")
@@ -100,7 +115,7 @@ def _check_smem(lib, rows: int, D: int, Dv: int):
 
 def _raise_on(lib, err: int, name: str) -> None:
     if err:
-        msg = lib.paged_attention_error_string(err).decode()
+        msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
@@ -109,21 +124,21 @@ def _softcap_window(attn_softcap, window):
             int(window) if window is not None else 0)
 
 
-def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
-                           window: Optional[int], scale: float,
-                           attn_softcap: Optional[float] = None):
-    """Decode attention over a paged KV pool, on the card.
+def _pool_ptrs(kpool, vpool, k_scale, v_scale):
+    """The pool arguments of a launch: (kpool, vpool), or (kpool, k_scale,
+    vpool, v_scale) for the _q8 entry points."""
+    if k_scale is None:
+        return kpool.data_ptr(), vpool.data_ptr()
+    return (kpool.data_ptr(), k_scale.data_ptr(), vpool.data_ptr(),
+            v_scale.data_ptr())
 
-    q: (B,1,Hq,D); kpool/vpool: (P,page,Hkv,D[v]); ppos: (P,page) int32
-    absolute positions (-1 empty); block_tables: (B,npages) int32 physical
-    page ids with -1 = unallocated; q_pos: (B,1) int32.  Keys are visible
-    when ``0 <= kp <= q_pos`` (and ``kp > q_pos - window`` with a window);
-    a row with no visible key returns zeros.  Returns (B,1,Hq,Dv) at q's
-    dtype.
-    """
+
+def _decode(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
+            window, scale, attn_softcap, name):
     from repro_torch.kernels import build
     Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
-                                         block_tables, q_pos)
+                                         block_tables, q_pos, k_scale,
+                                         v_scale)
     B = q.shape[0]
     if q.shape[1] != 1 or block_tables.shape[0] != B \
             or q_pos.shape != (B, 1):
@@ -133,19 +148,81 @@ def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
     _check_smem(lib, Hq // Hkv, D, Dv)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     cap, win = _softcap_window(attn_softcap, window)
+    pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
+    fn = (lib.paged_decode_attention_launch if k_scale is None
+          else lib.paged_decode_attention_q8_launch)
     with torch.cuda.device(q.device):
-        err = lib.paged_decode_attention_launch(
-            q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-            ppos.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, page,
-            block_tables.shape[1], float(scale), cap, win,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "paged_decode_attention")
+        err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
+                 block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, page,
+                 block_tables.shape[1], float(scale), cap, win,
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, name)
+    return out
+
+
+def _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, k_scale,
+            v_scale, window, scale, attn_softcap, name):
+    from repro_torch.kernels import build
+    Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
+                                         block_tables, q_pos, k_scale,
+                                         v_scale)
+    T = q.shape[1]
+    if q.shape[0] != 1 or q_pos.shape != (1, T):
+        raise ValueError("packed attention takes q (1,T,Hq,D) and "
+                         "q_pos (1,T)")
+    if not (meta.is_cuda and meta.device == q.device and meta.is_contiguous()
+            and meta.dtype == torch.int32 and meta.dim() == 2
+            and meta.shape[1] == 4):
+        raise ValueError("meta must be a contiguous (n_work, 4) int32 CUDA "
+                         "tensor on q's device")
+    lib = build.load()
+    _check_smem(lib, PACKED_BLOCK_Q * (Hq // Hkv), D, Dv)
+    out = torch.zeros((1, T, Hq, Dv), dtype=q.dtype, device=q.device)
+    cap, win = _softcap_window(attn_softcap, window)
+    pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
+    fn = (lib.paged_packed_attention_launch if k_scale is None
+          else lib.paged_packed_attention_q8_launch)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
+                 block_tables.data_ptr(), q_pos.data_ptr(), meta.data_ptr(),
+                 out.data_ptr(), _DTYPE_CODES[q.dtype], meta.shape[0], Hq,
+                 Hkv, D, Dv, page, block_tables.shape[1], float(scale), cap,
+                 win, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, name)
+    return out
+
+
+def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
+                           window: Optional[int], scale: float,
+                           attn_softcap: Optional[float] = None):
+    """Decode attention over a paged KV pool, on the card.
+
+    q: (B,1,Hq,D); kpool/vpool: (P,page,Hkv,D[v]) at q's dtype; ppos:
+    (P,page) int32 absolute positions (-1 empty); block_tables:
+    (B,npages) int32 physical page ids with -1 = unallocated; q_pos:
+    (B,1) int32.  Keys are visible when ``0 <= kp <= q_pos`` (and
+    ``kp > q_pos - window`` with a window); a row with no visible key
+    returns zeros.  Returns (B,1,Hq,Dv) at q's dtype.
+    """
+    out = _decode(q, kpool, vpool, ppos, block_tables, q_pos, None, None,
+                  window, scale, attn_softcap, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+def paged_decode_attention_q8(q, kpool, k_scale, vpool, v_scale, ppos,
+                              block_tables, q_pos, *,
+                              window: Optional[int], scale: float,
+                              attn_softcap: Optional[float] = None):
+    """:func:`paged_decode_attention` over an int8 pool: kpool/vpool are
+    (P,page,Hkv,D[v]) int8 codes, k_scale/v_scale (P,page,Hkv) fp32
+    per-entry scales.  q and the output stay at q's dtype."""
+    out = _decode(q, kpool, vpool, ppos, block_tables, q_pos, k_scale,
+                  v_scale, window, scale, attn_softcap,
+                  "paged_decode_attention_q8")
+    paged_decode_attention_q8.launches += 1
+    return out
 
 
 def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
@@ -160,42 +237,36 @@ def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
     writes only its own lanes, and the output starts as zeros, so padding
     lanes (owned by no row) come back as zeros.
     """
-    from repro_torch.kernels import build
-    Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
-                                         block_tables, q_pos)
-    T = q.shape[1]
-    if q.shape[0] != 1 or q_pos.shape != (1, T):
-        raise ValueError("packed attention takes q (1,T,Hq,D) and "
-                         "q_pos (1,T)")
-    if not (meta.is_cuda and meta.device == q.device and meta.is_contiguous()
-            and meta.dtype == torch.int32 and meta.dim() == 2
-            and meta.shape[1] == 4):
-        raise ValueError("meta must be a contiguous (n_work, 4) int32 CUDA "
-                         "tensor on q's device")
-    lib = build.load()
-    _check_smem(lib, PACKED_BLOCK_Q * (Hq // Hkv), D, Dv)
-    out = torch.zeros((1, T, Hq, Dv), dtype=q.dtype, device=q.device)
-    cap, win = _softcap_window(attn_softcap, window)
-    with torch.cuda.device(q.device):
-        err = lib.paged_packed_attention_launch(
-            q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-            ppos.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
-            meta.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            meta.shape[0], Hq, Hkv, D, Dv, page, block_tables.shape[1],
-            float(scale), cap, win, torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "paged_packed_attention")
+    out = _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, None,
+                  None, window, scale, attn_softcap, "paged_packed_attention")
     paged_packed_attention.launches += 1
     return out
 
 
-paged_packed_attention.launches = 0
+def paged_packed_attention_q8(q, kpool, k_scale, vpool, v_scale, ppos,
+                              block_tables, q_pos, meta, *,
+                              window: Optional[int], scale: float,
+                              attn_softcap: Optional[float] = None):
+    """:func:`paged_packed_attention` over an int8 pool (the scale-pool
+    contract of :func:`paged_decode_attention_q8`)."""
+    out = _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, k_scale,
+                  v_scale, window, scale, attn_softcap,
+                  "paged_packed_attention_q8")
+    paged_packed_attention_q8.launches += 1
+    return out
+
+
+KERNELS = (paged_decode_attention, paged_packed_attention,
+           paged_decode_attention_q8, paged_packed_attention_q8)
 
 
 def reset_launch_counts() -> None:
-    paged_decode_attention.launches = 0
-    paged_packed_attention.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"paged_decode_attention": paged_decode_attention.launches,
-            "paged_packed_attention": paged_packed_attention.launches}
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()

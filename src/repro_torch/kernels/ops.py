@@ -4,36 +4,66 @@ There is no mode switch: a tensor on the CPU goes to the kernel's plain
 PyTorch version, and any other tensor goes to the CUDA kernel's wrapper,
 which launches the kernel or raises (wrong device, dtype, layout or an
 unsupported shape).  Nothing falls back to the plain version on the card.
+Attention over an int8 pool (``k_scale``/``v_scale`` given) goes to the
+``_q8`` kernels.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ref
 
 
 def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
-                           window, scale, attn_softcap=None):
+                           window, scale, attn_softcap=None, k_scale=None,
+                           v_scale=None):
     """Single-query paged attention: q (B,1,Hq,D) against each slot's
     pages; see :func:`decode_attention.paged_decode_attention`."""
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(
-            q, kpool, vpool, ppos, block_tables, q_pos, window=window,
-            scale=scale, attn_softcap=attn_softcap)
-    return DA.paged_decode_attention(
-        q, kpool, vpool, ppos, block_tables, q_pos, window=window,
-        scale=scale, attn_softcap=attn_softcap)
+            q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
+            v_scale=v_scale, **kw)
+    if k_scale is not None:
+        return DA.paged_decode_attention_q8(
+            q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
+            **kw)
+    return DA.paged_decode_attention(q, kpool, vpool, ppos, block_tables,
+                                     q_pos, **kw)
 
 
 def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
                            slot_ids, meta, *, window, scale,
-                           attn_softcap=None):
+                           attn_softcap=None, k_scale=None, v_scale=None):
     """Token-packed ragged paged attention: q (1,T,Hq,D) as one flat
     stream; the plain version reads ``slot_ids``, the kernel walks the
     ``meta`` work table (:func:`decode_attention.packed_meta_table`)."""
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return ref.paged_packed_attention_ref(
             q, kpool, vpool, ppos, block_tables, q_pos, slot_ids,
-            window=window, scale=scale, attn_softcap=attn_softcap)
-    return DA.paged_packed_attention(
-        q, kpool, vpool, ppos, block_tables, q_pos, meta, window=window,
-        scale=scale, attn_softcap=attn_softcap)
+            k_scale=k_scale, v_scale=v_scale, **kw)
+    if k_scale is not None:
+        return DA.paged_packed_attention_q8(
+            q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
+            meta, **kw)
+    return DA.paged_packed_attention(q, kpool, vpool, ppos, block_tables,
+                                     q_pos, meta, **kw)
+
+
+def quant_matmul(x, q, s):
+    """``(x @ q) * s`` in fp32 for int8 weight records; see
+    :func:`quant_matmul.quant_matmul`."""
+    if x.device.type == "cpu":
+        return ref.quant_matmul_ref(x, q, s)
+    return QM.quant_matmul(x, q, s)
+
+
+def reset_launch_counts() -> None:
+    DA.reset_launch_counts()
+    QM.quant_matmul.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel of the port since the last reset."""
+    return {**DA.launch_counts(), "quant_matmul": QM.quant_matmul.launches}

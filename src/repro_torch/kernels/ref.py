@@ -43,14 +43,24 @@ def decode_attention_ref(q, k, v, k_pos, q_pos, *, window: Optional[int],
                                scale=scale, attn_softcap=attn_softcap)
 
 
+def _pool(kpool, vpool, ppos, k_scale, v_scale):
+    pool = {"pk": kpool, "pv": vpool, "ppos": ppos}
+    if k_scale is not None:
+        pool["pk_scale"], pool["pv_scale"] = k_scale, v_scale
+    return pool
+
+
 def paged_decode_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
                                *, window: Optional[int], scale: float,
-                               attn_softcap: Optional[float] = None):
+                               attn_softcap: Optional[float] = None,
+                               k_scale=None, v_scale=None):
     """Plain version of the paged decode kernel: resolve each slot's block
     table into a contiguous (B, npages*page, ...) view
-    (``kv_cache.paged_gather``), then run the dense decode reference."""
+    (``kv_cache.paged_gather``), then run the dense decode reference.
+    With ``k_scale``/``v_scale`` the pools hold int8 codes and the gather
+    dequantizes them (the plain version of the ``_q8`` kernel)."""
     from repro_torch.core.kv_cache import paged_gather
-    k, v, kp = paged_gather({"pk": kpool, "pv": vpool, "ppos": ppos},
+    k, v, kp = paged_gather(_pool(kpool, vpool, ppos, k_scale, v_scale),
                             block_tables)
     return decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype), kp, q_pos,
                                 window=window, scale=scale,
@@ -60,15 +70,17 @@ def paged_decode_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
 def paged_packed_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
                                slot_ids, *, window: Optional[int],
                                scale: float,
-                               attn_softcap: Optional[float] = None):
+                               attn_softcap: Optional[float] = None,
+                               k_scale=None, v_scale=None):
     """Plain version of the token-packed ragged kernel: q (1, T, Hq, D)
     is one flat stream where token t belongs to slot ``slot_ids[t]`` and
     attends that slot's paged history only.  Gathers each slot's pages
-    densely once, then runs every stream token as its own single-query
-    attention against its slot's gathered context.  Padding lanes
-    (slot_ids == -1) come back as zeros."""
+    densely once (dequantizing int8 pools, as above), then runs every
+    stream token as its own single-query attention against its slot's
+    gathered context.  Padding lanes (slot_ids == -1) come back as
+    zeros."""
     from repro_torch.core.kv_cache import paged_gather
-    k, v, kp = paged_gather({"pk": kpool, "pv": vpool, "ppos": ppos},
+    k, v, kp = paged_gather(_pool(kpool, vpool, ppos, k_scale, v_scale),
                             block_tables)                 # (B, ctx, H, D)
     B = block_tables.shape[0]
     _, T, Hq, _ = q.shape
@@ -80,3 +92,11 @@ def paged_packed_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
         kp_t, q_pos.reshape(T, 1), window=window, scale=scale,
         attn_softcap=attn_softcap)
     return out.reshape(1, T, Hq, -1)
+
+
+def quant_matmul_ref(x, q, s):
+    """Plain version of the weight-only int8 matmul: x (..., K) @ int8
+    codes q (K, N), accumulated in fp32, times the per-output-channel fp32
+    scales s (N,) once per output (``x @ (q * s) == (x @ q) * s`` column
+    by column).  Returns fp32 (..., N)."""
+    return (x.float() @ q.float()) * s.float()

@@ -1,5 +1,6 @@
 """Serving launcher for the port:
-``python -m repro_torch.launch.serve --arch unimo-text --full --continuous``.
+``python -m repro_torch.launch.serve --arch qwen3-4b --full --continuous
+--kv-dtype int8 --weights-dtype int8``.
 
 Serves a synthetic request stream through continuous batching over the
 paged KV cache on the card (``--device cuda``, the default) and prints one
@@ -9,6 +10,7 @@ random, drawn from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.configs.registry import get_config, get_reduced, list_archs
 from repro_torch.core.engine import InferenceEngine, resolve_device
-from repro_torch.core.precision import get_policy
+from repro_torch.core.precision import (KV_DTYPES, WEIGHTS_DTYPES,
+                                        get_policy)
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.core.scheduler import Request
 from repro_torch.core.tokenizer import FastTokenizer
@@ -38,6 +41,14 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--policy", default="bf16",
                     choices=["fp32", "bf16", "fp16"])
+    ap.add_argument("--kv-dtype", default="auto", choices=list(KV_DTYPES),
+                    help="paged KV pool storage: auto = compute dtype; int8 "
+                         "stores codes + per-entry fp32 scales")
+    ap.add_argument("--weights-dtype", default="auto",
+                    choices=list(WEIGHTS_DTYPES),
+                    help="serve-path matmul weight storage: auto = policy "
+                         "param dtype; int8 = per-output-channel quantized "
+                         "codes through the quant_matmul kernel")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--steps-per-sync", type=int, default=4)
     ap.add_argument("--max-batched-tokens", type=int, default=None,
@@ -59,7 +70,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    policy = get_policy(args.policy)
+    policy = dataclasses.replace(get_policy(args.policy),
+                                 kv_dtype=args.kv_dtype,
+                                 weights_dtype=args.weights_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = T.init_params(gen, cfg, policy)

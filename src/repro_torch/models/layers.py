@@ -43,8 +43,13 @@ def norm_init(cfg: ModelConfig, device):
 
 
 def dense_matmul(x, w):
-    """``x @ w`` for a plain serve-path weight, cast to ``x.dtype`` at
-    point of use (a library GEMM, as the reference leaves it to XLA)."""
+    """``x @ w`` for a serve-path weight: a plain (in, out) tensor, cast
+    to ``x.dtype`` at point of use (a library GEMM, as the reference
+    leaves it to XLA), or an int8 record ``{"q", "s"}``
+    (``precision.quantize_weights``), which goes to
+    ``ops.quant_matmul`` and comes back at ``x.dtype``."""
+    if isinstance(w, dict):
+        return ops.quant_matmul(x, w["q"], w["s"]).to(x.dtype)
     return x @ w.to(x.dtype)
 
 
@@ -65,6 +70,21 @@ def apply_norm(cfg: ModelConfig, p, x):
     if "b" in p:
         return layernorm(x, p["w"], p["b"])
     return rmsnorm(x, p["w"])
+
+
+def rope(x, positions, theta: float):
+    """Rotary position embedding, rotating halves (not interleaved pairs).
+    x: (..., S, H, D); positions: broadcastable to (..., S).  Angles are
+    fp32; the result is at x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def softcap(x, cap: Optional[float]):
@@ -119,7 +139,8 @@ def mha_attention_paged(q, pool, block_tables, q_pos, *,
                         attn_softcap: Optional[float] = None):
     """Single-token decode attention against a paged KV pool.
 
-    q: (B,1,Hq,D); pool: {"pk"/"pv": (P,page,Hkv,D), "ppos": (P,page)};
+    q: (B,1,Hq,D); pool: {"pk"/"pv": (P,page,Hkv,D), "ppos": (P,page)},
+    plus "pk_scale"/"pv_scale" (P,page,Hkv) when the pool stores int8;
     block_tables: (B, pages_per_slot) physical page ids (-1 = none);
     q_pos: (B,1).  Multi-query windows (the reference's mixed kernel,
     speculative verify and the ``packed=False`` path) are not ported.
@@ -130,7 +151,8 @@ def mha_attention_paged(q, pool, block_tables, q_pos, *,
             "ported; the port serves decode steps with one query per slot")
     return ops.paged_decode_attention(
         q, pool["pk"], pool["pv"], pool["ppos"], block_tables, q_pos,
-        window=window, scale=scale, attn_softcap=attn_softcap)
+        window=window, scale=scale, attn_softcap=attn_softcap,
+        k_scale=pool.get("pk_scale"), v_scale=pool.get("pv_scale"))
 
 
 def mha_attention_paged_packed(q, pool, block_tables, q_pos, slot_ids,
@@ -148,27 +170,40 @@ def mha_attention_paged_packed(q, pool, block_tables, q_pos, slot_ids,
     return ops.paged_packed_attention(
         q, pool["pk"], pool["pv"], pool["ppos"], block_tables, q_pos,
         slot_ids, meta, window=window, scale=scale,
-        attn_softcap=attn_softcap)
+        attn_softcap=attn_softcap, k_scale=pool.get("pk_scale"),
+        v_scale=pool.get("pv_scale"))
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {"wq": dense_init(gen, d, cfg.num_heads * hd),
-            "wk": dense_init(gen, d, cfg.num_kv_heads * hd),
-            "wv": dense_init(gen, d, cfg.num_kv_heads * hd),
-            "wo": dense_init(gen, cfg.num_heads * hd, d)}
+    p = {"wq": dense_init(gen, d, cfg.num_heads * hd),
+         "wk": dense_init(gen, d, cfg.num_kv_heads * hd),
+         "wv": dense_init(gen, d, cfg.num_kv_heads * hd),
+         "wo": dense_init(gen, cfg.num_heads * hd, d)}
+    if cfg.qk_norm:
+        p["q_norm"] = {"w": torch.zeros(hd, device=gen.device)}
+        p["k_norm"] = {"w": torch.zeros(hd, device=gen.device)}
+    return p
 
 
-def attn_qkv(cfg: ModelConfig, p, x):
-    """Project to q, k, v.  x: (B,S,d) -> q (B,S,Hq,D), k/v (B,S,Hkv,D).
-    Learned absolute positions only: RoPE and qk-norm are not ported."""
-    if cfg.pos_emb == "rope" or cfg.qk_norm:
-        raise NotImplementedError("RoPE / qk-norm attention is not ported")
+def attn_qkv(cfg: ModelConfig, p, x, positions,
+             theta: Optional[float] = None):
+    """Project to q, k, v.  x: (B,S,d) -> q (B,S,Hq,D), k/v (B,S,Hkv,D);
+    with qk-norm, a per-head RMSNorm of q and k, then RoPE (for
+    ``pos_emb == "rope"``) at ``positions`` (B,S).  Padding lanes (position
+    -1) are rotated too; attention masks them out."""
     B, S, _ = x.shape
+    theta = theta if theta is not None else cfg.rope_theta
     hd = cfg.resolved_head_dim
     q = dense_matmul(x, p["wq"]).reshape(B, S, cfg.num_heads, hd)
     k = dense_matmul(x, p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = dense_matmul(x, p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"]["w"])
+        k = rmsnorm(k, p["k_norm"]["w"])
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
     return q, k, v
 
 
@@ -187,21 +222,35 @@ def attn_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-def ffn_init(gen: torch.Generator, cfg: ModelConfig):
-    if cfg.activation != "gelu":
+FFN_ACTIVATIONS = ("gelu", "swiglu")
+
+
+def _check_activation(cfg: ModelConfig):
+    if cfg.activation not in FFN_ACTIVATIONS:
         raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported (only 'gelu')")
-    return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff),
-            "wo": dense_init(gen, cfg.d_ff, cfg.d_model)}
+            f"activation {cfg.activation!r} is not ported (one of "
+            f"{FFN_ACTIVATIONS})")
+
+
+def ffn_init(gen: torch.Generator, cfg: ModelConfig):
+    _check_activation(cfg)
+    p = {"wi": dense_init(gen, cfg.d_model, cfg.d_ff),
+         "wo": dense_init(gen, cfg.d_ff, cfg.d_model)}
+    if cfg.activation == "swiglu":
+        p["wg"] = dense_init(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
-    """Dense GELU FFN.  The reference's ``jax.nn.gelu`` defaults to the
-    tanh approximation, so the port asks for it explicitly."""
-    if cfg.activation != "gelu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported (only 'gelu')")
-    h = F.gelu(dense_matmul(x, p["wi"]), approximate="tanh")
+    """Dense FFN: SwiGLU ``silu(x @ wg) * (x @ wi)`` (``wg`` is the gate)
+    or GELU.  The reference's ``jax.nn.gelu`` defaults to the tanh
+    approximation, so the port asks for it explicitly."""
+    _check_activation(cfg)
+    h = dense_matmul(x, p["wi"])
+    if cfg.activation == "swiglu":
+        h = F.silu(dense_matmul(x, p["wg"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
     return dense_matmul(h, p["wo"])
 
 
@@ -219,8 +268,16 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def unembed(cfg: ModelConfig, params, x):
-    """x: (B,S,d) -> fp32 logits through the tied embedding table."""
+    """x: (B,S,d) -> fp32 logits through the tied embedding table, or
+    through its int8 copy ``embed["head_q8"]`` (the transposed (d, V)
+    record ``precision.compress_weights`` makes) when the policy
+    quantized one; the gather table itself is never quantized."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied unembedding heads are not ported")
-    logits = x.float() @ params["embed"]["tokens"].float().T
+    xf = x.float()
+    head_q8 = params["embed"].get("head_q8")
+    if head_q8 is not None:
+        logits = dense_matmul(xf, head_q8)
+    else:
+        logits = xf @ params["embed"]["tokens"].float().T
     return softcap(logits, cfg.final_softcap)

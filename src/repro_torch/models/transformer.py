@@ -1,7 +1,9 @@
 """Decoder forward for the serving path (the port's counterpart of
-``repro.models.transformer``), for attention + dense-FFN layers.
+``repro.models.transformer``), for attention + dense-FFN layers with
+learned positions or RoPE, optional qk-norm, GELU or SwiGLU FFNs and tied
+embeddings.
 
-Parameters are a dict ``{"embed": {"tokens", "pos"}, "final_norm",
+Parameters are a dict ``{"embed": {"tokens"[, "pos"]}, "final_norm",
 "layers": [per-layer dict]}`` with the layers in execution order
 (:func:`repro_torch.configs.base.layer_specs`); the reference stacks each
 pattern position over its scan repeats instead (``bridge.params_from_jax``
@@ -29,11 +31,17 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"layer family {spec.mixer}/{spec.ffn} is not ported "
                 f"(attention + dense FFN only)")
-    if cfg.pos_emb != "learned" or cfg.qk_norm or cfg.activation != "gelu" \
+        if spec.window is not None and cfg.rope_theta_local is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: windowed layers with their own RoPE theta "
+                f"(rope_theta_local) are not ported")
+    if cfg.pos_emb not in ("rope", "learned") \
+            or cfg.activation not in L.FFN_ACTIVATIONS \
             or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only learned positions, GELU FFNs and tied "
-            f"embeddings are ported")
+            f"{cfg.name}: only RoPE or learned positions, "
+            f"{'/'.join(L.FFN_ACTIVATIONS)} FFNs and tied embeddings are "
+            f"ported")
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +55,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     drawn from ``gen`` on ``gen.device``."""
     check_supported(cfg)
     dev = gen.device
+    embed = {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model)}
+    if cfg.pos_emb == "learned":
+        embed["pos"] = L.embed_init(gen, cfg.max_seq_len, cfg.d_model)
     params = {
-        "embed": {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model),
-                  "pos": L.embed_init(gen, cfg.max_seq_len, cfg.d_model)},
+        "embed": embed,
         "final_norm": L.norm_init(cfg, dev),
         "layers": [{"norm1": L.norm_init(cfg, dev),
                     "attn": L.attn_init(gen, cfg),
@@ -83,7 +93,7 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     {"block_tables", "slot_ids", "packed_meta"} for ``"packed"``."""
     window = KV.effective_window(cfg, spec, max_len)
     h = L.apply_norm(cfg, p["norm1"], x)
-    q, k, v = L.attn_qkv(cfg, p["attn"], h)
+    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
     scale = L.attn_scale(cfg)
     bt = paged["block_tables"]
     ring = KV.paged_ring_len(window, cache["ppos"].shape[1], bt.shape[1])
@@ -119,8 +129,9 @@ def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged):
 
 def _embed(cfg, params, tokens, positions, policy):
     x = L.embed_tokens(cfg, params, tokens)
-    pe = params["embed"]["pos"]
-    x = x + pe[positions.long().clamp(0, pe.shape[0] - 1)].to(x.dtype)
+    if cfg.pos_emb == "learned":
+        pe = params["embed"]["pos"]
+        x = x + pe[positions.long().clamp(0, pe.shape[0] - 1)].to(x.dtype)
     return x.to(policy.compute_dtype)
 
 

@@ -6,7 +6,12 @@ device; run them on the card with
 
 Tolerances: fp32 pools differ from the plain version only in summation
 order (1e-4); bf16/fp16 outputs are rounded to the working type by both,
-so they may differ by an ulp of it (2e-2 on values of order one).
+so they may differ by an ulp of it (2e-2 on values of order one).  Over
+int8 pools the kernel and the plain version dequantize to the same fp32
+values; the plain version then rounds them to q's dtype, which the
+bf16/fp16 tolerance covers.  ``quant_matmul`` sums the same fp32 products
+as the plain version in another order, so it is held to 1e-5 of the
+output's largest magnitude.
 """
 import numpy as np
 import pytest
@@ -14,9 +19,12 @@ import torch
 
 from repro_torch.configs.registry import get_reduced
 from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.kv_cache import quantize_kv
 from repro_torch.core.precision import FP32
 from repro_torch.core.scheduler import Request
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import ops
+from repro_torch.kernels import quant_matmul as QM
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +119,143 @@ def test_packed_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page, window,
     assert not out[0, t:].any()               # padding lanes are zero
 
 
+Q8_CASES = [(torch.float32, 32, 8, 128, 16, None, None),
+            (torch.bfloat16, 32, 8, 128, 16, None, None),
+            (torch.bfloat16, 32, 8, 128, 16, 40, 30.0),
+            (torch.float16, 8, 2, 32, 8, 13, None)]
+
+
+def _q8(k, v):
+    (kq, ks), (vq, vs) = quantize_kv(k.float()), quantize_kv(v.float())
+    return kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv,D,page,window,softcap", Q8_CASES)
+def test_decode_q8_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page,
+                                        window, softcap):
+    rng = np.random.default_rng(3)
+    ctx = [1, 37, 0, 130, 64]
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=Hkv, D=D, page=page,
+                            npages=-(-max(ctx) // page) + 1,
+                            dtype=torch.float32, dev=dev)
+    kq, ks, vq, vs = _q8(k, v)
+    q = torch.from_numpy(rng.normal(size=(len(ctx), 1, Hq, D)).astype(
+        np.float32)).to(dev, dtype)
+    q_pos = torch.tensor([[n - 1] for n in ctx], dtype=torch.int32,
+                         device=dev)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    n0 = DA.paged_decode_attention_q8.launches
+    out = DA.paged_decode_attention_q8(q, kq, ks, vq, vs, ppos, bt, q_pos,
+                                       **kw)
+    ref = DA.paged_decode_attention_ref(q, kq, vq, ppos, bt, q_pos,
+                                        k_scale=ks, v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    assert DA.paged_decode_attention_q8.launches == n0 + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert not out[2].any()
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv,D,page,window,softcap", Q8_CASES)
+def test_packed_q8_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page,
+                                        window, softcap):
+    rng = np.random.default_rng(4)
+    before, seg = [40, 0, 7, 0], [1, 21, 9, 3]
+    k, v, ppos, bt = _pools(rng, [b + s for b, s in zip(before, seg)],
+                            Hkv=Hkv, D=D, page=page, npages=6,
+                            dtype=torch.float32, dev=dev)
+    kq, ks, vq, vs = _q8(k, v)
+    T_ = 40
+    sid = np.full(T_, -1, np.int32)
+    pos = np.full(T_, -1, np.int32)
+    starts, t = [], 0
+    for s, (b0, ln) in enumerate(zip(before, seg)):
+        starts.append(t)
+        sid[t:t + ln], pos[t:t + ln] = s, b0 + np.arange(ln)
+        t += ln
+    meta = DA.packed_meta_table(starts, seg, range(4), T_,
+                                T_ // DA.PACKED_BLOCK_Q + 4)
+    q = torch.from_numpy(rng.normal(size=(1, T_, Hq, D)).astype(
+        np.float32)).to(dev, dtype)
+    q_pos = torch.from_numpy(pos[None]).to(dev)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    out = DA.paged_packed_attention_q8(q, kq, ks, vq, vs, ppos, bt, q_pos,
+                                       torch.from_numpy(meta).to(dev), **kw)
+    ref = DA.paged_packed_attention_ref(q, kq, vq, ppos, bt, q_pos,
+                                        torch.from_numpy(sid).to(dev),
+                                        k_scale=ks, v_scale=vs, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert not out[0, t:].any()
+
+
+QM_SHAPES = [(1, 64, 32), (3, 100, 130), (8, 2560, 1024), (17, 300, 257),
+             (40, 9728, 64), (256, 512, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("M,K,N", QM_SHAPES)
+def test_quant_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M * K + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        dev, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(0, 0.01, size=N).astype(
+        np.float32)).to(dev)
+    n0 = QM.quant_matmul.launches
+    out = QM.quant_matmul(x, q, s)
+    ref = QM.quant_matmul_ref(x, q, s)
+    torch.cuda.synchronize()
+    assert QM.quant_matmul.launches == n0 + 1
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def test_quant_matmul_keeps_lead_dims(dev):
+    x = torch.randn(2, 3, 64, device=dev)
+    q = torch.randint(-127, 128, (64, 48), dtype=torch.int8, device=dev)
+    s = torch.rand(48, device=dev)
+    out = ops.quant_matmul(x, q, s)
+    assert out.shape == (2, 3, 48)
+    torch.testing.assert_close(out, QM.quant_matmul_ref(x, q, s),
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_quant_matmul_wrapper_rejects_bad_inputs(dev):
+    x = torch.randn(4, 64, device=dev)
+    q = torch.randint(-127, 128, (64, 32), dtype=torch.int8, device=dev)
+    s = torch.rand(32, device=dev)
+    with pytest.raises(ValueError, match="q int8"):
+        QM.quant_matmul(x, q.float(), s)
+    with pytest.raises(ValueError, match="q int8"):
+        QM.quant_matmul(x.double(), q, s)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        QM.quant_matmul(x.cpu(), q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        QM.quant_matmul(x.T.contiguous().T, q, s)
+    with pytest.raises(ValueError, match="shapes"):
+        QM.quant_matmul(x, q, s[:16])
+
+
+def test_q8_wrapper_rejects_bad_scales(dev):
+    q = torch.zeros(2, 1, 4, 16, device=dev)
+    pool = torch.zeros(5, 8, 2, 16, dtype=torch.int8, device=dev)
+    sc = torch.zeros(5, 8, 2, device=dev)
+    ppos = torch.full((5, 8), -1, dtype=torch.int32, device=dev)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    qp = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="scale"):
+        DA.paged_decode_attention_q8(q, pool, sc.half(), pool, sc, ppos, bt,
+                                     qp, window=None, scale=1.0)
+    with pytest.raises(ValueError, match="dtypes"):
+        DA.paged_decode_attention_q8(q, pool.float(), sc, pool.float(), sc,
+                                     ppos, bt, qp, window=None, scale=1.0)
+
+
 def test_wrapper_rejects_unsupported_shapes(dev):
     q = torch.zeros(2, 1, 4, 12, device=dev)            # D not a multiple of 8
     pool = torch.zeros(5, 8, 4, 12, device=dev)
@@ -151,3 +296,44 @@ def test_serve_on_card_matches_cpu(dev):
     assert counts["paged_packed_attention"] == 2 * m.mixed_dispatches > 0
     assert counts["paged_decode_attention"] == \
         2 * (m.steps - m.mixed_dispatches) > 0
+
+
+@pytest.mark.parametrize("kv_dtype,weights_dtype",
+                         [("auto", "auto"), ("int8", "int8")])
+def test_qwen3_serve_on_card(dev, kv_dtype, weights_dtype):
+    """Reduced qwen3-4b, fp32, greedy: at (auto, auto) the card's streams
+    equal the CPU's; at (int8, int8) every attention call went to the
+    _q8 kernels and every dense matmul to quant_matmul (the streams may
+    part where a K/V code rounds the other way on the card)."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("qwen3-4b")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    policy = dataclasses.replace(FP32, kv_dtype=kv_dtype,
+                                 weights_dtype=weights_dtype)
+    rng = np.random.default_rng(6)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 500, size=n)]
+               for n in (19, 30, 11, 23)]
+    prompts += [prompts[0][:12] + [5, 6, 7]]
+    out = {}
+    for d in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, params, policy=policy, max_len=64,
+                              max_batch=3, device=d)
+        ops.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=8)
+             for i, p in enumerate(prompts)],
+            page_size=8, max_batched_tokens=24)
+        out[d] = [r.result for r in done]
+    counts = ops.launch_counts()
+    decode_steps = m.steps - m.mixed_dispatches
+    q8 = "_q8" if kv_dtype == "int8" else ""
+    assert counts["paged_packed_attention" + q8] == 2 * m.mixed_dispatches
+    assert counts["paged_decode_attention" + q8] == 2 * decode_steps
+    n_mm = 7 * 2 + 1 if weights_dtype == "int8" else 0
+    assert counts["quant_matmul"] == n_mm * (m.mixed_dispatches
+                                             + decode_steps)
+    assert all(r and all(0 <= t < cfg.vocab_size for t in r)
+               for r in out["cuda"])
+    if kv_dtype == "auto":
+        assert out["cuda"] == out["cpu"]

@@ -16,6 +16,8 @@ from repro_torch.configs.registry import get_reduced
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant_matmul as QM
+from repro_torch.kernels import ref
 from repro_torch.models import transformer as T
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,6 +41,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
     assert len(files) > 20
+    names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    assert {"kernels/quant_matmul.py", "configs/qwen3_4b.py",
+            "kernels/decode_attention.py", "core/precision.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert bad == []
@@ -106,10 +111,70 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(device):
     assert DA.launch_counts() == before
 
 
+def _no_launches():
+    return all(n == 0 for n in ops.launch_counts().values())
+
+
 def test_cpu_dispatch_uses_the_plain_version():
     args = _decode_inputs("cpu")
     out = ops.paged_decode_attention(*args, window=None, scale=0.25)
-    ref = DA.paged_decode_attention_ref(*args, window=None, scale=0.25)
-    np.testing.assert_array_equal(out.numpy(), ref.numpy())
-    assert DA.launch_counts() == {"paged_decode_attention": 0,
-                                  "paged_packed_attention": 0}
+    ref_out = DA.paged_decode_attention_ref(*args, window=None, scale=0.25)
+    np.testing.assert_array_equal(out.numpy(), ref_out.numpy())
+    assert _no_launches()
+
+
+def test_cpu_dispatch_of_int8_paths_uses_the_plain_versions():
+    """Int8 pools and int8 weight records on the CPU go to the plain
+    versions (no launch is counted) and give their exact results."""
+    rng = np.random.default_rng(0)
+    q, kp, vp, ppos, bt, qp = _decode_inputs("cpu")
+    q = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(-127, 128, size=kp.shape).astype(
+        np.int8))
+    sc = torch.rand(kp.shape[:3])
+    ppos[0, :3] = torch.arange(3)
+    qp[:] = 2
+    kw = dict(window=None, scale=0.25, k_scale=sc, v_scale=sc)
+    out = ops.paged_decode_attention(q, codes, codes, ppos, bt, qp, **kw)
+    np.testing.assert_array_equal(
+        out.numpy(), ref.paged_decode_attention_ref(
+            q, codes, codes, ppos, bt, qp, **kw).numpy())
+    sid = torch.zeros(2, dtype=torch.int32)
+    meta = torch.zeros((3, 4), dtype=torch.int32)
+    out = ops.paged_packed_attention(q.reshape(1, 2, *q.shape[2:]), codes,
+                                     codes, ppos, bt, qp.reshape(1, 2), sid,
+                                     meta, **kw)
+    assert out.shape == (1, 2) + q.shape[2:] and out.abs().sum() > 0
+    x = torch.randn(3, 16)
+    w = torch.randint(-127, 128, (16, 8), dtype=torch.int8)
+    s = torch.rand(8)
+    np.testing.assert_array_equal(ops.quant_matmul(x, w, s).numpy(),
+                                  ((x @ w.float()) * s).numpy())
+    assert _no_launches()
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_int8_kernel_wrappers_refuse_non_cuda_tensors(device):
+    """The q8 attention wrappers and quant_matmul raise for a non-CUDA
+    tensor, through ``ops`` (meta) or called directly (CPU), and count
+    no launch."""
+    q, kp, vp, ppos, bt, qp = _decode_inputs(device)
+    codes = kp.to(torch.int8)
+    sc = torch.zeros(kp.shape[:3], device=device)
+    kw = dict(window=None, scale=0.25)
+    x = torch.zeros(3, 16, device=device)
+    w = torch.zeros(16, 8, dtype=torch.int8, device=device)
+    s = torch.zeros(8, device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if device == "meta":
+            ops.paged_decode_attention(q, codes, codes, ppos, bt, qp,
+                                       k_scale=sc, v_scale=sc, **kw)
+        else:
+            DA.paged_decode_attention_q8(q, codes, sc, codes, sc, ppos, bt,
+                                         qp, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if device == "meta":
+            ops.quant_matmul(x, w, s)
+        else:
+            QM.quant_matmul(x, w, s)
+    assert _no_launches()
