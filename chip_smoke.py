@@ -7,9 +7,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
-              nvcc per source, in parallel, sm_90a: ``paged_attention.cu``
-              and ``quant_matmul.cu``) and report the build seconds and
-              ptxas resource use
+              nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
+              ``flash_attention.cu`` and ``quant_matmul.cu``) and report the
+              build seconds and ptxas resource use
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
@@ -17,22 +17,38 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               packed stream, over bf16 / fp32 pools and, for the ``_q8``
               kernels, over int8 pools with q at bf16 and fp32, each with a
               window + softcap case; ``quant_matmul`` at every qwen3-4b
-              decode shape (M = 8), at M = 256 and on a ragged shape.  Times
-              the kernel, the plain version and a PyTorch yardstick the
-              port never calls (``library_ms``) with CUDA events
+              decode shape (M = 8), at M = 256 and on a ragged shape; the
+              mixed kernels (and ``_q8``, q at bf16 and fp32) at qwen3-4b's
+              verify shape (8 slots, k + 1 = 5 lanes) and at a (1, 256)
+              prefill-chunk row; flash attention at unimo-text's draft
+              shape (8 x 260, 16 heads x 64), at qwen3-4b's GQA heads and
+              on a small case with -1 positions, a window and a softcap.
+              Times the kernel, the plain version and a PyTorch yardstick
+              the port never calls (``library_ms``) with CUDA events
   4. parity   reduced unimo-text and reduced qwen3-4b in fp32 (TF32 off):
-              packed and decode forwards on the card against the same
-              forwards through the plain versions on the CPU, and a short
-              greedy serve on both; qwen3-4b also at int8 KV + int8 weights
+              packed, decode, verify, mixed and train forwards on the card
+              against the same forwards through the plain versions on the
+              CPU, and short greedy serves on both (packed; speculative with
+              the n-gram drafter and self-drafting; ``packed=False``), whose
+              streams must all be equal; qwen3-4b also at int8 KV + int8
+              weights (packed forwards and serve)
   5. serve    full-width unimo-text (24 layers, bf16) and full-width
               qwen3-4b (36 layers, bf16, then int8 KV + int8 weights), random
               weights from a seeded torch.Generator, through
               ``serve_continuous``; the launch counts of each run must equal
               layers x the packed iterations and layers x the decode steps
               for the attention kernels of its pool, and 253 x the forwards
-              for ``quant_matmul`` under int8 weights.  Each serve then
-              runs once more under ``torch.profiler`` (``profile`` lines):
-              device time by kernel and the device's idle share
+              for ``quant_matmul`` under int8 weights.  Then four serves
+              off the packed decode path, k = 4: qwen3-4b with the n-gram
+              drafter at bf16 and at int8 KV + int8 weights (the mixed
+              kernel of the pool's type once per layer and verify step, no
+              decode kernel), qwen3-4b bf16 with ``packed=False`` (the mixed
+              kernel once per layer and chunk, the decode kernel once per
+              layer and decode step, no packed kernel) and unimo-text bf16
+              self-drafting (flash once per layer and draft forward).  Each
+              serve then runs once more under ``torch.profiler``
+              (``profile`` lines): device time by kernel and the device's
+              idle share
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -40,6 +56,7 @@ CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -59,17 +76,27 @@ REPLACES = {
     "paged_decode_attention_q8": "src/repro/kernels/decode_attention.py:256",
     "paged_packed_attention_q8": "src/repro/kernels/decode_attention.py:756",
     "quant_matmul": "src/repro/kernels/quant_matmul.py:89",
+    "paged_mixed_attention": "src/repro/kernels/decode_attention.py:380",
+    "paged_mixed_attention_q8": "src/repro/kernels/decode_attention.py:484",
+    "flash_attention": "src/repro/kernels/flash_attention.py:96",
 }
 SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
           for name in REPLACES}
 SOURCE["quant_matmul"] = "src/repro_torch/csrc/quant_matmul.cu"
+SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
 # its error is held to this fraction of the output's largest magnitude
 QM_REL_TOL = 1e-5
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``elapsed_s`` counts from the script's start."""
+    print(json.dumps({"phase": phase, **kw, "elapsed_s":
+                      time.perf_counter() - T_START}), flush=True)
 
 
 def nvidia_smi():
@@ -162,12 +189,13 @@ def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, entry_bytes,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _attention_fns(quant, packed):
-    """The wrapper and plain version of one of the four attention kernels
-    as (name, kernel(q, k, v, scales, ppos, bt, q_pos, meta, **kw),
+def _attention_fns(quant, packed, mixed=False):
+    """The wrapper and plain version of one of the six paged attention
+    kernels as (name, kernel(q, k, v, scales, ppos, bt, q_pos, meta, **kw),
     plain(q, k, v, scales, ppos, bt, q_pos, slot_ids, **kw))."""
     from repro_torch.kernels import decode_attention as DA
     name = ("paged_packed_attention" if packed
+            else "paged_mixed_attention" if mixed
             else "paged_decode_attention") + ("_q8" if quant else "")
 
     def kernel(q, k, v, sc, ppos, bt, q_pos, meta, **kw):
@@ -181,8 +209,9 @@ def _attention_fns(quant, packed):
         if packed:
             return DA.paged_packed_attention_ref(q, k, v, ppos, bt, q_pos,
                                                  sid, **sc, **kw)
-        return DA.paged_decode_attention_ref(q, k, v, ppos, bt, q_pos, **sc,
-                                             **kw)
+        ref = (DA.paged_mixed_attention_ref if mixed
+               else DA.paged_decode_attention_ref)
+        return ref(q, k, v, ppos, bt, q_pos, **sc, **kw)
     return name, kernel, plain
 
 
@@ -317,6 +346,116 @@ def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
     return res
 
 
+def run_mixed_case(rng, name, *, Hq, Hkv, D, dtype, W, n_q, before,
+                   window=None, softcap=None, timed=False, quant=False):
+    """Row b of (len(n_q), W) lanes holds ``n_q[b]`` real queries at
+    positions before[b] .. (the window's own K/V already in the pool, as
+    the verify and chunk forwards write them); the rest are padding lanes,
+    which must come back as zeros."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    page = 16
+    npages = -(-(max(before) + W) // page)
+    B = len(n_q)
+    k, v, sc, ppos, bt, ppos_np, bt_np = paged_case(
+        rng, slots=B, ctx_lens=[b + n for b, n in zip(before, n_q)], Hq=Hq,
+        Hkv=Hkv, D=D, page=page, npages=npages, dtype=dtype, device=dev,
+        quant=quant)
+    pos = np.full((B, W), -1, np.int32)
+    for r, (b0, n) in enumerate(zip(before, n_q)):
+        pos[r, :n] = b0 + np.arange(n)
+    q = torch.randn(B, W, Hq, D, generator=rng, device=dev).to(dtype)
+    q_pos = torch.from_numpy(pos).to(dev)
+    kname, kernel, plain = _attention_fns(quant, packed=False, mixed=True)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    out = kernel(q, k, v, sc, ppos, bt, q_pos, None, **kw)
+    ref = plain(q, k, v, sc, ppos, bt, q_pos, None, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
+        and not any(out[r, n:].any().item() for r, n in enumerate(n_q))
+    res = {"case": name, "kernel": kname, "max_abs_err": err, "tol": tol,
+           "ok": bool(ok), "B": B, "W": W}
+    if timed:
+        kk, vv, kp = _gathered(k, v, sc, ppos, bt, dtype, Hq // Hkv)
+        mask = visible(kp[:, None, None, :], q_pos[:, None, :, None],
+                       window)
+        qs, ks, vs = (q.transpose(1, 2), kk.transpose(1, 2),
+                      vv.transpose(1, 2))
+        res.update(
+            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
+                                             None, **kw)),
+            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
+                                           None, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        res["bound_ms"], res["bound_by"] = bound(
+            ppos=ppos_np, bt=bt_np, lane_slots=np.repeat(np.arange(B), W),
+            lane_pos=pos.reshape(-1), Hq=Hq, Hkv=Hkv, D=D,
+            entry_bytes=_entry_bytes(k, D, quant), window=window,
+            dtype=str(dtype).removeprefix("torch."),
+            extra_bytes=2 * q.numel() * q.element_size() + bt_np.nbytes
+            + pos.nbytes)
+    return res
+
+
+def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
+                   window=None, softcap=None, timed=False):
+    """Flash attention over (B, S) tokens at positions 0 .. S-1, as the
+    draft model's forwards run it; ``ragged`` right-pads the rows with -1
+    positions and leaves the last row wholly invalid."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    dev = torch.device("cuda")
+    q = torch.randn(B, S, Hq, D, generator=rng, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=rng, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=rng, device=dev).to(dtype)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    if ragged:
+        for b in range(B):
+            pos[b, S - 3 * b - 1 if b < B - 1 else 0:] = -1
+    p = torch.from_numpy(pos).to(dev)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    out = FA.flash_attention(q, k, v, p, p, **kw)
+    ref = FA.flash_attention_ref(q, k, v, p, p, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
+        and not out[p < 0].any().item()
+    res = {"case": name, "kernel": "flash_attention", "max_abs_err": err,
+           "tol": tol, "ok": bool(ok), "B": B, "S": S}
+    if timed:
+        g = Hq // Hkv
+        mask = visible(p[:, None, None, :], p[:, None, :, None], window)
+        qs = q.transpose(1, 2)
+        ks = k.repeat_interleave(g, 2).transpose(1, 2)
+        vs = v.repeat_interleave(g, 2).transpose(1, 2)
+        res.update(
+            kernel_ms=time_ms(lambda: FA.flash_attention(q, k, v, p, p,
+                                                         **kw)),
+            plain_ms=time_ms(lambda: FA.flash_attention_ref(q, k, v, p, p,
+                                                            **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        # the visible (query, key) pairs of this run's positions, 4 D
+        # flops each per query head (QK^T and PV); bytes: q, k, v, out
+        # and positions once
+        pairs = int(visible(pos[:, None, :], pos[:, :, None], window).sum())
+        t_ops = 4 * D * Hq * pairs / PEAK_FLOPS[
+            str(dtype).removeprefix("torch.")] * 1e3
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + 2 * pos.nbytes
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res["bound_ms"], res["bound_by"] = ((t_bytes, "bytes")
+                                            if t_bytes >= t_ops
+                                            else (t_ops, "operations"))
+    return res
+
+
 def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
     """``quant_matmul`` on random int8 codes and scales against its plain
     version; timed cases add ``torch.matmul`` against a bf16 weight that
@@ -409,13 +548,60 @@ def phase_kernels():
         cases.append(run_quant_matmul_case(
             rng, f"qwen3-4b 2560->4096 M=8 {name}", M=8, K=2560, N=4096,
             dtype=dtype))
+    # the mixed kernels: qwen3-4b's verify windows (8 slots, k + 1 lanes,
+    # contexts up to 256) and a prefill chunk in a (1, 256) row
+    ctx = [int(x) for x in torch.randint(0, 256 - SPEC_K, (8,),
+                                         generator=rng, device="cuda")]
+    verify = dict(W=SPEC_K + 1, n_q=[SPEC_K + 1] * 8, before=ctx)
+    chunk = dict(W=256, n_q=[230], before=[20])
+    for quant in (False, True):
+        q8 = " int8 pool," if quant else ""
+        cases.append(run_mixed_case(
+            rng, f"qwen3-4b verify{q8} bf16 q", dtype=bf16, quant=quant,
+            timed=True, **verify, **qwen3))
+        cases.append(run_mixed_case(
+            rng, f"qwen3-4b chunk (1, 256){q8} bf16 q", dtype=bf16,
+            quant=quant, timed=True, **chunk, **qwen3))
+        cases.append(run_mixed_case(
+            rng, f"qwen3-4b verify{q8} fp32 q", dtype=fp32, quant=quant,
+            **verify, **qwen3))
+        cases.append(run_mixed_case(
+            rng, f"unimo-text verify{q8} window 64 + softcap 30 bf16 q",
+            dtype=bf16, quant=quant, **wsc, **verify, **unimo))
+        cases.append(run_mixed_case(
+            rng, f"qwen3-4b ragged rows{q8} fp32 q", dtype=fp32,
+            quant=quant, W=24, n_q=[24, 0, 17, 1], before=[3, 0, 100, 40],
+            **qwen3))
+    # flash: unimo-text's draft forwards (8 rows of 256 + k tokens), GQA
+    # at qwen3-4b's heads, and -1 positions + window + softcap
+    cases.append(run_flash_case(rng, "unimo-text draft 8 x 260 bf16", B=8,
+                                S=256 + SPEC_K, dtype=bf16, timed=True,
+                                **unimo))
+    cases.append(run_flash_case(rng, "qwen3-4b GQA 8 x 256 bf16", B=8,
+                                S=256, dtype=bf16, timed=True, **qwen3))
+    cases.append(run_flash_case(rng, "unimo-text draft 8 x 68 fp32", B=8,
+                                S=64 + SPEC_K, dtype=fp32, **unimo))
+    cases.append(run_flash_case(rng, "ragged -1 + window 16 + softcap 30 "
+                                "fp32", B=3, S=45, Hq=8, Hkv=2, D=32,
+                                dtype=fp32, ragged=True, window=16,
+                                softcap=30.0))
+    cases.append(run_flash_case(rng, "ragged -1 + window 16 + softcap 30 "
+                                "bf16", B=3, S=45, Hq=8, Hkv=2, D=32,
+                                dtype=bf16, ragged=True, window=16,
+                                softcap=30.0))
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    # each kernel's timed case at its main path's shape: qwen3-4b for the
+    # paged kernels (its verify window for the mixed pair), the tied head
+    # for quant_matmul, the draft shape for flash
+    main = {"qwen3-4b bf16", "qwen3-4b int8 pool, bf16 q",
+            "qwen3-4b verify bf16 q", "qwen3-4b verify int8 pool, bf16 q",
+            "unimo-text draft 8 x 260 bf16"}
     summary = {c["kernel"]: c for c in cases
-               if "kernel_ms" in c and "unimo" not in c["case"]}
+               if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"] = next(
         c for c in cases if c["kernel"] == "quant_matmul"
         and (c["M"], c["N"]) == (8, 151936))
@@ -430,10 +616,11 @@ PARITY_TOL = {"auto": 1e-3, "int8": 2e-2}
 
 
 def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
-    """Reduced ``arch``, fp32 (TF32 off): a packed and a decode forward
-    on the card against the same forwards through the plain versions on
-    the CPU, from the same pools and weights; then a short greedy serve on
-    both devices.  At (auto, auto) the streams must be identical."""
+    """Reduced ``arch``, fp32 (TF32 off): packed, decode, verify, mixed and
+    train forwards on the card against the same forwards through the
+    plain versions on the CPU, from the same pools and weights; then short
+    greedy serves on both devices.  At (auto, auto) the streams of every
+    serving mode on both devices must be identical."""
     import dataclasses
 
     import torch
@@ -442,6 +629,7 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
     from repro_torch.core.kv_cache import quantize_kv
     from repro_torch.core.precision import FP32, compress_weights, map_params
     from repro_torch.core.scheduler import Request
+    from repro_torch.core.speculative import SpecConfig
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -491,6 +679,11 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
                                 W // DA.PACKED_BLOCK_Q + slots)
     dec_tok = rng.integers(4, vocab, size=(slots, 1)).astype(np.int32)
     dec_len = np.asarray([21, 15, 5, 34], np.int32)
+    ver_tok = rng.integers(4, vocab, size=(slots, SPEC_K + 1)).astype(
+        np.int32)
+    ver_act = np.asarray([True, True, False, True])
+    mix_tok = rng.integers(4, vocab, size=(1, 16)).astype(np.int32)
+    train_tok = rng.integers(4, vocab, size=(2, 13)).astype(np.int32)
     out = {}
     for dev in ("cuda", "cpu"):
         def put(a):                    # a copy: every layer owns its pool
@@ -507,49 +700,165 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
                 prm, cfg, put(dec_tok), p, put(dec_len), policy=policy,
                 max_len=64, paged={"block_tables": put(bt),
                                    "active": put(np.ones(slots, bool))})
-        out[dev] = (lp.cpu(), ld.cpu())
+            # a verify window of k + 1 tokens per slot (slot 2 inactive),
+            # then a 6-token chunk continuing slot 1 in a (1, 16) row
+            lv, _ = T.forward_verify(
+                prm, cfg, put(ver_tok), p, put(dec_len), policy=policy,
+                max_len=64, paged={"block_tables": put(bt),
+                                   "active": put(ver_act)})
+            lm, _ = T.forward_mixed(
+                prm, cfg, put(mix_tok), p, put(np.asarray([9], np.int32)),
+                put(np.asarray([6], np.int32)), policy=policy, max_len=64,
+                paged={"block_tables": put(bt[1:2])})
+            lt = T.forward_train(prm, cfg, put(train_tok), policy=policy)
+        out[dev] = (lp.cpu(), ld.cpu(), lv.cpu(), lm.cpu(), lt.cpu())
     errs = [(a - b).abs().max().item() for a, b in zip(out["cuda"],
                                                        out["cpu"])]
     prompts = [[2] + [int(t) for t in rng.integers(4, vocab, size=n)]
                for n in (19, 30, 11, 23, 7, 15)]
     prompts += [prompts[0][:12] + [5, 6, 7, 8], prompts[1][:17] + [9, 10]]
+    # the packed serve; at (auto, auto) also speculative serves (n-gram,
+    # self-drafting) and the packed=False serve, whose greedy streams must
+    # all equal the packed serve's
+    modes = {"packed": {}}
+    if (kv_dtype, weights_dtype) == ("auto", "auto"):
+        modes.update({
+            "spec_ngram": {"spec": SpecConfig(k=SPEC_K)},
+            "spec_draft": {"spec": SpecConfig(k=SPEC_K,
+                                              drafter="draft_model")},
+            "packed_off": {"packed": False}})
     streams = {}
     for dev in ("cuda", "cpu"):
-        eng = InferenceEngine(cfg, params, policy=policy, max_len=64,
-                              max_batch=4, device=dev)
-        reqs = [Request(uid=i, tokens=p, max_new_tokens=12)
-                for i, p in enumerate(prompts)]
-        done, m = eng.serve_continuous(reqs, page_size=8,
-                                       max_batched_tokens=32)
-        streams[dev] = [r.result for r in done]
-    toks_all = sum(len(s) for s in streams["cpu"])
-    same = sum(a == b for x, y in zip(streams["cuda"], streams["cpu"])
+        for mode, kw in modes.items():
+            eng = InferenceEngine(cfg, params, policy=policy, max_len=64,
+                                  max_batch=4, device=dev)
+            reqs = [Request(uid=i, tokens=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+            done, m = eng.serve_continuous(reqs, page_size=8,
+                                           max_batched_tokens=32, **kw)
+            streams[dev, mode] = [r.result for r in done]
+    toks_all = sum(len(s) for s in streams["cpu", "packed"])
+    same = sum(a == b for x, y in zip(streams["cuda", "packed"],
+                                      streams["cpu", "packed"])
                for a, b in zip(x, y))
     tol = PARITY_TOL[kv_dtype if quant else weights_dtype]
+    identical = {f"{dev}/{mode}": st == streams["cpu", "packed"]
+                 for (dev, mode), st in streams.items()}
     emit("parity", arch=arch, kv_dtype=kv_dtype,
-         weights_dtype=weights_dtype, packed_logits_max_abs_err=errs[0],
-         decode_logits_max_abs_err=errs[1], logits_tol=tol,
+         weights_dtype=weights_dtype, logits_tol=tol,
+         logits_max_abs_err=dict(zip(
+             ("packed", "decode", "verify", "mixed", "train"), errs)),
          greedy_token_match=same / max(toks_all, 1), tokens=toks_all,
-         streams_identical=streams["cuda"] == streams["cpu"])
+         streams_equal_cpu_packed=identical)
     if not all(np.isfinite(e) and e <= tol for e in errs):
         raise SystemExit(f"{arch} ({kv_dtype}, {weights_dtype}): card "
                          f"forwards differ from the plain path: {errs}")
     if (kv_dtype, weights_dtype) == ("auto", "auto") \
-            and streams["cuda"] != streams["cpu"]:
-        raise SystemExit(f"{arch}: greedy streams on the card differ from "
-                         f"the CPU's")
+            and not all(identical.values()):
+        raise SystemExit(f"{arch}: greedy streams differ across devices or "
+                         f"serving modes: {identical}")
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke_prompts():
+    """The serves' 16 prompts: synthetic-corpus texts of 4-40 words,
+    tokenized by a tokenizer trained once on the corpus."""
+    from repro_torch.core.tokenizer import FastTokenizer
+    from repro_torch.data.pipeline import synthetic_corpus
+    tok = FastTokenizer.train(synthetic_corpus(600), 4000)
+    return tuple(tuple(tok.encode(t)) for t in synthetic_corpus(
+        16, seed=7, min_len=4, max_len=40))
+
+
+def _serve_kw(mode):
+    """serve_continuous options of a serving mode."""
+    from repro_torch.core.speculative import SpecConfig
+    return {"packed": {},
+            "spec_ngram": {"spec": SpecConfig(k=SPEC_K)},
+            "spec_draft": {"spec": SpecConfig(k=SPEC_K,
+                                              drafter="draft_model")},
+            "packed_off": {"packed": False}}[mode]
+
+
+def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts):
+    """The exact launch counts a serve of ``mode`` must show."""
+    other = "" if q8 else "_q8"
+    mm_per_forward = 7 * n_layers + 1 if weights_dtype == "int8" else 0
+    if mode == "packed":
+        decode_steps = m.steps - m.mixed_dispatches
+        forwards = m.mixed_dispatches + decode_steps
+        return {
+            "one dispatch per mixed iteration": m.dispatches_per_iter == 1.0,
+            f"packed{q8} kernel ran {n_layers} x mixed dispatches": (
+                launches["paged_packed_attention" + q8]
+                == n_layers * m.mixed_dispatches > 0),
+            f"decode{q8} kernel ran {n_layers} x decode steps": (
+                launches["paged_decode_attention" + q8]
+                == n_layers * decode_steps > 0),
+            f"the{other} attention kernels did not run": (
+                launches["paged_packed_attention" + other]
+                == launches["paged_decode_attention" + other] == 0),
+            "the mixed kernels and flash did not run": (
+                launches["paged_mixed_attention"]
+                == launches["paged_mixed_attention_q8"]
+                == launches["flash_attention"] == 0),
+            f"quant_matmul ran {mm_per_forward} x forwards": (
+                launches["quant_matmul"] == mm_per_forward * forwards),
+        }
+    if mode == "packed_off":
+        return {
+            f"mixed{q8} kernel ran {n_layers} x prefill chunks": (
+                launches["paged_mixed_attention" + q8]
+                == n_layers * m.prefill_chunks > 0),
+            f"decode{q8} kernel ran {n_layers} x decode steps (one-step "
+            f"and fused)": (launches["paged_decode_attention" + q8]
+                            == n_layers * m.steps > 0),
+            "the packed kernels, flash and the other pool's kernels did "
+            "not run": (launches["paged_packed_attention"]
+                        == launches["paged_packed_attention_q8"]
+                        == launches["paged_mixed_attention" + other]
+                        == launches["paged_decode_attention" + other]
+                        == launches["flash_attention"] == 0),
+            "several dispatches per mixed iteration": (
+                m.mixed_dispatches > m.mixed_iters > 0),
+        }
+    verify_steps = m.steps - m.mixed_iters
+    forwards = m.mixed_iters + verify_steps + SPEC_K * drafts
+    return {
+        "one dispatch per mixed iteration": m.dispatches_per_iter == 1.0,
+        f"mixed{q8} kernel ran {n_layers} x verify steps": (
+            launches["paged_mixed_attention" + q8]
+            == n_layers * verify_steps > 0),
+        f"packed{q8} kernel ran {n_layers} x packed iterations": (
+            launches["paged_packed_attention" + q8]
+            == n_layers * m.mixed_iters > 0),
+        "the decode kernels and the other pool's kernels did not run": (
+            launches["paged_decode_attention"]
+            == launches["paged_decode_attention_q8"]
+            == launches["paged_mixed_attention" + other]
+            == launches["paged_packed_attention" + other] == 0),
+        f"flash ran {n_layers} x {SPEC_K} x draft calls ({drafts})": (
+            launches["flash_attention"] == n_layers * SPEC_K * drafts
+            and (drafts > 0) == (mode == "spec_draft")),
+        f"quant_matmul ran {mm_per_forward} x forwards": (
+            launches["quant_matmul"] == mm_per_forward * forwards),
+        "drafts were verified": m.drafted_tokens > 0,
+    }
 
 
 def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
-                profile=False):
+                mode="packed", profile=False):
     """Full-width ``arch`` (bf16 weights ``params``) through
     ``serve_continuous``: 16 synthetic requests x 32 new tokens, 8 slots,
-    max_len 256, 16-token pages, a 256-token budget.  The launch counts of
-    this run (set to 0 just before it, read just after) must show every
-    attention call in the kernels of its pool and, under int8 weights,
-    every dense matmul in ``quant_matmul``.  With ``profile`` the same
-    serve runs once more under ``torch.profiler``.  Returns the run's
-    metrics, launch counts and greedy streams."""
+    max_len 256, 16-token pages, a 256-token budget, in serving ``mode``
+    (packed; speculative with the n-gram drafter or self-drafting, k = 4;
+    ``packed=False``).  The launch counts of this run (set to 0 just
+    before it, read just after) must show every attention call in the
+    kernels of its mode and pool, every draft forward's attention in
+    flash and, under int8 weights, every dense matmul in ``quant_matmul``.
+    With ``profile`` the same serve runs once more under
+    ``torch.profiler``.  Returns the run's metrics, launch counts and
+    greedy streams."""
     import dataclasses
 
     import torch
@@ -557,51 +866,52 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.precision import BF16
     from repro_torch.core.scheduler import Request
-    from repro_torch.core.tokenizer import FastTokenizer
-    from repro_torch.data.pipeline import synthetic_corpus
     from repro_torch.kernels import ops
     cfg = get_config(arch)
     policy = dataclasses.replace(BF16, kv_dtype=kv_dtype,
                                  weights_dtype=weights_dtype)
-    tok = FastTokenizer.train(synthetic_corpus(600), 4000)
-    texts = synthetic_corpus(16, seed=7, min_len=4, max_len=40)
+    serve_kw = _serve_kw(mode)
 
     def requests(n, max_new):
-        return [Request(uid=i, tokens=tok.encode(t), max_new_tokens=max_new)
-                for i, t in enumerate(texts[:n])]
+        return [Request(uid=i, tokens=list(t), max_new_tokens=max_new)
+                for i, t in enumerate(_smoke_prompts()[:n])]
 
     def engine():
         return InferenceEngine(cfg, params, policy=policy, max_batch=8,
                                max_len=256, device="cuda")
 
     # warm-up on its own engine (cuBLAS handles, allocator pools)
-    engine().serve_continuous(requests(4, 4))
+    engine().serve_continuous(requests(4, 4), **serve_kw)
     eng = engine()
     reqs = requests(16, 32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done, m = eng.serve_continuous(reqs)
+    done, m = eng.serve_continuous(reqs, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    drafts = eng.drafter.calls if mode == "spec_draft" else 0
     n_layers = cfg.num_layers
-    decode_steps = m.steps - m.mixed_dispatches
-    forwards = m.mixed_dispatches + decode_steps
     out_ok = all(r.outcome is not None and r.outcome.status == "completed"
                  and all(0 <= t < cfg.vocab_size for t in r.result)
                  for r in done)
-    emit("serve", arch=cfg.name, layers=n_layers, policy="bf16",
+    emit("serve", arch=cfg.name, layers=n_layers, policy="bf16", mode=mode,
          kv_dtype=m.kv_dtype, weights_dtype=m.weight_dtype,
          requests=len(done), generated_tokens=m.generated_tokens,
          wall_s=wall, tokens_per_s=m.generated_tokens / wall,
          ttft_p50_s=m.ttft_p50, ttft_p99_s=m.ttft_p99, itl_p50_s=m.itl_p50,
          itl_p99_s=m.itl_p99, host_frac=m.host_frac, host_s=m.host_s,
-         device_s=m.device_s, mixed_iters=m.mixed_iters,
-         mixed_dispatches=m.mixed_dispatches, decode_steps=decode_steps,
+         device_s=m.device_s, steps=m.steps, mixed_iters=m.mixed_iters,
+         mixed_dispatches=m.mixed_dispatches,
          dispatches_per_iter=m.dispatches_per_iter,
-         padded_token_frac=m.padded_token_frac,
+         prefill_chunks=m.prefill_chunks,
+         padded_token_frac=m.padded_token_frac, spec_mode=m.spec_mode,
+         spec_k=m.spec_k, drafted_tokens=m.drafted_tokens,
+         accepted_tokens=m.accepted_tokens,
+         acceptance_rate=m.acceptance_rate,
+         tokens_per_forward=m.tokens_per_forward, draft_calls=drafts,
          prefix_hits=m.prefix_hits, cow_copies=m.cow_copies,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          kv_pool_bytes=m.kv_pool_bytes,
@@ -609,44 +919,32 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
          weight_bytes=m.weight_bytes,
          weight_bytes_saved=m.weight_bytes_saved, launches=launches,
          outcomes=m.outcome_counts)
-    q8 = "_q8" if kv_dtype == "int8" else ""
-    other = "" if q8 else "_q8"
-    mm = (7 * n_layers + 1) * forwards if weights_dtype == "int8" else 0
-    checks = {
-        "all requests completed with in-vocab tokens": out_ok,
-        "one dispatch per mixed iteration": m.dispatches_per_iter == 1.0,
-        f"packed{q8} kernel ran {n_layers} x mixed dispatches": (
-            launches["paged_packed_attention" + q8]
-            == n_layers * m.mixed_dispatches > 0),
-        f"decode{q8} kernel ran {n_layers} x decode steps": (
-            launches["paged_decode_attention" + q8]
-            == n_layers * decode_steps > 0),
-        f"the{other} attention kernels did not run": (
-            launches["paged_packed_attention" + other]
-            == launches["paged_decode_attention" + other] == 0),
-        f"quant_matmul ran {mm} times": launches["quant_matmul"] == mm,
-    }
+    checks = {"all requests completed with in-vocab tokens": out_ok}
+    checks.update(_launch_checks(mode, m, launches, n_layers,
+                                 "_q8" if kv_dtype == "int8" else "",
+                                 weights_dtype, drafts))
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise SystemExit(f"{arch} serve ({kv_dtype}, {weights_dtype}) "
-                         f"failed: {failed}")
+        raise SystemExit(f"{arch} {mode} serve ({kv_dtype}, "
+                         f"{weights_dtype}) failed: {failed}")
     if profile:
         del eng
         phase_profile(engine(), requests(16, 32), wall, arch, kv_dtype,
-                      weights_dtype)
+                      weights_dtype, mode)
     return m, launches, [r.result for r in done]
 
 
-def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype):
+def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
     """The same serve once more, on a fresh engine, under torch.profiler:
     device time by kernel, and the device's busy share of the measured
     (unprofiled) wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.serve_continuous(reqs)
+    # device activity only: the host-side events of ~10^5 launches would
+    # cost minutes to collect and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.serve_continuous(reqs, **_serve_kw(mode))
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -657,11 +955,12 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {}
     for name in ("paged_decode_kernel", "paged_packed_kernel",
+                 "paged_mixed_kernel", "flash_kernel",
                  "quant_matmul_kernel", "quant_matmul_reduce_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
                 ours[k[:90]] = {"ms": us / 1e3, "count": n}
-    emit("profile", arch=arch, kv_dtype=kv_dtype,
+    emit("profile", arch=arch, mode=mode, kv_dtype=kv_dtype,
          weights_dtype=weights_dtype, device_busy_s=busy_s,
          measured_wall_s=wall, device_idle_frac=max(0.0, 1.0 - busy_s / wall),
          kernels_launched=sum(n for _, n in by_name.values()),
@@ -673,23 +972,26 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype):
 def phase_serves():
     """The unimo-text serve, then qwen3-4b at bf16 and at int8 KV + int8
     weights, each with its profile, and the exact byte checks of the two
-    qwen3-4b runs.  Returns the launch counts of the qwen3-4b
-    runs, by kernel: the bf16 run's for kernels 1-2, the int8 run's for
-    the ``_q8`` kernels and ``quant_matmul``."""
+    qwen3-4b runs; then the serves off the packed decode path: qwen3-4b
+    speculative (n-gram) at bf16 and at int8, qwen3-4b ``packed=False``
+    at bf16 and unimo-text self-drafting at bf16.  Returns the launch
+    counts of each kernel's main-path run: the qwen3-4b bf16 run's for
+    kernels 1-2, its int8 run's for the ``_q8`` kernels and
+    ``quant_matmul``, the speculative runs' for the mixed pair and the
+    self-drafting run's for flash."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import BF16
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda")
-    for arch in ("unimo-text", "qwen3-4b"):
-        gen.manual_seed(0)
-        params = T.init_params(gen, get_config(arch), BF16)
-        if arch == "unimo-text":
-            phase_serve(arch, params, profile=True)
-            continue
-        m16, l16, s16 = phase_serve(arch, params, profile=True)
-        m8, l8, s8 = phase_serve(arch, params, kv_dtype="int8",
-                                 weights_dtype="int8", profile=True)
+    gen.manual_seed(0)
+    unimo = T.init_params(gen, get_config("unimo-text"), BF16)
+    phase_serve("unimo-text", unimo, profile=True)
+    gen.manual_seed(0)
+    params = T.init_params(gen, get_config("qwen3-4b"), BF16)
+    m16, l16, s16 = phase_serve("qwen3-4b", params, profile=True)
+    m8, l8, s8 = phase_serve("qwen3-4b", params, kv_dtype="int8",
+                             weights_dtype="int8", profile=True)
     same = sum(a == b for x, y in zip(s16, s8) for a, b in zip(x, y))
     checks = {
         "int8 weight_bytes == 4,027,303,424": m8.weight_bytes == 4027303424,
@@ -705,11 +1007,32 @@ def phase_serves():
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"qwen3-4b byte checks failed: {failed}")
+    _, la, sa = phase_serve("qwen3-4b", params, mode="spec_ngram",
+                            profile=True)
+    _, lb, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+                           weights_dtype="int8", mode="spec_ngram",
+                           profile=True)
+    _, _, sc = phase_serve("qwen3-4b", params, mode="packed_off",
+                           profile=True)
+    del params
+    _, ld, _ = phase_serve("unimo-text", unimo, mode="spec_draft",
+                           profile=True)
+    # bf16 matmuls over 5-token windows and 1-token steps round
+    # differently: recorded, not gated (the fp32 parity phase gates them)
+    n16 = max(sum(len(x) for x in s16), 1)
+    emit("qwen3_bf16_stream_agreement",
+         spec_ngram_vs_packed=sum(a == b for x, y in zip(s16, sa)
+                                  for a, b in zip(x, y)) / n16,
+         packed_off_vs_packed=sum(a == b for x, y in zip(s16, sc)
+                                  for a, b in zip(x, y)) / n16)
     return {**{k: l16[k] for k in ("paged_decode_attention",
                                    "paged_packed_attention")},
             **{k: l8[k] for k in ("paged_decode_attention_q8",
                                   "paged_packed_attention_q8",
-                                  "quant_matmul")}}
+                                  "quant_matmul")},
+            "paged_mixed_attention": la["paged_mixed_attention"],
+            "paged_mixed_attention_q8": lb["paged_mixed_attention_q8"],
+            "flash_attention": ld["flash_attention"]}
 
 
 def main() -> int:

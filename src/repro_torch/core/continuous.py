@@ -190,7 +190,12 @@ class ServeMetrics:
     weight_bytes_saved: int = 0
     peak_pages_in_use: int = 0
     admission_stalls: int = 0        # iterations a free slot waited on pages
-    decode_tokens: int = 0           # tokens emitted by decode steps
+    decode_tokens: int = 0           # tokens emitted by decode/verify steps
+    # -- speculative decoding ----------------------------------------------
+    spec_mode: str = "off"           # drafter this run used (off|ngram|...)
+    spec_k: int = 0                  # drafted tokens per slot per step
+    drafted_tokens: int = 0          # drafts offered to the verifier
+    accepted_tokens: int = 0         # drafts kept by the rejection sampler
     # -- unified token-budget scheduler -------------------------------------
     scheduler: str = "unified"
     max_batched_tokens: int = 0
@@ -215,6 +220,14 @@ class ServeMetrics:
         if not self.slot_steps_total:
             return 0.0
         return 1.0 - self.slot_steps_active / self.slot_steps_total
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verifier accepted (0 when the run
+        drafted nothing)."""
+        if not self.drafted_tokens:
+            return 0.0
+        return self.accepted_tokens / self.drafted_tokens
 
     @property
     def tokens_per_forward(self) -> float:

@@ -1,15 +1,17 @@
 """Continuous-batching inference engine (the port's counterpart of
-``repro.core.engine``), reduced to the reference's main serving path:
-``serve_continuous`` with the unified token-budget scheduler, token-packed
-execution of every iteration that carries prefill chunks, fused multi-step
-decode otherwise, and radix prefix sharing over the paged KV pool.
+``repro.core.engine``), reduced to the reference's unified serving path:
+``serve_continuous`` with the token-budget scheduler, radix prefix sharing
+over the paged KV pool and fused multi-step decode.  An iteration that
+carries prefill chunks runs token-packed (one (1, T) dispatch, the
+default) or, with ``packed=False``, as the reference's A/B baseline: a
+one-step decode plus one (1, W-bucket) mixed forward per chunk.  With a
+``SpecConfig``, decode-only iterations run draft-verify steps instead.
 
 The engine runs on the card by default (``device="cuda"``) and raises when
 no CUDA device is present; pass ``device="cpu"`` to run the kernels'
 plain PyTorch versions.  Options of the reference that the port does not
-serve yet (speculative decoding, preemption and the host KV tier, fault
-injection, tracing, the non-packed and bucketed paths, vocabulary
-pruning) raise ``NotImplementedError``.
+serve yet (preemption and the host KV tier, fault injection, tracing, the
+bucketed path, vocabulary pruning) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,15 +30,24 @@ from repro_torch.core.continuous import (ContinuousScheduler, PageAllocator,
                                          ServeMetrics)
 from repro_torch.core.precision import (BF16, Policy, compress_weights,
                                         map_params)
-from repro_torch.core.sampling import SamplingParams, sample
+from repro_torch.core.sampling import (SamplingParams, sample,
+                                      speculative_verify)
 from repro_torch.core.scheduler import (DEFAULT_BUCKETS, Request,
                                         pick_bucket, truncate_prompt)
+from repro_torch.core.speculative import SpecConfig, get_drafter
 from repro_torch.core.tokenizer import EOS
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import transformer as T
 
 # Default per-iteration token budget of the unified scheduler.
 DEFAULT_MAX_BATCHED_TOKENS = 256
+
+
+def mixed_width_buckets(budget: int) -> tuple:
+    """Padded widths of the ``packed=False`` path's chunk rows: powers of
+    two from 8 below the budget, then the budget itself."""
+    return tuple(w for w in (8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                             4096) if w < budget) + (budget,)
 
 
 def packed_width_buckets(budget: int) -> tuple:
@@ -81,6 +92,8 @@ class InferenceEngine:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self._paged_ctx = None         # persistent paged pool + radix trie
+        self.spec = None               # SpecConfig of the last spec serve
+        self.drafter = None            # ... and its drafter (kept)
 
     def prompt_buckets(self):
         """Prompt length buckets bounded by the engine context."""
@@ -128,16 +141,19 @@ class InferenceEngine:
         }
         return self._paged_ctx
 
-    def _packed_step(self, cache, pb, meta, block_tables, reset_rows,
-                     cow_src, cow_dst, cow_keep, sp):
-        """One token-packed iteration on the device: reset the admitting
-        slots' fresh pages, copy their partial COW tail pages, run the
-        packed forward (K/V scattered into each lane's own slot pages),
-        and sample every segment's last token.  Host arrays are copied to
-        the device once here, not once per layer."""
+    def _init_pages(self, cache, reset_rows, cow_src, cow_dst, cow_keep):
+        """Reset admitting slots' fresh pages, then copy their partial COW
+        tail pages (dump-page rows are no-ops)."""
         KV.reset_pages_all(cache, self._put(reset_rows))
         KV.copy_pages_all(cache, self._put(cow_src), self._put(cow_dst),
                           self._put(cow_keep))
+
+    def _packed_step(self, cache, pb, meta, block_tables, init, sp):
+        """One token-packed iteration on the device: page init, the packed
+        forward (K/V scattered into each lane's own slot pages), and a
+        sample of every segment's last token.  Host arrays are copied to
+        the device once here, not once per layer."""
+        self._init_pages(cache, *init)
         logits, _ = T.forward_packed(
             self.params, self.cfg, self._put(pb.tokens[None, :]), cache,
             self._put(pb.slot_ids), self._put(pb.positions),
@@ -146,6 +162,65 @@ class InferenceEngine:
             paged={"block_tables": self._put(block_tables),
                    "packed_meta": self._put(meta)})
         return sample(logits[0], self.gen, sp)             # (S,)
+
+    def _mixed_step(self, cache, toks, start, length, bt_row, init, sp):
+        """One prefill chunk of the ``packed=False`` path: page init (on the
+        slot's first chunk), a (1, W) mixed forward that writes the chunk's
+        K/V and attends the slot's pages, and a sample of its last token
+        (a device tensor, read only for a prompt's final chunk)."""
+        self._init_pages(cache, *init)
+        logits, _ = T.forward_mixed(
+            self.params, self.cfg, self._put(toks), cache,
+            self._put(np.asarray([start], np.int32)),
+            self._put(np.asarray([length], np.int32)), policy=self.policy,
+            max_len=self.max_len,
+            paged={"block_tables": self._put(bt_row)})
+        return sample(logits[:, 0], self.gen, sp)
+
+    def _verify_step(self, cache, tok, lens, rem, act, drafts, block_tables,
+                     sp):
+        """One draft-verify decode step on the device (the reference's
+        ``_spec_fns``): score the pending token plus the k drafts of every
+        slot in one forward, keep the longest accepted prefix, clamp the
+        emit stream to each slot's budget and to its first EOS, and rewind
+        the rejected entries' positions before anything can read them.
+        Returns the new (tok, lens, rem, act), the emits (slots, k+1; -1
+        = none) and each slot's count of emitted drafts."""
+        tok, lens, rem, act = (self._put(tok), self._put(lens),
+                               self._put(rem), self._put(act))
+        drafts, bt = self._put(drafts), self._put(block_tables)
+        K = drafts.shape[1]
+        logits, _ = T.forward_verify(
+            self.params, self.cfg, torch.cat([tok[:, None], drafts], 1),
+            cache, lens, policy=self.policy, max_len=self.max_len,
+            paged={"block_tables": bt, "active": act})
+        accept_len, nxt = speculative_verify(logits, drafts, self.gen, sp)
+        accept_len, nxt = accept_len.to(torch.int32), nxt.to(torch.int32)
+        # the nominal emit stream: accepted drafts, then the corrective or
+        # bonus token at index accept_len
+        idx1 = torch.arange(K + 1, dtype=torch.int32,
+                            device=self.device)[None, :]
+        stream = torch.where(idx1 == accept_len[:, None], nxt[:, None],
+                             torch.cat([drafts, torch.zeros_like(
+                                 nxt[:, None])], 1))
+        # the budget keeps a prefix of the stream; EOS inside the emittable
+        # prefix ends the request there (EOS itself is not emitted)
+        limit = torch.minimum(accept_len + 1, rem.clamp_min(0))
+        eos_hit = (stream == EOS) & (idx1 < limit[:, None])
+        eos_pos = torch.where(eos_hit, idx1, K + 1).amin(dim=1)
+        n_emit = torch.where(act, torch.minimum(limit, eos_pos), 0)
+        emits = torch.where(idx1 < n_emit[:, None], stream, -1)
+        # written accepted context: the pending token plus the emitted
+        # drafts (an emitted trailing nxt is the next pending token)
+        d_count = torch.where(act, torch.minimum(accept_len, n_emit), 0)
+        lens = lens + torch.where(act, d_count + 1, 0).to(lens.dtype)
+        rem = rem - n_emit.to(rem.dtype)
+        still = act & ~(eos_pos < limit) & (rem > 0)
+        tok = torch.where(still, nxt, tok)
+        # after this, every stored position < lens is accepted context and
+        # nothing at or beyond it is visible
+        KV.paged_truncate_all(cache, bt, lens)
+        return tok, lens, rem, still, emits, d_count
 
     def _decode_steps(self, cache, tok, lens, rem, act, block_tables,
                       steps: int, sp):
@@ -187,7 +262,8 @@ class InferenceEngine:
                          max_batched_tokens: Optional[int] = None,
                          chunked_prefill: Optional[bool] = None,
                          packed: Optional[bool] = None,
-                         spec=None, preemption: str = "off",
+                         spec: Optional[SpecConfig] = None,
+                         preemption: str = "off",
                          host_kv_bytes: Optional[int] = None,
                          faults=None, trace=None):
         """Serve requests with continuous batching over a paged KV cache.
@@ -195,46 +271,64 @@ class InferenceEngine:
         Each iteration packs one decode token per live slot plus up to
         the remaining ``max_batched_tokens`` (default 256) in
         prefill-chunk tokens from admitting slots (FCFS).  An iteration
-        that carries chunks runs as ONE token-packed (1, T) dispatch;
-        decode-only iterations fuse ``steps_per_sync`` decode steps into
-        one dispatch.  ``prefix_cache`` (default on) shares identical
-        prompt-prefix pages across requests through a radix trie with
-        copy-on-write.  ``arrivals`` gives optional per-request arrival
-        offsets in seconds.
+        that carries chunks runs as ONE token-packed (1, T) dispatch, or
+        with ``packed=False`` as the reference's A/B baseline: a one-step
+        decode of the live slots plus one (1, W-bucket) mixed forward per
+        chunk, with one synchronize for the iteration.  Decode-only
+        iterations fuse ``steps_per_sync`` decode steps into one
+        dispatch, or with ``spec`` (a :class:`SpecConfig`) run one
+        draft-verify step: the drafter proposes ``spec.k`` tokens per
+        slot, one forward verifies them, the longest accepted prefix is
+        kept (greedy streams are unchanged) and the rest rewound; the
+        budget is then raised to at least ``slots * (k + 1)``.
+        ``prefix_cache`` (default on) shares identical prompt-prefix
+        pages across requests through a radix trie with copy-on-write.
+        ``arrivals`` gives optional per-request arrival offsets in
+        seconds.
 
         Returns (requests, ServeMetrics); ``r.result`` holds each
         request's generated tokens.
         """
-        unported = {"spec": spec is not None,
-                    "preemption": preemption != "off",
+        unported = {"preemption": preemption != "off",
                     "host_kv_bytes": host_kv_bytes is not None,
                     "faults": faults is not None,
                     "trace": trace is not None,
-                    "chunked_prefill=False": chunked_prefill is False,
-                    "packed=False": packed is False}
+                    "chunked_prefill=False": chunked_prefill is False}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f"serve_continuous options not ported: {', '.join(bad)} "
-                f"(the port serves the unified packed path only)")
+                f"(the port serves the unified chunked path only)")
         reason = PC.shareable(self.cfg, self.max_len)
         if reason is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the port serves only the unified packed "
+                f"{self.cfg.name}: the port serves only the unified chunked "
                 f"path, which needs paged pure attention ({reason})")
         if arrivals is not None and len(arrivals) != len(requests):
             raise ValueError("arrivals must match requests 1:1")
         share = True if prefix_cache is None else bool(prefix_cache)
+        packed_on = True if packed is None else bool(packed)
+        drafter = None
+        if spec is not None:
+            # kept across serve calls with the same SpecConfig object
+            if spec is not self.spec:
+                self.spec, self.drafter = spec, get_drafter(
+                    spec, self.cfg, self.params, policy=self.policy)
+            drafter = self.drafter
         ctx = self._paged_context(page_size, num_pages, slots)
         slots, num_pages = ctx["slots"], ctx["num_pages"]
         pages_per_slot, dump = ctx["pages_per_slot"], ctx["dump"]
         trie = ctx["trie"]
         budget = max_batched_tokens or DEFAULT_MAX_BATCHED_TOKENS
-        if budget < slots:
-            warnings.warn(f"max_batched_tokens={budget} cannot cover one "
-                          f"decode token per slot; raising to {slots}")
-            budget = slots
+        floor = slots * (drafter.k + 1 if drafter else 1)
+        if budget < floor:
+            warnings.warn(
+                f"max_batched_tokens={budget} cannot cover one "
+                f"{'verify window' if drafter else 'decode token'} per "
+                f"slot; raising to {floor}")
+            budget = floor
         packed_buckets = packed_width_buckets(budget)
+        width_buckets = mixed_width_buckets(budget)
 
         cache = ctx["cache"]
         sched = ContinuousScheduler(slots, ctx["alloc"], page_size,
@@ -248,6 +342,8 @@ class InferenceEngine:
                                weight_bytes=int(ws["weight_bytes"]),
                                weight_bytes_saved=int(
                                    ws["weight_bytes_saved"]),
+                               spec_mode=drafter.name if drafter else "off",
+                               spec_k=drafter.k if drafter else 0,
                                max_batched_tokens=budget)
         trie_base = trie.evicted_pages
 
@@ -326,30 +422,37 @@ class InferenceEngine:
                 rem[slot] = gen_budget - 1
                 act[slot] = True
 
+        def page_init_rows(n):
+            """``n`` rows of page init (reset rows, COW source, target and
+            kept length), all dump-page no-ops."""
+            return (np.full((n, pages_per_slot), dump, np.int32),
+                    np.full((n,), dump, np.int32),
+                    np.full((n,), dump, np.int32), np.zeros((n,), np.int32))
+
+        def book_page_init(st, init, i):
+            """Row ``i`` of ``init`` resets an admitting slot's fresh pages
+            and copies its partial COW tail page into the first of them."""
+            reset_rows, cow_src, cow_dst, cow_keep = init
+            reset_rows[i, :len(st.fresh_pages)] = st.fresh_pages
+            if st.cow_src >= 0:
+                # COW invariant: the destination must be private
+                if sched.allocator.refcount(st.fresh_pages[0]) != 1:
+                    raise AssertionError("COW write target is a shared page")
+                cow_src[i] = st.cow_src
+                cow_dst[i] = st.fresh_pages[0]
+                cow_keep[i] = st.matched_len
+                metrics.cow_copies += 1
+
         def run_packed(plan):
             """One token-packed iteration: the whole plan — every
             decoding slot's token plus every scheduled prefill chunk —
             as ONE (1, T) dispatch, then the reference's bookkeeping."""
             W = pick_bucket(plan.total_tokens, packed_buckets)
             pb = sched.pack_batch(plan, tok, lens, W)
-            reset_rows = np.full((slots, pages_per_slot), dump, np.int32)
-            cow_src = np.full((slots,), dump, np.int32)
-            cow_dst = np.full((slots,), dump, np.int32)
-            cow_keep = np.zeros((slots,), np.int32)
+            init = page_init_rows(slots)
             for c in plan.chunks:
-                st = sched.slots[c.slot]
-                if not st.needs_init:
-                    continue
-                reset_rows[c.slot, :len(st.fresh_pages)] = st.fresh_pages
-                if st.cow_src >= 0:
-                    # COW invariant: the destination must be private
-                    if sched.allocator.refcount(st.fresh_pages[0]) != 1:
-                        raise AssertionError(
-                            "COW write target is a shared page")
-                    cow_src[c.slot] = st.cow_src
-                    cow_dst[c.slot] = st.fresh_pages[0]
-                    cow_keep[c.slot] = st.matched_len
-                    metrics.cow_copies += 1
+                if sched.slots[c.slot].needs_init:
+                    book_page_init(sched.slots[c.slot], init, c.slot)
             # every segment adds at most one partial query window
             n_work = W // DA.PACKED_BLOCK_Q + slots
             meta = DA.packed_meta_table(pb.seg_start[:pb.n_segments],
@@ -358,8 +461,7 @@ class InferenceEngine:
                                         W, n_work)
             with dev_span():
                 nxt = self._packed_step(cache, pb, meta, block_tables,
-                                        reset_rows, cow_src, cow_dst,
-                                        cow_keep, sp).cpu().numpy()
+                                        init, sp).cpu().numpy()
             metrics.host_syncs += 1
             metrics.steps += 1
             metrics.slot_steps_total += slots
@@ -402,17 +504,11 @@ class InferenceEngine:
                     st, (st.ctx_len // page_size) * page_size)
                 start_decoding(c.slot, st, int(nxt[i]))
 
-        def run_decode():
+        def apply_decode_results(tok_d, lens_d, rem_d, act_d, emits):
+            """Fold a decode or verify dispatch's results into the host
+            slot arrays: append emits, record TTFT/ITL, retire finished
+            slots (admitting slots rode along inactive)."""
             nonlocal tok, lens, rem, act
-            with dev_span():
-                tok_d, lens_d, rem_d, act_d, emits_d, acts_d = \
-                    self._decode_steps(cache, tok, lens, rem, act,
-                                       block_tables, steps_per_sync, sp)
-                emits = emits_d.cpu().numpy()
-            metrics.host_syncs += 1
-            metrics.steps += steps_per_sync
-            metrics.slot_steps_total += slots * steps_per_sync
-            metrics.slot_steps_active += int(acts_d.sum())
             tok, lens, rem = (tok_d.cpu().numpy(), lens_d.cpu().numpy(),
                               rem_d.cpu().numpy())
             act_new = act_d.cpu().numpy()
@@ -420,6 +516,8 @@ class InferenceEngine:
             t_now = now()
             for slot in list(sched.slots):
                 st = sched.slots[slot]
+                if not st.prefill_done:
+                    continue
                 n_emit = 0
                 for t in emits[slot]:
                     if t >= 0:
@@ -429,6 +527,97 @@ class InferenceEngine:
                 if not act_new[slot]:
                     retire(slot)
             act = act_new
+
+        def run_decode():
+            with dev_span():
+                tok_d, lens_d, rem_d, act_d, emits_d, acts_d = \
+                    self._decode_steps(cache, tok, lens, rem, act,
+                                       block_tables, steps_per_sync, sp)
+                emits = emits_d.cpu().numpy()
+            metrics.host_syncs += 1
+            metrics.steps += steps_per_sync
+            metrics.slot_steps_total += slots * steps_per_sync
+            metrics.slot_steps_active += int(acts_d.sum())
+            apply_decode_results(tok_d, lens_d, rem_d, act_d, emits)
+
+        def run_verify():
+            """One draft-verify step (decode-only iterations under spec):
+            draft on the host, one verify forward, one synchronize."""
+            n_lanes = int(act.sum())
+            contexts = [None] * slots
+            for slot, st in sched.slots.items():
+                if act[slot]:
+                    contexts[slot] = st.request.tokens + st.emitted
+            with dev_span():
+                drafts = drafter.propose_slots(contexts)
+                tok_d, lens_d, rem_d, act_d, emits_d, acc_d = \
+                    self._verify_step(cache, tok, lens, rem, act, drafts,
+                                      block_tables, sp)
+                emits = emits_d.cpu().numpy()
+            metrics.host_syncs += 1
+            metrics.steps += 1
+            metrics.slot_steps_total += slots
+            metrics.slot_steps_active += n_lanes
+            metrics.drafted_tokens += drafter.k * n_lanes
+            metrics.accepted_tokens += int(acc_d.sum())
+            apply_decode_results(tok_d, lens_d, rem_d, act_d, emits)
+
+        def run_mixed(plan):
+            """One mixed iteration of the ``packed=False`` path: a one-step
+            decode of the live slots, then one (1, W-bucket) mixed forward
+            per prefill chunk (page init fused into a slot's first chunk),
+            all dispatched before the iteration's one synchronize; then
+            the reference's bookkeeping, decode results first."""
+            with dev_span():
+                dec = self._decode_steps(cache, tok, lens, rem, act,
+                                         block_tables, 1, sp) \
+                    if plan.decode_slots else None
+                finals = {}       # chunk index -> final chunk's sample
+                inited = set()    # slots whose page init this plan ran
+                for ci, c in enumerate(plan.chunks):
+                    st = sched.slots[c.slot]
+                    W = pick_bucket(c.length, width_buckets)
+                    toks = np.zeros((1, W), np.int32)
+                    toks[0, :c.length] = st.ctx[c.start:c.start + c.length]
+                    init = page_init_rows(1)
+                    if st.needs_init and c.slot not in inited:
+                        inited.add(c.slot)
+                        book_page_init(st, init, 0)
+                    nxt = self._mixed_step(
+                        cache, toks, c.start, c.length,
+                        block_tables[c.slot:c.slot + 1], init, sp)
+                    metrics.prefill_chunks += 1
+                    metrics.prefill_tokens += c.length
+                    metrics.prefill_padded += W
+                    if c.start + c.length >= st.ctx_len:
+                        finals[ci] = nxt
+                # the iteration's one device-to-host copy: decode emits,
+                # then the final chunks' samples
+                parts = ([dec[4].reshape(-1).long()] if dec else []) + \
+                    [t.reshape(-1).long() for t in finals.values()]
+                host = torch.cat(parts).cpu().numpy() if parts else None
+            n_dec = slots if dec else 0
+            emits = host[:n_dec].reshape(slots, 1) if dec else None
+            finals = dict(zip(finals, host[n_dec:])) if finals else {}
+            metrics.host_syncs += 1
+            metrics.mixed_iters += 1
+            metrics.mixed_dispatches += len(plan.chunks) + (dec is not None)
+            if dec:
+                metrics.steps += 1
+                metrics.slot_steps_total += slots
+                metrics.slot_steps_active += int(dec[5].sum())
+                apply_decode_results(*dec[:4], emits)
+            for ci, c in enumerate(plan.chunks):
+                st = sched.slots[c.slot]
+                if st.needs_init:
+                    st.needs_init = False
+                    sched.release_cow_source(st)
+                st.prefill_pos = c.start + c.length
+                if not st.prefill_done:
+                    continue
+                sched.insert_prefix(
+                    st, (st.ctx_len // page_size) * page_size)
+                start_decoding(c.slot, st, int(finals[ci]))
 
         while incoming or sched.has_work():
             # -- release arrived requests into the FCFS queue -------------
@@ -480,7 +669,9 @@ class InferenceEngine:
 
             plan = sched.next_batch(budget)
             if plan.chunks:
-                run_packed(plan)
+                (run_packed if packed_on else run_mixed)(plan)
+            elif drafter is not None:
+                run_verify()
             else:
                 run_decode()
 

@@ -152,6 +152,34 @@ def paged_write_decode(cache: dict, new: dict, lengths, block_tables,
     return cache
 
 
+def paged_write_decode_multi(cache: dict, new: dict, lengths, block_tables,
+                             active=None, *, ring_len: int) -> dict:
+    """Write a window of K1 tokens per slot at absolute positions
+    ``lengths[b] .. lengths[b] + K1 - 1``: a speculative verify window
+    (the pending token and the drafts; rejected entries are rewound
+    afterwards by :func:`paged_truncate`) or one prefill chunk.
+
+    new: {"k"/"v": (B, K1, H, D)}; ``active``: (B,) or (B, K1) bool,
+    masked entries go to the dump page.  Unlike the single-token write,
+    positions at or beyond ``ring_len`` are dumped, never wrapped (a
+    wrapped speculative write would overwrite live context that a
+    rejection cannot restore).  Updates the pool in place."""
+    page = cache["ppos"].shape[1]
+    dump = cache["ppos"].shape[0] - 1
+    K1 = new["k"].shape[1]
+    pos = lengths.long()[:, None] + torch.arange(K1, device=lengths.device)
+    ok = (pos >= 0) & (pos < ring_len)
+    rp = torch.where(ok, pos, 0)
+    lp, off = rp // page, rp % page
+    phys = torch.gather(block_tables.long(), 1, lp)          # (B, K1)
+    ok &= phys >= 0
+    if active is not None:
+        ok &= active if active.dim() == 2 else active[:, None]
+    phys = torch.where(ok, phys, dump)
+    _scatter(cache, new, phys, off, torch.where(ok, pos, -1))
+    return cache
+
+
 def paged_write_packed(cache: dict, new: dict, slot_ids, positions,
                        block_tables, *, ring_len: int) -> dict:
     """Scatter a token-packed stream's K/V: token t of the flat stream
@@ -175,6 +203,33 @@ def paged_write_packed(cache: dict, new: dict, slot_ids, positions,
     phys = torch.where(ok, phys, dump)
     _scatter(cache, {key: new[key][0] for key in ("k", "v")}, phys, off,
              torch.where(ok, positions, -1))
+    return cache
+
+
+def paged_truncate(cache: dict, block_tables, keep_len) -> dict:
+    """Rewind speculative writes: every entry of the slots' pages whose
+    absolute position is ``>= keep_len[b]`` becomes empty (pos = -1).
+
+    Only ``ppos`` is rewritten, in place; the K/V codes and int8 scales
+    of rewound entries stay in the pools, unreachable once their
+    positions are -1 (as :func:`reset_pages` leaves them).  Safe under
+    sharing: a shared prefix page holds only positions below every
+    sharer's ``keep_len``, so writing it back changes nothing, and rows
+    of unallocated table entries land on the dump page, which is all -1
+    already."""
+    dump = cache["ppos"].shape[0] - 1
+    bt = block_tables.long()
+    safe = torch.where(bt >= 0, bt, dump)                    # (B, npages)
+    pos = cache["ppos"][safe]                        # (B, npages, page)
+    cache["ppos"][safe] = torch.where(
+        pos < keep_len.to(pos.dtype)[:, None, None], pos, -1)
+    return cache
+
+
+def paged_truncate_all(cache: dict, block_tables, keep_len) -> dict:
+    """:func:`paged_truncate` over every layer of a full model cache."""
+    for c in cache["layers"]:
+        paged_truncate(c, block_tables, keep_len)
     return cache
 
 

@@ -1,5 +1,6 @@
-// fp32 <-> element-type conversions shared by the port's kernels
-// (float, __half and __nv_bfloat16; rounding to nearest even).
+// Device helpers shared by the port's kernels: fp32 <-> element-type
+// conversions (float, __half and __nv_bfloat16; rounding to nearest even)
+// and warp-wide reductions.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -22,6 +23,16 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  return v;
 }
 
 }  // namespace

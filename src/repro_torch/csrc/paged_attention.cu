@@ -1,7 +1,7 @@
 // Paged attention kernels for Hopper (sm_90a), bound to PyTorch through a
 // plain C interface (ctypes); see repro_torch/kernels/decode_attention.py.
 //
-// Replaces four Pallas TPU kernels of the reference package
+// Replaces six Pallas TPU kernels of the reference package
 // (repro/kernels/decode_attention.py):
 //   * paged_decode_kernel<T, T>     <- paged_decode_attention (body
 //                                      _paged_kernel): one query token per
@@ -22,6 +22,14 @@
 //                                      bodies do), so a dequantized value
 //                                      equals the plain version's bit for
 //                                      bit.  q and out stay at q's dtype.
+//   * paged_mixed_kernel<T, T>      <- paged_mixed_attention (body
+//                                      _paged_mixed_kernel): a window of W
+//                                      query lanes per slot (a speculative
+//                                      verify window, a prefill chunk),
+//                                      each against its slot's pages;
+//                                      lanes with q_pos == -1 are padding.
+//   * paged_mixed_kernel<T, int8>   <- paged_mixed_attention_q8 (body
+//                                      _paged_mixed_kernel_q8)
 //
 // Bound: all are bound by device-memory bytes, chiefly the K/V pages they
 // stream (page x Hkv x (D + Dv) x element bytes per page, plus 2 x 4-byte
@@ -63,17 +71,18 @@ __device__ __forceinline__ float kv_at(const int8_t* pool, long i,
 }
 
 struct Params {
-  const void* q;       // decode (B,1,Hq,D) | packed (1,T,Hq,D)
+  const void* q;       // decode (B,1,Hq,D), packed (1,T,Hq,D), mixed (B,W,..)
   const void* kpool;   // (P,page,Hkv,D)
   const void* vpool;   // (P,page,Hkv,Dv)
   const float* kscale; // int8 pools only: (P,page,Hkv)
   const float* vscale; // int8 pools only: (P,page,Hkv)
   const int* ppos;     // (P,page)
   const int* bt;       // (rows of the block table, npages)
-  const int* q_pos;    // decode (B,1) | packed (1,T)
+  const int* q_pos;    // decode (B,1) | packed (1,T) | mixed (B,W)
   const int* meta;     // packed only: (n_work,4) slot, tile, win_start, win_end
   void* out;           // like q with Dv
   int Hq, Hkv, g, D, Dv, page, npages;
+  int W;               // mixed only: query lanes per slot
   float scale, softcap;  // softcap <= 0: none
   int window;            // window <= 0: none
 };
@@ -88,16 +97,6 @@ __host__ __device__ inline size_t smem_floats(int rows, int D, int Dv) {
 
 __device__ __forceinline__ bool visible(int kp, int qp, int window) {
   return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-  return v;
 }
 
 // Attend n_rows query rows (row r = lane r / g, head r % g of kv head h)
@@ -133,9 +132,12 @@ __device__ void attend_rows(const Params& p, int n_rows, const T* q,
     ls[r] = 0.f;
     qp[r] = qpos[r / g];
   }
-  __syncthreads();
+  int live = 0;
+  for (int r = tid; r < n_rows; r += kThreads) live |= qpos[r / g] >= 0;
+  // rows that are all padding see no key: skip the pages, write zeros
+  const int npages = __syncthreads_or(live) ? p.npages : 0;
 
-  for (int j = 0; j < p.npages; ++j) {
+  for (int j = 0; j < npages; ++j) {
     const int pid = bt_row[j];
     if (pid < 0) continue;  // unallocated: the reference masks it out
     for (int t0 = 0; t0 < page; t0 += KT) {
@@ -245,14 +247,35 @@ __global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
                      p.bt + (long)slot * p.npages, h, smem);
 }
 
+// grid (B * ceil(W / 8), Hkv): block x serves query lanes
+// [8t, min(8t + 8, W)) of slot b = x / ceil(W / 8), t = x % ceil(W / 8),
+// like a packed work row serves its window.  Padding lanes (q_pos == -1)
+// see no key and come back as zeros.
 template <typename T, typename KV>
-cudaError_t launch(bool packed, int blocks, int max_rows, const Params& p,
+__global__ void __launch_bounds__(kThreads) paged_mixed_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int tiles = (p.W + kPackedBlockQ - 1) / kPackedBlockQ;
+  const int b = blockIdx.x / tiles, h = blockIdx.y;
+  const int w0 = (blockIdx.x % tiles) * kPackedBlockQ;
+  const long lane0 = (long)b * p.W + w0;
+  const T* q = static_cast<const T*>(p.q) + (lane0 * p.Hq + h * p.g) * p.D;
+  T* o = static_cast<T*>(p.out) + (lane0 * p.Hq + h * p.g) * p.Dv;
+  attend_rows<T, KV>(p, min(p.W - w0, kPackedBlockQ) * p.g, q,
+                     (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                     p.q_pos + lane0, p.bt + (long)b * p.npages, h, smem);
+}
+
+enum Kind { kDecode, kPacked, kMixed };
+
+template <typename T, typename KV>
+cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
                    cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
   const size_t smem = smem_floats(max_rows, p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  void (*kernel)(Params) =
-      packed ? paged_packed_kernel<T, KV> : paged_decode_kernel<T, KV>;
+  void (*kernel)(Params) = kind == kPacked ? paged_packed_kernel<T, KV>
+                           : kind == kMixed ? paged_mixed_kernel<T, KV>
+                                            : paged_decode_kernel<T, KV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -265,21 +288,21 @@ cudaError_t launch(bool packed, int blocks, int max_rows, const Params& p,
 
 // Pools at q's dtype T (quant == false), or int8 codes with scales.
 template <typename T>
-cudaError_t launch_pools(bool quant, bool packed, int blocks, int max_rows,
+cudaError_t launch_pools(bool quant, Kind kind, int blocks, int max_rows,
                          const Params& p, cudaStream_t stream) {
-  return quant ? launch<T, int8_t>(packed, blocks, max_rows, p, stream)
-               : launch<T, T>(packed, blocks, max_rows, p, stream);
+  return quant ? launch<T, int8_t>(kind, blocks, max_rows, p, stream)
+               : launch<T, T>(kind, blocks, max_rows, p, stream);
 }
 
-cudaError_t dispatch(int dtype, bool quant, bool packed, int blocks,
+cudaError_t dispatch(int dtype, bool quant, Kind kind, int blocks,
                      int max_rows, const Params& p, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_pools<float>(quant, packed, blocks, max_rows, p, stream);
+      return launch_pools<float>(quant, kind, blocks, max_rows, p, stream);
     case 1:
-      return launch_pools<__half>(quant, packed, blocks, max_rows, p, stream);
+      return launch_pools<__half>(quant, kind, blocks, max_rows, p, stream);
     case 2:
-      return launch_pools<__nv_bfloat16>(quant, packed, blocks, max_rows, p,
+      return launch_pools<__nv_bfloat16>(quant, kind, blocks, max_rows, p,
                                          stream);
     default: return cudaErrorInvalidValue;
   }
@@ -299,8 +322,8 @@ extern "C" int paged_decode_attention_launch(
   Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, false, false, B, p.g, p,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
+  return (int)dispatch(dtype, false, kDecode, B, p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -312,8 +335,8 @@ extern "C" int paged_packed_attention_launch(
   Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, false, true, n_work, kPackedBlockQ * p.g, p,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
+  return (int)dispatch(dtype, false, kPacked, n_work, kPackedBlockQ * p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -327,8 +350,8 @@ extern "C" int paged_decode_attention_q8_launch(
            static_cast<const float*>(vscale), static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, true, false, B, p.g, p,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
+  return (int)dispatch(dtype, true, kDecode, B, p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -342,8 +365,41 @@ extern "C" int paged_packed_attention_q8_launch(
            static_cast<const float*>(vscale), static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, scale, softcap, window};
-  return (int)dispatch(dtype, true, true, n_work, kPackedBlockQ * p.g, p,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
+  return (int)dispatch(dtype, true, kPacked, n_work, kPackedBlockQ * p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Mixed windows: q (B,W,Hq,D), q_pos (B,W), block_tables (B,npages).
+extern "C" int paged_mixed_attention_launch(
+    const void* q, const void* kpool, const void* vpool, const void* ppos,
+    const void* block_tables, const void* q_pos, void* out, int dtype, int B,
+    int W, int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    float softcap, int window, void* stream) {
+  Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), nullptr, out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
+  const int tiles = (W + kPackedBlockQ - 1) / kPackedBlockQ;
+  return (int)dispatch(dtype, false, kMixed, B * tiles,
+                       (W < kPackedBlockQ ? W : kPackedBlockQ) * p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int paged_mixed_attention_q8_launch(
+    const void* q, const void* kpool, const void* kscale, const void* vpool,
+    const void* vscale, const void* ppos, const void* block_tables,
+    const void* q_pos, void* out, int dtype, int B, int W, int Hq, int Hkv,
+    int D, int Dv, int page, int npages, float scale, float softcap,
+    int window, void* stream) {
+  Params p{q, kpool, vpool, static_cast<const float*>(kscale),
+           static_cast<const float*>(vscale), static_cast<const int*>(ppos),
+           static_cast<const int*>(block_tables),
+           static_cast<const int*>(q_pos), nullptr, out,
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
+  const int tiles = (W + kPackedBlockQ - 1) / kPackedBlockQ;
+  return (int)dispatch(dtype, true, kMixed, B * tiles,
+                       (W < kPackedBlockQ ? W : kPackedBlockQ) * p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 

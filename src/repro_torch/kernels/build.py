@@ -110,6 +110,14 @@ def load() -> ctypes.CDLL:
     lib.paged_packed_attention_q8_launch.argtypes = (
         [P] * 10 + [I] * 8 + [F, F, I, P])
     lib.paged_packed_attention_q8_launch.restype = I
+    lib.paged_mixed_attention_launch.argtypes = (
+        [P] * 7 + [I] * 9 + [F, F, I, P])
+    lib.paged_mixed_attention_launch.restype = I
+    lib.paged_mixed_attention_q8_launch.argtypes = (
+        [P] * 9 + [I] * 9 + [F, F, I, P])
+    lib.paged_mixed_attention_q8_launch.restype = I
+    lib.flash_attention_launch.argtypes = [P] * 6 + [I] * 8 + [F, F, I, P]
+    lib.flash_attention_launch.restype = I
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.quant_matmul_splits.argtypes = [I, I, I]

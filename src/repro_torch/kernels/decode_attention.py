@@ -10,11 +10,16 @@ beside them.
     ``repro.kernels.decode_attention.paged_packed_attention``: one flat
     (1, T) stream of decode tokens and prefill-chunk tokens, each lane
     against its own slot's pages (every mixed iteration).
-  * :func:`paged_decode_attention_q8` and :func:`paged_packed_attention_q8`
-    replace ``paged_decode_attention_q8`` / ``paged_packed_attention_q8``:
-    the same two over int8 pools (``kv_dtype="int8"``), whose codes are
-    dequantized with their per-entry, per-kv-head fp32 scales as the
-    kernel stages them.
+  * :func:`paged_mixed_attention` replaces
+    ``repro.kernels.decode_attention.paged_mixed_attention``: a window of
+    W query lanes per slot (a speculative verify window of k+1 tokens, or
+    one prefill chunk of the ``packed=False`` path), each lane against its
+    slot's pages; lanes at position -1 are padding and come back as zeros.
+  * :func:`paged_decode_attention_q8`, :func:`paged_packed_attention_q8`
+    and :func:`paged_mixed_attention_q8` replace the reference's ``_q8``
+    kernels: the same three over int8 pools (``kv_dtype="int8"``), whose
+    codes are dequantized with their per-entry, per-kv-head fp32 scales as
+    the kernel stages them.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
 shapes, allocates the output, launches on the current stream and raises if
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import (paged_decode_attention_ref,  # noqa: F401
+                                     paged_mixed_attention_ref,
                                      paged_packed_attention_ref)
 
 PACKED_BLOCK_Q = 8          # stream lanes per packed work row
@@ -161,6 +167,33 @@ def _decode(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
     return out
 
 
+def _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
+           window, scale, attn_softcap, name):
+    from repro_torch.kernels import build
+    Hq, Hkv, D, Dv, page = _check_common(q, kpool, vpool, ppos,
+                                         block_tables, q_pos, k_scale,
+                                         v_scale)
+    B, W = q.shape[:2]
+    if block_tables.shape[0] != B or q_pos.shape != (B, W):
+        raise ValueError("mixed attention takes q (B,W,Hq,D), "
+                         "block_tables (B,npages) and q_pos (B,W)")
+    lib = build.load()
+    _check_smem(lib, min(W, PACKED_BLOCK_Q) * (Hq // Hkv), D, Dv)
+    out = torch.empty((B, W, Hq, Dv), dtype=q.dtype, device=q.device)
+    cap, win = _softcap_window(attn_softcap, window)
+    pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
+    fn = (lib.paged_mixed_attention_launch if k_scale is None
+          else lib.paged_mixed_attention_q8_launch)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
+                 block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODES[q.dtype], B, W, Hq, Hkv, D, Dv, page,
+                 block_tables.shape[1], float(scale), cap, win,
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, name)
+    return out
+
+
 def _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, k_scale,
             v_scale, window, scale, attn_softcap, name):
     from repro_torch.kernels import build
@@ -256,8 +289,40 @@ def paged_packed_attention_q8(q, kpool, k_scale, vpool, v_scale, ppos,
     return out
 
 
+def paged_mixed_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
+                          window: Optional[int], scale: float,
+                          attn_softcap: Optional[float] = None):
+    """Multi-query paged attention over per-slot windows, on the card.
+
+    q: (B, W, Hq, D), lane w of row b a query of slot b at absolute
+    position ``q_pos[b, w]`` (int32, -1 = padding lane); block_tables:
+    (B, npages).  The window's own K/V must already be in the pool: the
+    stored positions then give every lane its exact causal mask inside
+    the window.  Padding lanes come back as zeros.  Returns (B, W, Hq, Dv)
+    at q's dtype.
+    """
+    out = _mixed(q, kpool, vpool, ppos, block_tables, q_pos, None, None,
+                 window, scale, attn_softcap, "paged_mixed_attention")
+    paged_mixed_attention.launches += 1
+    return out
+
+
+def paged_mixed_attention_q8(q, kpool, k_scale, vpool, v_scale, ppos,
+                             block_tables, q_pos, *,
+                             window: Optional[int], scale: float,
+                             attn_softcap: Optional[float] = None):
+    """:func:`paged_mixed_attention` over an int8 pool (the scale-pool
+    contract of :func:`paged_decode_attention_q8`)."""
+    out = _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale,
+                 v_scale, window, scale, attn_softcap,
+                 "paged_mixed_attention_q8")
+    paged_mixed_attention_q8.launches += 1
+    return out
+
+
 KERNELS = (paged_decode_attention, paged_packed_attention,
-           paged_decode_attention_q8, paged_packed_attention_q8)
+           paged_decode_attention_q8, paged_packed_attention_q8,
+           paged_mixed_attention, paged_mixed_attention_q8)
 
 
 def reset_launch_counts() -> None:

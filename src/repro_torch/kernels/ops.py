@@ -5,11 +5,13 @@ PyTorch version, and any other tensor goes to the CUDA kernel's wrapper,
 which launches the kernel or raises (wrong device, dtype, layout or an
 unsupported shape).  Nothing falls back to the plain version on the card.
 Attention over an int8 pool (``k_scale``/``v_scale`` given) goes to the
-``_q8`` kernels.
+``_q8`` kernels.  Each wrapper counts its launches; :func:`launch_counts`
+reads them all.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ref
 
@@ -32,6 +34,25 @@ def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
                                      q_pos, **kw)
 
 
+def paged_mixed_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
+                          window, scale, attn_softcap=None, k_scale=None,
+                          v_scale=None):
+    """Multi-query paged attention: q (B,W,Hq,D), a window of W lanes per
+    slot (-1 positions are padding lanes); see
+    :func:`decode_attention.paged_mixed_attention`."""
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return ref.paged_mixed_attention_ref(
+            q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
+            v_scale=v_scale, **kw)
+    if k_scale is not None:
+        return DA.paged_mixed_attention_q8(
+            q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
+            **kw)
+    return DA.paged_mixed_attention(q, kpool, vpool, ppos, block_tables,
+                                    q_pos, **kw)
+
+
 def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
                            slot_ids, meta, *, window, scale,
                            attn_softcap=None, k_scale=None, v_scale=None):
@@ -51,6 +72,16 @@ def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
                                      q_pos, meta, **kw)
 
 
+def flash_attention(q, k, v, q_pos, k_pos, *, window, scale,
+                    attn_softcap=None):
+    """Dense attention driven by positions: q (B,Sq,Hq,D) against k/v
+    (B,Sk,Hkv,D); see :func:`flash_attention.flash_attention`."""
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+    return FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
+
+
 def quant_matmul(x, q, s):
     """``(x @ q) * s`` in fp32 for int8 weight records; see
     :func:`quant_matmul.quant_matmul`."""
@@ -61,9 +92,12 @@ def quant_matmul(x, q, s):
 
 def reset_launch_counts() -> None:
     DA.reset_launch_counts()
+    FA.flash_attention.launches = 0
     QM.quant_matmul.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches of every kernel of the port since the last reset."""
-    return {**DA.launch_counts(), "quant_matmul": QM.quant_matmul.launches}
+    return {**DA.launch_counts(),
+            "flash_attention": FA.flash_attention.launches,
+            "quant_matmul": QM.quant_matmul.launches}

@@ -67,6 +67,22 @@ def paged_decode_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
                                 attn_softcap=attn_softcap)
 
 
+def paged_mixed_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
+                              *, window: Optional[int], scale: float,
+                              attn_softcap: Optional[float] = None,
+                              k_scale=None, v_scale=None):
+    """Plain version of the multi-query paged kernel: q (B, W, Hq, D), lane
+    w of row b a query of slot b at position ``q_pos[b, w]`` (-1 = padding
+    lane, output zero), over either pool type (int8 pools dequantize in
+    the gather).  The window's own K/V are already in the pool, so the
+    stored positions give each lane its causal mask.  The single-query
+    version is its W == 1 case, and it is exactly that computation."""
+    return paged_decode_attention_ref(
+        q, kpool, vpool, ppos, block_tables, q_pos, window=window,
+        scale=scale, attn_softcap=attn_softcap, k_scale=k_scale,
+        v_scale=v_scale)
+
+
 def paged_packed_attention_ref(q, kpool, vpool, ppos, block_tables, q_pos,
                                slot_ids, *, window: Optional[int],
                                scale: float,

@@ -1,6 +1,8 @@
 """Serving launcher for the port:
 ``python -m repro_torch.launch.serve --arch qwen3-4b --full --continuous
---kv-dtype int8 --weights-dtype int8``.
+--kv-dtype int8 --weights-dtype int8``, with ``--spec ngram|draft
+--spec-k 4`` for speculative decoding and ``--packed off`` for the
+per-chunk mixed path.
 
 Serves a synthetic request stream through continuous batching over the
 paged KV cache on the card (``--device cuda``, the default) and prints one
@@ -22,6 +24,7 @@ from repro_torch.core.precision import (KV_DTYPES, WEIGHTS_DTYPES,
                                         get_policy)
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.core.scheduler import Request
+from repro_torch.core.speculative import SpecConfig
 from repro_torch.core.tokenizer import FastTokenizer
 from repro_torch.data.pipeline import synthetic_corpus
 from repro_torch.models import transformer as T
@@ -61,6 +64,20 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="prepend one shared N-token system prompt to "
                          "every request")
+    ap.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "draft"],
+                    help="speculative decoding: ngram = prompt-lookup "
+                         "drafter (no weights), draft = draft-model "
+                         "drafter (self-drafting with the served model); "
+                         "greedy streams equal --spec off")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per slot per verify step")
+    ap.add_argument("--packed", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="token-packed execution of iterations with "
+                         "prefill chunks (auto = on); off = one decode "
+                         "step plus one mixed forward per chunk (the A/B "
+                         "baseline)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--max-len", type=int, default=256)
     args = ap.parse_args(argv)
@@ -90,12 +107,18 @@ def main(argv=None):
     reqs = [Request(uid=i, tokens=shared + tok.encode(t),
                     max_new_tokens=args.max_new_tokens)
             for i, t in enumerate(texts)]
-    prefix = {"auto": None, "on": True, "off": False}[args.prefix_cache]
+    onoff = {"auto": None, "on": True, "off": False}
+    spec = None
+    if args.spec != "off":
+        spec = SpecConfig(k=args.spec_k, drafter=(
+            "ngram" if args.spec == "ngram" else "draft_model"))
     t0 = time.time()
     done, metrics = engine.serve_continuous(
         reqs, sp, page_size=args.page_size,
-        steps_per_sync=args.steps_per_sync, prefix_cache=prefix,
-        max_batched_tokens=args.max_batched_tokens)
+        steps_per_sync=args.steps_per_sync,
+        prefix_cache=onoff[args.prefix_cache],
+        max_batched_tokens=args.max_batched_tokens, spec=spec,
+        packed=onoff[args.packed])
     dt = time.time() - t0
     for r in done[:3]:
         print(f"[{r.uid}] {tok.decode(r.result or [])[:70]!r}")
@@ -114,6 +137,10 @@ def main(argv=None):
         "scheduler": metrics.scheduler,
         "max_batched_tokens": metrics.max_batched_tokens,
         "prefill_chunks": metrics.prefill_chunks,
+        "spec_mode": metrics.spec_mode,
+        "spec_k": metrics.spec_k,
+        "acceptance_rate": round(metrics.acceptance_rate, 3),
+        "tokens_per_forward": round(metrics.tokens_per_forward, 3),
         "decode_idle_frac": round(metrics.decode_idle_frac, 3),
         "dispatches_per_iter": round(metrics.dispatches_per_iter, 3),
         "padded_token_frac": round(metrics.padded_token_frac, 3),

@@ -128,31 +128,38 @@ def attention_ref(q, k, v, q_pos, k_pos, *, window, scale,
 
 def mha_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
                   scale: float, attn_softcap: Optional[float] = None):
-    """Dense attention; the port runs it through the plain reference
-    (the flash kernel it replaces in the reference is not ported yet)."""
-    return attention_ref(q, k, v, q_pos, k_pos, window=window, scale=scale,
-                         attn_softcap=attn_softcap)
+    """Dense attention driven by absolute positions (q: (B,Sq,Hq,D),
+    k/v: (B,Sk,Hkv,D), -1 positions invalid) through
+    ``ops.flash_attention``: the flash kernel on the card, the plain
+    version (the same math as :func:`attention_ref`) on the CPU."""
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+    return ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), i32(q_pos), i32(k_pos),
+                               window=window, scale=scale,
+                               attn_softcap=attn_softcap)
 
 
 def mha_attention_paged(q, pool, block_tables, q_pos, *,
                         window: Optional[int], scale: float,
                         attn_softcap: Optional[float] = None):
-    """Single-token decode attention against a paged KV pool.
+    """Attention of per-slot query windows against a paged KV pool.
 
-    q: (B,1,Hq,D); pool: {"pk"/"pv": (P,page,Hkv,D), "ppos": (P,page)},
-    plus "pk_scale"/"pv_scale" (P,page,Hkv) when the pool stores int8;
-    block_tables: (B, pages_per_slot) physical page ids (-1 = none);
-    q_pos: (B,1).  Multi-query windows (the reference's mixed kernel,
-    speculative verify and the ``packed=False`` path) are not ported.
+    q: (B,W,Hq,D): W == 1 for a decode step (the decode kernel), W > 1
+    for a speculative verify window or a prefill chunk (the mixed kernel),
+    with q_pos (B,W) absolute positions, -1 marking padding lanes (their
+    outputs are zeros).  The window's own K/V must already be in the pool,
+    so the stored positions give each lane its causal mask.  pool:
+    {"pk"/"pv": (P,page,Hkv,D), "ppos": (P,page)}, plus
+    "pk_scale"/"pv_scale" (P,page,Hkv) when the pool stores int8;
+    block_tables: (B, pages_per_slot) physical page ids (-1 = none).
     """
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-query paged attention (paged_mixed_attention) is not "
-            "ported; the port serves decode steps with one query per slot")
-    return ops.paged_decode_attention(
-        q, pool["pk"], pool["pv"], pool["ppos"], block_tables, q_pos,
-        window=window, scale=scale, attn_softcap=attn_softcap,
-        k_scale=pool.get("pk_scale"), v_scale=pool.get("pv_scale"))
+    attend = (ops.paged_decode_attention if q.shape[1] == 1
+              else ops.paged_mixed_attention)
+    return attend(q, pool["pk"], pool["pv"], pool["ppos"], block_tables,
+                  q_pos, window=window, scale=scale,
+                  attn_softcap=attn_softcap, k_scale=pool.get("pk_scale"),
+                  v_scale=pool.get("pv_scale"))
 
 
 def mha_attention_paged_packed(q, pool, block_tables, q_pos, slot_ids,

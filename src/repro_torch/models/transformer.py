@@ -7,9 +7,12 @@ Parameters are a dict ``{"embed": {"tokens"[, "pos"]}, "final_norm",
 "layers": [per-layer dict]}`` with the layers in execution order
 (:func:`repro_torch.configs.base.layer_specs`); the reference stacks each
 pattern position over its scan repeats instead (``bridge.params_from_jax``
-converts).  Two modes of the reference's ``layer_apply`` are ported, both
-against the paged KV pool: ``"decode"`` (one token per slot) and
-``"packed"`` (one flat token stream per scheduler iteration).
+converts).  Four modes of the reference's ``layer_apply`` are ported:
+``"decode"`` (one token per slot), ``"verify"`` (a window of tokens per
+slot: a speculative verify window or a prefill chunk) and ``"packed"``
+(one flat token stream per scheduler iteration) against the paged KV
+pool, and ``"train"`` (a full causal forward with no cache, which the
+draft model of speculative decoding runs).
 """
 from __future__ import annotations
 
@@ -88,30 +91,42 @@ def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
 
 def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 cache, mode: str, max_len: int, paged):
-    """One attention + FFN block against the layer's paged pool (updated
-    in place).  paged: {"block_tables", "active"} for ``"decode"``;
-    {"block_tables", "slot_ids", "packed_meta"} for ``"packed"``."""
+    """One attention + FFN block.  Against the layer's paged pool (updated
+    in place), paged: {"block_tables", "active"} for ``"decode"`` and
+    ``"verify"`` (``active`` (B,) or (B, W)); {"block_tables", "slot_ids",
+    "packed_meta"} for ``"packed"``.  ``"train"`` takes no cache (cache
+    and paged are None): every token attends the earlier ones directly."""
     window = KV.effective_window(cfg, spec, max_len)
     h = L.apply_norm(cfg, p["norm1"], x)
     q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
-    scale = L.attn_scale(cfg)
-    bt = paged["block_tables"]
-    ring = KV.paged_ring_len(window, cache["ppos"].shape[1], bt.shape[1])
-    if mode == "decode":
-        KV.paged_write_decode(cache, {"k": k, "v": v}, positions[:, 0], bt,
-                              paged.get("active"), ring_len=ring)
-        ctx = L.mha_attention_paged(q, cache, bt, positions, window=window,
-                                    scale=scale,
-                                    attn_softcap=cfg.attn_softcap)
-    elif mode == "packed":
-        # scatter every lane's K/V into its OWN slot's pages, then attend
-        # each lane to its slot's whole paged history
-        KV.paged_write_packed(cache, {"k": k, "v": v}, paged["slot_ids"],
-                              positions[0], bt, ring_len=ring)
-        ctx = L.mha_attention_paged_packed(
-            q, cache, bt, positions, paged["slot_ids"],
-            paged["packed_meta"], window=window, scale=scale,
-            attn_softcap=cfg.attn_softcap)
+    kw = dict(window=window, scale=L.attn_scale(cfg),
+              attn_softcap=cfg.attn_softcap)
+    if mode == "train":
+        ctx = L.mha_attention(q, k, v, positions, positions, **kw)
+    elif mode in ("decode", "verify", "packed"):
+        bt = paged["block_tables"]
+        ring = KV.paged_ring_len(window, cache["ppos"].shape[1],
+                                 bt.shape[1])
+        if mode == "packed":
+            # scatter every lane's K/V into its OWN slot's pages, then
+            # attend each lane to its slot's whole paged history
+            KV.paged_write_packed(cache, {"k": k, "v": v},
+                                  paged["slot_ids"], positions[0], bt,
+                                  ring_len=ring)
+            ctx = L.mha_attention_paged_packed(
+                q, cache, bt, positions, paged["slot_ids"],
+                paged["packed_meta"], **kw)
+        else:
+            # write the token (decode) or the whole window (verify, from
+            # positions[:, 0] on) first, then attend: the stored positions
+            # give each lane its causal mask over the window's earlier
+            # tokens.  The engine rewinds rejected drafts afterwards
+            # (kv_cache.paged_truncate_all).
+            write = (KV.paged_write_decode if mode == "decode"
+                     else KV.paged_write_decode_multi)
+            write(cache, {"k": k, "v": v}, positions[:, 0], bt,
+                  paged.get("active"), ring_len=ring)
+            ctx = L.mha_attention_paged(q, cache, bt, positions, **kw)
     else:
         raise NotImplementedError(f"layer mode {mode!r} is not ported")
     x = x + L.attn_out(cfg, p["attn"], ctx)
@@ -120,8 +135,9 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
 
 
 def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged):
-    for spec, p, c in zip(layer_specs(cfg), params["layers"],
-                          cache["layers"]):
+    caches = cache["layers"] if cache is not None \
+        else [None] * len(params["layers"])
+    for spec, p, c in zip(layer_specs(cfg), params["layers"], caches):
         x = layer_apply(cfg, spec, p, x, positions=positions, cache=c,
                         mode=mode, max_len=max_len, paged=paged)
     return x
@@ -157,6 +173,73 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
     x = _run_all(cfg, params, x, positions=positions, cache=cache,
                  mode="decode", max_len=max_len, paged=paged)
     return _logits(cfg, params, x, policy), cache
+
+
+def forward_verify(params, cfg: ModelConfig, tokens, cache, lengths, *,
+                   policy: Policy = FP32, max_len: Optional[int] = None,
+                   paged=None):
+    """Speculative verify: score a window of K+1 tokens per slot in one
+    forward against the paged pool.
+
+    tokens: (B, K+1), the pending token then K drafted tokens; lengths:
+    (B,) the pending token's absolute position (:func:`forward_decode` is
+    the K == 0 case).  Every layer writes the window's K/V into its pool
+    (masked by ``paged["active"]``), then each lane attends causally
+    through the stored positions.  Returns (logits (B, K+1, V), cache);
+    logits[:, j] scores the token after tokens[:, j].  The caller rewinds
+    rejected entries (``kv_cache.paged_truncate_all``)."""
+    max_len = max_len or cfg.max_seq_len
+    K1 = tokens.shape[1]
+    positions = lengths.to(torch.int32)[:, None] + torch.arange(
+        K1, dtype=torch.int32, device=tokens.device)
+    x = _embed(cfg, params, tokens, positions, policy)
+    x = _run_all(cfg, params, x, positions=positions, cache=cache,
+                 mode="verify", max_len=max_len, paged=paged)
+    return _logits(cfg, params, x, policy), cache
+
+
+def forward_mixed(params, cfg: ModelConfig, tokens, cache, row_start, n_q,
+                  *, policy: Policy = FP32, max_len: Optional[int] = None,
+                  paged=None):
+    """Per-slot windows of variable length against the paged pool in one
+    pass (the engine's ``packed=False`` path sends one (1, W-bucket) row
+    per prefill chunk).
+
+    tokens: (B, W), row b holding ``n_q[b]`` real tokens left-aligned;
+    row_start: (B,) the absolute position of each row's first token.
+    Every real token's K/V is written into the slot's pages, then each
+    attends the slot's paged history (earlier chunks, shared prefix pages
+    and the window's own earlier tokens); padding lanes carry position -1,
+    write to the dump page and return zeros.  Returns (logits (B, 1, V)
+    at each row's last real token, cache)."""
+    max_len = max_len or cfg.max_seq_len
+    B, W = tokens.shape
+    lane = torch.arange(W, dtype=torch.int32, device=tokens.device)
+    valid = lane[None, :] < n_q[:, None]
+    positions = torch.where(valid, row_start.to(torch.int32)[:, None]
+                            + lane[None, :], -1).to(torch.int32)
+    paged = dict(paged or {})
+    paged["active"] = valid
+    x = _embed(cfg, params, tokens, positions, policy)
+    x = _run_all(cfg, params, x, positions=positions, cache=cache,
+                 mode="verify", max_len=max_len, paged=paged)
+    last = (n_q.long() - 1).clamp_min(0)
+    x = x[torch.arange(B, device=x.device), last][:, None]
+    return _logits(cfg, params, x, policy), cache
+
+
+def forward_train(params, cfg: ModelConfig, tokens, *,
+                  policy: Policy = FP32):
+    """A full causal forward with no cache: tokens (B, S) at positions
+    0 .. S-1 -> logits (B, S, V).  Inference only here (callers run it
+    under ``torch.no_grad``): the draft model's greedy drafting."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = _embed(cfg, params, tokens, positions, policy)
+    x = _run_all(cfg, params, x, positions=positions, cache=None,
+                 mode="train", max_len=S, paged=None)
+    return _logits(cfg, params, x, policy)
 
 
 def forward_packed(params, cfg: ModelConfig, tokens, cache, slot_ids,

@@ -23,6 +23,7 @@ from repro_torch.core.kv_cache import quantize_kv
 from repro_torch.core.precision import FP32
 from repro_torch.core.scheduler import Request
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.models import transformer as T
@@ -270,6 +271,144 @@ def test_wrapper_rejects_unsupported_shapes(dev):
                                   window=None, scale=1.0)
 
 
+def _mixed_inputs(rng, *, W, n_q, before, Hq, Hkv, D, page, dtype, dev):
+    """Row b holds ``n_q[b]`` real lanes at positions before[b] ..; the
+    window's own K/V are already in the pool; other lanes are padding."""
+    npages = -(-(max(before) + W) // page) + 1
+    k, v, ppos, bt = _pools(rng, [b + n for b, n in zip(before, n_q)],
+                            Hkv=Hkv, D=D, page=page, npages=npages,
+                            dtype=dtype, dev=dev)
+    pos = np.full((len(n_q), W), -1, np.int32)
+    for r, (b0, n) in enumerate(zip(before, n_q)):
+        pos[r, :n] = b0 + np.arange(n)
+    q = torch.from_numpy(rng.normal(size=(len(n_q), W, Hq, D)).astype(
+        np.float32)).to(dev, dtype)
+    return q, k, v, ppos, bt, torch.from_numpy(pos).to(dev)
+
+
+# (W, n_q, before): a verify window of k + 1 = 5 over five slots (one
+# idle, one cut short), and a prefill chunk in a (1, W-bucket) row
+MIXED_SHAPES = [(5, [5, 5, 0, 3, 5], [10, 37, 0, 130, 64]),
+                (64, [45], [21])]
+
+
+@pytest.mark.parametrize("W,n_q,before", MIXED_SHAPES)
+@pytest.mark.parametrize("dtype,Hq,Hkv,D,page,window,softcap", CASES)
+def test_mixed_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page, window,
+                                    softcap, W, n_q, before):
+    rng = np.random.default_rng(7)
+    q, k, v, ppos, bt, q_pos = _mixed_inputs(
+        rng, W=W, n_q=n_q, before=before, Hq=Hq, Hkv=Hkv, D=D, page=page,
+        dtype=dtype, dev=dev)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    n0 = DA.paged_mixed_attention.launches
+    out = DA.paged_mixed_attention(q, k, v, ppos, bt, q_pos, **kw)
+    ref = DA.paged_mixed_attention_ref(q, k, v, ppos, bt, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert DA.paged_mixed_attention.launches == n0 + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for r, n in enumerate(n_q):
+        assert not out[r, n:].any()           # padding lanes are zero
+
+
+@pytest.mark.parametrize("W,n_q,before", MIXED_SHAPES)
+@pytest.mark.parametrize("dtype,Hq,Hkv,D,page,window,softcap", Q8_CASES)
+def test_mixed_q8_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page,
+                                       window, softcap, W, n_q, before):
+    rng = np.random.default_rng(8)
+    q, k, v, ppos, bt, q_pos = _mixed_inputs(
+        rng, W=W, n_q=n_q, before=before, Hq=Hq, Hkv=Hkv, D=D, page=page,
+        dtype=torch.float32, dev=dev)
+    q = q.to(dtype)
+    kq, ks, vq, vs = _q8(k, v)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    out = DA.paged_mixed_attention_q8(q, kq, ks, vq, vs, ppos, bt, q_pos,
+                                      **kw)
+    ref = DA.paged_mixed_attention_ref(q, kq, vq, ppos, bt, q_pos,
+                                       k_scale=ks, v_scale=vs, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for r, n in enumerate(n_q):
+        assert not out[r, n:].any()
+
+
+# dtype, B, Sq, Sk, Hq, Hkv, D, window, softcap: Sq and Sk off the 32-row
+# tile, GQA, a window, a softcap, D up to 256
+FLASH_CASES = [(torch.float32, 2, 37, 37, 4, 4, 64, None, None),
+               (torch.bfloat16, 3, 70, 70, 8, 2, 128, None, None),
+               (torch.float16, 2, 45, 61, 4, 1, 32, 16, 30.0),
+               (torch.float32, 1, 20, 100, 2, 2, 256, 40, None),
+               (torch.bfloat16, 2, 1, 9, 4, 2, 64, None, 20.0)]
+
+
+def _flash_inputs(rng, B, Sq, Sk, Hq, Hkv, D, dtype, dev):
+    """Right-padded rows (-1 positions past each row's length), queries
+    at the tail of the keys' positions, one row wholly invalid."""
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v = t(B, Sq, Hq, D), t(B, Sk, Hkv, D), t(B, Sk, Hkv, D)
+    k_pos = np.full((B, Sk), -1, np.int32)
+    q_pos = np.full((B, Sq), -1, np.int32)
+    for b in range(B - 1 if B > 1 else B):
+        n = int(rng.integers(max(1, Sk // 2), Sk + 1))
+        k_pos[b, :n] = np.arange(n)
+        nq = min(Sq, n)
+        q_pos[b, :nq] = np.arange(n - nq, n)
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(k_pos).to(dev))
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Sk,Hq,Hkv,D,window,softcap",
+                         FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, dtype, B, Sq, Sk, Hq, Hkv, D,
+                                    window, softcap):
+    rng = np.random.default_rng(9)
+    q, k, v, q_pos, k_pos = _flash_inputs(rng, B, Sq, Sk, Hq, Hkv, D,
+                                          dtype, dev)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    n0 = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    ref = FA.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == n0 + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert not out[(q_pos < 0)].any()         # invalid rows are zero
+
+
+def test_mixed_and_flash_wrappers_reject_bad_inputs(dev):
+    q = torch.zeros(2, 3, 4, 16, device=dev)
+    pool = torch.zeros(5, 8, 2, 16, device=dev)
+    ppos = torch.full((5, 8), -1, dtype=torch.int32, device=dev)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    qp = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    kw = dict(window=None, scale=1.0)
+    with pytest.raises(ValueError, match="q_pos"):
+        DA.paged_mixed_attention(q, pool, pool, ppos, bt,
+                                 qp[:, :2].contiguous(), **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        DA.paged_mixed_attention(q.cpu(), pool, pool, ppos, bt, qp, **kw)
+    with pytest.raises(ValueError, match="scale"):
+        DA.paged_mixed_attention_q8(q, pool.to(torch.int8), ppos.float(),
+                                    pool.to(torch.int8), ppos.float(), ppos,
+                                    bt, qp, **kw)
+    k = torch.zeros(2, 5, 2, 16, device=dev)
+    kp = torch.zeros(2, 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        FA.flash_attention(q.cpu(), k, k, qp, kp, **kw)
+    with pytest.raises(ValueError, match="share one"):
+        FA.flash_attention(q.half(), k, k, qp, kp, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        FA.flash_attention(q, k, k, qp.long(), kp, **kw)
+    with pytest.raises(ValueError, match="shapes"):
+        FA.flash_attention(q, k, k, qp, kp[:, :4].contiguous(), **kw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        FA.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                           k[..., :12].contiguous(), qp, kp, **kw)
+
+
 def test_serve_on_card_matches_cpu(dev):
     """Reduced unimo-text, fp32, greedy: the card's serve (through both
     kernels) gives the CPU's token streams, and every attention call of
@@ -337,3 +476,47 @@ def test_qwen3_serve_on_card(dev, kv_dtype, weights_dtype):
                for r in out["cuda"])
     if kv_dtype == "auto":
         assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft_model", "packed_off"])
+def test_spec_and_packed_off_serves_on_card(dev, mode):
+    """Reduced qwen3-4b, fp32, greedy: the card's speculative serves
+    (n-gram, self-drafting) and its ``packed=False`` serve give the CPU's
+    streams, and the card's run launched exactly the kernels of its path:
+    the mixed kernel once per layer and verify step or chunk, flash once
+    per layer and draft forward."""
+    from repro_torch.core.speculative import SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("qwen3-4b")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(6)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 500, size=n)]
+               for n in (19, 30, 11, 23)]
+    prompts += [prompts[0][:12] + [5, 6, 7]]
+    spec = None if mode == "packed_off" else SpecConfig(k=3, drafter=mode)
+    out, drafts = {}, 0
+    for d in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, params, policy=FP32, max_len=64,
+                              max_batch=3, device=d)
+        ops.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=8)
+             for i, p in enumerate(prompts)], page_size=8,
+            max_batched_tokens=24, spec=spec, packed=mode != "packed_off")
+        out[d] = [r.result for r in done]
+        if spec is not None and spec.drafter == "draft_model":
+            drafts = eng.drafter.calls
+    assert out["cuda"] == out["cpu"]
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    if mode == "packed_off":
+        assert counts["paged_packed_attention"] == 0
+        assert counts["paged_mixed_attention"] == L * m.prefill_chunks > 0
+        assert counts["paged_decode_attention"] == L * m.steps > 0
+    else:
+        verify_steps = m.steps - m.mixed_iters
+        assert counts["paged_mixed_attention"] == L * verify_steps > 0
+        assert counts["paged_packed_attention"] == L * m.mixed_iters > 0
+        assert counts["paged_decode_attention"] == 0
+        assert counts["flash_attention"] == L * 3 * drafts
+        assert (drafts > 0) == (mode == "draft_model")

@@ -15,6 +15,7 @@ import repro_torch
 from repro_torch.configs.registry import get_reduced
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ref
@@ -43,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 20
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     assert {"kernels/quant_matmul.py", "configs/qwen3_4b.py",
-            "kernels/decode_attention.py", "core/precision.py"} <= names
+            "kernels/decode_attention.py", "core/precision.py",
+            "kernels/flash_attention.py", "core/speculative.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert bad == []
@@ -177,4 +179,56 @@ def test_int8_kernel_wrappers_refuse_non_cuda_tensors(device):
             ops.quant_matmul(x, w, s)
         else:
             QM.quant_matmul(x, w, s)
+    assert _no_launches()
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_mixed_and_flash_wrappers_refuse_non_cuda_tensors(device):
+    """The mixed attention wrappers (both pool types) and the flash wrapper
+    raise for a non-CUDA tensor, through ``ops`` (meta) or called
+    directly (CPU), and count no launch."""
+    q, kp, vp, ppos, bt, _ = _decode_inputs(device)
+    q = q.reshape(1, 2, *q.shape[2:]).expand(2, 2, *q.shape[2:])
+    qp = torch.zeros(2, 2, dtype=torch.int32, device=device)
+    codes = kp.to(torch.int8)
+    sc = torch.zeros(kp.shape[:3], device=device)
+    kw = dict(window=None, scale=0.25)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if device == "meta":
+            ops.paged_mixed_attention(q, kp, vp, ppos, bt, qp, **kw)
+        else:
+            DA.paged_mixed_attention(q, kp, vp, ppos, bt, qp, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if device == "meta":
+            ops.paged_mixed_attention(q, codes, codes, ppos, bt, qp,
+                                      k_scale=sc, v_scale=sc, **kw)
+        else:
+            DA.paged_mixed_attention_q8(q, codes, sc, codes, sc, ppos, bt,
+                                        qp, **kw)
+    k = torch.zeros(2, 3, 2, 16, device=device)
+    kpos = torch.zeros(2, 3, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if device == "meta":
+            ops.flash_attention(q, k, k, qp, kpos, **kw)
+        else:
+            FA.flash_attention(q, k, k, qp, kpos, **kw)
+    assert _no_launches()
+
+
+def test_cpu_dispatch_of_mixed_and_flash_uses_the_plain_versions():
+    rng = np.random.default_rng(1)
+    q, kp, vp, ppos, bt, _ = _decode_inputs("cpu")
+    q = torch.from_numpy(rng.normal(size=(2, 3, 2, 16)).astype(np.float32))
+    kp = torch.from_numpy(rng.normal(size=kp.shape).astype(np.float32))
+    ppos[0, :5] = torch.arange(5)
+    qp = torch.tensor([[2, 3, 4], [-1, -1, -1]], dtype=torch.int32)
+    out = ops.paged_mixed_attention(q, kp, kp, ppos, bt, qp, window=None,
+                                    scale=0.25)
+    np.testing.assert_array_equal(out.numpy(), ref.paged_mixed_attention_ref(
+        q, kp, kp, ppos, bt, qp, window=None, scale=0.25).numpy())
+    assert out[0].abs().sum() > 0 and not out[1].any()
+    k = torch.from_numpy(rng.normal(size=(2, 3, 2, 16)).astype(np.float32))
+    out = ops.flash_attention(q, k, k, qp, qp, window=None, scale=0.25)
+    np.testing.assert_array_equal(out.numpy(), ref.flash_attention_ref(
+        q, k, k, qp, qp, window=None, scale=0.25).numpy())
     assert _no_launches()
