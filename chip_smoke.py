@@ -8,8 +8,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
-              ``flash_attention.cu`` and ``quant_matmul.cu``) and report the
-              build seconds and ptxas resource use
+              ``flash_attention.cu``, ``quant_matmul.cu``,
+              ``mlstm_chunk.cu`` and ``rmsnorm.cu``) and report the build
+              seconds and ptxas resource use
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
@@ -22,7 +23,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               verify shape (8 slots, k + 1 = 5 lanes) and at a (1, 256)
               prefill-chunk row; flash attention at unimo-text's draft
               shape (8 x 260, 16 heads x 64), at qwen3-4b's GQA heads and
-              on a small case with -1 positions, a window and a softcap.
+              on a small case with -1 positions, a window and a softcap;
+              ``mlstm_chunked`` at xlstm-125m's width (8 rows, 4 heads x
+              384; S = 300 from a nonzero state, S = 64) and at the
+              reduced head dim 128, q/k/v at bf16 and fp32; the unwired
+              ``fused_rmsnorm`` (4096 x 2560 bf16 and fp32, a ragged row
+              count) and dense ``decode_attention`` (qwen3-4b's heads, 8 x
+              256, also with a window + softcap; a ragged fp32 case).
               Times the kernel, the plain version and a PyTorch yardstick
               the port never calls (``library_ms``) with CUDA events
   4. parity   reduced unimo-text and reduced qwen3-4b in fp32 (TF32 off):
@@ -31,7 +38,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               CPU, and short greedy serves on both (packed; speculative with
               the n-gram drafter and self-drafting; ``packed=False``), whose
               streams must all be equal; qwen3-4b also at int8 KV + int8
-              weights (packed forwards and serve)
+              weights (packed forwards and serve); reduced xlstm-125m:
+              prefill and decode logits and states within 1e-5 of the
+              CPU's, and equal greedy streams through the bucketed
+              admission path
   5. serve    full-width unimo-text (24 layers, bf16) and full-width
               qwen3-4b (36 layers, bf16, then int8 KV + int8 weights), random
               weights from a seeded torch.Generator, through
@@ -48,7 +58,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               self-drafting (flash once per layer and draft forward).  Each
               serve then runs once more under ``torch.profiler``
               (``profile`` lines): device time by kernel and the device's
-              idle share
+              idle share.  Last, full-width xlstm-125m (12 layers, bf16)
+              through the bucketed admission path: 16 requests (4 of them
+              150-300 tokens) x 32 new tokens, 8 slots, max_len 512; the
+              mLSTM kernel must run 6 x the admission dispatches and no
+              other kernel may run
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -79,15 +93,35 @@ REPLACES = {
     "paged_mixed_attention": "src/repro/kernels/decode_attention.py:380",
     "paged_mixed_attention_q8": "src/repro/kernels/decode_attention.py:484",
     "flash_attention": "src/repro/kernels/flash_attention.py:96",
+    "mlstm_chunked": "src/repro/kernels/mlstm_chunk.py:94",
+    "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:37",
+    "decode_attention": "src/repro/kernels/decode_attention.py:821",
 }
 SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
           for name in REPLACES}
 SOURCE["quant_matmul"] = "src/repro_torch/csrc/quant_matmul.cu"
 SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCE["mlstm_chunked"] = "src/repro_torch/csrc/mlstm_chunk.cu"
+SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
+NOTES = {
+    "mlstm_chunked": "library_ms null: no single PyTorch call computes the "
+                     "chunkwise mLSTM",
+    "fused_rmsnorm": "no model call site (as in the reference): launches 0 "
+                     "in the serves",
+    "decode_attention": "no model call site (as in the reference): "
+                        "launches 0 in the serves",
+}
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
 # its error is held to this fraction of the output's largest magnitude
 QM_REL_TOL = 1e-5
+# mlstm_chunked: h divides by a denominator that passes near zero for
+# random inputs, so h is held to 1e-4 and the state (C, n, m) to 1e-5 of
+# the largest magnitude of each (at least 1); the kernel's 32-step chunks
+# and the plain version's 128 differ only in rounding.  RMSNorm in fp32:
+# 1e-5 relative (rsqrtf, the sum's order).
+MLSTM_REL_TOL = {"h": 1e-4, "C": 1e-5, "n": 1e-5, "m": 1e-5}
+RMSNORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 
 
 T_START = time.perf_counter()
@@ -166,6 +200,14 @@ def visible(kp, qp, window):
     return m
 
 
+def _bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, entry_bytes,
           window, extra_bytes, dtype):
     """Least time the card needs for this call: the K/V entries some query
@@ -184,9 +226,7 @@ def bound(*, ppos, bt, lane_slots, lane_pos, Hq, Hkv, D, entry_bytes,
     pages = {int(p) for row in bt for p in row if p >= 0}
     nbytes = (len(needed) * Hkv * entry_bytes
               + len(pages) * ppos.shape[1] * 4 + extra_bytes)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, flops, dtype)
 
 
 def _attention_fns(quant, packed, mixed=False):
@@ -445,14 +485,10 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
         # flops each per query head (QK^T and PV); bytes: q, k, v, out
         # and positions once
         pairs = int(visible(pos[:, None, :], pos[:, :, None], window).sum())
-        t_ops = 4 * D * Hq * pairs / PEAK_FLOPS[
-            str(dtype).removeprefix("torch.")] * 1e3
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
             + 2 * pos.nbytes
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        res["bound_ms"], res["bound_by"] = ((t_bytes, "bytes")
-                                            if t_bytes >= t_ops
-                                            else (t_ops, "operations"))
+        res["bound_ms"], res["bound_by"] = _bound(nbytes,
+                                                  4 * D * Hq * pairs, dtype)
     return res
 
 
@@ -484,12 +520,141 @@ def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
                    plain_ms=time_ms(lambda: QM.quant_matmul_ref(x, q, s)),
                    library_ms=time_ms(lambda: torch.matmul(xb, w)))
         nbytes = K * N + 4 * N + x.numel() * x.element_size() + 4 * M * N
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * M * K * N / PEAK_FLOPS[
-            str(dtype).removeprefix("torch.")] * 1e3
-        res["bound_ms"], res["bound_by"] = ((t_bytes, "bytes")
-                                            if t_bytes >= t_ops
-                                            else (t_ops, "operations"))
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, 2 * M * K * N,
+                                                  dtype)
+    return res
+
+
+def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
+                   timed=False):
+    """``mlstm_chunked`` on random q, k (scaled by dh^-1/2 as the model
+    does), v, gates and (with ``state``) a nonzero initial state, against
+    its plain version: h, C, n and m."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as MC
+    dev = torch.device("cuda")
+
+    def r(*shape):
+        return torch.randn(*shape, generator=rng, device=dev)
+    q, k, v = (r(B, S, H, dh).to(dtype) for _ in range(3))
+    k = (k.float() * dh ** -0.5).to(dtype)
+    i_pre = r(B, S, H)
+    logf = torch.nn.functional.logsigmoid(r(B, S, H) + 2)
+    st = {"C": r(B, H, dh, dh) * 0.1 if state else
+          torch.zeros(B, H, dh, dh, device=dev),
+          "n": r(B, H, dh).abs() if state else torch.zeros(B, H, dh,
+                                                           device=dev),
+          "m": r(B, H) if state else torch.zeros(B, H, device=dev)}
+    args = (q, k, v, i_pre, logf, st)
+    h, out = MC.mlstm_chunked(*args)
+    h_r, ref = MC.mlstm_chunked_ref(*args)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for key, a, b in [("h", h, h_r)] + [(n, out[n], ref[n])
+                                         for n in ("C", "n", "m")]:
+        errs[key] = (a - b).abs().max().item()
+        ok &= errs[key] <= MLSTM_REL_TOL[key] * max(b.abs().max().item(),
+                                                    1.0)
+    res = {"case": name, "kernel": "mlstm_chunked", "B": B, "S": S, "H": H,
+           "dh": dh, "max_abs_err": max(errs.values()), "errs": errs,
+           "tol": MLSTM_REL_TOL, "ok": bool(ok)}
+    if timed:
+        res.update(kernel_ms=time_ms(lambda: MC.mlstm_chunked(*args)),
+                   plain_ms=time_ms(lambda: MC.mlstm_chunked_ref(*args)),
+                   library_ms=None)
+        # the chunkwise algorithm at the kernel's 32-step chunks: per step
+        # q C and the k v^T update (dh^2 each), q n and the n update (dh
+        # each), and the causal intra-chunk scores and s v ((L + 1) dh on
+        # average); bytes: q, k, v and the gates read once, h written
+        # once, the state read and written once
+        L = 32
+        flops = 2 * B * H * S * dh * (2 * dh + 2 + (L + 1))
+        nbytes = (3 * q.numel() * q.element_size() + 2 * 4 * i_pre.numel()
+                  + 4 * h.numel()
+                  + 2 * 4 * sum(t.numel() for t in st.values()))
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, dtype)
+    return res
+
+
+def run_rmsnorm_case(rng, name, *, rows, D, dtype, wdtype, timed=False):
+    """``fused_rmsnorm`` against its plain version; the yardstick is
+    ``torch.nn.functional.rms_norm`` with weight ``1 + w``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+    dev = torch.device("cuda")
+    x = torch.randn(rows, D, generator=rng, device=dev).to(dtype)
+    w = (torch.randn(D, generator=rng, device=dev) * 0.1).to(wdtype)
+    out = RN.fused_rmsnorm(x, w)
+    ref = RN.rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = RMSNORM_TOL[str(dtype).removeprefix("torch.")]
+    ok = out.dtype == dtype and torch.allclose(out.float(), ref.float(),
+                                               atol=tol, rtol=tol)
+    res = {"case": name, "kernel": "fused_rmsnorm", "rows": rows, "D": D,
+           "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+    if timed:
+        w1 = (1.0 + w.float()).to(dtype)
+        res.update(kernel_ms=time_ms(lambda: RN.fused_rmsnorm(x, w)),
+                   plain_ms=time_ms(lambda: RN.rmsnorm_ref(x, w)),
+                   library_ms=time_ms(lambda: F.rms_norm(x, (D,), w1,
+                                                         1e-6)))
+        res["bound_ms"], res["bound_by"] = _bound(
+            2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+            4 * x.numel(), dtype)
+    return res
+
+
+def run_dense_decode_case(rng, name, *, B, Sk, Hq, Hkv, D, dtype,
+                          window=None, softcap=None, timed=False):
+    """The dense ``decode_attention`` on contiguous caches: row 0 sees a
+    ragged valid prefix, the others the whole cache, the last row has
+    q_pos = -1 (it must come back 0).  Yardstick: SDPA with the mask, on
+    K/V repeated per query head beforehand."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    dev = torch.device("cuda")
+    q = torch.randn(B, 1, Hq, D, generator=rng, device=dev).to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
+    kp = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    kp[0, Sk // 2 + 1:] = -1
+    qp = np.full((B, 1), Sk - 1, np.int32)
+    qp[0], qp[-1] = Sk // 2, -1
+    k_pos, q_pos = (torch.from_numpy(a).to(dev) for a in (kp, qp))
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    out = DA.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    ref = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
+        and not out[-1].any().item()
+    res = {"case": name, "kernel": "decode_attention", "B": B, "Sk": Sk,
+           "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+    if timed:
+        g = Hq // Hkv
+        mask = visible(k_pos[:, None, None, :], q_pos[:, :, None, None],
+                       window)
+        qs = q.transpose(1, 2)
+        ks = k.repeat_interleave(g, 2).transpose(1, 2)
+        vs = v.repeat_interleave(g, 2).transpose(1, 2)
+        res.update(
+            kernel_ms=time_ms(lambda: DA.decode_attention(q, k, v, k_pos,
+                                                          q_pos, **kw)),
+            plain_ms=time_ms(lambda: DA.decode_attention_ref(
+                q, k, v, k_pos, q_pos, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        # the keys some query can see (K and V of each kv head once), the
+        # positions, q and out once; 4 D flops per visible key and head
+        n_vis = int(visible(kp, qp, window).sum())
+        nbytes = (n_vis * Hkv * 2 * D * k.element_size() + kp.nbytes
+                  + qp.nbytes + 2 * q.numel() * q.element_size())
+        res["bound_ms"], res["bound_by"] = _bound(nbytes,
+                                                  4 * D * Hq * n_vis, dtype)
     return res
 
 
@@ -589,6 +754,39 @@ def phase_kernels():
                                 "bf16", B=3, S=45, Hq=8, Hkv=2, D=32,
                                 dtype=bf16, ragged=True, window=16,
                                 softcap=30.0))
+    # mlstm_chunked at xlstm-125m's width (4 heads x 384) over 8 rows: a
+    # ragged 300-step prompt from a nonzero state, a 64-step one, and the
+    # reduced config's head dim 128; q/k/v at bf16 and fp32
+    for dtype in (bf16, fp32):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_mlstm_case(
+            rng, f"xlstm-125m S=300 nonzero state {dn}", B=8, S=300, H=4,
+            dh=384, dtype=dtype, state=True, timed=dtype == bf16))
+        cases.append(run_mlstm_case(rng, f"xlstm-125m S=64 {dn}", B=8, S=64,
+                                    H=4, dh=384, dtype=dtype))
+        cases.append(run_mlstm_case(rng, f"reduced dh=128 S=37 {dn}", B=3,
+                                    S=37, H=2, dh=128, dtype=dtype,
+                                    state=True))
+    # fused_rmsnorm (no model call site): qwen3-4b's width over 4096 rows,
+    # and a ragged row count with fp32 w
+    cases.append(run_rmsnorm_case(rng, "4096 x 2560 bf16", rows=4096,
+                                  D=2560, dtype=bf16, wdtype=bf16,
+                                  timed=True))
+    cases.append(run_rmsnorm_case(rng, "4096 x 2560 fp32", rows=4096,
+                                  D=2560, dtype=fp32, wdtype=fp32))
+    cases.append(run_rmsnorm_case(rng, "ragged 4099 x 2560 bf16, fp32 w",
+                                  rows=4099, D=2560, dtype=bf16,
+                                  wdtype=fp32))
+    # the dense decode_attention (no model call site): qwen3-4b's heads
+    cases.append(run_dense_decode_case(rng, "qwen3-4b heads 8 x 256 bf16",
+                                       B=8, Sk=256, dtype=bf16, timed=True,
+                                       **qwen3))
+    cases.append(run_dense_decode_case(
+        rng, "qwen3-4b heads window 64 + softcap 30 bf16", B=8, Sk=256,
+        dtype=bf16, window=64, softcap=30.0, **qwen3))
+    cases.append(run_dense_decode_case(
+        rng, "unimo-text heads ragged Sk=300 fp32", B=4, Sk=300, dtype=fp32,
+        **unimo))
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -599,7 +797,9 @@ def phase_kernels():
     # for quant_matmul, the draft shape for flash
     main = {"qwen3-4b bf16", "qwen3-4b int8 pool, bf16 q",
             "qwen3-4b verify bf16 q", "qwen3-4b verify int8 pool, bf16 q",
-            "unimo-text draft 8 x 260 bf16"}
+            "unimo-text draft 8 x 260 bf16",
+            "xlstm-125m S=300 nonzero state bfloat16", "4096 x 2560 bf16",
+            "qwen3-4b heads 8 x 256 bf16"}
     summary = {c["kernel"]: c for c in cases
                if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"] = next(
@@ -759,6 +959,89 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
                          f"serving modes: {identical}")
 
 
+# reduced xlstm on the card against the CPU, fp32: logits and states
+XLSTM_PARITY_TOL = 1e-5
+
+
+def phase_parity_xlstm():
+    """Reduced xlstm-125m, fp32 (TF32 off): ``forward_prefill`` logits and
+    every layer's state, then one ``forward_decode`` from that state, on
+    the card (the mLSTM kernel) against the CPU (its plain version), from
+    the same weights and tokens; then a short greedy serve through the
+    bucketed admission path on both, whose streams must be equal (three
+    prompts of one length, so one admission dispatch covers two slots)."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32, map_params
+    from repro_torch.core.scheduler import Request
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("xlstm-125m")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(5)
+    B, S = 3, 45
+    toks = rng.integers(4, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    nxt = rng.integers(4, cfg.vocab_size, size=(B, 1)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        prm = map_params(lambda t: t.to(dev), params)
+        cache = T.init_paged_cache(cfg, num_pages=4, page_size=8,
+                                   dtype=torch.float32, max_slots=B,
+                                   device=dev)
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            lp, cache = T.forward_prefill(
+                prm, cfg, torch.from_numpy(toks).to(dev), lens, cache,
+                policy=FP32, max_len=64)
+            st_p = [{k: t.cpu() for k, t in c.items()}
+                    for c in cache["layers"]]
+            ld, cache = T.forward_decode(
+                prm, cfg, torch.from_numpy(nxt).to(dev), cache, lens,
+                policy=FP32, max_len=64)
+        out[dev] = (lp.cpu(), ld.cpu(), st_p,
+                    [{k: t.cpu() for k, t in c.items()}
+                     for c in cache["layers"]])
+    errs = {"prefill_logits": (out["cuda"][0] - out["cpu"][0]).abs().max()
+            .item(),
+            "decode_logits": (out["cuda"][1] - out["cpu"][1]).abs().max()
+            .item()}
+    state_ok = True
+    for tag, i in (("prefill_state", 2), ("decode_state", 3)):
+        worst = 0.0
+        for a, b in zip(out["cuda"][i], out["cpu"][i]):
+            for k in a:
+                e = (a[k] - b[k]).abs().max().item()
+                worst = max(worst, e)
+                state_ok &= e <= XLSTM_PARITY_TOL * max(
+                    b[k].abs().max().item(), 1.0)
+        errs[tag] = worst
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+               for n in (40, 40, 9, 70, 40, 3)]
+    streams, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = InferenceEngine(cfg, params, policy=FP32, max_len=128,
+                              max_batch=3, device=dev)
+        ops.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=10)
+             for i, p in enumerate(prompts)], page_size=8)
+        streams[dev] = [r.result for r in done]
+        launches[dev] = ops.launch_counts()["mlstm_chunked"]
+    emit("parity", arch="xlstm-125m", logits_tol=XLSTM_PARITY_TOL,
+         max_abs_err=errs, greedy_streams_equal=streams["cuda"]
+         == streams["cpu"], tokens=sum(map(len, streams["cpu"])),
+         mlstm_launches_card_serve=launches["cuda"])
+    if not (errs["prefill_logits"] <= XLSTM_PARITY_TOL
+            and errs["decode_logits"] <= XLSTM_PARITY_TOL and state_ok):
+        raise SystemExit(f"xlstm-125m: card forwards differ from the plain "
+                         f"path: {errs}")
+    if streams["cuda"] != streams["cpu"] or launches["cuda"] == 0:
+        raise SystemExit("xlstm-125m: greedy streams differ across devices "
+                         "or the card serve did not run the mLSTM kernel")
+
+
 @functools.lru_cache(maxsize=None)
 def _smoke_prompts():
     """The serves' 16 prompts: synthetic-corpus texts of 4-40 words,
@@ -773,7 +1056,7 @@ def _smoke_prompts():
 def _serve_kw(mode):
     """serve_continuous options of a serving mode."""
     from repro_torch.core.speculative import SpecConfig
-    return {"packed": {},
+    return {"packed": {}, "bucketed": {},
             "spec_ngram": {"spec": SpecConfig(k=SPEC_K)},
             "spec_draft": {"spec": SpecConfig(k=SPEC_K,
                                               drafter="draft_model")},
@@ -956,7 +1239,8 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
     ours = {}
     for name in ("paged_decode_kernel", "paged_packed_kernel",
                  "paged_mixed_kernel", "flash_kernel",
-                 "quant_matmul_kernel", "quant_matmul_reduce_kernel"):
+                 "quant_matmul_kernel", "quant_matmul_reduce_kernel",
+                 "mlstm_chunk_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
                 ours[k[:90]] = {"ms": us / 1e3, "count": n}
@@ -1035,6 +1319,91 @@ def phase_serves():
             "flash_attention": ld["flash_attention"]}
 
 
+def phase_serve_xlstm():
+    """Full-width xlstm-125m (12 layers, bf16, random weights from a
+    seeded torch.Generator) through ``serve_continuous``'s bucketed
+    admission path: 16 requests x 32 new tokens, 8 slots, max_len 512,
+    12 of the smoke prompts and 4 prompts of 150-300 tokens (so the mLSTM
+    kernel carries state across its chunks inside the serve).  Gates:
+    16/16 admitted and retired, no padded prefill token, the mLSTM kernel
+    launched 6 x the admission dispatches and no other kernel launched;
+    then the profile.  Returns the run's launch counts."""
+    import torch
+    from repro_torch.configs.base import MLSTM, layer_specs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import BF16
+    from repro_torch.core.scheduler import Request
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = get_config("xlstm-125m")
+    n_mlstm = sum(s.mixer == MLSTM for s in layer_specs(cfg))    # 6 of 12
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, BF16)
+    rng = np.random.default_rng(9)
+    long = [[2] + [int(t) for t in rng.integers(4, 4000, size=n)]
+            for n in (150, 211, 257, 299)]
+    prompts = [list(p) for p in _smoke_prompts()[:12]] + long
+    steps_per_sync = 4
+
+    def requests(n, max_new):
+        return [Request(uid=i, tokens=list(p), max_new_tokens=max_new)
+                for i, p in enumerate(prompts[:n])]
+
+    def engine():
+        return InferenceEngine(cfg, params, policy=BF16, max_batch=8,
+                               max_len=512, device="cuda")
+
+    engine().serve_continuous(requests(4, 4))            # warm-up
+    eng = engine()
+    reqs = requests(16, 32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done, m = eng.serve_continuous(reqs, steps_per_sync=steps_per_sync)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    decode_dispatches = m.steps // steps_per_sync
+    admissions = m.host_syncs - decode_dispatches
+    emit("serve", arch=cfg.name, layers=cfg.num_layers, policy="bf16",
+         mode="bucketed", requests=len(done),
+         generated_tokens=m.generated_tokens, wall_s=wall,
+         tokens_per_s=m.generated_tokens / wall, ttft_p50_s=m.ttft_p50,
+         ttft_p99_s=m.ttft_p99, itl_p50_s=m.itl_p50, itl_p99_s=m.itl_p99,
+         host_frac=m.host_frac, host_s=m.host_s, device_s=m.device_s,
+         scheduler=m.scheduler, steps=m.steps, host_syncs=m.host_syncs,
+         admission_dispatches=admissions, prefill_tokens=m.prefill_tokens,
+         prefill_padded=m.prefill_padded,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         kv_bytes_per_token=m.kv_bytes_per_token,
+         weight_bytes=m.weight_bytes, launches=launches,
+         outcomes=m.outcome_counts)
+    checks = {
+        "16/16 requests admitted and retired": (
+            m.admitted == m.retired == len(done) == 16
+            and m.outcome_counts == {"completed": 16}),
+        "in-vocab tokens": all(0 <= t < cfg.vocab_size for r in done
+                               for t in r.result),
+        "prefill_padded == prefill_tokens": (
+            m.prefill_padded == m.prefill_tokens > 0),
+        f"mlstm_chunked ran {n_mlstm} x admission dispatches "
+        f"({admissions})": (launches["mlstm_chunked"]
+                            == n_mlstm * admissions > 0),
+        "no other kernel ran": all(n == 0 for k, n in launches.items()
+                                   if k != "mlstm_chunked"),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"xlstm-125m serve failed: {failed}")
+    del eng
+    phase_profile(engine(), requests(16, 32), wall, "xlstm-125m", "auto",
+                  "auto", "bucketed")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1069,17 +1438,24 @@ def main() -> int:
     phase_parity("unimo-text")
     phase_parity("qwen3-4b")
     phase_parity("qwen3-4b", kv_dtype="int8", weights_dtype="int8")
+    phase_parity_xlstm()
     launches = phase_serves()
+    xl = phase_serve_xlstm()
+    launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm",
+                                        "decode_attention")})
 
     kernels = []
     for name in REPLACES:
         c = timed[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        if name in NOTES:
+            row["note"] = NOTES[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # Layer specification
@@ -115,3 +115,14 @@ def layer_specs(cfg: ModelConfig) -> Iterator[LayerSpec]:
 
 def uniform_stack(n_layers: int, spec: LayerSpec) -> Tuple[Stack, ...]:
     return (Stack((spec,), n_layers),)
+
+
+def patterned_stacks(n_layers: int,
+                     pattern: Sequence[LayerSpec]) -> Tuple[Stack, ...]:
+    """Repeat ``pattern`` as many whole times as fits; the remainder
+    becomes a second stack of single-layer repeats (a prefix of the
+    pattern)."""
+    reps, rem = divmod(n_layers, len(pattern))
+    stacks = [Stack(tuple(pattern), reps)] if reps else []
+    stacks.extend(Stack((pattern[i],), 1) for i in range(rem))
+    return tuple(stacks)

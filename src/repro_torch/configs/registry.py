@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "unimo-text": "repro_torch.configs.unimo_text",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 

@@ -1,17 +1,20 @@
 """Continuous-batching inference engine (the port's counterpart of
-``repro.core.engine``), reduced to the reference's unified serving path:
-``serve_continuous`` with the token-budget scheduler, radix prefix sharing
-over the paged KV pool and fused multi-step decode.  An iteration that
-carries prefill chunks runs token-packed (one (1, T) dispatch, the
-default) or, with ``packed=False``, as the reference's A/B baseline: a
-one-step decode plus one (1, W-bucket) mixed forward per chunk.  With a
-``SpecConfig``, decode-only iterations run draft-verify steps instead.
+``repro.core.engine``), reduced to the reference's ``serve_continuous``:
+the unified token-budget scheduler with radix prefix sharing over the
+paged KV pool and fused multi-step decode for attention models, and the
+bucketed whole-prompt admission fallback for recurrent (xLSTM) models.
+An iteration that carries prefill chunks runs token-packed (one (1, T)
+dispatch, the default) or, with ``packed=False``, as the reference's A/B
+baseline: a one-step decode plus one (1, W-bucket) mixed forward per
+chunk.  With a ``SpecConfig``, decode-only iterations run draft-verify
+steps instead.
 
 The engine runs on the card by default (``device="cuda"``) and raises when
 no CUDA device is present; pass ``device="cpu"`` to run the kernels'
 plain PyTorch versions.  Options of the reference that the port does not
 serve yet (preemption and the host KV tier, fault injection, tracing, the
-bucketed path, vocabulary pruning) raise ``NotImplementedError``.
+bucketed path of attention models, vocabulary pruning) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, layer_specs
 from repro_torch.core import kv_cache as KV
 from repro_torch.core import prefix_cache as PC
 from repro_torch.core.continuous import (ContinuousScheduler, PageAllocator,
@@ -128,7 +131,7 @@ class InferenceEngine:
         cache = T.init_paged_cache(
             self.cfg, num_pages=num_pages, page_size=page_size,
             dtype=self.policy.compute_dtype, kv_dtype=self.policy.kv_dtype,
-            device=self.device)
+            max_slots=slots, device=self.device)
         pool_bytes = KV.paged_pool_bytes(cache)
         self._paged_ctx = {
             "key": key, "page_size": page_size, "num_pages": num_pages,
@@ -147,6 +150,19 @@ class InferenceEngine:
         KV.reset_pages_all(cache, self._put(reset_rows))
         KV.copy_pages_all(cache, self._put(cow_src), self._put(cow_dst),
                           self._put(cow_keep))
+
+    def _admit_step(self, cache, toks, plens, slots, pages, sp):
+        """One bucketed admission dispatch (the reference's ``admit_fn``):
+        reset the group's fresh pages, prefill its whole prompts on a
+        fresh slot view, scatter the view's state into the group's slots
+        and sample each row's first token."""
+        KV.reset_pages_all(cache, self._put(pages))
+        view = KV.slot_view(cache, toks.shape[0])
+        logits, view = T.forward_prefill(
+            self.params, self.cfg, self._put(toks), self._put(plens), view,
+            policy=self.policy, max_len=self.max_len, last_only=True)
+        KV.slot_merge(cache, view, self._put(slots))
+        return sample(logits[:, 0], self.gen, sp)
 
     def _packed_step(self, cache, pb, meta, block_tables, init, sp):
         """One token-packed iteration on the device: page init, the packed
@@ -268,7 +284,8 @@ class InferenceEngine:
                          faults=None, trace=None):
         """Serve requests with continuous batching over a paged KV cache.
 
-        Each iteration packs one decode token per live slot plus up to
+        Attention models run the unified scheduler: each iteration packs
+        one decode token per live slot plus up to
         the remaining ``max_batched_tokens`` (default 256) in
         prefill-chunk tokens from admitting slots (FCFS).  An iteration
         that carries chunks runs as ONE token-packed (1, T) dispatch, or
@@ -286,28 +303,60 @@ class InferenceEngine:
         ``arrivals`` gives optional per-request arrival offsets in
         seconds.
 
+        Recurrent models (every layer mLSTM or sLSTM) keep dense per-slot
+        state that chunks cannot resume and requests cannot share, so,
+        as in the reference, they take the bucketed fallback: FCFS
+        admissions of equal prompt length are grouped into power-of-two
+        batches, each prefilled whole in one dispatch at its exact
+        length, then every slot decodes in fused steps.  There
+        ``prefix_cache``, ``spec``, ``chunked_prefill`` and ``packed``
+        warn and are turned off, as the reference does.
+
         Returns (requests, ServeMetrics); ``r.result`` holds each
         request's generated tokens.
         """
         unported = {"preemption": preemption != "off",
                     "host_kv_bytes": host_kv_bytes is not None,
                     "faults": faults is not None,
-                    "trace": trace is not None,
-                    "chunked_prefill=False": chunked_prefill is False}
+                    "trace": trace is not None}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
-                f"serve_continuous options not ported: {', '.join(bad)} "
-                f"(the port serves the unified chunked path only)")
+                f"serve_continuous options not ported: {', '.join(bad)}")
         reason = PC.shareable(self.cfg, self.max_len)
-        if reason is not None:
+        if reason is not None and not all(
+                layer.mixer in T.RECURRENT
+                for layer in layer_specs(self.cfg)):
             raise NotImplementedError(
-                f"{self.cfg.name}: the port serves only the unified chunked "
-                f"path, which needs paged pure attention ({reason})")
+                f"{self.cfg.name}: the port's bucketed path serves only "
+                f"recurrent models, and the unified chunked path needs "
+                f"paged pure attention ({reason})")
+        if reason is None and chunked_prefill is False:
+            raise NotImplementedError(
+                "chunked_prefill=False: bucketed admission of attention "
+                "models is not ported")
         if arrivals is not None and len(arrivals) != len(requests):
             raise ValueError("arrivals must match requests 1:1")
-        share = True if prefix_cache is None else bool(prefix_cache)
-        packed_on = True if packed is None else bool(packed)
+        # the reference's family gate: a model whose layers cannot share
+        # pages serves without the prefix cache, speculation, chunks and
+        # packing, with a warning for each one asked for
+        share = reason is None if prefix_cache is None else bool(prefix_cache)
+        if share and reason is not None:
+            warnings.warn(f"prefix_cache requested but disabled — {reason}")
+            share = False
+        if spec is not None and reason is not None:
+            warnings.warn(f"speculative decoding requested but disabled — "
+                          f"{reason}")
+            spec = None
+        chunked = reason is None
+        if chunked_prefill and reason is not None:
+            warnings.warn(f"chunked prefill requested but disabled — "
+                          f"{reason}")
+        packed_on = chunked if packed is None else bool(packed)
+        if packed_on and not chunked:
+            warnings.warn(f"packed execution requested but disabled — it "
+                          f"rides the unified chunked scheduler ({reason})")
+            packed_on = False
         drafter = None
         if spec is not None:
             # kept across serve calls with the same SpecConfig object
@@ -321,7 +370,7 @@ class InferenceEngine:
         trie = ctx["trie"]
         budget = max_batched_tokens or DEFAULT_MAX_BATCHED_TOKENS
         floor = slots * (drafter.k + 1 if drafter else 1)
-        if budget < floor:
+        if chunked and budget < floor:
             warnings.warn(
                 f"max_batched_tokens={budget} cannot cover one "
                 f"{'verify window' if drafter else 'decode token'} per "
@@ -344,7 +393,9 @@ class InferenceEngine:
                                    ws["weight_bytes_saved"]),
                                spec_mode=drafter.name if drafter else "off",
                                spec_k=drafter.k if drafter else 0,
-                               max_batched_tokens=budget)
+                               scheduler="unified" if chunked
+                               else "bucketed",
+                               max_batched_tokens=budget if chunked else 0)
         trie_base = trie.evicted_pages
 
         block_tables = np.full((slots, pages_per_slot), -1, np.int32)
@@ -619,6 +670,64 @@ class InferenceEngine:
                     st, (st.ctx_len // page_size) * page_size)
                 start_decoding(c.slot, st, int(finals[ci]))
 
+        def flush_admissions(pending):
+            """Bucketed fallback: run the pending equal-length admissions
+            in power-of-two groups (a group size that followed
+            scheduling timing would make the set of prefill shapes
+            unbounded), one dispatch each."""
+            while pending:
+                n = 1 << (len(pending).bit_length() - 1)
+                group, pending[:] = pending[:n], pending[n:]
+                admit_group(group)
+
+        def admit_group(group):
+            """One admission dispatch: whole prompts of one exact length
+            prefilled on fresh slot state, first tokens sampled, then
+            the reference's bookkeeping."""
+            n, plen = len(group), group[0][1].request.prompt_len
+            toks = np.zeros((n, plen), np.int32)
+            plens = np.full((n,), plen, np.int32)
+            slots_arr = np.zeros((n,), np.int32)
+            pages = np.full((n, pages_per_slot), dump, np.int32)
+            for i, (slot, st) in enumerate(group):
+                toks[i] = st.request.tokens
+                slots_arr[i] = slot
+                block_tables[slot, :] = -1
+                block_tables[slot, :len(st.pages)] = st.pages
+                pages[i, :len(st.fresh_pages)] = st.fresh_pages
+            with dev_span():
+                first = self._admit_step(cache, toks, plens, slots_arr,
+                                         pages, sp).cpu().numpy()
+            metrics.host_syncs += 1
+            for i, (slot, st) in enumerate(group):
+                st.prefill_pos = plen         # whole prompt in one go
+                metrics.admitted += 1
+                metrics.prefill_tokens += plen
+                metrics.prefill_padded += plen
+                start_decoding(slot, st, int(first[i]))
+
+        def admit_bucketed():
+            """Admit FCFS while slots and pages allow, grouping consecutive
+            admissions of equal prompt length; a flush may retire slots
+            (EOS or budget at admission), so retry until no progress."""
+            while True:
+                pending, progress = [], False
+                while True:
+                    adm = sched.try_admit(now())
+                    if adm is None:
+                        break
+                    progress = True
+                    if pending and pending[0][1].request.prompt_len \
+                            != adm[1].request.prompt_len:
+                        flush_admissions(pending)
+                    pending.append(adm)
+                flush_admissions(pending)
+                metrics.peak_pages_in_use = max(
+                    metrics.peak_pages_in_use,
+                    sched.allocator.allocated_count)
+                if not progress or not sched.waiting:
+                    return
+
         while incoming or sched.has_work():
             # -- release arrived requests into the FCFS queue -------------
             while incoming and incoming[0][0] <= now():
@@ -635,9 +744,10 @@ class InferenceEngine:
             for req in sched.cancel_expired(now()):
                 count_outcome(req)
 
-            # -- admission only claims a slot and its pages; the prompt is
-            # prefilled in budgeted chunks by the packed iterations --------
-            while True:
+            # -- unified: admission only claims a slot and its pages; the
+            # prompt is prefilled in budgeted chunks by the packed
+            # iterations.  Bucketed: whole prompts at admission ----------
+            while chunked:
                 adm = sched.try_admit(now())
                 if adm is None:
                     break
@@ -648,6 +758,8 @@ class InferenceEngine:
                 metrics.prefix_hits += st.matched_len > 0
                 metrics.prefix_matched_tokens += st.matched_len
                 metrics.pages_shared += st.shared_count
+            if not chunked:
+                admit_bucketed()
             metrics.peak_pages_in_use = max(metrics.peak_pages_in_use,
                                             sched.allocator.allocated_count)
             if sched.waiting and sched.free_slots() and sched.slots:
@@ -667,8 +779,8 @@ class InferenceEngine:
                     time.sleep(max(0.0, min(incoming[0][0] - now(), 0.01)))
                 continue
 
-            plan = sched.next_batch(budget)
-            if plan.chunks:
+            plan = sched.next_batch(budget) if chunked else None
+            if plan is not None and plan.chunks:
                 (run_packed if packed_on else run_mixed)(plan)
             elif drafter is not None:
                 run_verify()

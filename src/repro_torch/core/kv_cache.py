@@ -22,6 +22,10 @@ lanes, inactive slots and unallocated table entries land there with
 pos = -1, so masking stays exact without branching.
 
 A model cache is ``{"layers": [pool per layer]}`` in execution order.
+Recurrent layers (mLSTM, sLSTM) keep dense fp32 state instead, one row
+per slot, behind the same slot API: :func:`slot_view` hands an admission
+fresh zero rows and :func:`slot_merge` scatters the prefilled rows into
+the admitted slots.
 
 Unlike the reference, whose updates are functional, every update here
 writes the pool tensors **in place** (``index_put_``) and returns the same
@@ -34,8 +38,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, MLSTM, SLSTM, LayerSpec,
+                                      ModelConfig)
 from repro_torch.core.precision import kv_store_dtype
+from repro_torch.models import ssm as SSM
 
 PAGED_KEYS = ("pk", "pv", "ppos", "pk_scale", "pv_scale")
 PAGED_DATA_KEYS = ("pk", "pv", "pk_scale", "pv_scale")
@@ -76,17 +82,26 @@ def effective_window(cfg: ModelConfig, spec: LayerSpec,
 
 def paged_pool_bytes(cache: dict) -> int:
     """Total bytes of every paged-pool tensor (K/V pages, scale pools and
-    positions) across a full model cache."""
+    positions) across a full model cache; dense recurrent state is not
+    counted."""
     return sum(c[k].numel() * c[k].element_size()
                for c in cache["layers"] for k in PAGED_KEYS if k in c)
 
 
 def paged_layer_cache_shape(cfg: ModelConfig, spec: LayerSpec,
                             num_pages: int, page_size: int, dtype,
-                            kv_dtype: str = "auto", *,
+                            kv_dtype: str = "auto", *, max_slots: int = 0,
                             device="cpu") -> dict:
     """Paged pool for one attention layer: ``num_pages`` + 1 dump page;
-    int8 pools (``kv_dtype="int8"``) get their two scale pools."""
+    int8 pools (``kv_dtype="int8"``) get their two scale pools.  An mLSTM
+    or sLSTM layer gets its dense fp32 state of ``max_slots`` rows (at any
+    ``kv_dtype``, as in the reference)."""
+    if spec.mixer in (MLSTM, SLSTM):
+        if max_slots < 1:
+            raise ValueError("recurrent layers need max_slots >= 1")
+        zero = (SSM.mlstm_zero_state if spec.mixer == MLSTM
+                else SSM.slstm_zero_state)
+        return zero(cfg, max_slots, device=device)
     if spec.mixer != ATTN:
         raise NotImplementedError(
             f"paged pools for layer family '{spec.mixer}' are not ported")
@@ -280,8 +295,10 @@ def reset_pages(cache: dict, pages) -> dict:
     """Mark freshly (re)allocated physical pages empty (``pages`` may be
     padded with the dump page id).  Only ``ppos`` needs clearing: stale
     K/V from a page's previous owner is unreachable once its positions
-    are -1.  In place."""
-    cache["ppos"][pages.long()] = -1
+    are -1.  Layers without a pool (recurrent state) are left alone.  In
+    place."""
+    if "ppos" in cache:
+        cache["ppos"][pages.long()] = -1
     return cache
 
 
@@ -289,4 +306,29 @@ def reset_pages_all(cache: dict, pages) -> dict:
     """:func:`reset_pages` over every layer of a full model cache."""
     for c in cache["layers"]:
         reset_pages(c, pages)
+    return cache
+
+
+def slot_view(cache: dict, n_view: int) -> dict:
+    """An ``n_view``-slot working view of a persistent model cache for an
+    admission prefill: paged pool tensors pass through (shared, indexed
+    through block tables); every per-slot state tensor comes back as
+    fresh zeros of ``n_view`` rows, so an admitted request always starts
+    from clean state."""
+    return {"layers": [
+        {k: (v if k in PAGED_KEYS else
+             torch.zeros((n_view,) + v.shape[1:], dtype=v.dtype,
+                         device=v.device))
+         for k, v in c.items()} for c in cache["layers"]]}
+
+
+def slot_merge(cache: dict, view: dict, slots) -> dict:
+    """Scatter the per-slot state of a :func:`slot_view` (after its
+    prefill) into the persistent cache's rows ``slots`` (n_view,), in
+    place."""
+    idx = slots.long()
+    for c, vv in zip(cache["layers"], view["layers"]):
+        for k in c:
+            if k not in PAGED_KEYS:
+                c[k][idx] = vv[k].to(c[k].dtype)
     return cache

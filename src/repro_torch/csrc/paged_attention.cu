@@ -30,6 +30,12 @@
 //                                      lanes with q_pos == -1 are padding.
 //   * paged_mixed_kernel<T, int8>   <- paged_mixed_attention_q8 (body
 //                                      _paged_mixed_kernel_q8)
+//   * dense_decode_kernel<T, T>     <- decode_attention (body _kernel):
+//                                      one query token per row against
+//                                      the row's own contiguous K/V
+//                                      (B,Sk,Hkv,D); the decode body with
+//                                      the row's cache as one page of Sk
+//                                      entries and k_pos as its positions.
 //
 // Bound: all are bound by device-memory bytes, chiefly the K/V pages they
 // stream (page x Hkv x (D + Dv) x element bytes per page, plus 2 x 4-byte
@@ -265,7 +271,21 @@ __global__ void __launch_bounds__(kThreads) paged_mixed_kernel(Params p) {
                      p.q_pos + lane0, p.bt + (long)b * p.npages, h, smem);
 }
 
-enum Kind { kDecode, kPacked, kMixed };
+// grid (B, Hkv): row b's single query token against its contiguous cache
+// k/v (B,Sk,Hkv,D[v]) with positions k_pos (B,Sk), passed as the pools and
+// ppos with page = Sk; row b's one-entry block table is page b itself.
+template <typename T, typename KV>
+__global__ void __launch_bounds__(kThreads) dense_decode_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int page_id = b;
+  const T* q = static_cast<const T*>(p.q) + ((long)b * p.Hq + h * p.g) * p.D;
+  T* o = static_cast<T*>(p.out) + ((long)b * p.Hq + h * p.g) * p.Dv;
+  attend_rows<T, KV>(p, p.g, q, (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                     p.q_pos + b, &page_id, h, smem);
+}
+
+enum Kind { kDecode, kPacked, kMixed, kDense };
 
 template <typename T, typename KV>
 cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
@@ -275,6 +295,7 @@ cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   void (*kernel)(Params) = kind == kPacked ? paged_packed_kernel<T, KV>
                            : kind == kMixed ? paged_mixed_kernel<T, KV>
+                           : kind == kDense ? dense_decode_kernel<T, KV>
                                             : paged_decode_kernel<T, KV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -400,6 +421,18 @@ extern "C" int paged_mixed_attention_q8_launch(
   const int tiles = (W + kPackedBlockQ - 1) / kPackedBlockQ;
   return (int)dispatch(dtype, true, kMixed, B * tiles,
                        (W < kPackedBlockQ ? W : kPackedBlockQ) * p.g, p,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Dense decode: q (B,1,Hq,D) against k/v (B,Sk,Hkv,D[v]) with k_pos (B,Sk).
+extern "C" int decode_attention_launch(
+    const void* q, const void* k, const void* v, const void* k_pos,
+    const void* q_pos, void* out, int dtype, int B, int Hq, int Hkv, int D,
+    int Dv, int Sk, float scale, float softcap, int window, void* stream) {
+  Params p{q, k, v, nullptr, nullptr, static_cast<const int*>(k_pos),
+           nullptr, static_cast<const int*>(q_pos), nullptr, out,
+           Hq, Hkv, Hq / Hkv, D, Dv, Sk, 1, 0, scale, softcap, window};
+  return (int)dispatch(dtype, false, kDense, B, p.g, p,
                        static_cast<cudaStream_t>(stream));
 }
 

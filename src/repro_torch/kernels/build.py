@@ -124,4 +124,12 @@ def load() -> ctypes.CDLL:
     lib.quant_matmul_splits.restype = I
     lib.quant_matmul_launch.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.quant_matmul_launch.restype = I
+    lib.decode_attention_launch.argtypes = [P] * 6 + [I] * 7 + [F, F, I, P]
+    lib.decode_attention_launch.restype = I
+    lib.mlstm_chunk_launch.argtypes = [P] * 12 + [I] * 5 + [P]
+    lib.mlstm_chunk_launch.restype = I
+    lib.mlstm_chunk_smem_bytes.argtypes = [I]
+    lib.mlstm_chunk_smem_bytes.restype = ctypes.c_long
+    lib.rmsnorm_launch.argtypes = [P] * 3 + [I, I, ctypes.c_long, I, F, P]
+    lib.rmsnorm_launch.restype = I
     return lib

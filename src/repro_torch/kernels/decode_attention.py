@@ -20,6 +20,11 @@ beside them.
     kernels: the same three over int8 pools (``kv_dtype="int8"``), whose
     codes are dequantized with their per-entry, per-kv-head fp32 scales as
     the kernel stages them.
+  * :func:`decode_attention` replaces
+    ``repro.kernels.decode_attention.decode_attention``: one query token
+    per row against the row's own contiguous (B, Sk, Hkv, D) cache.  Like
+    the reference's kernel it has no model call site (the port serves
+    from paged pools); it is reached through ``ops.decode_attention``.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
 shapes, allocates the output, launches on the current stream and raises if
@@ -34,7 +39,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import (paged_decode_attention_ref,  # noqa: F401
+from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: F401
+                                     paged_decode_attention_ref,
                                      paged_mixed_attention_ref,
                                      paged_packed_attention_ref)
 
@@ -320,9 +326,63 @@ def paged_mixed_attention_q8(q, kpool, k_scale, vpool, v_scale, ppos,
     return out
 
 
+def decode_attention(q, k, v, k_pos, q_pos, *, window: Optional[int],
+                     scale: float, attn_softcap: Optional[float] = None):
+    """Single-query attention against a contiguous cache, on the card.
+
+    q: (B,1,Hq,D); k: (B,Sk,Hkv,D) and v: (B,Sk,Hkv,Dv) at q's dtype;
+    k_pos: (B,Sk) int32 absolute positions (-1 = invalid); q_pos: (B,1)
+    int32.  A key is visible when ``0 <= kp <= q_pos`` (and ``kp > q_pos
+    - window`` with a window); a row with no visible key returns zeros.
+    Any Sk is taken.  Returns (B,1,Hq,Dv) at q's dtype.
+    """
+    from repro_torch.kernels import build
+    tensors = (q, k, v, k_pos, q_pos)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the CUDA decode-attention kernel takes CUDA "
+                         "tensors only (CPU tensors go to the plain version "
+                         "through repro_torch.kernels.ops)")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode attention needs contiguous inputs")
+    if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q/k/v must share one of fp32, fp16, bf16 (got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype})")
+    if k_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise ValueError("k_pos and q_pos must be int32")
+    B, _, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if q.shape[1] != 1 or k.shape != (B, Sk, Hkv, D) \
+            or v.shape[:3] != (B, Sk, Hkv) or k_pos.shape != (B, Sk) \
+            or q_pos.shape != (B, 1) or Hq % Hkv or Sk < 1:
+        raise ValueError(f"shapes do not fit: q {tuple(q.shape)} must be "
+                         f"(B,1,Hq,D); k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, k_pos {tuple(k_pos.shape)}, "
+                         f"q_pos {tuple(q_pos.shape)}")
+    for n, d in (("D", D), ("Dv", Dv)):
+        if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+            raise ValueError(f"{n}={d}: head dims must be multiples of 8 "
+                             f"up to {MAX_HEAD_DIM}")
+    lib = build.load()
+    _check_smem(lib, Hq // Hkv, D, Dv)
+    out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
+    cap, win = _softcap_window(attn_softcap, window)
+    with torch.cuda.device(q.device):
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq,
+            Hkv, D, Dv, Sk, float(scale), cap, win,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
 KERNELS = (paged_decode_attention, paged_packed_attention,
            paged_decode_attention_q8, paged_packed_attention_q8,
-           paged_mixed_attention, paged_mixed_attention_q8)
+           paged_mixed_attention, paged_mixed_attention_q8,
+           decode_attention)
 
 
 def reset_launch_counts() -> None:

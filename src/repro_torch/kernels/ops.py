@@ -12,8 +12,10 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mlstm_chunk as MC
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as RN
 
 
 def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
@@ -90,14 +92,45 @@ def quant_matmul(x, q, s):
     return QM.quant_matmul(x, q, s)
 
 
+def mlstm_chunked(q, k, v, i_pre, logf, state):
+    """Chunkwise stabilised mLSTM over a whole sequence: (h (B,S,H,dh)
+    fp32, final state); see :func:`mlstm_chunk.mlstm_chunked`."""
+    if q.device.type == "cpu":
+        return ref.mlstm_chunked_ref(q, k, v, i_pre, logf, state)
+    return MC.mlstm_chunked(q, k, v, i_pre, logf, state)
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` at x's dtype; see
+    :func:`rmsnorm.fused_rmsnorm`.  No model code calls it (as in the
+    reference)."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, w, eps)
+    return RN.fused_rmsnorm(x, w, eps=eps)
+
+
+def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
+                     attn_softcap=None):
+    """Single-query attention against a contiguous cache: q (B,1,Hq,D)
+    vs k/v (B,Sk,Hkv,D); see :func:`decode_attention.decode_attention`.
+    No model code calls it (as in the reference)."""
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    return DA.decode_attention(q, k, v, k_pos, q_pos, **kw)
+
+
+_SINGLE = (FA.flash_attention, QM.quant_matmul, MC.mlstm_chunked,
+           RN.fused_rmsnorm)
+
+
 def reset_launch_counts() -> None:
     DA.reset_launch_counts()
-    FA.flash_attention.launches = 0
-    QM.quant_matmul.launches = 0
+    for k in _SINGLE:
+        k.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches of every kernel of the port since the last reset."""
-    return {**DA.launch_counts(),
-            "flash_attention": FA.flash_attention.launches,
-            "quant_matmul": QM.quant_matmul.launches}
+    return {**DA.launch_counts(), **{k.__name__: k.launches
+                                     for k in _SINGLE}}

@@ -6,8 +6,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.3819763e38
+MLSTM_CHUNK = 128      # the reference oracle's chunk length
 
 
 def _mask(q_pos, k_pos, window):
@@ -116,3 +118,67 @@ def quant_matmul_ref(x, q, s):
     scales s (N,) once per output (``x @ (q * s) == (x @ q) * s`` column
     by column).  Returns fp32 (..., N)."""
     return (x.float() @ q.float()) * s.float()
+
+
+def rmsnorm_ref(x, w, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, in
+    fp32, returned at x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
+                      chunk: int = MLSTM_CHUNK):
+    """Chunkwise-parallel stabilised mLSTM (the reference's
+    ``ssm.mlstm_chunked``).
+
+    q, k, v: (B,S,H,dh); i_pre / logf: (B,S,H) fp32 input-gate
+    pre-activations and log forget gates; state: {"C": (B,H,dh,dh),
+    "n": (B,H,dh), "m": (B,H)} fp32.  The sequence is cut into chunks of
+    ``chunk`` steps (the last one padded with no-op steps: forget 1,
+    input -1e30); inside a chunk, L x L decay-weighted scores, across
+    chunks the carried state.  The stabiliser m is a running max over the
+    same terms however the sequence is cut, so every chunk length gives
+    the same result up to fp32 rounding.  Returns h (B,S,H,dh) fp32 and
+    the final state."""
+    B, S, H, dh = q.shape
+    pad = (-S) % chunk
+    qf, kf, vf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                  for t in (q, k, v))
+    ig = F.pad(i_pre.float(), (0, 0, 0, pad), value=-1e30)
+    lf = F.pad(logf.float(), (0, 0, 0, pad), value=0.0)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=q.device).tril()
+    C, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for c0 in range(0, S + pad, chunk):
+        qb, kb, vb, ib, fb = (t[:, c0:c0 + chunk]
+                              for t in (qf, kf, vf, ig, lf))
+        Fc = torch.cumsum(fb, dim=1)                             # (B,L,H)
+        Ftot = Fc[:, -1]                                         # (B,H)
+        Ft = Fc.transpose(1, 2)                                  # (B,H,L)
+        # intra-chunk log weights F_i - F_j + i_j (j <= i)      (B,H,L,L)
+        logw = Ft[..., :, None] - Ft[..., None, :] \
+            + ib.transpose(1, 2)[..., None, :]
+        logw = torch.where(tri, logw, -torch.inf)
+        logst = Ft + m[..., None]              # state path F_i + m_prev
+        m_i = torch.maximum(logw.amax(-1), logst)
+        m_i = torch.where(torch.isfinite(m_i), m_i, 0.0)
+        w = torch.exp(logw - m_i[..., None])
+        st_w = torch.exp(logst - m_i)
+        scores = torch.einsum("blhd,bmhd->bhlm", qb, kb) * w
+        num = (torch.einsum("bhlm,bmhd->bhld", scores, vb)
+               + st_w[..., None] * torch.einsum("blhd,bhde->bhle", qb, C))
+        den = scores.sum(-1) + st_w * torch.einsum("blhd,bhd->bhl", qb, n)
+        h = num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None]
+        hs.append(h.transpose(1, 2))                             # (B,L,H,dh)
+        # state to the chunk's end
+        m_new = torch.maximum(m + Ftot, (Ftot[:, None] - Fc + ib).amax(1))
+        decay = torch.exp(m + Ftot - m_new)                      # (B,H)
+        wk = torch.exp(Ftot[:, None] - Fc + ib - m_new[:, None])  # (B,L,H)
+        C = decay[..., None, None] * C + torch.einsum(
+            "blh,blhd,blhe->bhde", wk, kb, vb)
+        n = decay[..., None] * n + torch.einsum("blh,blhd->bhd", wk, kb)
+        m = m_new
+    return torch.cat(hs, 1)[:, :S], {"C": C, "n": n, "m": m}

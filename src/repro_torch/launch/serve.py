@@ -2,7 +2,8 @@
 ``python -m repro_torch.launch.serve --arch qwen3-4b --full --continuous
 --kv-dtype int8 --weights-dtype int8``, with ``--spec ngram|draft
 --spec-k 4`` for speculative decoding and ``--packed off`` for the
-per-chunk mixed path.
+per-chunk mixed path; ``--arch xlstm-125m`` serves the recurrent model
+through bucketed whole-prompt admission.
 
 Serves a synthetic request stream through continuous batching over the
 paged KV cache on the card (``--device cuda``, the default) and prints one

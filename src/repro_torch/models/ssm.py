@@ -1,0 +1,168 @@
+"""Recurrent mixers of xLSTM: mLSTM and sLSTM (the port's counterpart of
+``repro.models.ssm``, without the Mamba branch).
+
+Each mixer exposes ``*_apply(cfg, p, x, state, mode) -> (y, new_state)``
+with ``mode`` in {"prefill", "decode"}.  States are fp32 and take the place
+of the KV cache for attention-free layers: dense, one row per slot.  The
+mLSTM prefill runs chunkwise through ``ops.mlstm_chunked`` (the CUDA
+kernel on the card, its plain version on the CPU); its decode step and the
+whole sLSTM (a true time recurrence, no kernel in the reference) are plain
+PyTorch, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+def _zeros(*shape, device):
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def mlstm_zero_state(cfg: ModelConfig, batch: int, device="cpu"):
+    H, dh = cfg.num_heads, (2 * cfg.d_model) // cfg.num_heads
+    return {"C": _zeros(batch, H, dh, dh, device=device),
+            "n": _zeros(batch, H, dh, device=device),
+            "m": _zeros(batch, H, device=device)}
+
+
+def slstm_zero_state(cfg: ModelConfig, batch: int, device="cpu"):
+    H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    return {"c": _zeros(batch, H, dh, device=device),
+            "n": _zeros(batch, H, dh, device=device),
+            "h": _zeros(batch, H, dh, device=device),
+            "m": _zeros(batch, H, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_init(gen: torch.Generator, cfg: ModelConfig):
+    d = cfg.d_model
+    di, H = 2 * d, cfg.num_heads
+    dev = gen.device
+    return {
+        "w_up": L.dense_init(gen, d, di),
+        "w_gate": L.dense_init(gen, d, di),
+        "wq": L.dense_init(gen, di, di),
+        "wk": L.dense_init(gen, di, di),
+        "wv": L.dense_init(gen, di, di),
+        "w_if": L.dense_init(gen, di, 2 * H),
+        "b_if": torch.cat([torch.zeros(H, device=dev),
+                           torch.full((H,), 3.0, device=dev)]),
+        "out_norm": {"w": torch.zeros(di, device=dev)},
+        "w_down": L.dense_init(gen, di, d),
+    }
+
+
+def _mlstm_qkvgates(cfg: ModelConfig, p, x):
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    xi = x @ p["w_up"].to(x.dtype)
+    z = x @ p["w_gate"].to(x.dtype)
+    dh = xi.shape[-1] // H
+    q = (xi @ p["wq"].to(x.dtype)).reshape(B, S, H, dh)
+    k = (xi @ p["wk"].to(x.dtype)).reshape(B, S, H, dh) * dh ** -0.5
+    v = (xi @ p["wv"].to(x.dtype)).reshape(B, S, H, dh)
+    gates = xi.float() @ p["w_if"].float() + p["b_if"].float()
+    i_pre, f_pre = gates[..., :H], gates[..., H:]               # (B,S,H)
+    return q, k, v, i_pre, F.logsigmoid(f_pre), z
+
+
+def mlstm_step(q, k, v, i_pre, logf, state):
+    """Single-token recurrent update.  q, k, v: (B,1,H,dh); i_pre / logf:
+    (B,1,H).  Returns h (B,1,H,dh) fp32 and the new state."""
+    qf, kf, vf = (t[:, 0].float() for t in (q, k, v))
+    ib, fb = i_pre[:, 0], logf[:, 0]                             # (B,H)
+    C_p, n_p, m_p = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(fb + m_p, ib)
+    fw = torch.exp(fb + m_p - m_new)
+    iw = torch.exp(ib - m_new)
+    C_n = fw[..., None, None] * C_p + iw[..., None, None] * torch.einsum(
+        "bhd,bhe->bhde", kf, vf)
+    n_n = fw[..., None] * n_p + iw[..., None] * kf
+    num = torch.einsum("bhd,bhde->bhe", qf, C_n)
+    den = torch.einsum("bhd,bhd->bh", qf, n_n)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return h[:, None], {"C": C_n, "n": n_n, "m": m_new}
+
+
+def mlstm_apply(cfg: ModelConfig, p, x, state, mode: str):
+    B, S, _ = x.shape
+    q, k, v, i_pre, logf, z = _mlstm_qkvgates(cfg, p, x)
+    if mode == "decode":
+        h, new_state = mlstm_step(q, k, v, i_pre, logf, state)
+    else:
+        h, new_state = ops.mlstm_chunked(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            i_pre.contiguous(), logf.contiguous(), state)
+    h = h.reshape(B, S, z.shape[-1]).to(x.dtype)
+    h = L.rmsnorm(h, p["out_norm"]["w"])
+    return (h * F.silu(z)) @ p["w_down"].to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory): a true time recurrence
+# ---------------------------------------------------------------------------
+
+
+def slstm_init(gen: torch.Generator, cfg: ModelConfig):
+    d, H = cfg.d_model, cfg.num_heads
+    dh = d // H
+    dev = gen.device
+    return {
+        "w_in": L.dense_init(gen, d, 4 * d),                     # i, f, z, o
+        "r": torch.randn(H, dh, 4 * dh, generator=gen, device=dev)
+        * dh ** -0.5,
+        "b": torch.cat([torch.zeros(d, device=dev),
+                        torch.full((d,), 3.0, device=dev),
+                        torch.zeros(2 * d, device=dev)]),
+        "out_norm": {"w": torch.zeros(d, device=dev)},
+        "w_out": L.dense_init(gen, d, d),
+    }
+
+
+def _slstm_cell(cfg: ModelConfig, p, wx_t, st):
+    """wx_t: (B, 4d) input pre-activations of one step; st: the state,
+    {"c", "n", "h"}: (B,H,dh) and "m": (B,H)."""
+    H = cfg.num_heads
+    B = wx_t.shape[0]
+    d = wx_t.shape[-1] // 4
+    dh = d // H
+    rec = torch.einsum("bhd,hde->bhe", st["h"], p["r"].float())
+    pre = wx_t.reshape(B, 4, H, dh).transpose(1, 2).reshape(B, H, 4 * dh)
+    pre = pre + rec + p["b"].float().reshape(4, H, dh).transpose(0, 1) \
+        .reshape(H, 4 * dh)
+    i_pre, f_pre, z_pre, o_pre = pre.split(dh, dim=-1)           # (B,H,dh)
+    logf = F.logsigmoid(f_pre)
+    # one stabiliser per head (shared across dims), as the reference
+    m_prev = st["m"][:, :, None]                                 # (B,H,1)
+    m_new = torch.maximum(logf + m_prev, i_pre).amax(-1)         # (B,H)
+    fw = torch.exp(logf + m_prev - m_new[..., None])
+    iw = torch.exp(i_pre - m_new[..., None])
+    c = fw * st["c"] + iw * torch.tanh(z_pre)
+    n = fw * st["n"] + iw
+    h = torch.sigmoid(o_pre) * c / n.clamp_min(1e-6)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def slstm_apply(cfg: ModelConfig, p, x, state, mode: str):
+    B, S, d = x.shape
+    wx = x.float() @ p["w_in"].float()                           # (B,S,4d)
+    if mode == "decode":
+        st = _slstm_cell(cfg, p, wx[:, 0], state)
+        hs = [st["h"]]
+    else:
+        st, hs = state, []
+        for t in range(S):
+            st = _slstm_cell(cfg, p, wx[:, t], st)
+            hs.append(st["h"])
+    h = torch.stack(hs, 1).reshape(B, -1, d).to(x.dtype)
+    h = L.rmsnorm(h, p["out_norm"]["w"])
+    return h @ p["w_out"].to(x.dtype), st

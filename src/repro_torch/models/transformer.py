@@ -1,7 +1,8 @@
 """Decoder forward for the serving path (the port's counterpart of
 ``repro.models.transformer``), for attention + dense-FFN layers with
 learned positions or RoPE, optional qk-norm, GELU or SwiGLU FFNs and tied
-embeddings.
+embeddings, and for xLSTM's recurrent layers (mLSTM / sLSTM with no FFN,
+no positional embedding).
 
 Parameters are a dict ``{"embed": {"tokens"[, "pos"]}, "final_norm",
 "layers": [per-layer dict]}`` with the layers in execution order
@@ -12,7 +13,10 @@ converts).  Four modes of the reference's ``layer_apply`` are ported:
 slot: a speculative verify window or a prefill chunk) and ``"packed"``
 (one flat token stream per scheduler iteration) against the paged KV
 pool, and ``"train"`` (a full causal forward with no cache, which the
-draft model of speculative decoding runs).
+draft model of speculative decoding runs).  Recurrent layers run
+``"prefill"`` (whole prompts from a fresh per-slot state: the bucketed
+admission) and ``"decode"`` against their dense per-slot state, which
+they replace in the layer's cache dict.
 """
 from __future__ import annotations
 
@@ -20,29 +24,34 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, LayerSpec,
-                                      ModelConfig, layer_specs)
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MLSTM, NO_FFN,
+                                      SLSTM, LayerSpec, ModelConfig,
+                                      layer_specs)
 from repro_torch.core import kv_cache as KV
 from repro_torch.core.precision import FP32, Policy
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+
+RECURRENT = (MLSTM, SLSTM)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configs outside the ported slice."""
     for spec in layer_specs(cfg):
-        if spec.mixer != ATTN or spec.ffn != DENSE_FFN:
+        if (spec.mixer, spec.ffn) != (ATTN, DENSE_FFN) \
+                and not (spec.mixer in RECURRENT and spec.ffn == NO_FFN):
             raise NotImplementedError(
                 f"layer family {spec.mixer}/{spec.ffn} is not ported "
-                f"(attention + dense FFN only)")
+                f"(attention + dense FFN, or mLSTM/sLSTM without FFN)")
         if spec.window is not None and cfg.rope_theta_local is not None:
             raise NotImplementedError(
                 f"{cfg.name}: windowed layers with their own RoPE theta "
                 f"(rope_theta_local) are not ported")
-    if cfg.pos_emb not in ("rope", "learned") \
+    if cfg.pos_emb not in ("rope", "learned", "none") \
             or cfg.activation not in L.FFN_ACTIVATIONS \
             or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only RoPE or learned positions, "
+            f"{cfg.name}: only RoPE, learned or no positions, "
             f"{'/'.join(L.FFN_ACTIVATIONS)} FFNs and tied embeddings are "
             f"ported")
 
@@ -64,23 +73,33 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     params = {
         "embed": embed,
         "final_norm": L.norm_init(cfg, dev),
-        "layers": [{"norm1": L.norm_init(cfg, dev),
-                    "attn": L.attn_init(gen, cfg),
-                    "norm2": L.norm_init(cfg, dev),
-                    "ffn": L.ffn_init(gen, cfg)}
-                   for _ in layer_specs(cfg)],
+        "layers": [_layer_init(gen, cfg, spec, dev)
+                   for spec in layer_specs(cfg)],
     }
     return policy.cast_params(params)
 
 
+def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
+    if spec.mixer == MLSTM:
+        return {"norm1": L.norm_init(cfg, dev),
+                "mixer": SSM.mlstm_init(gen, cfg)}
+    if spec.mixer == SLSTM:
+        return {"norm1": L.norm_init(cfg, dev),
+                "mixer": SSM.slstm_init(gen, cfg)}
+    return {"norm1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg),
+            "norm2": L.norm_init(cfg, dev), "ffn": L.ffn_init(gen, cfg)}
+
+
 def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_dtype: str = "auto",
-                     device="cpu"):
+                     max_slots: int = 0, device="cpu"):
     """Paged-pool model cache: every attention layer gets ``num_pages``
     fixed-size pages (+1 reserved dump page) indexed through per-slot
-    block tables."""
+    block tables; every recurrent layer its dense state of ``max_slots``
+    rows."""
     return {"layers": [KV.paged_layer_cache_shape(
-        cfg, spec, num_pages, page_size, dtype, kv_dtype, device=device)
+        cfg, spec, num_pages, page_size, dtype, kv_dtype,
+        max_slots=max_slots, device=device)
         for spec in layer_specs(cfg)]}
 
 
@@ -91,11 +110,14 @@ def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
 
 def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 cache, mode: str, max_len: int, paged):
-    """One attention + FFN block.  Against the layer's paged pool (updated
+    """One layer: a recurrent block (:func:`_recurrent_apply`) or, below,
+    an attention + FFN block.  Against the layer's paged pool (updated
     in place), paged: {"block_tables", "active"} for ``"decode"`` and
     ``"verify"`` (``active`` (B,) or (B, W)); {"block_tables", "slot_ids",
     "packed_meta"} for ``"packed"``.  ``"train"`` takes no cache (cache
     and paged are None): every token attends the earlier ones directly."""
+    if spec.mixer in RECURRENT:
+        return _recurrent_apply(cfg, spec, p, x, cache, mode)
     window = KV.effective_window(cfg, spec, max_len)
     h = L.apply_norm(cfg, p["norm1"], x)
     q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
@@ -128,10 +150,25 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                   paged.get("active"), ring_len=ring)
             ctx = L.mha_attention_paged(q, cache, bt, positions, **kw)
     else:
-        raise NotImplementedError(f"layer mode {mode!r} is not ported")
+        raise NotImplementedError(
+            f"layer mode {mode!r} is not ported for attention layers")
     x = x + L.attn_out(cfg, p["attn"], ctx)
     h2 = L.apply_norm(cfg, p["norm2"], x)
     return x + L.ffn_apply(cfg, p["ffn"], h2)
+
+
+def _recurrent_apply(cfg, spec, p, x, cache, mode):
+    """An mLSTM / sLSTM block (no FFN): ``"prefill"`` runs whole rows from
+    the state in ``cache`` (a fresh slot view at admission), ``"decode"``
+    one token per slot; the new state replaces the old in ``cache``."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"layer mode {mode!r} is not ported for recurrent layers")
+    fn = SSM.mlstm_apply if spec.mixer == MLSTM else SSM.slstm_apply
+    out, state = fn(cfg, p["mixer"], L.apply_norm(cfg, p["norm1"], x),
+                    cache, mode)
+    cache.update(state)
+    return x + out
 
 
 def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged):
@@ -159,6 +196,31 @@ def _logits(cfg, params, x, policy):
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+
+def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
+                    cache, *, policy: Policy = FP32,
+                    max_len: Optional[int] = None, last_only: bool = False):
+    """Whole prompts from position 0 (the bucketed admission of recurrent
+    models; the reference's ``forward_prefill`` with ``start=0``).
+
+    tokens: (B, S) right-padded prompts; prompt_lengths: (B,) valid tokens
+    per row.  Every layer runs ``"prefill"`` against ``cache`` (a slot view
+    whose state it replaces).  Padding would fold into a recurrent state,
+    so the engine admits at exact lengths.  Returns (logits (B, S, V), or
+    (B, 1, V) at each row's last prompt token with ``last_only``,
+    cache)."""
+    max_len = max_len or cfg.max_seq_len
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = _embed(cfg, params, tokens, positions, policy)
+    x = _run_all(cfg, params, x, positions=positions, cache=cache,
+                 mode="prefill", max_len=max_len, paged=None)
+    if last_only:
+        last = (prompt_lengths.long() - 1).clamp_min(0)
+        x = x[torch.arange(B, device=x.device), last][:, None]
+    return _logits(cfg, params, x, policy), cache
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,

@@ -520,3 +520,180 @@ def test_spec_and_packed_off_serves_on_card(dev, mode):
         assert counts["paged_decode_attention"] == 0
         assert counts["flash_attention"] == L * 3 * drafts
         assert (drafts > 0) == (mode == "draft_model")
+
+
+# -- the mLSTM, RMSNorm and dense decode kernels ----------------------------
+# mlstm_chunked: the kernel's 32-step chunks against the plain version's
+# 128 (the result does not depend on the chunk length beyond rounding).
+# h divides by a denominator that passes near zero for random inputs, so
+# it is held to 1e-4 of its largest magnitude; the state C, n, m to 1e-5
+# of theirs; bf16 q/k/v are read exactly by both, so the same bounds hold.
+
+
+def _mlstm_inputs(rng, B, S, H, dh, dtype, dev):
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    q, k, v = (rng.normal(size=(B, S, H, dh)) for _ in range(3))
+    i_pre = rng.normal(size=(B, S, H))
+    logf = -np.log1p(np.exp(-(rng.normal(size=(B, S, H)) + 2)))
+    state = {"C": t(rng.normal(size=(B, H, dh, dh)) * 0.1),
+             "n": t(np.abs(rng.normal(size=(B, H, dh)))),
+             "m": t(rng.normal(size=(B, H)))}
+    return (t(q, dtype), t(k * dh ** -0.5, dtype), t(v, dtype), t(i_pre),
+            t(logf)), state
+
+
+def _assert_mlstm_close(out, ref_out):
+    (h, st), (h_r, st_r) = out, ref_out
+    for a, b, rel in [(h, h_r, 1e-4)] + [(st[n], st_r[n], 1e-5)
+                                          for n in ("C", "n", "m")]:
+        assert a.shape == b.shape and a.dtype == torch.float32
+        scale = max(b.abs().max().item(), 1.0)
+        assert (a - b).abs().max().item() <= rel * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh", [(2, 300, 4, 384), (1, 64, 4, 384),
+                                      (3, 37, 2, 128), (2, 5, 3, 72),
+                                      (1, 1, 1, 8)])
+def test_mlstm_kernel_matches_plain(dev, B, S, H, dh, dtype):
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(S)
+    args, state = _mlstm_inputs(rng, B, S, H, dh, dtype, dev)
+    before = MC.mlstm_chunked.launches
+    out = ops.mlstm_chunked(*args, state)
+    assert MC.mlstm_chunked.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_mlstm_close(out, MC.mlstm_chunked_ref(*args, state))
+
+
+def test_mlstm_wrapper_rejects_bad_inputs(dev):
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(0)
+    (q, k, v, i_pre, logf), st = _mlstm_inputs(rng, 1, 8, 2, 16,
+                                                torch.float32, dev)
+    with pytest.raises(ValueError, match="fp32"):
+        MC.mlstm_chunked(q, k, v, i_pre.half(), logf, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        MC.mlstm_chunked(q.transpose(1, 2), k, v, i_pre, logf, st)
+    with pytest.raises(ValueError, match="shapes"):
+        MC.mlstm_chunked(q, k, v, i_pre, logf, {**st, "m": st["m"][:, :1]})
+    big = torch.zeros(1, 2, 1, 1024, device=dev)
+    gates = torch.zeros(1, 2, 1, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        MC.mlstm_chunked(big, big, big, gates, gates,
+                         {"C": torch.zeros(1, 1, 1024, 1024, device=dev),
+                          "n": torch.zeros(1, 1, 1024, device=dev),
+                          "m": torch.zeros(1, 1, device=dev)})
+
+
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float16, torch.float32)])
+@pytest.mark.parametrize("shape", [(4096, 2560), (3, 100), (2, 5, 768)])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype, wdtype):
+    """fp32: 1e-5 relative (rsqrtf and the sum's order); bf16/fp16 may
+    round an ulp apart (2e-2)."""
+    from repro_torch.kernels import rmsnorm as RN
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
+    before = RN.fused_rmsnorm.launches
+    out = ops.rmsnorm(x, w)
+    assert RN.fused_rmsnorm.launches == before + 1
+    ref_out = RN.rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == x.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_rmsnorm_wrapper_rejects_bad_inputs(dev):
+    from repro_torch.kernels import rmsnorm as RN
+    x = torch.zeros(4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="w at x's dtype"):
+        RN.fused_rmsnorm(x, torch.zeros(16, device=dev,
+                                        dtype=torch.float16))
+    with pytest.raises(ValueError, match=r"\(D,\)"):
+        RN.fused_rmsnorm(x, torch.zeros(8, device=dev, dtype=x.dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        RN.fused_rmsnorm(x.t(), torch.zeros(4, device=dev, dtype=x.dtype))
+
+
+DENSE_CASES = [(torch.bfloat16, 8, 256, 32, 8, 128, None, None),
+               (torch.bfloat16, 8, 256, 32, 8, 128, 64, 30.0),
+               (torch.float32, 3, 37, 16, 16, 64, None, None),
+               (torch.float16, 2, 300, 8, 2, 32, 13, 20.0),
+               (torch.float32, 4, 1, 4, 1, 256, None, None)]
+
+
+@pytest.mark.parametrize("dtype,B,Sk,Hq,Hkv,D,window,softcap", DENSE_CASES)
+def test_dense_decode_kernel_matches_plain(dev, dtype, B, Sk, Hq, Hkv, D,
+                                           window, softcap):
+    """Row 0 sees a ragged valid prefix; the last row has q_pos = -1 and
+    comes back exactly 0 (from both)."""
+    rng = np.random.default_rng(Sk)
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v = t((B, 1, Hq, D)), t((B, Sk, Hkv, D)), t((B, Sk, Hkv, D))
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=dev).repeat(B, 1)
+    k_pos[0, Sk // 2 + 1:] = -1
+    q_pos = torch.full((B, 1), Sk - 1, dtype=torch.int32, device=dev)
+    q_pos[0] = Sk // 2
+    q_pos[-1] = -1
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    before = DA.decode_attention.launches
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    assert DA.decode_attention.launches == before + 1
+    ref_out = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert not out[-1].any()
+
+
+def test_dense_decode_wrapper_rejects_bad_inputs(dev):
+    q = torch.zeros(2, 1, 4, 16, device=dev)
+    k = torch.zeros(2, 5, 2, 16, device=dev)
+    kp = torch.zeros(2, 5, dtype=torch.int32, device=dev)
+    qp = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    kw = dict(window=None, scale=0.25)
+    with pytest.raises(ValueError, match="int32"):
+        DA.decode_attention(q, k, k, kp.long(), qp, **kw)
+    with pytest.raises(ValueError, match="shapes"):
+        DA.decode_attention(q.expand(2, 2, 4, 16).contiguous(), k, k, kp, qp,
+                            **kw)
+    with pytest.raises(ValueError, match="share one of"):
+        DA.decode_attention(q, k.half(), k, kp, qp, **kw)
+
+
+def test_xlstm_serve_on_card_matches_cpu(dev):
+    """Reduced xlstm-125m, fp32, greedy, through the bucketed admission
+    path: the card's streams equal the CPU's, every mLSTM prefill ran the
+    kernel (one mLSTM layer, one launch per admission dispatch) and no
+    attention kernel ran."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("xlstm-125m")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(4)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+               for n in (40, 40, 9, 70, 40, 3)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, params, policy=FP32, max_len=128,
+                              max_batch=3, device=d)
+        ops.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=8)
+             for i, p in enumerate(prompts)], page_size=8, steps_per_sync=2)
+        out[d] = [r.result for r in done]
+    counts = ops.launch_counts()
+    assert out["cuda"] == out["cpu"]
+    decode_dispatches = m.steps // 2
+    assert counts["mlstm_chunked"] == m.host_syncs - decode_dispatches > 0
+    assert counts["mlstm_chunked"] < len(prompts)        # a batched group
+    assert sum(counts.values()) == counts["mlstm_chunked"]

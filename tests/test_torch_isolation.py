@@ -232,3 +232,28 @@ def test_cpu_dispatch_of_mixed_and_flash_uses_the_plain_versions():
     np.testing.assert_array_equal(out.numpy(), ref.flash_attention_ref(
         q, k, k, qp, qp, window=None, scale=0.25).numpy())
     assert _no_launches()
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_mlstm_rmsnorm_and_dense_decode_wrappers_refuse_non_cuda(device):
+    """The three wrappers of this kind raise for a non-CUDA tensor,
+    through ``ops`` (meta) or called directly (CPU), and count no
+    launch."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    from repro_torch.kernels import rmsnorm as RN
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    seq, gates = z(1, 4, 2, 8), z(1, 4, 2)
+    state = {"C": z(1, 2, 8, 8), "n": z(1, 2, 8), "m": z(1, 2)}
+    q, k = z(2, 1, 4, 16), z(2, 5, 2, 16)
+    kp, qp = z(2, 5, dtype=torch.int32), z(2, 1, dtype=torch.int32)
+    calls = [(ops.mlstm_chunked, MC.mlstm_chunked,
+              (seq, seq, seq, gates, gates, state), {}),
+             (ops.rmsnorm, RN.fused_rmsnorm, (z(3, 16), z(16)), {}),
+             (ops.decode_attention, DA.decode_attention, (q, k, k, kp, qp),
+              dict(window=None, scale=0.25))]
+    for via_ops, direct, args, kw in calls:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            (via_ops if device == "meta" else direct)(*args, **kw)
+    assert _no_launches()
