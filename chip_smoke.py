@@ -10,7 +10,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
               ``flash_attention.cu``, ``quant_matmul.cu``,
               ``mlstm_chunk.cu`` and ``rmsnorm.cu``) and report the build
-              seconds and ptxas resource use
+              seconds and ptxas resource use (registers, spills)
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
@@ -30,8 +30,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               ``fused_rmsnorm`` (4096 x 2560 bf16 and fp32, a ragged row
               count) and dense ``decode_attention`` (qwen3-4b's heads, 8 x
               256, also with a window + softcap; a ragged fp32 case).
-              Times the kernel, the plain version and a PyTorch yardstick
-              the port never calls (``library_ms``) with CUDA events
+              Flash and the mixed pair run their tensor-core bodies at
+              bf16 q and their CUDA-core bodies at fp32 q.  Times the
+              kernel, the plain version and a PyTorch yardstick the port
+              never calls (``library_ms``) with CUDA events around each
+              call (host path included), and the device time per call of
+              the kernel alone (``device_ms``) and of the yardstick's
+              kernels (``library_device_ms``) with ``torch.profiler``
   4. parity   reduced unimo-text and reduced qwen3-4b in fp32 (TF32 off):
               packed, decode, verify, mixed and train forwards on the card
               against the same forwards through the plain versions on the
@@ -57,8 +62,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               layer and decode step, no packed kernel) and unimo-text bf16
               self-drafting (flash once per layer and draft forward).  Each
               serve then runs once more under ``torch.profiler``
-              (``profile`` lines): device time by kernel and the device's
-              idle share.  Last, full-width xlstm-125m (12 layers, bf16)
+              (``profile`` lines): device time by kernel, the port's
+              kernels' share of the busy time and the device's idle
+              share.  Last, full-width xlstm-125m (12 layers, bf16)
               through the bucketed admission path: 16 requests (4 of them
               150-300 tokens) x 32 new tokens, 8 slots, max_len 512; the
               mLSTM kernel must run 6 x the admission dispatches and no
@@ -103,6 +109,20 @@ SOURCE["quant_matmul"] = "src/repro_torch/csrc/quant_matmul.cu"
 SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
 SOURCE["mlstm_chunked"] = "src/repro_torch/csrc/mlstm_chunk.cu"
 SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
+# the device kernels each wrapper launches, by a part of their names
+KERNEL_SYMBOLS = {
+    "paged_decode_attention": ("paged_decode_kernel",),
+    "paged_packed_attention": ("paged_packed_kernel",),
+    "paged_decode_attention_q8": ("paged_decode_kernel",),
+    "paged_packed_attention_q8": ("paged_packed_kernel",),
+    "quant_matmul": ("quant_matmul_kernel", "quant_matmul_reduce_kernel"),
+    "paged_mixed_attention": ("paged_mixed_",),
+    "paged_mixed_attention_q8": ("paged_mixed_",),
+    "flash_attention": ("flash_",),
+    "mlstm_chunked": ("mlstm_chunk_kernel",),
+    "fused_rmsnorm": ("rmsnorm_kernel",),
+    "decode_attention": ("dense_decode_kernel",),
+}
 NOTES = {
     "mlstm_chunked": "library_ms null: no single PyTorch call computes the "
                      "chunkwise mLSTM",
@@ -141,7 +161,8 @@ def nvidia_smi():
 
 
 def time_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of ``fn`` over ``reps`` calls."""
+    """Median CUDA-event time of ``fn`` over ``reps`` calls: the wrapper's
+    host path plus its device work, on an idle card."""
     import torch
     for _ in range(warmup):
         fn()
@@ -155,6 +176,46 @@ def time_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, symbols=None, reps=20):
+    """Device time per call of ``fn``: the durations of the CUDA kernels it
+    launches over ``reps`` calls under ``torch.profiler``, divided by
+    ``reps``.  With ``symbols`` only kernels whose name holds one of them
+    count (a wrapper's own kernel, not a fill it launches beside it), and
+    finding none is an error; without, every kernel counts (a library
+    call's device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):          # a profile that caught no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        names |= {e.name[:80] for e in dev}
+        us = [e.time_range.elapsed_us() for e in dev
+              if symbols is None or any(s in e.name for s in symbols)]
+        if us:
+            return sum(us) / 1e3 / reps
+    raise SystemExit(f"device_ms: no device kernel matching {symbols} in "
+                     f"three profiles (device events: {sorted(names)})")
+
+
+def timings(kname, kernel, plain, library):
+    """The timed figures of a kernel case: ``kernel_ms`` / ``plain_ms`` /
+    ``library_ms`` (CUDA events around each call) and the device time per
+    call of the kernel alone (``device_ms``) and of the library call
+    (``library_device_ms``); ``library`` None gives nulls."""
+    return {"kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library) if library else None,
+            "device_ms": device_ms(kernel, KERNEL_SYMBOLS[kname]),
+            "library_device_ms": device_ms(library) if library else None}
 
 
 # ---------------------------------------------------------------------------
@@ -302,12 +363,10 @@ def run_decode_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
         mask = visible(kp[:, None, None, :], q_pos[:, :, None, None], window)
         qs, ks, vs = (q.transpose(1, 2), kk.transpose(1, 2),
                       vv.transpose(1, 2))
-        res.update(
-            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
-                                             None, **kw)),
-            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
-                                           None, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        res.update(timings(
+            kname, lambda: kernel(q, k, v, sc, ppos, bt, q_pos, None, **kw),
+            lambda: plain(q, k, v, sc, ppos, bt, q_pos, None, **kw),
+            lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         res["bound_ms"], res["bound_by"] = bound(
             ppos=ppos_np, bt=bt_np, lane_slots=range(slots),
@@ -370,12 +429,10 @@ def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
         mask = visible(kpt[:, None, None, :], q_pos[0][:, None, None, None],
                        window)
         qs = q[0][:, None].transpose(1, 2)           # (T, Hq, 1, D)
-        res.update(
-            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
-                                             meta_t, **kw)),
-            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
-                                           sid, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        res.update(timings(
+            kname, lambda: kernel(q, k, v, sc, ppos, bt, q_pos, meta_t, **kw),
+            lambda: plain(q, k, v, sc, ppos, bt, q_pos, sid, **kw),
+            lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         res["bound_ms"], res["bound_by"] = bound(
             ppos=ppos_np, bt=bt_np, lane_slots=slot_ids, lane_pos=pos,
@@ -424,12 +481,10 @@ def run_mixed_case(rng, name, *, Hq, Hkv, D, dtype, W, n_q, before,
                        window)
         qs, ks, vs = (q.transpose(1, 2), kk.transpose(1, 2),
                       vv.transpose(1, 2))
-        res.update(
-            kernel_ms=time_ms(lambda: kernel(q, k, v, sc, ppos, bt, q_pos,
-                                             None, **kw)),
-            plain_ms=time_ms(lambda: plain(q, k, v, sc, ppos, bt, q_pos,
-                                           None, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        res.update(timings(
+            kname, lambda: kernel(q, k, v, sc, ppos, bt, q_pos, None, **kw),
+            lambda: plain(q, k, v, sc, ppos, bt, q_pos, None, **kw),
+            lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         res["bound_ms"], res["bound_by"] = bound(
             ppos=ppos_np, bt=bt_np, lane_slots=np.repeat(np.arange(B), W),
@@ -474,12 +529,11 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
         qs = q.transpose(1, 2)
         ks = k.repeat_interleave(g, 2).transpose(1, 2)
         vs = v.repeat_interleave(g, 2).transpose(1, 2)
-        res.update(
-            kernel_ms=time_ms(lambda: FA.flash_attention(q, k, v, p, p,
-                                                         **kw)),
-            plain_ms=time_ms(lambda: FA.flash_attention_ref(q, k, v, p, p,
-                                                            **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        res.update(timings(
+            "flash_attention",
+            lambda: FA.flash_attention(q, k, v, p, p, **kw),
+            lambda: FA.flash_attention_ref(q, k, v, p, p, **kw),
+            lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         # the visible (query, key) pairs of this run's positions, 4 D
         # flops each per query head (QK^T and PV); bytes: q, k, v, out
@@ -516,9 +570,9 @@ def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
     if timed:
         w = dequantize_weights({"q": q, "s": s}, torch.bfloat16)
         xb = x.to(torch.bfloat16)
-        res.update(kernel_ms=time_ms(lambda: QM.quant_matmul(x, q, s)),
-                   plain_ms=time_ms(lambda: QM.quant_matmul_ref(x, q, s)),
-                   library_ms=time_ms(lambda: torch.matmul(xb, w)))
+        res.update(timings("quant_matmul", lambda: QM.quant_matmul(x, q, s),
+                           lambda: QM.quant_matmul_ref(x, q, s),
+                           lambda: torch.matmul(xb, w)))
         nbytes = K * N + 4 * N + x.numel() * x.element_size() + 4 * M * N
         res["bound_ms"], res["bound_by"] = _bound(nbytes, 2 * M * K * N,
                                                   dtype)
@@ -559,9 +613,8 @@ def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
            "dh": dh, "max_abs_err": max(errs.values()), "errs": errs,
            "tol": MLSTM_REL_TOL, "ok": bool(ok)}
     if timed:
-        res.update(kernel_ms=time_ms(lambda: MC.mlstm_chunked(*args)),
-                   plain_ms=time_ms(lambda: MC.mlstm_chunked_ref(*args)),
-                   library_ms=None)
+        res.update(timings("mlstm_chunked", lambda: MC.mlstm_chunked(*args),
+                           lambda: MC.mlstm_chunked_ref(*args), None))
         # the chunkwise algorithm at the kernel's 32-step chunks: per step
         # q C and the k v^T update (dh^2 each), q n and the n update (dh
         # each), and the causal intra-chunk scores and s v ((L + 1) dh on
@@ -596,10 +649,9 @@ def run_rmsnorm_case(rng, name, *, rows, D, dtype, wdtype, timed=False):
            "max_abs_err": err, "tol": tol, "ok": bool(ok)}
     if timed:
         w1 = (1.0 + w.float()).to(dtype)
-        res.update(kernel_ms=time_ms(lambda: RN.fused_rmsnorm(x, w)),
-                   plain_ms=time_ms(lambda: RN.rmsnorm_ref(x, w)),
-                   library_ms=time_ms(lambda: F.rms_norm(x, (D,), w1,
-                                                         1e-6)))
+        res.update(timings("fused_rmsnorm", lambda: RN.fused_rmsnorm(x, w),
+                           lambda: RN.rmsnorm_ref(x, w),
+                           lambda: F.rms_norm(x, (D,), w1, 1e-6)))
         res["bound_ms"], res["bound_by"] = _bound(
             2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
             4 * x.numel(), dtype)
@@ -641,12 +693,11 @@ def run_dense_decode_case(rng, name, *, B, Sk, Hq, Hkv, D, dtype,
         qs = q.transpose(1, 2)
         ks = k.repeat_interleave(g, 2).transpose(1, 2)
         vs = v.repeat_interleave(g, 2).transpose(1, 2)
-        res.update(
-            kernel_ms=time_ms(lambda: DA.decode_attention(q, k, v, k_pos,
-                                                          q_pos, **kw)),
-            plain_ms=time_ms(lambda: DA.decode_attention_ref(
-                q, k, v, k_pos, q_pos, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        res.update(timings(
+            "decode_attention",
+            lambda: DA.decode_attention(q, k, v, k_pos, q_pos, **kw),
+            lambda: DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw),
+            lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
         # the keys some query can see (K and V of each kv head once), the
         # positions, q and out once; 4 D flops per visible key and head
@@ -1238,17 +1289,19 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {}
     for name in ("paged_decode_kernel", "paged_packed_kernel",
-                 "paged_mixed_kernel", "flash_kernel",
-                 "quant_matmul_kernel", "quant_matmul_reduce_kernel",
-                 "mlstm_chunk_kernel"):
+                 "paged_mixed_kernel", "paged_mixed_mma_kernel",
+                 "flash_kernel", "flash_mma_kernel", "quant_matmul_kernel",
+                 "quant_matmul_reduce_kernel", "mlstm_chunk_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
-                ours[k[:90]] = {"ms": us / 1e3, "count": n}
+                ours[k[:90]] = {"ms": us / 1e3, "count": n,
+                                "busy_frac": us / 1e6 / busy_s}
     emit("profile", arch=arch, mode=mode, kv_dtype=kv_dtype,
          weights_dtype=weights_dtype, device_busy_s=busy_s,
          measured_wall_s=wall, device_idle_frac=max(0.0, 1.0 - busy_s / wall),
          kernels_launched=sum(n for _, n in by_name.values()),
-         port_kernels=ours,
+         port_kernels=ours, port_kernels_busy_frac=sum(
+             v["busy_frac"] for v in ours.values()),
          top=[{"kernel": k[:90], "ms": us / 1e3, "count": n}
               for k, (us, n) in top])
 
@@ -1432,7 +1485,8 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, built=info["built"],
          library=Path(info["path"]).name,
          ptxas=[ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln])
+                if "registers" in ln or "Compiling entry" in ln
+                or "spill" in ln])
 
     timed = phase_kernels()
     phase_parity("unimo-text")
@@ -1452,7 +1506,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "device_ms": c["device_ms"],
+            "library_device_ms": c["library_device_ms"]}
         if name in NOTES:
             row["note"] = NOTES[name]
         kernels.append(row)

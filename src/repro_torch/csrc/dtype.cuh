@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: fp32 <-> element-type
-// conversions (float, __half and __nv_bfloat16; rounding to nearest even)
-// and warp-wide reductions.
+// conversions (float, __half and __nv_bfloat16; rounding to nearest even),
+// warp-wide reductions and the attention kernels' key mask.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -33,6 +33,12 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
   return v;
+}
+
+// A key at position kp is visible to a query at qp when 0 <= kp <= qp,
+// and kp > qp - window with a window (window <= 0: none).
+__device__ __forceinline__ bool visible(int kp, int qp, int window) {
+  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
 }
 
 }  // namespace

@@ -8,25 +8,40 @@
 // h / g (g = Hq / Hkv), with the mask built from absolute positions
 // (q_pos (B,Sq), k_pos (B,Sk); key visible when 0 <= kp <= qp, and
 // kp > qp - window with a window), an optional softcap, and an fp32 online
-// softmax.  The output is at q's dtype; a row that sees no key is 0.
+// softmax.  The output is at q's dtype; a row that sees no key is 0.  Any
+// Sq and Sk: the ragged last tiles are masked here, so the TPU wrapper's
+// "Sq divisible by the block" limit does not carry over.
 //
-// Bound: at the shapes the port runs it (the draft model's full forwards,
-// Sq = Sk of a few hundred tokens) by operations: 4 * D flops per visible
-// (query, key) pair and query head against 2 * D element reads per key row
-// and kv head, far above the card's ~295 flops-per-byte ridge.
-// Design: grid (B, Hq, ceil(Sq / 32)).  The TPU kernel's sequential k grid
-// axis becomes a loop over 32-key tiles inside the block, which keeps the
-// running max, denominator and accumulator of its 32 query rows in shared
-// memory.  Each tile's positions are read first, and a tile no row can see
-// (beyond the causal diagonal, outside a window, past Sk) is skipped before
-// its K/V are read.  Any Sq and Sk: the ragged last tiles are masked here,
-// so the TPU wrapper's "Sq divisible by the block" limit does not carry
-// over.  This first version uses CUDA cores only (scores and P.V as fp32
-// FMAs from shared memory); mma.sync / wgmma come later.
+// Two bodies, chosen by q's dtype in the launcher (not a fallback):
+//
+//  * bf16 / fp16: flash_mma_kernel, the tensor-core core of attn_mma.cuh.
+//    A block takes 64 rows of (query, head of the kv group) pairs of one
+//    batch row and kv head, so at GQA the K/V tile is read once for all g
+//    heads; 32-key tiles come through a three-stage cp.async ring, their
+//    positions read first so a tile beyond the causal diagonal or outside
+//    the window is never requested; Q.K^T and P.V are mma.sync.m16n8k16
+//    with fp32 accumulators and the online softmax in registers.
+//    Grid (ceil(Sq * g / 64), Hkv, B).
+//  * fp32: flash_kernel, on CUDA cores.  A tensor-core body would multiply
+//    in TF32 (about three decimal digits), and the card's fp32 greedy
+//    streams must keep equalling the CPU's.  Grid (B, Hq, ceil(Sq / 32)):
+//    32 query rows of one head, 32-key tiles through shared memory,
+//    running max, denominator and accumulator in shared memory.
+//
+// Bound: at the shape the port runs it (the draft model's full forwards,
+// 8 x 260 tokens at 16 heads x 64) by bytes, at ~5 us for q, k, v and out
+// once, though causal attention does 4 * D flops per visible (query, key)
+// pair and head.  What still bounds the tensor-core body there is neither:
+// it is the time each block spends per 32-key tile (two block barriers,
+// the copy issue, the mask and the online softmax's scalar work beside 32
+// mma per warp) and the fixed cost of staging Q and positions, so it runs
+// ~6x its bound (PERF.md).  Longer key tiles, wgmma over 64-row
+// warpgroups and TMA copies are the next steps.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "dtype.cuh"
 
 namespace {
@@ -57,11 +72,6 @@ __host__ __device__ inline size_t smem_floats(int D, int Dv) {
          (size_t)kBlockQ * Dv + 3 * (size_t)kBlockQ + kBlockK + kBlockQ;
 }
 
-__device__ __forceinline__ bool visible(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kBlockQ;
@@ -78,13 +88,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   int* kp = reinterpret_cast<int*>(al + kBlockQ);  // [KT]
   int* qp = kp + KT;                               // [nq]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
 
   for (int i = tid; i < nq * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    qs[i] = to_f(q[(((long)b * p.Sq + q0 + r) * p.Hq + h) * D + d]);
+    qs[i] = q[(((long)b * p.Sq + q0 + r) * p.Hq + h) * D + d];
   }
   for (int i = tid; i < nq * Dv; i += kThreads) acc[i] = 0.f;
   int live = 0;
@@ -109,11 +119,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     for (int i = tid; i < nk * D; i += kThreads) {
       const int t = i / D, d = i % D;
       ks[t * (D + 1) + d] =
-          to_f(k[(((long)b * p.Sk + k0 + t) * p.Hkv + hk) * D + d]);
+          k[(((long)b * p.Sk + k0 + t) * p.Hkv + hk) * D + d];
     }
     for (int i = tid; i < nk * Dv; i += kThreads) {
       const int t = i / Dv, d = i % Dv;
-      vs[i] = to_f(v[(((long)b * p.Sk + k0 + t) * p.Hkv + hk) * Dv + d]);
+      vs[i] = v[(((long)b * p.Sk + k0 + t) * p.Hkv + hk) * Dv + d];
     }
     __syncthreads();
 
@@ -166,34 +176,72 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     __syncthreads();
   }
 
-  T* o = static_cast<T*>(p.out);
+  float* o = static_cast<float*>(p.out);
   for (int i = tid; i < nq * Dv; i += kThreads) {
     const int r = i / Dv, d = i % Dv;
     // a row with no visible key has l == 0 and acc == 0: it writes 0
     o[(((long)b * p.Sq + q0 + r) * p.Hq + h) * Dv + d] =
-        from_f<T>(acc[i] / fmaxf(ls[r], 1e-37f));
+        acc[i] / fmaxf(ls[r], 1e-37f);
   }
 }
 
-template <typename T>
-cudaError_t launch(int B, const Params& p, cudaStream_t stream) {
+cudaError_t launch_fp32(int B, const Params& p, cudaStream_t stream) {
   if (B == 0 || p.Sq == 0) return cudaSuccess;
   const size_t smem = smem_floats(p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        (const void*)flash_kernel<T>,
+        (const void*)flash_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(B, p.Hq, (p.Sq + kBlockQ - 1) / kBlockQ);
-  flash_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  flash_kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// grid (ceil(Sq * g / 64), Hkv, B): one tile of 64 (query, group head)
+// rows of batch row b against kv head h
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
+    flash_mma_kernel(MmaArgs a) {
+  extern __shared__ float smem[];
+  mma_attend<T, T, DMAX>(a, reinterpret_cast<char*>(smem));
+}
+
+template <typename T>
+cudaError_t launch_mma(int B, const Params& p, cudaStream_t stream) {
+  if (B == 0 || p.Sq == 0) return cudaSuccess;
+  MmaArgs a{};
+  a.q = p.q;
+  a.k = p.k;
+  a.v = p.v;
+  a.kpos = p.k_pos;
+  a.q_pos = p.q_pos;
+  a.out = p.out;
+  a.NQ = p.Sq;
+  a.Sk = p.Sk;
+  a.Hq = p.Hq;
+  a.Hkv = p.Hkv;
+  a.g = p.g;
+  a.D = p.D;
+  a.Dv = p.Dv;
+  a.row_tiles = (p.Sq * p.g + kMmaRows - 1) / kMmaRows;
+  a.splits = 1;
+  a.keys_per_split = p.Sk;
+  a.scale = p.scale;
+  a.softcap = p.softcap;
+  a.window = p.window;
+  const int dvp = round16(p.D > p.Dv ? p.D : p.Dv);   // head-dim bucket
+  return dvp <= 64    ? mma_launch(flash_mma_kernel<T, 64>, a, B, stream)
+         : dvp <= 128 ? mma_launch(flash_mma_kernel<T, 128>, a, B, stream)
+                      : mma_launch(flash_mma_kernel<T, 256>, a, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v and out).
+// dtype: 0 = float32 (the CUDA-core body), 1 = float16, 2 = bfloat16 (the
+// tensor-core body), for q, k, v and out.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
@@ -205,9 +253,9 @@ extern "C" int flash_attention_launch(
            D, Dv, scale, softcap, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(B, p, s);
-    case 1: return (int)launch<__half>(B, p, s);
-    case 2: return (int)launch<__nv_bfloat16>(B, p, s);
+    case 0: return (int)launch_fp32(B, p, s);
+    case 1: return (int)launch_mma<__half>(B, p, s);
+    case 2: return (int)launch_mma<__nv_bfloat16>(B, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

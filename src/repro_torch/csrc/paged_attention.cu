@@ -22,14 +22,14 @@
 //                                      bodies do), so a dequantized value
 //                                      equals the plain version's bit for
 //                                      bit.  q and out stay at q's dtype.
-//   * paged_mixed_kernel<T, T>      <- paged_mixed_attention (body
-//                                      _paged_mixed_kernel): a window of W
-//                                      query lanes per slot (a speculative
-//                                      verify window, a prefill chunk),
+//   * paged_mixed_mma_kernel<T, T>  <- paged_mixed_attention (body
+//     (bf16 / fp16 q) and              _paged_mixed_kernel): a window of W
+//     paged_mixed_kernel<float>        query lanes per slot (a speculative
+//     (fp32 q)                         verify window, a prefill chunk),
 //                                      each against its slot's pages;
 //                                      lanes with q_pos == -1 are padding.
-//   * paged_mixed_kernel<T, int8>   <- paged_mixed_attention_q8 (body
-//                                      _paged_mixed_kernel_q8)
+//   * paged_mixed_mma_kernel<T, int8> <- paged_mixed_attention_q8 (body
+//     and paged_mixed_kernel<int8>       _paged_mixed_kernel_q8)
 //   * dense_decode_kernel<T, T>     <- decode_attention (body _kernel):
 //                                      one query token per row against
 //                                      the row's own contiguous K/V
@@ -41,19 +41,45 @@
 // stream (page x Hkv x (D + Dv) x element bytes per page, plus 2 x 4-byte
 // scales per entry and kv head for int8 pools), plus positions, queries
 // and outputs; a decode token does 2 x (D + Dv) flops per key, far below
-// the card's ~295 flops-per-byte ridge.  Design: one block per
-// (slot or query window, kv head) so the g = Hq / Hkv query heads that
-// share a kv head read each page once; every page is staged through
-// shared memory in 16-key tiles, whose positions are read first so tiles
-// with no visible key (unwritten tails of a slot's pages, keys beyond a
-// window) are skipped without reading their K/V.  Scores, the online
-// softmax and the accumulator are fp32, with the same -inf-safe rescaling
-// as the reference's _attend_block_mq.  This first version uses CUDA
-// cores only; wgmma, TMA and split-K come later.
+// the card's ~295 flops-per-byte ridge.
+//
+// attend_rows, on CUDA cores (the decode, packed and dense kernels, and
+// the mixed kernel at fp32): one block per (slot or query window, kv
+// head) so the g = Hq / Hkv query heads that share a kv head read each
+// page once; every page is staged through shared memory in 16-key tiles,
+// whose positions are read first so tiles with no visible key (unwritten
+// tails of a slot's pages, keys beyond a window) are skipped without
+// reading their K/V.  Scores, the online softmax and the accumulator are
+// fp32, with the same -inf-safe rescaling as the reference's
+// _attend_block_mq.  The mixed kernel keeps this body for fp32 q: a
+// tensor-core body would multiply in TF32, and the card's fp32 greedy
+// streams must keep equalling the CPU's.  What bounds attend_rows is its
+// serial per-thread dot products out of shared memory and four block
+// barriers per tile with no overlap of loads and compute.
+//
+// paged_mixed_mma_kernel (bf16 / fp16 q, over pools at q's dtype or int8)
+// runs the tensor-core core of attn_mma.cuh: a block takes up to 64 rows
+// of (window lane, head of the kv group) pairs of one slot and kv head,
+// walks the slot's block table in 32-key tiles through a three-stage
+// cp.async ring, and does Q.K^T and P.V with mma.sync.m16n8k16; int8
+// codes and scales are staged as stored and dequantized (code x scale in
+// fp32, rounded to q's type) while the B fragments are built.  A verify
+// window gives few blocks (8 slots x 8 kv heads at qwen3-4b), so the page
+// walk is split over several blocks (flash-decoding): the wrapper picks
+// the split count (decode_attention.mixed_splits) so the grid covers the
+// card's SMs, each split writes its (m, l, acc) to a scratch buffer, and
+// the last split of a (slot, kv head, row tile) to finish merges them in
+// the same launch.  What still bounds it is latency, not bytes: each
+// split walks only a few tiles, so the fixed cost of a block (staging Q,
+// reading positions through the block table, the partials and the merge)
+// is most of its time, ~10x the bytes bound at the verify shape
+// (PERF.md); over int8 pools the dequantizing fragment builds add to each
+// tile.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "dtype.cuh"
 
 namespace {
@@ -99,10 +125,6 @@ __host__ __device__ inline size_t smem_floats(int rows, int D, int Dv) {
   return (size_t)rows * D + (size_t)kKeyTile * (D + 1) +
          (size_t)kKeyTile * Dv + (size_t)rows * kKeyTile +
          (size_t)rows * Dv + 3 * (size_t)rows + kKeyTile + rows;
-}
-
-__device__ __forceinline__ bool visible(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
 }
 
 // Attend n_rows query rows (row r = lane r / g, head r % g of kv head h)
@@ -253,22 +275,24 @@ __global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
                      p.bt + (long)slot * p.npages, h, smem);
 }
 
-// grid (B * ceil(W / 8), Hkv): block x serves query lanes
+// grid (B * ceil(W / 8), Hkv), fp32 q only: block x serves query lanes
 // [8t, min(8t + 8, W)) of slot b = x / ceil(W / 8), t = x % ceil(W / 8),
 // like a packed work row serves its window.  Padding lanes (q_pos == -1)
 // see no key and come back as zeros.
-template <typename T, typename KV>
+template <typename KV>
 __global__ void __launch_bounds__(kThreads) paged_mixed_kernel(Params p) {
   extern __shared__ float smem[];
   const int tiles = (p.W + kPackedBlockQ - 1) / kPackedBlockQ;
   const int b = blockIdx.x / tiles, h = blockIdx.y;
   const int w0 = (blockIdx.x % tiles) * kPackedBlockQ;
   const long lane0 = (long)b * p.W + w0;
-  const T* q = static_cast<const T*>(p.q) + (lane0 * p.Hq + h * p.g) * p.D;
-  T* o = static_cast<T*>(p.out) + (lane0 * p.Hq + h * p.g) * p.Dv;
-  attend_rows<T, KV>(p, min(p.W - w0, kPackedBlockQ) * p.g, q,
-                     (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
-                     p.q_pos + lane0, p.bt + (long)b * p.npages, h, smem);
+  const float* q =
+      static_cast<const float*>(p.q) + (lane0 * p.Hq + h * p.g) * p.D;
+  float* o = static_cast<float*>(p.out) + (lane0 * p.Hq + h * p.g) * p.Dv;
+  attend_rows<float, KV>(p, min(p.W - w0, kPackedBlockQ) * p.g, q,
+                         (long)p.Hq * p.D, o, (long)p.Hq * p.Dv,
+                         p.q_pos + lane0, p.bt + (long)b * p.npages, h,
+                         smem);
 }
 
 // grid (B, Hkv): row b's single query token against its contiguous cache
@@ -285,18 +309,13 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(Params p) {
                      p.q_pos + b, &page_id, h, smem);
 }
 
-enum Kind { kDecode, kPacked, kMixed, kDense };
+enum Kind { kDecode, kPacked, kDense };
 
-template <typename T, typename KV>
-cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
-                   cudaStream_t stream) {
+cudaError_t launch_kernel(void (*kernel)(Params), int blocks, int max_rows,
+                          const Params& p, cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
   const size_t smem = smem_floats(max_rows, p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  void (*kernel)(Params) = kind == kPacked ? paged_packed_kernel<T, KV>
-                           : kind == kMixed ? paged_mixed_kernel<T, KV>
-                           : kind == kDense ? dense_decode_kernel<T, KV>
-                                            : paged_decode_kernel<T, KV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -305,6 +324,15 @@ cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
   }
   kernel<<<dim3(blocks, p.Hkv), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, typename KV>
+cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
+                   cudaStream_t stream) {
+  return launch_kernel(kind == kPacked  ? paged_packed_kernel<T, KV>
+                       : kind == kDense ? dense_decode_kernel<T, KV>
+                                        : paged_decode_kernel<T, KV>,
+                       blocks, max_rows, p, stream);
 }
 
 // Pools at q's dtype T (quant == false), or int8 codes with scales.
@@ -325,6 +353,90 @@ cudaError_t dispatch(int dtype, bool quant, Kind kind, int blocks,
     case 2:
       return launch_pools<__nv_bfloat16>(quant, kind, blocks, max_rows, p,
                                          stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// grid (row_tiles * splits, Hkv, B): rows [64 t, 64 t + 64) of slot b's
+// W lanes x g heads against the keys of split s (tensor cores, bf16 /
+// fp16 q; pools at q's dtype or int8)
+template <typename T, typename KV, int DMAX>
+__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
+    paged_mixed_mma_kernel(MmaArgs a) {
+  extern __shared__ float smem[];
+  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
+}
+
+template <typename T, typename KV>
+cudaError_t launch_mixed_mma(const MmaArgs& a, int B, cudaStream_t stream) {
+  if (B == 0 || a.NQ == 0) return cudaSuccess;
+  const int dvp = round16(a.D > a.Dv ? a.D : a.Dv);   // head-dim bucket
+  return dvp <= 64
+             ? mma_launch(paged_mixed_mma_kernel<T, KV, 64>, a, B, stream)
+         : dvp <= 128
+             ? mma_launch(paged_mixed_mma_kernel<T, KV, 128>, a, B, stream)
+             : mma_launch(paged_mixed_mma_kernel<T, KV, 256>, a, B, stream);
+}
+
+// The mixed launch: fp32 q takes attend_rows (one split only), bf16 /
+// fp16 q the tensor-core body with ``splits`` splits of pages_per_split
+// pages each; scratch holds (B * row_tiles * Hkv * splits) x 64 x (Dv + 2)
+// floats and counters B * row_tiles * Hkv zeros when splits > 1.
+cudaError_t launch_mixed(int dtype, bool quant, const Params& p, int B,
+                         int splits, int pages_per_split, float* scratch,
+                         int* counters, cudaStream_t stream) {
+  if (dtype == 0) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    const int blocks = B * ((p.W + kPackedBlockQ - 1) / kPackedBlockQ);
+    const int rows = min(p.W, kPackedBlockQ) * p.g;
+    return launch_kernel(quant ? paged_mixed_kernel<int8_t>
+                               : paged_mixed_kernel<float>,
+                         blocks, rows, p, stream);
+  }
+  MmaArgs a{};
+  a.q = p.q;
+  a.k = p.kpool;
+  a.v = p.vpool;
+  a.kscale = p.kscale;
+  a.vscale = p.vscale;
+  a.kpos = p.ppos;
+  a.bt = p.bt;
+  a.q_pos = p.q_pos;
+  a.out = p.out;
+  a.NQ = p.W;
+  a.Sk = p.npages * p.page;
+  a.Hq = p.Hq;
+  a.Hkv = p.Hkv;
+  a.g = p.g;
+  a.D = p.D;
+  a.Dv = p.Dv;
+  a.page = p.page;
+  a.npages = p.npages;
+  a.row_tiles = (p.W * p.g + kMmaRows - 1) / kMmaRows;
+  a.splits = splits;
+  a.keys_per_split = pages_per_split * p.page;
+  a.scale = p.scale;
+  a.softcap = p.softcap;
+  a.window = p.window;
+  if (splits < 1 || splits > kMmaMaxSplits || pages_per_split < 1 ||
+      (splits > 1 && (scratch == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  if (splits > 1) {
+    const long long parts =
+        (long long)B * a.row_tiles * p.Hkv * splits * kMmaRows;
+    a.part = scratch;
+    a.part_ml = scratch + parts * p.Dv;
+    a.counters = counters;
+  }
+  switch (dtype) {
+    case 1:
+      return quant ? launch_mixed_mma<__half, int8_t>(a, B, stream)
+                   : launch_mixed_mma<__half, __half>(a, B, stream);
+    case 2:
+      return quant
+                 ? launch_mixed_mma<__nv_bfloat16, int8_t>(a, B, stream)
+                 : launch_mixed_mma<__nv_bfloat16, __nv_bfloat16>(a, B,
+                                                                  stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -391,37 +503,40 @@ extern "C" int paged_packed_attention_q8_launch(
                        static_cast<cudaStream_t>(stream));
 }
 
-// Mixed windows: q (B,W,Hq,D), q_pos (B,W), block_tables (B,npages).
+// Mixed windows: q (B,W,Hq,D), q_pos (B,W), block_tables (B,npages);
+// splits / pages_per_split / scratch / counters as in launch_mixed.
 extern "C" int paged_mixed_attention_launch(
     const void* q, const void* kpool, const void* vpool, const void* ppos,
-    const void* block_tables, const void* q_pos, void* out, int dtype, int B,
-    int W, int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    const void* block_tables, const void* q_pos, void* out, void* scratch,
+    void* counters, int dtype, int B, int W, int Hq, int Hkv, int D, int Dv,
+    int page, int npages, int splits, int pages_per_split, float scale,
     float softcap, int window, void* stream) {
   Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  const int tiles = (W + kPackedBlockQ - 1) / kPackedBlockQ;
-  return (int)dispatch(dtype, false, kMixed, B * tiles,
-                       (W < kPackedBlockQ ? W : kPackedBlockQ) * p.g, p,
-                       static_cast<cudaStream_t>(stream));
+  return (int)launch_mixed(dtype, false, p, B, splits, pages_per_split,
+                           static_cast<float*>(scratch),
+                           static_cast<int*>(counters),
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_mixed_attention_q8_launch(
     const void* q, const void* kpool, const void* kscale, const void* vpool,
     const void* vscale, const void* ppos, const void* block_tables,
-    const void* q_pos, void* out, int dtype, int B, int W, int Hq, int Hkv,
-    int D, int Dv, int page, int npages, float scale, float softcap,
-    int window, void* stream) {
+    const void* q_pos, void* out, void* scratch, void* counters, int dtype,
+    int B, int W, int Hq, int Hkv, int D, int Dv, int page, int npages,
+    int splits, int pages_per_split, float scale, float softcap, int window,
+    void* stream) {
   Params p{q, kpool, vpool, static_cast<const float*>(kscale),
            static_cast<const float*>(vscale), static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  const int tiles = (W + kPackedBlockQ - 1) / kPackedBlockQ;
-  return (int)dispatch(dtype, true, kMixed, B * tiles,
-                       (W < kPackedBlockQ ? W : kPackedBlockQ) * p.g, p,
-                       static_cast<cudaStream_t>(stream));
+  return (int)launch_mixed(dtype, true, p, B, splits, pages_per_split,
+                           static_cast<float*>(scratch),
+                           static_cast<int*>(counters),
+                           static_cast<cudaStream_t>(stream));
 }
 
 // Dense decode: q (B,1,Hq,D) against k/v (B,Sk,Hkv,D[v]) with k_pos (B,Sk).

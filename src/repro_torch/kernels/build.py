@@ -111,10 +111,10 @@ def load() -> ctypes.CDLL:
         [P] * 10 + [I] * 8 + [F, F, I, P])
     lib.paged_packed_attention_q8_launch.restype = I
     lib.paged_mixed_attention_launch.argtypes = (
-        [P] * 7 + [I] * 9 + [F, F, I, P])
+        [P] * 9 + [I] * 11 + [F, F, I, P])
     lib.paged_mixed_attention_launch.restype = I
     lib.paged_mixed_attention_q8_launch.argtypes = (
-        [P] * 9 + [I] * 9 + [F, F, I, P])
+        [P] * 11 + [I] * 11 + [F, F, I, P])
     lib.paged_mixed_attention_q8_launch.restype = I
     lib.flash_attention_launch.argtypes = [P] * 6 + [I] * 8 + [F, F, I, P]
     lib.flash_attention_launch.restype = I

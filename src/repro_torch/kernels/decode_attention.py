@@ -15,6 +15,10 @@ beside them.
     W query lanes per slot (a speculative verify window of k+1 tokens, or
     one prefill chunk of the ``packed=False`` path), each lane against its
     slot's pages; lanes at position -1 are padding and come back as zeros.
+    bf16/fp16 q runs the tensor-core body (``csrc/attn_mma.cuh``) with the
+    page walk split over several blocks when the grid is small
+    (:func:`mixed_splits`); fp32 q keeps the CUDA-core body, whose fp32
+    products equal the CPU's where TF32 tensor cores would not.
   * :func:`paged_decode_attention_q8`, :func:`paged_packed_attention_q8`
     and :func:`paged_mixed_attention_q8` replace the reference's ``_q8``
     kernels: the same three over int8 pools (``kv_dtype="int8"``), whose
@@ -34,6 +38,7 @@ launches in a plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -73,6 +78,67 @@ def packed_meta_table(seg_starts, seg_lengths, seg_slots, n_tokens,
         raise ValueError(f"packed meta overflow: {w} windows > n_work "
                          f"{n_work}")
     return meta
+
+
+MMA_ROWS = 64   # (lane, group head) rows per block of the tensor-core body
+MAX_SPLITS = 16  # splits of one page walk (kMmaMaxSplits in attn_mma.cuh)
+_COUNTERS = {}
+
+
+def mixed_row_tiles(W: int, g: int) -> int:
+    """Blocks of up to MMA_ROWS rows that one slot's W lanes x g query
+    heads of a kv head take in the tensor-core mixed kernel."""
+    return -(-W * g // MMA_ROWS)
+
+
+def mixed_splits(B: int, row_tiles: int, Hkv: int, npages: int,
+                 sm_count: int):
+    """(splits, pages_per_split) of the tensor-core mixed kernel's page
+    walk.  Its grid has B x row_tiles x Hkv blocks, each over the
+    ``npages`` pages of its slot's block-table row; where those blocks do
+    not cover the card's ``sm_count`` SMs, each walk is cut into
+    ``splits`` runs of ``pages_per_split`` consecutive pages (split s takes
+    pages [s * pps, min((s + 1) * pps, npages))), so every page lies in
+    exactly one split and no split is empty.  ``want`` = min(npages,
+    ceil(sm_count / blocks), MAX_SPLITS) and pps = ceil(npages / want)
+    give want/2 < splits <= want: at least half the SMs are covered
+    wherever the pages allow, and never more than MAX_SPLITS splits (the
+    kernel's merge holds every split's weights in shared memory).  One
+    split when the grid already fills the card or there is at most one
+    page."""
+    want = min(npages, -(-sm_count // max(B * row_tiles * Hkv, 1)),
+               MAX_SPLITS)
+    if want <= 1:
+        return 1, max(npages, 1)
+    pps = -(-npages // want)
+    return -(-npages // pps), pps
+
+
+def mixed_scratch_floats(B: int, row_tiles: int, Hkv: int, splits: int,
+                         Dv: int) -> int:
+    """fp32 scratch of a split launch: for every split of every (slot, kv
+    head, row tile), each of its MMA_ROWS rows' Dv accumulators and (m,
+    l); none with one split."""
+    if splits == 1:
+        return 0
+    return B * row_tiles * Hkv * splits * MMA_ROWS * (Dv + 2)
+
+
+def _split_counters(device, n: int):
+    """The split launches' arrival counters, one per (slot, kv head, row
+    tile): zeros allocated once per device and grown as needed.  The
+    block that merges a group resets its counter, so they are zero again
+    for the next launch on the stream."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_common(q, kpool, vpool, ppos, block_tables, q_pos,
@@ -184,8 +250,24 @@ def _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
         raise ValueError("mixed attention takes q (B,W,Hq,D), "
                          "block_tables (B,npages) and q_pos (B,W)")
     lib = build.load()
-    _check_smem(lib, min(W, PACKED_BLOCK_Q) * (Hq // Hkv), D, Dv)
+    g, npages = Hq // Hkv, block_tables.shape[1]
+    tiles = mixed_row_tiles(W, g)
+    if q.dtype == torch.float32:              # the CUDA-core body
+        _check_smem(lib, min(W, PACKED_BLOCK_Q) * g, D, Dv)
+        splits, pps = 1, max(npages, 1)
+    else:                                     # the tensor-core body
+        if any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
+            raise ValueError("the tensor-core mixed kernel needs q and the "
+                             "pools 16-byte aligned")
+        splits, pps = mixed_splits(B, tiles, Hkv, npages,
+                                   _sm_count(q.device.index))
     out = torch.empty((B, W, Hq, Dv), dtype=q.dtype, device=q.device)
+    scratch = counters = None                 # kept alive over the launch
+    if splits > 1:
+        scratch = torch.empty(
+            mixed_scratch_floats(B, tiles, Hkv, splits, Dv),
+            dtype=torch.float32, device=q.device)
+        counters = _split_counters(q.device, B * tiles * Hkv)
     cap, win = _softcap_window(attn_softcap, window)
     pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
     fn = (lib.paged_mixed_attention_launch if k_scale is None
@@ -193,8 +275,10 @@ def _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
                  block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODES[q.dtype], B, W, Hq, Hkv, D, Dv, page,
-                 block_tables.shape[1], float(scale), cap, win,
+                 *(None if t is None else t.data_ptr()
+                   for t in (scratch, counters)),
+                 _DTYPE_CODES[q.dtype], B, W, Hq, Hkv, D,
+                 Dv, page, npages, splits, pps, float(scale), cap, win,
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, name)
     return out

@@ -11,6 +11,10 @@ port it carries every dense attention call (``layers.mha_attention``):
 the draft model's full forwards in speculative decoding
 (``core.speculative.DraftModelDrafter``).  Unlike the reference's wrapper,
 any Sq and Sk are taken: the kernel masks the ragged tiles itself.
+bf16/fp16 run the tensor-core body (``csrc/attn_mma.cuh``: all g query
+heads of a kv head in one block, mma.sync, a cp.async ring); fp32 keeps
+the CUDA-core body, whose fp32 products equal the CPU's where TF32 tensor
+cores would not.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, layout and
 shapes, allocates the output, launches on the current stream and raises if
@@ -65,6 +69,10 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
         if d % 8 or not 0 < d <= MAX_HEAD_DIM:
             raise ValueError(f"{n}={d}: head dims must be multiples of 8 "
                              f"up to {MAX_HEAD_DIM}")
+    if q.dtype != torch.float32 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the tensor-core flash kernel needs q, k and v "
+                         "16-byte aligned")
     lib = build.load()
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):

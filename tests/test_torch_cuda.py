@@ -409,6 +409,162 @@ def test_mixed_and_flash_wrappers_reject_bad_inputs(dev):
                            k[..., :12].contiguous(), qp, kp, **kw)
 
 
+# The tensor-core bodies (bf16 / fp16): flash and the mixed pair over head
+# dims 32..256 and one D = 40 (not a multiple of 16, zero-padded in shared
+# memory), GQA groups g = 1, 4, 8, windows of 1, 5, 24 (ragged) and 256
+# lanes, pools at q's dtype and int8.
+MMA_DTYPES = [torch.bfloat16, torch.float16]
+MMA_DIMS = [32, 40, 64, 128, 256]
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("D", MMA_DIMS)
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_flash_mma_matches_plain(dev, dtype, D, g):
+    rng = np.random.default_rng(20 + D + g)
+    q, k, v, q_pos, k_pos = _flash_inputs(rng, 3, 70, 75, 2 * g, 2, D,
+                                          dtype, dev)
+    kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
+    out = FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    ref = FA.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[(q_pos < 0)].any()         # invalid rows are zero
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_flash_mma_window_softcap_and_split_dv(dev, dtype):
+    rng = np.random.default_rng(31)
+    q, k, v, q_pos, k_pos = _flash_inputs(rng, 2, 100, 100, 8, 2, 64,
+                                          dtype, dev)
+    v = torch.from_numpy(rng.normal(size=(2, 100, 2, 40)).astype(
+        np.float32)).to(dev, dtype)           # Dv 40 beside D 64
+    for kw in (dict(window=24, attn_softcap=30.0), dict(window=7),
+               dict(attn_softcap=5.0)):
+        kw = dict(dict(window=None, attn_softcap=None), **kw,
+                  scale=64 ** -0.5)
+        out = FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        ref = FA.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert not out[(q_pos < 0)].any()
+
+
+# (W, n_q, before): one-token windows, the k + 1 = 5 verify window, a
+# ragged 24-lane window (one row all padding) and a 256-lane chunk
+MMA_MIXED_SHAPES = [(1, [1, 1, 0], [10, 70, 3]),
+                    (5, [5, 5, 0, 3, 5], [10, 37, 0, 130, 64]),
+                    (24, [24, 0, 17, 1], [3, 0, 100, 40]),
+                    (256, [230], [20])]
+
+
+def _mixed_call(q, k, v, ppos, bt, q_pos, quant, **kw):
+    """The mixed kernel and its plain version over a pool at q's dtype, or
+    over the int8 codes of the same K/V (``quant``)."""
+    if quant:
+        kq, ks, vq, vs = _q8(k, v)
+        n0 = DA.paged_mixed_attention_q8.launches
+        out = DA.paged_mixed_attention_q8(q, kq, ks, vq, vs, ppos, bt, q_pos,
+                                          **kw)
+        assert DA.paged_mixed_attention_q8.launches == n0 + 1
+        ref = DA.paged_mixed_attention_ref(q, kq, vq, ppos, bt, q_pos,
+                                           k_scale=ks, v_scale=vs, **kw)
+    else:
+        n0 = DA.paged_mixed_attention.launches
+        out = DA.paged_mixed_attention(q, k, v, ppos, bt, q_pos, **kw)
+        assert DA.paged_mixed_attention.launches == n0 + 1
+        ref = DA.paged_mixed_attention_ref(q, k, v, ppos, bt, q_pos, **kw)
+    torch.cuda.synchronize()
+    return out, ref
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("W,n_q,before", MMA_MIXED_SHAPES)
+@pytest.mark.parametrize("D", MMA_DIMS)
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_mixed_mma_matches_plain(dev, dtype, D, W, n_q, before, quant):
+    rng = np.random.default_rng(40 + D + W)
+    q, k, v, ppos, bt, q_pos = _mixed_inputs(
+        rng, W=W, n_q=n_q, before=before, Hq=8, Hkv=2, D=D, page=16,
+        dtype=dtype, dev=dev)
+    out, ref = _mixed_call(q, k, v, ppos, bt, q_pos, quant, window=None,
+                           scale=D ** -0.5, attn_softcap=None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for r, n in enumerate(n_q):
+        assert not out[r, n:].any()           # padding lanes are zero
+
+
+def _split_case(rng, case, dtype, dev):
+    """The split-K edges, each at a shape where the page walk is split
+    (few blocks): a context of one page; unallocated pages between
+    allocated ones; a slot whose every lane is padding; a slot with far
+    fewer pages than splits (most splits see only unallocated pages);
+    window + softcap across split boundaries."""
+    kw = dict(window=None, scale=64 ** -0.5, attn_softcap=None)
+    if case == "one page":
+        W, n_q, before = 5, [5], [3]
+    elif case == "holes":
+        W, n_q, before = 5, [5, 5], [150, 90]
+    elif case == "all padding":
+        W, n_q, before = 5, [5, 0, 4], [40, 60, 100]
+    elif case == "more splits than pages":
+        W, n_q, before = 5, [5], [2]
+    else:
+        W, n_q, before = 24, [24, 9], [200, 31]
+        kw.update(window=40, attn_softcap=30.0)
+    q, k, v, ppos, bt, q_pos = _mixed_inputs(
+        rng, W=W, n_q=n_q, before=before, Hq=4, Hkv=1, D=64, page=16,
+        dtype=dtype, dev=dev)
+    if case == "holes":                       # pages 1 and 4 unallocated
+        bt[:, 1] = -1
+        bt[0, 4] = -1
+    if case == "more splits than pages":      # a 32-page table, one used
+        bt = torch.cat([bt, torch.full((1, 30), -1, dtype=torch.int32,
+                                       device=dev)], 1)
+    return q, k, v, ppos, bt, q_pos, n_q, kw
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", ["one page", "holes", "all padding",
+                                  "more splits than pages",
+                                  "window + softcap"])
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_mixed_mma_split_edges(dev, dtype, case, quant):
+    rng = np.random.default_rng(50)
+    q, k, v, ppos, bt, q_pos, n_q, kw = _split_case(rng, case, dtype, dev)
+    B, W = q_pos.shape
+    splits, _ = DA.mixed_splits(B, DA.mixed_row_tiles(W, 4), 1,
+                                bt.shape[1], DA._sm_count(dev.index or 0))
+    assert splits > 1 or bt.shape[1] == 1
+    out, ref = _mixed_call(q, k, v, ppos, bt, q_pos, quant, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for r, n in enumerate(n_q):
+        assert not out[r, n:].any()           # exactly zero
+    # a second launch finds the arrival counters reset
+    again, _ = _mixed_call(q, k, v, ppos, bt, q_pos, quant, **kw)
+    assert torch.equal(again, out)
+
+
+def test_mma_wrappers_reject_misaligned_inputs(dev):
+    buf = torch.zeros(2 * 3 * 4 * 16 + 1, dtype=torch.bfloat16, device=dev)
+    q = buf[1:].view(2, 3, 4, 16)             # 2 bytes off 16-byte alignment
+    pool = torch.zeros(5, 8, 2, 16, dtype=torch.bfloat16, device=dev)
+    ppos = torch.full((5, 8), -1, dtype=torch.int32, device=dev)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    qp = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    kw = dict(window=None, scale=1.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        DA.paged_mixed_attention(q, pool, pool, ppos, bt, qp, **kw)
+    k = torch.zeros(2, 5, 2, 16, dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros(2, 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(q, k, k, qp, kp, **kw)
+
+
 def test_serve_on_card_matches_cpu(dev):
     """Reduced unimo-text, fp32, greedy: the card's serve (through both
     kernels) gives the CPU's token streams, and every attention call of
