@@ -15,10 +15,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
               Hkv 8, D 128) heads, 16-token pages, 8 slots and a 256-lane
-              packed stream, over bf16 / fp32 pools and, for the ``_q8``
-              kernels, over int8 pools with q at bf16 and fp32, each with a
-              window + softcap case; ``quant_matmul`` at every qwen3-4b
-              decode shape (M = 8), at M = 256 and on a ragged shape; the
+              packed stream, over bf16 / fp16 / fp32 pools and, for the
+              ``_q8`` kernels, over int8 pools with q at bf16, fp16 and
+              fp32, each with a window + softcap case; ``quant_matmul`` at
+              every qwen3-4b decode shape (M = 8; the tied head also at
+              fp16), at M = 256 and M = 40 and on ragged shapes; the
               mixed kernels (and ``_q8``, q at bf16 and fp32) at qwen3-4b's
               verify shape (8 slots, k + 1 = 5 lanes) and at a (1, 256)
               prefill-chunk row; flash attention at unimo-text's draft
@@ -30,8 +31,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               ``fused_rmsnorm`` (4096 x 2560 bf16 and fp32, a ragged row
               count) and dense ``decode_attention`` (qwen3-4b's heads, 8 x
               256, also with a window + softcap; a ragged fp32 case).
-              Flash and the mixed pair run their tensor-core bodies at
-              bf16 q and their CUDA-core bodies at fp32 q.  Times the
+              Flash, the mixed pair, the decode pair and ``quant_matmul``
+              run their tensor-core bodies at bf16 / fp16 and their
+              CUDA-core bodies at fp32.  Times the
               kernel, the plain version and a PyTorch yardstick the port
               never calls (``library_ms``) with CUDA events around each
               call (host path included), and the device time per call of
@@ -111,11 +113,11 @@ SOURCE["mlstm_chunked"] = "src/repro_torch/csrc/mlstm_chunk.cu"
 SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
 # the device kernels each wrapper launches, by a part of their names
 KERNEL_SYMBOLS = {
-    "paged_decode_attention": ("paged_decode_kernel",),
+    "paged_decode_attention": ("paged_decode_",),
     "paged_packed_attention": ("paged_packed_kernel",),
-    "paged_decode_attention_q8": ("paged_decode_kernel",),
+    "paged_decode_attention_q8": ("paged_decode_",),
     "paged_packed_attention_q8": ("paged_packed_kernel",),
-    "quant_matmul": ("quant_matmul_kernel", "quant_matmul_reduce_kernel"),
+    "quant_matmul": ("quant_matmul_",),
     "paged_mixed_attention": ("paged_mixed_",),
     "paged_mixed_attention_q8": ("paged_mixed_",),
     "flash_attention": ("flash_",),
@@ -747,20 +749,31 @@ def phase_kernels():
         cases.append(run(rng, "unimo-text int8 pool window 64 + softcap "
                          "30, fp32 q", dtype=fp32, quant=True, **wsc,
                          **unimo))
+        # fp16 q over fp16 and int8 pools
+        cases.append(run(rng, "qwen3-4b fp16", dtype=torch.float16,
+                         **qwen3))
+        cases.append(run(rng, "qwen3-4b int8 pool, fp16 q",
+                         dtype=torch.float16, quant=True, **qwen3))
     # quant_matmul: every qwen3-4b decode shape (q / k+v / o / ffn in /
-    # ffn out / tied head), a 256-row packed stream, a ragged shape
+    # ffn out / tied head: the bytes-bound tensor-core body), a 256-row
+    # packed stream and a 40-row verify stream (8 slots x k + 1: the tiled
+    # body), the tied head at fp16; ragged shapes on every body
     shapes = [(8, 2560, 4096), (8, 2560, 1024), (8, 4096, 2560),
               (8, 2560, 9728), (8, 9728, 2560), (8, 2560, 151936),
-              (256, 2560, 9728)]
+              (256, 2560, 9728), (40, 2560, 9728)]
     for M, K, N in shapes:
         cases.append(run_quant_matmul_case(
             rng, f"qwen3-4b {K}->{N} M={M} bf16", M=M, K=K, N=N, dtype=bf16,
             timed=True))
-    for dtype in (bf16, fp32):
+    cases.append(run_quant_matmul_case(
+        rng, "qwen3-4b 2560->151936 M=8 fp16", M=8, K=2560, N=151936,
+        dtype=torch.float16, timed=True))
+    for dtype in (bf16, torch.float16, fp32):
         name = str(dtype).removeprefix("torch.")
-        cases.append(run_quant_matmul_case(
-            rng, f"ragged 100->130 M=3 {name}", M=3, K=100, N=130,
-            dtype=dtype))
+        for M in (3, 40):
+            cases.append(run_quant_matmul_case(
+                rng, f"ragged 100->130 M={M} {name}", M=M, K=100, N=130,
+                dtype=dtype))
         cases.append(run_quant_matmul_case(
             rng, f"qwen3-4b 2560->4096 M=8 {name}", M=8, K=2560, N=4096,
             dtype=dtype))
@@ -845,17 +858,19 @@ def phase_kernels():
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     # each kernel's timed case at its main path's shape: qwen3-4b for the
     # paged kernels (its verify window for the mixed pair), the tied head
-    # for quant_matmul, the draft shape for flash
+    # for quant_matmul (its M = 256 prefill stream beside it), the draft
+    # shape for flash
     main = {"qwen3-4b bf16", "qwen3-4b int8 pool, bf16 q",
             "qwen3-4b verify bf16 q", "qwen3-4b verify int8 pool, bf16 q",
             "unimo-text draft 8 x 260 bf16",
             "xlstm-125m S=300 nonzero state bfloat16", "4096 x 2560 bf16",
-            "qwen3-4b heads 8 x 256 bf16"}
+            "qwen3-4b heads 8 x 256 bf16",
+            "qwen3-4b 2560->151936 M=8 bf16"}
     summary = {c["kernel"]: c for c in cases
                if "kernel_ms" in c and c["case"] in main}
-    summary["quant_matmul"] = next(
-        c for c in cases if c["kernel"] == "quant_matmul"
-        and (c["M"], c["N"]) == (8, 151936))
+    summary["quant_matmul"]["regimes"] = [
+        c for c in cases if c["case"] in ("qwen3-4b 2560->151936 M=8 bf16",
+                                          "qwen3-4b 2560->9728 M=256 bf16")]
     return summary
 
 
@@ -1288,10 +1303,12 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {}
-    for name in ("paged_decode_kernel", "paged_packed_kernel",
-                 "paged_mixed_kernel", "paged_mixed_mma_kernel",
-                 "flash_kernel", "flash_mma_kernel", "quant_matmul_kernel",
-                 "quant_matmul_reduce_kernel", "mlstm_chunk_kernel"):
+    for name in ("paged_decode_kernel", "paged_decode_mma_kernel",
+                 "paged_packed_kernel", "paged_mixed_kernel",
+                 "paged_mixed_mma_kernel", "flash_kernel", "flash_mma_kernel",
+                 "quant_matmul_kernel", "quant_matmul_reduce_kernel",
+                 "quant_matmul_mma_decode_kernel",
+                 "quant_matmul_mma_tiled_kernel", "mlstm_chunk_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
                 ours[k[:90]] = {"ms": us / 1e3, "count": n,
@@ -1511,6 +1528,13 @@ def main() -> int:
             "library_device_ms": c["library_device_ms"]}
         if name in NOTES:
             row["note"] = NOTES[name]
+        if "regimes" in c:          # quant_matmul: decode and prefill
+            row["regimes"] = [
+                {k: r[k] for k in ("case", "M", "K", "N", "max_abs_err",
+                                   "kernel_ms", "plain_ms", "library_ms",
+                                   "device_ms", "library_device_ms",
+                                   "bound_ms", "bound_by")}
+                for r in c["regimes"]]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

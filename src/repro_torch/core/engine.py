@@ -280,8 +280,10 @@ class InferenceEngine:
                          packed: Optional[bool] = None,
                          spec: Optional[SpecConfig] = None,
                          preemption: str = "off",
+                         max_preemptions: int = 2,
                          host_kv_bytes: Optional[int] = None,
-                         faults=None, trace=None):
+                         faults=None, debug_audit: bool = False,
+                         trace=None):
         """Serve requests with continuous batching over a paged KV cache.
 
         Attention models run the unified scheduler: each iteration packs
@@ -303,6 +305,12 @@ class InferenceEngine:
         ``arrivals`` gives optional per-request arrival offsets in
         seconds.
 
+        Overload survival is not ported: ``preemption`` other than
+        "off", ``host_kv_bytes``, ``faults``, ``debug_audit=True`` and
+        ``trace`` raise ``NotImplementedError``; ``max_preemptions`` (the
+        reference's cap on preemptions per request) is taken and has
+        nothing to bound while preemption is off.
+
         Recurrent models (every layer mLSTM or sLSTM) keep dense per-slot
         state that chunks cannot resume and requests cannot share, so,
         as in the reference, they take the bucketed fallback: FCFS
@@ -318,6 +326,7 @@ class InferenceEngine:
         unported = {"preemption": preemption != "off",
                     "host_kv_bytes": host_kv_bytes is not None,
                     "faults": faults is not None,
+                    "debug_audit": debug_audit,
                     "trace": trace is not None}
         bad = [k for k, v in unported.items() if v]
         if bad:

@@ -1,18 +1,21 @@
 // Tensor-core attention core for Hopper (sm_90a), shared by the bf16/fp16
 // bodies of flash_attention.cu (flash_mma_kernel) and paged_attention.cu
-// (paged_mixed_mma_kernel).
+// (paged_mixed_mma_kernel, paged_decode_mma_kernel).
 //
 // A block owns up to 64 rows, where a row is one (query, head of the kv
 // group) pair: row r of the block is global row r0 + r = qi * g + hi, query
 // qi of its batch row and query head h * g + hi, so the g heads that share
-// kv head h read each K/V tile once.  Each of 4 warps owns 16 rows; a
-// warp without rows (a short verify window) still copies tiles and merges
-// splits.  Row tiles run last first: under a causal mask the last sees
-// the most keys.  The block streams 32-key tiles:
+// kv head h read each K/V tile once.  Each warp owns 16 rows: flash and the
+// mixed kernel run 4 warps, and a warp without rows (a short verify window)
+// still copies tiles and merges splits; the decode kernel (one query, g
+// rows) runs ceil(g / 16) warps.  Row tiles run last first: under a
+// causal mask the last sees the most keys.  The block streams 32-key
+// tiles:
 //
-//   * Positions first.  The positions of up to 512 keys are staged at
-//     once (all threads, one round trip; through the block table for the
-//     paged kernel), and a tile in which no key can be seen by the
+//   * Positions first.  The positions of up to 512 keys (no further than
+//     the walk reaches) are staged at once (all threads, the block-table
+//     reads of the paged kernels in flight together, then one round trip
+//     for the positions), and a tile in which no key can be seen by the
 //     block's rows (position -1 = unwritten or unallocated, beyond the
 //     latest query, outside the window of the earliest) is marked dead
 //     and never requested.  A block whose rows are all padding reads no
@@ -53,6 +56,7 @@
 #include <stdint.h>
 
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -120,111 +124,12 @@ struct MmaSmem {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16, 8 or 4 bytes; with valid == false the destination is
-// filled with zeros and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) . b (16x8, col), fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to T (nearest even), lo in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // 2^x in one SFU instruction (2^-inf = 0), about 2 ulp: the scores and
 // the softmax weights are then rounded to bf16 / fp16 for P.V anyway
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Exact fp32 values of int8 codes without I2F: the byte c + 128 (c ^ 0x80)
-// becomes the low mantissa of 2^23, and 2^23 + 128 is subtracted.  lo / hi
-// take bytes 0 and 1 of x.
-__device__ __forceinline__ float i8_lo(unsigned x) {
-  return __int_as_float(__byte_perm(x ^ 0x8080u, 0x4B000000u, 0x7440)) -
-         8388736.f;
-}
-__device__ __forceinline__ float i8_hi(unsigned x) {
-  return __int_as_float(__byte_perm(x ^ 0x8080u, 0x4B000000u, 0x7441)) -
-         8388736.f;
-}
-// two adjacent int8 codes (2-byte aligned) in one shared-memory load
-__device__ __forceinline__ unsigned i8pair(const int8_t* p) {
-  return *reinterpret_cast<const unsigned short*>(p);
 }
 
 // Element offset of block row r's query head in q (times D) / out (Dv).
@@ -286,18 +191,34 @@ struct MmaBlock {
     return pid < 0 ? -1 : pid * a.page + j % a.page;
   }
 
-  // Positions and entries of keys [k, k + kMmaWindow), all threads: the
-  // positions come by cp.async (-1 where there is no key: a zero-filled
-  // int is 0, so it is written as -1 directly).  The caller waits for the
-  // copies and synchronizes before and after.
+  // Keys of the window from win_base that the walk can reach: whole
+  // tiles up to k_stop, at most kMmaWindow.
+  __device__ __forceinline__ int window_keys() const {
+    const int n = (k_stop - win_base + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
+    return max(0, min(kMmaWindow, n));
+  }
+
+  // Positions and entries of keys [k, k + window_keys()), all threads:
+  // every entry first (through the block table: those reads are in flight
+  // together), then the positions by cp.async (-1 where there is no key: a
+  // zero-filled int is 0, so it is written as -1 directly).  The caller
+  // waits for the copies and synchronizes before and after.
   __device__ void fill_window(int k) {
     win_base = k;
-    for (int i = threadIdx.x; i < kMmaWindow; i += blockDim.x) {
-      const int j = k + i;
-      const int e = j < k_stop ? entry(j) : -1;
-      win_ent[i] = e;
-      if (e >= 0)
-        cp_async4(win_kp + i, a.kpos + e, true);
+    const int n = window_keys();
+    int e[kMmaWindow / 32];       // blockDim.x >= 32
+#pragma unroll
+    for (int it = 0; it < kMmaWindow / 32; ++it) {
+      const int i = threadIdx.x + it * blockDim.x;
+      e[it] = i < n && k + i < k_stop ? entry(k + i) : -1;
+    }
+#pragma unroll
+    for (int it = 0; it < kMmaWindow / 32; ++it) {
+      const int i = threadIdx.x + it * blockDim.x;
+      if (i >= n) break;
+      win_ent[i] = e[it];
+      if (e[it] >= 0)
+        cp_async4(win_kp + i, a.kpos + e[it], true);
       else
         win_kp[i] = -1;
     }
@@ -309,8 +230,8 @@ struct MmaBlock {
   // window), one warp per tile; the caller synchronizes after.
   __device__ void mark_window() {
     const int lane = threadIdx.x & 31;
-    for (int t = threadIdx.x >> 5; t < kMmaWindow / kMmaKeys;
-         t += blockDim.x >> 5) {
+    const int tiles = window_keys() / kMmaKeys;
+    for (int t = threadIdx.x >> 5; t < tiles; t += blockDim.x >> 5) {
       const int kp = win_kp[t * kMmaKeys + lane];
       const bool cand = kp >= 0 && kp <= qhi &&
                         (a.window <= 0 || kp > qlo - a.window);
@@ -701,10 +622,11 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
   const float* go = a.part + group * a.splits * kMmaRows * Dv;
   float* wt = reinterpret_cast<float*>(blk.q_s);
   float* ls = wt + kMmaMaxSplits * kMmaRows;
-  for (int i = tid; i < a.splits * kMmaRows; i += nthreads) {
-    const float2 ml = __ldcg(reinterpret_cast<const float2*>(gml) + i);
-    wt[i] = ml.x;
-    ls[i] = ml.y;
+  for (int i = tid; i < a.splits * nrows; i += nthreads) {
+    const int j = i / nrows * kMmaRows + i % nrows;   // (split, row)
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(gml) + j);
+    wt[j] = ml.x;
+    ls[j] = ml.y;
   }
   __syncthreads();
   for (int r = tid; r < nrows; r += nthreads) {
@@ -759,20 +681,16 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
 }
 
 // Launch kernel (a __global__ wrapper of mma_attend) over grid
-// (row_tiles * splits, Hkv, B), 4 warps a block (warps without rows load
-// tiles and merge splits).
+// (row_tiles * splits, Hkv, B), ``warps`` warps a block (16 rows each; 4
+// by default, and warps without rows load tiles and merge splits).
 inline cudaError_t mma_launch(void (*kernel)(MmaArgs), const MmaArgs& a,
-                              int B, cudaStream_t stream) {
-  const int warps = kMmaRows / 16;
+                              int B, cudaStream_t stream,
+                              int warps = kMmaRows / 16) {
   const int kv_bytes = a.kscale != nullptr ? 1 : 2;
   const size_t smem = MmaSmem(a.D, a.Dv, warps * 16, kv_bytes).total();
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = opt_in_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(a.row_tiles * a.splits, a.Hkv, B), warps * 32, smem,
            stream>>>(a);
   return cudaGetLastError();

@@ -189,12 +189,8 @@ cudaError_t launch_fp32(int B, const Params& p, cudaStream_t stream) {
   if (B == 0 || p.Sq == 0) return cudaSuccess;
   const size_t smem = smem_floats(p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        (const void*)flash_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = opt_in_smem((const void*)flash_kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(B, p.Hq, (p.Sq + kBlockQ - 1) / kBlockQ);
   flash_kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();

@@ -2,40 +2,32 @@
 // plain C interface (ctypes); see repro_torch/kernels/decode_attention.py.
 //
 // Replaces six Pallas TPU kernels of the reference package
-// (repro/kernels/decode_attention.py):
-//   * paged_decode_kernel<T, T>     <- paged_decode_attention (body
-//                                      _paged_kernel): one query token per
-//                                      slot against that slot's paged K/V.
-//   * paged_packed_kernel<T, T>     <- paged_packed_attention (body
-//                                      _paged_packed_kernel): a token-packed
-//                                      ragged stream of decode tokens and
-//                                      prefill-chunk tokens, each lane
-//                                      against its own slot's pages.
-//   * paged_decode_kernel<T, int8>  <- paged_decode_attention_q8 (body
-//                                      _paged_kernel_q8)
-//   * paged_packed_kernel<T, int8>  <- paged_packed_attention_q8 (body
-//                                      _paged_packed_kernel_q8): the same
-//                                      two over int8 pools, whose codes are
-//                                      dequantized as they are staged, with
-//                                      one fp32 multiply by the per-entry,
-//                                      per-kv-head scale (as the Pallas
-//                                      bodies do), so a dequantized value
-//                                      equals the plain version's bit for
-//                                      bit.  q and out stay at q's dtype.
-//   * paged_mixed_mma_kernel<T, T>  <- paged_mixed_attention (body
-//     (bf16 / fp16 q) and              _paged_mixed_kernel): a window of W
-//     paged_mixed_kernel<float>        query lanes per slot (a speculative
-//     (fp32 q)                         verify window, a prefill chunk),
-//                                      each against its slot's pages;
-//                                      lanes with q_pos == -1 are padding.
-//   * paged_mixed_mma_kernel<T, int8> <- paged_mixed_attention_q8 (body
-//     and paged_mixed_kernel<int8>       _paged_mixed_kernel_q8)
-//   * dense_decode_kernel<T, T>     <- decode_attention (body _kernel):
-//                                      one query token per row against
-//                                      the row's own contiguous K/V
-//                                      (B,Sk,Hkv,D); the decode body with
-//                                      the row's cache as one page of Sk
-//                                      entries and k_pos as its positions.
+// (repro/kernels/decode_attention.py), and its dense decode kernel:
+//   * paged_decode_attention (body _paged_kernel): one query token per
+//     slot against that slot's paged K/V.  bf16 / fp16 q:
+//     paged_decode_mma_kernel<T, T>; fp32 q: paged_decode_kernel<float>.
+//   * paged_decode_attention_q8 (body _paged_kernel_q8): the same over int8
+//     pools, paged_decode_mma_kernel<T, int8> / paged_decode_kernel<float,
+//     int8>.
+//   * paged_packed_attention (body _paged_packed_kernel) and
+//     paged_packed_attention_q8 (_paged_packed_kernel_q8):
+//     paged_packed_kernel<T, T / int8>, a token-packed ragged stream of
+//     decode tokens and prefill-chunk tokens, each lane against its own
+//     slot's pages.
+//   * paged_mixed_attention (body _paged_mixed_kernel) and
+//     paged_mixed_attention_q8 (_paged_mixed_kernel_q8): a window of W query
+//     lanes per slot (a speculative verify window, a prefill chunk), each
+//     against its slot's pages; lanes with q_pos == -1 are padding.  bf16 /
+//     fp16 q: paged_mixed_mma_kernel<T, T / int8>; fp32 q:
+//     paged_mixed_kernel<float / int8>.
+//   * decode_attention (body _kernel): dense_decode_kernel<T, T>, one query
+//     token per row against the row's own contiguous K/V (B,Sk,Hkv,D); the
+//     decode body with the row's cache as one page of Sk entries and k_pos
+//     as its positions.
+// Over int8 pools the codes are dequantized with one fp32 multiply by the
+// per-entry, per-kv-head scale (as the Pallas bodies do), so a dequantized
+// value equals the plain version's bit for bit; q and out stay at q's
+// dtype.
 //
 // Bound: all are bound by device-memory bytes, chiefly the K/V pages they
 // stream (page x Hkv x (D + Dv) x element bytes per page, plus 2 x 4-byte
@@ -43,38 +35,39 @@
 // and outputs; a decode token does 2 x (D + Dv) flops per key, far below
 // the card's ~295 flops-per-byte ridge.
 //
-// attend_rows, on CUDA cores (the decode, packed and dense kernels, and
-// the mixed kernel at fp32): one block per (slot or query window, kv
-// head) so the g = Hq / Hkv query heads that share a kv head read each
-// page once; every page is staged through shared memory in 16-key tiles,
-// whose positions are read first so tiles with no visible key (unwritten
-// tails of a slot's pages, keys beyond a window) are skipped without
-// reading their K/V.  Scores, the online softmax and the accumulator are
-// fp32, with the same -inf-safe rescaling as the reference's
-// _attend_block_mq.  The mixed kernel keeps this body for fp32 q: a
-// tensor-core body would multiply in TF32, and the card's fp32 greedy
-// streams must keep equalling the CPU's.  What bounds attend_rows is its
-// serial per-thread dot products out of shared memory and four block
-// barriers per tile with no overlap of loads and compute.
+// Bodies by q's dtype (chosen in the launcher, not a fallback):
 //
-// paged_mixed_mma_kernel (bf16 / fp16 q, over pools at q's dtype or int8)
-// runs the tensor-core core of attn_mma.cuh: a block takes up to 64 rows
-// of (window lane, head of the kv group) pairs of one slot and kv head,
-// walks the slot's block table in 32-key tiles through a three-stage
-// cp.async ring, and does Q.K^T and P.V with mma.sync.m16n8k16; int8
-// codes and scales are staged as stored and dequantized (code x scale in
-// fp32, rounded to q's type) while the B fragments are built.  A verify
-// window gives few blocks (8 slots x 8 kv heads at qwen3-4b), so the page
-// walk is split over several blocks (flash-decoding): the wrapper picks
-// the split count (decode_attention.mixed_splits) so the grid covers the
-// card's SMs, each split writes its (m, l, acc) to a scratch buffer, and
-// the last split of a (slot, kv head, row tile) to finish merges them in
-// the same launch.  What still bounds it is latency, not bytes: each
-// split walks only a few tiles, so the fixed cost of a block (staging Q,
-// reading positions through the block table, the partials and the merge)
-// is most of its time, ~10x the bytes bound at the verify shape
-// (PERF.md); over int8 pools the dequantizing fragment builds add to each
-// tile.
+//  * bf16 / fp16, the decode and mixed kernels: the tensor-core core of
+//    attn_mma.cuh.  A block takes up to 64 rows of (window lane, head of
+//    the kv group) pairs of one slot and kv head (at decode the g heads of
+//    one token, in ceil(g / 16) warps: one at qwen3-4b's g = 4 and
+//    unimo-text's g = 1), walks the slot's block table in 32-key tiles
+//    through a three-stage cp.async ring, and does Q.K^T and P.V with
+//    mma.sync.m16n8k16; int8 codes and scales are staged as stored and
+//    dequantized (code x scale in fp32, rounded to q's type) while the B
+//    fragments are built.  A decode step or a verify window gives few
+//    blocks (8 slots x 8 kv heads at qwen3-4b), so the page walk is split
+//    over several blocks (flash-decoding): the wrapper picks the split
+//    count (decode_attention.mixed_splits) so the grid covers the card's
+//    SMs, each split writes its (m, l, acc) to a scratch buffer, and the
+//    last split of a (slot, kv head, row tile) to finish merges them in
+//    the same launch.  What bounds it at these shapes is latency, not
+//    bytes: each split walks only a few tiles, so the fixed cost of a
+//    block (staging Q, reading positions through the block table, the
+//    partials and the merge) is most of its time (PERF.md).
+//  * fp32, the decode and mixed kernels, and every dtype of the packed and
+//    dense kernels: attend_rows, on CUDA cores.  One block per (slot or
+//    query window, kv head) so the g = Hq / Hkv query heads that share a kv
+//    head read each page once; every page is staged through shared memory
+//    in 16-key tiles, whose positions are read first so tiles with no
+//    visible key (unwritten tails of a slot's pages, keys beyond a window)
+//    are skipped without reading their K/V.  Scores, the online softmax
+//    and the accumulator are fp32, with the same -inf-safe rescaling as the
+//    reference's _attend_block_mq.  A tensor-core body would multiply in
+//    TF32, and the card's fp32 greedy streams must keep equalling the
+//    CPU's.  What bounds attend_rows is its serial per-thread dot products
+//    out of shared memory and four block barriers per tile with no overlap
+//    of loads and compute.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -247,7 +240,8 @@ __device__ void attend_rows(const Params& p, int n_rows, const T* q,
   }
 }
 
-// grid (B, Hkv): slot b's single query token, query heads h*g .. h*g+g-1
+// grid (B, Hkv), fp32 q only: slot b's single query token, query heads
+// h*g .. h*g+g-1
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
   extern __shared__ float smem[];
@@ -309,19 +303,15 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(Params p) {
                      p.q_pos + b, &page_id, h, smem);
 }
 
-enum Kind { kDecode, kPacked, kDense };
+enum Kind { kPacked, kDense };
 
 cudaError_t launch_kernel(void (*kernel)(Params), int blocks, int max_rows,
                           const Params& p, cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
   const size_t smem = smem_floats(max_rows, p.D, p.Dv) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = opt_in_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(blocks, p.Hkv), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -329,9 +319,8 @@ cudaError_t launch_kernel(void (*kernel)(Params), int blocks, int max_rows,
 template <typename T, typename KV>
 cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
                    cudaStream_t stream) {
-  return launch_kernel(kind == kPacked  ? paged_packed_kernel<T, KV>
-                       : kind == kDense ? dense_decode_kernel<T, KV>
-                                        : paged_decode_kernel<T, KV>,
+  return launch_kernel(kind == kPacked ? paged_packed_kernel<T, KV>
+                                       : dense_decode_kernel<T, KV>,
                        blocks, max_rows, p, stream);
 }
 
@@ -367,10 +356,33 @@ __global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
   mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
 }
 
+// grid (row_tiles * splits, Hkv, B), ceil(min(g, 64) / 16) warps: slot
+// b's single query token, the g heads of kv head h, against the keys of
+// split s (tensor cores, bf16 / fp16 q; pools at q's dtype or int8).  Its
+// own symbol keeps decode launches apart from mixed ones in a profile.
+template <typename T, typename KV, int DMAX>
+__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
+    paged_decode_mma_kernel(MmaArgs a) {
+  extern __shared__ float smem[];
+  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
+}
+
+// The mixed (decode == false) or decode kernel at the head-dim bucket of
+// max(D, Dv); the decode kernel runs only the warps its g rows fill.
 template <typename T, typename KV>
-cudaError_t launch_mixed_mma(const MmaArgs& a, int B, cudaStream_t stream) {
+cudaError_t launch_mma(bool decode, const MmaArgs& a, int B,
+                       cudaStream_t stream) {
   if (B == 0 || a.NQ == 0) return cudaSuccess;
   const int dvp = round16(a.D > a.Dv ? a.D : a.Dv);   // head-dim bucket
+  if (decode) {
+    const int warps = (min(a.g, kMmaRows) + 15) / 16;
+    return dvp <= 64 ? mma_launch(paged_decode_mma_kernel<T, KV, 64>, a, B,
+                                  stream, warps)
+           : dvp <= 128 ? mma_launch(paged_decode_mma_kernel<T, KV, 128>, a,
+                                     B, stream, warps)
+                        : mma_launch(paged_decode_mma_kernel<T, KV, 256>, a,
+                                     B, stream, warps);
+  }
   return dvp <= 64
              ? mma_launch(paged_mixed_mma_kernel<T, KV, 64>, a, B, stream)
          : dvp <= 128
@@ -378,15 +390,21 @@ cudaError_t launch_mixed_mma(const MmaArgs& a, int B, cudaStream_t stream) {
              : mma_launch(paged_mixed_mma_kernel<T, KV, 256>, a, B, stream);
 }
 
-// The mixed launch: fp32 q takes attend_rows (one split only), bf16 /
-// fp16 q the tensor-core body with ``splits`` splits of pages_per_split
-// pages each; scratch holds (B * row_tiles * Hkv * splits) x 64 x (Dv + 2)
-// floats and counters B * row_tiles * Hkv zeros when splits > 1.
-cudaError_t launch_mixed(int dtype, bool quant, const Params& p, int B,
-                         int splits, int pages_per_split, float* scratch,
-                         int* counters, cudaStream_t stream) {
+// The mixed and decode launches (decode: one query lane, p.W == 1): fp32
+// q takes attend_rows (one split only), bf16 / fp16 q the tensor-core body
+// with ``splits`` splits of pages_per_split pages each; scratch holds
+// (B * row_tiles * Hkv * splits) x 64 x (Dv + 2) floats and counters
+// B * row_tiles * Hkv zeros when splits > 1.
+cudaError_t launch_windows(bool decode, int dtype, bool quant,
+                           const Params& p, int B, int splits,
+                           int pages_per_split, float* scratch, int* counters,
+                           cudaStream_t stream) {
   if (dtype == 0) {
     if (splits != 1) return cudaErrorInvalidValue;
+    if (decode)
+      return launch_kernel(quant ? paged_decode_kernel<float, int8_t>
+                                 : paged_decode_kernel<float, float>,
+                           B, p.g, p, stream);
     const int blocks = B * ((p.W + kPackedBlockQ - 1) / kPackedBlockQ);
     const int rows = min(p.W, kPackedBlockQ) * p.g;
     return launch_kernel(quant ? paged_mixed_kernel<int8_t>
@@ -430,13 +448,13 @@ cudaError_t launch_mixed(int dtype, bool quant, const Params& p, int B,
   }
   switch (dtype) {
     case 1:
-      return quant ? launch_mixed_mma<__half, int8_t>(a, B, stream)
-                   : launch_mixed_mma<__half, __half>(a, B, stream);
+      return quant ? launch_mma<__half, int8_t>(decode, a, B, stream)
+                   : launch_mma<__half, __half>(decode, a, B, stream);
     case 2:
       return quant
-                 ? launch_mixed_mma<__nv_bfloat16, int8_t>(a, B, stream)
-                 : launch_mixed_mma<__nv_bfloat16, __nv_bfloat16>(a, B,
-                                                                  stream);
+                 ? launch_mma<__nv_bfloat16, int8_t>(decode, a, B, stream)
+                 : launch_mma<__nv_bfloat16, __nv_bfloat16>(decode, a, B,
+                                                            stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -447,17 +465,23 @@ cudaError_t launch_mixed(int dtype, bool quant, const Params& p, int B,
 // too, except in the _q8 entry points, whose pools are int8 codes with
 // fp32 scale pools (P,page,Hkv)).  Each returns cudaGetLastError() after
 // the launch (0 on success).
+// Decode: q (B,1,Hq,D), q_pos (B,1), block_tables (B,npages); splits /
+// pages_per_split / scratch / counters as in launch_windows (fp32: one
+// split, no scratch).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* kpool, const void* vpool, const void* ppos,
-    const void* block_tables, const void* q_pos, void* out, int dtype, int B,
-    int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    const void* block_tables, const void* q_pos, void* out, void* scratch,
+    void* counters, int dtype, int B, int Hq, int Hkv, int D, int Dv,
+    int page, int npages, int splits, int pages_per_split, float scale,
     float softcap, int window, void* stream) {
   Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
-  return (int)dispatch(dtype, false, kDecode, B, p.g, p,
-                       static_cast<cudaStream_t>(stream));
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 1, scale, softcap, window};
+  return (int)launch_windows(true, dtype, false, p, B, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_packed_attention_launch(
@@ -476,16 +500,19 @@ extern "C" int paged_packed_attention_launch(
 extern "C" int paged_decode_attention_q8_launch(
     const void* q, const void* kpool, const void* kscale, const void* vpool,
     const void* vscale, const void* ppos, const void* block_tables,
-    const void* q_pos, void* out, int dtype, int B, int Hq, int Hkv, int D,
-    int Dv, int page, int npages, float scale, float softcap, int window,
+    const void* q_pos, void* out, void* scratch, void* counters, int dtype,
+    int B, int Hq, int Hkv, int D, int Dv, int page, int npages, int splits,
+    int pages_per_split, float scale, float softcap, int window,
     void* stream) {
   Params p{q, kpool, vpool, static_cast<const float*>(kscale),
            static_cast<const float*>(vscale), static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
-           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
-  return (int)dispatch(dtype, true, kDecode, B, p.g, p,
-                       static_cast<cudaStream_t>(stream));
+           Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 1, scale, softcap, window};
+  return (int)launch_windows(true, dtype, true, p, B, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_packed_attention_q8_launch(
@@ -504,7 +531,7 @@ extern "C" int paged_packed_attention_q8_launch(
 }
 
 // Mixed windows: q (B,W,Hq,D), q_pos (B,W), block_tables (B,npages);
-// splits / pages_per_split / scratch / counters as in launch_mixed.
+// splits / pages_per_split / scratch / counters as in launch_windows.
 extern "C" int paged_mixed_attention_launch(
     const void* q, const void* kpool, const void* vpool, const void* ppos,
     const void* block_tables, const void* q_pos, void* out, void* scratch,
@@ -515,10 +542,10 @@ extern "C" int paged_mixed_attention_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  return (int)launch_mixed(dtype, false, p, B, splits, pages_per_split,
-                           static_cast<float*>(scratch),
-                           static_cast<int*>(counters),
-                           static_cast<cudaStream_t>(stream));
+  return (int)launch_windows(false, dtype, false, p, B, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_mixed_attention_q8_launch(
@@ -533,10 +560,10 @@ extern "C" int paged_mixed_attention_q8_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  return (int)launch_mixed(dtype, true, p, B, splits, pages_per_split,
-                           static_cast<float*>(scratch),
-                           static_cast<int*>(counters),
-                           static_cast<cudaStream_t>(stream));
+  return (int)launch_windows(false, dtype, true, p, B, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Dense decode: q (B,1,Hq,D) against k/v (B,Sk,Hkv,D[v]) with k_pos (B,Sk).

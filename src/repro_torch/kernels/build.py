@@ -97,7 +97,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_decode_attention_launch.argtypes = (
-        [P] * 7 + [I] * 8 + [F, F, I, P])
+        [P] * 9 + [I] * 10 + [F, F, I, P])
     lib.paged_decode_attention_launch.restype = I
     lib.paged_packed_attention_launch.argtypes = (
         [P] * 8 + [I] * 8 + [F, F, I, P])
@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     lib.paged_attention_smem_bytes.argtypes = [I, I, I]
     lib.paged_attention_smem_bytes.restype = ctypes.c_long
     lib.paged_decode_attention_q8_launch.argtypes = (
-        [P] * 9 + [I] * 8 + [F, F, I, P])
+        [P] * 11 + [I] * 10 + [F, F, I, P])
     lib.paged_decode_attention_q8_launch.restype = I
     lib.paged_packed_attention_q8_launch.argtypes = (
         [P] * 10 + [I] * 8 + [F, F, I, P])
@@ -120,9 +120,7 @@ def load() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = I
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    lib.quant_matmul_splits.argtypes = [I, I, I]
-    lib.quant_matmul_splits.restype = I
-    lib.quant_matmul_launch.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.quant_matmul_launch.argtypes = [P] * 6 + [I] * 7 + [P]
     lib.quant_matmul_launch.restype = I
     lib.decode_attention_launch.argtypes = [P] * 6 + [I] * 7 + [F, F, I, P]
     lib.decode_attention_launch.restype = I

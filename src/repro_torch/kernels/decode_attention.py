@@ -5,7 +5,11 @@ beside them.
 
   * :func:`paged_decode_attention` replaces the reference's Pallas kernel
     ``repro.kernels.decode_attention.paged_decode_attention``: one query
-    token per slot against the slot's pages (every decode step).
+    token per slot against the slot's pages (every decode step).  bf16/fp16
+    q runs the tensor-core body at one query lane (the g heads of a kv
+    head as its rows), its page walk split like the mixed kernel's
+    (:func:`mixed_splits` with ``mixed_row_tiles(1, g)``); fp32 q keeps the
+    CUDA-core body.
   * :func:`paged_packed_attention` replaces
     ``repro.kernels.decode_attention.paged_packed_attention``: one flat
     (1, T) stream of decode tokens and prefill-chunk tokens, each lane
@@ -31,19 +35,21 @@ beside them.
     from paged pools); it is reached through ``ops.decode_attention``.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
-shapes, allocates the output, launches on the current stream and raises if
-the launch failed.  It never falls back to the plain version; dispatch by
-device lives in :mod:`repro_torch.kernels.ops`.  Each wrapper counts its
+shapes, allocates the output, launches on the current stream (a split
+launch's scratch and arrival counters are kept per device and stream,
+:mod:`repro_torch.kernels.scratch`) and raises if the launch failed.  It
+never falls back to the plain version; dispatch by device lives in
+:mod:`repro_torch.kernels.ops`.  Each wrapper counts its
 launches in a plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import scratch
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: F401
                                      paged_decode_attention_ref,
                                      paged_mixed_attention_ref,
@@ -82,7 +88,6 @@ def packed_meta_table(seg_starts, seg_lengths, seg_slots, n_tokens,
 
 MMA_ROWS = 64   # (lane, group head) rows per block of the tensor-core body
 MAX_SPLITS = 16  # splits of one page walk (kMmaMaxSplits in attn_mma.cuh)
-_COUNTERS = {}
 
 
 def mixed_row_tiles(W: int, g: int) -> int:
@@ -124,21 +129,27 @@ def mixed_scratch_floats(B: int, row_tiles: int, Hkv: int, splits: int,
     return B * row_tiles * Hkv * splits * MMA_ROWS * (Dv + 2)
 
 
-def _split_counters(device, n: int):
-    """The split launches' arrival counters, one per (slot, kv head, row
-    tile): zeros allocated once per device and grown as needed.  The
-    block that merges a group resets its counter, so they are zero again
-    for the next launch on the stream."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
-    return c
+def _split_buffers(device, stream: int, B: int, tiles: int, Hkv: int,
+                   splits: int, Dv: int):
+    """(scratch, counters) of a split launch on ``stream``, one counter per
+    (slot, kv head, row tile) (:mod:`repro_torch.kernels.scratch`); (None,
+    None) with one split."""
+    if splits == 1:
+        return None, None
+    return (scratch.split_scratch(device, stream, mixed_scratch_floats(
+                B, tiles, Hkv, splits, Dv)),
+            scratch.split_counters(device, stream, B * tiles * Hkv))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _mma_splits(q, kpool, vpool, B: int, tiles: int, Hkv: int,
+                npages: int):
+    """The tensor-core body's split of the page walk; its copies need q
+    and the pools 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
+        raise ValueError("the tensor-core attention kernels need q and the "
+                         "pools 16-byte aligned")
+    return mixed_splits(B, tiles, Hkv, npages,
+                        scratch.sm_count(q.device.index))
 
 
 def _check_common(q, kpool, vpool, ppos, block_tables, q_pos,
@@ -223,8 +234,16 @@ def _decode(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
         raise ValueError("decode attention takes q (B,1,Hq,D), "
                          "block_tables (B,npages) and q_pos (B,1)")
     lib = build.load()
-    _check_smem(lib, Hq // Hkv, D, Dv)
+    g, npages = Hq // Hkv, block_tables.shape[1]
+    tiles = mixed_row_tiles(1, g)
+    if q.dtype == torch.float32:              # the CUDA-core body
+        _check_smem(lib, g, D, Dv)
+        splits, pps = 1, max(npages, 1)
+    else:                                     # the tensor-core body
+        splits, pps = _mma_splits(q, kpool, vpool, B, tiles, Hkv, npages)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bufs = _split_buffers(q.device, stream, B, tiles, Hkv, splits, Dv)
     cap, win = _softcap_window(attn_softcap, window)
     pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
     fn = (lib.paged_decode_attention_launch if k_scale is None
@@ -232,9 +251,9 @@ def _decode(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
                  block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, page,
-                 block_tables.shape[1], float(scale), cap, win,
-                 torch.cuda.current_stream().cuda_stream)
+                 *(None if t is None else t.data_ptr() for t in bufs),
+                 _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, page, npages,
+                 splits, pps, float(scale), cap, win, stream)
     _raise_on(lib, err, name)
     return out
 
@@ -256,18 +275,10 @@ def _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
         _check_smem(lib, min(W, PACKED_BLOCK_Q) * g, D, Dv)
         splits, pps = 1, max(npages, 1)
     else:                                     # the tensor-core body
-        if any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
-            raise ValueError("the tensor-core mixed kernel needs q and the "
-                             "pools 16-byte aligned")
-        splits, pps = mixed_splits(B, tiles, Hkv, npages,
-                                   _sm_count(q.device.index))
+        splits, pps = _mma_splits(q, kpool, vpool, B, tiles, Hkv, npages)
     out = torch.empty((B, W, Hq, Dv), dtype=q.dtype, device=q.device)
-    scratch = counters = None                 # kept alive over the launch
-    if splits > 1:
-        scratch = torch.empty(
-            mixed_scratch_floats(B, tiles, Hkv, splits, Dv),
-            dtype=torch.float32, device=q.device)
-        counters = _split_counters(q.device, B * tiles * Hkv)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bufs = _split_buffers(q.device, stream, B, tiles, Hkv, splits, Dv)
     cap, win = _softcap_window(attn_softcap, window)
     pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
     fn = (lib.paged_mixed_attention_launch if k_scale is None
@@ -275,11 +286,10 @@ def _mixed(q, kpool, vpool, ppos, block_tables, q_pos, k_scale, v_scale,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
                  block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 *(None if t is None else t.data_ptr()
-                   for t in (scratch, counters)),
+                 *(None if t is None else t.data_ptr() for t in bufs),
                  _DTYPE_CODES[q.dtype], B, W, Hq, Hkv, D,
                  Dv, page, npages, splits, pps, float(scale), cap, win,
-                 torch.cuda.current_stream().cuda_stream)
+                 stream)
     _raise_on(lib, err, name)
     return out
 

@@ -281,10 +281,13 @@ def unembed(cfg: ModelConfig, params, x):
     quantized one; the gather table itself is never quantized."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied unembedding heads are not ported")
-    xf = x.float()
     head_q8 = params["embed"].get("head_q8")
     if head_q8 is not None:
-        logits = dense_matmul(xf, head_q8)
+        # x at its own type: a bf16 / fp16 value is exact in fp32, so the
+        # products equal those of x.float(), and quant_matmul returns fp32
+        # logits either way (bf16 / fp16 x runs its tensor-core body)
+        logits = ops.quant_matmul(x.contiguous(), head_q8["q"],
+                                  head_q8["s"])
     else:
-        logits = xf @ params["embed"]["tokens"].float().T
+        logits = x.float() @ params["embed"]["tokens"].float().T
     return softcap(logits, cfg.final_softcap)

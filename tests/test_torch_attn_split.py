@@ -88,3 +88,29 @@ def test_scratch_size_follows_from_the_split(Dv):
         # accumulators, then per (group, split) MMA_ROWS (m, l) pairs
         parts = B * tiles * Hkv * splits * DA.MMA_ROWS
         assert n == parts * Dv + parts * 2
+
+
+def test_decode_split_plan_at_one_lane():
+    # the decode kernel's rows are one token's g heads of a kv head: one
+    # row tile at every smoke shape
+    assert DA.mixed_row_tiles(1, 4) == DA.mixed_row_tiles(1, 1) == 1
+    assert DA.mixed_row_tiles(1, 64) == 1 and DA.mixed_row_tiles(1, 65) == 2
+    # qwen3-4b decode: 8 slots x 8 kv heads = 64 blocks over 16 pages
+    assert DA.mixed_splits(8, DA.mixed_row_tiles(1, 4), 8, 16, SM) == (3, 6)
+    # unimo-text decode: 8 slots x 16 kv heads = 128 blocks
+    assert DA.mixed_splits(8, DA.mixed_row_tiles(1, 1), 16, 16, SM) == (
+        2, 8)
+    # a full batch of 132 slots already fills the card
+    assert DA.mixed_splits(132, 1, 8, 16, SM) == (1, 16)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_decode_scratch_follows_from_the_split(g):
+    for B, Hkv, npages in itertools.product([1, 3, 8], [1, 8, 16], NPAGES):
+        tiles = DA.mixed_row_tiles(1, g)
+        splits, pps = DA.mixed_splits(B, tiles, Hkv, npages, SM)
+        assert [p for r in _ranges(splits, pps, npages) for p in r] == list(
+            range(npages))
+        n = DA.mixed_scratch_floats(B, tiles, Hkv, splits, 128)
+        assert n == (0 if splits == 1
+                     else B * Hkv * splits * DA.MMA_ROWS * 130)

@@ -26,6 +26,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as QM
+from repro_torch.kernels import scratch
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -190,30 +191,43 @@ def test_packed_q8_kernel_matches_plain(dev, dtype, Hq, Hkv, D, page,
     assert not out[0, t:].any()
 
 
-QM_SHAPES = [(1, 64, 32), (3, 100, 130), (8, 2560, 1024), (17, 300, 257),
-             (40, 9728, 64), (256, 512, 384)]
+# quant_matmul's bodies: CUDA cores at fp32, tensor cores at bf16 / fp16
+# (the bytes-bound body at M <= 8, the tiled one above), over edge shapes
+# and every (M, K, N) of the grid below; products are exact, so only the
+# fp32 sums' order differs from the plain version
+QM_SHAPES = ([(1, 64, 32), (3, 100, 130), (8, 2560, 1024), (17, 300, 257),
+              (40, 9728, 64), (256, 512, 384)]
+             + [(M, K, N) for M in (1, 3, 8, 9, 16, 40, 256, 300)
+                for K in (100, 1024, 2560, 9728) for N in (130, 1024, 9728)])
+QM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("M,K,N", QM_SHAPES)
-def test_quant_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+def _qmm_inputs(dev, M, K, N, dtype, seed, lead=()):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*lead, M, K, generator=g, device=dev).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=dev) * 0.01
+    return x, q, s
+
+
+def _qmm_check(x, q, s):
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(M * K + N)
-    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
-        dev, dtype)
-    q = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(
-        np.int8)).to(dev)
-    s = torch.from_numpy(rng.uniform(0, 0.01, size=N).astype(
-        np.float32)).to(dev)
     n0 = QM.quant_matmul.launches
     out = QM.quant_matmul(x, q, s)
     ref = QM.quant_matmul_ref(x, q, s)
     torch.cuda.synchronize()
     assert QM.quant_matmul.launches == n0 + 1
-    assert out.dtype == torch.float32 and out.shape == (M, N)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
     err = (out - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+    return out
+
+
+@pytest.mark.parametrize("dtype", QM_DTYPES)
+@pytest.mark.parametrize("M,K,N", QM_SHAPES)
+def test_quant_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+    _qmm_check(*_qmm_inputs(dev, M, K, N, dtype, M * K + N))
 
 
 def test_quant_matmul_keeps_lead_dims(dev):
@@ -537,7 +551,7 @@ def test_mixed_mma_split_edges(dev, dtype, case, quant):
     q, k, v, ppos, bt, q_pos, n_q, kw = _split_case(rng, case, dtype, dev)
     B, W = q_pos.shape
     splits, _ = DA.mixed_splits(B, DA.mixed_row_tiles(W, 4), 1,
-                                bt.shape[1], DA._sm_count(dev.index or 0))
+                                bt.shape[1], scratch.sm_count(dev.index or 0))
     assert splits > 1 or bt.shape[1] == 1
     out, ref = _mixed_call(q, k, v, ppos, bt, q_pos, quant, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
@@ -547,6 +561,206 @@ def test_mixed_mma_split_edges(dev, dtype, case, quant):
     # a second launch finds the arrival counters reset
     again, _ = _mixed_call(q, k, v, ppos, bt, q_pos, quant, **kw)
     assert torch.equal(again, out)
+
+
+# -- quant_matmul at the tied head, with zero scales and lead dims, and
+# at the split-K edges
+
+
+@pytest.mark.parametrize("dtype", QM_DTYPES)
+def test_quant_matmul_tied_head(dev, dtype):
+    _qmm_check(*_qmm_inputs(dev, 8, 2560, 151936, dtype, 11))
+
+
+@pytest.mark.parametrize("M", [3, 8, 40])
+@pytest.mark.parametrize("dtype", QM_DTYPES)
+def test_quant_matmul_zero_scale_column_and_lead_dims(dev, dtype, M):
+    x, q, s = _qmm_inputs(dev, M, 1024, 1024, dtype, 13, lead=(2,))
+    s[5] = 0.0
+    out = _qmm_check(x, q, s)
+    assert out.shape == (2, M, 1024)
+    assert not out[..., 5].any()              # exactly zero
+
+
+# (M, K, N): K under one 64-row tile, exactly one, one row into a second;
+# far more K splits than output tiles (2 column tiles, 16 splits)
+QMM_SPLIT_EDGES = [(8, 40, 1024), (8, 64, 1024), (8, 65, 1024),
+                   (8, 2560, 130), (40, 2560, 130), (1, 9728, 16),
+                   (17, 40, 130)]
+
+
+@pytest.mark.parametrize("M,K,N", QMM_SPLIT_EDGES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quant_matmul_split_edges(dev, dtype, M, K, N):
+    x, q, s = _qmm_inputs(dev, M, K, N, dtype, 17)
+    plan = QM.qmm_plan(M, K, N, dtype, scratch.sm_count(dev.index or 0))
+    if K >= 2 * QM.MMA_K_TILE and N <= 130:
+        assert plan.splits > plan.tiles
+    out = _qmm_check(x, q, s)
+    # deterministic: the splits are added in order, the counters reset
+    assert torch.equal(QM.quant_matmul(x, q, s), out)
+
+
+def test_quant_matmul_launcher_refuses_other_bodies(dev):
+    """The C launcher checks the plan: no bf16/fp16 shape reaches the
+    CUDA-core body, fp32 never reaches the tensor cores, and splits must
+    cover K."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    x, q, s = _qmm_inputs(dev, 8, 256, 128, torch.bfloat16, 19)
+    out = torch.empty(8, 128, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(xx, dtype_code, body, splits, kps):
+        return lib.quant_matmul_launch(
+            xx.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None,
+            None, dtype_code, 8, 256, 128, body, splits, kps, stream)
+    assert launch(x, 2, 1, 1, 256) == 0       # the plan's own body
+    assert launch(x, 2, 0, 1, 256) != 0       # bf16 on CUDA cores
+    assert launch(x, 2, 2, 1, 256) != 0       # M = 8 on the tiled body
+    assert launch(x.float(), 0, 1, 1, 256) != 0   # fp32 on tensor cores
+    assert launch(x, 2, 1, 1, 128) != 0       # one split short of K
+    assert launch(x, 2, 1, 2, 64) != 0        # two splits short of K
+    torch.cuda.synchronize()
+
+
+# -- the paged decode kernels on the tensor-core core (bf16 / fp16 q): one
+# query lane, g rows of a kv head per block, the page walk split
+
+
+def _decode_call(q, k, v, ppos, bt, q_pos, quant, **kw):
+    """The decode kernel and its plain version over a pool at q's dtype,
+    or over the int8 codes of the same K/V (``quant``)."""
+    if quant:
+        kq, ks, vq, vs = _q8(k, v)
+        n0 = DA.paged_decode_attention_q8.launches
+        out = DA.paged_decode_attention_q8(q, kq, ks, vq, vs, ppos, bt,
+                                           q_pos, **kw)
+        assert DA.paged_decode_attention_q8.launches == n0 + 1
+        ref = DA.paged_decode_attention_ref(q, kq, vq, ppos, bt, q_pos,
+                                            k_scale=ks, v_scale=vs, **kw)
+    else:
+        n0 = DA.paged_decode_attention.launches
+        out = DA.paged_decode_attention(q, k, v, ppos, bt, q_pos, **kw)
+        assert DA.paged_decode_attention.launches == n0 + 1
+        ref = DA.paged_decode_attention_ref(q, k, v, ppos, bt, q_pos, **kw)
+    torch.cuda.synchronize()
+    return out, ref
+
+
+def _decode_inputs(rng, ctx, *, g, Hkv, D, dtype, dev, npages=None,
+                   page=16):
+    npages = npages or -(-max(ctx) // page) + 1
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=Hkv, D=D, page=page,
+                            npages=npages, dtype=dtype, dev=dev)
+    q = torch.from_numpy(rng.normal(size=(len(ctx), 1, g * Hkv, D)).astype(
+        np.float32)).to(dev, dtype)
+    q_pos = torch.tensor([[n - 1] for n in ctx], dtype=torch.int32,
+                         device=dev)
+    return q, k, v, ppos, bt, q_pos
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("D", [40, 64, 128, 256])
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_decode_mma_matches_plain(dev, dtype, D, g, quant):
+    rng = np.random.default_rng(60 + D + g)
+    ctx = [1, 37, 0, 130, 64]                 # slot 2 sees no key
+    q, k, v, ppos, bt, q_pos = _decode_inputs(rng, ctx, g=g, Hkv=2, D=D,
+                                              dtype=dtype, dev=dev)
+    out, ref = _decode_call(q, k, v, ppos, bt, q_pos, quant, window=None,
+                            scale=D ** -0.5, attn_softcap=None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[2].any()                   # exactly zero
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", ["window + softcap", "one page", "holes",
+                                  "no visible key",
+                                  "more splits than pages"])
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_decode_mma_split_edges(dev, dtype, case, quant):
+    """Split-K edges of the decode body, each at a shape where the page
+    walk is split: window + softcap across split boundaries, a context of
+    one page, unallocated (-1) pages between allocated ones, a slot whose
+    query sees no key (position -1, and a window past every key), a
+    32-page table with one page used."""
+    rng = np.random.default_rng(70)
+    kw = dict(window=None, scale=64 ** -0.5, attn_softcap=None)
+    ctx, npages = [200, 31, 150], None
+    if case == "window + softcap":
+        kw.update(window=40, attn_softcap=30.0)
+    elif case == "one page":
+        ctx = [5, 16, 9]
+    elif case == "more splits than pages":
+        ctx, npages = [3, 12, 7], 32
+    q, k, v, ppos, bt, q_pos = _decode_inputs(rng, ctx, g=4, Hkv=1, D=64,
+                                              dtype=dtype, dev=dev,
+                                              npages=npages)
+    if case == "holes":                       # pages 1 and 4 unallocated
+        bt[:, 1] = -1
+        bt[0, 4] = -1
+    if case == "no visible key":
+        q_pos[1, 0] = -1
+        ppos[bt[2][bt[2] >= 0].long()] = -1   # slot 2's keys all unwritten
+    splits, _ = DA.mixed_splits(len(ctx), 1, 1, bt.shape[1],
+                                scratch.sm_count(dev.index or 0))
+    assert splits > 1
+    out, ref = _decode_call(q, k, v, ppos, bt, q_pos, quant, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if case == "no visible key":
+        assert not out[1:].any()              # exactly zero
+    again, _ = _decode_call(q, k, v, ppos, bt, q_pos, quant, **kw)
+    assert torch.equal(again, out)            # counters were reset
+
+
+def test_split_launches_on_two_streams(dev):
+    """Split decode, split mixed and split quant_matmul launches in flight
+    at once on three streams: each stream has its own scratch and arrival
+    counters, so every output equals the plain version's."""
+    rng = np.random.default_rng(80)
+    dtype = torch.bfloat16
+    ctx = [100, 37, 250, 5, 64, 180]
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=2, D=128, page=16, npages=17,
+                            dtype=dtype, dev=dev)
+    qd = torch.from_numpy(rng.normal(size=(6, 1, 8, 128)).astype(
+        np.float32)).to(dev, dtype)
+    qpd = torch.tensor([[n - 1] for n in ctx], dtype=torch.int32,
+                       device=dev)
+    qm = torch.from_numpy(rng.normal(size=(6, 5, 8, 128)).astype(
+        np.float32)).to(dev, dtype)
+    qpm = torch.tensor([[n - 5 + i for i in range(5)] for n in ctx],
+                       dtype=torch.int32, device=dev)
+    kw = dict(window=None, scale=128 ** -0.5, attn_softcap=None)
+    x, q8, s8 = _qmm_inputs(dev, 8, 2560, 1024, dtype, 23)
+    sm = scratch.sm_count(dev.index or 0)
+    assert DA.mixed_splits(6, 1, 2, 17, sm)[0] > 1
+    assert QM.qmm_plan(8, 2560, 1024, dtype, sm).splits > 1
+    ref_d = DA.paged_decode_attention_ref(qd, k, v, ppos, bt, qpd, **kw)
+    ref_m = DA.paged_mixed_attention_ref(qm, k, v, ppos, bt, qpm, **kw)
+    ref_q = QM.quant_matmul_ref(x, q8, s8)
+    streams = [torch.cuda.Stream() for _ in range(3)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        with torch.cuda.stream(streams[0]):
+            od = DA.paged_decode_attention(qd, k, v, ppos, bt, qpd, **kw)
+        with torch.cuda.stream(streams[1]):
+            om = DA.paged_mixed_attention(qm, k, v, ppos, bt, qpm, **kw)
+        with torch.cuda.stream(streams[2]):
+            oq = QM.quant_matmul(x, q8, s8)
+        outs.append((od, om, oq))
+    torch.cuda.synchronize()
+    for od, om, oq in outs:
+        torch.testing.assert_close(od.float(), ref_d.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(om.float(), ref_m.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert (oq - ref_q).abs().max().item() <= \
+            1e-5 * ref_q.abs().max().item()
 
 
 def test_mma_wrappers_reject_misaligned_inputs(dev):

@@ -98,3 +98,26 @@ def test_serve_prefix_cache_off_identical(params):
     assert on == off
     assert m_on.prefix_hits > 0 and m_off.prefix_hits == 0
     assert m_off.dispatches_per_iter == 1.0
+
+
+def test_serve_takes_every_reference_option(params):
+    """The port's ``serve_continuous`` takes every keyword of the
+    reference's, with the same defaults for the overload options:
+    ``max_preemptions`` is taken (nothing to bound with preemption off)
+    and the unported ``debug_audit=True`` raises ``NotImplementedError``,
+    like the other unported options, not a ``TypeError``."""
+    import inspect
+    ref = inspect.signature(JEngine.serve_continuous).parameters
+    ours = inspect.signature(InferenceEngine.serve_continuous).parameters
+    assert set(ref) <= set(ours)
+    for k in ("max_preemptions", "debug_audit", "preemption"):
+        assert ours[k].default == ref[k].default, k
+    _, tparams = params
+    eng = InferenceEngine(get_reduced("unimo-text"), tparams, policy=FP32,
+                          device="cpu", **ENGINE)
+    reqs = [Request(uid=0, tokens=[2, 7, 9, 11], max_new_tokens=3)]
+    done, m = eng.serve_continuous(copy.deepcopy(reqs), max_preemptions=5,
+                                   debug_audit=False, **SERVE)
+    assert m.outcome_counts == {"completed": 1} and len(done[0].result) == 3
+    with pytest.raises(NotImplementedError, match="debug_audit"):
+        eng.serve_continuous(copy.deepcopy(reqs), debug_audit=True, **SERVE)
