@@ -2,7 +2,8 @@
 // plain C interface (ctypes); see repro_torch/kernels/decode_attention.py.
 //
 // Replaces six Pallas TPU kernels of the reference package
-// (repro/kernels/decode_attention.py), and its dense decode kernel:
+// (repro/kernels/decode_attention.py), and the fp32 body of its dense
+// decode kernel:
 //   * paged_decode_attention (body _paged_kernel): one query token per
 //     slot against that slot's paged K/V.  bf16 / fp16 q:
 //     paged_decode_mma_kernel<T, T>; fp32 q: paged_decode_kernel<float>.
@@ -20,10 +21,12 @@
 //     against its slot's pages; lanes with q_pos == -1 are padding.  bf16 /
 //     fp16 q: paged_mixed_mma_kernel<T, T / int8>; fp32 q:
 //     paged_mixed_kernel<float / int8>.
-//   * decode_attention (body _kernel): dense_decode_kernel<T, T>, one query
-//     token per row against the row's own contiguous K/V (B,Sk,Hkv,D); the
-//     decode body with the row's cache as one page of Sk entries and k_pos
-//     as its positions.
+//   * decode_attention (body _kernel) at fp32 q, and at bf16 / fp16 q
+//     whose q / k / v do not start on a 16-byte boundary:
+//     dense_decode_kernel<T, T>, one query token per row against the row's
+//     own contiguous K/V (B,Sk,Hkv,D); the decode body with the row's cache
+//     as one page of Sk entries and k_pos as its positions.  Aligned bf16 /
+//     fp16 inputs take the tensor-core body of dense_decode.cu.
 // Over int8 pools the codes are dequantized with one fp32 multiply by the
 // per-entry, per-kv-head scale (as the Pallas bodies do), so a dequantized
 // value equals the plain version's bit for bit; q and out stay at q's
@@ -55,19 +58,19 @@
 //    bytes: each split walks only a few tiles, so the fixed cost of a
 //    block (staging Q, reading positions through the block table, the
 //    partials and the merge) is most of its time (PERF.md).
-//  * fp32, the decode and mixed kernels, and every dtype of the packed and
-//    dense kernels: attend_rows, on CUDA cores.  One block per (slot or
-//    query window, kv head) so the g = Hq / Hkv query heads that share a kv
-//    head read each page once; every page is staged through shared memory
-//    in 16-key tiles, whose positions are read first so tiles with no
-//    visible key (unwritten tails of a slot's pages, keys beyond a window)
-//    are skipped without reading their K/V.  Scores, the online softmax
-//    and the accumulator are fp32, with the same -inf-safe rescaling as the
-//    reference's _attend_block_mq.  A tensor-core body would multiply in
-//    TF32, and the card's fp32 greedy streams must keep equalling the
-//    CPU's.  What bounds attend_rows is its serial per-thread dot products
-//    out of shared memory and four block barriers per tile with no overlap
-//    of loads and compute.
+//  * fp32, the decode and mixed kernels, every dtype of the packed kernels,
+//    and the dense kernel at fp32 (or unaligned inputs): attend_rows, on
+//    CUDA cores.  One block per (slot or query window, kv head) so the g =
+//    Hq / Hkv query heads that share a kv head read each page once; every
+//    page is staged through shared memory in 16-key tiles, whose positions
+//    are read first so tiles with no visible key (unwritten tails of a
+//    slot's pages, keys beyond a window) are skipped without reading their
+//    K/V.  Scores, the online softmax and the accumulator are fp32, with
+//    the same -inf-safe rescaling as the reference's _attend_block_mq.  A
+//    tensor-core body would multiply in TF32, and the card's fp32 greedy
+//    streams must keep equalling the CPU's.  What bounds attend_rows is its
+//    serial per-thread dot products out of shared memory and four block
+//    barriers per tile with no overlap of loads and compute.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

@@ -128,6 +128,10 @@ def load() -> ctypes.CDLL:
     lib.mlstm_chunk_launch.restype = I
     lib.mlstm_chunk_smem_bytes.argtypes = [I]
     lib.mlstm_chunk_smem_bytes.restype = ctypes.c_long
-    lib.rmsnorm_launch.argtypes = [P] * 3 + [I, I, ctypes.c_long, I, F, P]
+    lib.rmsnorm_launch.argtypes = ([P] * 3 + [I, I, ctypes.c_long, I, F]
+                                   + [I] * 4 + [P])
     lib.rmsnorm_launch.restype = I
+    lib.dense_decode_mma_launch.argtypes = ([P] * 8 + [I] * 9
+                                            + [F, F, I, P])
+    lib.dense_decode_mma_launch.restype = I
     return lib

@@ -33,6 +33,10 @@ beside them.
     per row against the row's own contiguous (B, Sk, Hkv, D) cache.  Like
     the reference's kernel it has no model call site (the port serves
     from paged pools); it is reached through ``ops.decode_attention``.
+    bf16/fp16 q runs its own tensor-core body (``csrc/dense_decode.cu``),
+    whose warps split the keys and whose keys are split across blocks
+    where the grid is small (:func:`dense_decode_plan`); fp32 q, and q/k/v
+    off a 16-byte boundary, keep the CUDA-core body.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, contiguity and
 shapes, allocates the output, launches on the current stream (a split
@@ -44,7 +48,7 @@ launches in a plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -127,6 +131,55 @@ def mixed_scratch_floats(B: int, row_tiles: int, Hkv: int, splits: int,
     if splits == 1:
         return 0
     return B * row_tiles * Hkv * splits * MMA_ROWS * (Dv + 2)
+
+
+DENSE_KEYS = 32          # keys a tile of the dense tensor-core body
+DENSE_ROWS = 8           # query heads of a kv group a dense block takes
+DENSE_MIN_SPLIT_TILES = 16   # tiles a split walks at least (4 a warp)
+DENSE_MAX_SPLITS = 32    # kDenseMaxSplits in csrc/dense_decode.cu
+
+
+class DensePlan(NamedTuple):
+    body: str            # "mma" (csrc/dense_decode.cu) or "simt"
+    row_tiles: int       # blocks of DENSE_ROWS heads per (row, kv head)
+    splits: int          # runs of keys, each in its own blocks
+    keys_per_split: int  # a whole number of DENSE_KEYS tiles
+
+
+def dense_decode_plan(B: int, Hkv: int, g: int, Sk: int,
+                      dtype: torch.dtype, aligned: bool,
+                      sm_count: int) -> DensePlan:
+    """The launch plan of the dense :func:`decode_attention` for B rows of
+    Sk keys, Hkv kv heads of g query heads each, q of ``dtype``, q/k/v
+    16-byte ``aligned`` or not, on a card of ``sm_count`` SMs.  bf16/fp16
+    aligned inputs take the tensor-core body; fp32 (TF32 would break the
+    fp32 card-vs-CPU parity) and unaligned inputs the CUDA-core body, in
+    one split.  The tensor-core grid has B x Hkv x row_tiles blocks; only
+    where sm_count // blocks >= 2 and the keys give every split at least
+    DENSE_MIN_SPLIT_TILES tiles are the keys cut into ``splits`` runs of
+    ``keys_per_split`` (split s takes keys [s * kps, min((s + 1) * kps,
+    Sk))), so every key lies in exactly one split, none is empty, and the
+    grid stays within one wave of the card.  At most DENSE_MAX_SPLITS."""
+    row_tiles = -(-g // DENSE_ROWS)
+    tiles = -(-Sk // DENSE_KEYS)
+    if dtype == torch.float32 or not aligned:
+        return DensePlan("simt", row_tiles, 1, Sk)
+    blocks = max(B * Hkv * row_tiles, 1)
+    want = min(sm_count // blocks, tiles // DENSE_MIN_SPLIT_TILES,
+               DENSE_MAX_SPLITS)
+    if want <= 1:
+        return DensePlan("mma", row_tiles, 1, tiles * DENSE_KEYS)
+    per = -(-tiles // want)
+    return DensePlan("mma", row_tiles, -(-tiles // per), per * DENSE_KEYS)
+
+
+def dense_scratch_floats(B: int, Hkv: int, plan: DensePlan, Dv: int) -> int:
+    """fp32 scratch of a split dense launch: for every split of every
+    (row, kv head, row tile), its DENSE_ROWS rows' Dv accumulators and (m,
+    l); none with one split."""
+    if plan.splits == 1:
+        return 0
+    return B * Hkv * plan.row_tiles * plan.splits * DENSE_ROWS * (Dv + 2)
 
 
 def _split_buffers(device, stream: int, B: int, tiles: int, Hkv: int,
@@ -459,15 +512,34 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window: Optional[int],
             raise ValueError(f"{n}={d}: head dims must be multiples of 8 "
                              f"up to {MAX_HEAD_DIM}")
     lib = build.load()
-    _check_smem(lib, Hq // Hkv, D, Dv)
+    plan = dense_decode_plan(
+        B, Hkv, Hq // Hkv, Sk, q.dtype,
+        not any(t.data_ptr() % 16 for t in (q, k, v)),
+        scratch.sm_count(q.device.index))
+    if plan.body == "simt":
+        _check_smem(lib, Hq // Hkv, D, Dv)
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     cap, win = _softcap_window(attn_softcap, window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq,
-            Hkv, D, Dv, Sk, float(scale), cap, win,
-            torch.cuda.current_stream().cuda_stream)
+        if plan.body == "simt":
+            err = lib.decode_attention_launch(
+                *ptrs, _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, Sk,
+                float(scale), cap, win, stream)
+        else:
+            ws = counters = None              # kept alive over the launch
+            if plan.splits > 1:
+                ws = scratch.split_scratch(
+                    q.device, stream, dense_scratch_floats(B, Hkv, plan, Dv))
+                counters = scratch.split_counters(q.device, stream,
+                                                  B * Hkv * plan.row_tiles)
+            err = lib.dense_decode_mma_launch(
+                *ptrs, *(None if t is None else t.data_ptr()
+                         for t in (ws, counters)),
+                _DTYPE_CODES[q.dtype], B, Hq, Hkv, D, Dv, Sk, plan.splits,
+                plan.keys_per_split, float(scale), cap, win, stream)
     _raise_on(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -961,10 +961,15 @@ def test_mlstm_wrapper_rejects_bad_inputs(dev):
                                           (torch.bfloat16, torch.bfloat16),
                                           (torch.bfloat16, torch.float32),
                                           (torch.float16, torch.float32)])
-@pytest.mark.parametrize("shape", [(4096, 2560), (3, 100), (2, 5, 768)])
+@pytest.mark.parametrize("shape", [(4096, 2560), (3, 100), (2, 5, 768),
+                                   (1, 100), (4099, 100), (1, 2560),
+                                   (4099, 2560), (1, 8192), (4099, 8192),
+                                   (1, 16384), (4099, 16384)])
 def test_rmsnorm_kernel_matches_plain(dev, shape, dtype, wdtype):
     """fp32: 1e-5 relative (rsqrtf and the sum's order); bf16/fp16 may
-    round an ulp apart (2e-2)."""
+    round an ulp apart (2e-2).  The shapes reach every body of the plan:
+    rows of one, two and four warps, and the scalar body (D = 100 at
+    16-bit types; fp32 rows of D = 16384, wider than the registers hold)."""
     from repro_torch.kernels import rmsnorm as RN
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -978,6 +983,52 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype, wdtype):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,D", [(7, 100), (4099, 2560), (3, 16384)])
+def test_rmsnorm_kernel_takes_unaligned_rows(dev, dtype, rows, D):
+    """A contiguous view one element off a 16-byte boundary is legal input:
+    the plan sends it to the scalar body, which matches the plain
+    version at the tolerances above."""
+    from repro_torch.kernels import rmsnorm as RN
+    g = torch.Generator(device=dev).manual_seed(2)
+    buf = torch.randn(rows * D + 1, generator=g, device=dev).to(dtype)
+    x = buf[1:].view(rows, D)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert RN.rmsnorm_plan(rows, D, x.element_size(), False,
+                           scratch.sm_count(dev.index or 0)).body == "scalar"
+    w = (torch.randn(D, generator=g, device=dev) * 0.1).to(dtype)
+    out = ops.rmsnorm(x, w)
+    ref_out = RN.rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_rmsnorm_launcher_refuses_a_plan_the_shape_does_not_fit(dev):
+    """The C launcher checks the plan it is given: the rows body needs x
+    16-byte aligned, whole vectors and a row its warps hold; there is no
+    body but scalar (0) and rows (1)."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    x = torch.zeros(4, 2560, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(2560, device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(xp, D, body, wpr, nv):
+        return lib.rmsnorm_launch(xp, w.data_ptr(), out.data_ptr(), 2, 0, 4,
+                                  D, 1e-6, body, wpr, nv, 4, stream)
+    assert launch(x.data_ptr(), 2560, 1, 1, 16) == 0
+    assert launch(x.data_ptr(), 2560, 1, 1, 8) != 0      # 10 vectors a lane
+    assert launch(x.data_ptr(), 2560, 1, 3, 16) != 0     # warps a row
+    assert launch(x.data_ptr() + 2, 2560, 1, 1, 16) != 0  # misaligned
+    assert launch(x.data_ptr(), 2556, 1, 1, 16) != 0     # not whole vectors
+    assert launch(x.data_ptr(), 2560, 2, 1, 16) != 0     # no such body
+    torch.cuda.synchronize()
 
 
 def test_rmsnorm_wrapper_rejects_bad_inputs(dev):
@@ -996,7 +1047,15 @@ DENSE_CASES = [(torch.bfloat16, 8, 256, 32, 8, 128, None, None),
                (torch.bfloat16, 8, 256, 32, 8, 128, 64, 30.0),
                (torch.float32, 3, 37, 16, 16, 64, None, None),
                (torch.float16, 2, 300, 8, 2, 32, 13, 20.0),
-               (torch.float32, 4, 1, 4, 1, 256, None, None)]
+               (torch.float32, 4, 1, 4, 1, 256, None, None)] + [
+    # the tensor-core body: g = 1 / 4 / 8 / 16 heads a kv head, every head
+    # dim bucket, one key, a ragged tile and a split walk
+    (dtype, 3, Sk, 2 * g, 2, D, None, None)
+    for dtype in (torch.bfloat16, torch.float16) for g in (1, 4, 8, 16)
+    for D in (64, 96, 128, 256) for Sk in (1, 33, 4096)] + [
+    (torch.bfloat16, 3, 4096, 8, 2, 128, 700, 30.0),     # split + window
+    (torch.float16, 2, 77, 64, 2, 40, 30, None),         # 4 row tiles
+    (torch.bfloat16, 8, 4096, 32, 8, 128, None, None)]   # qwen3-4b, split
 
 
 @pytest.mark.parametrize("dtype,B,Sk,Hq,Hkv,D,window,softcap", DENSE_CASES)
@@ -1023,7 +1082,131 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, B, Sk, Hq, Hkv, D,
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref_out.float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    _assert_within_output_scale(out, ref_out, dtype)
     assert not out[-1].any()
+
+
+def _assert_within_output_scale(out, ref_out, dtype):
+    """Over many keys the outputs shrink (about sqrt(e / Sk) at random
+    inputs, 0.026 at 4096 keys), so TOL alone could pass a kernel that
+    skipped tiles: the error is held to TOL of the output's scale too."""
+    err = (out.float() - ref_out.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref_out.float().abs().max().item()
+
+
+def _dense_inputs(rng, dtype, B, Sk, Hq, Hkv, D, dev, Dv=None):
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v = t((B, 1, Hq, D)), t((B, Sk, Hkv, D)), t((B, Sk, Hkv, Dv or D))
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=dev).repeat(B, 1)
+    q_pos = torch.full((B, 1), Sk - 1, dtype=torch.int32, device=dev)
+    return q, k, v, k_pos, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("Sk", [40, 4096])
+def test_dense_decode_window_past_every_key(dev, dtype, Sk):
+    """Every row's window lies past its last key: no key is visible and
+    the output is exactly 0, as the plain version's."""
+    rng = np.random.default_rng(5)
+    q, k, v, k_pos, q_pos = _dense_inputs(rng, dtype, 3, Sk, 8, 2, 128, dev)
+    q_pos += 50
+    kw = dict(window=20, scale=128 ** -0.5, attn_softcap=None)
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    ref_out = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert not out.any() and not ref_out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dense_decode_value_dim_differs(dev, dtype):
+    """Dv != D: the tensor-core body takes the larger head-dim bucket."""
+    rng = np.random.default_rng(6)
+    q, k, v, k_pos, q_pos = _dense_inputs(rng, dtype, 2, 300, 8, 2, 64, dev,
+                                          Dv=128)
+    kw = dict(window=None, scale=64 ** -0.5, attn_softcap=None)
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    ref_out = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 1, 8, 128)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_dense_decode_unaligned_inputs_take_the_cuda_core_body(dev):
+    """bf16 k one element off a 16-byte boundary is legal input: the plan
+    sends it to the CUDA-core body, which matches the plain version."""
+    rng = np.random.default_rng(7)
+    dtype = torch.bfloat16
+    q, k, v, k_pos, q_pos = _dense_inputs(rng, dtype, 2, 70, 8, 2, 64, dev)
+    buf = torch.empty(k.numel() + 1, dtype=dtype, device=dev)
+    k_off = buf[1:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16
+    assert DA.dense_decode_plan(2, 2, 4, 70, dtype, False, 132).body == "simt"
+    kw = dict(window=None, scale=64 ** -0.5, attn_softcap=None)
+    before = DA.decode_attention.launches
+    out = ops.decode_attention(q, k_off, v, k_pos, q_pos, **kw)
+    assert DA.decode_attention.launches == before + 1
+    ref_out = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_dense_split_launches_on_two_streams(dev):
+    """Two split dense launches in flight at once on two streams, twenty
+    times: each stream has its own scratch and arrival counters, so every
+    output equals the plain version's."""
+    rng = np.random.default_rng(81)
+    dtype = torch.bfloat16
+    sm = scratch.sm_count(dev.index or 0)
+    cases = []
+    for B, Hq, Hkv in ((2, 8, 2), (1, 32, 8)):
+        args = _dense_inputs(rng, dtype, B, 4096, Hq, Hkv, 128, dev)
+        assert DA.dense_decode_plan(B, Hkv, Hq // Hkv, 4096, dtype, True,
+                                    sm).splits > 1
+        cases.append(args)
+    kw = dict(window=None, scale=128 ** -0.5, attn_softcap=None)
+    refs = [DA.decode_attention_ref(*a, **kw) for a in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for st, a in zip(streams, cases):
+            with torch.cuda.stream(st):
+                outs.append(DA.decode_attention(*a, **kw))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        torch.testing.assert_close(out.float(), refs[i % 2].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        _assert_within_output_scale(out, refs[i % 2], dtype)
+
+
+def test_dense_decode_launcher_refuses_a_bad_plan(dev):
+    """The C launcher checks the plan it is given: whole tiles, no empty
+    split, scratch with more than one split."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    rng = np.random.default_rng(8)
+    q, k, v, k_pos, q_pos = _dense_inputs(rng, torch.bfloat16, 1, 100, 4,
+                                          1, 64, dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(splits, kps):
+        return lib.dense_decode_mma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(), None, None, 2, 1, 4, 1, 64, 64,
+            100, splits, kps, 0.125, 0.0, 0, stream)
+    assert launch(1, 128) == 0
+    assert launch(1, 100) != 0          # not whole tiles
+    assert launch(1, 64) != 0           # keys past the splits
+    assert launch(2, 32 * 4) != 0       # an empty split
+    assert launch(2, 64) != 0           # two splits, no scratch
+    torch.cuda.synchronize()
 
 
 def test_dense_decode_wrapper_rejects_bad_inputs(dev):
