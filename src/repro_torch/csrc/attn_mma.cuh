@@ -1,16 +1,19 @@
 // Tensor-core attention core for Hopper (sm_90a), shared by the bf16/fp16
 // bodies of flash_attention.cu (flash_mma_kernel) and paged_attention.cu
-// (paged_mixed_mma_kernel, paged_decode_mma_kernel).
+// (paged_mixed_mma_kernel, paged_decode_mma_kernel, paged_packed_mma_kernel).
 //
 // A block owns up to 64 rows, where a row is one (query, head of the kv
 // group) pair: row r of the block is global row r0 + r = qi * g + hi, query
-// qi of its batch row and query head h * g + hi, so the g heads that share
-// kv head h read each K/V tile once.  Each warp owns 16 rows: flash and the
-// mixed kernel run 4 warps, and a warp without rows (a short verify window)
-// still copies tiles and merges splits; the decode kernel (one query, g
-// rows) runs ceil(g / 16) warps.  Row tiles run last first: under a
-// causal mask the last sees the most keys.  The block streams 32-key
-// tiles:
+// qi of its unit and query head h * g + hi, so the g heads that share kv
+// head h read each K/V tile once.  A unit (blockIdx.z) is a batch row of
+// NQ queries (flash, mixed, decode) or one row of the packed work table:
+// up to NQ = 8 consecutive lanes of the token stream, all of one slot.
+// Each warp owns 16 rows: flash and the mixed kernel run 4 warps, and a
+// warp without rows (a short verify window) still copies tiles and merges
+// splits; the decode kernel (one query, g rows) runs ceil(g / 16) warps and
+// the packed kernel ceil(min(8 g, 64) / 16).  Row tiles run last first:
+// under a causal mask the last sees the most keys.  The block streams
+// 32-key tiles:
 //
 //   * Positions first.  The positions of up to 512 keys (no further than
 //     the walk reaches) are staged at once (all threads, the block-table
@@ -37,18 +40,22 @@
 //     does.  On a tile that every valid row sees whole only padding rows
 //     are masked.  A row that sees no key writes 0.
 //
-// Only the address of a key differs between the two users: flash reads
-// key j of batch row b at entry b * Sk + j of contiguous (B, Sk, Hkv, D)
-// tensors; the mixed kernel maps it through the block table to entry
-// pid * page + j % page of the pools.  Positions live at the same entry
-// index (k_pos or ppos), and so do the int8 scales.
+// Only addresses differ between the users.  A key: flash reads key j of
+// batch row b at entry b * Sk + j of contiguous (B, Sk, Hkv, D) tensors;
+// the paged kernels map it through slot b's block-table row to entry pid
+// * page + j % page of the pools.  Positions live at the same entry index
+// (k_pos or ppos), and so do the int8 scales.  A query: unit u's lanes
+// start at lane u * NQ of q (B, NQ, Hq, D) and q_pos; a packed work row
+// (slot, tile, win_start, win_end) names its slot b and its lanes
+// [win_start, win_end) of the (1, T) stream, and a row with slot -1 is
+// unused.
 //
-// Split-K (the mixed kernel on a small grid): blockIdx.x = tile * splits +
-// split, and split s walks keys [s, s + 1) * keys_per_split.  With more
+// Split-K (the paged kernels on a small grid): blockIdx.x = tile * splits
+// + split, and split s walks keys [s, s + 1) * keys_per_split.  With more
 // than one split each block writes its rows' (m, l, acc) to a scratch
-// buffer, and the last block of its (batch row, kv head, row tile) to
-// finish, found with an atomic counter, merges them into the output and
-// resets the counter for the next launch: one launch, no combine kernel.
+// buffer, and the last block of its (unit, kv head, row tile) to finish,
+// found with an atomic counter, merges them into the output and resets
+// the counter for the next launch: one launch, no combine kernel.
 #pragma once
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -76,12 +83,13 @@ struct MmaArgs {
   const float* vscale;
   const int* kpos;        // positions per entry: k_pos or ppos
   const int* bt;          // paged: block table (B, npages); flash: nullptr
-  const int* q_pos;       // (B, NQ), -1 = padding
+  const int* q_pos;       // (B, NQ), -1 = padding; packed (1, T)
+  const int* meta;        // packed: work rows (units, 4); else nullptr
   void* out;              // (B, NQ, Hq, Dv)
   float* part;            // splits > 1: acc, (groups * splits, 64, Dv)
   float* part_ml;         // splits > 1: (m, l), (groups * splits, 64, 2)
   int* counters;          // splits > 1: (groups), 0 between launches
-  int NQ, Sk;             // queries per batch row; keys per batch row
+  int NQ, Sk;             // queries per unit (packed: at most); keys per row
   int Hq, Hkv, g, D, Dv;
   int page, npages;       // paged only
   int row_tiles, splits, keys_per_split;
@@ -132,11 +140,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Element offset of block row r's query head in q (times D) / out (Dv).
-__device__ __forceinline__ long long mma_row(const MmaArgs& a, int b, int h,
-                                             int r_glob) {
+// Element offset of block row r's query head in q (times D) / out (Dv);
+// the unit's lanes start at lane0.
+__device__ __forceinline__ long long mma_row(const MmaArgs& a, long long lane0,
+                                             int h, int r_glob) {
   const int qi = r_glob / a.g, hi = r_glob % a.g;
-  return ((long long)b * a.NQ + qi) * a.Hq + (long long)h * a.g + hi;
+  return (lane0 + qi) * a.Hq + (long long)h * a.g + hi;
 }
 
 // How the block's threads copy one tile's rows of `dim` elements: thread
@@ -322,14 +331,26 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
   const int D = a.D, Dv = a.Dv, DP = round16(D), DVP = round16(Dv);
+  // the unit: its slot b, its first lane and its lanes
+  const int unit = blockIdx.z;
+  int slot = unit, nq = a.NQ;
+  long long lane0 = (long long)unit * a.NQ;
+  if (a.meta != nullptr) {
+    const int* w = a.meta + 4 * unit;
+    slot = w[0];
+    lane0 = w[2];
+    nq = min(w[3] - w[2], a.NQ);
+    if (slot < 0 || nq <= 0) return;          // an unused work row
+  }
   const int r0 = tile * kMmaRows;
-  const int nrows = min(kMmaRows, a.NQ * a.g - r0);
+  const int nrows = min(kMmaRows, nq * a.g - r0);
+  if (nrows <= 0) return;                     // a row tile past the lanes
   const int rows_alloc = nthreads / 32 * 16;
   MmaBlock blk(a, smem, rows_alloc, sizeof(KV));
   const MmaSmem& L = blk.L;
-  blk.b = blockIdx.z;
+  blk.b = slot;
   blk.h = blockIdx.y;
-  const int b = blk.b, h = blk.h;
+  const int h = blk.h;
   const int k_begin = split * a.keys_per_split;
   blk.k_stop = min(a.Sk, k_begin + a.keys_per_split);
   const T* q = static_cast<const T*>(a.q);
@@ -342,14 +363,13 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
     for (int r = tid / per_row; r < rows_alloc && tid < step * per_row;
          r += step) {
       const bool ok = r < nrows && col < D;
-      const T* src = ok ? q + mma_row(a, b, h, r0 + r) * D + col : q;
+      const T* src = ok ? q + mma_row(a, lane0, h, r0 + r) * D + col : q;
       cp_async16(blk.q_s + r * L.q_stride + col * 2, src, ok);
     }
   }
   for (int r = tid; r < kMmaRows; r += nthreads) {
     if (r < nrows)
-      cp_async4(blk.row_qp + r, a.q_pos + (long long)b * a.NQ + (r0 + r) / a.g,
-                true);
+      cp_async4(blk.row_qp + r, a.q_pos + lane0 + (r0 + r) / a.g, true);
     else
       blk.row_qp[r] = -1;
   }
@@ -570,7 +590,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
       if (r >= nrows) continue;
       // a row with no visible key has l == 0 and o == 0: it writes 0
       const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
-      T* orow = out + mma_row(a, b, h, r0 + r) * Dv;
+      T* orow = out + mma_row(a, lane0, h, r0 + r) * Dv;
 #pragma unroll
       for (int nt = 0; nt < DMAX / 8; ++nt) {
         const int col = nt * 8 + tig * 2;
@@ -584,7 +604,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
 
   // split-K: this block's partial, then the last block of the group merges
   const long long group =
-      ((long long)b * a.Hkv + h) * a.row_tiles + tile;
+      ((long long)unit * a.Hkv + h) * a.row_tiles + tile;
   const long long pidx = group * a.splits + split;
   if (has_rows) {
     float* po = a.part + pidx * kMmaRows * Dv;
@@ -672,7 +692,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
     for (int u = 0; u < 8; ++u) {
       const int i = i0 + u * nthreads;
       if (i >= n4) break;
-      T* orow = out + mma_row(a, b, h, r0 + rw[u]) * Dv + i * 4 % Dv;
+      T* orow = out + mma_row(a, lane0, h, r0 + rw[u]) * Dv + i * 4 % Dv;
       *reinterpret_cast<uint32_t*>(orow) = pack2<T>(acc[u].x, acc[u].y);
       *reinterpret_cast<uint32_t*>(orow + 2) = pack2<T>(acc[u].z, acc[u].w);
     }
@@ -681,17 +701,17 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
 }
 
 // Launch kernel (a __global__ wrapper of mma_attend) over grid
-// (row_tiles * splits, Hkv, B), ``warps`` warps a block (16 rows each; 4
-// by default, and warps without rows load tiles and merge splits).
+// (row_tiles * splits, Hkv, units), ``warps`` warps a block (16 rows each;
+// 4 by default, and warps without rows load tiles and merge splits).
 inline cudaError_t mma_launch(void (*kernel)(MmaArgs), const MmaArgs& a,
-                              int B, cudaStream_t stream,
+                              int units, cudaStream_t stream,
                               int warps = kMmaRows / 16) {
   const int kv_bytes = a.kscale != nullptr ? 1 : 2;
   const size_t smem = MmaSmem(a.D, a.Dv, warps * 16, kv_bytes).total();
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t e = opt_in_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(a.row_tiles * a.splits, a.Hkv, B), warps * 32, smem,
+  kernel<<<dim3(a.row_tiles * a.splits, a.Hkv, units), warps * 32, smem,
            stream>>>(a);
   return cudaGetLastError();
 }

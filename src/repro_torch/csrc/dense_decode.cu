@@ -173,13 +173,6 @@ struct WarpCopy {
         in_row(col < dim * 2) {}
 };
 
-// 2 x (8 x 8) b16 matrices of Q rows for ldmatrix (non-transposed)
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
 // the 8 x 8 b16 matrix whose fragment x holds, transposed (in registers)
 __device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
   uint32_t y;

@@ -1,8 +1,8 @@
 // Tensor-core and copy primitives for Hopper (sm_90a), shared by the
-// attention core (attn_mma.cuh) and quant_matmul.cu: cp.async with zero
-// fill, ldmatrix, mma.sync.m16n8k16 with fp32 accumulators for bf16 /
-// fp16, fp32 pairs rounded to bf16 / fp16, and exact int8 -> fp32 without
-// I2F.
+// attention core (attn_mma.cuh), quant_matmul.cu and mlstm_chunk.cu:
+// cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 with fp32
+// accumulators for bf16 / fp16, fp32 pairs rounded to bf16 / fp16, and
+// exact int8 -> fp32 without I2F.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +83,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+// two 8x8 matrices: lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(

@@ -11,10 +11,11 @@
 //     pools, paged_decode_mma_kernel<T, int8> / paged_decode_kernel<float,
 //     int8>.
 //   * paged_packed_attention (body _paged_packed_kernel) and
-//     paged_packed_attention_q8 (_paged_packed_kernel_q8):
-//     paged_packed_kernel<T, T / int8>, a token-packed ragged stream of
-//     decode tokens and prefill-chunk tokens, each lane against its own
-//     slot's pages.
+//     paged_packed_attention_q8 (_paged_packed_kernel_q8): a token-packed
+//     ragged stream of decode tokens and prefill-chunk tokens, each lane
+//     against its own slot's pages, walked by rows of a work table (up to
+//     8 lanes of one slot each).  bf16 / fp16 q: paged_packed_mma_kernel<T,
+//     T / int8>; fp32 q: paged_packed_kernel<float, float / int8>.
 //   * paged_mixed_attention (body _paged_mixed_kernel) and
 //     paged_mixed_attention_q8 (_paged_mixed_kernel_q8): a window of W query
 //     lanes per slot (a speculative verify window, a prefill chunk), each
@@ -40,32 +41,36 @@
 //
 // Bodies by q's dtype (chosen in the launcher, not a fallback):
 //
-//  * bf16 / fp16, the decode and mixed kernels: the tensor-core core of
-//    attn_mma.cuh.  A block takes up to 64 rows of (window lane, head of
-//    the kv group) pairs of one slot and kv head (at decode the g heads of
-//    one token, in ceil(g / 16) warps: one at qwen3-4b's g = 4 and
-//    unimo-text's g = 1), walks the slot's block table in 32-key tiles
+//  * bf16 / fp16, the decode, mixed and packed kernels: the tensor-core
+//    core of attn_mma.cuh.  A block takes up to 64 rows of (window lane,
+//    head of the kv group) pairs of one slot and kv head (at decode the g
+//    heads of one token, in ceil(g / 16) warps: one at qwen3-4b's g = 4 and
+//    unimo-text's g = 1; packed, the up to 8 lanes of one work row times g
+//    heads, in ceil(min(8 g, 64) / 16) warps: two at g = 4, one at g = 1,
+//    whose 16-row tile is then half empty), walks the slot's block table
+//    in 32-key tiles
 //    through a three-stage cp.async ring, and does Q.K^T and P.V with
 //    mma.sync.m16n8k16; int8 codes and scales are staged as stored and
 //    dequantized (code x scale in fp32, rounded to q's type) while the B
 //    fragments are built.  A decode step or a verify window gives few
 //    blocks (8 slots x 8 kv heads at qwen3-4b), so the page walk is split
 //    over several blocks (flash-decoding): the wrapper picks the split
-//    count (decode_attention.mixed_splits) so the grid covers the card's
-//    SMs, each split writes its (m, l, acc) to a scratch buffer, and the
-//    last split of a (slot, kv head, row tile) to finish merges them in
-//    the same launch.  What bounds it at these shapes is latency, not
-//    bytes: each split walks only a few tiles, so the fixed cost of a
-//    block (staging Q, reading positions through the block table, the
-//    partials and the merge) is most of its time (PERF.md).
-//  * fp32, the decode and mixed kernels, every dtype of the packed kernels,
-//    and the dense kernel at fp32 (or unaligned inputs): attend_rows, on
-//    CUDA cores.  One block per (slot or query window, kv head) so the g =
-//    Hq / Hkv query heads that share a kv head read each page once; every
-//    page is staged through shared memory in 16-key tiles, whose positions
-//    are read first so tiles with no visible key (unwritten tails of a
-//    slot's pages, keys beyond a window) are skipped without reading their
-//    K/V.  Scores, the online softmax and the accumulator are fp32, with
+//    count (decode_attention.mixed_splits; packed_plan for the packed
+//    kernel, whose grid of work rows x kv heads is split only in narrow
+//    streams) so the grid covers the card's SMs, each split writes its (m,
+//    l, acc) to a scratch buffer, and the last split of a (unit, kv head,
+//    row tile) to finish merges them in the same launch.  What bounds it
+//    at these shapes is latency, not bytes: each block (or split) walks
+//    only a few tiles, so the fixed cost of a block (staging Q, reading
+//    positions through the block table, the partials and the merge) is
+//    most of its time (PERF.md).
+//  * fp32, the decode, mixed and packed kernels, and the dense kernel at
+//    fp32 (or unaligned inputs): attend_rows, on CUDA cores.  One block
+//    per (slot, work row or query window, kv head) so the g = Hq / Hkv
+//    query heads that share a kv head read each page once; every page is
+//    staged through shared memory in 16-key tiles, whose positions are
+//    read first so tiles with no visible key (unwritten tails of a slot's
+//    pages, keys beyond a window) are skipped without reading their K/V.  Scores, the online softmax and the accumulator are fp32, with
 //    the same -inf-safe rescaling as the reference's _attend_block_mq.  A
 //    tensor-core body would multiply in TF32, and the card's fp32 greedy
 //    streams must keep equalling the CPU's.  What bounds attend_rows is its
@@ -255,21 +260,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
                      p.q_pos + b, p.bt + (long)b * p.npages, h, smem);
 }
 
-// grid (n_work, Hkv): work row w serves stream lanes [win_start, win_end)
-// of slot meta[w, 0]; rows with slot < 0 are unused.  Each lane is owned
-// by exactly one row, so rows write disjoint outputs.
-template <typename T, typename KV>
+// grid (n_work, Hkv), fp32 q only: work row w serves stream lanes
+// [win_start, win_end) of slot meta[w, 0]; rows with slot < 0 are unused.
+// Each lane is owned by exactly one row, so rows write disjoint outputs.
+template <typename KV>
 __global__ void __launch_bounds__(kThreads) paged_packed_kernel(Params p) {
   extern __shared__ float smem[];
   const int w = blockIdx.x, h = blockIdx.y;
   const int slot = p.meta[4 * w], ws = p.meta[4 * w + 2];
   const int lanes = min(p.meta[4 * w + 3] - ws, kPackedBlockQ);
   if (slot < 0 || lanes <= 0) return;
-  const T* q = static_cast<const T*>(p.q) + ((long)ws * p.Hq + h * p.g) * p.D;
-  T* o = static_cast<T*>(p.out) + ((long)ws * p.Hq + h * p.g) * p.Dv;
-  attend_rows<T, KV>(p, lanes * p.g, q, (long)p.Hq * p.D, o,
-                     (long)p.Hq * p.Dv, p.q_pos + ws,
-                     p.bt + (long)slot * p.npages, h, smem);
+  const float* q =
+      static_cast<const float*>(p.q) + ((long)ws * p.Hq + h * p.g) * p.D;
+  float* o = static_cast<float*>(p.out) + ((long)ws * p.Hq + h * p.g) * p.Dv;
+  attend_rows<float, KV>(p, lanes * p.g, q, (long)p.Hq * p.D, o,
+                         (long)p.Hq * p.Dv, p.q_pos + ws,
+                         p.bt + (long)slot * p.npages, h, smem);
 }
 
 // grid (B * ceil(W / 8), Hkv), fp32 q only: block x serves query lanes
@@ -306,8 +312,6 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(Params p) {
                      p.q_pos + b, &page_id, h, smem);
 }
 
-enum Kind { kPacked, kDense };
-
 cudaError_t launch_kernel(void (*kernel)(Params), int blocks, int max_rows,
                           const Params& p, cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
@@ -319,32 +323,21 @@ cudaError_t launch_kernel(void (*kernel)(Params), int blocks, int max_rows,
   return cudaGetLastError();
 }
 
-template <typename T, typename KV>
-cudaError_t launch(Kind kind, int blocks, int max_rows, const Params& p,
-                   cudaStream_t stream) {
-  return launch_kernel(kind == kPacked ? paged_packed_kernel<T, KV>
-                                       : dense_decode_kernel<T, KV>,
-                       blocks, max_rows, p, stream);
-}
-
-// Pools at q's dtype T (quant == false), or int8 codes with scales.
-template <typename T>
-cudaError_t launch_pools(bool quant, Kind kind, int blocks, int max_rows,
-                         const Params& p, cudaStream_t stream) {
-  return quant ? launch<T, int8_t>(kind, blocks, max_rows, p, stream)
-               : launch<T, T>(kind, blocks, max_rows, p, stream);
-}
-
-cudaError_t dispatch(int dtype, bool quant, Kind kind, int blocks,
-                     int max_rows, const Params& p, cudaStream_t stream) {
+// The dense decode kernel's CUDA-core body at q's dtype (pools at q's
+// dtype).
+cudaError_t dispatch_dense(int dtype, int blocks, int max_rows,
+                           const Params& p, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_pools<float>(quant, kind, blocks, max_rows, p, stream);
+      return launch_kernel(dense_decode_kernel<float, float>, blocks,
+                           max_rows, p, stream);
     case 1:
-      return launch_pools<__half>(quant, kind, blocks, max_rows, p, stream);
+      return launch_kernel(dense_decode_kernel<__half, __half>, blocks,
+                           max_rows, p, stream);
     case 2:
-      return launch_pools<__nv_bfloat16>(quant, kind, blocks, max_rows, p,
-                                         stream);
+      return launch_kernel(
+          dense_decode_kernel<__nv_bfloat16, __nv_bfloat16>, blocks,
+          max_rows, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -370,45 +363,72 @@ __global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
   mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
 }
 
-// The mixed (decode == false) or decode kernel at the head-dim bucket of
-// max(D, Dv); the decode kernel runs only the warps its g rows fill.
-template <typename T, typename KV>
-cudaError_t launch_mma(bool decode, const MmaArgs& a, int B,
-                       cudaStream_t stream) {
-  if (B == 0 || a.NQ == 0) return cudaSuccess;
-  const int dvp = round16(a.D > a.Dv ? a.D : a.Dv);   // head-dim bucket
-  if (decode) {
-    const int warps = (min(a.g, kMmaRows) + 15) / 16;
-    return dvp <= 64 ? mma_launch(paged_decode_mma_kernel<T, KV, 64>, a, B,
-                                  stream, warps)
-           : dvp <= 128 ? mma_launch(paged_decode_mma_kernel<T, KV, 128>, a,
-                                     B, stream, warps)
-                        : mma_launch(paged_decode_mma_kernel<T, KV, 256>, a,
-                                     B, stream, warps);
-  }
-  return dvp <= 64
-             ? mma_launch(paged_mixed_mma_kernel<T, KV, 64>, a, B, stream)
-         : dvp <= 128
-             ? mma_launch(paged_mixed_mma_kernel<T, KV, 128>, a, B, stream)
-             : mma_launch(paged_mixed_mma_kernel<T, KV, 256>, a, B, stream);
+// grid (row_tiles * splits, Hkv, n_work), ceil(min(8 g, 64) / 16) warps:
+// rows [64 t, 64 t + 64) of work row w's lanes x the g heads of kv head h
+// against the keys of split s of its slot (tensor cores, bf16 / fp16 q;
+// pools at q's dtype or int8).
+template <typename T, typename KV, int DMAX>
+__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
+    paged_packed_mma_kernel(MmaArgs a) {
+  extern __shared__ float smem[];
+  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
 }
 
-// The mixed and decode launches (decode: one query lane, p.W == 1): fp32
-// q takes attend_rows (one split only), bf16 / fp16 q the tensor-core body
-// with ``splits`` splits of pages_per_split pages each; scratch holds
-// (B * row_tiles * Hkv * splits) x 64 x (Dv + 2) floats and counters
-// B * row_tiles * Hkv zeros when splits > 1.
-cudaError_t launch_windows(bool decode, int dtype, bool quant,
-                           const Params& p, int B, int splits,
-                           int pages_per_split, float* scratch, int* counters,
+enum Kind { kDecode, kMixed, kPacked };
+
+// The mixed, decode or packed kernel at the head-dim bucket of max(D, Dv),
+// over ``units`` batch rows (packed: work rows); the decode and packed
+// kernels run only the warps their rows fill.
+template <typename T, typename KV>
+cudaError_t launch_mma(Kind kind, const MmaArgs& a, int units,
+                       cudaStream_t stream) {
+  if (units == 0 || a.NQ == 0) return cudaSuccess;
+  const int dvp = round16(a.D > a.Dv ? a.D : a.Dv);   // head-dim bucket
+  const int warps = (min(a.NQ * a.g, kMmaRows) + 15) / 16;
+  if (kind == kDecode)
+    return dvp <= 64 ? mma_launch(paged_decode_mma_kernel<T, KV, 64>, a,
+                                  units, stream, warps)
+           : dvp <= 128 ? mma_launch(paged_decode_mma_kernel<T, KV, 128>, a,
+                                     units, stream, warps)
+                        : mma_launch(paged_decode_mma_kernel<T, KV, 256>, a,
+                                     units, stream, warps);
+  if (kind == kPacked)
+    return dvp <= 64 ? mma_launch(paged_packed_mma_kernel<T, KV, 64>, a,
+                                  units, stream, warps)
+           : dvp <= 128 ? mma_launch(paged_packed_mma_kernel<T, KV, 128>, a,
+                                     units, stream, warps)
+                        : mma_launch(paged_packed_mma_kernel<T, KV, 256>, a,
+                                     units, stream, warps);
+  return dvp <= 64 ? mma_launch(paged_mixed_mma_kernel<T, KV, 64>, a, units,
+                                stream)
+         : dvp <= 128 ? mma_launch(paged_mixed_mma_kernel<T, KV, 128>, a,
+                                   units, stream)
+                      : mma_launch(paged_mixed_mma_kernel<T, KV, 256>, a,
+                                   units, stream);
+}
+
+// The decode, mixed and packed launches over ``units`` (decode and mixed:
+// batch rows of p.W lanes, one at decode; packed: the n_work rows of
+// p.meta, up to kPackedBlockQ lanes each): fp32 q takes attend_rows (one
+// split only), bf16 / fp16 q the tensor-core body with ``splits`` splits
+// of pages_per_split pages each; scratch holds (units * row_tiles * Hkv *
+// splits) x 64 x (Dv + 2) floats and counters units * row_tiles * Hkv
+// zeros when splits > 1.
+cudaError_t launch_windows(Kind kind, int dtype, bool quant, const Params& p,
+                           int units, int splits, int pages_per_split,
+                           float* scratch, int* counters,
                            cudaStream_t stream) {
   if (dtype == 0) {
     if (splits != 1) return cudaErrorInvalidValue;
-    if (decode)
+    if (kind == kDecode)
       return launch_kernel(quant ? paged_decode_kernel<float, int8_t>
                                  : paged_decode_kernel<float, float>,
-                           B, p.g, p, stream);
-    const int blocks = B * ((p.W + kPackedBlockQ - 1) / kPackedBlockQ);
+                           units, p.g, p, stream);
+    if (kind == kPacked)
+      return launch_kernel(quant ? paged_packed_kernel<int8_t>
+                                 : paged_packed_kernel<float>,
+                           units, kPackedBlockQ * p.g, p, stream);
+    const int blocks = units * ((p.W + kPackedBlockQ - 1) / kPackedBlockQ);
     const int rows = min(p.W, kPackedBlockQ) * p.g;
     return launch_kernel(quant ? paged_mixed_kernel<int8_t>
                                : paged_mixed_kernel<float>,
@@ -423,8 +443,9 @@ cudaError_t launch_windows(bool decode, int dtype, bool quant,
   a.kpos = p.ppos;
   a.bt = p.bt;
   a.q_pos = p.q_pos;
+  a.meta = kind == kPacked ? p.meta : nullptr;
   a.out = p.out;
-  a.NQ = p.W;
+  a.NQ = kind == kPacked ? kPackedBlockQ : p.W;
   a.Sk = p.npages * p.page;
   a.Hq = p.Hq;
   a.Hkv = p.Hkv;
@@ -433,7 +454,7 @@ cudaError_t launch_windows(bool decode, int dtype, bool quant,
   a.Dv = p.Dv;
   a.page = p.page;
   a.npages = p.npages;
-  a.row_tiles = (p.W * p.g + kMmaRows - 1) / kMmaRows;
+  a.row_tiles = (a.NQ * p.g + kMmaRows - 1) / kMmaRows;
   a.splits = splits;
   a.keys_per_split = pages_per_split * p.page;
   a.scale = p.scale;
@@ -444,20 +465,20 @@ cudaError_t launch_windows(bool decode, int dtype, bool quant,
     return cudaErrorInvalidValue;
   if (splits > 1) {
     const long long parts =
-        (long long)B * a.row_tiles * p.Hkv * splits * kMmaRows;
+        (long long)units * a.row_tiles * p.Hkv * splits * kMmaRows;
     a.part = scratch;
     a.part_ml = scratch + parts * p.Dv;
     a.counters = counters;
   }
   switch (dtype) {
     case 1:
-      return quant ? launch_mma<__half, int8_t>(decode, a, B, stream)
-                   : launch_mma<__half, __half>(decode, a, B, stream);
+      return quant ? launch_mma<__half, int8_t>(kind, a, units, stream)
+                   : launch_mma<__half, __half>(kind, a, units, stream);
     case 2:
-      return quant
-                 ? launch_mma<__nv_bfloat16, int8_t>(decode, a, B, stream)
-                 : launch_mma<__nv_bfloat16, __nv_bfloat16>(decode, a, B,
-                                                            stream);
+      return quant ? launch_mma<__nv_bfloat16, int8_t>(kind, a, units,
+                                                        stream)
+                   : launch_mma<__nv_bfloat16, __nv_bfloat16>(kind, a, units,
+                                                              stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -481,23 +502,29 @@ extern "C" int paged_decode_attention_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 1, scale, softcap, window};
-  return (int)launch_windows(true, dtype, false, p, B, splits,
+  return (int)launch_windows(kDecode, dtype, false, p, B, splits,
                              pages_per_split, static_cast<float*>(scratch),
                              static_cast<int*>(counters),
                              static_cast<cudaStream_t>(stream));
 }
 
+// Packed: q (1,T,Hq,D), q_pos (1,T), block_tables (slots,npages), meta
+// (n_work,4); splits / pages_per_split / scratch / counters as in
+// launch_windows, over the n_work rows.
 extern "C" int paged_packed_attention_launch(
     const void* q, const void* kpool, const void* vpool, const void* ppos,
     const void* block_tables, const void* q_pos, const void* meta, void* out,
-    int dtype, int n_work, int Hq, int Hkv, int D, int Dv, int page,
-    int npages, float scale, float softcap, int window, void* stream) {
+    void* scratch, void* counters, int dtype, int n_work, int Hq, int Hkv,
+    int D, int Dv, int page, int npages, int splits, int pages_per_split,
+    float scale, float softcap, int window, void* stream) {
   Params p{q, kpool, vpool, nullptr, nullptr, static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
-  return (int)dispatch(dtype, false, kPacked, n_work, kPackedBlockQ * p.g, p,
-                       static_cast<cudaStream_t>(stream));
+  return (int)launch_windows(kPacked, dtype, false, p, n_work, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_decode_attention_q8_launch(
@@ -512,7 +539,7 @@ extern "C" int paged_decode_attention_q8_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 1, scale, softcap, window};
-  return (int)launch_windows(true, dtype, true, p, B, splits,
+  return (int)launch_windows(kDecode, dtype, true, p, B, splits,
                              pages_per_split, static_cast<float*>(scratch),
                              static_cast<int*>(counters),
                              static_cast<cudaStream_t>(stream));
@@ -521,16 +548,19 @@ extern "C" int paged_decode_attention_q8_launch(
 extern "C" int paged_packed_attention_q8_launch(
     const void* q, const void* kpool, const void* kscale, const void* vpool,
     const void* vscale, const void* ppos, const void* block_tables,
-    const void* q_pos, const void* meta, void* out, int dtype, int n_work,
-    int Hq, int Hkv, int D, int Dv, int page, int npages, float scale,
+    const void* q_pos, const void* meta, void* out, void* scratch,
+    void* counters, int dtype, int n_work, int Hq, int Hkv, int D, int Dv,
+    int page, int npages, int splits, int pages_per_split, float scale,
     float softcap, int window, void* stream) {
   Params p{q, kpool, vpool, static_cast<const float*>(kscale),
            static_cast<const float*>(vscale), static_cast<const int*>(ppos),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), static_cast<const int*>(meta), out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, 0, scale, softcap, window};
-  return (int)dispatch(dtype, true, kPacked, n_work, kPackedBlockQ * p.g, p,
-                       static_cast<cudaStream_t>(stream));
+  return (int)launch_windows(kPacked, dtype, true, p, n_work, splits,
+                             pages_per_split, static_cast<float*>(scratch),
+                             static_cast<int*>(counters),
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Mixed windows: q (B,W,Hq,D), q_pos (B,W), block_tables (B,npages);
@@ -545,7 +575,7 @@ extern "C" int paged_mixed_attention_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  return (int)launch_windows(false, dtype, false, p, B, splits,
+  return (int)launch_windows(kMixed, dtype, false, p, B, splits,
                              pages_per_split, static_cast<float*>(scratch),
                              static_cast<int*>(counters),
                              static_cast<cudaStream_t>(stream));
@@ -563,7 +593,7 @@ extern "C" int paged_mixed_attention_q8_launch(
            static_cast<const int*>(block_tables),
            static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, page, npages, W, scale, softcap, window};
-  return (int)launch_windows(false, dtype, true, p, B, splits,
+  return (int)launch_windows(kMixed, dtype, true, p, B, splits,
                              pages_per_split, static_cast<float*>(scratch),
                              static_cast<int*>(counters),
                              static_cast<cudaStream_t>(stream));
@@ -577,8 +607,8 @@ extern "C" int decode_attention_launch(
   Params p{q, k, v, nullptr, nullptr, static_cast<const int*>(k_pos),
            nullptr, static_cast<const int*>(q_pos), nullptr, out,
            Hq, Hkv, Hq / Hkv, D, Dv, Sk, 1, 0, scale, softcap, window};
-  return (int)dispatch(dtype, false, kDense, B, p.g, p,
-                       static_cast<cudaStream_t>(stream));
+  return (int)dispatch_dense(dtype, B, p.g, p,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Shared-memory bytes a launch needs for rows query rows per block.

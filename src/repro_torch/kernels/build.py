@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
         [P] * 9 + [I] * 10 + [F, F, I, P])
     lib.paged_decode_attention_launch.restype = I
     lib.paged_packed_attention_launch.argtypes = (
-        [P] * 8 + [I] * 8 + [F, F, I, P])
+        [P] * 10 + [I] * 10 + [F, F, I, P])
     lib.paged_packed_attention_launch.restype = I
     lib.paged_attention_smem_bytes.argtypes = [I, I, I]
     lib.paged_attention_smem_bytes.restype = ctypes.c_long
@@ -108,7 +108,7 @@ def load() -> ctypes.CDLL:
         [P] * 11 + [I] * 10 + [F, F, I, P])
     lib.paged_decode_attention_q8_launch.restype = I
     lib.paged_packed_attention_q8_launch.argtypes = (
-        [P] * 10 + [I] * 8 + [F, F, I, P])
+        [P] * 12 + [I] * 10 + [F, F, I, P])
     lib.paged_packed_attention_q8_launch.restype = I
     lib.paged_mixed_attention_launch.argtypes = (
         [P] * 9 + [I] * 11 + [F, F, I, P])
@@ -124,9 +124,9 @@ def load() -> ctypes.CDLL:
     lib.quant_matmul_launch.restype = I
     lib.decode_attention_launch.argtypes = [P] * 6 + [I] * 7 + [F, F, I, P]
     lib.decode_attention_launch.restype = I
-    lib.mlstm_chunk_launch.argtypes = [P] * 12 + [I] * 5 + [P]
+    lib.mlstm_chunk_launch.argtypes = [P] * 12 + [I] * 7 + [P]
     lib.mlstm_chunk_launch.restype = I
-    lib.mlstm_chunk_smem_bytes.argtypes = [I]
+    lib.mlstm_chunk_smem_bytes.argtypes = [I, I, I]
     lib.mlstm_chunk_smem_bytes.restype = ctypes.c_long
     lib.rmsnorm_launch.argtypes = ([P] * 3 + [I, I, ctypes.c_long, I, F]
                                    + [I] * 4 + [P])

@@ -13,7 +13,10 @@ beside them.
   * :func:`paged_packed_attention` replaces
     ``repro.kernels.decode_attention.paged_packed_attention``: one flat
     (1, T) stream of decode tokens and prefill-chunk tokens, each lane
-    against its own slot's pages (every mixed iteration).
+    against its own slot's pages (every mixed iteration).  bf16/fp16 q
+    runs the tensor-core body, one block per (work row of up to 8 lanes,
+    kv head), its page walk split only where the grid is small
+    (:func:`packed_plan`); fp32 q keeps the CUDA-core body.
   * :func:`paged_mixed_attention` replaces
     ``repro.kernels.decode_attention.paged_mixed_attention``: a window of
     W query lanes per slot (a speculative verify window of k+1 tokens, or
@@ -182,6 +185,33 @@ def dense_scratch_floats(B: int, Hkv: int, plan: DensePlan, Dv: int) -> int:
     return B * Hkv * plan.row_tiles * plan.splits * DENSE_ROWS * (Dv + 2)
 
 
+class PackedPlan(NamedTuple):
+    body: str            # "mma" (csrc/attn_mma.cuh) or "simt"
+    row_tiles: int       # blocks of MMA_ROWS rows per (work row, kv head)
+    splits: int          # runs of pages, each in its own blocks
+    pages_per_split: int
+
+
+def packed_plan(n_work: int, Hkv: int, g: int, npages: int,
+                dtype: torch.dtype, sm_count: int) -> PackedPlan:
+    """The launch plan of :func:`paged_packed_attention` for a work table
+    of ``n_work`` rows (each up to PACKED_BLOCK_Q lanes of one slot), Hkv
+    kv heads of g query heads, block-table rows of ``npages`` pages, q of
+    ``dtype``, on a card of ``sm_count`` SMs.  fp32 q keeps the CUDA-core
+    body in one split (TF32 would break the fp32 card-vs-CPU parity).
+    bf16/fp16 q: a block takes up to MMA_ROWS of one work row's
+    PACKED_BLOCK_Q x g rows (of one kv head), in as many 16-row warps as
+    they fill (one at g = 1, two at g = 4); the page walk is split as the
+    mixed kernel's is (:func:`mixed_splits` over n_work x row_tiles x Hkv
+    blocks), so only a narrow stream splits: at qwen3-4b's heads a table
+    of 17 rows or more already gives a block per SM."""
+    if dtype == torch.float32:
+        return PackedPlan("simt", 1, 1, max(npages, 1))
+    row_tiles = mixed_row_tiles(PACKED_BLOCK_Q, g)
+    return PackedPlan("mma", row_tiles,
+                      *mixed_splits(n_work, row_tiles, Hkv, npages, sm_count))
+
+
 def _split_buffers(device, stream: int, B: int, tiles: int, Hkv: int,
                    splits: int, Dv: int):
     """(scratch, counters) of a split launch on ``stream``, one counter per
@@ -194,13 +224,18 @@ def _split_buffers(device, stream: int, B: int, tiles: int, Hkv: int,
             scratch.split_counters(device, stream, B * tiles * Hkv))
 
 
-def _mma_splits(q, kpool, vpool, B: int, tiles: int, Hkv: int,
-                npages: int):
-    """The tensor-core body's split of the page walk; its copies need q
-    and the pools 16-byte aligned."""
+def _check_aligned(q, kpool, vpool):
+    """The tensor-core bodies' copies need q and the pools 16-byte
+    aligned."""
     if any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
         raise ValueError("the tensor-core attention kernels need q and the "
                          "pools 16-byte aligned")
+
+
+def _mma_splits(q, kpool, vpool, B: int, tiles: int, Hkv: int,
+                npages: int):
+    """The tensor-core body's split of the page walk."""
+    _check_aligned(q, kpool, vpool)
     return mixed_splits(B, tiles, Hkv, npages,
                         scratch.sm_count(q.device.index))
 
@@ -363,8 +398,17 @@ def _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, k_scale,
         raise ValueError("meta must be a contiguous (n_work, 4) int32 CUDA "
                          "tensor on q's device")
     lib = build.load()
-    _check_smem(lib, PACKED_BLOCK_Q * (Hq // Hkv), D, Dv)
+    n_work, npages = meta.shape[0], block_tables.shape[1]
+    plan = packed_plan(n_work, Hkv, Hq // Hkv, npages, q.dtype,
+                       scratch.sm_count(q.device.index))
+    if plan.body == "simt":
+        _check_smem(lib, PACKED_BLOCK_Q * (Hq // Hkv), D, Dv)
+    else:
+        _check_aligned(q, kpool, vpool)
     out = torch.zeros((1, T, Hq, Dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bufs = _split_buffers(q.device, stream, n_work, plan.row_tiles, Hkv,
+                          plan.splits, Dv)
     cap, win = _softcap_window(attn_softcap, window)
     pools = _pool_ptrs(kpool, vpool, k_scale, v_scale)
     fn = (lib.paged_packed_attention_launch if k_scale is None
@@ -372,9 +416,11 @@ def _packed(q, kpool, vpool, ppos, block_tables, q_pos, meta, k_scale,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *pools, ppos.data_ptr(),
                  block_tables.data_ptr(), q_pos.data_ptr(), meta.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODES[q.dtype], meta.shape[0], Hq,
-                 Hkv, D, Dv, page, block_tables.shape[1], float(scale), cap,
-                 win, torch.cuda.current_stream().cuda_stream)
+                 out.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in bufs),
+                 _DTYPE_CODES[q.dtype], n_work, Hq, Hkv, D, Dv, page, npages,
+                 plan.splits, plan.pages_per_split, float(scale), cap, win,
+                 stream)
     _raise_on(lib, err, name)
     return out
 

@@ -12,6 +12,11 @@ reference's wrapper, any S is taken: the kernel masks the ragged last
 chunk itself, and its chunk length (32) is its own choice (the result
 does not depend on it beyond fp32 rounding).
 
+:func:`mlstm_plan` picks the body and the tile of value columns each
+block carries: bf16 q/k/v run on the tensor cores (bf16 parts of the
+fp32 operands summed in fp32), fp32 and fp16 on CUDA cores (see
+``csrc/mlstm_chunk.cu``).
+
 The wrapper takes CUDA tensors only: it checks device, dtype, layout,
 shapes and the shared memory the launch needs, allocates the outputs,
 launches on the current stream and raises if the launch failed.  It never
@@ -21,11 +26,90 @@ falls back to the plain version; dispatch by device lives in
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.kernels import scratch
 from repro_torch.kernels.ref import mlstm_chunked_ref  # noqa: F401
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+BODIES = ("simt", "mma")      # codes 0, 1 in the kernel
+CHUNK = 32                    # L, both bodies
+SIMT_TILE_E = 64              # value columns per CUDA-core block
+MMA_MAX_WARPS = 12            # kMmaMaxWarps in csrc/mlstm_chunk.cu
+MMA_MAX_DW = 192              # columns of C^T a warp holds (kMmaMaxDW)
+# bf16 parts of the fp32 operands (kPartsC/S/W): C in q C, the weighted
+# scores in S V, w_j v_j in the update of C
+MMA_PARTS = {"C": 2, "S": 2, "W": 3}
+
+
+class MlstmPlan(NamedTuple):
+    body: str            # one of BODIES
+    te: int              # value columns of C per block
+    L: int               # steps per chunk
+    smem_bytes: int      # dynamic shared memory a block takes
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def mma_smem_bytes(dh: int, te: int) -> int:
+    """Shared memory of a tensor-core block (``MlstmMmaSmem`` in
+    ``csrc/mlstm_chunk.cu``): two stages of Q and K rows (dh padded to a
+    multiple of 16, plus 8) and of V columns and gates, n's bf16 parts as
+    an 8-row key tile, the raw scores, the bf16 parts of the scores and
+    of w_j v_j, the other column groups' partial h, n and the per-row
+    values."""
+    L, dhp = CHUNK, _round16(dh)
+    groups = -(-dhp // MMA_MAX_DW)
+    q_stride, v_stride = (dhp + 8) * 2, (te + 8) * 2
+    return (4 * L * q_stride + 2 * L * v_stride + 2 * 2 * L * 4
+            + 8 * q_stride
+            + L * (L + 4) * 4 + MMA_PARTS["S"] * L * (L + 8) * 2
+            + MMA_PARTS["W"] * L * v_stride
+            + (groups - 1) * L * (te + 4) * 4 + dhp * 4 + 7 * L * 4 + 16)
+
+
+def simt_smem_bytes(dh: int) -> int:
+    """Shared memory of a CUDA-core block: q and k rows (dh + 1 floats),
+    the dh x 64 slice of C, the v tile, n, the scores and six per-row
+    values, all fp32."""
+    L = CHUNK
+    return 4 * (2 * L * (dh + 1) + dh * SIMT_TILE_E + L * SIMT_TILE_E + dh
+                + L * L + 6 * L)
+
+
+def mlstm_plan(B: int, H: int, dh: int, dtype: torch.dtype, aligned: bool,
+               sm_count: int, smem_limit: int) -> MlstmPlan:
+    """The launch plan of :func:`mlstm_chunked` for B x H heads of dim dh,
+    q/k/v of ``dtype`` (16-byte ``aligned`` or not) on a card of
+    ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory.  bf16, aligned, dh a multiple of 8 up to 2 x MMA_MAX_DW: the
+    tensor-core body; else (fp32, fp16, other shapes) the CUDA-core body
+    with its 64 columns.  The tensor-core block holds te columns of C in
+    te / 16 x ceil(dh / MMA_MAX_DW) warps (at most MMA_MAX_WARPS), one
+    block per SM; te is the multiple of 16 that makes the fewest waves of
+    blocks, each weighed by its warps beyond one per SM sub-partition
+    (ties to the larger te, which recomputes the scores fewer times).  At
+    xlstm-125m's B = 8, H = 4, dh = 384: te = 96, 128 blocks, one wave."""
+    if dtype == torch.bfloat16 and aligned and dh % 8 == 0 \
+            and dh <= 2 * MMA_MAX_DW:
+        groups = -(-_round16(dh) // MMA_MAX_DW)
+        best = None
+        for te in range(16, _round16(dh) + 1, 16):
+            warps = te // 16 * groups
+            smem = mma_smem_bytes(dh, te)
+            if warps > MMA_MAX_WARPS or smem > smem_limit:
+                break
+            waves = -(-(B * H * -(-dh // te)) // sm_count)
+            key = (waves * max(warps, 4), -te)
+            if best is None or key < best[0]:
+                best = (key, MlstmPlan("mma", te, CHUNK, smem))
+        if best is not None:
+            return best[1]
+    return MlstmPlan("simt", SIMT_TILE_E, CHUNK, simt_smem_bytes(dh))
 
 
 def mlstm_chunked(q, k, v, i_pre, logf, state):
@@ -66,10 +150,12 @@ def mlstm_chunked(q, k, v, i_pre, logf, state):
     lib = build.load()
     limit = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
-    if lib.mlstm_chunk_smem_bytes(dh) > limit:
-        raise ValueError(f"dh={dh} needs {lib.mlstm_chunk_smem_bytes(dh)} "
-                         f"bytes of shared memory per block; the device "
-                         f"allows {limit}")
+    plan = mlstm_plan(B, H, dh, q.dtype,
+                      not any(t.data_ptr() % 16 for t in (q, k, v)),
+                      scratch.sm_count(q.device.index), limit)
+    if plan.smem_bytes > limit:
+        raise ValueError(f"dh={dh} needs {plan.smem_bytes} bytes of shared "
+                         f"memory per block; the device allows {limit}")
     h = torch.empty((B, S, H, dh), dtype=torch.float32, device=q.device)
     C, n, m = (torch.empty_like(t) for t in (C0, n0, m0))
     with torch.cuda.device(q.device):
@@ -77,8 +163,8 @@ def mlstm_chunked(q, k, v, i_pre, logf, state):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
             logf.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
             h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, S, H, dh,
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[q.dtype], B, S, H, dh, BODIES.index(plan.body),
+            plan.te, torch.cuda.current_stream().cuda_stream)
     if err:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"mlstm_chunked launch failed: CUDA error {err} "

@@ -718,9 +718,10 @@ def test_decode_mma_split_edges(dev, dtype, case, quant):
 
 
 def test_split_launches_on_two_streams(dev):
-    """Split decode, split mixed and split quant_matmul launches in flight
-    at once on three streams: each stream has its own scratch and arrival
-    counters, so every output equals the plain version's."""
+    """Split decode, split mixed, split packed and split quant_matmul
+    launches in flight at once on four streams: each stream has its own
+    scratch and arrival counters, so every output equals the plain
+    version's."""
     rng = np.random.default_rng(80)
     dtype = torch.bfloat16
     ctx = [100, 37, 250, 5, 64, 180]
@@ -736,13 +737,19 @@ def test_split_launches_on_two_streams(dev):
                        dtype=torch.int32, device=dev)
     kw = dict(window=None, scale=128 ** -0.5, attn_softcap=None)
     x, q8, s8 = _qmm_inputs(dev, 8, 2560, 1024, dtype, 23)
+    qpp, sid, meta, _ = _packed_stream(ctx, [1, 1, 20, 5, 1, 30], 64, dev)
+    qp = torch.from_numpy(rng.normal(size=(1, 64, 8, 128)).astype(
+        np.float32)).to(dev, dtype)
     sm = scratch.sm_count(dev.index or 0)
     assert DA.mixed_splits(6, 1, 2, 17, sm)[0] > 1
+    assert DA.packed_plan(meta.shape[0], 2, 4, 17, dtype, sm).splits > 1
     assert QM.qmm_plan(8, 2560, 1024, dtype, sm).splits > 1
     ref_d = DA.paged_decode_attention_ref(qd, k, v, ppos, bt, qpd, **kw)
     ref_m = DA.paged_mixed_attention_ref(qm, k, v, ppos, bt, qpm, **kw)
+    ref_p = DA.paged_packed_attention_ref(qp, k, v, ppos, bt, qpp, sid,
+                                          **kw)
     ref_q = QM.quant_matmul_ref(x, q8, s8)
-    streams = [torch.cuda.Stream() for _ in range(3)]
+    streams = [torch.cuda.Stream() for _ in range(4)]
     torch.cuda.synchronize()
     outs = []
     for _ in range(20):
@@ -752,9 +759,14 @@ def test_split_launches_on_two_streams(dev):
             om = DA.paged_mixed_attention(qm, k, v, ppos, bt, qpm, **kw)
         with torch.cuda.stream(streams[2]):
             oq = QM.quant_matmul(x, q8, s8)
-        outs.append((od, om, oq))
+        with torch.cuda.stream(streams[3]):
+            op = DA.paged_packed_attention(qp, k, v, ppos, bt, qpp, meta,
+                                           **kw)
+        outs.append((od, om, oq, op))
     torch.cuda.synchronize()
-    for od, om, oq in outs:
+    for od, om, oq, op in outs:
+        torch.testing.assert_close(op.float(), ref_p.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
         torch.testing.assert_close(od.float(), ref_d.float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
         torch.testing.assert_close(om.float(), ref_m.float(),
@@ -897,18 +909,20 @@ def test_spec_and_packed_off_serves_on_card(dev, mode):
 # 128 (the result does not depend on the chunk length beyond rounding).
 # h divides by a denominator that passes near zero for random inputs, so
 # it is held to 1e-4 of its largest magnitude; the state C, n, m to 1e-5
-# of theirs; bf16 q/k/v are read exactly by both, so the same bounds hold.
+# of theirs; bf16 q/k/v are read exactly by both, so the same bounds hold,
+# and the tensor-core body's bf16 parts of its fp32 operands are chosen to
+# keep within a quarter of them (tests/test_torch_mlstm_plan.py).
 
 
-def _mlstm_inputs(rng, B, S, H, dh, dtype, dev):
+def _mlstm_inputs(rng, B, S, H, dh, dtype, dev, state=True):
     def t(a, dt=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
     q, k, v = (rng.normal(size=(B, S, H, dh)) for _ in range(3))
     i_pre = rng.normal(size=(B, S, H))
     logf = -np.log1p(np.exp(-(rng.normal(size=(B, S, H)) + 2)))
-    state = {"C": t(rng.normal(size=(B, H, dh, dh)) * 0.1),
-             "n": t(np.abs(rng.normal(size=(B, H, dh)))),
-             "m": t(rng.normal(size=(B, H)))}
+    state = {"C": t(rng.normal(size=(B, H, dh, dh)) * 0.1 * state),
+             "n": t(np.abs(rng.normal(size=(B, H, dh))) * state),
+             "m": t(rng.normal(size=(B, H)) * state)}
     return (t(q, dtype), t(k * dh ** -0.5, dtype), t(v, dtype), t(i_pre),
             t(logf)), state
 
@@ -955,6 +969,195 @@ def test_mlstm_wrapper_rejects_bad_inputs(dev):
                          {"C": torch.zeros(1, 1, 1024, 1024, device=dev),
                           "n": torch.zeros(1, 1, 1024, device=dev),
                           "m": torch.zeros(1, 1, device=dev)})
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dh", [128, 384])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mlstm_body_by_dtype_matches_plain(dev, dtype, S, dh, state):
+    """bf16 runs the tensor-core body, fp16 the CUDA-core one: both to the
+    gates, from a zero and a nonzero state, over ragged chunks."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(S + dh + state)
+    args, st = _mlstm_inputs(rng, 2, S, 4, dh, dtype, dev, state)
+    out = MC.mlstm_chunked(*args, st)
+    torch.cuda.synchronize()
+    _assert_mlstm_close(out, MC.mlstm_chunked_ref(*args, st))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches (a profile
+    that catches no device event is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    raise AssertionError("the profiler caught no device kernel")
+
+
+def test_mlstm_bodies_in_the_profile(dev):
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(3)
+    for dtype, body in [(torch.bfloat16, "mlstm_chunk_mma_kernel"),
+                        (torch.float16, "mlstm_chunk_kernel"),
+                        (torch.float32, "mlstm_chunk_kernel")]:
+        args, st = _mlstm_inputs(rng, 2, 40, 4, 384, dtype, dev)
+        names = _device_kernels(lambda: MC.mlstm_chunked(*args, st))
+        ours = [n for n in names if "mlstm_chunk_" in n]
+        assert len(ours) == 1 and any(body + c in ours[0] for c in "<("), \
+            (dtype, names)
+
+
+def test_mlstm_launcher_refuses_a_bad_plan(dev):
+    """The C launcher checks the plan: te a multiple of 16 within the
+    block's warps, bf16 only on the tensor cores, known bodies."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(4)
+    B, S, H, dh = 1, 8, 2, 64
+    (q, k, v, i_pre, logf), st = _mlstm_inputs(rng, B, S, H, dh,
+                                                torch.bfloat16, dev)
+    lib = build.load()
+    h = torch.empty(B, S, H, dh, device=dev)
+    C, n, m = (torch.empty_like(t) for t in (st["C"], st["n"], st["m"]))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(xs, code, body, te):
+        return lib.mlstm_chunk_launch(
+            *(t.data_ptr() for t in (*xs, i_pre, logf, st["C"], st["n"],
+                                     st["m"], h, C, n, m)),
+            code, B, S, H, dh, body, te, stream)
+    assert launch((q, k, v), 2, 1, 64) == 0     # the plan's own
+    assert launch((q, k, v), 2, 1, 24) != 0     # te not a multiple of 16
+    assert launch((q, k, v), 2, 1, 208) != 0    # 13 warps
+    assert launch((q, k, v), 2, 2, 64) != 0     # no such body
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    assert launch((qf, kf, vf), 0, 1, 64) != 0  # fp32 on the tensor cores
+    qh, kh, vh = (t.half() for t in (q, k, v))
+    assert launch((qh, kh, vh), 1, 1, 64) != 0  # fp16 on the tensor cores
+    torch.cuda.synchronize()
+
+
+def test_mlstm_shared_memory_figures_agree_with_the_kernel(dev):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mlstm_chunk as MC
+    lib = build.load()
+    for dh in (8, 72, 128, 200, 384):
+        assert lib.mlstm_chunk_smem_bytes(0, dh, 0) == MC.simt_smem_bytes(dh)
+        for te in (16, 32, 48, 96):
+            assert lib.mlstm_chunk_smem_bytes(1, dh, te) == \
+                MC.mma_smem_bytes(dh, te)
+
+
+# -- the packed pair on the tensor-core core (bf16 / fp16 q): one block per
+# (work row of up to 8 lanes, kv head), the page walk split in narrow
+# streams
+
+
+def _packed_stream(ctx, lanes, T, dev):
+    """A T-lane stream holding the last ``lanes[s]`` tokens of slot s
+    (whose pool holds ``ctx[s]`` tokens, the stream's own included), then
+    padding lanes: (q_pos, slot_ids, meta, used lanes)."""
+    sid = np.full(T, -1, np.int32)
+    pos = np.full(T, -1, np.int32)
+    starts, t = [], 0
+    for s, (n, ln) in enumerate(zip(ctx, lanes)):
+        starts.append(t)
+        sid[t:t + ln], pos[t:t + ln] = s, n - ln + np.arange(ln)
+        t += ln
+    meta = DA.packed_meta_table(starts, lanes, range(len(ctx)), T,
+                                T // DA.PACKED_BLOCK_Q + len(ctx))
+    return (torch.from_numpy(pos[None]).to(dev),
+            torch.from_numpy(sid).to(dev), torch.from_numpy(meta).to(dev), t)
+
+
+def _packed_call(q, k, v, ppos, bt, q_pos, sid, meta, quant, **kw):
+    """The packed kernel and its plain version over a pool at q's dtype,
+    or over the int8 codes of the same K/V (``quant``)."""
+    if quant:
+        kq, ks, vq, vs = _q8(k, v)
+        n0 = DA.paged_packed_attention_q8.launches
+        out = DA.paged_packed_attention_q8(q, kq, ks, vq, vs, ppos, bt,
+                                           q_pos, meta, **kw)
+        assert DA.paged_packed_attention_q8.launches == n0 + 1
+        ref = DA.paged_packed_attention_ref(q, kq, vq, ppos, bt, q_pos, sid,
+                                            k_scale=ks, v_scale=vs, **kw)
+    else:
+        n0 = DA.paged_packed_attention.launches
+        out = DA.paged_packed_attention(q, k, v, ppos, bt, q_pos, meta, **kw)
+        assert DA.paged_packed_attention.launches == n0 + 1
+        ref = DA.paged_packed_attention_ref(q, k, v, ppos, bt, q_pos, sid,
+                                            **kw)
+    torch.cuda.synchronize()
+    return out, ref
+
+
+# (pool tokens per slot, stream tokens per slot, T, kv heads, window,
+# softcap): decode lanes only; chunks only, with ragged last work rows and
+# padding lanes; both; both under a window and a softcap; the smoke's
+# 256-lane stream over 8 kv heads (no split)
+PACKED_STREAMS = {
+    "decode only": ([41, 8, 131, 4], [1, 1, 1, 1], 8, 2, None, None),
+    "chunks only": ([21, 16, 3, 77], [21, 9, 3, 17], 56, 2, None, None),
+    "mixed": ([41, 21, 16, 3], [1, 21, 9, 3], 40, 2, None, None),
+    "window + softcap": ([41, 21, 16, 3], [1, 21, 9, 3], 40, 2, 13, 30.0),
+    "256 lanes": ([101, 38, 202, 10, 150, 70, 50, 30],
+                  [1, 1, 1, 1, 90, 70, 50, 30], 256, 8, None, None)}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("stream", list(PACKED_STREAMS))
+@pytest.mark.parametrize("g,D", [(1, 64), (4, 128), (16, 64)])
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+def test_packed_mma_matches_plain(dev, dtype, g, D, stream, quant):
+    ctx, lanes, T_, Hkv, window, softcap = PACKED_STREAMS[stream]
+    rng = np.random.default_rng(60 + g + T_)
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=Hkv, D=D, page=16,
+                            npages=-(-max(ctx) // 16) + 1, dtype=dtype,
+                            dev=dev)
+    q_pos, sid, meta, used = _packed_stream(ctx, lanes, T_, dev)
+    q = torch.from_numpy(rng.normal(size=(1, T_, g * Hkv, D)).astype(
+        np.float32)).to(dev, dtype)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    plan = DA.packed_plan(meta.shape[0], Hkv, g, bt.shape[1], dtype,
+                          scratch.sm_count(dev.index or 0))
+    assert plan.body == "mma"
+    assert (plan.splits > 1) == (stream != "256 lanes")
+    out, ref = _packed_call(q, k, v, ppos, bt, q_pos, sid, meta, quant,
+                            **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[0, used:].any()            # padding lanes are zero
+    again, _ = _packed_call(q, k, v, ppos, bt, q_pos, sid, meta, quant,
+                            **kw)
+    assert torch.equal(again, out)            # the counters were reset
+
+
+def test_packed_bodies_in_the_profile(dev):
+    """bf16 and fp16 q take the tensor-core body, fp32 q attend_rows."""
+    rng = np.random.default_rng(61)
+    ctx, lanes, T_, Hkv, _, _ = PACKED_STREAMS["mixed"]
+    q_pos, sid, meta, _ = _packed_stream(ctx, lanes, T_, dev)
+    for dtype, body in [(torch.bfloat16, "paged_packed_mma_kernel<"),
+                        (torch.float16, "paged_packed_mma_kernel<"),
+                        (torch.float32, "paged_packed_kernel<")]:
+        k, v, ppos, bt = _pools(rng, ctx, Hkv=Hkv, D=64, page=16,
+                                npages=4, dtype=dtype, dev=dev)
+        q = torch.from_numpy(rng.normal(size=(1, T_, 4 * Hkv, 64)).astype(
+            np.float32)).to(dev, dtype)
+        kw = dict(window=None, scale=0.125, attn_softcap=None)
+        for quant in (False, True):
+            names = _device_kernels(lambda: _packed_call(
+                q, k, v, ppos, bt, q_pos, sid, meta, quant, **kw))
+            ours = [n for n in names if "paged_packed" in n]
+            assert ours and all(body in n for n in ours), (dtype, names)
 
 
 @pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
