@@ -59,7 +59,14 @@ on one card):
               prefill and decode logits and states within 1e-5 of the
               CPU's, and equal greedy streams through the bucketed
               admission path
-  5. serve    full-width unimo-text (24 layers, bf16) and full-width
+  5. overload reduced qwen3-4b in fp32 on the card and the CPU: a pool of
+              11 pages with ``preemption="lru"`` and a host KV tier, the
+              same under ``FaultConfig(host_full=True)``, and
+              ``preemption="priority"``, with ``debug_audit=True``, and a
+              pruned-vocabulary serve: streams, outcomes and overload
+              counters must equal the CPU's, and each preempting serve's
+              streams the uncontended serve's
+  6. serve    full-width unimo-text (24 layers, bf16) and full-width
               qwen3-4b (36 layers, bf16, then int8 KV + int8 weights), random
               weights from a seeded torch.Generator, through
               ``serve_continuous``; the launch counts of each run must equal
@@ -81,7 +88,23 @@ on one card):
               through the bucketed admission path: 16 requests (4 of them
               150-300 tokens) x 32 new tokens, 8 slots, max_len 512; the
               mLSTM kernel must run 6 x the admission dispatches and no
-              other kernel may run
+              other kernel may run.  Between them, this slice's serves:
+              qwen3-4b on a contended pool (a third of the uncontended
+              serve's peak pages, ``preemption="lru"``, a host tier that
+              holds every snapshot, the per-iteration audit) at bf16 and
+              at int8 KV + int8 weights, which must preempt and resume
+              every preempted request (``contended`` lines: the greedy
+              match against the uncontended serve, the offload and
+              restore time and bytes per page); the n-gram serve again
+              with a ``ServeTracer`` whose JSONL and Perfetto exports go
+              to ``build/`` (the JSONL must validate and its device spans
+              sum to ``metrics.device_s``; ``tracing_cost``: wall and busy
+              time beside the untraced serve's); and unimo-text pruned as
+              ``--prune-coverage 0.999`` prunes it, its position table
+              trimmed to max_len, at int8 weights (``pruned``: V_new, the
+              embedding bytes before and after), whose results must lie in
+              the original id space.  The kernel phase also holds
+              ``quant_matmul`` at the pruned head's K = 1024, N = V_new
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -164,6 +187,13 @@ RMSNORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # profiles of one timed call before device_ms gives up: CUPTI now and then
 # hands back a profile with no device event at all
 PROFILE_ATTEMPTS = 6
+# the serve CLI's vocabulary pruning of unimo-text (--prune-coverage)
+PRUNE_COVERAGE = 0.999
+# the contended serves' pool: the uncontended serve's peak pages over this
+# (the reference's overload bench: a third of the demand), at least the
+# longest request's, and a host tier that holds every snapshot
+CONTENDED_POOL_DIV = 3
+HOST_KV_BYTES = 1 << 36
 
 
 T_START = time.perf_counter()
@@ -904,6 +934,15 @@ def phase_kernels(check_bodies=True):
     cases.append(run_dense_decode_case(
         rng, "unimo-text heads ragged Sk=300 fp32", B=4, Sk=300, dtype=fp32,
         **unimo))
+    # last, so that the cases above draw the inputs they drew before it:
+    # the pruned unimo-text head (--prune-coverage 0.999 on the smoke's
+    # corpus): K = 1024, N = V_new, not a multiple of 16, at a decode
+    # step's rows and a packed stream's
+    v_new = _pruned_unimo_vocab()
+    for M in (8, 256):
+        cases.append(run_quant_matmul_case(
+            rng, f"pruned unimo-text head 1024->{v_new} M={M} bf16", M=M,
+            K=1024, N=v_new, dtype=bf16, timed=True))
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -933,7 +972,8 @@ def phase_kernels(check_bodies=True):
                if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"]["regimes"] = [
         c for c in cases if c["case"] in ("qwen3-4b 2560->151936 M=8 bf16",
-                                          "qwen3-4b 2560->9728 M=256 bf16")]
+                                          "qwen3-4b 2560->9728 M=256 bf16")
+        or c["case"].startswith("pruned unimo-text head")]
     summary["decode_attention"]["regimes"] = [
         c for c in cases if c["case"] in ("qwen3-4b heads 8 x 256 bf16",
                                           "qwen3-4b heads 8 x 4096 bf16")]
@@ -1184,15 +1224,125 @@ def phase_parity_xlstm():
                          "or the card serve did not run the mLSTM kernel")
 
 
+# the reduced overload parity: the reference's overload test's requests
+# (6 prompts of 20-30 tokens x 8 new, 3 slots, 8-token pages, a 16-token
+# budget) on a pool of 11 pages, about a third of their 30
+OVERLOAD_SHAPES = (30, 28, 26, 24, 22, 20)
+OVERLOAD_COUNTERS = ("preemptions", "resumed", "offloaded_pages",
+                     "restored_pages", "host_bytes_peak", "timed_out",
+                     "deadline_misses", "rejected", "admission_stalls",
+                     "generated_tokens", "steps", "mixed_iters")
+
+
+def phase_parity_overload():
+    """Reduced qwen3-4b, fp32 (TF32 off), on the card and on the CPU: the
+    uncontended serve, then a pool of 11 pages with ``preemption="lru"``
+    and a host tier, the same with ``FaultConfig(host_full=True)``
+    (recompute-resume), and ``preemption="priority"`` with one request at
+    priority 5, all with ``debug_audit=True``; then a serve of the model
+    pruned to its 448 most frequent ids.  On the card each preempting
+    serve's greedy streams must equal the uncontended card serve's, and
+    every serve's streams, outcomes and overload counters must equal the
+    CPU's."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core import pruning as PR
+    from repro_torch.core.continuous import FaultConfig
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32
+    from repro_torch.core.scheduler import Request
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("qwen3-4b")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    freqs = {i: 10_000 - i for i in range(cfg.vocab_size)}
+    p2, cfg2, maps = PR.prune_model(params, cfg, freqs,
+                                    max_vocab=cfg.vocab_size - 64)
+    rng = np.random.default_rng(11)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+               for n in OVERLOAD_SHAPES]
+    pool = dict(num_pages=11, preemption="lru", host_kv_bytes=1 << 30,
+                debug_audit=True)
+    # case -> (requests, serve options, priorities, uncontended twin)
+    cases = {"uncontended": (6, {}, {}, None),
+             "lru": (6, pool, {}, "uncontended"),
+             "host_full": (6, {**pool,
+                               "faults": FaultConfig(host_full=True)}, {},
+                           "uncontended"),
+             "uncontended_4": (4, {}, {}, None),
+             "priority": (4, {**pool, "preemption": "priority"}, {2: 5},
+                          "uncontended_4"),
+             "pruned": (6, {}, {}, None)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for name, (n, kw, prio, _) in cases.items():
+            c, p = (cfg2, p2) if name == "pruned" else (cfg, params)
+            eng = InferenceEngine(c, p, policy=FP32, max_len=64,
+                                  max_batch=3, device=dev,
+                                  prune_maps=maps if name == "pruned"
+                                  else None)
+            done, m = eng.serve_continuous(
+                [Request(uid=i, tokens=list(t), max_new_tokens=8,
+                         priority=prio.get(i, 0))
+                 for i, t in enumerate(prompts[:n])],
+                page_size=8, max_batched_tokens=16, **kw)
+            out[dev, name] = {
+                "streams": [r.result for r in done],
+                "outcomes": [r.outcome.status for r in done],
+                "counters": {k: getattr(m, k) for k in OVERLOAD_COUNTERS}}
+    checks = {f"{name}: card == CPU": out["cuda", name] == out["cpu", name]
+              for name in cases}
+    for name, (*_, twin) in cases.items():
+        if twin is not None:
+            checks[f"{name}: streams == {twin}"] = (
+                out["cuda", name]["streams"] == out["cuda", twin]["streams"])
+            checks[f"{name}: preempted"] = (
+                out["cuda", name]["counters"]["preemptions"] >= 1)
+    checks["lru: offloaded"] = out["cuda", "lru"]["counters"][
+        "offloaded_pages"] > 0
+    checks["host_full: nothing offloaded"] = out["cuda", "host_full"][
+        "counters"]["offloaded_pages"] == 0
+    emit("parity", arch="qwen3-4b", serves="overload+pruning",
+         counters={name: out["cuda", name]["counters"] for name in cases},
+         pruned_vocab=cfg2.vocab_size, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"overload/pruning parity failed: {failed}")
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke_tokenizer():
+    """The tokenizer of the serves, trained once on the synthetic corpus
+    (as ``launch/serve.py`` trains it)."""
+    from repro_torch.core.tokenizer import FastTokenizer
+    from repro_torch.data.pipeline import synthetic_corpus
+    return FastTokenizer.train(synthetic_corpus(600), 4000)
+
+
 @functools.lru_cache(maxsize=None)
 def _smoke_prompts():
     """The serves' 16 prompts: synthetic-corpus texts of 4-40 words,
     tokenized by a tokenizer trained once on the corpus."""
-    from repro_torch.core.tokenizer import FastTokenizer
     from repro_torch.data.pipeline import synthetic_corpus
-    tok = FastTokenizer.train(synthetic_corpus(600), 4000)
+    tok = _smoke_tokenizer()
     return tuple(tuple(tok.encode(t)) for t in synthetic_corpus(
         16, seed=7, min_len=4, max_len=40))
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke_freqs():
+    """Token frequencies of the corpus, as the serve CLI counts them for
+    ``--prune-coverage``."""
+    from repro_torch.data.pipeline import synthetic_corpus
+    return tuple(sorted(_smoke_tokenizer().count_frequencies(
+        synthetic_corpus(600)).items()))
+
+
+def _pruned_unimo_vocab() -> int:
+    """V_new of unimo-text pruned to coverage 0.999 of the corpus."""
+    from repro_torch.core import pruning as PR
+    return len(PR.select_keep_ids(dict(_smoke_freqs()), 12800,
+                                  coverage=PRUNE_COVERAGE))
 
 
 def _serve_kw(mode):
@@ -1205,10 +1355,16 @@ def _serve_kw(mode):
             "packed_off": {"packed": False}}[mode]
 
 
-def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts):
-    """The exact launch counts a serve of ``mode`` must show."""
+def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
+                   mm_per_forward=None):
+    """The exact launch counts a serve of ``mode`` must show
+    (``mm_per_forward``: the int8 weight records one forward reads,
+    qwen3-4b's 7 per layer and the head by default)."""
     other = "" if q8 else "_q8"
-    mm_per_forward = 7 * n_layers + 1 if weights_dtype == "int8" else 0
+    if mm_per_forward is None:
+        mm_per_forward = 7 * n_layers + 1
+    if weights_dtype != "int8":
+        mm_per_forward = 0
     if mode == "packed":
         decode_steps = m.steps - m.mixed_dispatches
         forwards = m.mixed_dispatches + decode_steps
@@ -1272,30 +1428,39 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts):
 
 
 def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
-                mode="packed", profile=False):
-    """Full-width ``arch`` (bf16 weights ``params``) through
-    ``serve_continuous``: 16 synthetic requests x 32 new tokens, 8 slots,
-    max_len 256, 16-token pages, a 256-token budget, in serving ``mode``
-    (packed; speculative with the n-gram drafter or self-drafting, k = 4;
-    ``packed=False``).  The launch counts of this run (set to 0 just
-    before it, read just after) must show every attention call in the
-    kernels of its mode and pool, every draft forward's attention in
-    flash and, under int8 weights, every dense matmul in ``quant_matmul``.
-    With ``profile`` the same serve runs once more under
-    ``torch.profiler``.  Returns the run's metrics, launch counts and
-    greedy streams."""
+                mode="packed", profile=False, cfg=None, extra=None,
+                prune_maps=None, traced=False, label=None):
+    """Full-width ``arch`` (bf16 weights ``params``; ``cfg`` defaults to
+    the arch's published config) through ``serve_continuous``: 16
+    synthetic requests x 32 new tokens, 8 slots, max_len 256, 16-token
+    pages, a 256-token budget, in serving ``mode`` (packed; speculative
+    with the n-gram drafter or self-drafting, k = 4; ``packed=False``),
+    with ``extra`` serve options (a contended pool and preemption) and
+    ``prune_maps`` given to the engine.  The launch counts of this run
+    (set to 0 just before it, read just after) must show every attention
+    call in the kernels of its mode and pool, every draft forward's
+    attention in flash and, under int8 weights, every dense matmul in
+    ``quant_matmul``.  With ``traced`` the run carries a ``ServeTracer``
+    whose JSONL and Perfetto exports go to ``build/``; the JSONL must
+    validate and its device spans sum to ``metrics.device_s``.  With
+    ``profile`` the same serve runs once more under ``torch.profiler``
+    (traced too when ``traced``).  Returns the run's metrics, launch
+    counts, greedy streams, wall seconds and the profile's device busy
+    seconds (None without ``profile``)."""
     import dataclasses
 
     import torch
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import trace as TR
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.precision import BF16
     from repro_torch.core.scheduler import Request
     from repro_torch.kernels import ops
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
+    label = label or mode
     policy = dataclasses.replace(BF16, kv_dtype=kv_dtype,
                                  weights_dtype=weights_dtype)
-    serve_kw = _serve_kw(mode)
+    serve_kw = {**_serve_kw(mode), **(extra or {})}
 
     def requests(n, max_new):
         return [Request(uid=i, tokens=list(t), max_new_tokens=max_new)
@@ -1303,26 +1468,29 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
 
     def engine():
         return InferenceEngine(cfg, params, policy=policy, max_batch=8,
-                               max_len=256, device="cuda")
+                               max_len=256, device="cuda",
+                               prune_maps=prune_maps)
 
     # warm-up on its own engine (cuBLAS handles, allocator pools)
     engine().serve_continuous(requests(4, 4), **serve_kw)
     eng = engine()
     reqs = requests(16, 32)
+    tracer = TR.ServeTracer() if traced else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done, m = eng.serve_continuous(reqs, **serve_kw)
+    done, m = eng.serve_continuous(reqs, trace=tracer, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     drafts = eng.drafter.calls if mode == "spec_draft" else 0
     n_layers = cfg.num_layers
+    keep = set(prune_maps.keep_ids.tolist()) if prune_maps is not None \
+        else range(cfg.vocab_size)
     out_ok = all(r.outcome is not None and r.outcome.status == "completed"
-                 and all(0 <= t < cfg.vocab_size for t in r.result)
-                 for r in done)
-    emit("serve", arch=cfg.name, layers=n_layers, policy="bf16", mode=mode,
+                 and all(t in keep for t in r.result) for r in done)
+    emit("serve", arch=cfg.name, layers=n_layers, policy="bf16", mode=label,
          kv_dtype=m.kv_dtype, weights_dtype=m.weight_dtype,
          requests=len(done), generated_tokens=m.generated_tokens,
          wall_s=wall, tokens_per_s=m.generated_tokens / wall,
@@ -1343,39 +1511,81 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
          kv_bytes_per_token=m.kv_bytes_per_token,
          weight_bytes=m.weight_bytes,
          weight_bytes_saved=m.weight_bytes_saved, launches=launches,
-         outcomes=m.outcome_counts)
+         peak_pages_in_use=m.peak_pages_in_use,
+         preemptions=m.preemptions, resumed=m.resumed,
+         offloaded_pages=m.offloaded_pages, restored_pages=m.restored_pages,
+         host_bytes_peak=m.host_bytes_peak,
+         admission_stalls=m.admission_stalls, outcomes=m.outcome_counts)
     checks = {"all requests completed with in-vocab tokens": out_ok}
-    checks.update(_launch_checks(mode, m, launches, n_layers,
-                                 "_q8" if kv_dtype == "int8" else "",
-                                 weights_dtype, drafts))
+    checks.update(_launch_checks(
+        mode, m, launches, n_layers, "_q8" if kv_dtype == "int8" else "",
+        weights_dtype, drafts,
+        eng.weight_stats["n_quantized"] if prune_maps is not None else None))
+    if tracer is not None:
+        checks.update(_trace_checks(tracer, m, f"{arch}_{label}"))
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise SystemExit(f"{arch} {mode} serve ({kv_dtype}, "
+        raise SystemExit(f"{arch} {label} serve ({kv_dtype}, "
                          f"{weights_dtype}) failed: {failed}")
+    busy = None
     if profile:
         del eng
-        phase_profile(engine(), requests(16, 32), wall, arch, kv_dtype,
-                      weights_dtype, mode)
-    return m, launches, [r.result for r in done]
+        if traced:
+            serve_kw["trace"] = TR.ServeTracer()
+        busy = phase_profile(engine(), requests(16, 32), wall, arch,
+                             kv_dtype, weights_dtype, label, serve_kw)
+    return m, launches, [r.result for r in done], wall, busy
 
 
-def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
+def _trace_checks(tracer, m, name):
+    """Export a serve's trace into ``build/`` (JSONL and Perfetto) and
+    check it: the JSONL validates, nothing was dropped, the device spans
+    sum to ``metrics.device_s`` (1e-9 relative: the same clock reads feed
+    both) and every request's lifecycle closes."""
+    from repro_torch.core import trace as TR
+    out = ROOT / "build" / f"trace_{name}.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    paths = TR.export(tracer, str(out), "both")
+    n, errs = TR.validate_jsonl(paths[0])
+    spans = sum(e["dur"] for e in tracer.iter_events("span")
+                if e["track"] == "device")
+    kinds = {}
+    for e in tracer.events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    emit("trace", name=name, events=n, dropped=tracer.dropped,
+         errors=errs[:5], kinds=kinds, device_span_s=spans,
+         device_s=m.device_s, files=[Path(p).name for p in paths],
+         bytes=[Path(p).stat().st_size for p in paths])
+    uids = {e["uid"] for e in tracer.iter_events("enqueue")}
+    return {"trace JSONL validates": not errs and n > 0,
+            "no trace event dropped": tracer.dropped == 0,
+            "device spans sum to metrics.device_s": abs(
+                spans - m.device_s) <= 1e-9 * max(m.device_s, 1.0),
+            "every enqueued request retired in the trace": uids == {
+                e["uid"] for e in tracer.iter_events("retire")}}
+
+
+def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
+                  serve_kw=None):
     """The same serve once more, on a fresh engine, under torch.profiler:
     device time by kernel, and the device's busy share of the measured
-    (unprofiled) wall time."""
+    (unprofiled) wall time.  Returns the device busy seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     # device activity only: the host-side events of ~10^5 launches would
     # cost minutes to collect and are not read
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.serve_continuous(reqs, **_serve_kw(mode))
+        eng.serve_continuous(reqs, **(_serve_kw(mode) if serve_kw is None
+                                      else serve_kw))
         torch.cuda.synchronize()
+    # the profiler's raw device records: building its Python event list
+    # for 10^5-10^6 launches takes minutes, reading the records seconds
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {}
@@ -1404,6 +1614,7 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode):
              v["busy_frac"] for v in ours.values()),
          top=[{"kernel": k[:90], "ms": us / 1e3, "count": n}
               for k, (us, n) in top])
+    return busy_s
 
 
 def phase_serves():
@@ -1426,9 +1637,9 @@ def phase_serves():
     phase_serve("unimo-text", unimo, profile=True)
     gen.manual_seed(0)
     params = T.init_params(gen, get_config("qwen3-4b"), BF16)
-    m16, l16, s16 = phase_serve("qwen3-4b", params, profile=True)
-    m8, l8, s8 = phase_serve("qwen3-4b", params, kv_dtype="int8",
-                             weights_dtype="int8", profile=True)
+    m16, l16, s16, _, _ = phase_serve("qwen3-4b", params, profile=True)
+    m8, l8, s8, _, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+                                   weights_dtype="int8", profile=True)
     same = sum(a == b for x, y in zip(s16, s8) for a, b in zip(x, y))
     checks = {
         "int8 weight_bytes == 4,027,303,424": m8.weight_bytes == 4027303424,
@@ -1444,16 +1655,31 @@ def phase_serves():
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"qwen3-4b byte checks failed: {failed}")
-    _, la, sa = phase_serve("qwen3-4b", params, mode="spec_ngram",
-                            profile=True)
-    _, lb, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
-                           weights_dtype="int8", mode="spec_ngram",
-                           profile=True)
-    _, _, sc = phase_serve("qwen3-4b", params, mode="packed_off",
-                           profile=True)
+    _, la, sa, wall_ng, busy_ng = phase_serve("qwen3-4b", params,
+                                              mode="spec_ngram", profile=True)
+    _, lb, _, _, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+                                 weights_dtype="int8", mode="spec_ngram",
+                                 profile=True)
+    _, _, sc, _, _ = phase_serve("qwen3-4b", params, mode="packed_off",
+                                 profile=True)
+    # overload: a contended pool at bf16 and at int8 KV + int8 weights
+    phase_contended(params, m16, s16, "auto", "auto")
+    phase_contended(params, m8, s8, "int8", "int8")
+    # tracing: the n-gram serve again, with a ServeTracer
+    _, _, st, wall_t, busy_t = phase_serve(
+        "qwen3-4b", params, mode="spec_ngram", profile=True, traced=True,
+        label="spec_ngram_traced")
+    n_ng = max(sum(len(x) for x in sa), 1)
+    emit("tracing_cost", traced_wall_s=wall_t, untraced_wall_s=wall_ng,
+         wall_ratio=wall_t / wall_ng, traced_busy_s=busy_t,
+         untraced_busy_s=busy_ng,
+         greedy_match_untraced=sum(a == b for x, y in zip(sa, st)
+                                   for a, b in zip(x, y)) / n_ng)
     del params
-    _, ld, _ = phase_serve("unimo-text", unimo, mode="spec_draft",
-                           profile=True)
+    _, ld, _, _, _ = phase_serve("unimo-text", unimo, mode="spec_draft",
+                                 profile=True)
+    # the paper's embedding-layer pruning, as the serve CLI applies it
+    phase_pruned(unimo)
     # bf16 matmuls over 5-token windows and 1-token steps round
     # differently: recorded, not gated (the fp32 parity phase gates them)
     n16 = max(sum(len(x) for x in s16), 1)
@@ -1470,6 +1696,138 @@ def phase_serves():
             "paged_mixed_attention": la["paged_mixed_attention"],
             "paged_mixed_attention_q8": lb["paged_mixed_attention_q8"],
             "flash_attention": ld["flash_attention"]}
+
+
+def offload_restore_cost(cfg, kv_dtype, num_pages, n_pages, reps=10):
+    """``offload_pages`` and ``restore_pages`` on a full-width pool of
+    ``num_pages`` pages filled with random bytes: ``n_pages`` pages out to
+    pinned host memory and back into other pages, which must then hold
+    the same bytes in every leaf.  Median host-clock times (each call
+    ends synchronized: offload waits on its copies' event, restore is
+    followed by a synchronize) per page, and the blob's bytes per page."""
+    import torch
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.models import transformer as T
+    cache = T.init_paged_cache(cfg, num_pages=num_pages, page_size=16,
+                               dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                               max_slots=8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for c in cache["layers"]:
+        for k, t in c.items():
+            if t.dtype in (torch.int8, torch.int32):
+                t.copy_(torch.randint(-100, 100, t.shape, generator=gen,
+                                      device="cuda"))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    src = list(range(n_pages))
+    dst = list(range(n_pages, 2 * n_pages))
+    want = [{k: t[src].clone() for k, t in c.items()}
+            for c in cache["layers"]]
+    t_off, t_res = [], []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = KV.offload_pages(cache, src)
+        t1 = time.perf_counter()
+        KV.restore_pages(cache, blob, dst)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t_off.append(t1 - t0)
+        t_res.append(t2 - t1)
+    same = all(torch.equal(c[k][dst], w[k]) for c, w in
+               zip(cache["layers"], want) for k in w)
+    return {"n_pages": n_pages,
+            "offload_ms_per_page": statistics.median(t_off[2:]) * 1e3
+            / n_pages,
+            "restore_ms_per_page": statistics.median(t_res[2:]) * 1e3
+            / n_pages,
+            "bytes_per_page": KV.blob_bytes(blob) // n_pages,
+            "round_trip_bit_identical": same}
+
+
+def phase_contended(params, base_m, base_streams, kv_dtype, weights_dtype):
+    """Full-width qwen3-4b on a contended pool: the smoke's 16 requests x
+    32 new tokens and 8 slots, a pool of a third of the uncontended
+    serve's peak pages (at least the longest request's), ``preemption=
+    "lru"``, a host tier that holds every snapshot and the per-iteration
+    audit.  It must preempt, resume every preempted request and complete
+    every request, with the launch counts of a packed serve; the greedy
+    match against the uncontended serve is recorded (bf16 kernels choose
+    their bodies and splits by batch shape, so it is not gated).  Then
+    the cost of an offload and a restore per page on this pool."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.scheduler import TERMINAL_STATUSES
+    longest = max(-(-(len(p) + 32) // 16) for p in _smoke_prompts())
+    pool = max(-(-base_m.peak_pages_in_use // CONTENDED_POOL_DIV), longest)
+    extra = dict(num_pages=pool, preemption="lru",
+                 host_kv_bytes=HOST_KV_BYTES, debug_audit=True)
+    m, _, streams, wall, busy = phase_serve(
+        "qwen3-4b", params, kv_dtype=kv_dtype, weights_dtype=weights_dtype,
+        profile=True, extra=extra, label="contended")
+    n = max(sum(len(x) for x in base_streams), 1)
+    cost = [offload_restore_cost(get_config("qwen3-4b"), kv_dtype, pool, k)
+            for k in (1, longest)]
+    checks = {
+        "preempted at least once": m.preemptions >= 1,
+        "every preempted request resumed": m.resumed == m.preemptions,
+        "restored from the host tier": m.restored_pages > 0,
+        "every request in a terminal status": (
+            sum(m.outcome_counts.get(k, 0) for k in TERMINAL_STATUSES)
+            == 16),
+        "offload/restore round trip bit-identical": all(
+            c["round_trip_bit_identical"] for c in cost),
+    }
+    emit("contended", kv_dtype=kv_dtype, weights_dtype=weights_dtype,
+         pool_pages=pool, uncontended_peak_pages=base_m.peak_pages_in_use,
+         pool_frac=pool / base_m.peak_pages_in_use,
+         longest_request_pages=longest, host_kv_bytes=HOST_KV_BYTES,
+         preemptions=m.preemptions, resumed=m.resumed,
+         offloaded_pages=m.offloaded_pages, restored_pages=m.restored_pages,
+         host_bytes_peak=m.host_bytes_peak,
+         admission_stalls=m.admission_stalls, wall_s=wall,
+         device_busy_s=busy,
+         greedy_match_uncontended=sum(
+             a == b for x, y in zip(base_streams, streams)
+             for a, b in zip(x, y)) / n, offload_restore=cost,
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"qwen3-4b contended serve ({kv_dtype}, "
+                         f"{weights_dtype}) failed: {failed}")
+
+
+def phase_pruned(unimo):
+    """Full-width unimo-text pruned as the serve CLI prunes it
+    (``--prune-coverage 0.999`` on the smoke's corpus) with the learned
+    position table trimmed to the serve's max_len, at int8 weights: its
+    tied head runs ``quant_matmul`` at N = V_new.  The serve must complete
+    every request with tokens of the original id space (unmapped), with
+    the launch counts of a packed serve."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import pruning as PR
+    cfg = get_config("unimo-text")
+    p2, cfg2, maps = PR.prune_model(unimo, cfg, dict(_smoke_freqs()),
+                                    coverage=PRUNE_COVERAGE, new_max_len=256)
+
+    def embed_bytes(p):
+        return sum(t.numel() * t.element_size()
+                   for t in p["embed"].values())
+    longest = max(len(p) for p in _smoke_prompts()) + 32
+    m, _, streams, _, _ = phase_serve(
+        "unimo-text", p2, cfg=cfg2, weights_dtype="int8", prune_maps=maps,
+        profile=True, label="pruned")
+    emit("pruned", arch=cfg.name, coverage=PRUNE_COVERAGE,
+         vocab_before=cfg.vocab_size, vocab_after=cfg2.vocab_size,
+         pos_rows_before=cfg.max_seq_len, pos_rows_after=cfg2.max_seq_len,
+         embed_bytes_before=embed_bytes(unimo), embed_bytes_after=embed_bytes(
+             p2), longest_context=longest, weight_bytes=m.weight_bytes,
+         tokens_outside_kept_ids=sum(
+             t not in set(maps.keep_ids.tolist()) for r in streams
+             for t in r))
+    if cfg2.vocab_size != _pruned_unimo_vocab() or longest > 256:
+        raise SystemExit("pruned unimo-text: V_new or the trimmed table "
+                         "does not match the kernel cases' shapes")
 
 
 def phase_serve_xlstm():
@@ -1598,6 +1956,7 @@ def main(argv=None) -> int:
     phase_parity("qwen3-4b")
     phase_parity("qwen3-4b", kv_dtype="int8", weights_dtype="int8")
     phase_parity_xlstm()
+    phase_parity_overload()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm",

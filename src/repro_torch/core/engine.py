@@ -7,13 +7,15 @@ An iteration that carries prefill chunks runs token-packed (one (1, T)
 dispatch, the default) or, with ``packed=False``, as the reference's A/B
 baseline: a one-step decode plus one (1, W-bucket) mixed forward per
 chunk.  With a ``SpecConfig``, decode-only iterations run draft-verify
-steps instead.
+steps instead.  Under pool pressure a decoding slot can be preempted into
+a host KV tier and resumed; a :class:`~repro_torch.core.trace.ServeTracer`
+records the loop's event timeline; an engine built on a pruned vocabulary
+(``prune_maps``) remaps prompts and unmaps results.
 
 The engine runs on the card by default (``device="cuda"``) and raises when
 no CUDA device is present; pass ``device="cpu"`` to run the kernels'
-plain PyTorch versions.  Options of the reference that the port does not
-serve yet (preemption and the host KV tier, fault injection, tracing, the
-bucketed path of attention models, vocabulary pruning) raise
+plain PyTorch versions.  The reference's bucketed path for attention
+models (``chunked_prefill=False``) is not ported and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_specs
 from repro_torch.core import kv_cache as KV
 from repro_torch.core import prefix_cache as PC
-from repro_torch.core.continuous import (ContinuousScheduler, PageAllocator,
+from repro_torch.core import pruning as PR
+from repro_torch.core.continuous import (ContinuousScheduler, FaultConfig,
+                                         HostKVStore, PageAllocator,
                                          ServeMetrics)
 from repro_torch.core.precision import (BF16, Policy, compress_weights,
                                         map_params)
@@ -75,21 +79,28 @@ def resolve_device(device) -> torch.device:
 
 
 class InferenceEngine:
-    """Single-host serving engine for one model on one device."""
+    """Single-host serving engine for one model on one device.
+
+    ``prune_maps`` (from :func:`~repro_torch.core.pruning.prune_model`)
+    marks ``cfg``/``params`` as a pruned-vocabulary model: requests come
+    and go in the original ids, remapped at submission and unmapped on
+    the way out."""
 
     def __init__(self, cfg: ModelConfig, params, *, policy: Policy = BF16,
                  max_batch: int = 8, max_len: int = 512, seed: int = 0,
-                 device="cuda", prune_maps=None):
+                 device="cuda", prune_maps: Optional[PR.PruneMaps] = None):
         self.device = resolve_device(device)
-        if prune_maps is not None:
-            raise NotImplementedError("vocabulary pruning is not ported")
         T.check_supported(cfg)
         self.cfg = cfg
         self.policy = policy
+        self.prune_maps = prune_maps
         self.params = policy.cast_params(
             map_params(lambda p: p.to(self.device), params))
+        t_q = time.perf_counter()
         self.params, self.weight_stats = compress_weights(self.params,
                                                           policy)
+        self._sync()
+        self.weight_quant_s = time.perf_counter() - t_q
         self.max_batch = max_batch
         self.max_len = max_len
         self.gen = torch.Generator(device=self.device)
@@ -282,7 +293,8 @@ class InferenceEngine:
                          preemption: str = "off",
                          max_preemptions: int = 2,
                          host_kv_bytes: Optional[int] = None,
-                         faults=None, debug_audit: bool = False,
+                         faults: Optional[FaultConfig] = None,
+                         debug_audit: bool = False,
                          trace=None):
         """Serve requests with continuous batching over a paged KV cache.
 
@@ -305,11 +317,31 @@ class InferenceEngine:
         ``arrivals`` gives optional per-request arrival offsets in
         seconds.
 
-        Overload survival is not ported: ``preemption`` other than
-        "off", ``host_kv_bytes``, ``faults``, ``debug_audit=True`` and
-        ``trace`` raise ``NotImplementedError``; ``max_preemptions`` (the
-        reference's cap on preemptions per request) is taken and has
-        nothing to bound while preemption is off.
+        ``preemption`` "lru" (victim: the most recently admitted) or
+        "priority" (victim: the lowest ``Request.priority``, strictly
+        below the blocked head's): an admission that fails for pages
+        while a slot is free evicts a decoding victim between dispatches.
+        Its pages are snapshotted into a host tier of ``host_kv_bytes``
+        (when set) and freed, and the request re-queues at the back with
+        its generated tokens.  On re-admission the snapshot is restored
+        and decoding continues where it stopped; if the host tier had no
+        room, prompt and generated tokens are prefilled again.  The
+        prefix trie spills evicted full-page leaves into the same tier
+        and promotes them back on a match.  ``max_preemptions`` bounds
+        the evictions of one request.  ``Request.deadline`` (seconds on
+        the serve clock) and ``Request.max_queue_wait`` cancel queued
+        work (``timed_out``; running slots are never cancelled).
+        ``faults`` (a :class:`FaultConfig`) injects faults, and
+        ``debug_audit`` checks the allocator and host-tier accounting on
+        every iteration.
+
+        ``trace``: a :class:`~repro_torch.core.trace.ServeTracer`.  The
+        loop then emits per-iteration records, request lifecycle events
+        and scheduler decisions, device dispatches as ``span`` events on
+        the device track (each ends with the device's completion), and
+        takes every wall-clock reading from the tracer's clock, so a
+        deterministic fake clock gives byte-identical traces.  ``None``
+        costs nothing: every emit site is guarded.
 
         Recurrent models (every layer mLSTM or sLSTM) keep dense per-slot
         state that chunks cannot resume and requests cannot share, so,
@@ -317,21 +349,14 @@ class InferenceEngine:
         admissions of equal prompt length are grouped into power-of-two
         batches, each prefilled whole in one dispatch at its exact
         length, then every slot decodes in fused steps.  There
-        ``prefix_cache``, ``spec``, ``chunked_prefill`` and ``packed``
-        warn and are turned off, as the reference does.
+        ``prefix_cache``, ``spec``, ``chunked_prefill``, ``packed`` and
+        ``preemption`` warn and are turned off, as the reference does.
 
         Returns (requests, ServeMetrics); ``r.result`` holds each
         request's generated tokens.
         """
-        unported = {"preemption": preemption != "off",
-                    "host_kv_bytes": host_kv_bytes is not None,
-                    "faults": faults is not None,
-                    "debug_audit": debug_audit,
-                    "trace": trace is not None}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"serve_continuous options not ported: {', '.join(bad)}")
+        if preemption not in ("off", "lru", "priority"):
+            raise ValueError(f"unknown preemption policy {preemption!r}")
         reason = PC.shareable(self.cfg, self.max_len)
         if reason is not None and not all(
                 layer.mixer in T.RECURRENT
@@ -347,8 +372,8 @@ class InferenceEngine:
         if arrivals is not None and len(arrivals) != len(requests):
             raise ValueError("arrivals must match requests 1:1")
         # the reference's family gate: a model whose layers cannot share
-        # pages serves without the prefix cache, speculation, chunks and
-        # packing, with a warning for each one asked for
+        # pages serves without the prefix cache, speculation, chunks,
+        # preemption and packing, with a warning for each one asked for
         share = reason is None if prefix_cache is None else bool(prefix_cache)
         if share and reason is not None:
             warnings.warn(f"prefix_cache requested but disabled — {reason}")
@@ -361,6 +386,11 @@ class InferenceEngine:
         if chunked_prefill and reason is not None:
             warnings.warn(f"chunked prefill requested but disabled — "
                           f"{reason}")
+        if preemption != "off" and not chunked:
+            warnings.warn("preemption requested but disabled — it needs "
+                          "the unified chunked scheduler (resume "
+                          "re-prefill rides the chunk machinery)")
+            preemption = "off"
         packed_on = chunked if packed is None else bool(packed)
         if packed_on and not chunked:
             warnings.warn(f"packed execution requested but disabled — it "
@@ -387,11 +417,46 @@ class InferenceEngine:
             budget = floor
         packed_buckets = packed_width_buckets(budget)
         width_buckets = mixed_width_buckets(budget)
+        # the host KV tier persists with the pool; a new budget replaces
+        # it (spilled prefixes of the old one are dropped with it)
+        host = None
+        if host_kv_bytes is not None or (faults is not None
+                                         and faults.host_full):
+            hb = 0 if (faults is not None and faults.host_full) \
+                else host_kv_bytes
+            host = ctx.get("host")
+            if host is None or host.max_bytes != hb:
+                host = HostKVStore(hb)
+                ctx["host"] = host
 
         cache = ctx["cache"]
         sched = ContinuousScheduler(slots, ctx["alloc"], page_size,
                                     max_pages_per_slot=pages_per_slot,
-                                    prefix_cache=trie, match_prefix=share)
+                                    prefix_cache=trie, match_prefix=share,
+                                    preemption=preemption,
+                                    max_preemptions=max_preemptions,
+                                    trace=trace)
+
+        # device closures of the host-side scheduler and trie (the pool
+        # is updated in place, so they always see its latest contents)
+        def offload_fn(pages):
+            return KV.offload_pages(cache, pages)
+
+        def restore_fn(blob, pages):
+            KV.restore_pages(cache, blob, pages)
+
+        sched.host_store = host
+        sched.offload_fn = offload_fn
+        sched.restore_fn = restore_fn
+        trie.host_store = host
+        trie.offload_fn = offload_fn if host is not None else None
+        # the tracer, like offload_fn, must not outlive this call on the
+        # persistent trie and host tier (detached at the end)
+        trie.trace = trace
+        if host is not None:
+            host.trace = trace
+        spill_base = trie.spilled_pages
+        promote_base = sched.promoted_pages
         ws = self.weight_stats
         metrics = ServeMetrics(kv_dtype=ctx["kv_dtype"],
                                kv_pool_bytes=ctx["kv_pool_bytes"],
@@ -413,26 +478,74 @@ class InferenceEngine:
         rem = np.zeros((slots,), np.int32)
         act = np.zeros((slots,), bool)
 
+        if faults is not None and faults.collapse_arrivals:
+            arrivals = None            # a burst: everything at t=0
         order = sorted(range(len(requests)),
                        key=lambda i: arrivals[i]) if arrivals else \
             list(range(len(requests)))
         incoming = [(arrivals[i] if arrivals else 0.0, requests[i])
                     for i in order]
-        t0 = time.perf_counter()
+        fault_hold: List[int] = []     # pool pages a fault squats on
+        # with a tracer attached, every wall reading of this loop comes
+        # from its clock: a deterministic fake clock then reproduces the
+        # event stream, timestamps included
+        tr = trace
+        clk = tr.clock if tr is not None else time.perf_counter
+        t0 = clk()
+        if tr is not None:
+            tr.set_origin(t0)
+            # weight-compression gauge, and the load-time quantization
+            # span only where weights were compressed (its wall duration
+            # would break a fake clock's byte-identical trace otherwise)
+            tr.emit("weights", 0.0, dtype=ws["weights_dtype"],
+                    weight_bytes=int(ws["weight_bytes"]),
+                    weight_bytes_dense=int(ws["weight_bytes_dense"]),
+                    quantized_tensors=int(ws["n_quantized"]))
+            if ws["n_quantized"]:
+                tr.emit("span", 0.0, name="quantize_weights",
+                        dur=float(self.weight_quant_s), track="load")
 
         def now():
-            return time.perf_counter() - t0
+            return clk() - t0
+
+        # per-iteration accounting of the trace timeline: device time
+        # accumulates over the iteration's spans, then one iteration
+        # record carries the host/device split and the pool gauges
+        it_acc = {"t0": 0.0, "iter": 0, "device_s": 0.0}
 
         @contextmanager
-        def dev_span():
+        def dev_span(name):
             """Time one device dispatch up to its completion (the span
-            ends with a device synchronize on the card)."""
-            ts = time.perf_counter()
+            ends with a device synchronize on the card) into
+            ``metrics.device_s`` and, when tracing, a device-track span
+            named ``name``."""
+            ts = clk()
             try:
                 yield
             finally:
                 self._sync()
-                metrics.device_s += time.perf_counter() - ts
+                dt = clk() - ts
+                metrics.device_s += dt
+                it_acc["device_s"] += dt
+                if tr is not None:
+                    tr.emit("span", t=ts - t0, name=name, dur=dt,
+                            track="device")
+
+        def emit_iteration(**kw):
+            dev = it_acc["device_s"]
+            it_acc["device_s"] = 0.0
+            it_acc["iter"] += 1
+            if tr is None:
+                return
+            t_it = it_acc["t0"]
+            dur = max(0.0, now() - t_it)
+            tr.emit("iteration", t=t_it, iter=it_acc["iter"] - 1, dur=dur,
+                    host_s=max(0.0, dur - dev), device_s=dev,
+                    budget=budget if chunked else 0,
+                    pages_in_use=int(sched.allocator.allocated_count),
+                    host_bytes=int(host.used_bytes) if host is not None
+                    else 0,
+                    trie_nodes=int(trie.num_nodes), **kw)
 
         def count_outcome(req):
             oc = req.outcome
@@ -453,6 +566,14 @@ class InferenceEngine:
             metrics.generated_tokens += len(st.request.result)
             count_outcome(st.request)
             metrics.latency_s.append(st.finished_at - st.submitted_at)
+            if tr is not None:
+                oc = st.request.outcome
+                tr.emit("retire", t=st.finished_at, uid=st.request.uid,
+                        slot=int(slot), status=oc.status,
+                        preemptions=int(oc.preemptions),
+                        deadline_missed=bool(oc.deadline_missed),
+                        latency_s=st.finished_at - st.submitted_at,
+                        generated=len(st.request.result))
 
         def record_emit(st, n, t):
             """TTFT / ITL bookkeeping: ``n`` tokens appended at wall time
@@ -461,15 +582,27 @@ class InferenceEngine:
                 return
             if st.last_token_at is None:
                 metrics.ttft_s.append(t - st.submitted_at)
+                if tr is not None:
+                    tr.emit("first_token", t=t, uid=st.request.uid,
+                            ttft_s=t - st.submitted_at)
             else:
                 metrics.itl_s.extend([(t - st.last_token_at) / n] * n)
             st.last_token_at = t
 
         def start_decoding(slot, st, first):
-            """A prompt's final chunk sampled ``first``: emit it and
-            either retire the slot or hand it to decode."""
-            req = st.request
+            """A context's final chunk is written: a recompute-resume
+            continues from its kept pending token (the final chunk's
+            sample ``first`` is not used); otherwise ``first`` is emitted
+            and the slot either retires or goes on to decode."""
             plen = st.ctx_len
+            if st.is_resume:
+                tok[slot] = st.resume_pending
+                lens[slot] = plen
+                rem[slot] = st.resume_rem
+                act[slot] = True
+                st.last_token_at = now()
+                return
+            req = st.request
             gen_budget = min(req.max_new_tokens, self.max_len - plen)
             if first != EOS and gen_budget > 0:
                 st.emitted.append(first)
@@ -503,6 +636,19 @@ class InferenceEngine:
                 cow_keep[i] = st.matched_len
                 metrics.cow_copies += 1
 
+        def finish_chunk(c, st):
+            """Bookkeeping of a prefill chunk once it is written; True if
+            it was the context's final chunk (its page-aligned KV then
+            joins the trie; the partial tail joins at retire)."""
+            if st.needs_init:
+                st.needs_init = False
+                sched.release_cow_source(st)
+            st.prefill_pos = c.start + c.length
+            if not st.prefill_done:
+                return False
+            sched.insert_prefix(st, (st.ctx_len // page_size) * page_size)
+            return True
+
         def run_packed(plan):
             """One token-packed iteration: the whole plan — every
             decoding slot's token plus every scheduled prefill chunk —
@@ -519,7 +665,7 @@ class InferenceEngine:
                                         pb.seg_len[:pb.n_segments],
                                         pb.seg_slots[:pb.n_segments],
                                         W, n_work)
-            with dev_span():
+            with dev_span("packed"):
                 nxt = self._packed_step(cache, pb, meta, block_tables,
                                         init, sp).cpu().numpy()
             metrics.host_syncs += 1
@@ -552,17 +698,17 @@ class InferenceEngine:
             for i in range(pb.n_decode, pb.n_segments):
                 c = plan.chunks[i - pb.n_decode]
                 st = sched.slots[c.slot]
-                if st.needs_init:
-                    st.needs_init = False
-                    sched.release_cow_source(st)
-                st.prefill_pos = c.start + c.length
-                if not st.prefill_done:
-                    continue
-                # final chunk: page-aligned prompt KV joins the trie now
-                # (the partial tail joins at retire)
-                sched.insert_prefix(
-                    st, (st.ctx_len // page_size) * page_size)
-                start_decoding(c.slot, st, int(nxt[i]))
+                if tr is not None:
+                    tr.emit("prefill_chunk", t=t_emit, uid=st.request.uid,
+                            slot=int(c.slot), start=int(c.start),
+                            len=int(c.length))
+                if finish_chunk(c, st):
+                    start_decoding(c.slot, st, int(nxt[i]))
+            emit_iteration(budget_used=int(pb.n_tokens),
+                           decode_lanes=len(plan.decode_slots),
+                           chunk_segments=len(plan.chunks),
+                           chunk_tokens=int(real), width_bucket=int(W),
+                           padded_lanes=int(W - pb.n_tokens), idle=False)
 
         def apply_decode_results(tok_d, lens_d, rem_d, act_d, emits):
             """Fold a decode or verify dispatch's results into the host
@@ -589,7 +735,8 @@ class InferenceEngine:
             act = act_new
 
         def run_decode():
-            with dev_span():
+            n_lanes = int(act.sum())
+            with dev_span("decode"):
                 tok_d, lens_d, rem_d, act_d, emits_d, acts_d = \
                     self._decode_steps(cache, tok, lens, rem, act,
                                        block_tables, steps_per_sync, sp)
@@ -599,6 +746,10 @@ class InferenceEngine:
             metrics.slot_steps_total += slots * steps_per_sync
             metrics.slot_steps_active += int(acts_d.sum())
             apply_decode_results(tok_d, lens_d, rem_d, act_d, emits)
+            emit_iteration(budget_used=n_lanes * steps_per_sync,
+                           decode_lanes=n_lanes, chunk_segments=0,
+                           chunk_tokens=0, width_bucket=0, padded_lanes=0,
+                           idle=False)
 
         def run_verify():
             """One draft-verify step (decode-only iterations under spec):
@@ -608,7 +759,7 @@ class InferenceEngine:
             for slot, st in sched.slots.items():
                 if act[slot]:
                     contexts[slot] = st.request.tokens + st.emitted
-            with dev_span():
+            with dev_span("verify"):
                 drafts = drafter.propose_slots(contexts)
                 tok_d, lens_d, rem_d, act_d, emits_d, acc_d = \
                     self._verify_step(cache, tok, lens, rem, act, drafts,
@@ -621,6 +772,10 @@ class InferenceEngine:
             metrics.drafted_tokens += drafter.k * n_lanes
             metrics.accepted_tokens += int(acc_d.sum())
             apply_decode_results(tok_d, lens_d, rem_d, act_d, emits)
+            emit_iteration(budget_used=n_lanes * (drafter.k + 1),
+                           decode_lanes=n_lanes, chunk_segments=0,
+                           chunk_tokens=0, width_bucket=0, padded_lanes=0,
+                           idle=False)
 
         def run_mixed(plan):
             """One mixed iteration of the ``packed=False`` path: a one-step
@@ -628,7 +783,8 @@ class InferenceEngine:
             per prefill chunk (page init fused into a slot's first chunk),
             all dispatched before the iteration's one synchronize; then
             the reference's bookkeeping, decode results first."""
-            with dev_span():
+            padded = 0
+            with dev_span("mixed"):
                 dec = self._decode_steps(cache, tok, lens, rem, act,
                                          block_tables, 1, sp) \
                     if plan.decode_slots else None
@@ -646,22 +802,33 @@ class InferenceEngine:
                     nxt = self._mixed_step(
                         cache, toks, c.start, c.length,
                         block_tables[c.slot:c.slot + 1], init, sp)
+                    padded += W - c.length
                     metrics.prefill_chunks += 1
                     metrics.prefill_tokens += c.length
                     metrics.prefill_padded += W
-                    if c.start + c.length >= st.ctx_len:
+                    # a recompute-resume's final chunk samples nothing
+                    # that is used
+                    if c.start + c.length >= st.ctx_len \
+                            and not st.is_resume:
                         finals[ci] = nxt
                 # the iteration's one device-to-host copy: decode emits,
                 # then the final chunks' samples
                 parts = ([dec[4].reshape(-1).long()] if dec else []) + \
                     [t.reshape(-1).long() for t in finals.values()]
-                host = torch.cat(parts).cpu().numpy() if parts else None
+                host_out = torch.cat(parts).cpu().numpy() if parts \
+                    else None
             n_dec = slots if dec else 0
-            emits = host[:n_dec].reshape(slots, 1) if dec else None
-            finals = dict(zip(finals, host[n_dec:])) if finals else {}
+            emits = host_out[:n_dec].reshape(slots, 1) if dec else None
+            finals = dict(zip(finals, host_out[n_dec:])) if finals else {}
             metrics.host_syncs += 1
             metrics.mixed_iters += 1
             metrics.mixed_dispatches += len(plan.chunks) + (dec is not None)
+            if tr is not None:
+                for c in plan.chunks:
+                    tr.emit_now("prefill_chunk",
+                                uid=sched.slots[c.slot].request.uid,
+                                slot=int(c.slot), start=int(c.start),
+                                len=int(c.length))
             if dec:
                 metrics.steps += 1
                 metrics.slot_steps_total += slots
@@ -669,15 +836,16 @@ class InferenceEngine:
                 apply_decode_results(*dec[:4], emits)
             for ci, c in enumerate(plan.chunks):
                 st = sched.slots[c.slot]
-                if st.needs_init:
-                    st.needs_init = False
-                    sched.release_cow_source(st)
-                st.prefill_pos = c.start + c.length
-                if not st.prefill_done:
-                    continue
-                sched.insert_prefix(
-                    st, (st.ctx_len // page_size) * page_size)
-                start_decoding(c.slot, st, int(finals[ci]))
+                if finish_chunk(c, st):
+                    start_decoding(c.slot, st, None if st.is_resume
+                                   else int(finals[ci]))
+            emit_iteration(budget_used=int(plan.total_tokens),
+                           decode_lanes=len(plan.decode_slots),
+                           chunk_segments=len(plan.chunks),
+                           chunk_tokens=int(sum(c.length
+                                                for c in plan.chunks)),
+                           width_bucket=0, padded_lanes=int(padded),
+                           idle=False)
 
         def flush_admissions(pending):
             """Bucketed fallback: run the pending equal-length admissions
@@ -704,7 +872,7 @@ class InferenceEngine:
                 block_tables[slot, :] = -1
                 block_tables[slot, :len(st.pages)] = st.pages
                 pages[i, :len(st.fresh_pages)] = st.fresh_pages
-            with dev_span():
+            with dev_span("admit_prefill"):
                 first = self._admit_step(cache, toks, plens, slots_arr,
                                          pages, sp).cpu().numpy()
             metrics.host_syncs += 1
@@ -713,6 +881,9 @@ class InferenceEngine:
                 metrics.admitted += 1
                 metrics.prefill_tokens += plen
                 metrics.prefill_padded += plen
+                if tr is not None:
+                    tr.emit_now("prefill_chunk", uid=st.request.uid,
+                                slot=int(slot), start=0, len=int(plen))
                 start_decoding(slot, st, int(first[i]))
 
         def admit_bucketed():
@@ -737,10 +908,102 @@ class InferenceEngine:
                 if not progress or not sched.waiting:
                     return
 
+        def admit_chunked():
+            """Unified scheduler: admission only claims a slot and its
+            pages (the prompt is prefilled in budgeted chunks by the
+            iterations) or resumes a preempted request; when the head is
+            blocked on pages with a slot free, preempt decoding victims
+            for it, between dispatches."""
+            while True:
+                adm = sched.try_admit(now())
+                if adm is not None:
+                    slot, st = adm
+                    block_tables[slot, :] = -1
+                    block_tables[slot, :len(st.pages)] = st.pages
+                    if st.restore_blob is not None:
+                        # host-tier resume: the snapshot goes back and the
+                        # slot rejoins decode exactly where it stopped
+                        KV.restore_pages(cache, st.restore_blob, st.pages)
+                        st.restore_blob = None
+                        metrics.restored_pages += len(st.pages)
+                        metrics.resumed += 1
+                        tok[slot] = st.resume_pending
+                        lens[slot] = st.ctx_len
+                        rem[slot] = st.resume_rem
+                        act[slot] = True
+                        st.last_token_at = now()
+                        if tr is not None:
+                            tr.emit_now("restore", uid=st.request.uid,
+                                        slot=int(slot), mode="hostkv",
+                                        n_pages=len(st.pages))
+                    elif st.is_resume:
+                        # the host tier had no room: prefill the context
+                        # again as ordinary chunks (recompute-resume)
+                        metrics.resumed += 1
+                        if tr is not None:
+                            tr.emit_now("restore", uid=st.request.uid,
+                                        slot=int(slot), mode="recompute",
+                                        n_pages=len(st.pages))
+                    else:
+                        metrics.admitted += 1
+                        metrics.prefix_hits += st.matched_len > 0
+                        metrics.prefix_matched_tokens += st.matched_len
+                        metrics.pages_shared += st.shared_count
+                        if tr is not None and st.matched_len > 0:
+                            tr.emit_now("prefix_hit", uid=st.request.uid,
+                                        matched_tokens=int(st.matched_len),
+                                        pages_shared=int(st.shared_count))
+                    continue
+                # the head is blocked: preempt only when a slot is free
+                # (pure pool pressure) and evicting every eligible victim
+                # could fit it (else preemption is churn)
+                if preemption == "off" or not sched.waiting \
+                        or not sched.free_slots():
+                    return
+                head = sched.waiting[0]
+                if sched.queued_pages_needed(head) \
+                        > sched.preemptible_headroom(head):
+                    return
+                victim = sched.pick_victim(head)
+                if victim is None:
+                    return
+                n_pages = len(sched.slots[victim].pages)
+                vic_uid = sched.slots[victim].request.uid
+                _, offloaded = sched.preempt(
+                    victim, pending=int(tok[victim]),
+                    ctx_len=int(lens[victim]),
+                    rem_tokens=int(rem[victim]))
+                act[victim] = False
+                block_tables[victim, :] = -1
+                metrics.preemptions += 1
+                if offloaded:
+                    metrics.offloaded_pages += n_pages
+                if tr is not None:
+                    tr.emit_now("preempt", uid=int(vic_uid),
+                                slot=int(victim), policy=preemption,
+                                n_pages=int(n_pages),
+                                offloaded=bool(offloaded))
+                    if offloaded:
+                        tr.emit_now("offload", uid=int(vic_uid),
+                                    slot=int(victim), n_pages=int(n_pages))
+
         while incoming or sched.has_work():
+            if tr is not None:
+                it_acc["t0"] = now()
             # -- release arrived requests into the FCFS queue -------------
             while incoming and incoming[0][0] <= now():
                 _, req = incoming.pop(0)
+                if self.prune_maps is not None:
+                    req.tokens = [int(t) for t in PR.remap_tokens(
+                        req.tokens, self.prune_maps)]
+                if faults is not None and req.uid in faults.oversize_uids:
+                    # inflate past the whole pool: truncation or
+                    # rejection below must absorb it, never raise
+                    target = max(self.max_len,
+                                 num_pages * page_size) + page_size
+                    req.tokens = (req.tokens
+                                  * (target // max(len(req.tokens), 1)
+                                     + 1))[:target]
                 if req.prompt_len > self.max_len:
                     # leave the truncated prompt room to generate
                     limit = max(self.max_len - req.max_new_tokens,
@@ -753,39 +1016,44 @@ class InferenceEngine:
             for req in sched.cancel_expired(now()):
                 count_outcome(req)
 
-            # -- unified: admission only claims a slot and its pages; the
-            # prompt is prefilled in budgeted chunks by the packed
-            # iterations.  Bucketed: whole prompts at admission ----------
-            while chunked:
-                adm = sched.try_admit(now())
-                if adm is None:
-                    break
-                slot, st = adm
-                block_tables[slot, :] = -1
-                block_tables[slot, :len(st.pages)] = st.pages
-                metrics.admitted += 1
-                metrics.prefix_hits += st.matched_len > 0
-                metrics.prefix_matched_tokens += st.matched_len
-                metrics.pages_shared += st.shared_count
-            if not chunked:
+            # -- fault injection: a squatter on free pool pages -----------
+            if faults is not None and faults.hold_pages and not fault_hold \
+                    and metrics.admitted >= faults.hold_after_admits:
+                fault_hold = sched.allocator.alloc(
+                    min(faults.hold_pages,
+                        sched.allocator.free_count)) or []
+
+            if chunked:
+                admit_chunked()
+            else:
                 admit_bucketed()
             metrics.peak_pages_in_use = max(metrics.peak_pages_in_use,
                                             sched.allocator.allocated_count)
             if sched.waiting and sched.free_slots() and sched.slots:
                 metrics.admission_stalls += 1
+            if debug_audit:
+                # refcount and host-tier accounting hold on every
+                # iteration, not only at the end of the run
+                sched.allocator.check()
+                if host is not None:
+                    host.check()
 
             if not sched.slots:
                 if sched.waiting:
                     # the head can never fit: fail it rather than spin
                     head = sched.waiting[0]
-                    detail = (f"needs {sched.pages_needed(head)} pages but "
-                              f"the pool holds {sched.allocator.num_pages} "
+                    detail = (f"needs {sched.queued_pages_needed(head)} "
+                              f"pages but the pool holds "
+                              f"{sched.allocator.num_pages} "
                               f"({sched.allocator.free_count} free after "
                               f"eviction)")
                     warnings.warn(f"request {head.uid}: {detail}; rejecting")
                     count_outcome(sched.fail_head(detail))
                 elif incoming:        # idle until the next arrival
                     time.sleep(max(0.0, min(incoming[0][0] - now(), 0.01)))
+                emit_iteration(budget_used=0, decode_lanes=0,
+                               chunk_segments=0, chunk_tokens=0,
+                               width_bucket=0, padded_lanes=0, idle=True)
                 continue
 
             plan = sched.next_batch(budget) if chunked else None
@@ -797,7 +1065,25 @@ class InferenceEngine:
                 run_decode()
 
         metrics.host_s = max(0.0, now() - metrics.device_s)
+        if fault_hold:                 # release the injected squatter
+            sched.allocator.free(fault_hold)
         metrics.prefix_evicted_pages = trie.evicted_pages - trie_base
+        # trie spills count as offloads, promotions as restores; the trie
+        # outlives this call but its device closure and tracer must not
+        metrics.offloaded_pages += trie.spilled_pages - spill_base
+        metrics.restored_pages += sched.promoted_pages - promote_base
+        trie.offload_fn = None
+        trie.trace = None
+        if host is not None:
+            host.trace = None
+            host.check()
+            metrics.host_bytes_used = host.used_bytes
+            metrics.host_bytes_peak = host.peak_bytes
+        if self.prune_maps is not None:
+            for r in requests:
+                if r.result:
+                    r.result = [int(t) for t in PR.unmap_tokens(
+                        r.result, self.prune_maps)]
         # pool accounting must balance: every page is free or cached
         sched.allocator.check()
         resident = trie.resident_pages

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import (ATTN, MLSTM, SLSTM, LayerSpec,
@@ -332,3 +333,84 @@ def slot_merge(cache: dict, view: dict, slots) -> dict:
             if k not in PAGED_KEYS:
                 c[k][idx] = vv[k].to(c[k].dtype)
     return cache
+
+
+# -- host-memory offload / restore: the overload escape valve ---------------
+#
+# Under pool pressure the scheduler preempts a slot: its pages' bytes move
+# to host memory (``offload_pages``) so that the device pages can be freed,
+# and move back verbatim (``restore_pages``) when the request is
+# re-admitted; decode then resumes where it stopped, with no recompute.
+# The same two functions back the prefix cache's host spill tier.
+
+
+def _page_index(cache: dict, pages) -> torch.Tensor:
+    dev = next(c["ppos"].device for c in cache["layers"] if "ppos" in c)
+    return torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+
+
+def offload_pages(cache: dict, pages) -> list:
+    """Snapshot the full contents of physical ``pages`` to host memory.
+
+    Returns a blob with one entry per layer: ``{leaf key: CPU tensor}``
+    over every paged leaf (K/V codes, the int8 scale pools, positions:
+    ``PAGED_KEYS``) for a paged layer, ``None`` for a layer of dense
+    per-slot state.  From a pool on the card each leaf is gathered there
+    and copied into pinned host memory; the function waits on an event
+    recorded after the last copy, so the blob is complete when it
+    returns and the pages may be freed and rewritten at once.
+    """
+    idx = _page_index(cache, pages)
+    blob = []
+    for c in cache["layers"]:
+        if "ppos" not in c:
+            blob.append(None)
+            continue
+        row = {}
+        for k in PAGED_KEYS:
+            if k not in c:
+                continue
+            rows = c[k].index_select(0, idx)
+            if rows.is_cuda:
+                host = torch.empty(rows.shape, dtype=rows.dtype,
+                                   pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            row[k] = rows
+        blob.append(row)
+    if idx.is_cuda:
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    return blob
+
+
+def restore_pages(cache: dict, blob: list, pages) -> dict:
+    """Scatter an :func:`offload_pages` blob into physical ``pages`` (any
+    pages: a restore need not land where the snapshot was taken), in
+    place.  Every paged leaf row of those pages is overwritten, so no
+    prior :func:`reset_pages` is needed.  On the card each leaf is copied
+    from pinned memory without blocking, on the current stream, and
+    scattered on the same stream; PyTorch's pinned-memory allocator keeps
+    the host block from reuse until its copy has run, so the caller may
+    drop the blob at once."""
+    idx = _page_index(cache, pages)
+    if len(blob) != len(cache["layers"]):
+        raise ValueError(f"blob has {len(blob)} layers, the cache "
+                         f"{len(cache['layers'])}")
+    for c, b in zip(cache["layers"], blob):
+        if b is None:
+            continue
+        for k, rows in b.items():
+            if rows.shape[0] != idx.shape[0]:
+                raise ValueError(f"blob holds {rows.shape[0]} pages, "
+                                 f"restoring into {idx.shape[0]}")
+            c[k][idx] = rows.to(c[k].device, non_blocking=True)
+    return cache
+
+
+def blob_bytes(blob: list) -> int:
+    """Host bytes an :func:`offload_pages` blob occupies (what the
+    byte-budgeted host tier accounts against its capacity)."""
+    return sum(t.numel() * t.element_size() for d in blob if d
+               for t in d.values())

@@ -1,5 +1,5 @@
 """Radix prefix cache — cross-request KV reuse over the paged pool (the
-port's copy of ``repro.core.prefix_cache``, without the host spill tier).
+port's copy of ``repro.core.prefix_cache``).
 
   * a radix trie keyed on token ids, one node per KV *page span*
     (``page_size`` tokens; tail nodes may be partial),
@@ -9,7 +9,9 @@ port's copy of ``repro.core.prefix_cache``, without the host spill tier).
   * copy-on-write discipline: a page referenced by anyone else is never
     written — a request whose match ends inside a page gets a fresh copy
     of that partial tail page (``kv_cache.copy_pages``),
-  * LRU eviction of unreferenced leaves when the pool runs dry.
+  * LRU eviction of unreferenced leaves when the pool runs dry; with a
+    host tier attached, an evicted full-page leaf is spilled into it and
+    promoted back into the pool when a later admission matches it.
 
 :func:`shareable` is the per-layer opt-out gate: sharing is only sound
 for position-stable K/V written once at prefill.
@@ -76,6 +78,14 @@ class RadixPrefixCache:
         self.root = _Node(tokens=(), page=-1, parent=None)
         self._tick = 0
         self.evicted_pages = 0         # cumulative, survives serve runs
+        # host spill tier (set per serve call by the engine): evicted
+        # full-page leaves demote into ``host_store`` through
+        # ``offload_fn`` instead of dropping, and the scheduler promotes
+        # them back on a match
+        self.host_store = None         # HostKVStore or None
+        self.offload_fn = None         # pages -> blob (device closure)
+        self.spilled_pages = 0         # cumulative leaves demoted to host
+        self.trace = None              # optional ServeTracer (set per serve)
 
     def _iter_nodes(self):
         stack = list(self.root.children.values())
@@ -85,8 +95,30 @@ class RadixPrefixCache:
             stack.extend(nd.children.values())
 
     @property
+    def num_nodes(self) -> int:
+        return sum(1 for _ in self._iter_nodes())
+
+    @property
     def resident_pages(self) -> List[int]:
         return [nd.page for nd in self._iter_nodes()]
+
+    def evictable_count(self) -> int:
+        """Pages :meth:`evict` could free right now: leaves no live
+        request maps (the scheduler's preemption-headroom bound)."""
+        return sum(1 for nd in self._iter_nodes()
+                   if not nd.children
+                   and self.allocator.refcount(nd.page) == 1)
+
+    def _span_key(self, node: _Node) -> tuple:
+        """Host-tier key of a node: its full token path from the root
+        (what a later admission looks up)."""
+        parts = []
+        cur = node
+        while cur is not None and cur.parent is not None:
+            parts.append(cur.tokens)
+            cur = cur.parent
+        return ("trie", tuple(t for chunk in reversed(parts)
+                              for t in chunk))
 
     def _touch(self, node: _Node) -> None:
         self._tick += 1
@@ -165,18 +197,29 @@ class RadixPrefixCache:
 
     def evict(self, n_pages: int) -> int:
         """Free up to ``n_pages`` pool pages by dropping LRU leaves whose
-        page has no reference besides the trie's own.  Returns the number
-        actually freed."""
+        page has no reference besides the trie's own (spilling full-page
+        leaves into the host tier when one is attached).  Returns the
+        number actually freed."""
         heap = [(nd.tick, id(nd), nd) for nd in self._iter_nodes()
                 if not nd.children]
         heapq.heapify(heap)
         freed = 0
+        spilled0 = self.spilled_pages
         while heap and freed < n_pages:
             _, _, nd = heapq.heappop(heap)
             if nd.children or nd.parent is None:
                 continue                        # stale heap entry
             if self.allocator.refcount(nd.page) > 1:
                 continue                        # a live request maps it
+            if (self.host_store is not None and self.offload_fn is not None
+                    and len(nd.tokens) == self.page_size):
+                # demote to host instead of dropping (full-page leaves
+                # only: a partial span is not addressable by the
+                # page-aligned promote lookup); a refused put (host full)
+                # degrades to the plain drop below
+                if self.host_store.put(self._span_key(nd),
+                                       self.offload_fn([nd.page])):
+                    self.spilled_pages += 1
             self.allocator.decref(nd.page)
             freed += 1
             self.evicted_pages += 1
@@ -185,4 +228,8 @@ class RadixPrefixCache:
             nd.parent = None
             if parent is not self.root and not parent.children:
                 heapq.heappush(heap, (parent.tick, id(parent), parent))
+        if self.trace is not None and n_pages > 0:
+            self.trace.emit_now("prefix_evict", requested=int(n_pages),
+                                freed=int(freed),
+                                spilled=int(self.spilled_pages - spilled0))
         return freed

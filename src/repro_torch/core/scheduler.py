@@ -23,17 +23,23 @@ def truncate_prompt(tokens: List[int], limit: int, *,
     return tokens[-limit:]
 
 
+TERMINAL_STATUSES = ("completed", "truncated", "timed_out", "rejected")
+
+
 @dataclass
 class RequestOutcome:
     """Terminal disposition of a request on the continuous path: every
-    submitted request ends with exactly one status.
+    submitted request ends in exactly one of ``TERMINAL_STATUSES`` —
+    overload degrades outcomes, it never loses requests.
 
       completed  served to EOS / its token budget
       truncated  served, but the prompt was cut to fit the context
-      timed_out  cancelled in the queue (deadline / max_queue_wait)
+      timed_out  cancelled in the queue (deadline / max_queue_wait);
+                 tokens generated before a preemption are preserved
       rejected   could never fit (pool smaller than the request)
     """
     status: str
+    preemptions: int = 0               # times the request lost its slot
     deadline_missed: bool = False      # finished (or died) past deadline
     detail: str = ""
 
@@ -46,9 +52,12 @@ class Request:
     result: Optional[List[int]] = None # filled by the engine
     # prompt tokens served zero-copy from the radix prefix cache
     prefix_tokens_matched: int = 0
+    priority: int = 0                  # higher preempts lower under the
+    #                                    "priority" preemption policy
     deadline: Optional[float] = None   # absolute serve-clock seconds
     max_queue_wait: Optional[float] = None  # seconds from submission
     truncated: bool = False            # prompt was cut to fit the context
+    preemptions: int = 0               # slot evictions suffered so far
     outcome: Optional[RequestOutcome] = None  # set once, at a terminal point
 
     @property

@@ -3,7 +3,12 @@
 --kv-dtype int8 --weights-dtype int8``, with ``--spec ngram|draft
 --spec-k 4`` for speculative decoding and ``--packed off`` for the
 per-chunk mixed path; ``--arch xlstm-125m`` serves the recurrent model
-through bucketed whole-prompt admission.
+through bucketed whole-prompt admission.  ``--preemption lru|priority
+--host-kv-bytes N`` survives pool pressure by preempting slots into a
+host KV tier, ``--trace-out PATH`` writes the serve loop's event trace,
+``--metrics-json PATH`` every metric, and ``--prune-coverage`` /
+``--prune-vocab`` serve a pruned vocabulary (the paper's embedding-layer
+pruning).
 
 Serves a synthetic request stream through continuous batching over the
 paged KV cache on the card (``--device cuda``, the default) and prints one
@@ -20,6 +25,8 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config, get_reduced, list_archs
+from repro_torch.core import pruning as PR
+from repro_torch.core import trace as TR
 from repro_torch.core.engine import InferenceEngine, resolve_device
 from repro_torch.core.precision import (KV_DTYPES, WEIGHTS_DTYPES,
                                         get_policy)
@@ -79,9 +86,50 @@ def main(argv=None):
                          "prefill chunks (auto = on); off = one decode "
                          "step plus one mixed forward per chunk (the A/B "
                          "baseline)")
+    ap.add_argument("--preemption", default="off",
+                    choices=["off", "lru", "priority"],
+                    help="when admission fails for pages while a slot is "
+                         "free, evict a decoding victim (lru = most "
+                         "recently admitted, priority = lowest "
+                         "Request.priority) into the host KV tier and "
+                         "re-queue it; greedy streams are unchanged")
+    ap.add_argument("--host-kv-bytes", type=int, default=None,
+                    help="host-memory KV tier capacity in bytes: preempted "
+                         "slots' page snapshots and spilled prefix-cache "
+                         "pages (default: none; preemption then resumes "
+                         "by prefilling the context again)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline in seconds on the serve "
+                         "clock: requests still queued past it are "
+                         "cancelled (timed_out)")
+    ap.add_argument("--debug-audit", action="store_true",
+                    help="audit allocator refcounts and host-tier bytes "
+                         "on every serve iteration")
+    ap.add_argument("--prune-coverage", type=float, default=None,
+                    help="prune the vocabulary to this corpus coverage "
+                         "(e.g. 0.999), the paper's embedding pruning")
+    ap.add_argument("--prune-vocab", type=int, default=None, metavar="N",
+                    help="prune the vocabulary to the N most frequent "
+                         "corpus tokens (exclusive with --prune-coverage); "
+                         "prompts and results stay in the original ids")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the serve loop's structured event trace "
+                         "(iterations, request lifecycles, scheduler "
+                         "decisions, device spans)")
+    ap.add_argument("--trace-format", default="jsonl",
+                    choices=["jsonl", "perfetto", "both"],
+                    help="jsonl = one schema-versioned event per line; "
+                         "perfetto = Chrome trace-event JSON; both = "
+                         "<PATH>.jsonl and <PATH>.perfetto.json")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write every ServeMetrics counter and derived "
+                         "property as one JSON object")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--max-len", type=int, default=256)
     args = ap.parse_args(argv)
+    if args.prune_coverage and args.prune_vocab:
+        raise SystemExit("--prune-coverage and --prune-vocab are mutually "
+                         "exclusive")
     if not args.continuous:
         raise SystemExit("the port serves only --continuous (the bucketed "
                          "path is not ported)")
@@ -98,31 +146,53 @@ def main(argv=None):
     corpus = synthetic_corpus(600)
     tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
     texts = synthetic_corpus(args.requests, seed=7, min_len=4, max_len=40)
+    maps = None
+    if args.prune_coverage or args.prune_vocab:
+        freqs = tok.count_frequencies(corpus)
+        params, cfg, maps = PR.prune_model(
+            params, cfg, dict(freqs), coverage=args.prune_coverage,
+            max_vocab=args.prune_vocab)
+        print(f"pruned vocab -> {cfg.vocab_size}")
     engine = InferenceEngine(cfg, params, policy=policy,
                              max_batch=args.max_batch, max_len=args.max_len,
-                             device=device)
+                             device=device, prune_maps=maps)
     sp = SamplingParams(temperature=args.temperature,
                         top_k=40 if args.temperature > 0 else 0)
     shared = tok.encode(" ".join(synthetic_corpus(
         3, seed=11)))[:args.shared_prefix] if args.shared_prefix else []
     reqs = [Request(uid=i, tokens=shared + tok.encode(t),
-                    max_new_tokens=args.max_new_tokens)
+                    max_new_tokens=args.max_new_tokens,
+                    deadline=args.deadline)
             for i, t in enumerate(texts)]
     onoff = {"auto": None, "on": True, "off": False}
     spec = None
     if args.spec != "off":
         spec = SpecConfig(k=args.spec_k, drafter=(
             "ngram" if args.spec == "ngram" else "draft_model"))
+    tracer = TR.ServeTracer() if args.trace_out else None
     t0 = time.time()
     done, metrics = engine.serve_continuous(
         reqs, sp, page_size=args.page_size,
         steps_per_sync=args.steps_per_sync,
         prefix_cache=onoff[args.prefix_cache],
         max_batched_tokens=args.max_batched_tokens, spec=spec,
-        packed=onoff[args.packed])
+        packed=onoff[args.packed], preemption=args.preemption,
+        host_kv_bytes=args.host_kv_bytes, debug_audit=args.debug_audit,
+        trace=tracer)
     dt = time.time() - t0
     for r in done[:3]:
         print(f"[{r.uid}] {tok.decode(r.result or [])[:70]!r}")
+    if tracer is not None:
+        for p in TR.export(tracer, args.trace_out, args.trace_format):
+            print(f"trace: {p} ({len(tracer.events)} events, "
+                  f"{tracer.dropped} dropped)")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump({"requests": len(done), "wall_s": dt,
+                       "tokens_per_s": metrics.generated_tokens / dt,
+                       "mode": "continuous-paged", **metrics.to_dict()},
+                      f, indent=1)
+        print(f"metrics: {args.metrics_json}")
     print(json.dumps({
         "requests": len(done), "wall_s": round(dt, 3),
         "device": (torch.cuda.get_device_name(device)
@@ -160,6 +230,13 @@ def main(argv=None):
         "host_syncs": metrics.host_syncs,
         "peak_pages_in_use": metrics.peak_pages_in_use,
         "admission_stalls": metrics.admission_stalls,
+        "preemptions": metrics.preemptions,
+        "resumed": metrics.resumed,
+        "offloaded_pages": metrics.offloaded_pages,
+        "restored_pages": metrics.restored_pages,
+        "host_bytes_peak": metrics.host_bytes_peak,
+        "timed_out": metrics.timed_out,
+        "deadline_misses": metrics.deadline_misses,
         "outcomes": dict(sorted(metrics.outcome_counts.items())),
         "mode": "continuous-paged"}))
 

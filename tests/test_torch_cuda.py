@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_reduced
+from repro_torch.core import kv_cache as KV
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.kv_cache import quantize_kv
 from repro_torch.core.precision import FP32
@@ -1453,3 +1454,93 @@ def test_xlstm_serve_on_card_matches_cpu(dev):
     assert counts["mlstm_chunked"] == m.host_syncs - decode_dispatches > 0
     assert counts["mlstm_chunked"] < len(prompts)        # a batched group
     assert sum(counts.values()) == counts["mlstm_chunked"]
+
+
+# the unimo-text head pruned as the serve CLI prunes it (--prune-coverage
+# 0.999 on the synthetic corpus keeps 45 of 12800 ids): K = d_model, N not
+# a multiple of 16, at a decode step's and a packed stream's rows
+@pytest.mark.parametrize("M", [8, 256])
+def test_quant_matmul_pruned_head(dev, M):
+    _qmm_check(*_qmm_inputs(dev, M, 1024, 45, torch.bfloat16, 45 + M))
+
+
+def _random_pool(cfg, kv_dtype, dev, num_pages=12, seed=5):
+    cache = T.init_paged_cache(cfg, num_pages=num_pages, page_size=8,
+                               dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                               device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for c in cache["layers"]:
+        for t in c.values():
+            if t.dtype in (torch.int8, torch.int32):
+                t.copy_(torch.randint(-100, 100, t.shape, generator=g,
+                                      device=dev))
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    return cache
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_offload_restore_round_trip_on_card(dev, kv_dtype):
+    """Pages of a bf16 or int8 pool go out to pinned host memory and back
+    into other pages bit-identically, every leaf (codes, scale pools,
+    positions), and the blob has the bytes of the CPU pool's blob."""
+    cfg = get_reduced("qwen3-4b")
+    cache = _random_pool(cfg, kv_dtype, dev)
+    src, dst = [1, 4, 7], [2, 9, 10]
+    want = [{k: t[src].clone() for k, t in c.items()}
+            for c in cache["layers"]]
+    blob = KV.offload_pages(cache, src)
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for d in blob for t in d.values())
+    KV.reset_pages_all(cache, torch.tensor(src, device=dev))
+    KV.restore_pages(cache, blob, dst)
+    torch.cuda.synchronize()
+    for c, w in zip(cache["layers"], want):
+        for k in w:
+            assert torch.equal(c[k][dst], w[k]), k
+    cpu = T.init_paged_cache(cfg, num_pages=12, page_size=8,
+                             dtype=torch.bfloat16, kv_dtype=kv_dtype)
+    assert KV.blob_bytes(blob) == KV.blob_bytes(KV.offload_pages(cpu, src))
+
+
+def test_restore_on_one_stream_while_packed_runs_on_another(dev):
+    """A restore into free pages issued on one stream while the packed
+    kernel reads other pages of the same pool on the next: each restore's
+    pinned blob is dropped as soon as it is issued and fresh pinned
+    blocks are written at once, and still every restore lands the
+    snapshot's bytes and every packed output equals the plain version's."""
+    rng = np.random.default_rng(81)
+    dtype = torch.bfloat16
+    ctx = [100, 37, 250, 5, 64, 180]
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=2, D=128, page=16, npages=17,
+                            dtype=dtype, dev=dev)
+    cache = {"layers": [{"pk": k, "pv": v, "ppos": ppos}]}
+    used = set(bt[bt >= 0].tolist())
+    free = [p for p in range(k.shape[0] - 1) if p not in used]
+    src, dst = free[:8], free[8:16]
+    blob = KV.offload_pages(cache, src)
+    want = {n: t[src].clone() for n, t in cache["layers"][0].items()}
+    qpp, sid, meta, _ = _packed_stream(ctx, [1, 1, 20, 5, 1, 30], 64, dev)
+    qp = torch.from_numpy(rng.normal(size=(1, 64, 8, 128)).astype(
+        np.float32)).to(dev, dtype)
+    kw = dict(window=None, scale=128 ** -0.5, attn_softcap=None)
+    ref = DA.paged_packed_attention_ref(qp, k, v, ppos, bt, qpp, sid, **kw)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs, junk = [], []
+    for _ in range(10):
+        with torch.cuda.stream(s2):
+            outs.append(DA.paged_packed_attention(qp, k, v, ppos, bt, qpp,
+                                                  meta, **kw))
+        with torch.cuda.stream(s1):
+            KV.reset_pages_all(cache, torch.tensor(dst, device=dev))
+            KV.restore_pages(cache, [{n: t.clone().pin_memory()
+                                      for n, t in blob[0].items()}], dst)
+        junk.append([torch.full(t.shape, 7, dtype=t.dtype).pin_memory()
+                     for t in blob[0].values()])
+    torch.cuda.synchronize()
+    for n, t in cache["layers"][0].items():
+        assert torch.equal(t[dst], want[n]), n
+    for out in outs:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])

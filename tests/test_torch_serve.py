@@ -102,10 +102,10 @@ def test_serve_prefix_cache_off_identical(params):
 
 def test_serve_takes_every_reference_option(params):
     """The port's ``serve_continuous`` takes every keyword of the
-    reference's, with the same defaults for the overload options:
-    ``max_preemptions`` is taken (nothing to bound with preemption off)
-    and the unported ``debug_audit=True`` raises ``NotImplementedError``,
-    like the other unported options, not a ``TypeError``."""
+    reference's, with the same defaults for the overload options;
+    ``debug_audit=True`` runs, auditing the allocator on every iteration,
+    with the streams of the unaudited serve; ``chunked_prefill=False``
+    (the bucketed path of attention models, not ported) still raises."""
     import inspect
     ref = inspect.signature(JEngine.serve_continuous).parameters
     ours = inspect.signature(InferenceEngine.serve_continuous).parameters
@@ -119,5 +119,10 @@ def test_serve_takes_every_reference_option(params):
     done, m = eng.serve_continuous(copy.deepcopy(reqs), max_preemptions=5,
                                    debug_audit=False, **SERVE)
     assert m.outcome_counts == {"completed": 1} and len(done[0].result) == 3
-    with pytest.raises(NotImplementedError, match="debug_audit"):
-        eng.serve_continuous(copy.deepcopy(reqs), debug_audit=True, **SERVE)
+    audited, m2 = eng.serve_continuous(copy.deepcopy(reqs), debug_audit=True,
+                                       **SERVE)
+    assert audited[0].result == done[0].result
+    assert m2.outcome_counts == {"completed": 1}
+    with pytest.raises(NotImplementedError, match="chunked_prefill=False"):
+        eng.serve_continuous(copy.deepcopy(reqs), chunked_prefill=False,
+                             **SERVE)

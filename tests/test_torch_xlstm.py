@@ -277,9 +277,9 @@ def test_serve_matches_reference_greedy(model, name):
 
 
 def test_turned_off_options_warn_and_change_nothing(model):
-    """spec, packed, prefix_cache and chunked_prefill are turned off for a
-    recurrent model with the reference's warnings; the streams stay those
-    of the default serve.  Options the port has not ported still raise."""
+    """spec, packed, prefix_cache, chunked_prefill and preemption are
+    turned off for a recurrent model with the reference's warnings; the
+    streams stay those of the default serve."""
     *_, params = model
     base, _ = _serve_port(params, "equal")
     cases = {"speculative decoding requested but disabled":
@@ -288,14 +288,14 @@ def test_turned_off_options_warn_and_change_nothing(model):
              dict(packed=True),
              "prefix_cache requested but disabled": dict(prefix_cache=True),
              "chunked prefill requested but disabled":
-             dict(chunked_prefill=True)}
+             dict(chunked_prefill=True),
+             "preemption requested but disabled": dict(preemption="lru")}
     for msg, kw in cases.items():
         with pytest.warns(UserWarning, match=msg):
             out, m = _serve_port(params, "equal", **kw)
         assert out == base, msg
         assert m.spec_mode == "off" and m.prefix_hits == 0
-    with pytest.raises(NotImplementedError, match="preemption"):
-        _serve_port(params, "equal", preemption="lru")
+        assert m.preemptions == 0
 
 
 def test_attention_models_keep_raising_for_the_bucketed_path():
