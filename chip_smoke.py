@@ -38,7 +38,12 @@ on one card):
               ``fused_rmsnorm`` (4096 x 2560 bf16 and fp32, both timed, a
               ragged row count) and dense ``decode_attention`` (qwen3-4b's
               heads over 8 x 256 and 8 x 4096 keys, both timed; fp16, a
-              window + softcap; a ragged fp32 case).  Flash, the mixed,
+              window + softcap; a ragged fp32 case; the dense KV cache's
+              own shape, 8 x 512 rows with 256 valid, timed).  Flash also
+              at the paper's serving shapes: qwen3-4b's 8 x 128 bucket
+              prefill (timed; a ragged variant) and the prefix-attend
+              admission, 8 suffix buckets of 32 lanes against 256
+              gathered keys with -1 holes (timed; fp32 too).  Flash, the mixed,
               decode and packed pairs, dense decode and ``quant_matmul``
               run their tensor-core bodies at bf16 / fp16 and their
               CUDA-core bodies at fp32; ``mlstm_chunked`` its tensor-core
@@ -58,7 +63,13 @@ on one card):
               weights (packed forwards and serve); reduced xlstm-125m:
               prefill and decode logits and states within 1e-5 of the
               CPU's, and equal greedy streams through the bucketed
-              admission path
+              admission path; ``parity_dense`` (reduced unimo-text and
+              qwen3-4b, fp32): dense-cache prefill, resumed prefill and
+              decode logits, then ``generate_batch`` with and without the
+              KV cache, ``run_pipelined`` and bucketed ``serve_continuous``
+              (plain, behind a ``set_prefix`` prefix, over an int8 pool),
+              whose streams and admission counters must equal the CPU's,
+              with KV == no-cache and bucketed == chunked
   5. overload reduced qwen3-4b in fp32 on the card and the CPU: a pool of
               11 pages with ``preemption="lru"`` and a host KV tier, the
               same under ``FaultConfig(host_full=True)``, and
@@ -104,7 +115,17 @@ on one card):
               trimmed to max_len, at int8 weights (``pruned``: V_new, the
               embedding bytes before and after), whose results must lie in
               the original id space.  The kernel phase also holds
-              ``quant_matmul`` at the pruned head's K = 1024, N = V_new
+              ``quant_matmul`` at the pruned head's K = 1024, N = V_new.
+              The paper's own path (this slice): qwen3-4b bf16 through
+              ``run_pipelined`` and ``run_sequential`` over the dense KV
+              cache and the no-cache baseline (16 prompts x 8 tokens), its
+              bucketed admission behind a 32-token prefix pinned by
+              ``set_prefix`` at bf16 and at int8 KV + int8 weights (beside
+              the packed serve of the same requests), and unimo-text as the
+              paper serves it (fp16, pruned to coverage 0.999, pipelined):
+              flash layers x prefill (or admission) dispatches, plus layers
+              x full forwards without the cache; the dense decode kernel
+              layers x dense decode steps; no packed or mixed launch
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -170,8 +191,11 @@ NOTES = {
                      "chunkwise mLSTM",
     "fused_rmsnorm": "no model call site (as in the reference): launches 0 "
                      "in the serves",
-    "decode_attention": "no model call site (as in the reference): "
-                        "launches 0 in the serves",
+    "flash_attention": "launches: the qwen3-4b pipelined dense serve "
+                       "(one per layer and prefill); its timed case is the "
+                       "draft shape, the serving shapes are in regimes",
+    "decode_attention": "launches: the qwen3-4b pipelined dense serve (one "
+                        "per layer and decode step)",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -612,6 +636,59 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
     return res
 
 
+def run_flash_prefix_case(rng, name, *, B, Sq, npages, page, prefix, lens,
+                          Hq, Hkv, D, dtype, timed=False):
+    """Flash attention at the prefix-attend admission's shape: each row's
+    ``Sq``-lane suffix bucket (positions ``prefix + 0 .. Sq-1``) against
+    the slot's gathered pages, ``npages * page`` keys holding the shared
+    prefix and the suffix's ``lens[b]`` tokens at their positions and -1
+    holes (unwritten entries) after them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    dev = torch.device("cuda")
+    Sk = npages * page
+    q = torch.randn(B, Sq, Hq, D, generator=rng, device=dev).to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
+    kp = np.full((B, Sk), -1, np.int32)
+    for b, n in enumerate(lens):
+        kp[b, :prefix + n] = np.arange(prefix + n)
+    qp = np.tile(prefix + np.arange(Sq, dtype=np.int32), (B, 1))
+    q_pos, k_pos = (torch.from_numpy(a).to(dev) for a in (qp, kp))
+    kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
+    out = FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    ref = FA.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+    res = {"case": name, "kernel": "flash_attention", "max_abs_err": err,
+           "tol": tol, "ok": bool(ok), "B": B, "S": Sq, "Sk": Sk}
+    if timed:
+        g = Hq // Hkv
+        mask = visible(k_pos[:, None, None, :], q_pos[:, None, :, None],
+                       None)
+        qs = q.transpose(1, 2)
+        ks = k.repeat_interleave(g, 2).transpose(1, 2)
+        vs = v.repeat_interleave(g, 2).transpose(1, 2)
+        res.update(timings(
+            "flash_attention",
+            lambda: FA.flash_attention(q, k, v, q_pos, k_pos, **kw),
+            lambda: FA.flash_attention_ref(q, k, v, q_pos, k_pos, **kw),
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        seen = visible(kp[:, None, :], qp[:, :, None], None)
+        pairs = int(seen.sum())
+        # K/V only of the keys some query sees: the -1 holes are not read
+        n_vis = int(seen.any(axis=1).sum())
+        nbytes = (n_vis * Hkv * 2 * D * k.element_size() + kp.nbytes
+                  + qp.nbytes + 2 * q.numel() * q.element_size())
+        res["bound_ms"], res["bound_by"] = _bound(nbytes,
+                                                  4 * D * Hq * pairs, dtype)
+    return res
+
+
 def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
     """``quant_matmul`` on random int8 codes and scales against its plain
     version; timed cases add ``torch.matmul`` against a bf16 weight that
@@ -726,11 +803,15 @@ def run_rmsnorm_case(rng, name, *, rows, D, dtype, wdtype, timed=False):
 
 
 def run_dense_decode_case(rng, name, *, B, Sk, Hq, Hkv, D, dtype,
-                          window=None, softcap=None, timed=False):
+                          window=None, softcap=None, valid=None,
+                          timed=False):
     """The dense ``decode_attention`` on contiguous caches: row 0 sees a
     ragged valid prefix, the others the whole cache, the last row has
-    q_pos = -1 (it must come back 0).  Yardstick: SDPA with the mask, on
-    K/V repeated per query head beforehand."""
+    q_pos = -1 (it must come back 0).  With ``valid`` every row holds
+    ``valid`` entries and -1 after them, as the dense KV cache of
+    ``generate_batch`` does (its rows rounded up past the context), and
+    queries sit at position ``valid - 1``.  Yardstick: SDPA with the mask,
+    on K/V repeated per query head beforehand."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -739,9 +820,14 @@ def run_dense_decode_case(rng, name, *, B, Sk, Hq, Hkv, D, dtype,
     k = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
     v = torch.randn(B, Sk, Hkv, D, generator=rng, device=dev).to(dtype)
     kp = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
-    kp[0, Sk // 2 + 1:] = -1
     qp = np.full((B, 1), Sk - 1, np.int32)
-    qp[0], qp[-1] = Sk // 2, -1
+    if valid is None:
+        kp[0, Sk // 2 + 1:] = -1
+        qp[0] = Sk // 2
+    else:
+        kp[:, valid:] = -1
+        qp[:] = valid - 1
+    qp[-1] = -1
     k_pos, q_pos = (torch.from_numpy(a).to(dev) for a in (kp, qp))
     kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
     out = DA.decode_attention(q, k, v, k_pos, q_pos, **kw)
@@ -891,6 +977,23 @@ def phase_kernels(check_bodies=True):
                                 "bf16", B=3, S=45, Hq=8, Hkv=2, D=32,
                                 dtype=bf16, ragged=True, window=16,
                                 softcap=30.0))
+    # flash on the paper's serving path: the bucket prefill of qwen3-4b
+    # (8 rows of a 128 bucket, causal) and the prefix-attend admission
+    # (a 32-lane suffix bucket against 16 gathered 16-token pages: a
+    # 32-token shared prefix, suffixes of 5-32 tokens, -1 holes after)
+    cases.append(run_flash_case(rng, "qwen3-4b prefill 8 x 128 bf16", B=8,
+                                S=128, dtype=bf16, timed=True, **qwen3))
+    cases.append(run_flash_case(rng, "qwen3-4b prefill 8 x 128 ragged "
+                                "bf16", B=8, S=128, dtype=bf16, ragged=True,
+                                **qwen3))
+    cases.append(run_flash_prefix_case(
+        rng, "qwen3-4b prefix-attend 8 x 32 vs 256 bf16", B=8, Sq=32,
+        npages=16, page=16, prefix=32, lens=[32, 5, 17, 29, 8, 32, 12, 21],
+        dtype=bf16, timed=True, **qwen3))
+    cases.append(run_flash_prefix_case(
+        rng, "qwen3-4b prefix-attend 4 x 32 vs 256 fp32", B=4, Sq=32,
+        npages=16, page=16, prefix=32, lens=[32, 5, 17, 1], dtype=fp32,
+        **qwen3))
     # mlstm_chunked at xlstm-125m's width (4 heads x 384) over 8 rows: a
     # ragged 300-step prompt from a nonzero state, a 64-step one, and the
     # reduced config's head dim 128; q/k/v at bf16 and fp32
@@ -916,7 +1019,7 @@ def phase_kernels(check_bodies=True):
     cases.append(run_rmsnorm_case(rng, "ragged 4099 x 2560 bf16, fp32 w",
                                   rows=4099, D=2560, dtype=bf16,
                                   wdtype=fp32))
-    # the dense decode_attention (no model call site): qwen3-4b's heads,
+    # the dense decode_attention: qwen3-4b's heads,
     # over 256 keys (6.8 MB of visible K/V) and 4096 (109 MB, more than
     # the 50 MB L2 holds, so it is timed at the memory's rate)
     cases.append(run_dense_decode_case(rng, "qwen3-4b heads 8 x 256 bf16",
@@ -934,6 +1037,14 @@ def phase_kernels(check_bodies=True):
     cases.append(run_dense_decode_case(
         rng, "unimo-text heads ragged Sk=300 fp32", B=4, Sk=300, dtype=fp32,
         **unimo))
+    # the dense KV cache of generate_batch at max_len 256: 257 rows rounded
+    # up to 512, at most 256 + 32 of them written
+    cases.append(run_dense_decode_case(
+        rng, "qwen3-4b dense cache 8 x 512, 256 valid bf16", B=8, Sk=512,
+        valid=256, dtype=bf16, timed=True, **qwen3))
+    cases.append(run_dense_decode_case(
+        rng, "unimo-text dense cache 8 x 512, 200 valid fp32", B=8, Sk=512,
+        valid=200, dtype=fp32, **unimo))
     # last, so that the cases above draw the inputs they drew before it:
     # the pruned unimo-text head (--prune-coverage 0.999 on the smoke's
     # corpus): K = 1024, N = V_new, not a multiple of 16, at a decode
@@ -975,8 +1086,12 @@ def phase_kernels(check_bodies=True):
                                           "qwen3-4b 2560->9728 M=256 bf16")
         or c["case"].startswith("pruned unimo-text head")]
     summary["decode_attention"]["regimes"] = [
-        c for c in cases if c["case"] in ("qwen3-4b heads 8 x 256 bf16",
-                                          "qwen3-4b heads 8 x 4096 bf16")]
+        c for c in cases if c["case"] in (
+            "qwen3-4b heads 8 x 256 bf16", "qwen3-4b heads 8 x 4096 bf16",
+            "qwen3-4b dense cache 8 x 512, 256 valid bf16")]
+    summary["flash_attention"]["regimes"] = [
+        c for c in cases if c["kernel"] == "flash_attention"
+        and "kernel_ms" in c]
     summary["mlstm_chunked"]["regimes"] = [
         c for c in cases if c["case"] in (
             "xlstm-125m S=300 nonzero state bfloat16",
@@ -1139,6 +1254,126 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
             and not all(identical.values()):
         raise SystemExit(f"{arch}: greedy streams differ across devices or "
                          f"serving modes: {identical}")
+
+
+def phase_parity_dense(arch):
+    """Reduced ``arch``, fp32 (TF32 off), on the card and on the CPU: the
+    dense-cache forwards (a ragged prefill, a prefill resuming at position
+    9 that attends the cache, a decode step), then the paper's serving
+    path (``generate_batch`` with and without the KV cache, 6 rows of 12,
+    7, ... tokens x 10 new; ``run_pipelined`` over 6 texts) and the
+    bucketed ``serve_continuous`` (8 requests with shared prefixes; with a
+    16-token prefix pinned by ``set_prefix``; over an int8 pool), each
+    beside the chunked serve of the same requests.  Every stream on the
+    card must equal the CPU's token for token, KV == no-cache and
+    bucketed == chunked on both devices."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.pipeline import run_pipelined
+    from repro_torch.core.precision import FP32, map_params
+    from repro_torch.core.scheduler import Request
+    from repro_torch.core.tokenizer import FastTokenizer
+    from repro_torch.data.pipeline import synthetic_corpus
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced(arch)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(11)
+    vocab = min(cfg.vocab_size, 400)
+    B = 3
+    toks = rng.integers(4, vocab, size=(B, 9)).astype(np.int32)
+    lens = np.asarray([9, 5, 1], np.int32)
+    more = rng.integers(4, vocab, size=(B, 4)).astype(np.int32)
+    nxt = rng.integers(4, vocab, size=(B, 1)).astype(np.int32)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        def put(a):
+            return torch.as_tensor(a).to(dev)
+        prm = map_params(lambda t: t.to(dev), params)
+        cache = T.init_cache(cfg, B, 40, torch.float32, device=dev)
+        with torch.no_grad():
+            lp, _ = T.forward_prefill(prm, cfg, put(toks), put(lens), cache,
+                                      policy=FP32)
+            lr, _ = T.forward_prefill(prm, cfg, put(more),
+                                      put(np.full(B, 4, np.int32)), cache,
+                                      policy=FP32, start=9)
+            ld, _ = T.forward_decode(prm, cfg, put(nxt), cache,
+                                     put(np.full(B, 13, np.int32)),
+                                     policy=FP32)
+        logits[dev] = [t.cpu() for t in (lp, lr, ld)]
+    errs = dict(zip(("prefill", "resumed_prefill", "decode"),
+                    ((a - b).abs().max().item() for a, b in zip(
+                        logits["cuda"], logits["cpu"]))))
+    batch = rng.integers(4, vocab, size=(6, 12)).astype(np.int32)
+    blens = np.asarray([12, 7, 3, 12, 9, 1], np.int32)
+    prompts = [[2] + [int(t) for t in rng.integers(4, vocab, size=n)]
+               for n in (19, 30, 11, 23)]
+    prompts += [prompts[0][:12] + [5, 6, 7], prompts[1][:17] + [9, 10],
+                prompts[3][:8] + [11, 12, 13], [2, 14, 15, 16]]
+    system = [2] + [int(t) for t in rng.integers(4, vocab, size=15)]
+    tok = FastTokenizer.train(synthetic_corpus(50), min(cfg.vocab_size,
+                                                        300))
+    texts = synthetic_corpus(6, seed=3, min_len=3, max_len=12)
+    int8 = dataclasses.replace(FP32, kv_dtype="int8")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def engine(policy=FP32, **kw):
+            return InferenceEngine(cfg, params, policy=policy, max_len=64,
+                                   max_batch=4, device=dev, **kw)
+        out[dev, "kv"] = engine().generate_batch(batch.copy(), blens, 10)
+        out[dev, "nocache"] = engine(use_kv_cache=False).generate_batch(
+            batch.copy(), blens, 10)
+        out[dev, "pipelined"] = [r.token_ids for r in run_pipelined(
+            texts, tok, engine(), max_new_tokens=8, max_batch=4)]
+        for name, policy, prefix in (("serve", FP32, None),
+                                     ("set_prefix", FP32, system),
+                                     ("int8", int8, None)):
+            reqs = [p if prefix is None else prefix + p[1:]
+                    for p in prompts]
+            for chunked in (False, None):
+                eng = engine(policy)
+                if prefix is not None:
+                    eng.set_prefix(prefix, page_size=8)
+                done, m = eng.serve_continuous(
+                    [Request(uid=i, tokens=list(p), max_new_tokens=8)
+                     for i, p in enumerate(reqs)], page_size=8,
+                    max_batched_tokens=32, chunked_prefill=chunked)
+                key = name + ("_bucketed" if chunked is False else
+                              "_chunked")
+                out[dev, key] = [r.result for r in done]
+                if chunked is False:
+                    out[dev, key + "_counters"] = [
+                        m.admitted, m.prefill_padded, m.prefix_hits,
+                        m.cow_copies, m.host_syncs]
+
+    def same(a, b):
+        return bool(np.array_equal(np.asarray(a), np.asarray(b))) \
+            if isinstance(a, np.ndarray) else a == b
+    keys = sorted({k for _, k in out})
+    card_eq_cpu = {k: same(out["cuda", k], out["cpu", k]) for k in keys}
+    inner = {f"{dev}: kv == nocache": same(out[dev, "kv"],
+                                           out[dev, "nocache"])
+             for dev in ("cuda", "cpu")}
+    for dev in ("cuda", "cpu"):
+        for name in ("serve", "set_prefix", "int8"):
+            inner[f"{dev}: {name} bucketed == chunked"] = same(
+                out[dev, name + "_bucketed"], out[dev, name + "_chunked"])
+    emit("parity_dense", arch=arch, logits_tol=PARITY_TOL["auto"],
+         logits_max_abs_err=errs, card_equals_cpu=card_eq_cpu,
+         invariants=inner, tokens=int((out["cpu", "kv"] >= 0).sum()),
+         bucketed_counters=out["cuda", "serve_bucketed_counters"])
+    if not all(np.isfinite(e) and e <= PARITY_TOL["auto"]
+               for e in errs.values()):
+        raise SystemExit(f"{arch}: dense forwards on the card differ from "
+                         f"the plain path: {errs}")
+    failed = [k for k, v in {**card_eq_cpu, **inner}.items() if not v]
+    if failed:
+        raise SystemExit(f"{arch}: dense / bucketed parity failed: "
+                         f"{failed}")
 
 
 # reduced xlstm on the card against the CPU, fp32: logits and states
@@ -1338,6 +1573,15 @@ def _smoke_freqs():
         synthetic_corpus(600)).items()))
 
 
+@functools.lru_cache(maxsize=None)
+def _system_prompt():
+    """A 32-token shared system prompt, as the serve CLI's
+    ``--shared-prefix 32`` builds it."""
+    from repro_torch.data.pipeline import synthetic_corpus
+    return tuple(_smoke_tokenizer().encode(" ".join(synthetic_corpus(
+        3, seed=11)))[:32])
+
+
 def _pruned_unimo_vocab() -> int:
     """V_new of unimo-text pruned to coverage 0.999 of the corpus."""
     from repro_torch.core import pruning as PR
@@ -1348,7 +1592,7 @@ def _pruned_unimo_vocab() -> int:
 def _serve_kw(mode):
     """serve_continuous options of a serving mode."""
     from repro_torch.core.speculative import SpecConfig
-    return {"packed": {}, "bucketed": {},
+    return {"packed": {}, "bucketed": {"chunked_prefill": False},
             "spec_ngram": {"spec": SpecConfig(k=SPEC_K)},
             "spec_draft": {"spec": SpecConfig(k=SPEC_K,
                                               drafter="draft_model")},
@@ -1383,6 +1627,29 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
                 launches["paged_mixed_attention"]
                 == launches["paged_mixed_attention_q8"]
                 == launches["flash_attention"] == 0),
+            f"quant_matmul ran {mm_per_forward} x forwards": (
+                launches["quant_matmul"] == mm_per_forward * forwards),
+        }
+    if mode == "bucketed":
+        # decode dispatches fuse 4 steps each; every other host sync is
+        # an admission dispatch
+        admissions = m.host_syncs - m.steps // 4
+        forwards = admissions + m.steps
+        return {
+            "bucketed admission": m.scheduler == "bucketed"
+            and m.mixed_iters == 0,
+            f"flash ran {n_layers} x admission dispatches ({admissions})": (
+                launches["flash_attention"] == n_layers * admissions > 0),
+            f"decode{q8} kernel ran {n_layers} x decode steps": (
+                launches["paged_decode_attention" + q8]
+                == n_layers * m.steps > 0),
+            "no packed, mixed, dense decode or other-pool kernel ran": (
+                launches["paged_packed_attention"]
+                == launches["paged_packed_attention_q8"]
+                == launches["paged_mixed_attention"]
+                == launches["paged_mixed_attention_q8"]
+                == launches["paged_decode_attention" + other]
+                == launches["decode_attention"] == 0),
             f"quant_matmul ran {mm_per_forward} x forwards": (
                 launches["quant_matmul"] == mm_per_forward * forwards),
         }
@@ -1429,14 +1696,16 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
 
 def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
                 mode="packed", profile=False, cfg=None, extra=None,
-                prune_maps=None, traced=False, label=None):
+                prune_maps=None, traced=False, label=None, prefix=None):
     """Full-width ``arch`` (bf16 weights ``params``; ``cfg`` defaults to
     the arch's published config) through ``serve_continuous``: 16
     synthetic requests x 32 new tokens, 8 slots, max_len 256, 16-token
     pages, a 256-token budget, in serving ``mode`` (packed; speculative
-    with the n-gram drafter or self-drafting, k = 4; ``packed=False``),
-    with ``extra`` serve options (a contended pool and preemption) and
-    ``prune_maps`` given to the engine.  The launch counts of this run
+    with the n-gram drafter or self-drafting, k = 4; ``packed=False``;
+    bucketed admission), with ``extra`` serve options (a contended pool
+    and preemption) and ``prune_maps`` given to the engine.  With
+    ``prefix`` every request starts with it and each engine pins it by
+    ``set_prefix`` first.  The launch counts of this run
     (set to 0 just before it, read just after) must show every attention
     call in the kernels of its mode and pool, every draft forward's
     attention in flash and, under int8 weights, every dense matmul in
@@ -1463,13 +1732,17 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     serve_kw = {**_serve_kw(mode), **(extra or {})}
 
     def requests(n, max_new):
-        return [Request(uid=i, tokens=list(t), max_new_tokens=max_new)
+        return [Request(uid=i, tokens=list(prefix or []) + list(t),
+                        max_new_tokens=max_new)
                 for i, t in enumerate(_smoke_prompts()[:n])]
 
     def engine():
-        return InferenceEngine(cfg, params, policy=policy, max_batch=8,
-                               max_len=256, device="cuda",
-                               prune_maps=prune_maps)
+        eng = InferenceEngine(cfg, params, policy=policy, max_batch=8,
+                              max_len=256, device="cuda",
+                              prune_maps=prune_maps)
+        if prefix is not None:        # pinned before the counts are reset
+            eng.set_prefix(prefix)
+        return eng
 
     # warm-up on its own engine (cuBLAS handles, allocator pools)
     engine().serve_continuous(requests(4, 4), **serve_kw)
@@ -1506,6 +1779,9 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
          acceptance_rate=m.acceptance_rate,
          tokens_per_forward=m.tokens_per_forward, draft_calls=drafts,
          prefix_hits=m.prefix_hits, cow_copies=m.cow_copies,
+         prefix_matched_tokens=m.prefix_matched_tokens,
+         scheduler=m.scheduler, host_syncs=m.host_syncs,
+         prefill_tokens=m.prefill_tokens, prefill_padded=m.prefill_padded,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          kv_pool_bytes=m.kv_pool_bytes,
          kv_bytes_per_token=m.kv_bytes_per_token,
@@ -1537,6 +1813,126 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     return m, launches, [r.result for r in done], wall, busy
 
 
+@functools.lru_cache(maxsize=None)
+def _smoke_texts():
+    """The texts the smoke prompts were tokenized from (the paper's path
+    tokenizes in its pipeline)."""
+    from repro_torch.data.pipeline import synthetic_corpus
+    return tuple(synthetic_corpus(16, seed=7, min_len=4, max_len=40))
+
+
+def _forwards_nocache(eng, results, max_new):
+    """Full forwards of the no-cache runs of ``run_sequential``: per
+    batch (the pipeline's ``DynamicBatcher`` grouping over the engine's
+    buckets, recomputed), ``max_new`` unless every row met EOS earlier
+    (the loop stops one step after the last row's EOS)."""
+    from repro_torch.core.scheduler import DynamicBatcher, Request
+    tok = _smoke_tokenizer()
+    batcher = DynamicBatcher(max_batch=eng.max_batch,
+                             buckets=eng.prompt_buckets())
+    for uid, text in enumerate(_smoke_texts()):
+        batcher.add(Request(uid=uid, tokens=tok.encode(text)))
+    n_out = {r.uid: len(r.token_ids) for r in results}
+    total = 0
+    while (batch := batcher.next_batch()) is not None:
+        longest = max(n_out[r.uid] for r in batch.requests)
+        total += max_new if longest == max_new else longest + 1
+    return total
+
+
+def phase_dense(arch, params, label, *, policy="bf16", pipelined=True,
+                use_kv_cache=True, max_new=32, cfg=None, prune_maps=None,
+                base=None):
+    """Full-width ``arch`` through the paper's own serving path: the
+    smoke's 16 texts tokenized and batched by length bucket
+    (``DynamicBatcher``, 8 rows, max_len 256), each batch prefilled into a
+    dense KV cache and decoded (or, without the cache, re-run in full for
+    every token), through ``run_pipelined`` or ``run_sequential``.  Gates:
+    every request served with in-vocabulary ids; flash launched layers x
+    prefill dispatches (or layers x full forwards without the cache), the
+    dense ``decode_attention`` layers x decode steps, no paged kernel.
+    Prints tokens/s, decode tokens/s (engine stats), the greedy match
+    against ``base`` (the packed serve's streams of the same prompts) and
+    then the profile.  Returns (launch counts, streams)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.pipeline import run_pipelined, run_sequential
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import ops
+    cfg = cfg or get_config(arch)
+    runner = run_pipelined if pipelined else run_sequential
+    tok, texts = _smoke_tokenizer(), list(_smoke_texts())
+
+    def engine():
+        return InferenceEngine(cfg, params, policy=get_policy(policy),
+                               max_batch=8, max_len=256,
+                               use_kv_cache=use_kv_cache, device="cuda",
+                               prune_maps=prune_maps)
+
+    def run(eng, n=16, new=max_new):
+        return runner(texts[:n], tok, eng, max_new_tokens=new,
+                      max_batch=eng.max_batch)
+
+    run(engine(), 4, 4)                                  # warm-up
+    eng = engine()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = run(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = eng.stats
+    streams = [r.token_ids for r in results]
+    n_layers = cfg.num_layers
+    prefills = st.batches if use_kv_cache else 0
+    steps = st.batches * (max_new - 1) if use_kv_cache else 0
+    forwards = 0 if use_kv_cache else _forwards_nocache(eng, results,
+                                                        max_new)
+    keep = set(prune_maps.keep_ids.tolist()) if prune_maps is not None \
+        else range(cfg.vocab_size)
+    match = None
+    if base is not None:
+        n = max(sum(min(len(a), len(b)) for a, b in zip(base, streams)), 1)
+        match = sum(x == y for a, b in zip(base, streams)
+                    for x, y in zip(a, b)) / n
+    emit("serve", arch=cfg.name, layers=n_layers, policy=policy,
+         mode=label, pipelined=pipelined, use_kv_cache=use_kv_cache,
+         requests=len(results), generated_tokens=st.generated_tokens,
+         wall_s=wall, tokens_per_s=st.generated_tokens / wall,
+         decode_tok_per_s=st.generated_tokens / st.decode_s
+         if st.decode_s else None, prefill_s=st.prefill_s,
+         decode_s=st.decode_s, nocache_s=st.nocache_s, batches=st.batches,
+         decode_steps=steps, full_forwards=forwards,
+         greedy_match_packed=match,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches)
+    dense = {"flash_attention": n_layers * (prefills + forwards),
+             "decode_attention": n_layers * steps}
+    checks = {
+        "16 requests with in-vocabulary ids": len(results) == 16 and all(
+            t in keep for s in streams for t in s) and st.generated_tokens
+        == sum(map(len, streams)) > 0,
+        f"flash ran {n_layers} x (prefills {prefills} + full forwards "
+        f"{forwards})": launches["flash_attention"]
+        == dense["flash_attention"] > 0,
+        f"dense decode_attention ran {n_layers} x decode steps ({steps})": (
+            launches["decode_attention"] == dense["decode_attention"]),
+        "no other attention kernel ran": all(
+            n == 0 for k, n in launches.items()
+            if k not in dense and k != "quant_matmul"),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"{arch} {label} dense serve failed: {failed}")
+    del eng
+    phase_profile(None, None, wall, arch, policy, "auto", label,
+                  run=lambda: run(engine()))
+    return launches, streams
+
+
 def _trace_checks(tracer, m, name):
     """Export a serve's trace into ``build/`` (JSONL and Perfetto) and
     check it: the JSONL validates, nothing was dropped, the device spans
@@ -1566,9 +1962,10 @@ def _trace_checks(tracer, m, name):
 
 
 def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
-                  serve_kw=None):
-    """The same serve once more, on a fresh engine, under torch.profiler:
-    device time by kernel, and the device's busy share of the measured
+                  serve_kw=None, run=None):
+    """The same serve once more, on a fresh engine, under torch.profiler
+    (``run`` instead of ``eng.serve_continuous(reqs)`` when given): device
+    time by kernel, and the device's busy share of the measured
     (unprofiled) wall time.  Returns the device busy seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1576,8 +1973,11 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
     # device activity only: the host-side events of ~10^5 launches would
     # cost minutes to collect and are not read
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.serve_continuous(reqs, **(_serve_kw(mode) if serve_kw is None
-                                      else serve_kw))
+        if run is not None:
+            run()
+        else:
+            eng.serve_continuous(reqs, **(_serve_kw(mode) if serve_kw is None
+                                          else serve_kw))
         torch.cuda.synchronize()
     # the profiler's raw device records: building its Python event list
     # for 10^5-10^6 launches takes minutes, reading the records seconds
@@ -1594,6 +1994,7 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
                  "paged_packed_kernel", "paged_packed_mma_kernel",
                  "paged_mixed_kernel", "paged_mixed_mma_kernel",
                  "flash_kernel", "flash_mma_kernel",
+                 "dense_decode_kernel", "dense_decode_mma_kernel",
                  "quant_matmul_kernel", "quant_matmul_reduce_kernel",
                  "quant_matmul_mma_decode_kernel",
                  "quant_matmul_mma_tiled_kernel", "mlstm_chunk_kernel",
@@ -1622,11 +2023,16 @@ def phase_serves():
     weights, each with its profile, and the exact byte checks of the two
     qwen3-4b runs; then the serves off the packed decode path: qwen3-4b
     speculative (n-gram) at bf16 and at int8, qwen3-4b ``packed=False``
-    at bf16 and unimo-text self-drafting at bf16.  Returns the launch
-    counts of each kernel's main-path run: the qwen3-4b bf16 run's for
-    kernels 1-2, its int8 run's for the ``_q8`` kernels and
-    ``quant_matmul``, the speculative runs' for the mixed pair and the
-    self-drafting run's for flash."""
+    at bf16; the paper's own path for qwen3-4b (pipelined and sequential
+    over the dense KV cache, the no-cache baseline) and its bucketed
+    admission behind a pinned 32-token prefix (bf16, int8 KV + int8
+    weights); the contended and traced serves; unimo-text self-drafting
+    and pruned; last unimo-text as the paper serves it (fp16, pruned,
+    pipelined over the dense cache).  Returns the launch counts of each
+    kernel's main-path run: the qwen3-4b bf16 run's for kernels 1-2, its
+    int8 run's for the ``_q8`` kernels and ``quant_matmul``, the
+    speculative runs' for the mixed pair and the pipelined dense run's for
+    flash and the dense decode kernel."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import BF16
@@ -1634,7 +2040,7 @@ def phase_serves():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     unimo = T.init_params(gen, get_config("unimo-text"), BF16)
-    phase_serve("unimo-text", unimo, profile=True)
+    _, _, s_unimo, _, _ = phase_serve("unimo-text", unimo, profile=True)
     gen.manual_seed(0)
     params = T.init_params(gen, get_config("qwen3-4b"), BF16)
     m16, l16, s16, _, _ = phase_serve("qwen3-4b", params, profile=True)
@@ -1662,6 +2068,30 @@ def phase_serves():
                                  profile=True)
     _, _, sc, _, _ = phase_serve("qwen3-4b", params, mode="packed_off",
                                  profile=True)
+    # the paper's own path: bucket batches over a dense KV cache,
+    # sequentially, then through the pipeline, and the no-cache baseline
+    phase_dense("qwen3-4b", params, "sequential", pipelined=False, base=s16)
+    l_dense, _ = phase_dense("qwen3-4b", params, "pipelined", base=s16)
+    phase_dense("qwen3-4b", params, "nocache", pipelined=False,
+                use_kv_cache=False, max_new=8, base=s16)
+    # bucketed admission behind a 32-token system prompt pinned by
+    # set_prefix, beside the packed serve of the same requests
+    prefix = _system_prompt()
+    _, _, spp, _, _ = phase_serve("qwen3-4b", params, prefix=prefix,
+                                  label="packed_prefix")
+    _, _, sb16, _, _ = phase_serve("qwen3-4b", params, mode="bucketed",
+                                   prefix=prefix, profile=True,
+                                   label="bucketed_prefix")
+    _, _, sb8, _, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+                                  weights_dtype="int8", mode="bucketed",
+                                  prefix=prefix, profile=True,
+                                  label="bucketed_prefix")
+    n_pp = max(sum(len(x) for x in spp), 1)
+    emit("qwen3_bucketed_vs_packed", prefix_tokens=len(prefix),
+         bf16=sum(a == b for x, y in zip(spp, sb16) for a, b in zip(x, y))
+         / n_pp,
+         int8_kv_int8_weights=sum(a == b for x, y in zip(spp, sb8)
+                                  for a, b in zip(x, y)) / n_pp)
     # overload: a contended pool at bf16 and at int8 KV + int8 weights
     phase_contended(params, m16, s16, "auto", "auto")
     phase_contended(params, m8, s8, "int8", "int8")
@@ -1676,10 +2106,17 @@ def phase_serves():
          greedy_match_untraced=sum(a == b for x, y in zip(sa, st)
                                    for a, b in zip(x, y)) / n_ng)
     del params
-    _, ld, _, _, _ = phase_serve("unimo-text", unimo, mode="spec_draft",
-                                 profile=True)
+    phase_serve("unimo-text", unimo, mode="spec_draft", profile=True)
     # the paper's embedding-layer pruning, as the serve CLI applies it
     phase_pruned(unimo)
+    # unimo-text as the paper serves it: fp16, the vocabulary pruned to
+    # coverage 0.999, pipelined over the dense KV cache
+    from repro_torch.core import pruning as PR
+    p2, cfg2, maps = PR.prune_model(unimo, get_config("unimo-text"),
+                                    dict(_smoke_freqs()),
+                                    coverage=PRUNE_COVERAGE)
+    phase_dense("unimo-text", p2, "paper_fp16_pruned", policy="fp16",
+                cfg=cfg2, prune_maps=maps, base=s_unimo)
     # bf16 matmuls over 5-token windows and 1-token steps round
     # differently: recorded, not gated (the fp32 parity phase gates them)
     n16 = max(sum(len(x) for x in s16), 1)
@@ -1695,7 +2132,8 @@ def phase_serves():
                                   "quant_matmul")},
             "paged_mixed_attention": la["paged_mixed_attention"],
             "paged_mixed_attention_q8": lb["paged_mixed_attention_q8"],
-            "flash_attention": ld["flash_attention"]}
+            **{k: l_dense[k] for k in ("flash_attention",
+                                       "decode_attention")}}
 
 
 def offload_restore_cost(cfg, kv_dtype, num_pages, n_pages, reps=10):
@@ -1955,12 +2393,13 @@ def main(argv=None) -> int:
     phase_parity("unimo-text")
     phase_parity("qwen3-4b")
     phase_parity("qwen3-4b", kv_dtype="int8", weights_dtype="int8")
+    phase_parity_dense("unimo-text")
+    phase_parity_dense("qwen3-4b")
     phase_parity_xlstm()
     phase_parity_overload()
     launches = phase_serves()
     xl = phase_serve_xlstm()
-    launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm",
-                                        "decode_attention")})
+    launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
 
     kernels = []
     for name in REPLACES:

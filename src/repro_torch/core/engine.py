@@ -1,34 +1,44 @@
-"""Continuous-batching inference engine (the port's counterpart of
-``repro.core.engine``), reduced to the reference's ``serve_continuous``:
-the unified token-budget scheduler with radix prefix sharing over the
-paged KV pool and fused multi-step decode for attention models, and the
-bucketed whole-prompt admission fallback for recurrent (xLSTM) models.
-An iteration that carries prefill chunks runs token-packed (one (1, T)
-dispatch, the default) or, with ``packed=False``, as the reference's A/B
-baseline: a one-step decode plus one (1, W-bucket) mixed forward per
-chunk.  With a ``SpecConfig``, decode-only iterations run draft-verify
-steps instead.  Under pool pressure a decoding slot can be preempted into
-a host KV tier and resumed; a :class:`~repro_torch.core.trace.ServeTracer`
-records the loop's event timeline; an engine built on a pruned vocabulary
-(``prune_maps``) remaps prompts and unmaps results.
+"""Inference engine (the port's counterpart of ``repro.core.engine``),
+where the paper's pillars compose.
 
-The engine runs on the card by default (``device="cuda"``) and raises when
-no CUDA device is present; pass ``device="cpu"`` to run the kernels'
-plain PyTorch versions.  The reference's bucketed path for attention
-models (``chunked_prefill=False``) is not ported and raises
-``NotImplementedError``.
+* ``generate_batch`` / ``serve``: the paper's own serving path.  Length-
+  bucketed batches (``DynamicBatcher``) run a prefill over a dense per-slot
+  KV cache, then one decode step per token (P1); with
+  ``use_kv_cache=False`` every token re-runs the full forward (the paper's
+  Table-1 baseline).  ``core.pipeline`` overlaps tokenization and
+  detokenization with it (P4).
+* ``serve_continuous``: continuous batching over a paged KV pool.
+  Attention models run the unified token-budget scheduler with radix
+  prefix sharing and fused multi-step decode; an iteration that carries
+  prefill chunks runs token-packed (one (1, T) dispatch, the default) or,
+  with ``packed=False``, as the reference's A/B baseline (a one-step decode
+  plus one (1, W-bucket) mixed forward per chunk).  With
+  ``chunked_prefill=False``, and always for layer families that cannot
+  share pages (recurrent xLSTM), admissions are bucketed instead: each
+  group of equal-bucket prompts prefills whole in one dispatch, after any
+  shared prefix pinned by ``set_prefix`` or cached in the trie.  With a
+  ``SpecConfig``, decode-only iterations run draft-verify steps.  Under
+  pool pressure a decoding slot can be preempted into a host KV tier and
+  resumed; a :class:`~repro_torch.core.trace.ServeTracer` records the
+  loop's event timeline.
+
+An engine built on a pruned vocabulary (``prune_maps``) remaps prompts
+and unmaps results on every path.  The engine runs on the card by default
+(``device="cuda"``) and raises when no CUDA device is present; pass
+``device="cpu"`` to run the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
 import time
 import warnings
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, layer_specs
+from repro_torch.configs.base import MOE_FFN, ModelConfig, layer_specs
 from repro_torch.core import kv_cache as KV
 from repro_torch.core import prefix_cache as PC
 from repro_torch.core import pruning as PR
@@ -39,8 +49,9 @@ from repro_torch.core.precision import (BF16, Policy, compress_weights,
                                         map_params)
 from repro_torch.core.sampling import (SamplingParams, sample,
                                       speculative_verify)
-from repro_torch.core.scheduler import (DEFAULT_BUCKETS, Request,
-                                        pick_bucket, truncate_prompt)
+from repro_torch.core.scheduler import (DEFAULT_BUCKETS, DynamicBatcher,
+                                        Request, pad_batch, pick_bucket,
+                                        truncate_prompt)
 from repro_torch.core.speculative import SpecConfig, get_drafter
 from repro_torch.core.tokenizer import EOS
 from repro_torch.kernels import decode_attention as DA
@@ -67,14 +78,32 @@ def packed_width_buckets(budget: int) -> tuple:
                          for i in range(1, -(-cap // step) + 1)}))
 
 
+@dataclass
+class EngineStats:
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    nocache_s: float = 0.0
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    batches: int = 0
+
+    def merge(self, other: "EngineStats"):
+        for f in self.__dataclass_fields__:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+
+
 def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA request without a CUDA
-    device raises instead of carrying on on the CPU."""
+    """The device an entry point runs on (a bare "cuda" is the current
+    card); a CUDA request without a CUDA device raises instead of
+    carrying on on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; the port runs on "
                            "the card by default (pass device='cpu' to run "
                            "the kernels' plain PyTorch versions)")
+    if dev.type == "cuda" and dev.index is None:
+        # pinned to the current card, so another thread can select it
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -84,11 +113,13 @@ class InferenceEngine:
     ``prune_maps`` (from :func:`~repro_torch.core.pruning.prune_model`)
     marks ``cfg``/``params`` as a pruned-vocabulary model: requests come
     and go in the original ids, remapped at submission and unmapped on
-    the way out."""
+    the way out.  ``use_kv_cache=False`` makes ``generate_batch`` the
+    no-cache baseline."""
 
     def __init__(self, cfg: ModelConfig, params, *, policy: Policy = BF16,
-                 max_batch: int = 8, max_len: int = 512, seed: int = 0,
-                 device="cuda", prune_maps: Optional[PR.PruneMaps] = None):
+                 max_batch: int = 8, max_len: int = 512,
+                 use_kv_cache: bool = True, seed: int = 0, device="cuda",
+                 prune_maps: Optional[PR.PruneMaps] = None):
         self.device = resolve_device(device)
         T.check_supported(cfg)
         self.cfg = cfg
@@ -103,6 +134,8 @@ class InferenceEngine:
         self.weight_quant_s = time.perf_counter() - t_q
         self.max_batch = max_batch
         self.max_len = max_len
+        self.use_kv_cache = use_kv_cache
+        self.stats = EngineStats()
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self._paged_ctx = None         # persistent paged pool + radix trie
@@ -120,6 +153,185 @@ class InferenceEngine:
 
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    # -- the paper's serving path: bucketed batches over a dense cache ------
+    @torch.no_grad()
+    def generate_batch(self, tokens: np.ndarray, lengths: np.ndarray,
+                       max_new_tokens: int,
+                       sp: SamplingParams = SamplingParams(),
+                       stop_at_eos: bool = True) -> np.ndarray:
+        """tokens: (B, L) right-padded int32, lengths: (B,).  Returns
+        (B, max_new_tokens) ids, -1 after EOS (EOS itself is not
+        emitted)."""
+        if self.prune_maps is not None:
+            tokens = PR.remap_tokens(tokens, self.prune_maps)
+        gen = self._generate_kv if self.use_kv_cache \
+            else self._generate_nocache
+        out = gen(tokens, lengths, max_new_tokens, sp, stop_at_eos)
+        if self.prune_maps is not None:
+            out = np.where(out >= 0, PR.unmap_tokens(
+                np.maximum(out, 0), self.prune_maps), out)
+        return out
+
+    def _generate_kv(self, tokens, lengths, max_new, sp, stop_at_eos):
+        """Prefill the bucket into a fresh dense cache, then decode.  The
+        greedy path runs its ``max_new - 1`` decode steps back to back on
+        the device with the reference's EOS rule (a finished row feeds
+        token 0 and emits -1) and copies the ids to the host once; the
+        sampled path reads each step's token."""
+        B = tokens.shape[0]
+        cache = T.init_cache(self.cfg, B, self.max_len,
+                             self.policy.kv_cache_dtype(dense=True),
+                             device=self.device)
+        t0 = time.perf_counter()
+        lens = self._put(np.asarray(lengths, np.int32))
+        logits, _ = T.forward_prefill(
+            self.params, self.cfg, self._put(np.asarray(tokens, np.int32)),
+            lens, cache, policy=self.policy, max_len=self.max_len)
+        self._sync()
+        t1 = time.perf_counter()
+        out = np.full((B, max_new), -1, np.int64)
+        rows = torch.arange(B, device=self.device)
+        first = sample(logits[rows, lens.long() - 1], self.gen, sp)
+
+        def step(tok, pos):
+            logits1, _ = T.forward_decode(
+                self.params, self.cfg, tok[:, None], cache, pos,
+                policy=self.policy, max_len=self.max_len)
+            return logits1[:, 0]
+
+        if sp.temperature <= 0.0 and max_new > 1 and stop_at_eos:
+            first = first.to(torch.int32)
+            done = first == EOS
+            emits = [torch.where(done, -1, first)]
+            tok = torch.where(done, 0, first)
+            for i in range(max_new - 1):
+                nxt = torch.argmax(step(tok, lens + i), -1).to(torch.int32)
+                nxt = torch.where(done, 0, nxt)
+                done = done | (nxt == EOS)
+                emits.append(torch.where(done, -1, nxt))
+                tok = nxt
+            out[:] = torch.stack(emits, 1).cpu().numpy()
+        else:
+            done = np.zeros((B,), bool)
+            nxt = first
+            for i in range(max_new):
+                nxt_np = nxt.cpu().numpy()
+                if stop_at_eos:
+                    done |= nxt_np == EOS
+                out[~done, i] = nxt_np[~done]
+                if done.all() or i == max_new - 1:
+                    break
+                nxt = sample(step(nxt, lens + i), self.gen, sp)
+        self._sync()
+        t2 = time.perf_counter()
+        self.stats.merge(EngineStats(
+            prefill_s=t1 - t0, decode_s=t2 - t1,
+            prompt_tokens=int(np.sum(lengths)),
+            generated_tokens=int((out >= 0).sum()), batches=1))
+        return out
+
+    def _generate_nocache(self, tokens, lengths, max_new, sp, stop_at_eos):
+        """The paper's Table-1 baseline: every token re-runs the full
+        forward over the (B, L + max_new) buffer, each row's new token
+        written after its last one."""
+        B, L = tokens.shape
+        buf = np.zeros((B, L + max_new), np.int32)
+        buf[:, :L] = tokens
+        lens = np.asarray(lengths).copy()
+        out = np.full((B, max_new), -1, np.int64)
+        done = np.zeros((B,), bool)
+        rows = torch.arange(B, device=self.device)
+        t0 = time.perf_counter()
+        for i in range(max_new):
+            logits = T.forward_train(self.params, self.cfg, self._put(buf),
+                                     policy=self.policy)
+            last = logits[rows, self._put(lens - 1).long()]
+            nxt = sample(last, self.gen, sp).cpu().numpy()
+            if stop_at_eos:
+                done |= nxt == EOS
+            out[~done, i] = nxt[~done]
+            buf[np.arange(B), lens] = np.where(done, 0, nxt)
+            lens = lens + (~done).astype(lens.dtype)
+            if done.all():
+                break
+        t1 = time.perf_counter()
+        self.stats.merge(EngineStats(
+            nocache_s=t1 - t0, prompt_tokens=int(np.sum(lengths)),
+            generated_tokens=int((out >= 0).sum()), batches=1))
+        return out
+
+    def serve(self, requests: List[Request],
+              sp: SamplingParams = SamplingParams()) -> List[Request]:
+        """The request-level API of the bucketed path: sort by length,
+        batch by bucket (``DynamicBatcher``), ``generate_batch`` each
+        batch; fills ``r.result``."""
+        batcher = DynamicBatcher(max_batch=self.max_batch,
+                                 buckets=self.prompt_buckets())
+        for r in requests:
+            batcher.add(r)
+        while True:
+            batch = batcher.next_batch()
+            if batch is None:
+                break
+            toks, lens = pad_batch(batch)
+            max_new = max(r.max_new_tokens for r in batch.requests)
+            gen = self.generate_batch(toks, lens, max_new, sp)
+            for i, r in enumerate(batch.requests):
+                row = gen[i]
+                r.result = [int(t) for t in row[row >= 0]][:r.max_new_tokens]
+        return requests
+
+    # -- prefix caching: a shared prompt prefilled once and pinned --------
+    @torch.no_grad()
+    def set_prefix(self, prefix_tokens, *, page_size: int = 16,
+                   num_pages: Optional[int] = None,
+                   slots: Optional[int] = None) -> None:
+        """Prefill a shared prompt prefix into the paged pool once and pin
+        it in the radix prefix cache: every later request of
+        :meth:`serve_continuous` that starts with these tokens maps its
+        pages and prefills only its own suffix.  Families that cannot
+        share pages (``prefix_cache.shareable``) warn and do nothing.  The
+        geometry must match the later serves' (they share the pool)."""
+        toks = [int(t) for t in prefix_tokens]
+        reason = PC.shareable(self.cfg, self.max_len)
+        if reason is not None:
+            warnings.warn(f"set_prefix: prefix sharing disabled — {reason}")
+            return
+        if len(toks) > self.max_len - 1:
+            raise ValueError(f"prefix of {len(toks)} tokens leaves no room "
+                             f"to generate within max_len={self.max_len}")
+        ctx = self._paged_context(page_size, num_pages, slots)
+        n = -(-len(toks) // page_size)
+        pages = ctx["alloc"].alloc(n)
+        if pages is None:
+            ctx["trie"].evict(n - ctx["alloc"].free_count)
+            pages = ctx["alloc"].alloc(n)
+        if pages is None:
+            raise ValueError(f"prefix needs {n} pages; pool has only "
+                             f"{ctx['alloc'].free_count} free")
+        row = np.full((1, ctx["pages_per_slot"]), -1, np.int32)
+        row[0, :n] = pages
+        reset = np.where(row >= 0, row, ctx["dump"]).astype(np.int32)
+        self._admit_step(ctx["cache"], np.asarray([toks], np.int32),
+                         np.asarray([len(toks)], np.int32),
+                         np.zeros((1,), np.int32), row, reset,
+                         SamplingParams())
+        self._sync()
+        # the trie takes its own reference on the pages; ours drops
+        ctx["trie"].insert(toks, pages, len(toks), pin=True)
+        for p in pages:
+            ctx["alloc"].decref(p)
+
+    def clear_prefix(self) -> None:
+        """Unpin every seeded prefix: its pages stay cached as ordinary
+        LRU-evictable entries."""
+        if self._paged_ctx is not None:
+            self._paged_ctx["trie"].unpin_all()
+
+    def reset_prefix_cache(self) -> None:
+        """Drop the persistent paged pool and radix trie (a cold cache)."""
+        self._paged_ctx = None
 
     # -- continuous batching (paged KV, in-flight admission) --------------
     def _paged_context(self, page_size: int, num_pages: Optional[int],
@@ -162,16 +374,26 @@ class InferenceEngine:
         KV.copy_pages_all(cache, self._put(cow_src), self._put(cow_dst),
                           self._put(cow_keep))
 
-    def _admit_step(self, cache, toks, plens, slots, pages, sp):
-        """One bucketed admission dispatch (the reference's ``admit_fn``):
-        reset the group's fresh pages, prefill its whole prompts on a
-        fresh slot view, scatter the view's state into the group's slots
-        and sample each row's first token."""
-        KV.reset_pages_all(cache, self._put(pages))
+    def _admit_step(self, cache, toks, plens, slots, block_rows,
+                    reset_rows, sp, start=None, cow=None):
+        """One bucketed admission dispatch: the reference's ``admit_fn``,
+        or with per-row ``start`` offsets its ``admit_prefix_fn``.  Reset
+        the group's fresh pages, copy each row's partial COW tail page
+        (``cow``: source, target and kept length per row), prefill the
+        prompts (or their suffixes after a shared prefix, which they
+        attend through the gathered block table) on a fresh slot view,
+        scatter the view's state into the group's slots and sample each
+        row's first token."""
+        if cow is None:
+            KV.reset_pages_all(cache, self._put(reset_rows))
+        else:
+            self._init_pages(cache, reset_rows, *cow)
         view = KV.slot_view(cache, toks.shape[0])
         logits, view = T.forward_prefill(
             self.params, self.cfg, self._put(toks), self._put(plens), view,
-            policy=self.policy, max_len=self.max_len, last_only=True)
+            policy=self.policy, max_len=self.max_len, last_only=True,
+            start=0 if start is None else self._put(start),
+            paged={"block_tables": self._put(block_rows)})
         KV.slot_merge(cache, view, self._put(slots))
         return sample(logits[:, 0], self.gen, sp)
 
@@ -343,14 +565,20 @@ class InferenceEngine:
         deterministic fake clock gives byte-identical traces.  ``None``
         costs nothing: every emit site is guarded.
 
-        Recurrent models (every layer mLSTM or sLSTM) keep dense per-slot
-        state that chunks cannot resume and requests cannot share, so,
-        as in the reference, they take the bucketed fallback: FCFS
-        admissions of equal prompt length are grouped into power-of-two
-        batches, each prefilled whole in one dispatch at its exact
-        length, then every slot decodes in fused steps.  There
-        ``prefix_cache``, ``spec``, ``chunked_prefill``, ``packed`` and
-        ``preemption`` warn and are turned off, as the reference does.
+        ``chunked_prefill=False`` (and, always, a model whose layers
+        cannot share pages) takes the bucketed path instead: FCFS
+        admissions whose unmatched prompt suffixes share a length bucket
+        (``prompt_buckets``; the exact length for recurrent models, whose
+        state padding would change) are grouped into power-of-two
+        batches, each prefilled whole in one dispatch, then every slot
+        decodes in fused steps, or in verify steps under ``spec``.  With
+        sharing on, a suffix resumes after its matched prefix pages (a
+        partial tail page copied on write) and attends them through the
+        gathered block table; an int8 pool attends its written pages even
+        with no match, so bucketed int8 equals chunked int8.  There
+        ``packed`` and ``preemption`` warn and are turned off, as the
+        reference does; for recurrent models ``prefix_cache``, ``spec``
+        and ``chunked_prefill`` too.
 
         Returns (requests, ServeMetrics); ``r.result`` holds each
         request's generated tokens.
@@ -358,22 +586,13 @@ class InferenceEngine:
         if preemption not in ("off", "lru", "priority"):
             raise ValueError(f"unknown preemption policy {preemption!r}")
         reason = PC.shareable(self.cfg, self.max_len)
-        if reason is not None and not all(
-                layer.mixer in T.RECURRENT
-                for layer in layer_specs(self.cfg)):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the port's bucketed path serves only "
-                f"recurrent models, and the unified chunked path needs "
-                f"paged pure attention ({reason})")
-        if reason is None and chunked_prefill is False:
-            raise NotImplementedError(
-                "chunked_prefill=False: bucketed admission of attention "
-                "models is not ported")
         if arrivals is not None and len(arrivals) != len(requests):
             raise ValueError("arrivals must match requests 1:1")
         # the reference's family gate: a model whose layers cannot share
         # pages serves without the prefix cache, speculation, chunks,
-        # preemption and packing, with a warning for each one asked for
+        # preemption and packing, with a warning for each one asked for;
+        # chunked_prefill=False turns chunks, preemption and packing off
+        # for any model (bucketed admission)
         share = reason is None if prefix_cache is None else bool(prefix_cache)
         if share and reason is not None:
             warnings.warn(f"prefix_cache requested but disabled — {reason}")
@@ -382,10 +601,12 @@ class InferenceEngine:
             warnings.warn(f"speculative decoding requested but disabled — "
                           f"{reason}")
             spec = None
-        chunked = reason is None
-        if chunked_prefill and reason is not None:
+        chunked = reason is None if chunked_prefill is None \
+            else bool(chunked_prefill)
+        if chunked and reason is not None:
             warnings.warn(f"chunked prefill requested but disabled — "
                           f"{reason}")
+            chunked = False
         if preemption != "off" and not chunked:
             warnings.warn("preemption requested but disabled — it needs "
                           "the unified chunked scheduler (resume "
@@ -393,8 +614,9 @@ class InferenceEngine:
             preemption = "off"
         packed_on = chunked if packed is None else bool(packed)
         if packed_on and not chunked:
-            warnings.warn(f"packed execution requested but disabled — it "
-                          f"rides the unified chunked scheduler ({reason})")
+            warnings.warn("packed execution requested but disabled — it "
+                          "rides the unified chunked scheduler"
+                          + (f" ({reason})" if reason is not None else ""))
             packed_on = False
         drafter = None
         if spec is not None:
@@ -417,6 +639,13 @@ class InferenceEngine:
             budget = floor
         packed_buckets = packed_width_buckets(budget)
         width_buckets = mixed_width_buckets(budget)
+        buckets = self.prompt_buckets()
+        # padding would fold into recurrent state (and compete for
+        # capacity-routed experts): such families admit at exact prompt
+        # lengths instead of buckets
+        pad_sensitive = any(spec.mixer in T.RECURRENT
+                            or spec.ffn == MOE_FFN
+                            for spec in layer_specs(self.cfg))
         # the host KV tier persists with the pool; a new budget replaces
         # it (spilled prefixes of the old one are dropped with it)
         host = None
@@ -470,6 +699,7 @@ class InferenceEngine:
                                scheduler="unified" if chunked
                                else "bucketed",
                                max_batched_tokens=budget if chunked else 0)
+        stats = EngineStats(batches=1)
         trie_base = trie.evicted_pages
 
         block_tables = np.full((slots, pages_per_slot), -1, np.int32)
@@ -526,6 +756,10 @@ class InferenceEngine:
                 self._sync()
                 dt = clk() - ts
                 metrics.device_s += dt
+                if name == "admit_prefill":
+                    stats.prefill_s += dt
+                else:
+                    stats.decode_s += dt
                 it_acc["device_s"] += dt
                 if tr is not None:
                     tr.emit("span", t=ts - t0, name=name, dur=dt,
@@ -848,48 +1082,88 @@ class InferenceEngine:
                            idle=False)
 
         def flush_admissions(pending):
-            """Bucketed fallback: run the pending equal-length admissions
-            in power-of-two groups (a group size that followed
-            scheduling timing would make the set of prefill shapes
-            unbounded), one dispatch each."""
+            """Run the pending equal-bucket admissions in power-of-two
+            groups (a group size that followed scheduling timing would
+            make the set of prefill shapes unbounded), one dispatch
+            each."""
             while pending:
                 n = 1 << (len(pending).bit_length() - 1)
                 group, pending[:] = pending[:n], pending[n:]
                 admit_group(group)
 
         def admit_group(group):
-            """One admission dispatch: whole prompts of one exact length
-            prefilled on fresh slot state, first tokens sampled, then
-            the reference's bookkeeping."""
-            n, plen = len(group), group[0][1].request.prompt_len
-            toks = np.zeros((n, plen), np.int32)
-            plens = np.full((n,), plen, np.int32)
+            """One bucketed admission dispatch (the reference's
+            ``_flush_chunk``): every row's unmatched suffix, right-padded
+            to the group's bucket, prefilled from its matched prefix
+            length (``admit_prefix_fn`` when sharing is on, ``admit_fn``
+            otherwise), first tokens sampled; then the bookkeeping."""
+            n, bucket = len(group), group[0][2]
+            toks = np.zeros((n, bucket), np.int32)
+            plens = np.zeros((n,), np.int32)        # suffix lengths
+            starts = np.zeros((n,), np.int32)       # matched prefix lengths
             slots_arr = np.zeros((n,), np.int32)
-            pages = np.full((n, pages_per_slot), dump, np.int32)
-            for i, (slot, st) in enumerate(group):
-                toks[i] = st.request.tokens
+            rows = np.zeros((n, pages_per_slot), np.int32)
+            init = page_init_rows(n)
+            for i, (slot, st, _) in enumerate(group):
+                req, m = st.request, st.matched_len
+                plens[i], starts[i] = req.prompt_len - m, m
+                toks[i, :req.prompt_len - m] = req.tokens[m:]
                 slots_arr[i] = slot
                 block_tables[slot, :] = -1
                 block_tables[slot, :len(st.pages)] = st.pages
-                pages[i, :len(st.fresh_pages)] = st.fresh_pages
+                rows[i] = block_tables[slot]
+                # only the request's own pages are reset: shared prefix
+                # pages stay live for other readers and the trie
+                book_page_init(st, init, i)
             with dev_span("admit_prefill"):
-                first = self._admit_step(cache, toks, plens, slots_arr,
-                                         pages, sp).cpu().numpy()
+                first = self._admit_step(
+                    cache, toks, plens, slots_arr, rows, init[0], sp,
+                    start=starts if share else None,
+                    cow=init[1:] if share else None).cpu().numpy()
             metrics.host_syncs += 1
-            for i, (slot, st) in enumerate(group):
-                st.prefill_pos = plen         # whole prompt in one go
+            t_adm = now()
+            for i, (slot, st, _) in enumerate(group):
+                req, plen = st.request, st.request.prompt_len
+                sched.release_cow_source(st)
+                st.needs_init = False
+                st.prefill_pos = plen             # whole prompt in one go
                 metrics.admitted += 1
-                metrics.prefill_tokens += plen
-                metrics.prefill_padded += plen
+                metrics.prefill_tokens += plen - st.matched_len
+                metrics.prefill_padded += bucket
+                metrics.prefix_hits += st.matched_len > 0
+                metrics.prefix_matched_tokens += st.matched_len
+                metrics.pages_shared += st.shared_count
+                stats.prompt_tokens += plen
                 if tr is not None:
-                    tr.emit_now("prefill_chunk", uid=st.request.uid,
-                                slot=int(slot), start=0, len=int(plen))
-                start_decoding(slot, st, int(first[i]))
+                    tr.emit("prefill_chunk", t=t_adm, uid=req.uid,
+                            slot=int(slot), start=int(st.matched_len),
+                            len=int(plen - st.matched_len))
+                    if st.matched_len > 0:
+                        tr.emit("prefix_hit", t=t_adm, uid=req.uid,
+                                matched_tokens=int(st.matched_len),
+                                pages_shared=int(st.shared_count))
+                # the page-aligned prompt KV joins the trie now (the
+                # partial tail joins at retire)
+                sched.insert_prefix(st, (plen // page_size) * page_size)
+                gen_budget = min(req.max_new_tokens, self.max_len - plen)
+                v = int(first[i])
+                if v != EOS and gen_budget > 0:
+                    st.emitted.append(v)
+                    record_emit(st, 1, t_adm)
+                if v == EOS or gen_budget <= 1:
+                    retire(slot)
+                else:
+                    tok[slot] = v
+                    lens[slot] = plen
+                    rem[slot] = gen_budget - 1
+                    act[slot] = True
 
         def admit_bucketed():
             """Admit FCFS while slots and pages allow, grouping consecutive
-            admissions of equal prompt length; a flush may retire slots
-            (EOS or budget at admission), so retry until no progress."""
+            admissions whose unmatched suffixes share a bucket (an exact
+            length for padding-sensitive families); a flush may retire
+            slots (EOS or budget at admission), so retry until no
+            progress."""
             while True:
                 pending, progress = [], False
                 while True:
@@ -897,10 +1171,13 @@ class InferenceEngine:
                     if adm is None:
                         break
                     progress = True
-                    if pending and pending[0][1].request.prompt_len \
-                            != adm[1].request.prompt_len:
+                    slot, st = adm
+                    suffix = st.request.prompt_len - st.matched_len
+                    bucket = suffix if pad_sensitive \
+                        else pick_bucket(suffix, buckets)
+                    if pending and pending[0][2] != bucket:
                         flush_admissions(pending)
-                    pending.append(adm)
+                    pending.append((slot, st, bucket))
                 flush_admissions(pending)
                 metrics.peak_pages_in_use = max(
                     metrics.peak_pages_in_use,
@@ -945,6 +1222,7 @@ class InferenceEngine:
                                         slot=int(slot), mode="recompute",
                                         n_pages=len(st.pages))
                     else:
+                        stats.prompt_tokens += st.request.prompt_len
                         metrics.admitted += 1
                         metrics.prefix_hits += st.matched_len > 0
                         metrics.prefix_matched_tokens += st.matched_len
@@ -1084,6 +1362,8 @@ class InferenceEngine:
                 if r.result:
                     r.result = [int(t) for t in PR.unmap_tokens(
                         r.result, self.prune_maps)]
+        stats.generated_tokens = metrics.generated_tokens
+        self.stats.merge(stats)
         # pool accounting must balance: every page is free or cached
         sched.allocator.check()
         resident = trie.resident_pages

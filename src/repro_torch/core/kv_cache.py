@@ -1,8 +1,18 @@
-"""Paged KV pools for continuous batching (the port's counterpart of the
-paged half of ``repro.core.kv_cache``).
+"""KV caches (the port's counterpart of ``repro.core.kv_cache``): the
+dense per-slot cache of the batched generation path, and the paged pools
+of continuous batching.
 
-K/V live in a shared pool of fixed-size pages, one pool per attention
-layer:
+**Dense.**  Each attention layer holds ``{"k", "v": (B, S, H_kv, D),
+"pos": (B, S)}``, the absolute position of every entry (-1 = empty), so
+masks stay exact for padded batches and ring caches alike.  ``S`` is the
+context (or the window) plus one "dump" slot, the last, where prompt
+padding lands with pos = -1; above 256 it is rounded up to a multiple of
+256, as in the reference (ring arithmetic uses ``S - 1``; the entries
+between the context and the rounded size stay empty).  Recurrent layers
+keep their fp32 state.
+
+**Paged.**  K/V live in a shared pool of fixed-size pages, one pool per
+attention layer:
 
   pk / pv : (P, page, H_kv, D)   physical page pool
   ppos    : (P, page)            absolute position per entry, -1 = empty
@@ -28,9 +38,9 @@ fresh zero rows and :func:`slot_merge` scatters the prefilled rows into
 the admitted slots.
 
 Unlike the reference, whose updates are functional, every update here
-writes the pool tensors **in place** (``index_put_``) and returns the same
-cache object: the engine owns one persistent pool and never needs the
-previous contents.
+writes the cache tensors **in place** (``index_put_``) and returns the
+same cache object: the engine owns one persistent pool (and one dense
+cache per batch) and never needs the previous contents.
 """
 from __future__ import annotations
 
@@ -79,6 +89,87 @@ def effective_window(cfg: ModelConfig, spec: LayerSpec,
             and max_len > cfg.native_context):
         w = cfg.long_context_override
     return w
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot cache
+# ---------------------------------------------------------------------------
+
+
+def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      max_len: int, dtype, device="cpu") -> dict:
+    """Dense cache of one layer for ``batch`` rows: K/V and positions for
+    attention (the context, or the window, plus the dump slot, rounded up
+    to a multiple of 256 above 256), the fp32 state for mLSTM / sLSTM."""
+    if spec.mixer in (MLSTM, SLSTM):
+        zero = (SSM.mlstm_zero_state if spec.mixer == MLSTM
+                else SSM.slstm_zero_state)
+        return zero(cfg, batch, device=device)
+    if spec.mixer != ATTN:
+        raise NotImplementedError(
+            f"dense caches for layer family '{spec.mixer}' are not ported")
+    window = effective_window(cfg, spec, max_len)
+    s = (min(window, max_len) if window else max_len) + 1
+    s = -(-s // 256) * 256 if s > 256 else s
+    shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, s), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def write_prefill(cache: dict, new: dict, positions) -> dict:
+    """Write whole prompts into a (possibly ring) dense cache, in place.
+
+    new: {"k"/"v": (B, S, H, D)} aligned with ``positions`` (B, S); a
+    position of -1 marks right-padding and goes to the dump slot.  A ring
+    (fewer slots than S) keeps only each row's last valid tokens."""
+    ring = cache["pos"].shape[1] - 1                       # last = dump
+    B, S = positions.shape
+    take = min(S, ring)
+    pos = positions.long()
+    dev = pos.device
+    # per row the last `take` valid tokens (positions are contiguous or
+    # -1 for padding, so the valid end is max(pos) + 1)
+    valid = (pos.amax(1) + 1).clamp_min(0)
+    start = (valid - take).clamp(0, S - take)
+    idx = start[:, None] + torch.arange(take, device=dev)[None, :]
+    b_idx = torch.arange(B, device=dev)[:, None]
+    pos_w = pos[b_idx, idx]
+    slots = torch.where(pos_w >= 0, pos_w % ring, ring)
+    for key, val in new.items():
+        cache[key][b_idx, slots] = val[b_idx, idx].to(cache[key].dtype)
+    cache["pos"][b_idx, slots] = pos_w.to(torch.int32)
+    return cache
+
+
+def write_decode(cache: dict, new: dict, lengths) -> dict:
+    """Write one token per row at absolute position ``lengths`` (B,), in
+    place; ``new``: {"k"/"v": (B, 1, H, D)}."""
+    ring = cache["pos"].shape[1] - 1
+    lengths = lengths.long()
+    slots = lengths % ring
+    b_idx = torch.arange(lengths.shape[0], device=lengths.device)
+    for key, val in new.items():
+        cache[key][b_idx, slots] = val[:, 0].to(cache[key].dtype)
+    cache["pos"][b_idx, slots] = lengths.to(torch.int32)
+    return cache
+
+
+def cache_mask(cache_pos, q_pos, window: Optional[int]):
+    """(B, Sq, Sk) bool mask from stored absolute positions: empty entries
+    (-1) are never visible, a key is visible at or before the query's
+    position and, with a window, inside it."""
+    valid = cache_pos[:, None, :] >= 0
+    m = (cache_pos[:, None, :] <= q_pos[:, :, None]) & valid
+    if window is not None:
+        m &= cache_pos[:, None, :] > (q_pos[:, :, None] - window)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Paged pools
+# ---------------------------------------------------------------------------
 
 
 def paged_pool_bytes(cache: dict) -> int:
@@ -145,6 +236,36 @@ def _scatter(cache: dict, new: dict, phys, off, pos) -> None:
         else:
             pool[phys, off] = new[key].to(pool.dtype)
     cache["ppos"][phys, off] = pos.to(torch.int32)
+
+
+def paged_write_prefill(cache: dict, new: dict, cache_pos, block_tables,
+                        *, ring_len: int) -> dict:
+    """Scatter whole prompts' K/V into their slots' pages, in place.
+
+    new: {"k"/"v": (B, S, H, D)}; cache_pos: (B, S) absolute positions
+    (-1 = padding); block_tables: (B, pages_per_slot) physical page ids
+    (-1 = unallocated).  Only each row's last min(S, ring_len) valid
+    tokens are written (a ring layer would otherwise write one entry
+    twice); padding and unallocated pages go to the dump page."""
+    page = cache["ppos"].shape[1]
+    dump = cache["ppos"].shape[0] - 1
+    B, S = cache_pos.shape
+    take = min(S, ring_len)
+    pos = cache_pos.long()
+    dev = pos.device
+    valid = (pos.amax(1) + 1).clamp_min(0)
+    start = (valid - take).clamp(0, S - take)
+    idx = start[:, None] + torch.arange(take, device=dev)[None, :]
+    b_idx = torch.arange(B, device=dev)[:, None]
+    pos_w = pos[b_idx, idx]                                    # (B, take)
+    rp = torch.where(pos_w >= 0, pos_w % ring_len, 0)
+    lp, off = rp // page, rp % page
+    phys = torch.gather(block_tables.long(), 1, lp)
+    ok = (pos_w >= 0) & (phys >= 0)
+    phys = torch.where(ok, phys, dump)
+    _scatter(cache, {key: new[key][b_idx, idx] for key in ("k", "v")},
+             phys, off, torch.where(ok, pos_w, -1))
+    return cache
 
 
 def paged_write_decode(cache: dict, new: dict, lengths, block_tables,

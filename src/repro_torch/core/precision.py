@@ -7,7 +7,9 @@ A policy is three dtypes — ``param_dtype`` (weight storage),
   * ``kv_dtype`` — "auto" (= compute dtype), "bf16", "fp16" or "int8".
     int8 stores the paged K/V pages as int8 codes with per-entry,
     per-kv-head fp32 absmax scales in parallel scale pools
-    (``kv_cache.quantize_kv``).
+    (``kv_cache.quantize_kv``); the dense per-slot cache of
+    ``generate_batch`` has no scale pools and keeps the compute dtype
+    (:meth:`Policy.kv_cache_dtype`).
   * ``weights_dtype`` — storage of the dense serve-path matmul weights
     (attention qkv/out projections, dense FFNs, the unembedding head).
     "auto" keeps ``param_dtype``; "int8" quantizes each weight at load
@@ -27,14 +29,17 @@ KV_DTYPES = ("auto", "bf16", "fp16", "int8")
 WEIGHTS_DTYPES = ("auto", "bf16", "fp16", "int8")
 
 
-def kv_store_dtype(kv_dtype: str, compute_dtype) -> torch.dtype:
-    """Resolve a ``Policy.kv_dtype`` name to the paged pool's storage
-    dtype."""
+def kv_store_dtype(kv_dtype: str, compute_dtype, *,
+                   allow_int8: bool = True) -> torch.dtype:
+    """Resolve a ``Policy.kv_dtype`` name to the cache storage dtype.
+    ``allow_int8=False`` is the dense per-slot cache, which has no scale
+    pools beside it: int8 there falls back to the compute dtype."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
                          f"one of {list(KV_DTYPES)}")
     return {"auto": compute_dtype, "bf16": torch.bfloat16,
-            "fp16": torch.float16, "int8": torch.int8}[kv_dtype]
+            "fp16": torch.float16,
+            "int8": torch.int8 if allow_int8 else compute_dtype}[kv_dtype]
 
 
 # Shared with the KV pool's scheme: symmetric absmax, full [-127, 127]
@@ -195,6 +200,13 @@ class Policy:
 
     def output_cast(self, x):
         return x.to(self.output_dtype)
+
+    def kv_cache_dtype(self, *, dense: bool = False) -> torch.dtype:
+        """Storage dtype of KV caches under this policy; ``dense=True``
+        (per-slot caches without scale pools) maps int8 back to the
+        compute dtype, since only the paged pool stores int8."""
+        return kv_store_dtype(self.kv_dtype, self.compute_dtype,
+                              allow_int8=not dense)
 
 
 FP32 = Policy()

@@ -53,6 +53,7 @@ class _Node:
     parent: Optional["_Node"]
     children: Dict[Tuple[int, ...], "_Node"] = field(default_factory=dict)
     tick: int = 0
+    pinned: bool = False               # seeded by set_prefix: never evicted
 
 
 def _common_prefix(a: Sequence[int], b: Sequence[int]) -> int:
@@ -68,8 +69,8 @@ class RadixPrefixCache:
 
     The cache owns one allocator reference per resident node; ``match``
     does NOT take references (the scheduler increfs the pages it maps
-    into a request).  Eviction only considers leaves whose page has no
-    reference beyond the trie's own.
+    into a request).  Eviction only considers unpinned leaves whose page
+    has no reference beyond the trie's own.
     """
 
     def __init__(self, allocator, page_size: int):
@@ -103,10 +104,10 @@ class RadixPrefixCache:
         return [nd.page for nd in self._iter_nodes()]
 
     def evictable_count(self) -> int:
-        """Pages :meth:`evict` could free right now: leaves no live
-        request maps (the scheduler's preemption-headroom bound)."""
+        """Pages :meth:`evict` could free right now: unpinned leaves no
+        live request maps (the scheduler's preemption-headroom bound)."""
         return sum(1 for nd in self._iter_nodes()
-                   if not nd.children
+                   if not nd.children and not nd.pinned
                    and self.allocator.refcount(nd.page) == 1)
 
     def _span_key(self, node: _Node) -> tuple:
@@ -148,11 +149,12 @@ class RadixPrefixCache:
         return m, pages
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int],
-               valid_len: int) -> int:
+               valid_len: int, pin: bool = False) -> int:
         """Index ``tokens[:valid_len]`` whose KV lives in ``pages``
         (block-table order).  Only spans the trie doesn't already cover
         take a new reference; a partial tail node that our tokens extend
-        is swapped to our page.  Returns the number of pages newly
+        is swapped to our page.  ``pin`` marks every node of the path
+        unevictable (``set_prefix``).  Returns the number of pages newly
         retained by the trie."""
         node, i, pi, kept = self.root, 0, 0, 0
         ps = self.page_size
@@ -161,6 +163,8 @@ class RadixPrefixCache:
             exact = node.children.get(chunk)
             if exact is not None:
                 self._touch(exact)
+                if pin:
+                    exact.pinned = True
                 if len(chunk) < ps:
                     break
                 node, i, pi = exact, i + ps, pi + 1
@@ -174,6 +178,8 @@ class RadixPrefixCache:
                     cover = child               # ours is a prefix of child
             if cover is not None:
                 self._touch(cover)
+                if pin:
+                    cover.pinned = True
                 break
             if ext is not None:
                 # extend the partial node in place: swap to our page
@@ -190,24 +196,26 @@ class RadixPrefixCache:
                 node.children[chunk] = child_node
             kept += 1
             self._touch(child_node)
+            if pin:
+                child_node.pinned = True
             if len(chunk) < ps:
                 break
             node, i, pi = child_node, i + ps, pi + 1
         return kept
 
     def evict(self, n_pages: int) -> int:
-        """Free up to ``n_pages`` pool pages by dropping LRU leaves whose
-        page has no reference besides the trie's own (spilling full-page
-        leaves into the host tier when one is attached).  Returns the
-        number actually freed."""
+        """Free up to ``n_pages`` pool pages by dropping unpinned LRU
+        leaves whose page has no reference besides the trie's own
+        (spilling full-page leaves into the host tier when one is
+        attached).  Returns the number actually freed."""
         heap = [(nd.tick, id(nd), nd) for nd in self._iter_nodes()
-                if not nd.children]
+                if not nd.children and not nd.pinned]
         heapq.heapify(heap)
         freed = 0
         spilled0 = self.spilled_pages
         while heap and freed < n_pages:
             _, _, nd = heapq.heappop(heap)
-            if nd.children or nd.parent is None:
+            if nd.children or nd.pinned or nd.parent is None:
                 continue                        # stale heap entry
             if self.allocator.refcount(nd.page) > 1:
                 continue                        # a live request maps it
@@ -226,10 +234,17 @@ class RadixPrefixCache:
             parent = nd.parent
             del parent.children[nd.tokens]
             nd.parent = None
-            if parent is not self.root and not parent.children:
+            if (parent is not self.root and not parent.children
+                    and not parent.pinned):
                 heapq.heappush(heap, (parent.tick, id(parent), parent))
         if self.trace is not None and n_pages > 0:
             self.trace.emit_now("prefix_evict", requested=int(n_pages),
                                 freed=int(freed),
                                 spilled=int(self.spilled_pages - spilled0))
         return freed
+
+    def unpin_all(self) -> None:
+        """Unpin every node: seeded prefixes become ordinary LRU-evictable
+        entries."""
+        for nd in self._iter_nodes():
+            nd.pinned = False

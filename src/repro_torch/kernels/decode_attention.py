@@ -33,9 +33,10 @@ beside them.
     the kernel stages them.
   * :func:`decode_attention` replaces
     ``repro.kernels.decode_attention.decode_attention``: one query token
-    per row against the row's own contiguous (B, Sk, Hkv, D) cache.  Like
-    the reference's kernel it has no model call site (the port serves
-    from paged pools); it is reached through ``ops.decode_attention``.
+    per row against the row's own contiguous (B, Sk, Hkv, D) cache: the
+    decode step of ``generate_batch`` over the dense KV cache, reached
+    through ``layers.mha_attention`` and ``ops.decode_attention`` (the
+    reference computes that step in plain jnp).
     bf16/fp16 q runs its own tensor-core body (``csrc/dense_decode.cu``),
     whose warps split the keys and whose keys are split across blocks
     where the grid is small (:func:`dense_decode_plan`); fp32 q, and q/k/v

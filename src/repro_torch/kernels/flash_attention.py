@@ -7,7 +7,10 @@ version beside it.
 ``repro.kernels.flash_attention.flash_attention``: q (B, Sq, Hq, D)
 against k/v (B, Sk, Hkv, D[v]) with masks from absolute positions (-1 =
 invalid; causal, optional window), an optional softcap and GQA.  In the
-port it carries every dense attention call (``layers.mha_attention``):
+port it carries every dense attention call of more than one query
+(``layers.mha_attention``): the dense-cache prefill of
+``generate_batch``, the no-cache baseline's full forwards, the bucketed
+admission prefill and its prefix-attend variant over gathered pages, and
 the draft model's full forwards in speculative decoding
 (``core.speculative.DraftModelDrafter``).  Unlike the reference's wrapper,
 any Sq and Sk are taken: the kernel masks the ragged tiles itself.

@@ -113,7 +113,9 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
                      attn_softcap=None):
     """Single-query attention against a contiguous cache: q (B,1,Hq,D)
     vs k/v (B,Sk,Hkv,D); see :func:`decode_attention.decode_attention`.
-    No model code calls it (as in the reference)."""
+    The dense decode step of ``generate_batch`` calls it
+    (``layers.mha_attention`` with one query against the dense cache),
+    where the reference computes the same function in plain jnp."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)

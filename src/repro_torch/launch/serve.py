@@ -1,19 +1,28 @@
-"""Serving launcher for the port:
-``python -m repro_torch.launch.serve --arch qwen3-4b --full --continuous
---kv-dtype int8 --weights-dtype int8``, with ``--spec ngram|draft
---spec-k 4`` for speculative decoding and ``--packed off`` for the
-per-chunk mixed path; ``--arch xlstm-125m`` serves the recurrent model
-through bucketed whole-prompt admission.  ``--preemption lru|priority
---host-kv-bytes N`` survives pool pressure by preempting slots into a
-host KV tier, ``--trace-out PATH`` writes the serve loop's event trace,
-``--metrics-json PATH`` every metric, and ``--prune-coverage`` /
-``--prune-vocab`` serve a pruned vocabulary (the paper's embedding-layer
-pruning).
+"""Serving launcher for the port.
 
-Serves a synthetic request stream through continuous batching over the
-paged KV cache on the card (``--device cuda``, the default) and prints one
-JSON line of throughput, latency and scheduler metrics.  Weights are
-random, drawn from a seeded ``torch.Generator``.
+Without ``--continuous`` it serves the paper's own stack: length-bucketed
+batches over a dense KV cache, through the staged pipeline (tokenize ||
+infer || detokenize) or, with ``--no-pipeline``, sequentially;
+``--no-kv-cache`` re-runs the full forward for every token (the paper's
+Table-1 baseline).  ``python -m repro_torch.launch.serve --arch qwen3-4b
+--full`` prints one JSON line of requests/s, decode tokens/s and prefill
+seconds.
+
+With ``--continuous`` it serves through continuous batching over the paged
+KV cache: ``--kv-dtype int8 --weights-dtype int8``, ``--spec ngram|draft
+--spec-k 4`` for speculative decoding, ``--packed off`` for the per-chunk
+mixed path, ``--chunked-prefill off`` for bucketed whole-prompt admission
+(``--arch xlstm-125m`` is always admitted that way).  ``--preemption
+lru|priority --host-kv-bytes N`` survives pool pressure by preempting
+slots into a host KV tier, ``--trace-out PATH`` writes the serve loop's
+event trace, ``--metrics-json PATH`` every metric; it prints one JSON line
+of throughput, latency and scheduler metrics.  ``--prune-coverage`` /
+``--prune-vocab`` serve a pruned vocabulary (the paper's embedding-layer
+pruning) on either path.
+
+Everything runs on the card (``--device cuda``, the default); ``--device
+cpu`` runs the kernels' plain versions.  Weights are random, drawn from a
+seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from repro_torch.configs.registry import get_config, get_reduced, list_archs
 from repro_torch.core import pruning as PR
 from repro_torch.core import trace as TR
 from repro_torch.core.engine import InferenceEngine, resolve_device
+from repro_torch.core.pipeline import run_pipelined, run_sequential
 from repro_torch.core.precision import (KV_DTYPES, WEIGHTS_DTYPES,
                                         get_policy)
 from repro_torch.core.sampling import SamplingParams
@@ -43,9 +53,16 @@ def main(argv=None):
     ap.add_argument("--arch", default="unimo-text", choices=list_archs())
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--no-kv-cache", action="store_true",
+                    help="the paper's baseline: every token re-runs the "
+                         "full forward (without --continuous)")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="sequential stages instead of the pipelined "
+                         "tokenize || infer || detokenize (without "
+                         "--continuous)")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching over a paged KV cache (the "
-                         "only serving mode the port has)")
+                    help="continuous batching over a paged KV cache "
+                         "instead of bucket batches")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new-tokens", type=int, default=16)
@@ -65,6 +82,11 @@ def main(argv=None):
     ap.add_argument("--max-batched-tokens", type=int, default=None,
                     help="per-iteration token budget of the unified "
                          "scheduler (default: engine default, 256)")
+    ap.add_argument("--chunked-prefill", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="unified token-budget iterations with chunked "
+                         "prefill (auto = on for families that support "
+                         "it; off = bucketed whole-prompt admission)")
     ap.add_argument("--prefix-cache", default="auto",
                     choices=["auto", "on", "off"],
                     help="radix prefix cache: share identical prompt-prefix "
@@ -130,9 +152,8 @@ def main(argv=None):
     if args.prune_coverage and args.prune_vocab:
         raise SystemExit("--prune-coverage and --prune-vocab are mutually "
                          "exclusive")
-    if not args.continuous:
-        raise SystemExit("the port serves only --continuous (the bucketed "
-                         "path is not ported)")
+    if (args.trace_out or args.metrics_json) and not args.continuous:
+        raise SystemExit("--trace-out/--metrics-json require --continuous")
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -155,9 +176,33 @@ def main(argv=None):
         print(f"pruned vocab -> {cfg.vocab_size}")
     engine = InferenceEngine(cfg, params, policy=policy,
                              max_batch=args.max_batch, max_len=args.max_len,
+                             use_kv_cache=not args.no_kv_cache,
                              device=device, prune_maps=maps)
     sp = SamplingParams(temperature=args.temperature,
                         top_k=40 if args.temperature > 0 else 0)
+    dev_name = (torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu")
+    if not args.continuous:
+        runner = run_sequential if args.no_pipeline else run_pipelined
+        t0 = time.time()
+        results = runner(texts, tok, engine,
+                         max_new_tokens=args.max_new_tokens, sp=sp,
+                         max_batch=args.max_batch)
+        dt = time.time() - t0
+        for r in results[:3]:
+            print(f"[{r.uid}] {r.text[:70]!r}")
+        st = engine.stats
+        print(json.dumps({
+            "requests": len(results), "wall_s": round(dt, 3),
+            "device": dev_name,
+            "requests_per_s": round(len(results) / dt, 3),
+            "generated_tokens": st.generated_tokens,
+            "decode_tok_per_s": round(st.generated_tokens / st.decode_s, 1)
+            if st.decode_s else None,
+            "prefill_s": round(st.prefill_s, 3),
+            "mode": "baseline-nocache" if args.no_kv_cache else "kv-cache",
+            "pipelined": not args.no_pipeline}))
+        return
     shared = tok.encode(" ".join(synthetic_corpus(
         3, seed=11)))[:args.shared_prefix] if args.shared_prefix else []
     reqs = [Request(uid=i, tokens=shared + tok.encode(t),
@@ -176,6 +221,7 @@ def main(argv=None):
         steps_per_sync=args.steps_per_sync,
         prefix_cache=onoff[args.prefix_cache],
         max_batched_tokens=args.max_batched_tokens, spec=spec,
+        chunked_prefill=onoff[args.chunked_prefill],
         packed=onoff[args.packed], preemption=args.preemption,
         host_kv_bytes=args.host_kv_bytes, debug_audit=args.debug_audit,
         trace=tracer)
@@ -195,8 +241,7 @@ def main(argv=None):
         print(f"metrics: {args.metrics_json}")
     print(json.dumps({
         "requests": len(done), "wall_s": round(dt, 3),
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": dev_name,
         "generated_tokens": metrics.generated_tokens,
         "tokens_per_s": round(metrics.generated_tokens / dt, 1),
         "p50_latency_s": round(metrics.percentile_latency(50), 3),

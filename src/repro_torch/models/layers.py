@@ -129,15 +129,19 @@ def attention_ref(q, k, v, q_pos, k_pos, *, window, scale,
 def mha_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
                   scale: float, attn_softcap: Optional[float] = None):
     """Dense attention driven by absolute positions (q: (B,Sq,Hq,D),
-    k/v: (B,Sk,Hkv,D), -1 positions invalid) through
-    ``ops.flash_attention``: the flash kernel on the card, the plain
-    version (the same math as :func:`attention_ref`) on the CPU."""
+    k/v: (B,Sk,Hkv,D), -1 positions invalid), the same math as
+    :func:`attention_ref`.  A single query (Sq == 1: the decode step
+    against a dense cache) goes to ``ops.decode_attention``, every other
+    shape (prefill, prefix-attend, full forwards) to
+    ``ops.flash_attention``: the kernels on the card, their plain
+    versions on the CPU."""
     def i32(t):
         return t.to(torch.int32).contiguous()
-    return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), i32(q_pos), i32(k_pos),
-                               window=window, scale=scale,
-                               attn_softcap=attn_softcap)
+    qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+    kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
+    if q.shape[1] == 1:
+        return ops.decode_attention(*qkv, i32(k_pos), i32(q_pos), **kw)
+    return ops.flash_attention(*qkv, i32(q_pos), i32(k_pos), **kw)
 
 
 def mha_attention_paged(q, pool, block_tables, q_pos, *,

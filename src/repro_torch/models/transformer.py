@@ -8,15 +8,21 @@ Parameters are a dict ``{"embed": {"tokens"[, "pos"]}, "final_norm",
 "layers": [per-layer dict]}`` with the layers in execution order
 (:func:`repro_torch.configs.base.layer_specs`); the reference stacks each
 pattern position over its scan repeats instead (``bridge.params_from_jax``
-converts).  Four modes of the reference's ``layer_apply`` are ported:
-``"decode"`` (one token per slot), ``"verify"`` (a window of tokens per
-slot: a speculative verify window or a prefill chunk) and ``"packed"``
-(one flat token stream per scheduler iteration) against the paged KV
-pool, and ``"train"`` (a full causal forward with no cache, which the
-draft model of speculative decoding runs).  Recurrent layers run
-``"prefill"`` (whole prompts from a fresh per-slot state: the bucketed
-admission) and ``"decode"`` against their dense per-slot state, which
-they replace in the layer's cache dict.
+converts).  The modes of the reference's ``layer_apply``:
+
+* against the paged KV pool: ``"decode"`` (one token per slot),
+  ``"verify"`` (a window of tokens per slot: a speculative verify window
+  or a prefill chunk), ``"packed"`` (one flat token stream per scheduler
+  iteration) and ``"prefill"`` (whole bucket-padded prompts of an
+  admission, optionally resuming after a shared prefix);
+* against a dense per-slot cache (:func:`init_cache`): ``"prefill"``
+  (optionally attending what the cache already holds) and ``"decode"``;
+* ``"train"``: a full causal forward with no cache (the no-cache baseline
+  and the draft model of speculative decoding).
+
+Recurrent layers run ``"prefill"`` (whole prompts from the state in the
+cache) and ``"decode"`` against their per-slot state, which they replace
+in the layer's cache dict.  Every cache is updated in place.
 """
 from __future__ import annotations
 
@@ -90,6 +96,15 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
             "norm2": L.norm_init(cfg, dev), "ffn": L.ffn_init(gen, cfg)}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu"):
+    """Dense model cache of ``batch`` rows for contexts up to ``max_len``
+    (``kv_cache.layer_cache_shape`` per layer, in execution order)."""
+    return {"layers": [KV.layer_cache_shape(cfg, spec, batch, max_len,
+                                            dtype, device=device)
+                       for spec in layer_specs(cfg)]}
+
+
 def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_dtype: str = "auto",
                      max_slots: int = 0, device="cpu"):
@@ -109,13 +124,18 @@ def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
 
 
 def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
-                cache, mode: str, max_len: int, paged):
+                cache, mode: str, max_len: int, paged, cache_pos=None,
+                attend_cache: bool = False):
     """One layer: a recurrent block (:func:`_recurrent_apply`) or, below,
-    an attention + FFN block.  Against the layer's paged pool (updated
-    in place), paged: {"block_tables", "active"} for ``"decode"`` and
-    ``"verify"`` (``active`` (B,) or (B, W)); {"block_tables", "slot_ids",
-    "packed_meta"} for ``"packed"``.  ``"train"`` takes no cache (cache
-    and paged are None): every token attends the earlier ones directly."""
+    an attention + FFN block.  Against a paged pool (``"pk"`` in the
+    cache), paged: {"block_tables", "active"} for ``"decode"``,
+    ``"verify"`` (``active`` (B,) or (B, W)) and ``"prefill"``;
+    {"block_tables", "slot_ids", "packed_meta"} for ``"packed"``.  A dense
+    cache takes ``"prefill"`` and ``"decode"`` with paged None.
+    ``cache_pos`` (B, S): where prefill writes each token (-1 = padding,
+    the dump slot or page); ``attend_cache``: the prefill resumes after
+    entries already in the cache and attends them too.  ``"train"`` takes
+    no cache: every token attends the earlier ones directly."""
     if spec.mixer in RECURRENT:
         return _recurrent_apply(cfg, spec, p, x, cache, mode)
     window = KV.effective_window(cfg, spec, max_len)
@@ -123,22 +143,31 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
     kw = dict(window=window, scale=L.attn_scale(cfg),
               attn_softcap=cfg.attn_softcap)
+    new = {"k": k, "v": v}
+    is_paged = cache is not None and "pk" in cache
+    if mode in ("verify", "packed") and not is_paged:
+        # multi-token windows are defined over the paged pool only (the
+        # reference's backstop; the engine gates before dispatch)
+        raise NotImplementedError(f"{mode} mode needs the paged KV pool "
+                                  f"(not a dense cache)")
     if mode == "train":
         ctx = L.mha_attention(q, k, v, positions, positions, **kw)
-    elif mode in ("decode", "verify", "packed"):
+    elif is_paged:
+        if paged is None:
+            raise ValueError("a paged pool needs paged={'block_tables': "
+                             "...}")
         bt = paged["block_tables"]
         ring = KV.paged_ring_len(window, cache["ppos"].shape[1],
                                  bt.shape[1])
         if mode == "packed":
             # scatter every lane's K/V into its OWN slot's pages, then
             # attend each lane to its slot's whole paged history
-            KV.paged_write_packed(cache, {"k": k, "v": v},
-                                  paged["slot_ids"], positions[0], bt,
-                                  ring_len=ring)
+            KV.paged_write_packed(cache, new, paged["slot_ids"],
+                                  positions[0], bt, ring_len=ring)
             ctx = L.mha_attention_paged_packed(
                 q, cache, bt, positions, paged["slot_ids"],
                 paged["packed_meta"], **kw)
-        else:
+        elif mode in ("decode", "verify"):
             # write the token (decode) or the whole window (verify, from
             # positions[:, 0] on) first, then attend: the stored positions
             # give each lane its causal mask over the window's earlier
@@ -146,9 +175,41 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
             # (kv_cache.paged_truncate_all).
             write = (KV.paged_write_decode if mode == "decode"
                      else KV.paged_write_decode_multi)
-            write(cache, {"k": k, "v": v}, positions[:, 0], bt,
-                  paged.get("active"), ring_len=ring)
+            write(cache, new, positions[:, 0], bt, paged.get("active"),
+                  ring_len=ring)
             ctx = L.mha_attention_paged(q, cache, bt, positions, **kw)
+        elif attend_cache or ("pk_scale" in cache and window is None):
+            # prefix-attend admission: write the suffix into the slot's own
+            # pages, then attend the gathered block table (shared prefix
+            # pages and the fresh suffix alike).  An int8 pool takes this
+            # branch even with no prefix, so every query sees the
+            # dequantized K/V decode will read (bucketed int8 == chunked
+            # int8).  The gather is fp32 for int8 pools: cast to the
+            # compute dtype, contiguous, for flash.
+            KV.paged_write_prefill(cache, new, cache_pos, bt,
+                                   ring_len=ring)
+            kk, vv, kp = KV.paged_gather(cache, bt)
+            ctx = L.mha_attention(q, kk.to(x.dtype), vv.to(x.dtype),
+                                  positions, kp, **kw)
+        else:                                       # admission prefill
+            ctx = L.mha_attention(q, k, v, positions, positions, **kw)
+            KV.paged_write_prefill(cache, new, cache_pos, bt,
+                                   ring_len=ring)
+    elif mode == "decode":
+        # the dense decode step: write the token, then one query against
+        # the whole cache (ops.decode_attention inside mha_attention)
+        KV.write_decode(cache, new, positions[:, 0])
+        ctx = L.mha_attention(q, cache["k"].to(x.dtype),
+                              cache["v"].to(x.dtype), positions,
+                              cache["pos"], **kw)
+    elif mode == "prefill" and attend_cache:
+        KV.write_prefill(cache, new, cache_pos)
+        ctx = L.mha_attention(q, cache["k"].to(x.dtype),
+                              cache["v"].to(x.dtype), positions,
+                              cache["pos"], **kw)
+    elif mode == "prefill":
+        ctx = L.mha_attention(q, k, v, positions, positions, **kw)
+        KV.write_prefill(cache, new, cache_pos)
     else:
         raise NotImplementedError(
             f"layer mode {mode!r} is not ported for attention layers")
@@ -171,13 +232,23 @@ def _recurrent_apply(cfg, spec, p, x, cache, mode):
     return x + out
 
 
-def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged):
+def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged,
+             cache_pos=None, attend_cache=False):
     caches = cache["layers"] if cache is not None \
         else [None] * len(params["layers"])
     for spec, p, c in zip(layer_specs(cfg), params["layers"], caches):
         x = layer_apply(cfg, spec, p, x, positions=positions, cache=c,
-                        mode=mode, max_len=max_len, paged=paged)
+                        mode=mode, max_len=max_len, paged=paged,
+                        cache_pos=cache_pos, attend_cache=attend_cache)
     return x
+
+
+def _cache_max_len(cfg: ModelConfig, cache) -> int:
+    """The max_len a dense cache was built with (its largest position dim
+    minus the dump slot), else the config's context."""
+    best = max((c["pos"].shape[-1] - 1 for c in cache["layers"]
+                if "pos" in c), default=0)
+    return best or cfg.max_seq_len
 
 
 def _embed(cfg, params, tokens, positions, policy):
@@ -200,37 +271,51 @@ def _logits(cfg, params, x, policy):
 
 def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
                     cache, *, policy: Policy = FP32,
-                    max_len: Optional[int] = None, last_only: bool = False):
-    """Whole prompts from position 0 (the bucketed admission of recurrent
-    models; the reference's ``forward_prefill`` with ``start=0``).
+                    max_len: Optional[int] = None, last_only: bool = False,
+                    start=0, paged=None):
+    """Process whole right-padded prompts and fill the cache: a dense
+    cache (:func:`init_cache`), the paged pool through ``paged``
+    ({"block_tables", "active"}) or recurrent slot state.
 
-    tokens: (B, S) right-padded prompts; prompt_lengths: (B,) valid tokens
-    per row.  Every layer runs ``"prefill"`` against ``cache`` (a slot view
-    whose state it replaces).  Padding would fold into a recurrent state,
-    so the engine admits at exact lengths.  Returns (logits (B, S, V), or
-    (B, 1, V) at each row's last prompt token with ``last_only``,
+    tokens: (B, S); prompt_lengths: (B,) valid tokens per row, not
+    counting ``start``.  ``start`` > 0 (an int, or a (B,) tensor of
+    per-row offsets: each admitted request resumes after its own matched
+    prefix) continues from entries already in the cache and attends them.
+    Tokens sit at positions ``start + 0 .. S-1``; padding lanes keep their
+    positions (they attend and are discarded) but write to the dump slot
+    or page.  Padding would fold into a recurrent state, so the engine
+    admits recurrent models at exact lengths.  Returns (logits (B, S, V),
+    or (B, 1, V) at each row's last prompt token with ``last_only``,
     cache)."""
-    max_len = max_len or cfg.max_seq_len
+    max_len = max_len or _cache_max_len(cfg, cache)
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
+    dev = tokens.device
+    attend = not (isinstance(start, int) and start == 0)
+    start = torch.as_tensor(start, device=dev).to(torch.int32).reshape(-1, 1)
+    positions = (start + torch.arange(S, dtype=torch.int32, device=dev)
+                 ).expand(B, S)
+    cache_pos = torch.where(
+        positions < start + prompt_lengths.to(torch.int32)[:, None],
+        positions, -1)
     x = _embed(cfg, params, tokens, positions, policy)
     x = _run_all(cfg, params, x, positions=positions, cache=cache,
-                 mode="prefill", max_len=max_len, paged=None)
+                 mode="prefill", max_len=max_len, paged=paged,
+                 cache_pos=cache_pos, attend_cache=attend)
     if last_only:
         last = (prompt_lengths.long() - 1).clamp_min(0)
-        x = x[torch.arange(B, device=x.device), last][:, None]
+        x = x[torch.arange(B, device=dev), last][:, None]
     return _logits(cfg, params, x, policy), cache
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
                    policy: Policy = FP32, max_len: Optional[int] = None,
                    paged=None):
-    """One new token per slot.  tokens: (B,1); lengths: (B,) current
-    context length (the new token's absolute position).  Writes the
-    tokens' K/V into the pool in place.  Returns (logits (B,1,V), cache)."""
-    max_len = max_len or cfg.max_seq_len
-    positions = lengths[:, None]
+    """One new token per slot, against the paged pool (``paged``) or a
+    dense cache.  tokens: (B,1); lengths: (B,) current context length (the
+    new token's absolute position).  Writes the tokens' K/V into the cache
+    in place.  Returns (logits (B,1,V), cache)."""
+    max_len = max_len or _cache_max_len(cfg, cache)
+    positions = lengths.to(torch.int32)[:, None]
     x = _embed(cfg, params, tokens, positions, policy)
     x = _run_all(cfg, params, x, positions=positions, cache=cache,
                  mode="decode", max_len=max_len, paged=paged)

@@ -105,7 +105,8 @@ def test_serve_takes_every_reference_option(params):
     reference's, with the same defaults for the overload options;
     ``debug_audit=True`` runs, auditing the allocator on every iteration,
     with the streams of the unaudited serve; ``chunked_prefill=False``
-    (the bucketed path of attention models, not ported) still raises."""
+    (bucketed admission of attention models) runs too, with the chunked
+    serve's streams."""
     import inspect
     ref = inspect.signature(JEngine.serve_continuous).parameters
     ours = inspect.signature(InferenceEngine.serve_continuous).parameters
@@ -123,6 +124,8 @@ def test_serve_takes_every_reference_option(params):
                                        **SERVE)
     assert audited[0].result == done[0].result
     assert m2.outcome_counts == {"completed": 1}
-    with pytest.raises(NotImplementedError, match="chunked_prefill=False"):
-        eng.serve_continuous(copy.deepcopy(reqs), chunked_prefill=False,
-                             **SERVE)
+    bucketed, m3 = eng.serve_continuous(copy.deepcopy(reqs),
+                                        chunked_prefill=False, **SERVE)
+    assert bucketed[0].result == done[0].result
+    assert m3.scheduler == "bucketed" and m3.outcome_counts == {
+        "completed": 1}

@@ -298,19 +298,21 @@ def test_turned_off_options_warn_and_change_nothing(model):
         assert m.preemptions == 0
 
 
-def test_attention_models_keep_raising_for_the_bucketed_path():
+def test_attention_refusals_that_still_stand():
+    """What the port still refuses for attention layers: a paged prefill
+    without block tables, and a verify window against a dense cache
+    (multi-token windows need the paged pool, as in the reference)."""
     cfg = get_reduced("qwen3-4b")
     params = T.init_params(torch.Generator().manual_seed(0), cfg)
-    eng = InferenceEngine(cfg, params, policy=FP32, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked_prefill=False"):
-        eng.serve_continuous([Request(uid=0, tokens=[2, 5, 6],
-                                      max_new_tokens=2)],
-                             chunked_prefill=False)
     cache = T.init_paged_cache(cfg, num_pages=2, page_size=8,
                                dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="prefill"):
+    with pytest.raises(ValueError, match="block_tables"):
         T.forward_prefill(params, cfg, torch.zeros(1, 3, dtype=torch.int32),
                           torch.tensor([3]), cache, max_len=32)
+    dense = T.init_cache(cfg, 1, 32, torch.float32)
+    with pytest.raises(NotImplementedError, match="paged"):
+        T.forward_verify(params, cfg, torch.zeros(1, 3, dtype=torch.int32),
+                         dense, torch.tensor([0]), max_len=32)
 
 
 def test_int8_weights_quantize_only_the_tied_head(model):
