@@ -126,6 +126,29 @@ on one card):
               flash layers x prefill (or admission) dispatches, plus layers
               x full forwards without the cache; the dense decode kernel
               layers x dense decode steps; no packed or mixed launch
+  7. families phi3-mini-3.8b, gemma2-2b and gemma3-27b: the kernel phase
+              also holds every paged pair, flash and dense decode at
+              phi3-mini's heads (32 / 32 x 96, the 128 head-dim bucket)
+              and gemma2-2b's (8 / 4 x 256, window 4096, softcap 50; also
+              past the window), gemma3-27b's decode pair past its window
+              of 1024, and ``quant_matmul`` at phi3's untied head (3072
+              -> 32064) and gemma2's tied head (2304 -> 256000), bf16
+              timed, fp32 checked; ``parity_family``: the three reduced
+              configs (window 64) in fp32, ``forward_train``, a packed
+              (phi3) or bucketed (gemma, ring pages wrapping) serve and
+              ``generate_batch`` with and without the cache (dense rings
+              wrapping), card == CPU; full-width phi3-mini (32 layers:
+              packed, int8 KV + int8 weights, n-gram, ``packed=False``),
+              gemma2-2b (26 layers: bucketed at bf16 and int8 / int8,
+              pipelined over the dense rings, no-cache) and gemma3-27b at
+              12 of its 62 layers (bucketed), each with its launch gates
+              and profile; one sampled serve per path (packed phi3,
+              bucketed and dense gemma2: shape, range, no EOS);
+              ``long_serve``: gemma3-27b (12 layers) on 4 prompts of
+              1,100-1,400 tokens at max_len 2048, its rings wrapping;
+              ``teacher_forced``: gemma2-2b in fp32, a 4,400-token prompt
+              and 16 decode steps through the wrapped dense ring against
+              the full forward's logits (TEACHER_TOL)
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -425,11 +448,12 @@ def _entry_bytes(k, D, quant):
 
 
 def run_decode_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
-                    softcap=None, timed=False, quant=False):
+                    softcap=None, timed=False, quant=False, npages=16):
+    """8 slots of 1 .. ``npages`` x 16 tokens on 16-token pages."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    slots, page, npages = 8, 16, 16
+    slots, page = 8, 16
     ctx = [int(x) for x in torch.randint(1, npages * page + 1, (slots,),
                                          generator=rng, device=dev)]
     k, v, sc, ppos, bt, ppos_np, bt_np = paged_case(
@@ -1054,6 +1078,7 @@ def phase_kernels(check_bodies=True):
         cases.append(run_quant_matmul_case(
             rng, f"pruned unimo-text head 1024->{v_new} M={M} bf16", M=M,
             K=1024, N=v_new, dtype=bf16, timed=True))
+    cases += family_kernel_cases(rng)
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -1099,10 +1124,98 @@ def phase_kernels(check_bodies=True):
     summary["paged_packed_attention"]["regimes"] = [
         c for c in cases if c["kernel"] == "paged_packed_attention"
         and "kernel_ms" in c]
+    # the phi3-mini and gemma2-2b shapes: every timed case of the families
+    for c in cases:
+        if c["case"].startswith(FAMILY_CASES) and "kernel_ms" in c:
+            row = summary[c["kernel"]]
+            row.setdefault("regimes", [row]).append(c)
     summary["fused_rmsnorm"]["regimes"] = [
         c for c in cases if c["case"] in ("4096 x 2560 bf16",
                                           "4096 x 2560 fp32")]
     return summary
+
+
+FAMILY_CASES = ("phi3-mini", "gemma2-2b", "gemma3-27b")
+
+
+def family_kernel_cases(rng):
+    """The kernels at the heads of this slice's families, each against its
+    plain version: phi3-mini (32 / 32 heads x 96, the 128 head-dim bucket
+    over 192-byte rows; its untied head), gemma2-2b (8 / 4 x 256, the
+    local layers' window 4096 and softcap 50; its tied head of 256000
+    rows) and gemma3-27b (32 / 16 x 128, window 1024).  bf16 cases at the
+    serves' shapes are timed; fp32 (the CUDA-core bodies) and the cases
+    past a window check values only.  The packed pair at gemma2's heads
+    and dense decode at phi3's run in no serve of theirs (gemma2 serves
+    bucketed, phi3 is served packed) but give each kernel both new head
+    dims."""
+    import torch
+    bf16, fp32 = torch.bfloat16, torch.float32
+    phi3 = dict(Hq=32, Hkv=32, D=96)
+    gemma2 = dict(Hq=8, Hkv=4, D=256, window=4096, softcap=50.0)
+    gemma3 = dict(Hq=32, Hkv=16, D=128, window=1024)
+    ctx = [int(x) for x in torch.randint(0, 256 - SPEC_K, (8,),
+                                         generator=rng, device="cuda")]
+    verify = dict(W=SPEC_K + 1, n_q=[SPEC_K + 1] * 8, before=ctx)
+    cases = []
+    for quant in (False, True):
+        q8 = " int8 pool," if quant else ""
+        for run in (run_decode_case, run_packed_case):
+            cases.append(run(rng, f"phi3-mini{q8} bf16", dtype=bf16,
+                             quant=quant, timed=True, **phi3))
+            cases.append(run(rng, f"phi3-mini{q8} fp32", dtype=fp32,
+                             quant=quant, **phi3))
+        cases.append(run_mixed_case(rng, f"phi3-mini verify{q8} bf16 q",
+                                    dtype=bf16, quant=quant, timed=True,
+                                    **verify, **phi3))
+        cases.append(run_decode_case(
+            rng, f"gemma2-2b window 4096 + softcap 50{q8} bf16", dtype=bf16,
+            quant=quant, timed=True, **gemma2))
+        cases.append(run_decode_case(
+            rng, f"gemma2-2b past the window, up to 4608 keys{q8} bf16",
+            dtype=bf16, quant=quant, npages=288, **gemma2))
+        cases.append(run_decode_case(
+            rng, f"gemma2-2b past the window{q8} fp32", dtype=fp32,
+            quant=quant, npages=288, **gemma2))
+        cases.append(run_decode_case(
+            rng, f"gemma3-27b past the window, up to 2048 keys{q8} bf16",
+            dtype=bf16, quant=quant, npages=128, **gemma3))
+    for quant in (False, True):
+        q8 = " int8 pool," if quant else ""
+        cases.append(run_packed_case(
+            rng, f"gemma2-2b window 4096 + softcap 50{q8} bf16", dtype=bf16,
+            quant=quant, timed=True, **gemma2))
+    cases.append(run_dense_decode_case(
+        rng, "phi3-mini dense cache 8 x 512, 256 valid bf16", B=8, Sk=512,
+        valid=256, dtype=bf16, timed=True, **phi3))
+    cases.append(run_flash_case(rng, "phi3-mini prefill 8 x 128 bf16", B=8,
+                                S=128, dtype=bf16, timed=True, **phi3))
+    cases.append(run_flash_case(rng, "phi3-mini prefill 8 x 128 ragged "
+                                "fp32", B=8, S=128, dtype=fp32, ragged=True,
+                                **phi3))
+    for dtype in (bf16, fp32):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_flash_case(
+            rng, f"gemma2-2b prefill 8 x 128 window 4096 + softcap 50 {dn}",
+            B=8, S=128, dtype=dtype, timed=dtype == bf16, **gemma2))
+        cases.append(run_flash_case(
+            rng, f"gemma2-2b 1 x 4416 past the window {dn}", B=1, S=4416,
+            dtype=dtype, **gemma2))
+        cases.append(run_dense_decode_case(
+            rng, f"gemma2-2b dense cache 8 x 512, 256 valid, window 4096 + "
+            f"softcap 50 {dn}", B=8, Sk=512, valid=256, dtype=dtype,
+            timed=dtype == bf16, **gemma2))
+        cases.append(run_dense_decode_case(
+            rng, f"gemma2-2b dense ring 2 x 4352 past the window {dn}", B=2,
+            Sk=4352, dtype=dtype, **gemma2))
+    cases.append(run_flash_case(rng, "gemma3-27b 2 x 1400 past the window "
+                                "bf16", B=2, S=1400, dtype=bf16, **gemma3))
+    for name, K, N in (("phi3-mini untied head", 3072, 32064),
+                       ("gemma2-2b tied head", 2304, 256000)):
+        cases.append(run_quant_matmul_case(
+            rng, f"{name} {K}->{N} M=8 bf16", M=8, K=K, N=N, dtype=bf16,
+            timed=True))
+    return cases
 
 
 # int8 parity: where a K/V value the card computes differs from the CPU's
@@ -2353,6 +2466,336 @@ def phase_serve_xlstm():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phi3-mini-3.8b, gemma2-2b and gemma3-27b
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("phi3-mini-3.8b", "gemma2-2b", "gemma3-27b")
+# gemma3-27b at full width but 12 of its 62 layers: two of its 5:1
+# local/global patterns (6.4 B parameters, 12.7 GB at bf16; 62 layers
+# would be 54 GB of weights alone)
+GEMMA3_LAYERS = 12
+# the full-width gemma2-2b teacher-forced check in fp32: decode logits
+# through the dense ring against the full forward's logits at the same
+# positions (fp32 sums in other orders over 26 layers; logits of order 1)
+TEACHER_TOL = 1e-3
+# a sampled serve's parameters and engine seed
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def _gemma3_cut():
+    """gemma3-27b's published config at GEMMA3_LAYERS layers."""
+    from repro_torch.configs.base import patterned_stacks
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("gemma3-27b")
+    return cfg.replace(stacks=patterned_stacks(GEMMA3_LAYERS,
+                                               cfg.stacks[0].pattern))
+
+
+def phase_parity_families():
+    """Reduced phi3-mini, gemma2-2b and gemma3-27b (window 64), fp32 (TF32
+    off), on the card and on the CPU: ``forward_train`` logits over 200
+    tokens; ``serve_continuous`` of 8 requests of 20-200 tokens x 8 new at
+    max_len 256 (packed for phi3, bucketed over ring pages for the
+    gemmas, whose rings of 80 entries wrap); ``generate_batch`` with and
+    without the KV cache over rows of 200, 130 and 40 tokens (dense rings
+    of 64).  Streams and counters on the card must equal the CPU's, and
+    KV == no-cache on both."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32, map_params
+    from repro_torch.core.scheduler import Request
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    lens = (70, 150, 20, 45, 200, 66, 100, 130)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n - 1)]
+               for n in lens]
+    batch = rng.integers(4, 400, size=(3, 200)).astype(np.int32)
+    blens = np.asarray([200, 130, 40], np.int32)
+    for arch in FAMILIES:
+        cfg = get_reduced(arch)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+        out, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            with torch.no_grad():
+                logits[dev] = T.forward_train(
+                    map_params(lambda t: t.to(dev), params), cfg,
+                    torch.as_tensor(batch[:1]).to(dev)).cpu()
+
+            def engine(**kw):
+                return InferenceEngine(cfg, params, policy=FP32,
+                                       max_len=256, max_batch=4,
+                                       device=dev, **kw)
+            done, m = engine().serve_continuous(
+                [Request(uid=i, tokens=list(p), max_new_tokens=8)
+                 for i, p in enumerate(prompts)], page_size=16,
+                max_batched_tokens=64)
+            out[dev, "serve"] = [r.result for r in done]
+            out[dev, "counters"] = [
+                m.scheduler, m.admitted, m.retired, m.prefill_padded,
+                m.host_syncs, m.steps, m.mixed_iters, m.generated_tokens,
+                m.peak_pages_in_use]
+            for kv in (True, False):
+                out[dev, f"kv={kv}"] = engine(
+                    use_kv_cache=kv).generate_batch(batch.copy(), blens,
+                                                    8).tolist()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        keys = sorted({k for _, k in out})
+        card_eq_cpu = {k: out["cuda", k] == out["cpu", k] for k in keys}
+        inner = {f"{dev}: kv == nocache": out[dev, "kv=True"]
+                 == out[dev, "kv=False"] for dev in ("cuda", "cpu")}
+        emit("parity_family", arch=arch, train_logits_max_abs_err=err,
+             logits_tol=PARITY_TOL["auto"], card_equals_cpu=card_eq_cpu,
+             invariants=inner, counters=out["cuda", "counters"],
+             tokens=sum(map(len, out["cpu", "serve"])))
+        failed = [k for k, v in {**card_eq_cpu, **inner}.items() if not v]
+        if failed or not err <= PARITY_TOL["auto"]:
+            raise SystemExit(f"{arch}: reduced parity failed: {failed}, "
+                             f"train logits {err}")
+
+
+def _long_prompts(targets=(1100, 1200, 1300, 1400)):
+    """Prompts of ``targets`` tokens: synthetic-corpus texts concatenated
+    and tokenized by the serves' tokenizer, each cut to its length."""
+    from repro_torch.data.pipeline import synthetic_corpus
+    tok = _smoke_tokenizer()
+    out = []
+    for i, n in enumerate(targets):
+        ids = []
+        for text in synthetic_corpus(400, seed=100 + i, min_len=20,
+                                     max_len=60):
+            ids += tok.encode(text)[1:] if ids else tok.encode(text)
+            if len(ids) >= n:
+                break
+        out.append(ids[:n])
+    return out
+
+
+def phase_sampled(params, cfg, label, *, mode, policy):
+    """One sampled serve (SAMPLED, a CUDA generator seeded 1) through
+    ``mode``: "packed" or "bucketed" ``serve_continuous`` (16 requests x
+    32 new tokens) or "dense" ``generate_batch`` (8 rows x 32).  Gates, as
+    the CPU tests check sampling: every request completed with at most 32
+    ids, all in the vocabulary, none the EOS id; the dense rows (8, 32)
+    with -1 only after a row's last id."""
+    import torch
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.core.scheduler import Batch, Request, pad_batch
+    from repro_torch.core.tokenizer import EOS
+    sp = SamplingParams(**SAMPLED)
+    eng = InferenceEngine(cfg, params, policy=policy, max_batch=8,
+                          max_len=256, device="cuda", seed=1)
+    prompts = [list(p) for p in _smoke_prompts()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mode == "dense":
+        reqs = [Request(uid=i, tokens=p) for i, p in enumerate(prompts[:8])]
+        toks, lens = pad_batch(Batch(requests=reqs, padded_len=max(
+            len(p) for p in prompts[:8])))
+        out = eng.generate_batch(toks, lens, 32, sp)
+        streams = [[int(t) for t in row if t >= 0] for row in out]
+        shape_ok = out.shape == (8, 32) and all(
+            (row[np.flatnonzero(row < 0)[0]:] == -1).all()
+            if (row < 0).any() else True for row in out)
+        completed = True
+    else:
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=32)
+             for i, p in enumerate(prompts)], sp,
+            **({"chunked_prefill": False} if mode == "bucketed" else {}))
+        streams = [r.result for r in done]
+        shape_ok = len(done) == 16 and all(len(s) <= 32 for s in streams)
+        completed = m.outcome_counts == {"completed": 16} and (
+            m.scheduler == ("bucketed" if mode == "bucketed"
+                            else "unified"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    checks = {
+        "shape": bool(shape_ok), "completed": completed,
+        "ids in the vocabulary": all(0 <= t < cfg.vocab_size
+                                     for s in streams for t in s),
+        "EOS never emitted": all(EOS not in s for s in streams),
+        "tokens generated": sum(map(len, streams)) > 0}
+    emit("sampled", arch=cfg.name, layers=cfg.num_layers, mode=mode,
+         label=label, sampling=SAMPLED, seed=1, wall_s=wall,
+         tokens=sum(map(len, streams)), checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"{cfg.name} sampled {mode} serve failed: "
+                         f"{failed}")
+
+
+def phase_long_serve(params, cfg):
+    """gemma3-27b (bf16, GEMMA3_LAYERS layers) where its window bites: 4
+    requests of 1100-1400 prompt tokens x 32 new, 4 slots, max_len 2048,
+    bucketed admission.  The windowed layers' paged rings (1040 entries:
+    65 pages of 16) wrap during the prefill and the decode.  Records the
+    greedy streams and the wall time; gates the completions and the
+    bucketed path's launch counts."""
+    import torch
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import BF16
+    from repro_torch.core.scheduler import Request
+    from repro_torch.kernels import ops
+    prompts = _long_prompts()
+    window = cfg.stacks[0].pattern[0].window
+    ring = KV.paged_ring_len(window, 16, -(-2048 // 16))
+
+    def serve(n, new):
+        eng = InferenceEngine(cfg, params, policy=BF16, max_batch=4,
+                              max_len=2048, device="cuda")
+        return eng.serve_continuous(
+            [Request(uid=i, tokens=list(p), max_new_tokens=new)
+             for i, p in enumerate(prompts[:n])], chunked_prefill=False)
+    serve(1, 2)                                          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done, m = serve(4, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    streams = [r.result for r in done]
+    checks = {"prompts longer than the paged ring": min(map(len, prompts))
+              > ring > window,
+              "all 4 completed with in-vocab ids": m.outcome_counts
+              == {"completed": 4} and all(0 <= t < cfg.vocab_size
+                                          for s in streams for t in s)}
+    checks.update(_launch_checks("bucketed", m, launches, cfg.num_layers,
+                                 "", "auto", 0))
+    emit("long_serve", arch=cfg.name, layers=cfg.num_layers,
+         prompt_tokens=[len(p) for p in prompts], window=window,
+         paged_ring_entries=ring, max_len=2048, wall_s=wall,
+         generated_tokens=m.generated_tokens,
+         tokens_per_s=m.generated_tokens / wall, ttft_p50_s=m.ttft_p50,
+         itl_p50_s=m.itl_p50, host_syncs=m.host_syncs, steps=m.steps,
+         prefill_padded=m.prefill_padded, launches=launches,
+         streams=streams, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"gemma3-27b long serve failed: {failed}")
+
+
+def phase_teacher_forced():
+    """Full-width gemma2-2b in fp32 (TF32 off, 10.5 GB of weights): one
+    4400-token prompt prefilled into a dense cache at max_len 4416 (the
+    local layers' ring holds 4351 entries, so it wraps), then 16 decode
+    steps through the rings fed the next tokens of the sequence; each
+    step's logits must equal the full forward's (``forward_train`` over
+    the 4416 tokens, flash with the window) at the same position within
+    TEACHER_TOL, as must the prefill's last logits."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import FP32
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, FP32)
+    n_prompt, steps = 4400, 16
+    S = n_prompt + steps
+    toks = torch.tensor([_long_prompts((S,))[0]], dtype=torch.int32,
+                        device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = T.forward_train(params, cfg, toks, policy=FP32)[
+            0, n_prompt - 1:].clone()
+        cache = T.init_cache(cfg, 1, S, torch.float32, device="cuda")
+        lp, _ = T.forward_prefill(
+            params, cfg, toks[:, :n_prompt],
+            torch.tensor([n_prompt], dtype=torch.int32, device="cuda"),
+            cache, policy=FP32, max_len=S, last_only=True)
+        got = [lp[0, 0]]
+        for t in range(n_prompt, S):
+            ld, _ = T.forward_decode(
+                params, cfg, toks[:, t:t + 1], cache,
+                torch.tensor([t], dtype=torch.int32, device="cuda"),
+                policy=FP32, max_len=S)
+            got.append(ld[0, 0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    diff = (torch.stack(got) - full).abs()
+    ring = min(c["pos"].shape[1] for c in cache["layers"]) - 1
+    err = diff.max().item()
+    emit("teacher_forced", arch=cfg.name, layers=cfg.num_layers,
+         policy="fp32", prompt_tokens=n_prompt, decode_steps=steps,
+         window=cfg.stacks[0].pattern[0].window, dense_ring_entries=ring,
+         max_abs_err=err, max_abs_err_by_step=diff.amax(1).tolist(),
+         logits_max_abs=full.abs().max().item(), tol=TEACHER_TOL,
+         argmax_equal=bool((torch.stack(got).argmax(1)
+                            == full.argmax(1)).all()), wall_s=wall)
+    if not (np.isfinite(err) and err <= TEACHER_TOL and ring < S):
+        raise SystemExit(f"gemma2-2b teacher-forced ring check failed: "
+                         f"max |diff| {err} (tol {TEACHER_TOL}), ring "
+                         f"{ring} of {S} tokens")
+
+
+def phase_serves_families():
+    """This slice's families at full width, random weights from a seeded
+    torch.Generator, bf16: phi3-mini-3.8b (32 layers) packed, at int8 KV
+    + int8 weights (its untied head through ``quant_matmul``), with n-gram
+    speculation and ``packed=False``; gemma2-2b (26 layers) bucketed over
+    ring pages at bf16 and at int8 / int8, ``run_pipelined`` over the
+    dense ring cache and the no-cache baseline; gemma3-27b at
+    GEMMA3_LAYERS layers, bucketed, then its long serve past the window.
+    Each with its launch gates and profile; one sampled serve per path
+    (packed phi3, bucketed and dense gemma2).  Then the gemma2-2b fp32
+    teacher-forced check.  Returns each serve's launch counts by
+    label."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import BF16
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    seen = {}
+    gen.manual_seed(0)
+    cfg = get_config("phi3-mini-3.8b")
+    params = T.init_params(gen, cfg, BF16)
+    for label, kw in (("packed", {}), ("packed int8", dict(
+            kv_dtype="int8", weights_dtype="int8")),
+            ("spec_ngram", dict(mode="spec_ngram")),
+            ("packed_off", dict(mode="packed_off"))):
+        _, seen[f"phi3 {label}"], _, _, _ = phase_serve(
+            cfg.name, params, profile=True, label=label, **kw)
+    phase_sampled(params, cfg, "phi3 packed", mode="packed", policy=BF16)
+    del params
+    gen.manual_seed(0)
+    cfg = get_config("gemma2-2b")
+    params = T.init_params(gen, cfg, BF16)
+    _, seen["gemma2 bucketed"], s_b, _, _ = phase_serve(
+        cfg.name, params, mode="bucketed", profile=True)
+    _, seen["gemma2 bucketed int8"], _, _, _ = phase_serve(
+        cfg.name, params, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True, label="bucketed int8")
+    seen["gemma2 pipelined"], _ = phase_dense(cfg.name, params, "pipelined",
+                                              base=s_b)
+    seen["gemma2 nocache"], _ = phase_dense(
+        cfg.name, params, "nocache", pipelined=False, use_kv_cache=False,
+        max_new=8, base=s_b)
+    phase_sampled(params, cfg, "gemma2 bucketed", mode="bucketed",
+                  policy=BF16)
+    phase_sampled(params, cfg, "gemma2 dense", mode="dense", policy=BF16)
+    del params
+    gen.manual_seed(0)
+    cfg = _gemma3_cut()
+    params = T.init_params(gen, cfg, BF16)
+    _, seen["gemma3 bucketed"], _, _, _ = phase_serve(
+        "gemma3-27b", params, cfg=cfg, mode="bucketed", profile=True)
+    phase_long_serve(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    phase_teacher_forced()
+    torch.cuda.empty_cache()
+    return seen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
@@ -2397,9 +2840,11 @@ def main(argv=None) -> int:
     phase_parity_dense("qwen3-4b")
     phase_parity_xlstm()
     phase_parity_overload()
+    phase_parity_families()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
+    family = phase_serves_families()
 
     kernels = []
     for name in REPLACES:
@@ -2416,6 +2861,8 @@ def main(argv=None) -> int:
             "profile_attempts": c["profile_attempts"]}
         if name in NOTES:
             row["note"] = NOTES[name]
+        # this slice's serves: the kernel's launches in each
+        row["family_launches"] = {k: v[name] for k, v in family.items()}
         if "regimes" in c:          # each timed shape of the kernel
             row["regimes"] = [
                 {k: r[k] for k in ("case", "M", "K", "N", "B", "S", "H",

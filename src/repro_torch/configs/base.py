@@ -80,6 +80,7 @@ class ModelConfig:
     # block structure
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     activation: str = "swiglu"      # swiglu | geglu | gelu
+    sandwich_norm: bool = False     # a post-norm after mixer and FFN too
     tie_embeddings: bool = True
     embed_scale: bool = False
 

@@ -11,6 +11,9 @@ _MODULES = {
     "unimo-text": "repro_torch.configs.unimo_text",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
 }
 
 

@@ -233,7 +233,7 @@ def attn_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-FFN_ACTIVATIONS = ("gelu", "swiglu")
+FFN_ACTIVATIONS = ("gelu", "swiglu", "geglu")
 
 
 def _check_activation(cfg: ModelConfig):
@@ -247,19 +247,22 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig):
     _check_activation(cfg)
     p = {"wi": dense_init(gen, cfg.d_model, cfg.d_ff),
          "wo": dense_init(gen, cfg.d_ff, cfg.d_model)}
-    if cfg.activation == "swiglu":
+    if cfg.activation in ("swiglu", "geglu"):
         p["wg"] = dense_init(gen, cfg.d_model, cfg.d_ff)
     return p
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
-    """Dense FFN: SwiGLU ``silu(x @ wg) * (x @ wi)`` (``wg`` is the gate)
-    or GELU.  The reference's ``jax.nn.gelu`` defaults to the tanh
+    """Dense FFN: SwiGLU ``silu(x @ wg) * (x @ wi)`` or GeGLU
+    ``gelu(x @ wg) * (x @ wi)`` (``wg`` is the gate), or GELU.  The
+    reference's ``jax.nn.gelu(approximate=True)`` is the tanh
     approximation, so the port asks for it explicitly."""
     _check_activation(cfg)
     h = dense_matmul(x, p["wi"])
     if cfg.activation == "swiglu":
         h = F.silu(dense_matmul(x, p["wg"])) * h
+    elif cfg.activation == "geglu":
+        h = F.gelu(dense_matmul(x, p["wg"]), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
     return dense_matmul(h, p["wo"])
@@ -279,19 +282,22 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def unembed(cfg: ModelConfig, params, x):
-    """x: (B,S,d) -> fp32 logits through the tied embedding table, or
-    through its int8 copy ``embed["head_q8"]`` (the transposed (d, V)
-    record ``precision.compress_weights`` makes) when the policy
-    quantized one; the gather table itself is never quantized."""
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied unembedding heads are not ported")
-    head_q8 = params["embed"].get("head_q8")
-    if head_q8 is not None:
+    """x: (B,S,d) -> fp32 logits through the untied head ``embed["head"]``
+    (d, V), or the tied embedding table, or its int8 copy
+    ``embed["head_q8"]`` (the transposed (d, V) record
+    ``precision.compress_weights`` makes) when the policy quantized one;
+    the gather table itself is never quantized.  An int8 head record goes
+    to ``ops.quant_matmul``."""
+    embed = params["embed"]
+    head = embed.get("head") if not cfg.tie_embeddings \
+        else embed.get("head_q8")
+    if isinstance(head, dict):
         # x at its own type: a bf16 / fp16 value is exact in fp32, so the
         # products equal those of x.float(), and quant_matmul returns fp32
         # logits either way (bf16 / fp16 x runs its tensor-core body)
-        logits = ops.quant_matmul(x.contiguous(), head_q8["q"],
-                                  head_q8["s"])
+        logits = ops.quant_matmul(x.contiguous(), head["q"], head["s"])
+    elif head is not None:
+        logits = x.float() @ head.float()
     else:
-        logits = x.float() @ params["embed"]["tokens"].float().T
+        logits = x.float() @ embed["tokens"].float().T
     return softcap(logits, cfg.final_softcap)

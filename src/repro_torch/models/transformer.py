@@ -1,14 +1,16 @@
 """Decoder forward for the serving path (the port's counterpart of
 ``repro.models.transformer``), for attention + dense-FFN layers with
-learned positions or RoPE, optional qk-norm, GELU or SwiGLU FFNs and tied
-embeddings, and for xLSTM's recurrent layers (mLSTM / sLSTM with no FFN,
-no positional embedding).
+learned positions or RoPE (a windowed layer's own theta too), optional
+qk-norm, sliding windows, softcaps and sandwich norms, GELU, SwiGLU or
+GeGLU FFNs and tied or untied embeddings, and for xLSTM's recurrent
+layers (mLSTM / sLSTM with no FFN, no positional embedding).
 
-Parameters are a dict ``{"embed": {"tokens"[, "pos"]}, "final_norm",
-"layers": [per-layer dict]}`` with the layers in execution order
-(:func:`repro_torch.configs.base.layer_specs`); the reference stacks each
-pattern position over its scan repeats instead (``bridge.params_from_jax``
-converts).  The modes of the reference's ``layer_apply``:
+Parameters are a dict ``{"embed": {"tokens"[, "head"][, "pos"]},
+"final_norm", "layers": [per-layer dict]}`` with the layers in execution
+order (:func:`repro_torch.configs.base.layer_specs`); the reference stacks
+each pattern position over its scan repeats instead
+(``bridge.params_from_jax`` converts).  The modes of the reference's
+``layer_apply``:
 
 * against the paged KV pool: ``"decode"`` (one token per slot),
   ``"verify"`` (a window of tokens per slot: a speculative verify window
@@ -49,17 +51,11 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"layer family {spec.mixer}/{spec.ffn} is not ported "
                 f"(attention + dense FFN, or mLSTM/sLSTM without FFN)")
-        if spec.window is not None and cfg.rope_theta_local is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: windowed layers with their own RoPE theta "
-                f"(rope_theta_local) are not ported")
     if cfg.pos_emb not in ("rope", "learned", "none") \
-            or cfg.activation not in L.FFN_ACTIVATIONS \
-            or not cfg.tie_embeddings:
+            or cfg.activation not in L.FFN_ACTIVATIONS:
         raise NotImplementedError(
-            f"{cfg.name}: only RoPE, learned or no positions, "
-            f"{'/'.join(L.FFN_ACTIVATIONS)} FFNs and tied embeddings are "
-            f"ported")
+            f"{cfg.name}: only RoPE, learned or no positions and "
+            f"{'/'.join(L.FFN_ACTIVATIONS)} FFNs are ported")
 
 
 # ---------------------------------------------------------------------------
@@ -70,19 +66,24 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 policy: Policy = FP32):
     """Random parameters with the reference's shapes and init scales,
-    drawn from ``gen`` on ``gen.device``."""
+    drawn from ``gen`` on ``gen.device``.  Each leaf is drawn in fp32 and
+    cast to the policy's dtype as soon as its part of the tree is drawn,
+    so a model never sits whole in fp32 (gemma3-27b would need twice its
+    bf16 bytes)."""
     check_supported(cfg)
     dev = gen.device
     embed = {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        embed["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size)
     if cfg.pos_emb == "learned":
         embed["pos"] = L.embed_init(gen, cfg.max_seq_len, cfg.d_model)
-    params = {
-        "embed": embed,
-        "final_norm": L.norm_init(cfg, dev),
-        "layers": [_layer_init(gen, cfg, spec, dev)
+    cast = policy.cast_params
+    return {
+        "embed": cast(embed),
+        "final_norm": cast(L.norm_init(cfg, dev)),
+        "layers": [cast(_layer_init(gen, cfg, spec, dev))
                    for spec in layer_specs(cfg)],
     }
-    return policy.cast_params(params)
 
 
 def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
@@ -92,8 +93,12 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
     if spec.mixer == SLSTM:
         return {"norm1": L.norm_init(cfg, dev),
                 "mixer": SSM.slstm_init(gen, cfg)}
-    return {"norm1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg),
-            "norm2": L.norm_init(cfg, dev), "ffn": L.ffn_init(gen, cfg)}
+    p = {"norm1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg),
+         "norm2": L.norm_init(cfg, dev), "ffn": L.ffn_init(gen, cfg)}
+    if cfg.sandwich_norm:
+        p["norm1_post"] = L.norm_init(cfg, dev)
+        p["norm2_post"] = L.norm_init(cfg, dev)
+    return p
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -140,7 +145,10 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         return _recurrent_apply(cfg, spec, p, x, cache, mode)
     window = KV.effective_window(cfg, spec, max_len)
     h = L.apply_norm(cfg, p["norm1"], x)
-    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
+    # windowed layers rotate at their own theta where the config has one
+    theta = (cfg.rope_theta_local if window is not None
+             and cfg.rope_theta_local is not None else cfg.rope_theta)
+    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions, theta=theta)
     kw = dict(window=window, scale=L.attn_scale(cfg),
               attn_softcap=cfg.attn_softcap)
     new = {"k": k, "v": v}
@@ -213,9 +221,14 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     else:
         raise NotImplementedError(
             f"layer mode {mode!r} is not ported for attention layers")
-    x = x + L.attn_out(cfg, p["attn"], ctx)
-    h2 = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.ffn_apply(cfg, p["ffn"], h2)
+    out = L.attn_out(cfg, p["attn"], ctx)
+    if cfg.sandwich_norm:
+        out = L.apply_norm(cfg, p["norm1_post"], out)
+    x = x + out
+    out = L.ffn_apply(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x))
+    if cfg.sandwich_norm:
+        out = L.apply_norm(cfg, p["norm2_post"], out)
+    return x + out
 
 
 def _recurrent_apply(cfg, spec, p, x, cache, mode):

@@ -1544,3 +1544,168 @@ def test_restore_on_one_stream_while_packed_runs_on_another(dev):
     for out in outs:
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# The heads of phi3-mini (32 / 32 x 96: the 128 head-dim bucket over
+# 192-byte rows) and gemma2-2b (8 / 4 x 256, its local layers' window 4096
+# and softcap 50, over contexts past the window), at bf16, over int8 pools
+# and at fp32 (the CUDA-core bodies)
+FAMILIES = {
+    "phi3": dict(heads=dict(Hq=32, Hkv=32, D=96),
+                 kw=dict(window=None, attn_softcap=None),
+                 ctx=[1, 37, 0, 300, 256], before=[10, 37, 0, 130, 64],
+                 packed=[40, 0, 7, 0]),
+    "gemma2": dict(heads=dict(Hq=8, Hkv=4, D=256),
+                   kw=dict(window=4096, attn_softcap=50.0),
+                   ctx=[4200, 37, 0, 4500, 130],
+                   before=[4100, 37, 0, 4200, 64],
+                   packed=[4300, 0, 4150, 9]),
+}
+FAMILY_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _family_attend(name, quant, q, k, v, ppos, bt, q_pos, extra, kw):
+    """A paged kernel (over int8 codes and scales with ``quant``) and its
+    plain version on the same inputs: (out, ref)."""
+    fn = getattr(DA, name + ("_q8" if quant else ""))
+    plain = getattr(DA, name + "_ref")
+    if not quant:
+        return (fn(q, k, v, ppos, bt, q_pos, *extra[:1], **kw),
+                plain(q, k, v, ppos, bt, q_pos, *extra[1:], **kw))
+    kq, ks, vq, vs = _q8(k, v)
+    return (fn(q, kq, ks, vq, vs, ppos, bt, q_pos, *extra[:1], **kw),
+            plain(q, kq, vq, ppos, bt, q_pos, *extra[1:], k_scale=ks,
+                  v_scale=vs, **kw))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_decode_pair_matches_plain(dev, family, dtype, quant):
+    f = FAMILIES[family]
+    D = f["heads"]["D"]
+    rng = np.random.default_rng(21)
+    ctx = f["ctx"]
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=f["heads"]["Hkv"], D=D, page=16,
+                            npages=-(-max(ctx) // 16) + 1,
+                            dtype=torch.float32 if quant else dtype, dev=dev)
+    q = torch.from_numpy(rng.normal(size=(len(ctx), 1, f["heads"]["Hq"],
+                                          D)).astype(np.float32)).to(
+        dev, dtype)
+    q_pos = torch.tensor([[n - 1] for n in ctx], dtype=torch.int32,
+                         device=dev)
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out, ref = _family_attend("paged_decode_attention", quant, q, k, v,
+                              ppos, bt, q_pos, (), kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[2].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_packed_pair_matches_plain(dev, family, dtype, quant):
+    f = FAMILIES[family]
+    D = f["heads"]["D"]
+    rng = np.random.default_rng(22)
+    before, seg = f["packed"], [1, 21, 9, 3]
+    ctx = [b + s for b, s in zip(before, seg)]
+    k, v, ppos, bt = _pools(rng, ctx, Hkv=f["heads"]["Hkv"], D=D, page=16,
+                            npages=-(-max(ctx) // 16) + 1,
+                            dtype=torch.float32 if quant else dtype, dev=dev)
+    T_ = 40
+    sid = np.full(T_, -1, np.int32)
+    pos = np.full(T_, -1, np.int32)
+    starts, t = [], 0
+    for s, (b0, ln) in enumerate(zip(before, seg)):
+        starts.append(t)
+        sid[t:t + ln], pos[t:t + ln] = s, b0 + np.arange(ln)
+        t += ln
+    meta = DA.packed_meta_table(starts, seg, range(4), T_,
+                                T_ // DA.PACKED_BLOCK_Q + 4)
+    q = torch.from_numpy(rng.normal(size=(1, T_, f["heads"]["Hq"], D))
+                         .astype(np.float32)).to(dev, dtype)
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out, ref = _family_attend(
+        "paged_packed_attention", quant, q, k, v, ppos, bt,
+        torch.from_numpy(pos[None]).to(dev),
+        (torch.from_numpy(meta).to(dev), torch.from_numpy(sid).to(dev)), kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[0, t:].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_mixed_pair_matches_plain(dev, family, dtype, quant):
+    """A verify window of k + 1 = 5 lanes over five slots."""
+    f = FAMILIES[family]
+    D = f["heads"]["D"]
+    n_q = [5, 5, 0, 3, 5]
+    q, k, v, ppos, bt, q_pos = _mixed_inputs(
+        np.random.default_rng(23), W=5, n_q=n_q, before=f["before"],
+        page=16, dtype=torch.float32 if quant else dtype, dev=dev,
+        **f["heads"])
+    q = q.to(dtype)
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out, ref = _family_attend("paged_mixed_attention", quant, q, k, v, ppos,
+                              bt, q_pos, (), kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for r, n in enumerate(n_q):
+        assert not out[r, n:].any()
+
+
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("family,B,S", [("phi3", 2, 200),
+                                        ("gemma2", 1, 4400)])
+def test_family_flash_matches_plain(dev, family, B, S, dtype):
+    """Causal prefill over (B, S) tokens; gemma2's past its window."""
+    f = FAMILIES[family]
+    D = f["heads"]["D"]
+    rng = np.random.default_rng(24)
+
+    def t(h):
+        return torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v = t(f["heads"]["Hq"]), t(f["heads"]["Hkv"]), t(f["heads"]["Hkv"])
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out = FA.flash_attention(q, k, v, pos, pos, **kw)
+    ref = FA.flash_attention_ref(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+def test_family_dense_decode_matches_plain(dev, dtype):
+    """gemma2's heads over a dense cache of 4400 keys, window 4096 and
+    softcap 50, one row with a ragged valid prefix, one all padding."""
+    f = FAMILIES["gemma2"]
+    D = f["heads"]["D"]
+    q, k, v, k_pos, q_pos = _dense_inputs(np.random.default_rng(25), dtype,
+                                          4, 4400, dev=dev, **f["heads"])
+    k_pos[0, 4300:] = -1
+    q_pos[0] = 4299
+    q_pos[-1] = -1
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    ref = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    _assert_within_output_scale(out, ref, dtype)
+    assert not out[-1].any()
+
+
+@pytest.mark.parametrize("K,N", [(3072, 32064), (2304, 256000)])
+def test_quant_matmul_family_heads(dev, K, N):
+    """phi3's untied head and gemma2's tied head at a decode step's 8
+    rows, bf16 x."""
+    _qmm_check(*_qmm_inputs(dev, 8, K, N, torch.bfloat16, K + N))
