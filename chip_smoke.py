@@ -149,6 +149,34 @@ on one card):
               ``teacher_forced``: gemma2-2b in fp32, a 4,400-token prompt
               and 16 decode steps through the wrapped dense ring against
               the full forward's logits (TEACHER_TOL)
+  8. moe, mm   qwen3-moe-235b-a22b, internvl2-1b and musicgen-medium:
+              the kernel phase also holds the decode, mixed and dense decode
+              kernels at qwen3-moe's heads (64 / 4 x 128, g = 16), flash at
+              its exact-length admissions (1 x 77, 8 x 78) and
+              ``quant_matmul`` at its untied head (4096 -> 151936) and q /
+              o projections; the packed and decode pairs, dense decode and
+              flash (8 x 320: 256 prefix embeddings + 64 tokens) at
+              internvl2-1b's (14 / 2 x 64, g = 7); flash and dense decode
+              at musicgen-medium's (24 / 24 x 64); ``parity_moe_mm``:
+              reduced qwen3-moe in fp32 at its own capacity factor 1.5
+              (assignments dropped: counted on the CPU run), bucketed
+              ``serve_continuous`` and ``generate_batch`` with and without
+              the cache, card == CPU; reduced internvl2-1b (prefix
+              embeddings) and musicgen-medium (codebooks, sinusoidal
+              positions) train, prefill and decode logits, card == CPU;
+              full-width qwen3-moe at 8 of its 94 layers (42.3 GB of bf16
+              weights): bucketed at exact lengths at bf16 and int8 / int8
+              (4 records a layer and the head through ``quant_matmul``),
+              the bf16 serve again (equal streams), pipelined over the
+              dense cache, sampled, and ``moe_expert_bound`` (every forward
+              reads all 128 experts: 38.7 GB, 11.5 ms at 3.35 TB/s, beside
+              the profiled busy time); full-width internvl2-1b packed
+              (text-only) and ``forward_mm`` (8 rows of 256 prefix
+              embeddings + 64 tokens, prefill and 32 greedy decode steps
+              over the dense cache), musicgen-medium ``forward_mm`` (8 x 64
+              steps x 4 codebooks, an argmax per codebook); and the fp32
+              ``teacher_forced`` checks of both (16 decode steps against
+              ``forward_train``, TEACHER_TOL, argmax equal)
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -1079,6 +1107,7 @@ def phase_kernels(check_bodies=True):
             rng, f"pruned unimo-text head 1024->{v_new} M={M} bf16", M=M,
             K=1024, N=v_new, dtype=bf16, timed=True))
     cases += family_kernel_cases(rng)
+    cases += moe_mm_kernel_cases(rng)
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -1124,7 +1153,8 @@ def phase_kernels(check_bodies=True):
     summary["paged_packed_attention"]["regimes"] = [
         c for c in cases if c["kernel"] == "paged_packed_attention"
         and "kernel_ms" in c]
-    # the phi3-mini and gemma2-2b shapes: every timed case of the families
+    # the phi3-mini, gemma2-2b, qwen3-moe, internvl2-1b and musicgen-medium
+    # shapes: every timed case of the families
     for c in cases:
         if c["case"].startswith(FAMILY_CASES) and "kernel_ms" in c:
             row = summary[c["kernel"]]
@@ -1135,7 +1165,8 @@ def phase_kernels(check_bodies=True):
     return summary
 
 
-FAMILY_CASES = ("phi3-mini", "gemma2-2b", "gemma3-27b")
+FAMILY_CASES = ("phi3-mini", "gemma2-2b", "gemma3-27b", "qwen3-moe",
+                "internvl2-1b", "musicgen-medium")
 
 
 def family_kernel_cases(rng):
@@ -1809,7 +1840,8 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
 
 def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
                 mode="packed", profile=False, cfg=None, extra=None,
-                prune_maps=None, traced=False, label=None, prefix=None):
+                prune_maps=None, traced=False, label=None, prefix=None,
+                mm_per_forward=None):
     """Full-width ``arch`` (bf16 weights ``params``; ``cfg`` defaults to
     the arch's published config) through ``serve_continuous``: 16
     synthetic requests x 32 new tokens, 8 slots, max_len 256, 16-token
@@ -1818,7 +1850,8 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     bucketed admission), with ``extra`` serve options (a contended pool
     and preemption) and ``prune_maps`` given to the engine.  With
     ``prefix`` every request starts with it and each engine pins it by
-    ``set_prefix`` first.  The launch counts of this run
+    ``set_prefix`` first; ``mm_per_forward``: the int8 weight records a
+    forward reads, where not qwen3-4b's 7 a layer and the head.  The launch counts of this run
     (set to 0 just before it, read just after) must show every attention
     call in the kernels of its mode and pool, every draft forward's
     attention in flash and, under int8 weights, every dense matmul in
@@ -1909,7 +1942,8 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     checks.update(_launch_checks(
         mode, m, launches, n_layers, "_q8" if kv_dtype == "int8" else "",
         weights_dtype, drafts,
-        eng.weight_stats["n_quantized"] if prune_maps is not None else None))
+        eng.weight_stats["n_quantized"] if prune_maps is not None
+        else mm_per_forward))
     if tracer is not None:
         checks.update(_trace_checks(tracer, m, f"{arch}_{label}"))
     failed = [k for k, v in checks.items() if not v]
@@ -2738,7 +2772,8 @@ def phase_teacher_forced():
 
 
 def phase_serves_families():
-    """This slice's families at full width, random weights from a seeded
+    """qwen3-moe, internvl2-1b and musicgen-medium at full width, random
+    weights from a seeded
     torch.Generator, bf16: phi3-mini-3.8b (32 layers) packed, at int8 KV
     + int8 weights (its untied head through ``quant_matmul``), with n-gram
     speculation and ``packed=False``; gemma2-2b (26 layers) bucketed over
@@ -2796,6 +2831,439 @@ def phase_serves_families():
     return seen
 
 
+# ---------------------------------------------------------------------------
+# qwen3-moe-235b-a22b, internvl2-1b and musicgen-medium
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, VLM_ARCH, AUDIO_ARCH = ("qwen3-moe-235b-a22b", "internvl2-1b",
+                                  "musicgen-medium")
+# qwen3-moe at full width but 8 of its 94 layers: one layer is 2.49 B
+# parameters (2.42 B of them the 128 experts), 4.98 GB at bf16; 8 layers
+# with the embedding and the untied head 21.2 B, 42.3 GB (94 would be
+# 468 GB)
+MOE_LAYERS = 8
+# the forward-level runs: 8 rows of internvl2's 256 prefix embeddings + 64
+# text tokens, or musicgen's 64 steps x 4 codebooks, then greedy decode
+MM_ROWS, MM_TEXT, MM_DECODE = 8, 64, 32
+# the fp32 teacher-forced checks: decode steps after the prefill
+MM_TEACHER_STEPS = 16
+
+
+def moe_mm_kernel_cases(rng):
+    """The kernels at the heads of qwen3-moe (64 / 4 x 128: g = 16, a
+    decode lane fills a 16-row warp and a 5-lane verify window two 64-row
+    tiles), internvl2-1b (14 / 2 x 64: g = 7, which divides neither a warp,
+    a 64-row tile nor the dense body's 8-head block) and musicgen-medium
+    (24 / 24 x 64), each against its plain version: the decode, mixed and
+    dense decode at qwen3-moe's heads and flash at its exact-length
+    admissions (1 x 77, 8 x 78), ``quant_matmul`` at its untied head and
+    attention projections (M = 8); the packed and decode pairs, dense
+    decode over ``generate_batch``'s cache (max_len 352: 512 rows) and
+    flash over 256 prefix embeddings + 64 text tokens at internvl2's; flash
+    over 8 x 64 steps and dense decode over the 97-row cache of max_len 96
+    at musicgen's.  bf16 cases on a path are timed; fp32 (the CUDA-core
+    bodies) and int8 pools off any serve check values only."""
+    import torch
+    bf16, fp32 = torch.bfloat16, torch.float32
+    moe = dict(Hq=64, Hkv=4, D=128)
+    vlm = dict(Hq=14, Hkv=2, D=64)
+    audio = dict(Hq=24, Hkv=24, D=64)
+    ctx = [int(x) for x in torch.randint(0, 256 - SPEC_K, (8,),
+                                         generator=rng, device="cuda")]
+    verify = dict(W=SPEC_K + 1, n_q=[SPEC_K + 1] * 8, before=ctx)
+    cases = []
+    for quant in (False, True):
+        q8 = " int8 pool," if quant else ""
+        cases.append(run_decode_case(rng, f"qwen3-moe{q8} bf16", dtype=bf16,
+                                     quant=quant, timed=True, **moe))
+        cases.append(run_decode_case(rng, f"qwen3-moe{q8} fp32", dtype=fp32,
+                                     quant=quant, **moe))
+        cases.append(run_mixed_case(rng, f"qwen3-moe verify{q8} bf16 q",
+                                    dtype=bf16, quant=quant, timed=True,
+                                    **verify, **moe))
+        cases.append(run_mixed_case(rng, f"qwen3-moe ragged rows{q8} fp32 q",
+                                    dtype=fp32, quant=quant, W=24,
+                                    n_q=[24, 0, 17, 1],
+                                    before=[3, 0, 100, 40], **moe))
+        for run in (run_packed_case, run_decode_case):
+            cases.append(run(rng, f"internvl2-1b{q8} bf16", dtype=bf16,
+                             quant=quant, timed=not quant, **vlm))
+            cases.append(run(rng, f"internvl2-1b{q8} fp32", dtype=fp32,
+                             quant=quant, **vlm))
+    for dtype in (bf16, fp32):
+        dn = str(dtype).removeprefix("torch.")
+        timed = dtype == bf16
+        cases.append(run_dense_decode_case(
+            rng, f"qwen3-moe dense cache 8 x 512, 256 valid {dn}", B=8,
+            Sk=512, valid=256, dtype=dtype, timed=timed, **moe))
+        cases.append(run_flash_case(rng, f"qwen3-moe admission 1 x 77 {dn}",
+                                    B=1, S=77, dtype=dtype, timed=timed,
+                                    **moe))
+        cases.append(run_flash_case(rng, f"qwen3-moe admission 8 x 78 {dn}",
+                                    B=8, S=78, dtype=dtype, timed=timed,
+                                    **moe))
+        cases.append(run_dense_decode_case(
+            rng, f"internvl2-1b dense cache 8 x 512, 352 valid {dn}", B=8,
+            Sk=512, valid=352, dtype=dtype, timed=timed, **vlm))
+        cases.append(run_flash_case(
+            rng, f"internvl2-1b prefix + text 8 x 320 {dn}", B=8, S=320,
+            dtype=dtype, timed=timed, **vlm))
+        cases.append(run_flash_case(rng, f"musicgen-medium 8 x 64 {dn}",
+                                    B=8, S=64, dtype=dtype, timed=timed,
+                                    **audio))
+        cases.append(run_dense_decode_case(
+            rng, f"musicgen-medium dense cache 8 x 97, 96 valid {dn}", B=8,
+            Sk=97, valid=96, dtype=dtype, timed=timed, **audio))
+    cases.append(run_flash_case(rng, "qwen3-moe ragged 8 x 78 bf16", B=8,
+                                S=78, dtype=bf16, ragged=True, **moe))
+    for name, K, N in (("qwen3-moe untied head", 4096, 151936),
+                       ("qwen3-moe q projection", 4096, 8192),
+                       ("qwen3-moe o projection", 8192, 4096)):
+        cases.append(run_quant_matmul_case(
+            rng, f"{name} {K}->{N} M=8 bf16", M=8, K=K, N=N, dtype=bf16,
+            timed=True))
+    return cases
+
+
+def _moe_cut():
+    """qwen3-moe's published config at MOE_LAYERS layers."""
+    from repro_torch.configs.base import uniform_stack
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MOE_ARCH)
+    return cfg.replace(stacks=uniform_stack(MOE_LAYERS,
+                                            cfg.stacks[0].pattern[0]))
+
+
+def _moe_dropped(cfg, p, x):
+    """Assignments beyond an expert's capacity in the routing of x."""
+    import torch
+    from repro_torch.models import moe as MOE
+    xf = x.reshape(-1, x.shape[-1])
+    _, _, tope = MOE.route(cfg, p, xf)
+    counts = torch.bincount(tope.reshape(-1),
+                            minlength=cfg.moe.num_experts)
+    return int((counts - MOE._capacity(xf.shape[0], cfg)).clamp_min(0)
+               .sum())
+
+
+def _mm_inputs(cfg, gen, B, S):
+    """A forward-level batch from ``gen``: tokens (B, S), or (B, S, C) for
+    musicgen, in [4, V), and (internvl2) its prefix embeddings (B, P, d)
+    at 0.02 x normal, else None."""
+    import torch
+    shape = (B, S) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    toks = torch.randint(4, cfg.vocab_size, shape, generator=gen,
+                         device=gen.device, dtype=torch.int32)
+    pre = (torch.randn(B, cfg.num_prefix_embeds, cfg.d_model, generator=gen,
+                       device=gen.device) * 0.02
+           if cfg.num_prefix_embeds else None)
+    return toks, pre
+
+
+def phase_parity_moe_mm():
+    """Reduced qwen3-moe, internvl2-1b and musicgen-medium in fp32 (TF32
+    off), card against CPU.  qwen3-moe at its own capacity factor 1.5:
+    ``serve_continuous`` (bucketed at exact lengths) of 8 requests, half
+    of them one repeated token (whose tokens route alike, so experts
+    overflow: the CPU run must drop assignments), and ``generate_batch``
+    with and without the KV cache; streams and counters equal.
+    internvl2-1b (16 prefix embeddings) and musicgen-medium (2 codebooks,
+    sinusoidal positions): ``forward_train`` logits, and the logits of a
+    dense-cache prefill and 4 decode steps, within PARITY_TOL."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32, map_params
+    from repro_torch.core.scheduler import Request
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(22)
+    cfg = get_reduced(MOE_ARCH)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    lens = (20, 31, 9, 40, 20, 14, 33, 7)
+    prompts = [[2] + ([int(rng.integers(4, 400))] * (n - 1) if i % 2 else
+                      [int(t) for t in rng.integers(4, 400, size=n - 1)])
+               for i, n in enumerate(lens)]
+    batch = rng.integers(4, 400, size=(3, 40)).astype(np.int32)
+    blens = np.asarray([40, 23, 6], np.int32)
+    out, drops = {}, []
+    apply = MOE.moe_apply
+
+    def counting(c, p, x):
+        drops.append(_moe_dropped(c, p, x))
+        return apply(c, p, x)
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":                 # counted off the card: no sync
+            MOE.moe_apply = counting
+        try:
+            def engine(**kw):
+                return InferenceEngine(cfg, params, policy=FP32, max_len=64,
+                                       max_batch=4, device=dev, **kw)
+            done, m = engine().serve_continuous(
+                [Request(uid=i, tokens=list(p), max_new_tokens=8)
+                 for i, p in enumerate(prompts)], page_size=8)
+            out[dev, "serve"] = [r.result for r in done]
+            out[dev, "counters"] = [m.scheduler, m.admitted, m.retired,
+                                    m.prefill_tokens, m.prefill_padded,
+                                    m.host_syncs, m.steps,
+                                    m.generated_tokens, m.peak_pages_in_use]
+            for kv in (True, False):
+                out[dev, f"kv={kv}"] = engine(
+                    use_kv_cache=kv).generate_batch(batch.copy(), blens,
+                                                    6).tolist()
+        finally:
+            MOE.moe_apply = apply
+    keys = sorted({k for _, k in out})
+    card_eq_cpu = {k: out["cuda", k] == out["cpu", k] for k in keys}
+    emit("parity_moe_mm", arch=cfg.name, capacity_factor=cfg.moe
+         .capacity_factor, dropped_assignments_cpu=sum(drops),
+         card_equals_cpu=card_eq_cpu, counters=out["cuda", "counters"],
+         tokens=sum(map(len, out["cpu", "serve"])))
+    failed = [k for k, v in card_eq_cpu.items() if not v]
+    if failed or not sum(drops) > 0 or out["cuda", "counters"][0] \
+            != "bucketed":
+        raise SystemExit(f"{cfg.name}: reduced parity failed: {failed}, "
+                         f"dropped {sum(drops)}")
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = get_reduced(arch)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+        toks, pre = _mm_inputs(cfg, torch.Generator().manual_seed(1), 2, 24)
+        P_ = cfg.num_prefix_embeds
+        plens = torch.tensor([20 + P_, 13 + P_], dtype=torch.int32)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            p = map_params(lambda t: t.to(dev), params)
+            t, n = toks.to(dev), plens.to(dev)
+            pe = None if pre is None else pre.to(dev)
+            with torch.no_grad():
+                lt = T.forward_train(p, cfg, t[:, :20], prefix_embeds=pe)
+                cache = T.init_cache(cfg, 2, 64, torch.float32, device=dev)
+                lp, _ = T.forward_prefill(p, cfg, t[:, :20], n, cache,
+                                          prefix_embeds=pe, max_len=64,
+                                          last_only=True)
+                ld = [T.forward_decode(p, cfg, t[:, 20 + i:21 + i], cache,
+                                       n + i, max_len=64)[0]
+                      for i in range(4)]
+            logits[dev] = [lt.cpu(), lp.cpu()] + [x.cpu() for x in ld]
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(logits["cuda"], logits["cpu"])]
+        emit("parity_moe_mm", arch=arch, logits_max_abs_err={
+            "train": errs[0], "prefill": errs[1], "decode": max(errs[2:])},
+            logits_shape=list(logits["cuda"][0].shape),
+            logits_tol=PARITY_TOL["auto"])
+        if not max(errs) <= PARITY_TOL["auto"]:
+            raise SystemExit(f"{arch}: reduced parity failed: {errs}")
+
+
+def phase_forward_mm(params, cfg, label):
+    """internvl2-1b or musicgen-medium at full width, bf16, at the forward
+    level: MM_ROWS rows (internvl2: its 256 prefix embeddings + MM_TEXT
+    text tokens; musicgen: MM_TEXT steps x 4 codebooks) prefilled into a
+    dense cache, then MM_DECODE greedy ``forward_decode`` steps (musicgen:
+    an argmax per codebook).  Gates: finite logits of the expected shape,
+    ids in the vocabulary, flash launched once per layer (the prefill) and
+    the dense decode kernel layers x steps, no other attention kernel.
+    Returns the launch counts."""
+    import torch
+    from repro_torch.core.precision import BF16
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks, pre = _mm_inputs(cfg, gen, MM_ROWS, MM_TEXT)
+    S = MM_TEXT + cfg.num_prefix_embeds
+    max_len = S + MM_DECODE
+    lens = torch.full((MM_ROWS,), S, dtype=torch.int32, device="cuda")
+
+    def run():
+        cache = T.init_cache(cfg, MM_ROWS, max_len, torch.bfloat16,
+                             device="cuda")
+        with torch.no_grad():
+            lp, _ = T.forward_prefill(params, cfg, toks, lens, cache,
+                                      prefix_embeds=pre, policy=BF16,
+                                      max_len=max_len, last_only=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ids, finite = [lp.argmax(-1)], [torch.isfinite(lp).all()]
+            for i in range(MM_DECODE):
+                ld, _ = T.forward_decode(params, cfg, ids[-1], cache,
+                                         lens + i, policy=BF16,
+                                         max_len=max_len)
+                finite.append(torch.isfinite(ld).all())
+                ids.append(ld.argmax(-1))
+            torch.cuda.synchronize()
+        return lp, ld, torch.cat(ids, 1), bool(torch.stack(finite).all()), t1
+    run()                                               # warm-up
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lp, ld, ids, finite, t1 = run()
+    t2 = time.perf_counter()
+    launches = ops.launch_counts()
+    L = cfg.num_layers
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    checks = {
+        "finite logits of shape (rows, 1, [C,] V)": finite and tuple(
+            lp.shape) == tuple(ld.shape) == (MM_ROWS, 1) + cb
+        + (cfg.vocab_size,),
+        "ids in the vocabulary": tuple(ids.shape) == (
+            MM_ROWS, MM_DECODE + 1) + cb and bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()),
+        f"flash ran {L} x 1 prefill": launches["flash_attention"] == L,
+        f"dense decode ran {L} x {MM_DECODE} steps": launches[
+            "decode_attention"] == L * MM_DECODE,
+        "no other attention kernel ran": all(
+            n == 0 for k, n in launches.items()
+            if k not in ("flash_attention", "decode_attention")),
+    }
+    emit("forward_mm", arch=cfg.name, layers=L, policy="bf16", label=label,
+         rows=MM_ROWS, prefix_embeds=cfg.num_prefix_embeds,
+         text_tokens=MM_TEXT, codebooks=cfg.num_codebooks,
+         decode_steps=MM_DECODE, max_len=max_len, prefill_s=t1 - t0,
+         decode_s=t2 - t1, decode_tok_per_s=MM_ROWS * MM_DECODE / (t2 - t1),
+         launches=launches, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"{cfg.name} forward-level run failed: {failed}")
+    return launches
+
+
+def phase_teacher_forced_mm(arch):
+    """Full-width ``arch`` in fp32 (TF32 off): one row of MM_TEXT +
+    MM_TEACHER_STEPS tokens (internvl2 after its 256 prefix embeddings;
+    musicgen over 4 codebooks) through ``forward_train``; the same row's
+    first MM_TEXT tokens prefilled into a dense cache, then
+    MM_TEACHER_STEPS decode steps fed the next tokens.  The prefill's last
+    logits and each step's must equal ``forward_train``'s at the same
+    position within TEACHER_TOL, with the argmax equal (per codebook for
+    musicgen)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import FP32
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, FP32)
+    toks, pre = _mm_inputs(cfg, gen, 1, MM_TEXT + MM_TEACHER_STEPS)
+    P_ = cfg.num_prefix_embeds
+    S = P_ + MM_TEXT + MM_TEACHER_STEPS
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = T.forward_train(params, cfg, toks, prefix_embeds=pre,
+                               policy=FP32)[0, P_ + MM_TEXT - 1:]
+        cache = T.init_cache(cfg, 1, S, torch.float32, device="cuda")
+        lp, _ = T.forward_prefill(
+            params, cfg, toks[:, :MM_TEXT],
+            torch.tensor([P_ + MM_TEXT], dtype=torch.int32, device="cuda"),
+            cache, prefix_embeds=pre, policy=FP32, max_len=S,
+            last_only=True)
+        got = [lp[0, 0]]
+        for t in range(MM_TEXT, MM_TEXT + MM_TEACHER_STEPS):
+            ld, _ = T.forward_decode(
+                params, cfg, toks[:, t:t + 1], cache,
+                torch.tensor([P_ + t], dtype=torch.int32, device="cuda"),
+                policy=FP32, max_len=S)
+            got.append(ld[0, 0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = torch.stack(got)
+    diff = (got - full).abs()
+    err = diff.max().item()
+    argmax_equal = bool((got.argmax(-1) == full.argmax(-1)).all())
+    emit("teacher_forced", arch=cfg.name, layers=cfg.num_layers,
+         policy="fp32", prefix_embeds=P_, prompt_tokens=MM_TEXT,
+         codebooks=cfg.num_codebooks, decode_steps=MM_TEACHER_STEPS,
+         max_abs_err=err, max_abs_err_by_step=diff.reshape(
+             diff.shape[0], -1).amax(1).tolist(),
+         logits_max_abs=full.abs().max().item(), tol=TEACHER_TOL,
+         argmax_equal=argmax_equal, wall_s=wall)
+    if not (np.isfinite(err) and err <= TEACHER_TOL and argmax_equal):
+        raise SystemExit(f"{arch} teacher-forced check failed: max |diff| "
+                         f"{err} (tol {TEACHER_TOL}), argmax equal "
+                         f"{argmax_equal}")
+
+
+def phase_serves_moe_mm():
+    """qwen3-moe, internvl2-1b and musicgen-medium at full width, random
+    weights from a seeded torch.Generator, bf16: qwen3-moe at MOE_LAYERS
+    layers bucketed at exact lengths (bf16, then int8 KV + int8 weights:
+    its attention projections and untied head through ``quant_matmul``,
+    4 records a layer and the head), the bf16 serve once more (its streams must repeat
+    exactly: the MoE combine has no atomics), pipelined over the dense
+    cache, one sampled serve, and the experts' byte bound beside the
+    profiled busy time (``moe_expert_bound``); internvl2-1b packed
+    (text-only) and at the forward level with its 256 prefix embeddings;
+    musicgen-medium at the forward level; then both fp32 teacher-forced
+    checks.  Returns each run's launch counts by label."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import BF16
+    from repro_torch.core.scheduler import Request
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    seen = {}
+    gen.manual_seed(0)
+    cfg = _moe_cut()
+    params = T.init_params(gen, cfg, BF16)
+    L = cfg.num_layers
+    m, seen["qwen3-moe bucketed"], s_b, wall, busy = phase_serve(
+        MOE_ARCH, params, cfg=cfg, mode="bucketed", profile=True)
+    _, seen["qwen3-moe bucketed int8"], _, _, _ = phase_serve(
+        MOE_ARCH, params, cfg=cfg, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True, label="bucketed int8",
+        mm_per_forward=4 * L + 1)
+    done, _ = InferenceEngine(cfg, params, policy=BF16, max_batch=8,
+                              max_len=256, device="cuda").serve_continuous(
+        [Request(uid=i, tokens=list(t), max_new_tokens=32)
+         for i, t in enumerate(_smoke_prompts())])
+    again = [r.result for r in done]
+    # every forward reads every expert's weights: the capacity gives each
+    # expert C >= 8 rows, which the batched products compute whether or
+    # not a token was routed there
+    mo = cfg.moe
+    expert_bytes = L * 3 * mo.num_experts * cfg.d_model * mo.d_ff_expert * 2
+    forwards = m.host_syncs - m.steps // 4 + m.steps
+    bound_s = forwards * expert_bytes / HBM_BYTES_PER_S
+    emit("moe_expert_bound", arch=cfg.name, layers=L,
+         expert_bytes_per_forward=expert_bytes,
+         bound_ms_per_forward=expert_bytes / HBM_BYTES_PER_S * 1e3,
+         forwards=forwards, bound_s=bound_s, device_busy_s=busy,
+         busy_over_bound=busy / bound_s, wall_s=wall,
+         streams_repeat=again == s_b)
+    if again != s_b:
+        raise SystemExit("qwen3-moe: a second bucketed serve gave other "
+                         "streams")
+    seen["qwen3-moe pipelined"], _ = phase_dense(
+        MOE_ARCH, params, "pipelined", cfg=cfg, base=s_b)
+    phase_sampled(params, cfg, "qwen3-moe bucketed", mode="bucketed",
+                  policy=BF16)
+    del params
+    torch.cuda.empty_cache()
+    gen.manual_seed(0)
+    cfg = get_config(VLM_ARCH)
+    params = T.init_params(gen, cfg, BF16)
+    _, seen["internvl2 packed"], _, _, _ = phase_serve(
+        VLM_ARCH, params, cfg=cfg, profile=True)
+    seen["internvl2 forward"] = phase_forward_mm(params, cfg, "prefix")
+    del params
+    gen.manual_seed(0)
+    cfg = get_config(AUDIO_ARCH)
+    params = T.init_params(gen, cfg, BF16)
+    seen["musicgen forward"] = phase_forward_mm(params, cfg, "codebooks")
+    del params
+    torch.cuda.empty_cache()
+    phase_teacher_forced_mm(VLM_ARCH)
+    torch.cuda.empty_cache()
+    phase_teacher_forced_mm(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    return seen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
@@ -2841,10 +3309,12 @@ def main(argv=None) -> int:
     phase_parity_xlstm()
     phase_parity_overload()
     phase_parity_families()
+    phase_parity_moe_mm()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
     family = phase_serves_families()
+    family.update(phase_serves_moe_mm())
 
     kernels = []
     for name in REPLACES:

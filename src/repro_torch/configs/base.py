@@ -55,6 +55,16 @@ class Stack:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared_experts: int = 0
+    d_ff_expert: int = 0            # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     source: str = ""                # citation for the assigned config
@@ -73,7 +83,7 @@ class ModelConfig:
     final_softcap: Optional[float] = None
     rope_theta: float = 10000.0
     rope_theta_local: Optional[float] = None  # windowed layers' own theta
-    pos_emb: str = "rope"           # rope | learned | none
+    pos_emb: str = "rope"           # rope | learned | sinusoidal | none
     max_seq_len: int = 1 << 19      # for learned positions / rope tables
     attn_scale: Optional[float] = None        # None -> 1/sqrt(head_dim)
 
@@ -83,6 +93,13 @@ class ModelConfig:
     sandwich_norm: bool = False     # a post-norm after mixer and FFN too
     tie_embeddings: bool = True
     embed_scale: bool = False
+
+    moe: Optional[MoEConfig] = None
+
+    # multimodal stub frontend: prefix embeddings prepended to the text
+    # (vlm: image patches) and parallel codec streams (audio: musicgen 4)
+    num_prefix_embeds: int = 0
+    num_codebooks: int = 0
 
     # long-context: window applied to *global* layers when serving >
     # native_context tokens

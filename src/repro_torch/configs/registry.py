@@ -14,6 +14,9 @@ _MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 

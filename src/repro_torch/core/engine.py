@@ -122,6 +122,14 @@ class InferenceEngine:
                  prune_maps: Optional[PR.PruneMaps] = None):
         self.device = resolve_device(device)
         T.check_supported(cfg)
+        if cfg.num_codebooks:
+            # the reference's engine has no multi-codebook decoding either
+            # (its (B, S, C) tokens fail there with a shape error)
+            raise NotImplementedError(
+                f"{cfg.name}: num_codebooks={cfg.num_codebooks} — the "
+                f"engine serves single-stream token ids; drive a "
+                f"multi-codebook model through the forwards of "
+                f"repro_torch.models.transformer")
         self.cfg = cfg
         self.policy = policy
         self.prune_maps = prune_maps

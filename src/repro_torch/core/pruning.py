@@ -76,13 +76,19 @@ def build_maps(keep_ids: np.ndarray, vocab_size: int,
 
 def prune_vocab(params: dict, cfg: ModelConfig, maps: PruneMaps):
     """Gather the kept rows of the embedding (and the kept columns of an
-    untied (d, V) head)."""
+    untied (d, V) head); a multi-codebook model keeps the same ids in
+    each of its (C, V, d) tables (and ``heads``)."""
     embed = params["embed"]
     keep = torch.as_tensor(maps.keep_ids, device=embed["tokens"].device)
     new_embed = dict(embed)
-    new_embed["tokens"] = embed["tokens"].index_select(0, keep)
-    if "head" in embed:
-        new_embed["head"] = embed["head"].index_select(1, keep)
+    if cfg.num_codebooks:
+        for k in ("tokens", "heads"):
+            if k in embed:
+                new_embed[k] = embed[k].index_select(1, keep)
+    else:
+        new_embed["tokens"] = embed["tokens"].index_select(0, keep)
+        if "head" in embed:
+            new_embed["head"] = embed["head"].index_select(1, keep)
     return ({**params, "embed": new_embed},
             cfg.replace(vocab_size=maps.new_vocab))
 
@@ -90,7 +96,7 @@ def prune_vocab(params: dict, cfg: ModelConfig, maps: PruneMaps):
 def trim_positions(params: dict, cfg: ModelConfig, new_max_len: int):
     """The paper's position-table trim to ``new_max_len`` rows."""
     if cfg.pos_emb != "learned":
-        return params, cfg          # RoPE / no table: nothing to trim
+        return params, cfg          # RoPE / sinusoidal / none: no table
     new_embed = dict(params["embed"])
     new_embed["pos"] = params["embed"]["pos"][:new_max_len]
     return ({**params, "embed": new_embed},

@@ -157,6 +157,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.num_codebooks or cfg.num_prefix_embeds:
+        raise SystemExit("serve.py drives text archs; audio/VLM backbones "
+                         "are exercised via dryrun + smoke tests")
     policy = dataclasses.replace(get_policy(args.policy),
                                  kv_dtype=args.kv_dtype,
                                  weights_dtype=args.weights_dtype)

@@ -274,21 +274,36 @@ def ffn_apply(cfg: ModelConfig, p, x):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    """tokens: (B,S) int -> (B,S,d) at the embedding table's dtype."""
-    x = params["embed"]["tokens"][tokens.long()]
+    """tokens: (B,S) int -> (B,S,d) at the embedding table's dtype; for a
+    multi-codebook audio model (B,S,C), the sum of each codebook's gather
+    from its (V, d) table of the (C, V, d) ``tokens``."""
+    emb = params["embed"]["tokens"]
+    if cfg.num_codebooks:
+        x = emb[0][tokens[..., 0].long()]
+        for c in range(1, cfg.num_codebooks):
+            x = x + emb[c][tokens[..., c].long()]
+    else:
+        x = emb[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def unembed(cfg: ModelConfig, params, x):
-    """x: (B,S,d) -> fp32 logits through the untied head ``embed["head"]``
-    (d, V), or the tied embedding table, or its int8 copy
-    ``embed["head_q8"]`` (the transposed (d, V) record
-    ``precision.compress_weights`` makes) when the policy quantized one;
-    the gather table itself is never quantized.  An int8 head record goes
+    """x: (B,S,d) -> fp32 logits ((B,S,C,V) for a multi-codebook model)
+    through the untied head ``embed["head"]`` (d, V), or the tied
+    embedding table, or its int8 copy ``embed["head_q8"]`` (the
+    transposed (d, V) record ``precision.compress_weights`` makes) when
+    the policy quantized one; the gather table itself is never
+    quantized.  An int8 head record goes
     to ``ops.quant_matmul``."""
     embed = params["embed"]
+    if cfg.num_codebooks:
+        # (B,S,C,V): through (C, V, d) output heads where present, else
+        # the tied codebook tables
+        heads = embed.get("heads", embed["tokens"])
+        return softcap(torch.einsum("bsd,cvd->bscv", x.float(),
+                                    heads.float()), cfg.final_softcap)
     head = embed.get("head") if not cfg.tie_embeddings \
         else embed.get("head_q8")
     if isinstance(head, dict):

@@ -1,0 +1,109 @@
+"""Mixture-of-Experts FFN with softmax top-k routing (Qwen3-MoE), the
+port's counterpart of ``repro.models.moe``'s default path.
+
+Dispatch is sort-based with a static capacity (GShard-style): each
+expert takes at most C = :func:`_capacity` of the batch's (token, expert)
+assignments, in the order of a stable sort by expert (so, for one
+expert, by token), and drops the rest.  The kept tokens are gathered
+into an (E, C, d) buffer and run through the expert stacks by the dense
+FFN's code (``layers.ffn_apply``), whose products become batched ones
+(the reference leaves them to XLA as einsums, outside any Pallas
+kernel).  Each token then sums its kept contributions in ascending
+expert order, the order in which the reference's scatter-add applies
+them, with no atomics, so a serve gives the same stream twice on the
+card.  Nothing here reads a value back to the host.
+
+The load-balance auxiliary loss is its own function over the router's
+outputs (:func:`load_balance_loss`): the serving forwards never call it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig):
+    """Router (d, E) and the (E, d, f) / (E, f, d) expert stacks, each
+    expert at the reference's dense init scale."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+
+    def expert_stack(i, o):
+        return torch.randn(E, i, o, generator=gen,
+                           device=gen.device) * i ** -0.5
+    return {"router": L.dense_init(gen, d, E), "wi": expert_stack(d, f),
+            "wg": expert_stack(d, f), "wo": expert_stack(f, d)}
+
+
+def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: the reference's rule, a multiple of 8, >= 8."""
+    m = cfg.moe
+    c = int(num_tokens * m.top_k * m.capacity_factor / m.num_experts) + 1
+    return max(8, -(-c // 8) * 8)
+
+
+def route(cfg: ModelConfig, p, xf):
+    """Softmax router: xf (T, d) -> (probs (T, E), topw (T, k) fp32
+    renormalised over the chosen experts, tope (T, k) expert ids, ties
+    to the lower id as ``jax.lax.top_k`` breaks them)."""
+    scores = xf.float() @ p["router"].float()
+    probs = torch.softmax(scores, dim=-1)
+    topw, tope = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    topw = topw / (topw.sum(-1, keepdim=True) + 1e-9)
+    return probs, topw, tope
+
+
+def load_balance_loss(cfg: ModelConfig, probs, tope):
+    """The reference's auxiliary loss: ``router_aux_coef * E * sum_e f_e
+    P_e``, f_e the share of the T x k assignments routed to expert e and
+    P_e its mean router probability."""
+    m = cfg.moe
+    T, k = tope.shape
+    frac = torch.zeros(m.num_experts, device=tope.device).scatter_add_(
+        0, tope.reshape(-1), torch.ones(T * k, device=tope.device)) / (T * k)
+    return m.router_aux_coef * m.num_experts * torch.sum(
+        frac * probs.mean(0))
+
+
+def moe_apply(cfg: ModelConfig, p, x):
+    """x: (B, S, d) -> (B, S, d).  Every one of the B x S tokens, padding
+    lanes too, is routed and counts towards the capacity, as in the
+    reference."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E, k = B * S, m.num_experts, m.top_k
+    C = _capacity(T, cfg)
+    dev = x.device
+    xf = x.reshape(T, d)
+    _, topw, tope = route(cfg, p, xf)
+
+    # sort-based dispatch: assignment i of token i // k, stable by expert
+    e_flat = tope.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    se = e_flat[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * k, device=dev) - offsets[se]
+    slot = torch.where(pos_in_e < C, se * C + pos_in_e, E * C)  # E*C: drop
+    table = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    table.scatter_(0, slot, order // k)
+    wtab = torch.zeros(E * C + 1, device=dev)
+    wtab.scatter_(0, slot, topw.reshape(-1)[order])
+    xpad = torch.cat([xf, xf.new_zeros(1, d)])                 # sentinel row
+    gathered = xpad[table[:-1].view(E, C)]                     # (E, C, d)
+
+    eo = L.ffn_apply(cfg, p, gathered)                         # (E, C, d)
+    eo = eo * wtab[:-1].view(E, C, 1).to(eo.dtype)
+
+    # combine: each token's k slots (the sentinel row for a dropped one),
+    # summed from zero in ascending expert order
+    slot_of = torch.empty_like(slot).scatter_(0, order, slot).view(T, k)
+    slot_of = slot_of.gather(1, torch.argsort(tope, dim=1))
+    eo = torch.cat([eo.reshape(E * C, d), eo.new_zeros(1, d)])
+    out = torch.zeros(T, d, dtype=eo.dtype, device=dev)
+    for j in range(k):
+        out = out + eo[slot_of[:, j]]
+    return out.reshape(B, S, d)

@@ -1,9 +1,12 @@
 """Decoder forward for the serving path (the port's counterpart of
-``repro.models.transformer``), for attention + dense-FFN layers with
-learned positions or RoPE (a windowed layer's own theta too), optional
-qk-norm, sliding windows, softcaps and sandwich norms, GELU, SwiGLU or
-GeGLU FFNs and tied or untied embeddings, and for xLSTM's recurrent
-layers (mLSTM / sLSTM with no FFN, no positional embedding).
+``repro.models.transformer``), for attention layers with a dense FFN or
+a capacity-routed MoE FFN (:mod:`repro_torch.models.moe`), learned,
+sinusoidal or RoPE positions (a windowed layer's own theta too),
+optional qk-norm, sliding windows, softcaps and sandwich norms, GELU,
+SwiGLU or GeGLU FFNs, tied or untied embeddings, prefix embeddings in
+front of the text (a vision model's patches) and multi-codebook tokens
+(an audio model's (C, V, d) tables, (B, S, C, V) logits), and for xLSTM's
+recurrent layers (mLSTM / sLSTM with no FFN, no positional embedding).
 
 Parameters are a dict ``{"embed": {"tokens"[, "head"][, "pos"]},
 "final_norm", "layers": [per-layer dict]}`` with the layers in execution
@@ -28,16 +31,18 @@ in the layer's cache dict.  Every cache is updated in place.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, MLSTM, NO_FFN,
-                                      SLSTM, LayerSpec, ModelConfig,
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MLSTM, MOE_FFN,
+                                      NO_FFN, SLSTM, LayerSpec, ModelConfig,
                                       layer_specs)
 from repro_torch.core import kv_cache as KV
 from repro_torch.core.precision import FP32, Policy
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 RECURRENT = (MLSTM, SLSTM)
@@ -46,16 +51,20 @@ RECURRENT = (MLSTM, SLSTM)
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configs outside the ported slice."""
     for spec in layer_specs(cfg):
-        if (spec.mixer, spec.ffn) != (ATTN, DENSE_FFN) \
-                and not (spec.mixer in RECURRENT and spec.ffn == NO_FFN):
+        if not ((spec.mixer == ATTN and spec.ffn in (DENSE_FFN, MOE_FFN))
+                or (spec.mixer in RECURRENT and spec.ffn == NO_FFN)):
             raise NotImplementedError(
                 f"layer family {spec.mixer}/{spec.ffn} is not ported "
-                f"(attention + dense FFN, or mLSTM/sLSTM without FFN)")
-    if cfg.pos_emb not in ("rope", "learned", "none") \
+                f"(attention + dense or MoE FFN, or mLSTM/sLSTM without "
+                f"FFN)")
+    if cfg.pos_emb not in ("rope", "learned", "sinusoidal", "none") \
             or cfg.activation not in L.FFN_ACTIVATIONS:
         raise NotImplementedError(
-            f"{cfg.name}: only RoPE, learned or no positions and "
-            f"{'/'.join(L.FFN_ACTIVATIONS)} FFNs are ported")
+            f"{cfg.name}: only RoPE, learned, sinusoidal or no positions "
+            f"and {'/'.join(L.FFN_ACTIVATIONS)} FFNs are ported")
+    if cfg.moe is not None and cfg.moe.num_shared_experts:
+        raise NotImplementedError(f"{cfg.name}: shared experts are not "
+                                  f"ported")
 
 
 # ---------------------------------------------------------------------------
@@ -72,9 +81,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     bf16 bytes)."""
     check_supported(cfg)
     dev = gen.device
-    embed = {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model)}
-    if not cfg.tie_embeddings:
-        embed["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size)
+    if cfg.num_codebooks:
+        # one (V, d) table per codebook, tied to the unembedding as the
+        # reference draws them
+        embed = {"tokens": torch.stack([
+            L.embed_init(gen, cfg.vocab_size, cfg.d_model)
+            for _ in range(cfg.num_codebooks)])}
+    else:
+        embed = {"tokens": L.embed_init(gen, cfg.vocab_size, cfg.d_model)}
+        if not cfg.tie_embeddings:
+            embed["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size)
     if cfg.pos_emb == "learned":
         embed["pos"] = L.embed_init(gen, cfg.max_seq_len, cfg.d_model)
     cast = policy.cast_params
@@ -94,7 +110,9 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
         return {"norm1": L.norm_init(cfg, dev),
                 "mixer": SSM.slstm_init(gen, cfg)}
     p = {"norm1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg),
-         "norm2": L.norm_init(cfg, dev), "ffn": L.ffn_init(gen, cfg)}
+         "norm2": L.norm_init(cfg, dev),
+         "ffn": (MOE.moe_init(gen, cfg) if spec.ffn == MOE_FFN
+                 else L.ffn_init(gen, cfg))}
     if cfg.sandwich_norm:
         p["norm1_post"] = L.norm_init(cfg, dev)
         p["norm2_post"] = L.norm_init(cfg, dev)
@@ -225,7 +243,9 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     if cfg.sandwich_norm:
         out = L.apply_norm(cfg, p["norm1_post"], out)
     x = x + out
-    out = L.ffn_apply(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x))
+    h = L.apply_norm(cfg, p["norm2"], x)
+    out = (MOE.moe_apply(cfg, p["ffn"], h) if spec.ffn == MOE_FFN
+           else L.ffn_apply(cfg, p["ffn"], h))
     if cfg.sandwich_norm:
         out = L.apply_norm(cfg, p["norm2_post"], out)
     return x + out
@@ -264,11 +284,21 @@ def _cache_max_len(cfg: ModelConfig, cache) -> int:
     return best or cfg.max_seq_len
 
 
-def _embed(cfg, params, tokens, positions, policy):
+def _embed(cfg, params, tokens, positions, policy, prefix_embeds=None):
+    """Token embeddings, after ``prefix_embeds`` (B, P, d) where given,
+    plus learned or sinusoidal positions at ``positions`` (B, P + S)."""
     x = L.embed_tokens(cfg, params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cfg.pos_emb == "learned":
         pe = params["embed"]["pos"]
         x = x + pe[positions.long().clamp(0, pe.shape[0] - 1)].to(x.dtype)
+    elif cfg.pos_emb == "sinusoidal":
+        half = cfg.d_model // 2
+        freqs = torch.exp(-torch.arange(half, device=x.device) / half
+                          * math.log(10000.0))
+        ang = positions[..., None].float() * freqs
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(x.dtype)
     return x.to(policy.compute_dtype)
 
 
@@ -283,15 +313,18 @@ def _logits(cfg, params, x, policy):
 
 
 def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
-                    cache, *, policy: Policy = FP32,
+                    cache, *, prefix_embeds=None, policy: Policy = FP32,
                     max_len: Optional[int] = None, last_only: bool = False,
                     start=0, paged=None):
     """Process whole right-padded prompts and fill the cache: a dense
     cache (:func:`init_cache`), the paged pool through ``paged``
     ({"block_tables", "active"}) or recurrent slot state.
 
-    tokens: (B, S); prompt_lengths: (B,) valid tokens per row, not
-    counting ``start``.  ``start`` > 0 (an int, or a (B,) tensor of
+    tokens: (B, S), or (B, S, C) for a multi-codebook model;
+    ``prefix_embeds`` (B, P, d) go in front of the tokens (a vision
+    model's patch embeddings), so the rows hold P + S entries;
+    prompt_lengths: (B,) valid entries per row, the prefix included and
+    ``start`` not.  ``start`` > 0 (an int, or a (B,) tensor of
     per-row offsets: each admitted request resumes after its own matched
     prefix) continues from entries already in the cache and attends them.
     Tokens sit at positions ``start + 0 .. S-1``; padding lanes keep their
@@ -301,7 +334,9 @@ def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
     or (B, 1, V) at each row's last prompt token with ``last_only``,
     cache)."""
     max_len = max_len or _cache_max_len(cfg, cache)
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
+    if prefix_embeds is not None:
+        S += prefix_embeds.shape[1]
     dev = tokens.device
     attend = not (isinstance(start, int) and start == 0)
     start = torch.as_tensor(start, device=dev).to(torch.int32).reshape(-1, 1)
@@ -310,7 +345,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
     cache_pos = torch.where(
         positions < start + prompt_lengths.to(torch.int32)[:, None],
         positions, -1)
-    x = _embed(cfg, params, tokens, positions, policy)
+    x = _embed(cfg, params, tokens, positions, policy, prefix_embeds)
     x = _run_all(cfg, params, x, positions=positions, cache=cache,
                  mode="prefill", max_len=max_len, paged=paged,
                  cache_pos=cache_pos, attend_cache=attend)
@@ -324,9 +359,10 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
                    policy: Policy = FP32, max_len: Optional[int] = None,
                    paged=None):
     """One new token per slot, against the paged pool (``paged``) or a
-    dense cache.  tokens: (B,1); lengths: (B,) current context length (the
-    new token's absolute position).  Writes the tokens' K/V into the cache
-    in place.  Returns (logits (B,1,V), cache)."""
+    dense cache.  tokens: (B,1) (or (B,1,C)); lengths: (B,) current
+    context length (the new token's absolute position).  Writes the
+    tokens' K/V into the cache in place.  Returns (logits (B,1,V), or
+    (B,1,C,V), cache)."""
     max_len = max_len or _cache_max_len(cfg, cache)
     positions = lengths.to(torch.int32)[:, None]
     x = _embed(cfg, params, tokens, positions, policy)
@@ -373,7 +409,7 @@ def forward_mixed(params, cfg: ModelConfig, tokens, cache, row_start, n_q,
     write to the dump page and return zeros.  Returns (logits (B, 1, V)
     at each row's last real token, cache)."""
     max_len = max_len or cfg.max_seq_len
-    B, W = tokens.shape
+    B, W = tokens.shape[:2]
     lane = torch.arange(W, dtype=torch.int32, device=tokens.device)
     valid = lane[None, :] < n_q[:, None]
     positions = torch.where(valid, row_start.to(torch.int32)[:, None]
@@ -388,15 +424,20 @@ def forward_mixed(params, cfg: ModelConfig, tokens, cache, row_start, n_q,
     return _logits(cfg, params, x, policy), cache
 
 
-def forward_train(params, cfg: ModelConfig, tokens, *,
+def forward_train(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
                   policy: Policy = FP32):
-    """A full causal forward with no cache: tokens (B, S) at positions
-    0 .. S-1 -> logits (B, S, V).  Inference only here (callers run it
-    under ``torch.no_grad``): the draft model's greedy drafting."""
-    B, S = tokens.shape
+    """A full causal forward with no cache: tokens (B, S) (or (B, S, C)),
+    after ``prefix_embeds`` (B, P, d) where given, at positions 0 ..
+    P+S-1 -> logits (B, P+S, V) (or (B, S, C, V)).  Inference only here
+    (callers run it under ``torch.no_grad``): the no-cache baseline and
+    the draft model's greedy drafting; the MoE load-balance loss is
+    ``moe.load_balance_loss``, which no forward calls."""
+    B, S = tokens.shape[:2]
+    if prefix_embeds is not None:
+        S += prefix_embeds.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = _embed(cfg, params, tokens, positions, policy)
+    x = _embed(cfg, params, tokens, positions, policy, prefix_embeds)
     x = _run_all(cfg, params, x, positions=positions, cache=None,
                  mode="train", max_len=S, paged=None)
     return _logits(cfg, params, x, policy)

@@ -13,6 +13,8 @@ bf16/fp16 tolerance covers.  ``quant_matmul`` sums the same fp32 products
 as the plain version in another order, so it is held to 1e-5 of the
 output's largest magnitude.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1560,6 +1562,22 @@ FAMILIES = {
                    ctx=[4200, 37, 0, 4500, 130],
                    before=[4100, 37, 0, 4200, 64],
                    packed=[4300, 0, 4150, 9]),
+    # qwen3-moe's g = 16 (64 / 4 x 128: one decode lane fills a warp, a
+    # verify window of 5 lanes takes two 64-row tiles), internvl2-1b's
+    # g = 7 (14 / 2 x 64: a 16-row warp, a 64-row tile and an 8-head dense
+    # block none divide) and musicgen-medium's 24-head MHA at 64
+    "qwen3moe": dict(heads=dict(Hq=64, Hkv=4, D=128),
+                     kw=dict(window=None, attn_softcap=None),
+                     ctx=[1, 37, 0, 300, 78], before=[10, 37, 0, 130, 64],
+                     packed=[40, 0, 7, 0]),
+    "internvl2": dict(heads=dict(Hq=14, Hkv=2, D=64),
+                      kw=dict(window=None, attn_softcap=None),
+                      ctx=[1, 321, 0, 300, 17], before=[10, 37, 0, 290, 64],
+                      packed=[300, 0, 7, 0]),
+    "musicgen": dict(heads=dict(Hq=24, Hkv=24, D=64),
+                     kw=dict(window=None, attn_softcap=None),
+                     ctx=[1, 37, 0, 96, 65], before=[10, 37, 0, 60, 64],
+                     packed=[40, 0, 7, 0]),
 }
 FAMILY_DTYPES = [torch.bfloat16, torch.float32]
 
@@ -1663,9 +1681,15 @@ def test_family_mixed_pair_matches_plain(dev, family, dtype, quant):
 
 @pytest.mark.parametrize("dtype", FAMILY_DTYPES)
 @pytest.mark.parametrize("family,B,S", [("phi3", 2, 200),
-                                        ("gemma2", 1, 4400)])
+                                        ("gemma2", 1, 4400),
+                                        ("qwen3moe", 1, 77),
+                                        ("qwen3moe", 8, 78),
+                                        ("internvl2", 8, 320),
+                                        ("musicgen", 8, 64)])
 def test_family_flash_matches_plain(dev, family, B, S, dtype):
-    """Causal prefill over (B, S) tokens; gemma2's past its window."""
+    """Causal prefill over (B, S) tokens; gemma2's past its window,
+    qwen3-moe's exact-length admissions (an odd S), internvl2's 256
+    prefix embeddings + 64 text tokens."""
     f = FAMILIES[family]
     D = f["heads"]["D"]
     rng = np.random.default_rng(24)
@@ -1704,8 +1728,110 @@ def test_family_dense_decode_matches_plain(dev, dtype):
     assert not out[-1].any()
 
 
-@pytest.mark.parametrize("K,N", [(3072, 32064), (2304, 256000)])
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("family", ["qwen3moe", "internvl2", "musicgen"])
+def test_family_dense_decode_new_heads_matches_plain(dev, family, dtype):
+    """g = 16, g = 7 and 24-head MHA over the dense cache of
+    ``generate_batch`` at max_len 256 (512 rows), a ragged valid prefix
+    in row 0, the last row all padding."""
+    f = FAMILIES[family]
+    D = f["heads"]["D"]
+    q, k, v, k_pos, q_pos = _dense_inputs(np.random.default_rng(26), dtype,
+                                          4, 512, dev=dev, **f["heads"])
+    k_pos[:, 288:] = -1
+    q_pos[:] = 287
+    k_pos[0, 100:] = -1
+    q_pos[0] = 99
+    q_pos[-1] = -1
+    kw = dict(f["kw"], scale=D ** -0.5)
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, **kw)
+    ref = DA.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    _assert_within_output_scale(out, ref, dtype)
+    assert not out[-1].any()
+
+
+@pytest.mark.parametrize("K,N", [(3072, 32064), (2304, 256000),
+                                 (4096, 151936), (4096, 8192),
+                                 (8192, 4096)])
 def test_quant_matmul_family_heads(dev, K, N):
-    """phi3's untied head and gemma2's tied head at a decode step's 8
-    rows, bf16 x."""
+    """phi3's untied head, gemma2's tied head, and qwen3-moe's untied head
+    and attention projections (q, o), at a decode step's 8 rows, bf16
+    x."""
     _qmm_check(*_qmm_inputs(dev, 8, K, N, torch.bfloat16, K + N))
+
+
+# ---------------------------------------------------------------------------
+# The capacity-routed MoE FFN on the card
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(cf=1.5):
+    from repro_torch.models import moe as M
+    cfg = get_reduced("qwen3-moe-235b-a22b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    p = M.moe_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4, 24, cfg.d_model)).astype(np.float32))
+    # pulled towards expert 0, so that it overflows at the factor 1.5
+    col = p["router"][:, 0]
+    x += 2.0 * col / col.norm() * cfg.d_model ** 0.5 / 4
+    return M, cfg, p, x
+
+
+def test_moe_apply_on_card_matches_cpu(dev):
+    """fp32 (TF32 off), with dropped assignments: the card's output
+    equals the CPU's within 1e-5 (the products' summation order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, cfg, p, x = _moe_case()
+    ref = M.moe_apply(cfg, p, x)
+    out = M.moe_apply(cfg, {k: v.to(dev) for k, v in p.items()}, x.to(dev))
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_apply_on_card_is_deterministic_without_host_sync(dev, dtype):
+    """Two calls give bit-equal outputs (the combine sums each token's
+    contributions in a fixed order, no atomics), and neither reads a
+    value back to the host (CUDA sync debug mode raises on one)."""
+    M, cfg, p, x = _moe_case()
+    pd = {k: v.to(dev, dtype) for k, v in p.items()}
+    xd = x.to(dev, dtype)
+    M.moe_apply(cfg, pd, xd)                     # warm-up: allocations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = M.moe_apply(cfg, pd, xd)
+        b = M.moe_apply(cfg, pd, xd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, b)
+
+
+def test_qwen3_moe_serve_on_card_matches_cpu(dev):
+    """Reduced qwen3-moe, fp32, greedy, at its own capacity factor:
+    bucketed admission at exact lengths through the decode kernel at g =
+    4; the card's streams and counters equal the CPU's, twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("qwen3-moe-235b-a22b")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(2)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+               for n in (19, 30, 11, 11, 23)]
+    out = {}
+    for d in ("cpu", "cuda", "cuda"):
+        eng = InferenceEngine(cfg, params, policy=FP32, max_len=64,
+                              max_batch=3, device=d)
+        DA.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=10)
+             for i, p in enumerate(prompts)], page_size=8)
+        got = ([r.result for r in done], m.admitted, m.steps, m.host_syncs)
+        if d in out:
+            assert got == out[d]
+        out[d] = got
+    assert out["cuda"] == out["cpu"]
+    assert m.scheduler == "bucketed"
+    assert DA.launch_counts()["paged_decode_attention"] == 2 * m.steps > 0
