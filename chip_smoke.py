@@ -4,10 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --src OTHER_CHECKOUT/src
 
-Phases, one JSON line each; any failure exits non-zero before the last line
-(``--src`` runs every phase on another checkout's port, such as a ``git
-archive`` of a parent commit, so that two versions are timed in one call
-on one card):
+Phases, one JSON line each, each with its ``seconds`` (a kernel case's
+own time, else the time since the previous line) and ``elapsed_s``; any
+failure exits non-zero before the last line (``--src`` runs every phase on
+another checkout's port, such as a ``git archive`` of a parent commit, so
+that two versions are timed in one call on one card):
 
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -116,7 +117,7 @@ on one card):
               embedding bytes before and after), whose results must lie in
               the original id space.  The kernel phase also holds
               ``quant_matmul`` at the pruned head's K = 1024, N = V_new.
-              The paper's own path (this slice): qwen3-4b bf16 through
+              The paper's own path: qwen3-4b bf16 through
               ``run_pipelined`` and ``run_sequential`` over the dense KV
               cache and the no-cache baseline (16 prompts x 8 tokens), its
               bucketed admission behind a 32-token prefix pinned by
@@ -125,7 +126,15 @@ on one card):
               paper serves it (fp16, pruned to coverage 0.999, pipelined):
               flash layers x prefill (or admission) dispatches, plus layers
               x full forwards without the cache; the dense decode kernel
-              layers x dense decode steps; no packed or mixed launch
+              layers x dense decode steps; no packed or mixed launch.
+              Depth: only the qwen3-4b packed bf16 and int8 serves (whose
+              byte checks are full-width figures) run all 36 layers; the
+              n-gram (bf16, int8, traced), ``packed=False``, dense
+              (sequential, pipelined, no-cache), prefix (packed, bucketed
+              bf16 and int8) and contended serves run 12 of 36
+              (QWEN3_CUT_LAYERS), beside a packed bf16 and int8 serve of
+              the same 12 layers, whose streams and peak pages they are
+              compared with
   7. families phi3-mini-3.8b, gemma2-2b and gemma3-27b: the kernel phase
               also holds every paged pair, flash and dense decode at
               phi3-mini's heads (32 / 32 x 96, the 128 head-dim bucket)
@@ -138,9 +147,10 @@ on one card):
               (phi3) or bucketed (gemma, ring pages wrapping) serve and
               ``generate_batch`` with and without the cache (dense rings
               wrapping), card == CPU; full-width phi3-mini (32 layers:
-              packed, int8 KV + int8 weights, n-gram, ``packed=False``),
-              gemma2-2b (26 layers: bucketed at bf16 and int8 / int8,
-              pipelined over the dense rings, no-cache) and gemma3-27b at
+              packed; at 12 of 32 int8 KV + int8 weights, n-gram,
+              ``packed=False``), gemma2-2b (26 layers: bucketed at bf16;
+              at 10 of 26 int8 / int8, pipelined over the dense rings,
+              no-cache) and gemma3-27b at
               12 of its 62 layers (bucketed), each with its launch gates
               and profile; one sampled serve per path (packed phi3,
               bucketed and dense gemma2: shape, range, no EOS);
@@ -165,10 +175,11 @@ on one card):
               embeddings) and musicgen-medium (codebooks, sinusoidal
               positions) train, prefill and decode logits, card == CPU;
               full-width qwen3-moe at 8 of its 94 layers (42.3 GB of bf16
-              weights): bucketed at exact lengths at bf16 and int8 / int8
-              (4 records a layer and the head through ``quant_matmul``),
-              the bf16 serve again (equal streams), pipelined over the
-              dense cache, sampled, and ``moe_expert_bound`` (every forward
+              weights): bucketed at exact lengths at bf16, then at 4 of 94
+              layers at int8 / int8 (4 records a layer and the head
+              through ``quant_matmul``), the bf16 serve again (equal
+              streams), pipelined over the dense cache at 4 of 94 layers,
+              sampled, and ``moe_expert_bound`` (every forward
               reads all 128 experts: 38.7 GB, 11.5 ms at 3.35 TB/s, beside
               the profiled busy time); full-width internvl2-1b packed
               (text-only) and ``forward_mm`` (8 rows of 256 prefix
@@ -177,6 +188,28 @@ on one card):
               steps x 4 codebooks, an argmax per codebook); and the fp32
               ``teacher_forced`` checks of both (16 decode steps against
               ``forward_train``, TEACHER_TOL, argmax equal)
+  9. hybrid, hymba-1.5b and deepseek-v3-671b: the kernel phase also holds
+     mla      the decode pair (and its int8 twin) at hymba's heads (25 / 5
+              x 64: g = 5, window 1024) over up to 2048 keys, flash at the
+              exact-length admissions 1 x 77 and 8 x 78 at hymba's heads
+              and at deepseek's MLA naive form (128 heads, D 192 against
+              Dv 128), dense decode at g = 5 and ``quant_matmul`` at
+              hymba's tied head (1600 -> 32001) and deepseek's untied head
+              (7168 -> 129280); ``parity_hybrid_mla``: both reduced
+              configs in fp32, bucketed ``serve_continuous`` and
+              ``generate_batch`` with and without the cache, card == CPU,
+              and deepseek's equal-length batched admission (== single
+              requests); full-width hymba (32 layers): bucketed at bf16
+              and int8 / int8 (the int8 KV request warns, the pool stays
+              bf16), pipelined over the dense cache, no-cache, sampled,
+              ``long_serve`` past its window and the fp32
+              ``teacher_forced`` check past it (1400 tokens); deepseek-v3
+              at full width, 1 dense + 2 MoE layers of 61 (53 GB of bf16
+              weights, drawn a 1 GB expert slice at a time): bucketed at
+              bf16 and int8 / int8, pipelined, sampled,
+              ``moe_expert_bound`` (512 experts, 45.1 GB a forward), then
+              the fp32 check of the absorbed decode against the naive full
+              forward at 1 dense + 1 MoE layer (2 rows x 64 tokens)
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -191,6 +224,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -242,11 +276,16 @@ NOTES = {
                      "chunkwise mLSTM",
     "fused_rmsnorm": "no model call site (as in the reference): launches 0 "
                      "in the serves",
-    "flash_attention": "launches: the qwen3-4b pipelined dense serve "
-                       "(one per layer and prefill); its timed case is the "
-                       "draft shape, the serving shapes are in regimes",
-    "decode_attention": "launches: the qwen3-4b pipelined dense serve (one "
-                        "per layer and decode step)",
+    "flash_attention": "launches: the qwen3-4b pipelined dense serve at "
+                       "12 of 36 layers (one per layer and prefill); its "
+                       "timed case is the draft shape, the serving shapes "
+                       "are in regimes",
+    "decode_attention": "launches: the qwen3-4b pipelined dense serve at 12 "
+                        "of 36 layers (one per layer and decode step)",
+    "paged_mixed_attention": "launches: the qwen3-4b n-gram serve at 12 of "
+                             "36 layers",
+    "paged_mixed_attention_q8": "launches: the qwen3-4b int8 n-gram serve "
+                                "at 12 of 36 layers",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -272,12 +311,30 @@ HOST_KV_BYTES = 1 << 36
 
 
 T_START = time.perf_counter()
+_LAST_LINE = [T_START]
 
 
 def emit(phase, **kw):
-    """One JSON line; ``elapsed_s`` counts from the script's start."""
-    print(json.dumps({"phase": phase, **kw, "elapsed_s":
-                      time.perf_counter() - T_START}), flush=True)
+    """One JSON line; ``elapsed_s`` counts from the script's start and
+    ``seconds`` is the phase's own time: what it measured itself (a
+    kernel case, the build), else the time since the previous line."""
+    now = time.perf_counter()
+    kw.setdefault("seconds", now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
+    print(json.dumps({"phase": phase, **kw, "elapsed_s": now - T_START}),
+          flush=True)
+
+
+def timed_case(fn):
+    """A kernel case runner whose result carries its own ``seconds``
+    (the cases are printed together after the last one ran)."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    return run
 
 
 def nvidia_smi():
@@ -475,6 +532,7 @@ def _entry_bytes(k, D, quant):
     return 2 * D * k.element_size() + (2 * 4 if quant else 0)
 
 
+@timed_case
 def run_decode_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
                     softcap=None, timed=False, quant=False, npages=16):
     """8 slots of 1 .. ``npages`` x 16 tokens on 16-token pages."""
@@ -520,6 +578,7 @@ def run_decode_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
     return res
 
 
+@timed_case
 def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
                     softcap=None, timed=False, quant=False):
     """A full 256-lane stream: decode lanes for four slots and prefill
@@ -585,6 +644,7 @@ def run_packed_case(rng, name, *, Hq, Hkv, D, dtype, window=None,
     return res
 
 
+@timed_case
 def run_mixed_case(rng, name, *, Hq, Hkv, D, dtype, W, n_q, before,
                    window=None, softcap=None, timed=False, quant=False):
     """Row b of (len(n_q), W) lanes holds ``n_q[b]`` real queries at
@@ -638,18 +698,21 @@ def run_mixed_case(rng, name, *, Hq, Hkv, D, dtype, W, n_q, before,
     return res
 
 
+@timed_case
 def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
-                   window=None, softcap=None, timed=False):
+                   window=None, softcap=None, timed=False, Dv=None):
     """Flash attention over (B, S) tokens at positions 0 .. S-1, as the
     draft model's forwards run it; ``ragged`` right-pads the rows with -1
-    positions and leaves the last row wholly invalid."""
+    positions and leaves the last row wholly invalid; ``Dv``: a value
+    head dim other than D (MLA's naive form)."""
+    Dv = Dv or D
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     dev = torch.device("cuda")
     q = torch.randn(B, S, Hq, D, generator=rng, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=rng, device=dev).to(dtype)
-    v = torch.randn(B, S, Hkv, D, generator=rng, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, Dv, generator=rng, device=dev).to(dtype)
     pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
     if ragged:
         for b in range(B):
@@ -664,7 +727,7 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
     ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
         and not out[p < 0].any().item()
     res = {"case": name, "kernel": "flash_attention", "max_abs_err": err,
-           "tol": tol, "ok": bool(ok), "B": B, "S": S}
+           "tol": tol, "ok": bool(ok), "B": B, "S": S, "D": D, "Dv": Dv}
     if timed:
         g = Hq // Hkv
         mask = visible(p[:, None, None, :], p[:, None, :, None], window)
@@ -677,17 +740,18 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
             lambda: FA.flash_attention_ref(q, k, v, p, p, **kw),
             lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
-        # the visible (query, key) pairs of this run's positions, 4 D
-        # flops each per query head (QK^T and PV); bytes: q, k, v, out
+        # the visible (query, key) pairs of this run's positions, 2 D + 2
+        # Dv flops each per query head (QK^T and PV); bytes: q, k, v, out
         # and positions once
         pairs = int(visible(pos[:, None, :], pos[:, :, None], window).sum())
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-            + 2 * pos.nbytes
-        res["bound_ms"], res["bound_by"] = _bound(nbytes,
-                                                  4 * D * Hq * pairs, dtype)
+        nbytes = (q.numel() * (D + Dv) // D + k.numel() + v.numel()) \
+            * q.element_size() + 2 * pos.nbytes
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, 2 * (D + Dv) * Hq * pairs, dtype)
     return res
 
 
+@timed_case
 def run_flash_prefix_case(rng, name, *, B, Sq, npages, page, prefix, lens,
                           Hq, Hkv, D, dtype, timed=False):
     """Flash attention at the prefix-attend admission's shape: each row's
@@ -741,6 +805,7 @@ def run_flash_prefix_case(rng, name, *, B, Sq, npages, page, prefix, lens,
     return res
 
 
+@timed_case
 def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
     """``quant_matmul`` on random int8 codes and scales against its plain
     version; timed cases add ``torch.matmul`` against a bf16 weight that
@@ -774,6 +839,7 @@ def run_quant_matmul_case(rng, name, *, M, K, N, dtype, timed=False):
     return res
 
 
+@timed_case
 def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
                    timed=False):
     """``mlstm_chunked`` on random q, k (scaled by dh^-1/2 as the model
@@ -825,6 +891,7 @@ def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
     return res
 
 
+@timed_case
 def run_rmsnorm_case(rng, name, *, rows, D, dtype, wdtype, timed=False):
     """``fused_rmsnorm`` against its plain version; the yardstick is
     ``torch.nn.functional.rms_norm`` with weight ``1 + w``."""
@@ -854,6 +921,7 @@ def run_rmsnorm_case(rng, name, *, rows, D, dtype, wdtype, timed=False):
     return res
 
 
+@timed_case
 def run_dense_decode_case(rng, name, *, B, Sk, Hq, Hkv, D, dtype,
                           window=None, softcap=None, valid=None,
                           timed=False):
@@ -1108,6 +1176,7 @@ def phase_kernels(check_bodies=True):
             K=1024, N=v_new, dtype=bf16, timed=True))
     cases += family_kernel_cases(rng)
     cases += moe_mm_kernel_cases(rng)
+    cases += hybrid_mla_kernel_cases(rng)
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -1166,7 +1235,8 @@ def phase_kernels(check_bodies=True):
 
 
 FAMILY_CASES = ("phi3-mini", "gemma2-2b", "gemma3-27b", "qwen3-moe",
-                "internvl2-1b", "musicgen-medium")
+                "internvl2-1b", "musicgen-medium", "hymba-1.5b",
+                "deepseek-v3")
 
 
 def family_kernel_cases(rng):
@@ -1743,12 +1813,17 @@ def _serve_kw(mode):
             "packed_off": {"packed": False}}[mode]
 
 
-def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
+def _launch_checks(mode, m, launches, cfg, q8, weights_dtype, drafts,
                    mm_per_forward=None):
-    """The exact launch counts a serve of ``mode`` must show
+    """The exact launch counts a serve of ``mode`` of ``cfg`` must show
     (``mm_per_forward``: the int8 weight records one forward reads,
-    qwen3-4b's 7 per layer and the head by default)."""
+    qwen3-4b's 7 per layer and the head by default).  Every layer's
+    decode step attends through the paged decode kernel but an MLA
+    layer's, whose absorbed decode is plain torch."""
+    from repro_torch.configs.base import MLA, layer_specs
     other = "" if q8 else "_q8"
+    n_layers = cfg.num_layers
+    decode_layers = sum(s.mixer != MLA for s in layer_specs(cfg))
     if mm_per_forward is None:
         mm_per_forward = 7 * n_layers + 1
     if weights_dtype != "int8":
@@ -1784,9 +1859,9 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
             and m.mixed_iters == 0,
             f"flash ran {n_layers} x admission dispatches ({admissions})": (
                 launches["flash_attention"] == n_layers * admissions > 0),
-            f"decode{q8} kernel ran {n_layers} x decode steps": (
+            f"decode{q8} kernel ran {decode_layers} x decode steps": (
                 launches["paged_decode_attention" + q8]
-                == n_layers * m.steps > 0),
+                == decode_layers * m.steps and m.steps > 0),
             "no packed, mixed, dense decode or other-pool kernel ran": (
                 launches["paged_packed_attention"]
                 == launches["paged_packed_attention_q8"]
@@ -1841,7 +1916,7 @@ def _launch_checks(mode, m, launches, n_layers, q8, weights_dtype, drafts,
 def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
                 mode="packed", profile=False, cfg=None, extra=None,
                 prune_maps=None, traced=False, label=None, prefix=None,
-                mm_per_forward=None):
+                mm_per_forward=None, expect_warnings=()):
     """Full-width ``arch`` (bf16 weights ``params``; ``cfg`` defaults to
     the arch's published config) through ``serve_continuous``: 16
     synthetic requests x 32 new tokens, 8 slots, max_len 256, 16-token
@@ -1851,9 +1926,14 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     and preemption) and ``prune_maps`` given to the engine.  With
     ``prefix`` every request starts with it and each engine pins it by
     ``set_prefix`` first; ``mm_per_forward``: the int8 weight records a
-    forward reads, where not qwen3-4b's 7 a layer and the head.  The launch counts of this run
+    forward reads, where not qwen3-4b's 7 a layer and the head;
+    ``expect_warnings``: parts of warnings the serve must give.  Each
+    paged layer's pool must be what the request and the config call for:
+    int8 codes and scales for a pure attention layer under
+    ``kv_dtype="int8"``, bf16 otherwise (a hybrid layer's pool never
+    quantizes).  The launch counts of this run
     (set to 0 just before it, read just after) must show every attention
-    call in the kernels of its mode and pool, every draft forward's
+    call in the kernels of its mode and that pool, every draft forward's
     attention in flash and, under int8 weights, every dense matmul in
     ``quant_matmul``.  With ``traced`` the run carries a ``ServeTracer``
     whose JSONL and Perfetto exports go to ``build/``; the JSONL must
@@ -1865,6 +1945,7 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     import dataclasses
 
     import torch
+    from repro_torch.configs.base import ATTN, HYBRID, layer_specs
     from repro_torch.configs.registry import get_config
     from repro_torch.core import trace as TR
     from repro_torch.core.engine import InferenceEngine
@@ -1899,10 +1980,23 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done, m = eng.serve_continuous(reqs, trace=tracer, **serve_kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        done, m = eng.serve_continuous(reqs, trace=tracer, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, UserWarning)]
+    # each paged layer's pool as built, and as the request calls for it
+    specs = list(layer_specs(cfg))
+    pools = [(str(c["pk"].dtype).removeprefix("torch."), "pk_scale" in c)
+             for c in eng._paged_ctx["cache"]["layers"] if "pk" in c]
+    want = [(("int8", True) if kv_dtype == "int8" and s.mixer == ATTN
+             else ("bfloat16", False))
+            for s in specs if s.mixer in (ATTN, HYBRID)]
+    q8 = "_q8" if any(sc for _, sc in want) else ""
+    pool_dtype = pools[0][0] if pools else None
     drafts = eng.drafter.calls if mode == "spec_draft" else 0
     n_layers = cfg.num_layers
     keep = set(prune_maps.keep_ids.tolist()) if prune_maps is not None \
@@ -1937,11 +2031,15 @@ def phase_serve(arch, params, *, kv_dtype="auto", weights_dtype="auto",
          preemptions=m.preemptions, resumed=m.resumed,
          offloaded_pages=m.offloaded_pages, restored_pages=m.restored_pages,
          host_bytes_peak=m.host_bytes_peak,
-         admission_stalls=m.admission_stalls, outcomes=m.outcome_counts)
+         admission_stalls=m.admission_stalls, outcomes=m.outcome_counts,
+         pool_dtype=pool_dtype, warnings=said)
     checks = {"all requests completed with in-vocab tokens": out_ok}
+    checks.update({f"warned: {w}": any(w in x for x in said)
+                   for w in expect_warnings})
+    checks[f"paged pools at {sorted(set(want))} as requested"] = (
+        pools == want)
     checks.update(_launch_checks(
-        mode, m, launches, n_layers, "_q8" if kv_dtype == "int8" else "",
-        weights_dtype, drafts,
+        mode, m, launches, cfg, q8, weights_dtype, drafts,
         eng.weight_stats["n_quantized"] if prune_maps is not None
         else mm_per_forward))
     if tracer is not None:
@@ -1987,6 +2085,20 @@ def _forwards_nocache(eng, results, max_new):
     return total
 
 
+def _greedy_streams(cfg, params, mode="bucketed"):
+    """The greedy streams of the smoke's 16 prompts x 32 new tokens served
+    at bf16 in ``mode``, with no gate and no launch count: the base that
+    a cut model's dense runs are matched against."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import BF16
+    from repro_torch.core.scheduler import Request
+    done, _ = InferenceEngine(cfg, params, policy=BF16, max_batch=8,
+                              max_len=256, device="cuda").serve_continuous(
+        [Request(uid=i, tokens=list(t), max_new_tokens=32)
+         for i, t in enumerate(_smoke_prompts())], **_serve_kw(mode))
+    return [r.result for r in done]
+
+
 def phase_dense(arch, params, label, *, policy="bf16", pipelined=True,
                 use_kv_cache=True, max_new=32, cfg=None, prune_maps=None,
                 base=None):
@@ -1997,11 +2109,13 @@ def phase_dense(arch, params, label, *, policy="bf16", pipelined=True,
     every token), through ``run_pipelined`` or ``run_sequential``.  Gates:
     every request served with in-vocabulary ids; flash launched layers x
     prefill dispatches (or layers x full forwards without the cache), the
-    dense ``decode_attention`` layers x decode steps, no paged kernel.
+    dense ``decode_attention`` layers x decode steps (but an MLA layer,
+    whose absorbed decode is plain torch), no paged kernel.
     Prints tokens/s, decode tokens/s (engine stats), the greedy match
     against ``base`` (the packed serve's streams of the same prompts) and
     then the profile.  Returns (launch counts, streams)."""
     import torch
+    from repro_torch.configs.base import MLA, layer_specs
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.pipeline import run_pipelined, run_sequential
@@ -2057,7 +2171,8 @@ def phase_dense(arch, params, label, *, policy="bf16", pipelined=True,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          launches=launches)
     dense = {"flash_attention": n_layers * (prefills + forwards),
-             "decode_attention": n_layers * steps}
+             "decode_attention": steps * sum(s.mixer != MLA
+                                             for s in layer_specs(cfg))}
     checks = {
         "16 requests with in-vocabulary ids": len(results) == 16 and all(
             t in keep for s in streams for t in s) and st.generated_tokens
@@ -2065,7 +2180,8 @@ def phase_dense(arch, params, label, *, policy="bf16", pipelined=True,
         f"flash ran {n_layers} x (prefills {prefills} + full forwards "
         f"{forwards})": launches["flash_attention"]
         == dense["flash_attention"] > 0,
-        f"dense decode_attention ran {n_layers} x decode steps ({steps})": (
+        f"dense decode_attention ran {dense['decode_attention']} times "
+        f"({steps} decode steps)": (
             launches["decode_attention"] == dense["decode_attention"]),
         "no other attention kernel ran": all(
             n == 0 for k, n in launches.items()
@@ -2165,17 +2281,42 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
     return busy_s
 
 
+# the depth of qwen3-4b's secondary serves (of its 36 layers): only the
+# packed bf16 and int8 serves, whose byte checks are exact full-width
+# figures, stay at full depth
+QWEN3_CUT_LAYERS = 12
+
+
+def _cut(cfg, params, layers):
+    """``cfg`` and its ``params`` cut to their first ``layers`` layers, the
+    first stack's pattern repeated (full width; the tensors are
+    shared)."""
+    from repro_torch.configs.base import patterned_stacks
+    return (cfg.replace(stacks=patterned_stacks(layers,
+                                                cfg.stacks[0].pattern)),
+            {**params, "layers": params["layers"][:layers]})
+
+
+def _depth(label, cfg, of):
+    """A serve's label with the depth it runs at, where cut."""
+    return label if cfg.num_layers == of \
+        else f"{label}, {cfg.num_layers} of {of} layers"
+
+
 def phase_serves():
     """The unimo-text serve, then qwen3-4b at bf16 and at int8 KV + int8
     weights, each with its profile, and the exact byte checks of the two
-    qwen3-4b runs; then the serves off the packed decode path: qwen3-4b
-    speculative (n-gram) at bf16 and at int8, qwen3-4b ``packed=False``
-    at bf16; the paper's own path for qwen3-4b (pipelined and sequential
-    over the dense KV cache, the no-cache baseline) and its bucketed
-    admission behind a pinned 32-token prefix (bf16, int8 KV + int8
-    weights); the contended and traced serves; unimo-text self-drafting
-    and pruned; last unimo-text as the paper serves it (fp16, pruned,
-    pipelined over the dense cache).  Returns the launch counts of each
+    qwen3-4b runs.  Then, at QWEN3_CUT_LAYERS of qwen3-4b's 36 layers
+    (full width; beside a packed bf16 and an int8 / int8 serve of the cut
+    model, their streams and peak pages the base of the comparisons):
+    speculative (n-gram) at bf16 and at int8, ``packed=False`` at bf16;
+    the paper's own path (pipelined and sequential over the dense KV
+    cache, the no-cache baseline) and its bucketed admission behind a
+    pinned 32-token prefix (bf16, int8 KV + int8 weights); the contended
+    serves; the n-gram serve again, traced.  Then unimo-text
+    self-drafting and pruned; last unimo-text as the paper serves it
+    (fp16, pruned, pipelined over the dense cache).  Returns the launch
+    counts of each
     kernel's main-path run: the qwen3-4b bf16 run's for kernels 1-2, its
     int8 run's for the ``_q8`` kernels and ``quant_matmul``, the
     speculative runs' for the mixed pair and the pipelined dense run's for
@@ -2208,44 +2349,61 @@ def phase_serves():
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"qwen3-4b byte checks failed: {failed}")
-    _, la, sa, wall_ng, busy_ng = phase_serve("qwen3-4b", params,
-                                              mode="spec_ngram", profile=True)
-    _, lb, _, _, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+    # the secondary serves at QWEN3_CUT_LAYERS layers, beside the cut
+    # model's own packed serves
+    cut, pc = _cut(get_config("qwen3-4b"), params, QWEN3_CUT_LAYERS)
+
+    def lab(label):
+        return _depth(label, cut, 36)
+    mc16, _, sc16, _, _ = phase_serve("qwen3-4b", pc, cfg=cut,
+                                      label=lab("packed"))
+    mc8, _, sc8, _, _ = phase_serve("qwen3-4b", pc, cfg=cut,
+                                    kv_dtype="int8", weights_dtype="int8",
+                                    label=lab("packed"))
+    _, la, sa, wall_ng, busy_ng = phase_serve(
+        "qwen3-4b", pc, cfg=cut, mode="spec_ngram", profile=True,
+        label=lab("spec_ngram"))
+    _, lb, _, _, _ = phase_serve("qwen3-4b", pc, cfg=cut, kv_dtype="int8",
                                  weights_dtype="int8", mode="spec_ngram",
-                                 profile=True)
-    _, _, sc, _, _ = phase_serve("qwen3-4b", params, mode="packed_off",
-                                 profile=True)
+                                 profile=True, label=lab("spec_ngram"))
+    _, _, sc, _, _ = phase_serve("qwen3-4b", pc, cfg=cut, mode="packed_off",
+                                 profile=True, label=lab("packed_off"))
     # the paper's own path: bucket batches over a dense KV cache,
     # sequentially, then through the pipeline, and the no-cache baseline
-    phase_dense("qwen3-4b", params, "sequential", pipelined=False, base=s16)
-    l_dense, _ = phase_dense("qwen3-4b", params, "pipelined", base=s16)
-    phase_dense("qwen3-4b", params, "nocache", pipelined=False,
-                use_kv_cache=False, max_new=8, base=s16)
+    phase_dense("qwen3-4b", pc, lab("sequential"), pipelined=False,
+                base=sc16, cfg=cut)
+    l_dense, _ = phase_dense("qwen3-4b", pc, lab("pipelined"), base=sc16,
+                             cfg=cut)
+    phase_dense("qwen3-4b", pc, lab("nocache"), pipelined=False,
+                use_kv_cache=False, max_new=8, base=sc16, cfg=cut)
     # bucketed admission behind a 32-token system prompt pinned by
     # set_prefix, beside the packed serve of the same requests
     prefix = _system_prompt()
-    _, _, spp, _, _ = phase_serve("qwen3-4b", params, prefix=prefix,
-                                  label="packed_prefix")
-    _, _, sb16, _, _ = phase_serve("qwen3-4b", params, mode="bucketed",
-                                   prefix=prefix, profile=True,
-                                   label="bucketed_prefix")
-    _, _, sb8, _, _ = phase_serve("qwen3-4b", params, kv_dtype="int8",
+    _, _, spp, _, _ = phase_serve("qwen3-4b", pc, cfg=cut, prefix=prefix,
+                                  label=lab("packed_prefix"))
+    _, _, sb16, _, _ = phase_serve("qwen3-4b", pc, cfg=cut,
+                                   mode="bucketed", prefix=prefix,
+                                   profile=True,
+                                   label=lab("bucketed_prefix"))
+    _, _, sb8, _, _ = phase_serve("qwen3-4b", pc, cfg=cut, kv_dtype="int8",
                                   weights_dtype="int8", mode="bucketed",
                                   prefix=prefix, profile=True,
-                                  label="bucketed_prefix")
+                                  label=lab("bucketed_prefix"))
     n_pp = max(sum(len(x) for x in spp), 1)
-    emit("qwen3_bucketed_vs_packed", prefix_tokens=len(prefix),
+    emit("qwen3_bucketed_vs_packed", layers=cut.num_layers,
+         prefix_tokens=len(prefix),
          bf16=sum(a == b for x, y in zip(spp, sb16) for a, b in zip(x, y))
          / n_pp,
          int8_kv_int8_weights=sum(a == b for x, y in zip(spp, sb8)
                                   for a, b in zip(x, y)) / n_pp)
     # overload: a contended pool at bf16 and at int8 KV + int8 weights
-    phase_contended(params, m16, s16, "auto", "auto")
-    phase_contended(params, m8, s8, "int8", "int8")
+    phase_contended(pc, cut, mc16, sc16, "auto", "auto")
+    phase_contended(pc, cut, mc8, sc8, "int8", "int8")
     # tracing: the n-gram serve again, with a ServeTracer
     _, _, st, wall_t, busy_t = phase_serve(
-        "qwen3-4b", params, mode="spec_ngram", profile=True, traced=True,
-        label="spec_ngram_traced")
+        "qwen3-4b", pc, cfg=cut, mode="spec_ngram", profile=True,
+        traced=True, label=lab("spec_ngram_traced"))
+    del pc
     n_ng = max(sum(len(x) for x in sa), 1)
     emit("tracing_cost", traced_wall_s=wall_t, untraced_wall_s=wall_ng,
          wall_ratio=wall_t / wall_ng, traced_busy_s=busy_t,
@@ -2266,11 +2424,11 @@ def phase_serves():
                 cfg=cfg2, prune_maps=maps, base=s_unimo)
     # bf16 matmuls over 5-token windows and 1-token steps round
     # differently: recorded, not gated (the fp32 parity phase gates them)
-    n16 = max(sum(len(x) for x in s16), 1)
-    emit("qwen3_bf16_stream_agreement",
-         spec_ngram_vs_packed=sum(a == b for x, y in zip(s16, sa)
+    n16 = max(sum(len(x) for x in sc16), 1)
+    emit("qwen3_bf16_stream_agreement", layers=cut.num_layers,
+         spec_ngram_vs_packed=sum(a == b for x, y in zip(sc16, sa)
                                   for a, b in zip(x, y)) / n16,
-         packed_off_vs_packed=sum(a == b for x, y in zip(s16, sc)
+         packed_off_vs_packed=sum(a == b for x, y in zip(sc16, sc)
                                   for a, b in zip(x, y)) / n16)
     return {**{k: l16[k] for k in ("paged_decode_attention",
                                    "paged_packed_attention")},
@@ -2331,8 +2489,10 @@ def offload_restore_cost(cfg, kv_dtype, num_pages, n_pages, reps=10):
             "round_trip_bit_identical": same}
 
 
-def phase_contended(params, base_m, base_streams, kv_dtype, weights_dtype):
-    """Full-width qwen3-4b on a contended pool: the smoke's 16 requests x
+def phase_contended(params, cfg, base_m, base_streams, kv_dtype,
+                    weights_dtype):
+    """qwen3-4b (``cfg``: full width, cut in depth) on a contended pool:
+    the smoke's 16 requests x
     32 new tokens and 8 slots, a pool of a third of the uncontended
     serve's peak pages (at least the longest request's), ``preemption=
     "lru"``, a host tier that holds every snapshot and the per-iteration
@@ -2341,17 +2501,17 @@ def phase_contended(params, base_m, base_streams, kv_dtype, weights_dtype):
     match against the uncontended serve is recorded (bf16 kernels choose
     their bodies and splits by batch shape, so it is not gated).  Then
     the cost of an offload and a restore per page on this pool."""
-    from repro_torch.configs.registry import get_config
     from repro_torch.core.scheduler import TERMINAL_STATUSES
     longest = max(-(-(len(p) + 32) // 16) for p in _smoke_prompts())
     pool = max(-(-base_m.peak_pages_in_use // CONTENDED_POOL_DIV), longest)
     extra = dict(num_pages=pool, preemption="lru",
                  host_kv_bytes=HOST_KV_BYTES, debug_audit=True)
     m, _, streams, wall, busy = phase_serve(
-        "qwen3-4b", params, kv_dtype=kv_dtype, weights_dtype=weights_dtype,
-        profile=True, extra=extra, label="contended")
+        "qwen3-4b", params, cfg=cfg, kv_dtype=kv_dtype,
+        weights_dtype=weights_dtype, profile=True, extra=extra,
+        label=_depth("contended", cfg, 36))
     n = max(sum(len(x) for x in base_streams), 1)
-    cost = [offload_restore_cost(get_config("qwen3-4b"), kv_dtype, pool, k)
+    cost = [offload_restore_cost(cfg, kv_dtype, pool, k)
             for k in (1, longest)]
     checks = {
         "preempted at least once": m.preemptions >= 1,
@@ -2363,8 +2523,8 @@ def phase_contended(params, base_m, base_streams, kv_dtype, weights_dtype):
         "offload/restore round trip bit-identical": all(
             c["round_trip_bit_identical"] for c in cost),
     }
-    emit("contended", kv_dtype=kv_dtype, weights_dtype=weights_dtype,
-         pool_pages=pool, uncontended_peak_pages=base_m.peak_pages_in_use,
+    emit("contended", layers=cfg.num_layers, kv_dtype=kv_dtype,
+         weights_dtype=weights_dtype, pool_pages=pool, uncontended_peak_pages=base_m.peak_pages_in_use,
          pool_frac=pool / base_m.peak_pages_in_use,
          longest_request_pages=longest, host_kv_bytes=HOST_KV_BYTES,
          preemptions=m.preemptions, resumed=m.resumed,
@@ -2509,6 +2669,11 @@ FAMILIES = ("phi3-mini-3.8b", "gemma2-2b", "gemma3-27b")
 # local/global patterns (6.4 B parameters, 12.7 GB at bf16; 62 layers
 # would be 54 GB of weights alone)
 GEMMA3_LAYERS = 12
+# the depth of the secondary serves: phi3-mini's int8, n-gram and
+# packed=False (of 32 layers) and gemma2-2b's int8, pipelined and no-cache
+# (of 26: five local / global pairs); the first serve of each, the sampled
+# serves and gemma2's teacher-forced check run at full depth
+PHI3_CUT_LAYERS, GEMMA2_CUT_LAYERS = 12, 10
 # the full-width gemma2-2b teacher-forced check in fp32: decode logits
 # through the dense ring against the full forward's logits at the same
 # positions (fp32 sums in other orders over 26 layers; logits of order 1)
@@ -2664,20 +2829,22 @@ def phase_sampled(params, cfg, label, *, mode, policy):
 
 
 def phase_long_serve(params, cfg):
-    """gemma3-27b (bf16, GEMMA3_LAYERS layers) where its window bites: 4
-    requests of 1100-1400 prompt tokens x 32 new, 4 slots, max_len 2048,
-    bucketed admission.  The windowed layers' paged rings (1040 entries:
-    65 pages of 16) wrap during the prefill and the decode.  Records the
-    greedy streams and the wall time; gates the completions and the
-    bucketed path's launch counts."""
+    """A windowed model (bf16: gemma3-27b at GEMMA3_LAYERS layers, or
+    hymba-1.5b) where its window of 1024 bites: 4 requests of 1100-1400
+    prompt tokens x 32 new, 4 slots, max_len 2048, bucketed admission.
+    The windowed layers' paged rings (1040 entries: 65 pages of 16) wrap
+    during the prefill and the decode (hymba's Mamba branch runs 9-11
+    chunks a prompt).  Records the greedy streams and the wall time;
+    gates the completions and the bucketed path's launch counts."""
     import torch
     from repro_torch.core import kv_cache as KV
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.precision import BF16
     from repro_torch.core.scheduler import Request
     from repro_torch.kernels import ops
+    from repro_torch.configs.base import layer_specs
     prompts = _long_prompts()
-    window = cfg.stacks[0].pattern[0].window
+    window = max(s.window or 0 for s in layer_specs(cfg))
     ring = KV.paged_ring_len(window, 16, -(-2048 // 16))
 
     def serve(n, new):
@@ -2700,8 +2867,8 @@ def phase_long_serve(params, cfg):
               "all 4 completed with in-vocab ids": m.outcome_counts
               == {"completed": 4} and all(0 <= t < cfg.vocab_size
                                           for s in streams for t in s)}
-    checks.update(_launch_checks("bucketed", m, launches, cfg.num_layers,
-                                 "", "auto", 0))
+    checks.update(_launch_checks("bucketed", m, launches, cfg, "", "auto",
+                                 0))
     emit("long_serve", arch=cfg.name, layers=cfg.num_layers,
          prompt_tokens=[len(p) for p in prompts], window=window,
          paged_ring_entries=ring, max_len=2048, wall_s=wall,
@@ -2712,28 +2879,32 @@ def phase_long_serve(params, cfg):
          streams=streams, checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise SystemExit(f"gemma3-27b long serve failed: {failed}")
+        raise SystemExit(f"{cfg.name} long serve failed: {failed}")
 
 
-def phase_teacher_forced():
-    """Full-width gemma2-2b in fp32 (TF32 off, 10.5 GB of weights): one
-    4400-token prompt prefilled into a dense cache at max_len 4416 (the
-    local layers' ring holds 4351 entries, so it wraps), then 16 decode
-    steps through the rings fed the next tokens of the sequence; each
-    step's logits must equal the full forward's (``forward_train`` over
-    the 4416 tokens, flash with the window) at the same position within
-    TEACHER_TOL, as must the prefill's last logits."""
+def phase_teacher_forced(arch="gemma2-2b", n_prompt=4400, steps=16):
+    """Full-width ``arch`` in fp32 (TF32 off; gemma2-2b: 10.5 GB of
+    weights, a 4400-token prompt; hymba-1.5b: 6.4 GB, 1400 tokens): one
+    prompt of ``n_prompt`` tokens prefilled into a dense cache at max_len
+    n_prompt + ``steps`` (the windowed layers' ring holds fewer entries,
+    so it wraps: gemma2's 4351 of 4416, hymba's 1279 of 1416), then
+    ``steps`` decode steps through the rings fed the next tokens of the
+    sequence; each step's logits must equal the full forward's
+    (``forward_train`` over the whole sequence, flash with the window;
+    hymba's Mamba branch chunkwise there, one recurrence step a token in
+    decode) at the same position within TEACHER_TOL, as must the
+    prefill's last logits, with the argmax equal."""
     import torch
+    from repro_torch.configs.base import layer_specs
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import FP32
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("gemma2-2b")
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(gen, cfg, FP32)
-    n_prompt, steps = 4400, 16
     S = n_prompt + steps
     toks = torch.tensor([_long_prompts((S,))[0]], dtype=torch.int32,
                         device="cuda")
@@ -2755,30 +2926,34 @@ def phase_teacher_forced():
             got.append(ld[0, 0])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    diff = (torch.stack(got) - full).abs()
+    got = torch.stack(got)
+    diff = (got - full).abs()
     ring = min(c["pos"].shape[1] for c in cache["layers"]) - 1
     err = diff.max().item()
+    argmax_equal = bool((got.argmax(1) == full.argmax(1)).all())
     emit("teacher_forced", arch=cfg.name, layers=cfg.num_layers,
          policy="fp32", prompt_tokens=n_prompt, decode_steps=steps,
-         window=cfg.stacks[0].pattern[0].window, dense_ring_entries=ring,
-         max_abs_err=err, max_abs_err_by_step=diff.amax(1).tolist(),
+         window=max(s.window or 0 for s in layer_specs(cfg)),
+         dense_ring_entries=ring, max_abs_err=err,
+         max_abs_err_by_step=diff.amax(1).tolist(),
          logits_max_abs=full.abs().max().item(), tol=TEACHER_TOL,
-         argmax_equal=bool((torch.stack(got).argmax(1)
-                            == full.argmax(1)).all()), wall_s=wall)
-    if not (np.isfinite(err) and err <= TEACHER_TOL and ring < S):
-        raise SystemExit(f"gemma2-2b teacher-forced ring check failed: "
-                         f"max |diff| {err} (tol {TEACHER_TOL}), ring "
-                         f"{ring} of {S} tokens")
+         argmax_equal=argmax_equal, wall_s=wall)
+    if not (np.isfinite(err) and err <= TEACHER_TOL and ring < S
+            and argmax_equal):
+        raise SystemExit(f"{arch} teacher-forced ring check failed: max "
+                         f"|diff| {err} (tol {TEACHER_TOL}), argmax equal "
+                         f"{argmax_equal}, ring {ring} of {S} tokens")
 
 
 def phase_serves_families():
-    """qwen3-moe, internvl2-1b and musicgen-medium at full width, random
-    weights from a seeded
-    torch.Generator, bf16: phi3-mini-3.8b (32 layers) packed, at int8 KV
-    + int8 weights (its untied head through ``quant_matmul``), with n-gram
+    """phi3-mini-3.8b, gemma2-2b and gemma3-27b at full width, random
+    weights from a seeded torch.Generator, bf16: phi3-mini-3.8b (32
+    layers) packed, then at PHI3_CUT_LAYERS layers at int8 KV + int8
+    weights (its untied head through ``quant_matmul``), with n-gram
     speculation and ``packed=False``; gemma2-2b (26 layers) bucketed over
-    ring pages at bf16 and at int8 / int8, ``run_pipelined`` over the
-    dense ring cache and the no-cache baseline; gemma3-27b at
+    ring pages at bf16, then at GEMMA2_CUT_LAYERS layers at int8 / int8,
+    ``run_pipelined`` over the dense ring cache and the no-cache baseline;
+    gemma3-27b at
     GEMMA3_LAYERS layers, bucketed, then its long serve past the window.
     Each with its launch gates and profile; one sampled serve per path
     (packed phi3, bucketed and dense gemma2).  Then the gemma2-2b fp32
@@ -2793,27 +2968,36 @@ def phase_serves_families():
     gen.manual_seed(0)
     cfg = get_config("phi3-mini-3.8b")
     params = T.init_params(gen, cfg, BF16)
-    for label, kw in (("packed", {}), ("packed int8", dict(
+    _, seen["phi3 packed"], _, _, _ = phase_serve(cfg.name, params,
+                                                  profile=True)
+    cut, pc = _cut(cfg, params, PHI3_CUT_LAYERS)
+    for label, kw in (("packed int8", dict(
             kv_dtype="int8", weights_dtype="int8")),
             ("spec_ngram", dict(mode="spec_ngram")),
             ("packed_off", dict(mode="packed_off"))):
         _, seen[f"phi3 {label}"], _, _, _ = phase_serve(
-            cfg.name, params, profile=True, label=label, **kw)
+            cfg.name, pc, cfg=cut, profile=True,
+            label=_depth(label, cut, 32), **kw)
+    del pc
     phase_sampled(params, cfg, "phi3 packed", mode="packed", policy=BF16)
     del params
     gen.manual_seed(0)
     cfg = get_config("gemma2-2b")
     params = T.init_params(gen, cfg, BF16)
-    _, seen["gemma2 bucketed"], s_b, _, _ = phase_serve(
+    _, seen["gemma2 bucketed"], _, _, _ = phase_serve(
         cfg.name, params, mode="bucketed", profile=True)
+    cut, pc = _cut(cfg, params, GEMMA2_CUT_LAYERS)
     _, seen["gemma2 bucketed int8"], _, _, _ = phase_serve(
-        cfg.name, params, kv_dtype="int8", weights_dtype="int8",
-        mode="bucketed", profile=True, label="bucketed int8")
-    seen["gemma2 pipelined"], _ = phase_dense(cfg.name, params, "pipelined",
-                                              base=s_b)
+        cfg.name, pc, cfg=cut, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True,
+        label=_depth("bucketed int8", cut, 26))
+    base = _greedy_streams(cut, pc)
+    seen["gemma2 pipelined"], _ = phase_dense(
+        cfg.name, pc, _depth("pipelined", cut, 26), cfg=cut, base=base)
     seen["gemma2 nocache"], _ = phase_dense(
-        cfg.name, params, "nocache", pipelined=False, use_kv_cache=False,
-        max_new=8, base=s_b)
+        cfg.name, pc, _depth("nocache", cut, 26), cfg=cut, pipelined=False,
+        use_kv_cache=False, max_new=8, base=base)
+    del pc
     phase_sampled(params, cfg, "gemma2 bucketed", mode="bucketed",
                   policy=BF16)
     phase_sampled(params, cfg, "gemma2 dense", mode="dense", policy=BF16)
@@ -2842,6 +3026,8 @@ MOE_ARCH, VLM_ARCH, AUDIO_ARCH = ("qwen3-moe-235b-a22b", "internvl2-1b",
 # with the embedding and the untied head 21.2 B, 42.3 GB (94 would be
 # 468 GB)
 MOE_LAYERS = 8
+# the depth of qwen3-moe's int8 and pipelined serves
+MOE_CUT_LAYERS = 4
 # the forward-level runs: 8 rows of internvl2's 256 prefix embeddings + 64
 # text tokens, or musicgen's 64 steps x 4 codebooks, then greedy decode
 MM_ROWS, MM_TEXT, MM_DECODE = 8, 64, 32
@@ -3190,20 +3376,19 @@ def phase_teacher_forced_mm(arch):
 def phase_serves_moe_mm():
     """qwen3-moe, internvl2-1b and musicgen-medium at full width, random
     weights from a seeded torch.Generator, bf16: qwen3-moe at MOE_LAYERS
-    layers bucketed at exact lengths (bf16, then int8 KV + int8 weights:
-    its attention projections and untied head through ``quant_matmul``,
-    4 records a layer and the head), the bf16 serve once more (its streams must repeat
-    exactly: the MoE combine has no atomics), pipelined over the dense
-    cache, one sampled serve, and the experts' byte bound beside the
+    layers bucketed at exact lengths (bf16; then at MOE_CUT_LAYERS layers
+    int8 KV + int8 weights: its attention projections and untied head
+    through ``quant_matmul``, 4 records a layer and the head), the bf16
+    serve once more (its streams must repeat exactly: the MoE combine has
+    no atomics), pipelined over the dense cache at MOE_CUT_LAYERS layers,
+    one sampled serve, and the experts' byte bound beside the
     profiled busy time (``moe_expert_bound``); internvl2-1b packed
     (text-only) and at the forward level with its 256 prefix embeddings;
     musicgen-medium at the forward level; then both fp32 teacher-forced
     checks.  Returns each run's launch counts by label."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.precision import BF16
-    from repro_torch.core.scheduler import Request
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda")
     seen = {}
@@ -3212,16 +3397,16 @@ def phase_serves_moe_mm():
     params = T.init_params(gen, cfg, BF16)
     L = cfg.num_layers
     m, seen["qwen3-moe bucketed"], s_b, wall, busy = phase_serve(
-        MOE_ARCH, params, cfg=cfg, mode="bucketed", profile=True)
+        MOE_ARCH, params, cfg=cfg, mode="bucketed", profile=True,
+        label=_depth("bucketed", cfg, 94))
+    # the int8 and pipelined serves at MOE_CUT_LAYERS layers
+    cut, pc = _cut(cfg, params, MOE_CUT_LAYERS)
     _, seen["qwen3-moe bucketed int8"], _, _, _ = phase_serve(
-        MOE_ARCH, params, cfg=cfg, kv_dtype="int8", weights_dtype="int8",
-        mode="bucketed", profile=True, label="bucketed int8",
-        mm_per_forward=4 * L + 1)
-    done, _ = InferenceEngine(cfg, params, policy=BF16, max_batch=8,
-                              max_len=256, device="cuda").serve_continuous(
-        [Request(uid=i, tokens=list(t), max_new_tokens=32)
-         for i, t in enumerate(_smoke_prompts())])
-    again = [r.result for r in done]
+        MOE_ARCH, pc, cfg=cut, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True,
+        label=_depth("bucketed int8", cut, 94),
+        mm_per_forward=4 * MOE_CUT_LAYERS + 1)
+    again = _greedy_streams(cfg, params, "packed")
     # every forward reads every expert's weights: the capacity gives each
     # expert C >= 8 rows, which the batched products compute whether or
     # not a token was routed there
@@ -3239,7 +3424,9 @@ def phase_serves_moe_mm():
         raise SystemExit("qwen3-moe: a second bucketed serve gave other "
                          "streams")
     seen["qwen3-moe pipelined"], _ = phase_dense(
-        MOE_ARCH, params, "pipelined", cfg=cfg, base=s_b)
+        MOE_ARCH, pc, _depth("pipelined", cut, 94), cfg=cut,
+        base=_greedy_streams(cut, pc))
+    del pc
     phase_sampled(params, cfg, "qwen3-moe bucketed", mode="bucketed",
                   policy=BF16)
     del params
@@ -3262,6 +3449,335 @@ def phase_serves_moe_mm():
     phase_teacher_forced_mm(AUDIO_ARCH)
     torch.cuda.empty_cache()
     return seen
+
+
+# ---------------------------------------------------------------------------
+# hymba-1.5b and deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+HYMBA_ARCH, DEEPSEEK_ARCH = "hymba-1.5b", "deepseek-v3-671b"
+# deepseek-v3 at full width but 1 dense + 2 MoE layers of its 3 + 58: a MoE
+# layer is 11.5 B parameters (11.3 B of them the 256 experts), 23.0 GB at
+# bf16; with the dense layer, the embedding, the untied head and the MTP
+# module about 53 GB (61 layers would be 1.3 TB)
+DEEPSEEK_DENSE, DEEPSEEK_MOE = 1, 2
+# the absorbed-against-naive check: rows, prefilled tokens, decode steps
+DS_TEACHER = (2, 48, 16)
+INT8_KV_WARNING = ("kv_dtype=int8 requested but no attention layer has a "
+                   "paged pool to quantize")
+
+
+def _deepseek_cut(moe_layers=DEEPSEEK_MOE, **kw):
+    """deepseek-v3's published config at DEEPSEEK_DENSE dense + ``moe_layers``
+    MoE layers (``kw``: other fields replaced)."""
+    from repro_torch.configs.base import Stack
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(DEEPSEEK_ARCH)
+    dense, moe = (st.pattern[0] for st in cfg.stacks)
+    return cfg.replace(stacks=(Stack((dense,), DEEPSEEK_DENSE),
+                               Stack((moe,), moe_layers)), **kw)
+
+
+def hybrid_mla_kernel_cases(rng):
+    """The kernels at the heads of hymba-1.5b (25 / 5 x 64: g = 5, window
+    1024) and deepseek-v3's MLA naive form (128 heads, D 192 against Dv
+    128), each against its plain version: the decode pair at g = 5 over
+    up to 2048 keys past the window (the int8 pair too, which no hymba
+    serve launches: its pools stay at the compute dtype); flash at the
+    exact-length admissions 1 x 77 and 8 x 78 for both; dense decode over
+    ``generate_batch``'s cache at hymba's heads; ``quant_matmul`` at
+    hymba's tied head (1600 -> 32001) and deepseek's untied head (7168 ->
+    129280).  bf16 cases are timed; fp32 (the CUDA-core bodies) check
+    values only."""
+    import torch
+    bf16, fp32 = torch.bfloat16, torch.float32
+    hymba = dict(Hq=25, Hkv=5, D=64, window=1024)
+    mla = dict(Hq=128, Hkv=128, D=192, Dv=128)
+    cases = []
+    for quant in (False, True):
+        q8 = " int8 pool," if quant else ""
+        cases.append(run_decode_case(
+            rng, f"hymba-1.5b window 1024, up to 2048 keys{q8} bf16",
+            dtype=bf16, quant=quant, timed=True, npages=128, **hymba))
+        cases.append(run_decode_case(
+            rng, f"hymba-1.5b window 1024, up to 2048 keys{q8} fp32",
+            dtype=fp32, quant=quant, npages=128, **hymba))
+    for dtype in (bf16, fp32):
+        dn = str(dtype).removeprefix("torch.")
+        timed = dtype == bf16
+        for B, S in ((1, 77), (8, 78)):
+            cases.append(run_flash_case(
+                rng, f"hymba-1.5b admission {B} x {S} window 1024 {dn}",
+                B=B, S=S, dtype=dtype, timed=timed, **hymba))
+            cases.append(run_flash_case(
+                rng, f"deepseek-v3 MLA admission {B} x {S} D 192 Dv 128 "
+                f"{dn}", B=B, S=S, dtype=dtype, timed=timed, **mla))
+        cases.append(run_dense_decode_case(
+            rng, f"hymba-1.5b dense cache 8 x 512, 256 valid {dn}", B=8,
+            Sk=512, valid=256, dtype=dtype, timed=timed, **hymba))
+    for name, K, N in (("hymba-1.5b tied head", 1600, 32001),
+                       ("deepseek-v3 untied head", 7168, 129280)):
+        cases.append(run_quant_matmul_case(
+            rng, f"{name} {K}->{N} M=8 bf16", M=8, K=K, N=N, dtype=bf16,
+            timed=True))
+    return cases
+
+
+def phase_parity_hybrid_mla():
+    """Reduced hymba-1.5b (window 64) and deepseek-v3 in fp32 (TF32 off),
+    card against CPU: bucketed ``serve_continuous`` (exact lengths) of 8
+    requests x 8 new (hymba: 20-200 tokens at max_len 256, its rings of
+    72 paged entries wrapping; deepseek: 7-40 tokens at max_len 64, at
+    its own capacity factor 1.5) and ``generate_batch`` with and without
+    the KV cache; then deepseek's equal-length batched admission (three
+    7-token prompts in one prefill at the capacity factor E: each row's
+    latents must land in its own slot), whose streams must also equal
+    single-request ``generate_batch`` runs.  Streams and counters on the
+    card must equal the CPU's.  KV == no-cache is recorded, not gated:
+    over right-padded rows the prefill folds pad steps into hymba's SSM
+    state and lets pad tokens compete for deepseek's expert capacity,
+    which the no-cache buffer does not, as in the reference."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32
+    from repro_torch.core.scheduler import Request
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(23)
+    setups = {HYMBA_ARCH: ((70, 150, 20, 45, 200, 66, 100, 130), 256, 200,
+                           (200, 130, 40)),
+              DEEPSEEK_ARCH: ((20, 31, 9, 40, 20, 14, 33, 7), 64, 40,
+                              (40, 23, 6))}
+    for arch, (lens, max_len, width, blens) in setups.items():
+        cfg = get_reduced(arch)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+        prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n - 1)]
+                   for n in lens]
+        batch = rng.integers(4, 400, size=(3, width)).astype(np.int32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            def engine(**kw):
+                return InferenceEngine(cfg, params, policy=FP32,
+                                       max_len=max_len, max_batch=4,
+                                       device=dev, **kw)
+            done, m = engine().serve_continuous(
+                [Request(uid=i, tokens=list(p), max_new_tokens=8)
+                 for i, p in enumerate(prompts)], page_size=8)
+            out[dev, "serve"] = [r.result for r in done]
+            out[dev, "counters"] = [
+                m.scheduler, m.admitted, m.retired, m.prefill_tokens,
+                m.prefill_padded, m.host_syncs, m.steps,
+                m.generated_tokens, m.peak_pages_in_use]
+            for kv in (True, False):
+                out[dev, f"kv={kv}"] = engine(
+                    use_kv_cache=kv).generate_batch(
+                        batch.copy(), np.asarray(blens, np.int32),
+                        8).tolist()
+        extra = {}
+        if cfg.mla is not None:
+            # the reference's batched-admission contract, at capacity E
+            cr = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+            same = [[2] + [int(t) for t in rng.integers(4, 400, size=6)]
+                    for _ in range(3)]
+            for dev in ("cuda", "cpu"):
+                eng = InferenceEngine(cr, params, policy=FP32, max_len=64,
+                                      max_batch=3, device=dev)
+                done, _ = eng.serve_continuous(
+                    [Request(uid=i, tokens=p, max_new_tokens=4)
+                     for i, p in enumerate(same)], page_size=8,
+                    steps_per_sync=2)
+                out[dev, "equal-length admission"] = [r.result
+                                                      for r in done]
+                single = []
+                for p in same:
+                    row = eng.generate_batch(np.asarray([p], np.int32),
+                                             np.asarray([7], np.int32),
+                                             4)[0]
+                    single.append([int(t) for t in row[row >= 0]])
+                extra[f"{dev}: equal-length admission == single-request"] \
+                    = single == out[dev, "equal-length admission"]
+        keys = sorted({k for _, k in out})
+        card_eq_cpu = {k: out["cuda", k] == out["cpu", k] for k in keys}
+        inner = dict(extra)
+        inner["bucketed at exact lengths"] = (
+            out["cuda", "counters"][0] == "bucketed"
+            and out["cuda", "counters"][3] == out["cuda", "counters"][4])
+        emit("parity_hybrid_mla", arch=arch, card_equals_cpu=card_eq_cpu,
+             invariants=inner, counters=out["cuda", "counters"],
+             kv_equals_nocache=out["cpu", "kv=True"]
+             == out["cpu", "kv=False"],
+             tokens=sum(map(len, out["cpu", "serve"])))
+        failed = [k for k, v in {**card_eq_cpu, **inner}.items() if not v]
+        if failed:
+            raise SystemExit(f"{arch}: reduced parity failed: {failed}")
+
+
+def phase_teacher_forced_mla():
+    """deepseek-v3 at full width in fp32 (TF32 off): 1 dense + 1 MoE layer
+    (45 GB of fp32 experts), no MTP module, the capacity factor raised to
+    E / top_k = 32, so that an expert's capacity C = T + 1 exceeds the T
+    assignments it can get at most: neither form drops one, in a full
+    forward or a decode step (capacity depends on the batch).  Two rows of
+    64 tokens through ``forward_train`` (MLA's naive form, flash at D 192
+    / Dv 128); their first 48 tokens prefilled into a dense latent cache,
+    then 16 decode steps in the absorbed form fed the next tokens.  The
+    prefill's last logits and each step's must equal ``forward_train``'s
+    at the same positions within TEACHER_TOL, argmax equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.precision import FP32
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _deepseek_cut(1, mtp=False)
+    mo = cfg.moe
+    cfg = cfg.replace(moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, FP32)
+    B, n_prompt, steps = DS_TEACHER
+    S = n_prompt + steps
+    toks = torch.randint(4, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = T.forward_train(params, cfg, toks, policy=FP32)[
+            :, n_prompt - 1:]
+        cache = T.init_cache(cfg, B, S, torch.float32, device="cuda")
+        lens = torch.full((B,), n_prompt, dtype=torch.int32, device="cuda")
+        lp, _ = T.forward_prefill(params, cfg, toks[:, :n_prompt], lens,
+                                  cache, policy=FP32, max_len=S,
+                                  last_only=True)
+        got = [lp[:, 0]]
+        for t in range(n_prompt, S):
+            ld, _ = T.forward_decode(params, cfg, toks[:, t:t + 1], cache,
+                                     lens + (t - n_prompt), policy=FP32,
+                                     max_len=S)
+            got.append(ld[:, 0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = torch.stack(got, 1)
+    diff = (got - full).abs()
+    err = diff.max().item()
+    argmax_equal = bool((got.argmax(-1) == full.argmax(-1)).all())
+    emit("teacher_forced", arch=cfg.name, layers=cfg.num_layers,
+         policy="fp32", form="absorbed decode vs naive full forward",
+         rows=B, prompt_tokens=n_prompt, decode_steps=steps,
+         capacity_factor=cfg.moe.capacity_factor, max_abs_err=err,
+         max_abs_err_by_step=diff.amax((0, 2)).tolist(),
+         logits_max_abs=full.abs().max().item(), tol=TEACHER_TOL,
+         argmax_equal=argmax_equal,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), wall_s=wall)
+    if not (np.isfinite(err) and err <= TEACHER_TOL and argmax_equal):
+        raise SystemExit(f"deepseek-v3 absorbed-vs-naive check failed: max "
+                         f"|diff| {err} (tol {TEACHER_TOL}), argmax equal "
+                         f"{argmax_equal}")
+
+
+def phase_serves_hybrid_mla():
+    """hymba-1.5b (all 32 layers) and deepseek-v3 (DEEPSEEK_DENSE dense +
+    DEEPSEEK_MOE MoE layers) at full width, random bf16 weights from a
+    seeded torch.Generator.  hymba: bucketed at exact lengths at bf16 and
+    at int8 KV + int8 weights (the KV request warns and the pool stays
+    bf16; attention, FFN and the tied head through ``quant_matmul``, 7
+    records a layer and the head, never the Mamba branch), pipelined over
+    the dense cache, the no-cache baseline, a sampled serve, the long
+    serve past its 1024 window at max_len 2048, then the fp32
+    teacher-forced check past the window.  deepseek: bucketed at bf16 and
+    int8 / int8 (the KV request warns: MLA keeps its latent cache; the
+    dense FFN, the shared experts and the head through ``quant_matmul``,
+    3 records a layer and the head), pipelined over the dense latent
+    cache, sampled, ``moe_expert_bound`` (every forward reads all 512
+    experts: 45.1 GB, 13.5 ms at 3.35 TB/s); flash once per layer and
+    admission, and no attention kernel in its decode steps (the absorbed
+    form is plain torch, as in the reference); then the fp32
+    absorbed-against-naive check.  Returns each run's launch counts by
+    label."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import BF16
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    seen = {}
+    gen.manual_seed(0)
+    cfg = get_config(HYMBA_ARCH)
+    params = T.init_params(gen, cfg, BF16)
+    _, seen["hymba bucketed"], s_b, _, _ = phase_serve(
+        HYMBA_ARCH, params, mode="bucketed", profile=True)
+    _, seen["hymba bucketed int8"], _, _, _ = phase_serve(
+        HYMBA_ARCH, params, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True, label="bucketed int8",
+        expect_warnings=(INT8_KV_WARNING,))
+    seen["hymba pipelined"], _ = phase_dense(HYMBA_ARCH, params,
+                                             "pipelined", base=s_b)
+    seen["hymba nocache"], _ = phase_dense(
+        HYMBA_ARCH, params, "nocache", pipelined=False, use_kv_cache=False,
+        max_new=8, base=s_b)
+    phase_sampled(params, cfg, "hymba bucketed", mode="bucketed",
+                  policy=BF16)
+    phase_long_serve(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    phase_teacher_forced(HYMBA_ARCH, n_prompt=1400)
+    torch.cuda.empty_cache()
+    cfg = _deepseek_cut()
+    L = cfg.num_layers
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(gen, cfg, BF16)
+    torch.cuda.synchronize()
+    emit("init", arch=cfg.name, layers=L, seconds=time.perf_counter() - t0,
+         parameters=sum(t.numel() for t in _tensors(params)),
+         param_bytes=sum(t.numel() * t.element_size()
+                         for t in _tensors(params)),
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    lab = functools.partial(_depth, cfg=cfg, of=61)
+    m, seen["deepseek bucketed"], s_b, wall, busy = phase_serve(
+        DEEPSEEK_ARCH, params, cfg=cfg, mode="bucketed", profile=True,
+        label=lab("bucketed"))
+    _, seen["deepseek bucketed int8"], _, _, _ = phase_serve(
+        DEEPSEEK_ARCH, params, cfg=cfg, kv_dtype="int8",
+        weights_dtype="int8", mode="bucketed", profile=True,
+        mm_per_forward=3 * L + 1,
+        expect_warnings=(INT8_KV_WARNING,), label=lab("bucketed int8"))
+    mo = cfg.moe
+    expert_bytes = DEEPSEEK_MOE * 3 * mo.num_experts * cfg.d_model \
+        * mo.d_ff_expert * 2
+    forwards = m.host_syncs - m.steps // 4 + m.steps
+    bound_s = forwards * expert_bytes / HBM_BYTES_PER_S
+    emit("moe_expert_bound", arch=cfg.name, layers=L,
+         moe_layers=DEEPSEEK_MOE, expert_bytes_per_forward=expert_bytes,
+         bound_ms_per_forward=expert_bytes / HBM_BYTES_PER_S * 1e3,
+         forwards=forwards, bound_s=bound_s, device_busy_s=busy,
+         busy_over_bound=busy / bound_s, wall_s=wall)
+    seen["deepseek pipelined"], _ = phase_dense(
+        DEEPSEEK_ARCH, params, lab("pipelined"), cfg=cfg, base=s_b)
+    phase_sampled(params, cfg, "deepseek-v3 bucketed", mode="bucketed",
+                  policy=BF16)
+    del params
+    torch.cuda.empty_cache()
+    phase_teacher_forced_mla()
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 def main(argv=None) -> int:
@@ -3310,11 +3826,13 @@ def main(argv=None) -> int:
     phase_parity_overload()
     phase_parity_families()
     phase_parity_moe_mm()
+    phase_parity_hybrid_mla()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
     family = phase_serves_families()
     family.update(phase_serves_moe_mm())
+    family.update(phase_serves_hybrid_mla())
 
     kernels = []
     for name in REPLACES:
@@ -3336,7 +3854,8 @@ def main(argv=None) -> int:
         if "regimes" in c:          # each timed shape of the kernel
             row["regimes"] = [
                 {k: r[k] for k in ("case", "M", "K", "N", "B", "S", "H",
-                                   "dh", "T", "Sk", "rows", "D",
+                                   "dh", "T", "Sk", "rows", "D", "Dv",
+                                   "seconds",
                                    "max_abs_err", "errs", "gate_frac",
                                    "kernel_ms", "plain_ms", "library_ms", "device_ms",
                                    "device_kernels", "library_device_ms",

@@ -54,10 +54,16 @@ def _leaves(tree):
 
 def params_from_jax(tree) -> dict:
     """The port's parameter dict from a reference ``T.init_params`` tree
-    whose leaves were converted to numpy (``jax.tree.map(np.asarray, ...)``)."""
-    return {"embed": _map(_to_torch, tree["embed"]),
-            "final_norm": _map(_to_torch, tree["final_norm"]),
-            "layers": _unstack(tree["stacks"])}
+    whose leaves were converted to numpy (``jax.tree.map(np.asarray, ...)``):
+    every layer's leaves (attention, MLA, Mamba, MoE with its shared
+    experts), and DeepSeek's multi-token prediction module (``mtp``, not
+    stacked) where the tree has one."""
+    out = {"embed": _map(_to_torch, tree["embed"]),
+           "final_norm": _map(_to_torch, tree["final_norm"]),
+           "layers": _unstack(tree["stacks"])}
+    if "mtp" in tree:
+        out["mtp"] = _map(_to_torch, tree["mtp"])
+    return out
 
 
 def pool_from_numpy(tree) -> dict:

@@ -65,8 +65,26 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_size: int = 16
+    conv_size: int = 4
+    expand: int = 2                 # d_inner = expand * d_model (per-SSM-branch)
+    num_ssm_heads: int = 0          # hybrid: SSM heads in parallel with attn heads
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
+    family: str = "dense"           # dense | moe | ssm | hybrid | vlm | audio
     source: str = ""                # citation for the assigned config
 
     d_model: int = 512
@@ -95,11 +113,16 @@ class ModelConfig:
     embed_scale: bool = False
 
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
 
     # multimodal stub frontend: prefix embeddings prepended to the text
     # (vlm: image patches) and parallel codec streams (audio: musicgen 4)
     num_prefix_embeds: int = 0
     num_codebooks: int = 0
+
+    # DeepSeek multi-token prediction
+    mtp: bool = False
 
     # long-context: window applied to *global* layers when serving >
     # native_context tokens

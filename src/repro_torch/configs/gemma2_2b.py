@@ -10,7 +10,7 @@ _PATTERN = (LayerSpec(window=4096), LayerSpec(window=None))
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="arXiv:2408.00118",
+        name=ARCH, family="dense", source="arXiv:2408.00118",
         d_model=2304, num_heads=8, num_kv_heads=4, head_dim=256,
         d_ff=9216, vocab_size=256000,
         stacks=patterned_stacks(26, _PATTERN),

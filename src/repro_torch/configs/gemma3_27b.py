@@ -10,7 +10,7 @@ _PATTERN = tuple([LayerSpec(window=1024)] * 5 + [LayerSpec(window=None)])
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="hf:google/gemma-3-1b-pt",
+        name=ARCH, family="dense", source="hf:google/gemma-3-1b-pt",
         d_model=5376, num_heads=32, num_kv_heads=16, head_dim=128,
         d_ff=21504, vocab_size=262144,
         stacks=patterned_stacks(62, _PATTERN),

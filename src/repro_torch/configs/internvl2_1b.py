@@ -13,7 +13,7 @@ ARCH = "internvl2-1b"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="arXiv:2404.16821",
+        name=ARCH, family="vlm", source="arXiv:2404.16821",
         d_model=896, num_heads=14, num_kv_heads=2, head_dim=64,
         d_ff=4864, vocab_size=151655, num_prefix_embeds=256,
         stacks=uniform_stack(24, LayerSpec()),

@@ -13,7 +13,7 @@ ARCH = "musicgen-medium"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="arXiv:2306.05284",
+        name=ARCH, family="audio", source="arXiv:2306.05284",
         d_model=1536, num_heads=24, num_kv_heads=24, head_dim=64,
         d_ff=6144, vocab_size=2048, num_codebooks=4,
         stacks=uniform_stack(48, LayerSpec()),

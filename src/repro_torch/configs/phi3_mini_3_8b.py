@@ -8,7 +8,7 @@ ARCH = "phi3-mini-3.8b"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="arXiv:2404.14219",
+        name=ARCH, family="dense", source="arXiv:2404.14219",
         d_model=3072, num_heads=32, num_kv_heads=32, head_dim=96,
         d_ff=8192, vocab_size=32064,
         stacks=uniform_stack(32, LayerSpec()),

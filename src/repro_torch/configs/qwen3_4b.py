@@ -7,7 +7,7 @@ ARCH = "qwen3-4b"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="hf:Qwen/Qwen3-8B",
+        name=ARCH, family="dense", source="hf:Qwen/Qwen3-8B",
         d_model=2560, num_heads=32, num_kv_heads=8, head_dim=128,
         d_ff=9728, vocab_size=151936,
         stacks=uniform_stack(36, LayerSpec()),

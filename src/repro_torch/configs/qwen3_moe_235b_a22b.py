@@ -9,7 +9,7 @@ ARCH = "qwen3-moe-235b-a22b"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="hf:Qwen/Qwen3-30B-A3B",
+        name=ARCH, family="moe", source="hf:Qwen/Qwen3-30B-A3B",
         d_model=4096, num_heads=64, num_kv_heads=4, head_dim=128,
         d_ff=0, vocab_size=151936,
         stacks=uniform_stack(94, LayerSpec(ffn=MOE_FFN)),

@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers.  Lists only the architectures the port serves so far."""
+launchers: every architecture of the reference."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +17,8 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 

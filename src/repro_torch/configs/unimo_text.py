@@ -8,7 +8,7 @@ ARCH = "unimo-text"
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="paper §3.1 (UNIMO-text)",
+        name=ARCH, family="dense", source="paper §3.1 (UNIMO-text)",
         d_model=1024, num_heads=16, num_kv_heads=16, head_dim=64,
         d_ff=4096, vocab_size=12800,
         stacks=uniform_stack(24, LayerSpec()),

@@ -17,7 +17,7 @@ _PATTERN = (LayerSpec(mixer=MLSTM, ffn=NO_FFN),
 
 def config() -> ModelConfig:
     return ModelConfig(
-        name=ARCH, source="arXiv:2405.04517",
+        name=ARCH, family="ssm", source="arXiv:2405.04517",
         d_model=768, num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=50304,
         stacks=patterned_stacks(12, _PATTERN),
         norm="layernorm", pos_emb="none", tie_embeddings=True,

@@ -14,7 +14,8 @@ where the paper's pillars compose.
   with ``packed=False``, as the reference's A/B baseline (a one-step decode
   plus one (1, W-bucket) mixed forward per chunk).  With
   ``chunked_prefill=False``, and always for layer families that cannot
-  share pages (recurrent xLSTM), admissions are bucketed instead: each
+  share pages (recurrent xLSTM, windowed rings, hybrid SSM state, MLA
+  latents, capacity-routed MoE), admissions are bucketed instead: each
   group of equal-bucket prompts prefills whole in one dispatch, after any
   shared prefix pinned by ``set_prefix`` or cached in the trie.  With a
   ``SpecConfig``, decode-only iterations run draft-verify steps.  Under
@@ -38,7 +39,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MOE_FFN, ModelConfig, layer_specs
+from repro_torch.configs.base import (ATTN, HYBRID, MOE_FFN, ModelConfig,
+                                      layer_specs)
 from repro_torch.core import kv_cache as KV
 from repro_torch.core import prefix_cache as PC
 from repro_torch.core import pruning as PR
@@ -358,11 +360,16 @@ class InferenceEngine:
             warnings.warn(
                 f"paged pool geometry changed {self._paged_ctx['key']} -> "
                 f"{key}; rebuilding (cached prefixes are dropped)")
+        if self.policy.kv_dtype == "int8" and not any(
+                spec.mixer == ATTN for spec in layer_specs(self.cfg)):
+            warnings.warn("kv_dtype=int8 requested but no attention layer "
+                          "has a paged pool to quantize; state stays at "
+                          "full precision")
         alloc = PageAllocator(num_pages)
         cache = T.init_paged_cache(
             self.cfg, num_pages=num_pages, page_size=page_size,
             dtype=self.policy.compute_dtype, kv_dtype=self.policy.kv_dtype,
-            max_slots=slots, device=self.device)
+            max_slots=slots, max_len=self.max_len, device=self.device)
         pool_bytes = KV.paged_pool_bytes(cache)
         self._paged_ctx = {
             "key": key, "page_size": page_size, "num_pages": num_pages,
@@ -576,8 +583,9 @@ class InferenceEngine:
         ``chunked_prefill=False`` (and, always, a model whose layers
         cannot share pages) takes the bucketed path instead: FCFS
         admissions whose unmatched prompt suffixes share a length bucket
-        (``prompt_buckets``; the exact length for recurrent models, whose
-        state padding would change) are grouped into power-of-two
+        (``prompt_buckets``; the exact length for recurrent, hybrid and
+        MoE models, whose state or routing padding would change) are
+        grouped into power-of-two
         batches, each prefilled whole in one dispatch, then every slot
         decodes in fused steps, or in verify steps under ``spec``.  With
         sharing on, a suffix resumes after its matched prefix pages (a
@@ -585,8 +593,9 @@ class InferenceEngine:
         gathered block table; an int8 pool attends its written pages even
         with no match, so bucketed int8 equals chunked int8.  There
         ``packed`` and ``preemption`` warn and are turned off, as the
-        reference does; for recurrent models ``prefix_cache``, ``spec``
-        and ``chunked_prefill`` too.
+        reference does; for the families that cannot share pages
+        (``prefix_cache.shareable`` gives the reason) ``prefix_cache``,
+        ``spec`` and ``chunked_prefill`` too.
 
         Returns (requests, ServeMetrics); ``r.result`` holds each
         request's generated tokens.
@@ -648,10 +657,10 @@ class InferenceEngine:
         packed_buckets = packed_width_buckets(budget)
         width_buckets = mixed_width_buckets(budget)
         buckets = self.prompt_buckets()
-        # padding would fold into recurrent state (and compete for
+        # padding would fold into recurrent or SSM state (and compete for
         # capacity-routed experts): such families admit at exact prompt
         # lengths instead of buckets
-        pad_sensitive = any(spec.mixer in T.RECURRENT
+        pad_sensitive = any(spec.mixer in T.RECURRENT + (HYBRID,)
                             or spec.ffn == MOE_FFN
                             for spec in layer_specs(self.cfg))
         # the host KV tier persists with the pool; a new budget replaces

@@ -32,10 +32,12 @@ lanes, inactive slots and unallocated table entries land there with
 pos = -1, so masking stays exact without branching.
 
 A model cache is ``{"layers": [pool per layer]}`` in execution order.
-Recurrent layers (mLSTM, sLSTM) keep dense fp32 state instead, one row
-per slot, behind the same slot API: :func:`slot_view` hands an admission
-fresh zero rows and :func:`slot_merge` scatters the prefilled rows into
-the admitted slots.
+Per-slot state stays dense, one row per slot, behind the same slot API:
+recurrent layers (mLSTM, sLSTM) keep their fp32 state instead of a pool,
+MLA layers their latent cache (``ckv``, ``kr``, ``pos``), and hybrid
+layers their SSM and conv state beside their pool.  :func:`slot_view`
+hands an admission fresh empty rows (zeros, ``pos`` = -1) and
+:func:`slot_merge` scatters the prefilled rows into the admitted slots.
 
 Unlike the reference, whose updates are functional, every update here
 writes the cache tensors **in place** (``index_put_``) and returns the
@@ -49,8 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, MLSTM, SLSTM, LayerSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, HYBRID, MLA, MLSTM, SLSTM,
+                                      LayerSpec, ModelConfig)
 from repro_torch.core.precision import kv_store_dtype
 from repro_torch.models import ssm as SSM
 
@@ -82,9 +84,9 @@ def dequantize_kv(q, scale, dtype=torch.float32):
 def effective_window(cfg: ModelConfig, spec: LayerSpec,
                      max_len: int) -> Optional[int]:
     """Layer window, with the long-context override applied to global
-    attention layers when serving beyond the native context."""
+    attention and MLA layers when serving beyond the native context."""
     w = spec.window
-    if (w is None and spec.mixer == ATTN
+    if (w is None and spec.mixer in (ATTN, MLA)
             and cfg.long_context_override is not None
             and max_len > cfg.native_context):
         w = cfg.long_context_override
@@ -100,22 +102,30 @@ def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       max_len: int, dtype, device="cpu") -> dict:
     """Dense cache of one layer for ``batch`` rows: K/V and positions for
     attention (the context, or the window, plus the dump slot, rounded up
-    to a multiple of 256 above 256), the fp32 state for mLSTM / sLSTM."""
+    to a multiple of 256 above 256), plus a hybrid layer's SSM state
+    (fp32) and conv state; an MLA layer's latent ``ckv`` and rotated key
+    ``kr`` over the same rows; the fp32 state for mLSTM / sLSTM."""
     if spec.mixer in (MLSTM, SLSTM):
         zero = (SSM.mlstm_zero_state if spec.mixer == MLSTM
                 else SSM.slstm_zero_state)
         return zero(cfg, batch, device=device)
-    if spec.mixer != ATTN:
-        raise NotImplementedError(
-            f"dense caches for layer family '{spec.mixer}' are not ported")
     window = effective_window(cfg, spec, max_len)
     s = (min(window, max_len) if window else max_len) + 1
     s = -(-s // 256) * 256 if s > 256 else s
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    pos = torch.full((batch, s), -1, dtype=torch.int32, device=device)
+    if spec.mixer == MLA:
+        m = cfg.mla
+        return {"ckv": z(batch, s, m.kv_lora_rank),
+                "kr": z(batch, s, m.rope_head_dim), "pos": pos}
     shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, s), -1, dtype=torch.int32,
-                              device=device)}
+    out = {"k": z(*shape), "v": z(*shape), "pos": pos}
+    if spec.mixer == HYBRID:
+        out["ssm"], out["conv"] = SSM.mamba_zero_state(cfg, batch, dtype,
+                                                       device=device)
+    return out
 
 
 def write_prefill(cache: dict, new: dict, positions) -> dict:
@@ -183,32 +193,44 @@ def paged_pool_bytes(cache: dict) -> int:
 def paged_layer_cache_shape(cfg: ModelConfig, spec: LayerSpec,
                             num_pages: int, page_size: int, dtype,
                             kv_dtype: str = "auto", *, max_slots: int = 0,
-                            device="cpu") -> dict:
-    """Paged pool for one attention layer: ``num_pages`` + 1 dump page;
-    int8 pools (``kv_dtype="int8"``) get their two scale pools.  An mLSTM
-    or sLSTM layer gets its dense fp32 state of ``max_slots`` rows (at any
-    ``kv_dtype``, as in the reference)."""
+                            max_len: int = 0, device="cpu") -> dict:
+    """Paged pool for one attention layer: ``num_pages`` + 1 dump page.
+    Only pure attention pools store int8 (``kv_dtype="int8"``: the codes
+    and their two scale pools); a hybrid layer's pool stays at the compute
+    dtype (int8 falls back, as in the reference), beside its dense SSM and
+    conv state of ``max_slots`` rows.  An MLA layer keeps its dense latent
+    cache of ``max_slots`` rows for contexts up to ``max_len``, and an
+    mLSTM or sLSTM layer its dense fp32 state (at any ``kv_dtype``)."""
+    if spec.mixer != ATTN and max_slots < 1:
+        raise ValueError(f"'{spec.mixer}' layers keep per-slot state: they "
+                         f"need max_slots >= 1")
     if spec.mixer in (MLSTM, SLSTM):
-        if max_slots < 1:
-            raise ValueError("recurrent layers need max_slots >= 1")
         zero = (SSM.mlstm_zero_state if spec.mixer == MLSTM
                 else SSM.slstm_zero_state)
         return zero(cfg, max_slots, device=device)
-    if spec.mixer != ATTN:
-        raise NotImplementedError(
-            f"paged pools for layer family '{spec.mixer}' are not ported")
+    if spec.mixer == MLA:
+        if max_len < 1:
+            raise ValueError("MLA layers need max_len for their latent "
+                             "cache")
+        return layer_cache_shape(cfg, spec, max_slots, max_len, dtype,
+                                 device=device)
     hd = cfg.resolved_head_dim
-    pool_dtype = kv_store_dtype(kv_dtype, dtype)
+    quant = kv_dtype == "int8" and spec.mixer == ATTN
+    pool_dtype = torch.int8 if quant else kv_store_dtype(
+        kv_dtype, dtype, allow_int8=False)
     P = num_pages + 1                                  # +1 dump page
     shape = (P, page_size, cfg.num_kv_heads, hd)
     pool = {"pk": torch.zeros(shape, dtype=pool_dtype, device=device),
             "pv": torch.zeros(shape, dtype=pool_dtype, device=device),
             "ppos": torch.full((P, page_size), -1, dtype=torch.int32,
                                device=device)}
-    if pool_dtype == torch.int8:
+    if quant:
         for key in ("pk_scale", "pv_scale"):
             pool[key] = torch.zeros(shape[:3], dtype=torch.float32,
                                     device=device)
+    if spec.mixer == HYBRID:
+        pool["ssm"], pool["conv"] = SSM.mamba_zero_state(
+            cfg, max_slots, dtype, device=device)
     return pool
 
 
@@ -434,14 +456,18 @@ def reset_pages_all(cache: dict, pages) -> dict:
 def slot_view(cache: dict, n_view: int) -> dict:
     """An ``n_view``-slot working view of a persistent model cache for an
     admission prefill: paged pool tensors pass through (shared, indexed
-    through block tables); every per-slot state tensor comes back as
-    fresh zeros of ``n_view`` rows, so an admitted request always starts
-    from clean state."""
+    through block tables); every per-slot tensor comes back as ``n_view``
+    fresh empty rows, zeros and, for an MLA latent cache's positions, -1,
+    so an admitted request always starts from clean state and never sees
+    a phantom key at position 0."""
+    def fresh(k, v):
+        shape = (n_view,) + v.shape[1:]
+        if k == "pos":
+            return torch.full(shape, -1, dtype=v.dtype, device=v.device)
+        return torch.zeros(shape, dtype=v.dtype, device=v.device)
     return {"layers": [
-        {k: (v if k in PAGED_KEYS else
-             torch.zeros((n_view,) + v.shape[1:], dtype=v.dtype,
-                         device=v.device))
-         for k, v in c.items()} for c in cache["layers"]]}
+        {k: (v if k in PAGED_KEYS else fresh(k, v)) for k, v in c.items()}
+        for c in cache["layers"]]}
 
 
 def slot_merge(cache: dict, view: dict, slots) -> dict:

@@ -12,7 +12,8 @@ With ``--continuous`` it serves through continuous batching over the paged
 KV cache: ``--kv-dtype int8 --weights-dtype int8``, ``--spec ngram|draft
 --spec-k 4`` for speculative decoding, ``--packed off`` for the per-chunk
 mixed path, ``--chunked-prefill off`` for bucketed whole-prompt admission
-(``--arch xlstm-125m`` is always admitted that way).  ``--preemption
+(families that cannot share pages, such as ``--arch xlstm-125m``,
+``hymba-1.5b`` or ``deepseek-v3-671b``, are always admitted that way).  ``--preemption
 lru|priority --host-kv-bytes N`` survives pool pressure by preempting
 slots into a host KV tier, ``--trace-out PATH`` writes the serve loop's
 event trace, ``--metrics-json PATH`` every metric; it prints one JSON line

@@ -1,0 +1,138 @@
+"""DeepSeek-V3 multi-head latent attention (MLA), the port's counterpart
+of ``repro.models.attention_mla``.
+
+Two forms, as in the reference:
+
+  * **naive** (:func:`mla_full`, :func:`mla_prefill_cached`): decompress
+    the latent into per-head K (nope + rope = 192 wide at full width) and
+    V (128) and run dense attention through ``layers.mha_attention``, so
+    on the card the prefill goes to the flash kernel with D != Dv;
+  * **absorbed** (:func:`mla_decode`): only the normalised latent ``ckv``
+    (kv_lora_rank) and the shared rotated key ``kr`` are cached; a decode
+    step absorbs the query through the key decompression and attends in
+    latent space.  It is plain PyTorch over an fp32 copy of the cache, as
+    the reference's default path (its ``attn_bf16`` flag, off by default,
+    would skip the copy), which has no Pallas kernel for it.
+
+The cache of an MLA layer is dense, one row per slot: ``{"ckv": (B, S, r),
+"kr": (B, S, rope), "pos": (B, S)}`` (``kv_cache.layer_cache_shape``),
+updated in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kv_cache as KV
+from repro_torch.models import layers as L
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig):
+    m, d, H = cfg.mla, cfg.d_model, cfg.num_heads
+    dev = gen.device
+    qh = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wdq": L.dense_init(gen, d, m.q_lora_rank),
+        "q_norm": {"w": torch.zeros(m.q_lora_rank, device=dev)},
+        "wuq": L.dense_init(gen, m.q_lora_rank, H * qh),
+        "wdkv": L.dense_init(gen, d, m.kv_lora_rank),
+        "kv_norm": {"w": torch.zeros(m.kv_lora_rank, device=dev)},
+        "wukv": L.dense_init(gen, m.kv_lora_rank,
+                             H * (m.nope_head_dim + m.v_head_dim)),
+        "wkr": L.dense_init(gen, d, m.rope_head_dim),
+        "wo": L.dense_init(gen, H * m.v_head_dim, d),
+    }
+
+
+def _mm(x, w):
+    return x @ w.to(x.dtype)
+
+
+def _project(cfg: ModelConfig, p, x, positions):
+    """The common projections of x (B, S, d) at ``positions`` (B, S):
+    (q_nope (B,S,H,nope), q_rope (B,S,H,rope) rotated, the normalised
+    latent ckv (B,S,r), the rotated shared key kr (B,S,rope))."""
+    m, H = cfg.mla, cfg.num_heads
+    B, S, _ = x.shape
+    cq = L.rmsnorm(_mm(x, p["wdq"]), p["q_norm"]["w"])
+    q = _mm(cq, p["wuq"]).reshape(B, S, H, m.nope_head_dim
+                                  + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = L.rope(q_rope, positions, cfg.rope_theta)
+    ckv = L.rmsnorm(_mm(x, p["wdkv"]), p["kv_norm"]["w"])
+    kr = L.rope(_mm(x, p["wkr"])[:, :, None, :], positions,
+                cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, kr
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    m = cfg.mla
+    return (m.nope_head_dim + m.rope_head_dim) ** -0.5
+
+
+def _naive_attend(cfg, p, q_nope, q_rope, ckv, kr, q_pos, k_pos, window,
+                  dtype):
+    """Decompress latents ckv (B, Sk, r) / kr (B, Sk, rope) into per-head
+    K and V and attend the queries to them; returns the output
+    projection (B, Sq, d)."""
+    m, H = cfg.mla, cfg.num_heads
+    B, Sk = ckv.shape[:2]
+    kv = _mm(ckv.to(dtype), p["wukv"]).reshape(
+        B, Sk, H, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    k = torch.cat([k_nope, kr.to(dtype)[:, :, None, :].expand(
+        B, Sk, H, m.rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    ctx = L.mha_attention(q, k, v, q_pos, k_pos, window=window,
+                          scale=mla_scale(cfg), attn_softcap=None)
+    return _mm(ctx.reshape(B, q.shape[1], H * m.v_head_dim), p["wo"])
+
+
+def mla_full(cfg: ModelConfig, p, x, positions, k_pos, window=None):
+    """The naive form over the in-context tokens (a full forward or an
+    admission prefill).  Returns (out (B, S, d), {"ckv", "kr"} to
+    cache)."""
+    q_nope, q_rope, ckv, kr = _project(cfg, p, x, positions)
+    out = _naive_attend(cfg, p, q_nope, q_rope, ckv, kr, positions, k_pos,
+                        window, x.dtype)
+    return out, {"ckv": ckv, "kr": kr}
+
+
+def mla_prefill_cached(cfg: ModelConfig, p, x, cache, positions, cache_pos,
+                       window=None):
+    """A prefill that continues from a filled latent cache: write the new
+    latents at ``cache_pos`` (-1 = padding, the dump slot), then
+    decompress the whole cache and attend it.  Returns the output; the
+    cache is updated in place."""
+    q_nope, q_rope, ckv, kr = _project(cfg, p, x, positions)
+    KV.write_prefill(cache, {"ckv": ckv, "kr": kr}, cache_pos)
+    return _naive_attend(cfg, p, q_nope, q_rope, cache["ckv"], cache["kr"],
+                         positions, cache["pos"], window, x.dtype)
+
+
+def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
+    """The absorbed form: one token per row (x (B, 1, d)) at positions
+    ``lengths`` (B,), written into the latent cache, then attended in
+    latent space over an fp32 copy of the cache.  Returns (B, 1, d)."""
+    m, H = cfg.mla, cfg.num_heads
+    B = x.shape[0]
+    positions = lengths[:, None]
+    q_nope, q_rope, ckv_new, kr_new = _project(cfg, p, x, positions)
+    KV.write_decode(cache, {"ckv": ckv_new, "kr": kr_new}, lengths)
+    wukv = p["wukv"].float().reshape(m.kv_lora_rank, H,
+                                     m.nope_head_dim + m.v_head_dim)
+    wk, wv = wukv[..., :m.nope_head_dim], wukv[..., m.nope_head_dim:]
+    # absorb q through the key decompression: (B,H,nope) x (r,H,nope)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk)
+    ckv_f, kr_f = cache["ckv"].float(), cache["kr"].float()
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_f)
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr_f)) \
+        * mla_scale(cfg)
+    mask = KV.cache_mask(cache["pos"], positions, None)[:, 0]   # (B, Sc)
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.tensor(L.NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", probs, ckv_f)          # (B,H,r)
+    ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, wv)               # (B,H,v)
+    return _mm(ctx.reshape(B, H * m.v_head_dim).to(x.dtype),
+               p["wo"])[:, None, :]

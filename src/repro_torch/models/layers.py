@@ -243,12 +243,15 @@ def _check_activation(cfg: ModelConfig):
             f"{FFN_ACTIVATIONS})")
 
 
-def ffn_init(gen: torch.Generator, cfg: ModelConfig):
+def ffn_init(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None):
+    """A dense FFN of width ``d_ff`` (the config's by default)."""
     _check_activation(cfg)
-    p = {"wi": dense_init(gen, cfg.d_model, cfg.d_ff),
-         "wo": dense_init(gen, cfg.d_ff, cfg.d_model)}
+    f = d_ff or cfg.d_ff
+    p = {"wi": dense_init(gen, cfg.d_model, f),
+         "wo": dense_init(gen, f, cfg.d_model)}
     if cfg.activation in ("swiglu", "geglu"):
-        p["wg"] = dense_init(gen, cfg.d_model, cfg.d_ff)
+        p["wg"] = dense_init(gen, cfg.d_model, f)
     return p
 
 

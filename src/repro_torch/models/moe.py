@@ -1,5 +1,7 @@
-"""Mixture-of-Experts FFN with softmax top-k routing (Qwen3-MoE), the
-port's counterpart of ``repro.models.moe``'s default path.
+"""Mixture-of-Experts FFN, the port's counterpart of ``repro.models.moe``'s
+default path: softmax top-k routing (Qwen3-MoE) or sigmoid scores
+normalised over the chosen top-k (DeepSeek-V3), and optional shared
+experts, a dense FFN every token runs.
 
 Dispatch is sort-based with a static capacity (GShard-style): each
 expert takes at most C = :func:`_capacity` of the batch's (token, expert)
@@ -11,7 +13,8 @@ FFN's code (``layers.ffn_apply``), whose products become batched ones
 kernel).  Each token then sums its kept contributions in ascending
 expert order, the order in which the reference's scatter-add applies
 them, with no atomics, so a serve gives the same stream twice on the
-card.  Nothing here reads a value back to the host.
+card; the shared experts' output is added after.  Nothing here reads a
+value back to the host.
 
 The load-balance auxiliary loss is its own function over the router's
 outputs (:func:`load_balance_loss`): the serving forwards never call it.
@@ -24,17 +27,36 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig):
-    """Router (d, E) and the (E, d, f) / (E, f, d) expert stacks, each
-    expert at the reference's dense init scale."""
+# fp32 bytes of the expert slices moe_init draws at a time: a full-width
+# stack (deepseek-v3's 256 x 7168 x 2048 is 15 GB in fp32) is drawn a
+# slice at a time and cast to the parameter dtype as it is drawn
+EXPERT_SLICE_BYTES = 1 << 30
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype = torch.float32):
+    """Router (d, E), the (E, d, f) / (E, f, d) expert stacks, each expert
+    at the reference's dense init scale, and the shared experts' dense
+    FFN of width ``num_shared_experts * f`` where the config has them.
+    The stacks are stored at ``dtype``, drawn in fp32 slices of at most
+    EXPERT_SLICE_BYTES."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    dev = gen.device
 
     def expert_stack(i, o):
-        return torch.randn(E, i, o, generator=gen,
-                           device=gen.device) * i ** -0.5
-    return {"router": L.dense_init(gen, d, E), "wi": expert_stack(d, f),
-            "wg": expert_stack(d, f), "wo": expert_stack(f, d)}
+        per = max(1, EXPERT_SLICE_BYTES // (i * o * 4))
+        out = torch.empty(E, i, o, dtype=dtype, device=dev)
+        for e0 in range(0, E, per):
+            n = min(per, E - e0)
+            out[e0:e0 + n] = torch.randn(n, i, o, generator=gen,
+                                         device=dev) * i ** -0.5
+        return out
+    p = {"router": L.dense_init(gen, d, E), "wi": expert_stack(d, f),
+         "wg": expert_stack(d, f), "wo": expert_stack(f, d)}
+    if m.num_shared_experts:
+        p["shared"] = L.ffn_init(gen, cfg, m.num_shared_experts * f)
+    return p
 
 
 def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
@@ -44,15 +66,28 @@ def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def router_kind_of(cfg: ModelConfig) -> str:
+    """The reference's choice: sigmoid routing for DeepSeek (the models
+    with MLA), softmax otherwise."""
+    return "sigmoid" if cfg.mla is not None else "softmax"
+
+
 def route(cfg: ModelConfig, p, xf):
-    """Softmax router: xf (T, d) -> (probs (T, E), topw (T, k) fp32
-    renormalised over the chosen experts, tope (T, k) expert ids, ties
-    to the lower id as ``jax.lax.top_k`` breaks them)."""
+    """The router: xf (T, d) -> (probs (T, E) for the load-balance loss,
+    topw (T, k) fp32 renormalised over the chosen experts, tope (T, k)
+    expert ids, ties to the lower id as ``jax.lax.top_k`` breaks them).
+    The config's kind (:func:`router_kind_of`): "softmax" ranks softmax
+    probabilities (Qwen3-MoE), "sigmoid" sigmoid scores (DeepSeek-V3;
+    probs are then the scores normalised over E)."""
     scores = xf.float() @ p["router"].float()
-    probs = torch.softmax(scores, dim=-1)
+    if router_kind_of(cfg) == "sigmoid":
+        probs = torch.sigmoid(scores)
+        lb_probs = probs / (probs.sum(-1, keepdim=True) + 1e-9)
+    else:
+        probs = lb_probs = torch.softmax(scores, dim=-1)
     topw, tope = torch.topk(probs, cfg.moe.top_k, dim=-1)
     topw = topw / (topw.sum(-1, keepdim=True) + 1e-9)
-    return probs, topw, tope
+    return lb_probs, topw, tope
 
 
 def load_balance_loss(cfg: ModelConfig, probs, tope):
@@ -68,9 +103,10 @@ def load_balance_loss(cfg: ModelConfig, probs, tope):
 
 
 def moe_apply(cfg: ModelConfig, p, x):
-    """x: (B, S, d) -> (B, S, d).  Every one of the B x S tokens, padding
-    lanes too, is routed and counts towards the capacity, as in the
-    reference."""
+    """x: (B, S, d) -> (B, S, d), routed by the config's kind
+    (:func:`route`).
+    Every one of the B x S tokens, padding lanes too, is routed and counts
+    towards the capacity, as in the reference."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
@@ -106,4 +142,6 @@ def moe_apply(cfg: ModelConfig, p, x):
     out = torch.zeros(T, d, dtype=eo.dtype, device=dev)
     for j in range(k):
         out = out + eo[slot_of[:, j]]
+    if "shared" in p:
+        out = out + L.ffn_apply(cfg, p["shared"], xf)
     return out.reshape(B, S, d)

@@ -1,13 +1,18 @@
-"""Recurrent mixers of xLSTM: mLSTM and sLSTM (the port's counterpart of
-``repro.models.ssm``, without the Mamba branch).
+"""Recurrent mixers: xLSTM's mLSTM and sLSTM, and the Mamba-style
+selective SSM branch of Hymba's hybrid layers (the port's counterpart of
+``repro.models.ssm``).
 
-Each mixer exposes ``*_apply(cfg, p, x, state, mode) -> (y, new_state)``
-with ``mode`` in {"prefill", "decode"}.  States are fp32 and take the place
-of the KV cache for attention-free layers: dense, one row per slot.  The
-mLSTM prefill runs chunkwise through ``ops.mlstm_chunked`` (the CUDA
-kernel on the card, its plain version on the CPU); its decode step and the
-whole sLSTM (a true time recurrence, no kernel in the reference) are plain
-PyTorch, as in the reference.
+The xLSTM mixers expose ``*_apply(cfg, p, x, state, mode) -> (y,
+new_state)`` with ``mode`` in {"prefill", "decode"}; the Mamba branch
+``mamba_apply(cfg, p, x, state, conv_state, mode) -> (y, state,
+conv_state)``, also in "train" (from zero state).  States are fp32 (the
+Mamba conv state at the activations' dtype) and take the place of the KV
+cache for attention-free layers: dense, one row per slot.  The mLSTM
+prefill runs chunkwise through ``ops.mlstm_chunked`` (the CUDA kernel on
+the card, its plain version on the CPU); its decode step, the whole sLSTM
+(a true time recurrence) and the Mamba branch (chunkwise, CHUNK steps a
+chunk) are plain PyTorch, as in the reference, which has no Pallas kernel
+for them.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+CHUNK = 128
 
 
 def _zeros(*shape, device):
@@ -166,3 +173,128 @@ def slstm_apply(cfg: ModelConfig, p, x, state, mode: str):
     h = torch.stack(hs, 1).reshape(B, -1, d).to(x.dtype)
     h = L.rmsnorm(h, p["out_norm"]["w"])
     return h @ p["w_out"].to(x.dtype), st
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM branch (Hymba's hybrid heads)
+# ---------------------------------------------------------------------------
+# A scalar decay per head (the Mamba-2 form), so that the recurrence runs
+# chunkwise: quadratic products inside a chunk, the state carried between
+# chunks.
+
+
+def mamba_zero_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cpu"):
+    """(ssm (B, d_inner, N) fp32, conv (B, K-1, d_inner) at ``dtype``)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return (_zeros(batch, di, s.state_size, device=device),
+            torch.zeros(batch, s.conv_size - 1, di, dtype=dtype,
+                        device=device))
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    Hs = s.num_ssm_heads or cfg.num_heads
+    dev = gen.device
+    return {
+        "w_in": L.dense_init(gen, d, di),
+        "w_gate": L.dense_init(gen, d, di),
+        "conv": torch.randn(s.conv_size, di, generator=gen, device=dev)
+        * 0.2,
+        "w_bc": L.dense_init(gen, di, 2 * s.state_size),
+        "w_dt": L.dense_init(gen, di, Hs),
+        "dt_bias": torch.zeros(Hs, device=dev),
+        "a_log": torch.log(torch.linspace(1.0, float(Hs), Hs, device=dev)),
+        "skip_d": torch.ones(Hs, device=dev),
+        "out_norm": {"w": torch.zeros(di, device=dev)},
+        "w_out": L.dense_init(gen, di, d),
+    }
+
+
+def _causal_conv(x, w, conv_state):
+    """Depthwise causal conv.  x: (B, S, di), w: (K, di), conv_state:
+    (B, K-1, di), the inputs before x.  Returns (out (B, S, di), the last
+    K-1 inputs), both at x's dtype."""
+    K, S = w.shape[0], x.shape[1]
+    xc = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = sum(xc[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
+    return out, (xc[:, -(K - 1):] if K > 1 else conv_state)
+
+
+def mamba_apply(cfg: ModelConfig, p, x, state, conv_state, mode: str):
+    """Selective SSM over x (B, S, d) from ``state`` (B, d_inner, N) fp32
+    and ``conv_state`` (B, K-1, d_inner): one recurrence step in
+    "decode" (S == 1), chunkwise otherwise.  Returns (y (B, S, d) at x's
+    dtype, the new state, the new conv state)."""
+    s = cfg.ssm
+    B, S, d = x.shape
+    di = s.expand * d
+    Hs = s.num_ssm_heads or cfg.num_heads
+    dh = di // Hs
+    N = s.state_size
+
+    xi = x @ p["w_in"].to(x.dtype)
+    z = x @ p["w_gate"].to(x.dtype)
+    xi, new_conv = _causal_conv(xi, p["conv"], conv_state)
+    xi = F.silu(xi)
+    bc = xi @ p["w_bc"].to(x.dtype)
+    Bt, Ct = bc[..., :N].float(), bc[..., N:].float()
+    # fp32 throughout (jnp promotes a bf16 w_dt silently; torch would not)
+    dt = F.softplus(xi.float() @ p["w_dt"].float() + p["dt_bias"].float())
+    logdec = dt * -torch.exp(p["a_log"]).float()  # exp at a_log's dtype
+    xh = xi.float().reshape(B, S, Hs, dh)
+    h_state = state.reshape(B, Hs, dh, N)
+    if mode == "decode":
+        dec = torch.exp(logdec[:, 0])                            # (B,Hs)
+        upd = torch.einsum("bhd,bn,bh->bhdn", xh[:, 0], Bt[:, 0], dt[:, 0])
+        h_final = dec[..., None, None] * h_state + upd
+        y = torch.einsum("bhdn,bn->bhd", h_final, Ct[:, 0])[:, None]
+    else:
+        y, h_final = _mamba_chunked(xh, Bt, Ct, dt, logdec, h_state)
+    y = y + xh * p["skip_d"].float()[:, None]
+    y = L.rmsnorm(y.reshape(B, S, di).to(x.dtype), p["out_norm"]["w"])
+    out = (y * F.silu(z)) @ p["w_out"].to(x.dtype)
+    return out, h_final.reshape(B, di, N), new_conv
+
+
+def _pad_steps(t, pad):
+    """t (B, S, ...) with ``pad`` zero steps appended."""
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1) \
+        if pad else t
+
+
+def _mamba_chunked(xh, Bt, Ct, dt, logdec, h0):
+    """Chunkwise linear recurrence.  xh: (B, S, H, dh), Bt / Ct: (B, S, N),
+    dt / logdec: (B, S, H), h0: (B, H, dh, N), all fp32.  S is padded to a
+    multiple of CHUNK with zero steps, which neither decay nor feed the
+    state.  Returns (y (B, S, H, dh), the final state)."""
+    B, S, H, dh = xh.shape
+    pad = -S % CHUNK
+    xh, Bt, Ct, dt, logdec = (_pad_steps(t, pad)
+                              for t in (xh, Bt, Ct, dt, logdec))
+    tri = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
+                     device=xh.device).tril()
+    h, ys = h0, []
+    for c0 in range(0, S + pad, CHUNK):
+        xb, bb, cb, db, lb = (t[:, c0:c0 + CHUNK]
+                              for t in (xh, Bt, Ct, dt, logdec))
+        Fc = torch.cumsum(lb, dim=1)                             # (B,L,H)
+        Ftot = Fc[:, -1]
+        Ft = Fc.transpose(1, 2)                                  # (B,H,L)
+        # intra-chunk weights exp(F_i - F_j) for j <= i; above the
+        # diagonal the exponent is positive and may overflow, so pick 0
+        # there (a product with the mask would make inf * 0 = NaN)
+        w = torch.where(tri, torch.exp(Ft[..., :, None] - Ft[..., None, :]),
+                        0.0)
+        scores = torch.einsum("bln,bmn->blm", cb, bb)[:, None] * w \
+            * db.transpose(1, 2)[:, :, None, :]                  # (B,H,L,L)
+        y_intra = torch.einsum("bhlm,bmhd->blhd", scores, xb)
+        y_state = torch.einsum("bln,bhdn,blh->blhd", cb, h, torch.exp(Fc))
+        wk = torch.exp(Ftot[:, None] - Fc) * db                  # (B,L,H)
+        upd = torch.einsum("blh,blhd,bln->bhdn", wk, xb, bb)
+        h = torch.exp(Ftot)[..., None, None] * h + upd
+        ys.append(y_intra + y_state)
+    return torch.cat(ys, 1)[:, :S], h

@@ -1,17 +1,23 @@
 """Decoder forward for the serving path (the port's counterpart of
-``repro.models.transformer``), for attention layers with a dense FFN or
-a capacity-routed MoE FFN (:mod:`repro_torch.models.moe`), learned,
-sinusoidal or RoPE positions (a windowed layer's own theta too),
-optional qk-norm, sliding windows, softcaps and sandwich norms, GELU,
-SwiGLU or GeGLU FFNs, tied or untied embeddings, prefix embeddings in
-front of the text (a vision model's patches) and multi-codebook tokens
-(an audio model's (C, V, d) tables, (B, S, C, V) logits), and for xLSTM's
-recurrent layers (mLSTM / sLSTM with no FFN, no positional embedding).
+``repro.models.transformer``), for every layer family of the reference:
+attention layers with a dense FFN or a capacity-routed MoE FFN
+(:mod:`repro_torch.models.moe`: softmax or sigmoid routing, shared
+experts), DeepSeek's multi-head latent attention
+(:mod:`repro_torch.models.attention_mla`) with either FFN, Hymba's hybrid
+layers (attention and a Mamba-style SSM branch on the same input, their
+normalised outputs averaged, then a dense FFN) and xLSTM's recurrent
+layers (mLSTM / sLSTM with no FFN, no positional embedding); learned,
+sinusoidal or RoPE positions (a windowed layer's own theta too), optional
+qk-norm, sliding windows, softcaps and sandwich norms, GELU, SwiGLU or
+GeGLU FFNs, tied or untied embeddings, prefix embeddings in front of the
+text (a vision model's patches), multi-codebook tokens (an audio model's
+(C, V, d) tables, (B, S, C, V) logits) and DeepSeek's multi-token
+prediction head (:func:`forward_mtp`, which no serving path calls).
 
 Parameters are a dict ``{"embed": {"tokens"[, "head"][, "pos"]},
-"final_norm", "layers": [per-layer dict]}`` with the layers in execution
-order (:func:`repro_torch.configs.base.layer_specs`); the reference stacks
-each pattern position over its scan repeats instead
+"final_norm", "layers": [per-layer dict][, "mtp"]}`` with the layers in
+execution order (:func:`repro_torch.configs.base.layer_specs`); the
+reference stacks each pattern position over its scan repeats instead
 (``bridge.params_from_jax`` converts).  The modes of the reference's
 ``layer_apply``:
 
@@ -19,15 +25,17 @@ each pattern position over its scan repeats instead
   ``"verify"`` (a window of tokens per slot: a speculative verify window
   or a prefill chunk), ``"packed"`` (one flat token stream per scheduler
   iteration) and ``"prefill"`` (whole bucket-padded prompts of an
-  admission, optionally resuming after a shared prefix);
+  admission, optionally resuming after a shared prefix); ``"verify"`` and
+  ``"packed"`` only for pure attention layers;
 * against a dense per-slot cache (:func:`init_cache`): ``"prefill"``
   (optionally attending what the cache already holds) and ``"decode"``;
 * ``"train"``: a full causal forward with no cache (the no-cache baseline
   and the draft model of speculative decoding).
 
-Recurrent layers run ``"prefill"`` (whole prompts from the state in the
-cache) and ``"decode"`` against their per-slot state, which they replace
-in the layer's cache dict.  Every cache is updated in place.
+Per-slot state (recurrent layers, the hybrid layers' SSM and conv state,
+MLA's latent cache) lives in the layer's cache dict, dense, one row per
+slot, also beside a paged pool; recurrent and SSM states are replaced in
+the dict, every other cache entry is updated in place.
 """
 from __future__ import annotations
 
@@ -36,35 +44,40 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, MLSTM, MOE_FFN,
-                                      NO_FFN, SLSTM, LayerSpec, ModelConfig,
-                                      layer_specs)
+from repro_torch.configs.base import (ATTN, DENSE_FFN, HYBRID, MLA, MLSTM,
+                                      MOE_FFN, NO_FFN, SLSTM, LayerSpec,
+                                      ModelConfig, layer_specs)
 from repro_torch.core import kv_cache as KV
 from repro_torch.core.precision import FP32, Policy
+from repro_torch.models import attention_mla as MLAT
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 RECURRENT = (MLSTM, SLSTM)
+# the FFNs each mixer is ported with (the reference's configs use no other)
+_FFNS = {ATTN: (DENSE_FFN, MOE_FFN), MLA: (DENSE_FFN, MOE_FFN),
+         HYBRID: (DENSE_FFN,), MLSTM: (NO_FFN,), SLSTM: (NO_FFN,)}
+MTP_SPEC = LayerSpec(mixer=ATTN, ffn=DENSE_FFN)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configs outside the ported slice."""
+    """Raise NotImplementedError for configs outside the port."""
     for spec in layer_specs(cfg):
-        if not ((spec.mixer == ATTN and spec.ffn in (DENSE_FFN, MOE_FFN))
-                or (spec.mixer in RECURRENT and spec.ffn == NO_FFN)):
+        if spec.ffn not in _FFNS[spec.mixer]:
             raise NotImplementedError(
                 f"layer family {spec.mixer}/{spec.ffn} is not ported "
-                f"(attention + dense or MoE FFN, or mLSTM/sLSTM without "
-                f"FFN)")
+                f"(attention or MLA + dense or MoE FFN, hybrid + dense "
+                f"FFN, or mLSTM/sLSTM without FFN)")
+        for mixer, sub in ((MLA, cfg.mla), (HYBRID, cfg.ssm)):
+            if spec.mixer == mixer and sub is None:
+                raise ValueError(f"{cfg.name}: a {mixer} layer needs the "
+                                 f"config's {mixer} block")
     if cfg.pos_emb not in ("rope", "learned", "sinusoidal", "none") \
             or cfg.activation not in L.FFN_ACTIVATIONS:
         raise NotImplementedError(
             f"{cfg.name}: only RoPE, learned, sinusoidal or no positions "
             f"and {'/'.join(L.FFN_ACTIVATIONS)} FFNs are ported")
-    if cfg.moe is not None and cfg.moe.num_shared_experts:
-        raise NotImplementedError(f"{cfg.name}: shared experts are not "
-                                  f"ported")
 
 
 # ---------------------------------------------------------------------------
@@ -94,29 +107,51 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if cfg.pos_emb == "learned":
         embed["pos"] = L.embed_init(gen, cfg.max_seq_len, cfg.d_model)
     cast = policy.cast_params
-    return {
+    dt = policy.param_dtype
+    params = {
         "embed": cast(embed),
         "final_norm": cast(L.norm_init(cfg, dev)),
-        "layers": [cast(_layer_init(gen, cfg, spec, dev))
+        "layers": [cast(_layer_init(gen, cfg, spec, dev, dt))
                    for spec in layer_specs(cfg)],
     }
+    if cfg.mtp:
+        params["mtp"] = cast(mtp_init(gen, cfg, dt))
+    return params
 
 
-def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev):
+def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dev,
+                dtype=torch.float32):
+    """One layer's parameters (MoE expert stacks stored at ``dtype``)."""
     if spec.mixer == MLSTM:
         return {"norm1": L.norm_init(cfg, dev),
                 "mixer": SSM.mlstm_init(gen, cfg)}
     if spec.mixer == SLSTM:
         return {"norm1": L.norm_init(cfg, dev),
                 "mixer": SSM.slstm_init(gen, cfg)}
-    p = {"norm1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg),
-         "norm2": L.norm_init(cfg, dev),
-         "ffn": (MOE.moe_init(gen, cfg) if spec.ffn == MOE_FFN
-                 else L.ffn_init(gen, cfg))}
+    p = {"norm1": L.norm_init(cfg, dev),
+         "attn": (MLAT.mla_init(gen, cfg) if spec.mixer == MLA
+                  else L.attn_init(gen, cfg))}
+    if spec.mixer == HYBRID:
+        p["mamba"] = SSM.mamba_init(gen, cfg)
+        p["bn_attn"] = L.norm_init(cfg, dev)
+        p["bn_ssm"] = L.norm_init(cfg, dev)
+    p["norm2"] = L.norm_init(cfg, dev)
+    p["ffn"] = (MOE.moe_init(gen, cfg, dtype) if spec.ffn == MOE_FFN
+                else L.ffn_init(gen, cfg))
     if cfg.sandwich_norm:
         p["norm1_post"] = L.norm_init(cfg, dev)
         p["norm2_post"] = L.norm_init(cfg, dev)
     return p
+
+
+def mtp_init(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32):
+    """DeepSeek's multi-token prediction module: two norms, the (2d, d)
+    merge projection and one attention layer with a dense FFN."""
+    dev = gen.device
+    return {"norm_h": L.norm_init(cfg, dev), "norm_e": L.norm_init(cfg, dev),
+            "proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model),
+            "layer": _layer_init(gen, cfg, MTP_SPEC, dev, dtype)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -130,14 +165,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_dtype: str = "auto",
-                     max_slots: int = 0, device="cpu"):
-    """Paged-pool model cache: every attention layer gets ``num_pages``
-    fixed-size pages (+1 reserved dump page) indexed through per-slot
-    block tables; every recurrent layer its dense state of ``max_slots``
-    rows."""
+                     max_slots: int = 0, max_len: int = 0, device="cpu"):
+    """Paged-pool model cache: every attention layer (a hybrid layer's
+    attention too) gets ``num_pages`` fixed-size pages (+1 reserved dump
+    page) indexed through per-slot block tables; per-slot state (a
+    recurrent layer's, a hybrid layer's SSM and conv state, an MLA
+    layer's latent cache for contexts up to ``max_len``) ``max_slots``
+    dense rows."""
     return {"layers": [KV.paged_layer_cache_shape(
         cfg, spec, num_pages, page_size, dtype, kv_dtype,
-        max_slots=max_slots, device=device)
+        max_slots=max_slots, max_len=max_len, device=device)
         for spec in layer_specs(cfg)]}
 
 
@@ -150,32 +187,62 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
                 cache, mode: str, max_len: int, paged, cache_pos=None,
                 attend_cache: bool = False):
     """One layer: a recurrent block (:func:`_recurrent_apply`) or, below,
-    an attention + FFN block.  Against a paged pool (``"pk"`` in the
-    cache), paged: {"block_tables", "active"} for ``"decode"``,
-    ``"verify"`` (``active`` (B,) or (B, W)) and ``"prefill"``;
-    {"block_tables", "slot_ids", "packed_meta"} for ``"packed"``.  A dense
-    cache takes ``"prefill"`` and ``"decode"`` with paged None.
+    a mixer (attention, MLA or hybrid) + FFN block.  Against a paged pool
+    (``"pk"`` in the cache), paged: {"block_tables", "active"} for
+    ``"decode"``, ``"verify"`` (``active`` (B,) or (B, W)) and
+    ``"prefill"``; {"block_tables", "slot_ids", "packed_meta"} for
+    ``"packed"``.  A dense cache takes ``"prefill"`` and ``"decode"`` with
+    paged None (an MLA layer's latent cache is dense beside a pool too).
     ``cache_pos`` (B, S): where prefill writes each token (-1 = padding,
     the dump slot or page); ``attend_cache``: the prefill resumes after
     entries already in the cache and attends them too.  ``"train"`` takes
     no cache: every token attends the earlier ones directly."""
     if spec.mixer in RECURRENT:
         return _recurrent_apply(cfg, spec, p, x, cache, mode)
+    if mode in ("verify", "packed") and (
+            spec.mixer != ATTN or cache is None or "pk" not in cache):
+        # multi-token windows are defined over paged pure-attention layers
+        # only: rings, SSM state and MLA latents have no per-position
+        # rewind (the reference's backstop; the engine gates before
+        # dispatch)
+        raise NotImplementedError(
+            f"{mode} mode needs a paged pure-attention layer (not "
+            f"'{spec.mixer}' / a dense cache)")
     window = KV.effective_window(cfg, spec, max_len)
     h = L.apply_norm(cfg, p["norm1"], x)
+    kw = dict(positions=positions, cache=cache, mode=mode, paged=paged,
+              cache_pos=cache_pos, attend_cache=attend_cache, window=window)
+    if spec.mixer == MLA:
+        out = _mla_apply(cfg, p["attn"], h, **kw)
+    else:
+        out = _attention_apply(cfg, p["attn"], h, **kw)
+        if spec.mixer == HYBRID:
+            out = _hybrid_mix(cfg, p, h, out, cache, mode)
+    if cfg.sandwich_norm:
+        out = L.apply_norm(cfg, p["norm1_post"], out)
+    x = x + out
+    h = L.apply_norm(cfg, p["norm2"], x)
+    # MoE routes by the config's kind (sigmoid where the model has MLA)
+    out = (MOE.moe_apply(cfg, p["ffn"], h) if spec.ffn == MOE_FFN
+           else L.ffn_apply(cfg, p["ffn"], h))
+    if cfg.sandwich_norm:
+        out = L.apply_norm(cfg, p["norm2_post"], out)
+    return x + out
+
+
+def _attention_apply(cfg, p, h, *, positions, cache, mode, paged,
+                     cache_pos, attend_cache, window):
+    """GQA attention of the normed input h, its K/V written into the
+    layer's paged pool or dense cache first where the mode has one;
+    returns the output projection."""
     # windowed layers rotate at their own theta where the config has one
     theta = (cfg.rope_theta_local if window is not None
              and cfg.rope_theta_local is not None else cfg.rope_theta)
-    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions, theta=theta)
+    q, k, v = L.attn_qkv(cfg, p, h, positions, theta=theta)
     kw = dict(window=window, scale=L.attn_scale(cfg),
               attn_softcap=cfg.attn_softcap)
     new = {"k": k, "v": v}
     is_paged = cache is not None and "pk" in cache
-    if mode in ("verify", "packed") and not is_paged:
-        # multi-token windows are defined over the paged pool only (the
-        # reference's backstop; the engine gates before dispatch)
-        raise NotImplementedError(f"{mode} mode needs the paged KV pool "
-                                  f"(not a dense cache)")
     if mode == "train":
         ctx = L.mha_attention(q, k, v, positions, positions, **kw)
     elif is_paged:
@@ -215,7 +282,7 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
             KV.paged_write_prefill(cache, new, cache_pos, bt,
                                    ring_len=ring)
             kk, vv, kp = KV.paged_gather(cache, bt)
-            ctx = L.mha_attention(q, kk.to(x.dtype), vv.to(x.dtype),
+            ctx = L.mha_attention(q, kk.to(h.dtype), vv.to(h.dtype),
                                   positions, kp, **kw)
         else:                                       # admission prefill
             ctx = L.mha_attention(q, k, v, positions, positions, **kw)
@@ -225,13 +292,13 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         # the dense decode step: write the token, then one query against
         # the whole cache (ops.decode_attention inside mha_attention)
         KV.write_decode(cache, new, positions[:, 0])
-        ctx = L.mha_attention(q, cache["k"].to(x.dtype),
-                              cache["v"].to(x.dtype), positions,
+        ctx = L.mha_attention(q, cache["k"].to(h.dtype),
+                              cache["v"].to(h.dtype), positions,
                               cache["pos"], **kw)
     elif mode == "prefill" and attend_cache:
         KV.write_prefill(cache, new, cache_pos)
-        ctx = L.mha_attention(q, cache["k"].to(x.dtype),
-                              cache["v"].to(x.dtype), positions,
+        ctx = L.mha_attention(q, cache["k"].to(h.dtype),
+                              cache["v"].to(h.dtype), positions,
                               cache["pos"], **kw)
     elif mode == "prefill":
         ctx = L.mha_attention(q, k, v, positions, positions, **kw)
@@ -239,16 +306,45 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     else:
         raise NotImplementedError(
             f"layer mode {mode!r} is not ported for attention layers")
-    out = L.attn_out(cfg, p["attn"], ctx)
-    if cfg.sandwich_norm:
-        out = L.apply_norm(cfg, p["norm1_post"], out)
-    x = x + out
-    h = L.apply_norm(cfg, p["norm2"], x)
-    out = (MOE.moe_apply(cfg, p["ffn"], h) if spec.ffn == MOE_FFN
-           else L.ffn_apply(cfg, p["ffn"], h))
-    if cfg.sandwich_norm:
-        out = L.apply_norm(cfg, p["norm2_post"], out)
-    return x + out
+    return L.attn_out(cfg, p, ctx)
+
+
+def _hybrid_mix(cfg, p, h, attn_out, cache, mode):
+    """Hymba's parallel heads: the Mamba branch on the same normed input
+    h, from the state in the layer's cache (zero state in ``"train"``),
+    whose new SSM and conv state replace the old there; the layer's mixer
+    output is the mean of both branches' normed outputs."""
+    if mode == "train":
+        ssm, conv = SSM.mamba_zero_state(cfg, h.shape[0], h.dtype,
+                                         device=h.device)
+    else:
+        ssm, conv = cache["ssm"], cache["conv"]
+    ssm_out, ssm, conv = SSM.mamba_apply(cfg, p["mamba"], h, ssm, conv,
+                                         mode)
+    if mode != "train":
+        cache["ssm"], cache["conv"] = ssm, conv
+    return 0.5 * (L.apply_norm(cfg, p["bn_attn"], attn_out)
+                  + L.apply_norm(cfg, p["bn_ssm"], ssm_out))
+
+
+def _mla_apply(cfg, p, h, *, positions, cache, mode, paged, cache_pos,
+               attend_cache, window):
+    """MLA of the normed input h: the absorbed form against the latent
+    cache in ``"decode"``, the naive form otherwise (a prefill writes its
+    latents into the cache)."""
+    if mode == "decode":
+        return MLAT.mla_decode(cfg, p, h, cache, positions[:, 0])
+    if mode == "prefill" and attend_cache:
+        return MLAT.mla_prefill_cached(cfg, p, h, cache, positions,
+                                       cache_pos, window=window)
+    if mode not in ("prefill", "train"):
+        raise NotImplementedError(
+            f"layer mode {mode!r} is not ported for MLA layers")
+    out, new = MLAT.mla_full(cfg, p, h, positions, positions,
+                             window=window)
+    if mode == "prefill":
+        KV.write_prefill(cache, new, cache_pos)
+    return out
 
 
 def _recurrent_apply(cfg, spec, p, x, cache, mode):
@@ -432,6 +528,13 @@ def forward_train(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     (callers run it under ``torch.no_grad``): the no-cache baseline and
     the draft model's greedy drafting; the MoE load-balance loss is
     ``moe.load_balance_loss``, which no forward calls."""
+    x, _ = _trunk(params, cfg, tokens, prefix_embeds, policy)
+    return _logits(cfg, params, x, policy)
+
+
+def _trunk(params, cfg, tokens, prefix_embeds, policy):
+    """The no-cache forward up to the final norm: (hidden states (B,
+    P+S, d), positions (B, P+S))."""
     B, S = tokens.shape[:2]
     if prefix_embeds is not None:
         S += prefix_embeds.shape[1]
@@ -440,7 +543,30 @@ def forward_train(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     x = _embed(cfg, params, tokens, positions, policy, prefix_embeds)
     x = _run_all(cfg, params, x, positions=positions, cache=None,
                  mode="train", max_len=S, paged=None)
-    return _logits(cfg, params, x, policy)
+    return x, positions
+
+
+def forward_mtp(params, cfg: ModelConfig, tokens, *, policy: Policy = FP32):
+    """DeepSeek's multi-token prediction (the reference's
+    ``_mtp_forward``, which its ``forward_train`` returns as
+    ``aux["mtp_logits"]``): the trunk's hidden state at i, normed, beside
+    the normed embedding of token i + 1, merged by ``mtp["proj"]`` and run
+    through the MTP layer (attention + dense FFN) to predict token i + 2.
+    tokens (B, S) -> (logits (B, S, V), MTP logits (B, S - 1, V)).  No
+    serving path calls it, as in the reference."""
+    if not cfg.mtp or "mtp" not in params:
+        raise ValueError(f"{cfg.name} has no multi-token prediction head")
+    x, positions = _trunk(params, cfg, tokens, None, policy)
+    p = params["mtp"]
+    emb_next = L.embed_tokens(cfg, params, tokens[:, 1:]).to(x.dtype)
+    merged = torch.cat([L.apply_norm(cfg, p["norm_h"], x[:, :-1]),
+                        L.apply_norm(cfg, p["norm_e"], emb_next)], dim=-1)
+    h = layer_apply(cfg, MTP_SPEC, p["layer"],
+                    merged @ p["proj"].to(x.dtype),
+                    positions=positions[:, :-1], cache=None, mode="train",
+                    max_len=positions.shape[1], paged=None)
+    return (_logits(cfg, params, x, policy),
+            _logits(cfg, params, h, policy))
 
 
 def forward_packed(params, cfg: ModelConfig, tokens, cache, slot_ids,

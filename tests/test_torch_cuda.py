@@ -23,7 +23,7 @@ from repro_torch.configs.registry import get_reduced
 from repro_torch.core import kv_cache as KV
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.kv_cache import quantize_kv
-from repro_torch.core.precision import FP32
+from repro_torch.core.precision import FP32, map_params
 from repro_torch.core.scheduler import Request
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
@@ -1578,6 +1578,12 @@ FAMILIES = {
                      kw=dict(window=None, attn_softcap=None),
                      ctx=[1, 37, 0, 96, 65], before=[10, 37, 0, 60, 64],
                      packed=[40, 0, 7, 0]),
+    # hymba-1.5b's g = 5 (25 / 5 x 64) with its window of 1024, contexts
+    # past it
+    "hymba": dict(heads=dict(Hq=25, Hkv=5, D=64),
+                  kw=dict(window=1024, attn_softcap=None),
+                  ctx=[1, 37, 0, 1500, 1100], before=[10, 37, 0, 1200, 64],
+                  packed=[1300, 0, 7, 0]),
 }
 FAMILY_DTYPES = [torch.bfloat16, torch.float32]
 
@@ -1685,11 +1691,15 @@ def test_family_mixed_pair_matches_plain(dev, family, dtype, quant):
                                         ("qwen3moe", 1, 77),
                                         ("qwen3moe", 8, 78),
                                         ("internvl2", 8, 320),
-                                        ("musicgen", 8, 64)])
+                                        ("musicgen", 8, 64),
+                                        ("hymba", 1, 77),
+                                        ("hymba", 8, 78),
+                                        ("hymba", 2, 1400)])
 def test_family_flash_matches_plain(dev, family, B, S, dtype):
     """Causal prefill over (B, S) tokens; gemma2's past its window,
-    qwen3-moe's exact-length admissions (an odd S), internvl2's 256
-    prefix embeddings + 64 text tokens."""
+    qwen3-moe's and hymba's exact-length admissions (an odd S), hymba's
+    long prompts past its window, internvl2's 256 prefix embeddings + 64
+    text tokens."""
     f = FAMILIES[family]
     D = f["heads"]["D"]
     rng = np.random.default_rng(24)
@@ -1729,9 +1739,10 @@ def test_family_dense_decode_matches_plain(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", FAMILY_DTYPES)
-@pytest.mark.parametrize("family", ["qwen3moe", "internvl2", "musicgen"])
+@pytest.mark.parametrize("family", ["qwen3moe", "internvl2", "musicgen",
+                                    "hymba"])
 def test_family_dense_decode_new_heads_matches_plain(dev, family, dtype):
-    """g = 16, g = 7 and 24-head MHA over the dense cache of
+    """g = 16, g = 7, 24-head MHA and g = 5 over the dense cache of
     ``generate_batch`` at max_len 256 (512 rows), a ragged valid prefix
     in row 0, the last row all padding."""
     f = FAMILIES[family]
@@ -1755,11 +1766,12 @@ def test_family_dense_decode_new_heads_matches_plain(dev, family, dtype):
 
 @pytest.mark.parametrize("K,N", [(3072, 32064), (2304, 256000),
                                  (4096, 151936), (4096, 8192),
-                                 (8192, 4096)])
+                                 (8192, 4096), (1600, 32001),
+                                 (7168, 129280)])
 def test_quant_matmul_family_heads(dev, K, N):
-    """phi3's untied head, gemma2's tied head, and qwen3-moe's untied head
-    and attention projections (q, o), at a decode step's 8 rows, bf16
-    x."""
+    """phi3's untied head, gemma2's tied head, qwen3-moe's untied head
+    and attention projections (q, o), hymba's tied head (an odd N) and
+    deepseek-v3's untied head, at a decode step's 8 rows, bf16 x."""
     _qmm_check(*_qmm_inputs(dev, 8, K, N, torch.bfloat16, K + N))
 
 
@@ -1835,3 +1847,108 @@ def test_qwen3_moe_serve_on_card_matches_cpu(dev):
     assert out["cuda"] == out["cpu"]
     assert m.scheduler == "bucketed"
     assert DA.launch_counts()["paged_decode_attention"] == 2 * m.steps > 0
+
+
+# ---------------------------------------------------------------------------
+# hymba-1.5b and deepseek-v3: MLA's naive form and the forwards on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", FAMILY_DTYPES)
+@pytest.mark.parametrize("B,S", [(1, 77), (8, 78), (2, 19)])
+def test_flash_mla_head_dims_match_plain(dev, B, S, dtype):
+    """deepseek-v3's naive MLA: 128 heads, keys of 192 (nope 128 + rope
+    64) against values of 128, at its exact-length admissions; the
+    kernel buckets on the larger of D and Dv."""
+    rng = np.random.default_rng(27)
+
+    def t(D):
+        return torch.from_numpy(rng.normal(size=(B, S, 128, D)).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v = t(192), t(192), t(128)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    kw = dict(window=None, scale=192 ** -0.5)
+    out = FA.flash_attention(q, k, v, pos, pos, **kw)
+    ref = FA.flash_attention_ref(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, 128, 128)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-v3-671b"])
+def test_hybrid_mla_forwards_on_card_match_cpu(dev, arch):
+    """Reduced hymba (a Mamba branch beside attention; window 64, rows of
+    90 tokens wrap its ring) and deepseek (MLA, sigmoid + shared MoE),
+    fp32 (TF32 off): ``forward_train``, a dense-cache prefill and three
+    decode steps on the card within 1e-4 of the CPU's (deepseek's
+    ``forward_mtp`` too)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    toks = torch.from_numpy(np.random.default_rng(28).integers(
+        4, 400, size=(2, 93)).astype(np.int32))
+    lens = torch.tensor([90, 61], dtype=torch.int32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = map_params(lambda t: t.to(d), params)
+        t, n = toks.to(d), lens.to(d)
+        with torch.no_grad():
+            res = [T.forward_train(p, cfg, t)]
+            cache = T.init_cache(cfg, 2, 128, torch.float32, device=d)
+            res.append(T.forward_prefill(p, cfg, t[:, :90], n, cache,
+                                         max_len=128, last_only=True)[0])
+            res += [T.forward_decode(p, cfg, t[:, 90 + i:91 + i], cache,
+                                     n + i, max_len=128)[0]
+                    for i in range(3)]
+            if cfg.mtp:
+                res += list(T.forward_mtp(p, cfg, t[:, :40]))
+        out[d] = [r.cpu() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_sigmoid_shared_moe_on_card_matches_cpu(dev):
+    """deepseek's reduced MoE (sigmoid routing, a shared expert) at its
+    capacity factor 1.5 with dropped assignments, fp32: the card equals
+    the CPU within 1e-5."""
+    from repro_torch.models import moe as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("deepseek-v3-671b")
+    p = M.moe_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4, 24, cfg.d_model)).astype(np.float32))
+    col = p["router"][:, 0]
+    x += 2.0 * col / col.norm() * cfg.d_model ** 0.5 / 4
+    ref = M.moe_apply(cfg, p, x)
+    out = M.moe_apply(cfg, map_params(lambda t: t.to(dev), p), x.to(dev))
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-v3-671b"])
+def test_hybrid_mla_serve_on_card_matches_cpu(dev, arch):
+    """Reduced, fp32, greedy: bucketed admission at exact lengths (two
+    equal lengths in one prefill), hymba's rings wrapping past 64; the
+    card's streams and counters equal the CPU's; hymba's decode steps go
+    through the paged decode kernel (once per layer and step), deepseek's
+    through none (MLA's absorbed decode is plain torch)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(2)
+    prompts = [[2] + [int(t) for t in rng.integers(4, 400, size=n)]
+               for n in (19, 80, 11, 11, 23)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, params, policy=FP32, max_len=128,
+                              max_batch=3, device=d)
+        DA.reset_launch_counts()
+        done, m = eng.serve_continuous(
+            [Request(uid=i, tokens=p, max_new_tokens=10)
+             for i, p in enumerate(prompts)], page_size=8)
+        out[d] = ([r.result for r in done], m.admitted, m.steps,
+                  m.host_syncs, m.prefill_padded)
+    assert out["cuda"] == out["cpu"]
+    assert m.scheduler == "bucketed"
+    n_paged = cfg.num_layers if cfg.mla is None else 0
+    assert DA.launch_counts()["paged_decode_attention"] == n_paged * m.steps

@@ -115,16 +115,25 @@ def test_config_matches_reference(arch, which):
 
 
 def test_check_supported_refuses_the_rest():
-    """MLA, hybrid and shared experts stay outside the port."""
-    from repro_torch.configs.base import HYBRID, MLA, LayerSpec
+    """Every family of the reference is ported now, shared experts too;
+    what stays outside: FFNs the reference pairs with no such mixer (a
+    hybrid layer with a MoE FFN, MLA or attention without an FFN), and an
+    MLA or hybrid layer in a config without its MLA / SSM block."""
+    from repro_torch.configs.base import (HYBRID, MLA, NO_FFN, LayerSpec,
+                                          SSMConfig)
     cfg = R.get_reduced(ARCH)
+
+    def one(spec, **kw):
+        return cfg.replace(stacks=(type(cfg.stacks[0])((spec,), 1),), **kw)
+    for spec in (LayerSpec(mixer=HYBRID, ffn="moe"),
+                 LayerSpec(mixer=MLA, ffn=NO_FFN), LayerSpec(ffn=NO_FFN)):
+        with pytest.raises(NotImplementedError, match="is not ported"):
+            T.check_supported(one(spec, ssm=SSMConfig()))
     for mixer in (MLA, HYBRID):
-        with pytest.raises(NotImplementedError):
-            T.check_supported(cfg.replace(stacks=(type(cfg.stacks[0])(
-                (LayerSpec(mixer=mixer),), 1),)))
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        T.check_supported(cfg.replace(moe=MoEConfig(
-            num_experts=4, top_k=2, num_shared_experts=1, d_ff_expert=8)))
+        with pytest.raises(ValueError, match=f"needs the config's {mixer}"):
+            T.check_supported(one(LayerSpec(mixer=mixer)))
+    T.check_supported(cfg.replace(moe=MoEConfig(
+        num_experts=4, top_k=2, num_shared_experts=1, d_ff_expert=8)))
 
 
 def _shapes(t, pre=""):
