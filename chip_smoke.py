@@ -14,7 +14,8 @@ that two versions are timed in one call on one card):
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
               ``dense_decode.cu``, ``flash_attention.cu``,
-              ``quant_matmul.cu``, ``mlstm_chunk.cu`` and ``rmsnorm.cu``)
+              ``quant_matmul.cu``, ``mlstm_chunk.cu``, ``rmsnorm.cu`` and
+              ``flash_attention_bwd.cu``)
               and report the build seconds and ptxas resource use
               (registers, spills)
   3. kernels  each kernel against its plain PyTorch version on the card at
@@ -210,6 +211,27 @@ that two versions are timed in one call on one card):
               ``moe_expert_bound`` (512 experts, 45.1 GB a forward), then
               the fp32 check of the absorbed decode against the naive full
               forward at 1 dense + 1 MoE layer (2 rows x 64 tokens)
+ 10. train    the build includes ``flash_attention_bwd.cu``; the kernel
+              phase also holds the flash backward kernel (from the forward
+              kernel's o and log-sum-exp) against the plain backward and
+              against autograd through the plain forward at unimo-text's
+              train shape (8 x 128, 16 x 64), qwen3-4b's microbatch (4 x
+              128, 32 / 8 x 128), gemma2-2b's (4 x 256, 8 / 4 x 256,
+              window 4096, softcap 50), MLA's naive form (1 x 128, 128
+              heads, D 192 / Dv 128) and a ragged case with rows that see
+              no key, at fp32, bf16 and fp16 (timed against SDPA's
+              backward); ``train_parity``: one fp32 ``make_train_step`` of
+              each of eight reduced configs on the card equals the CPU's
+              (loss, gnorm, every parameter), and reduced xlstm-125m's
+              raises for the mLSTM kernel's missing backward; ``train``:
+              full-width unimo-text (24 layers) on packed batches of 8 x
+              128 over the Zipf corpus, 30 steps at fp32 and at mixed
+              precision, whose loss must fall by 0.3 nats, and qwen3-4b at
+              all 36 layers, mixed, factored AdamW, two microbatches, 3
+              steps (finite, every leaf moved), each with step seconds,
+              train tokens/s, peak memory, launches (flash forward twice a
+              layer and step, the backward once, nothing else) and one
+              profiled step
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -245,6 +267,8 @@ REPLACES = {
     "mlstm_chunked": "src/repro/kernels/mlstm_chunk.py:94",
     "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:37",
     "decode_attention": "src/repro/kernels/decode_attention.py:821",
+    # no TPU kernel: the reference's flash kernel has no backward
+    "flash_attention_bwd": None,
 }
 SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
           for name in REPLACES}
@@ -253,6 +277,7 @@ SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
 SOURCE["mlstm_chunked"] = "src/repro_torch/csrc/mlstm_chunk.cu"
 SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
 SOURCE["decode_attention"] = "src/repro_torch/csrc/dense_decode.cu"
+SOURCE["flash_attention_bwd"] = "src/repro_torch/csrc/flash_attention_bwd.cu"
 # the device kernels each wrapper launches, by a part of their names
 KERNEL_SYMBOLS = {
     "paged_decode_attention": ("paged_decode_",),
@@ -266,6 +291,7 @@ KERNEL_SYMBOLS = {
     "mlstm_chunked": ("mlstm_chunk_",),
     "fused_rmsnorm": ("rmsnorm_",),
     "decode_attention": ("dense_decode_",),
+    "flash_attention_bwd": ("attn_bwd_",),
 }
 # the tensor-core bodies that bf16 must reach in the redesigned kernels
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
@@ -286,6 +312,13 @@ NOTES = {
                              "36 layers",
     "paged_mixed_attention_q8": "launches: the qwen3-4b int8 n-gram serve "
                                 "at 12 of 36 layers",
+    "flash_attention_bwd": "replaces null: the reference differentiates its "
+                           "jnp path (its Pallas flash kernel has no "
+                           "backward); launches: the full-width unimo-text "
+                           "fp32 training run (one per layer and step); "
+                           "library: SDPA's backward with the same boolean "
+                           "mask; one call is three launches (D, dK/dV, "
+                           "dQ)",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -1177,6 +1210,7 @@ def phase_kernels(check_bodies=True):
     cases += family_kernel_cases(rng)
     cases += moe_mm_kernel_cases(rng)
     cases += hybrid_mla_kernel_cases(rng)
+    cases += train_kernel_cases(rng)
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -1201,7 +1235,8 @@ def phase_kernels(check_bodies=True):
             "unimo-text draft 8 x 260 bf16",
             "xlstm-125m S=300 nonzero state bfloat16", "4096 x 2560 bf16",
             "qwen3-4b heads 8 x 256 bf16",
-            "qwen3-4b 2560->151936 M=8 bf16"}
+            "qwen3-4b 2560->151936 M=8 bf16",
+            "unimo-text train 8 x 128 float32"}
     summary = {c["kernel"]: c for c in cases
                if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"]["regimes"] = [
@@ -1231,6 +1266,9 @@ def phase_kernels(check_bodies=True):
     summary["fused_rmsnorm"]["regimes"] = [
         c for c in cases if c["case"] in ("4096 x 2560 bf16",
                                           "4096 x 2560 fp32")]
+    summary["flash_attention_bwd"]["regimes"] = [
+        c for c in cases if c["kernel"] == "flash_attention_bwd"
+        and "kernel_ms" in c]
     return summary
 
 
@@ -1421,7 +1459,7 @@ def phase_parity(arch, kv_dtype="auto", weights_dtype="auto"):
                 prm, cfg, put(mix_tok), p, put(np.asarray([9], np.int32)),
                 put(np.asarray([6], np.int32)), policy=policy, max_len=64,
                 paged={"block_tables": put(bt[1:2])})
-            lt = T.forward_train(prm, cfg, put(train_tok), policy=policy)
+            lt = T.forward_train(prm, cfg, put(train_tok), policy=policy)[0]
         out[dev] = (lp.cpu(), ld.cpu(), lv.cpu(), lm.cpu(), lt.cpu())
     errs = [(a - b).abs().max().item() for a, b in zip(out["cuda"],
                                                        out["cpu"])]
@@ -2722,7 +2760,7 @@ def phase_parity_families():
             with torch.no_grad():
                 logits[dev] = T.forward_train(
                     map_params(lambda t: t.to(dev), params), cfg,
-                    torch.as_tensor(batch[:1]).to(dev)).cpu()
+                    torch.as_tensor(batch[:1]).to(dev))[0].cpu()
 
             def engine(**kw):
                 return InferenceEngine(cfg, params, policy=FP32,
@@ -2910,7 +2948,7 @@ def phase_teacher_forced(arch="gemma2-2b", n_prompt=4400, steps=16):
                         device="cuda")
     t0 = time.perf_counter()
     with torch.no_grad():
-        full = T.forward_train(params, cfg, toks, policy=FP32)[
+        full = T.forward_train(params, cfg, toks, policy=FP32)[0][
             0, n_prompt - 1:].clone()
         cache = T.init_cache(cfg, 1, S, torch.float32, device="cuda")
         lp, _ = T.forward_prefill(
@@ -3224,7 +3262,7 @@ def phase_parity_moe_mm():
             t, n = toks.to(dev), plens.to(dev)
             pe = None if pre is None else pre.to(dev)
             with torch.no_grad():
-                lt = T.forward_train(p, cfg, t[:, :20], prefix_embeds=pe)
+                lt = T.forward_train(p, cfg, t[:, :20], prefix_embeds=pe)[0]
                 cache = T.init_cache(cfg, 2, 64, torch.float32, device=dev)
                 lp, _ = T.forward_prefill(p, cfg, t[:, :20], n, cache,
                                           prefix_embeds=pe, max_len=64,
@@ -3340,7 +3378,7 @@ def phase_teacher_forced_mm(arch):
     t0 = time.perf_counter()
     with torch.no_grad():
         full = T.forward_train(params, cfg, toks, prefix_embeds=pre,
-                               policy=FP32)[0, P_ + MM_TEXT - 1:]
+                               policy=FP32)[0][0, P_ + MM_TEXT - 1:]
         cache = T.init_cache(cfg, 1, S, torch.float32, device="cuda")
         lp, _ = T.forward_prefill(
             params, cfg, toks[:, :MM_TEXT],
@@ -3648,7 +3686,7 @@ def phase_teacher_forced_mla():
                          device="cuda", dtype=torch.int32)
     t0 = time.perf_counter()
     with torch.no_grad():
-        full = T.forward_train(params, cfg, toks, policy=FP32)[
+        full = T.forward_train(params, cfg, toks, policy=FP32)[0][
             :, n_prompt - 1:]
         cache = T.init_cache(cfg, B, S, torch.float32, device="cuda")
         lens = torch.full((B,), n_prompt, dtype=torch.int32, device="cuda")
@@ -3769,6 +3807,406 @@ def phase_serves_hybrid_mla():
     return seen
 
 
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernel, card == CPU train steps, full width
+# ---------------------------------------------------------------------------
+
+BWD_SYMBOLS = ("attn_bwd_",)
+# the reduced configs whose fp32 train step on the card must equal the
+# CPU's; xlstm-125m's must raise (the mLSTM kernel has no backward)
+TRAIN_PARITY_ARCHS = ("unimo-text", "qwen3-4b", "gemma2-2b",
+                      "qwen3-moe-235b-a22b", "deepseek-v3-671b",
+                      "hymba-1.5b", "internvl2-1b", "musicgen-medium")
+TRAIN_PARITY_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# full AdamW's first update g / (|g| + eps) has slope 1 / eps at g = 0: at
+# eps 1e-8 a gradient entry within rounding of zero may move its parameter
+# by a tenth of the learning rate between two summation orders, so the
+# parity steps take eps 1e-3 (tests/test_torch_train.py does the same)
+TRAIN_PARITY_EPS = 1e-3
+# the full-width runs: unimo-text (the paper's model) at fp32 and mixed,
+# 30 steps of 8 x 128 packed tokens; qwen3-4b at all 36 layers, mixed,
+# factored AdamW, two microbatches, 3 steps
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 8, 128
+TRAIN_LOSS_DROP = 0.3
+QWEN3_TRAIN_LAYERS = 36
+QWEN3_TRAIN_STEPS = 3
+
+
+@timed_case
+def run_flash_bwd_case(rng, name, *, B, S, Hq, Hkv, D, dtype, Dv=None,
+                       window=None, softcap=None, ragged=False,
+                       timed=False):
+    """The flash backward kernel at (B, S) tokens, positions 0 .. S-1
+    (``ragged``: -1 keys and padding queries, the last row all padding),
+    from the forward kernel's o and lse, against the plain backward on the
+    same o and lse and against autograd through the plain forward; each
+    gradient's error as a fraction of its largest magnitude (TOL).
+    ``timed``: the kernel, the plain backward and SDPA's backward with the
+    same boolean mask (its yardstick; no softcap), and the bound: q, k, v,
+    o, dO and lse read, dq, dk, dv written once, or 2.5x the forward's
+    flops over the visible pairs, the larger."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    Dv = Dv or D
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=rng, device=dev).to(dtype)
+    q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, Dv)
+    do = rnd(B, S, Hq, Dv)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    qpos = pos.copy()
+    if ragged:
+        pos[min(1, B - 1), 3:9] = -1
+        qpos[min(1, B - 1), -5:] = -1
+        qpos[B - 1] = -1
+    kp, qp = (torch.from_numpy(a).to(dev) for a in (pos, qpos))
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    got = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
+    plain = FA.flash_attention_bwd_ref(q, k, v, qp, kp, o, lse, do, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        FA.flash_attention_ref(*leaves, qp, kp, **kw), leaves, do)
+    torch.cuda.synchronize()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    errs, rels = {}, {}
+    for n, g, a, b in zip(("dq", "dk", "dv"), got, plain, auto):
+        scale = max(a.float().abs().max().item(), 1e-30)
+        e = [(g.float() - w.float()).abs().max().item() for w in (a, b)]
+        errs[n], rels[n] = e, [x / scale for x in e]
+    ok = all(r <= tol for rs in rels.values() for r in rs) \
+        and not got[0][qp < 0].any().item()
+    res = {"case": name, "kernel": "flash_attention_bwd",
+           "max_abs_err": max(e[0] for e in errs.values()),
+           "errs": errs, "rel_errs": rels, "tol": tol, "ok": bool(ok),
+           "B": B, "S": S, "D": D, "Dv": Dv, "Hq": Hq, "Hkv": Hkv}
+    if timed:
+        g = Hq // Hkv
+        mask = visible(kp[:, None, None, :], qp[:, None, :, None], window)
+        sd = [t.detach().transpose(1, 2).requires_grad_() for t in (
+            q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2))]
+        sdpa = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                              scale=D ** -0.5)
+        do_t = do.transpose(1, 2)
+        res.update(timings(
+            "flash_attention_bwd",
+            lambda: FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do,
+                                           **kw),
+            lambda: FA.flash_attention_bwd_ref(q, k, v, qp, kp, o, lse, do,
+                                               **kw),
+            lambda: torch.autograd.grad(sdpa, sd, do_t, retain_graph=True)))
+        pairs = int(visible(pos[:, None, :], qpos[:, :, None], window).sum())
+        el = q.element_size()
+        nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * o.numel()) * el + lse.numel() * 4 \
+            + pos.nbytes + qpos.nbytes
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, 2.5 * 2 * (D + Dv) * Hq * pairs, dtype)
+    return res
+
+
+def train_kernel_cases(rng):
+    """The backward kernel at the train shapes: unimo-text (8 x 128, 16 x
+    64, MHA), qwen3-4b's microbatch (4 x 128, 32 / 8 x 128), gemma2-2b (4
+    x 256, 8 / 4 x 256, window 4096, softcap 50), MLA's naive form (1 x
+    128, 128 heads, D 192 / Dv 128) and a ragged case with -1 positions
+    and rows that see no key; each at fp32, bf16 and fp16, the train
+    shapes timed at bf16 (and unimo-text at fp32, the fp32 run's dtype)."""
+    import torch
+    shapes = {
+        "unimo-text train 8 x 128": dict(B=8, S=128, Hq=16, Hkv=16, D=64),
+        "qwen3-4b train 4 x 128": dict(B=4, S=128, Hq=32, Hkv=8, D=128),
+        "gemma2-2b train 4 x 256 window 4096 softcap 50": dict(
+            B=4, S=256, Hq=8, Hkv=4, D=256, window=4096, softcap=50.0),
+        "deepseek-v3 MLA train 1 x 128 D 192 / Dv 128": dict(
+            B=1, S=128, Hq=128, Hkv=128, D=192, Dv=128),
+        "ragged -1 + empty rows window 16 softcap 30": dict(
+            B=3, S=45, Hq=8, Hkv=2, D=32, window=16, softcap=30.0,
+            ragged=True)}
+    cases = []
+    for name, kw in shapes.items():
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            dn = str(dtype).removeprefix("torch.")
+            timed = not kw.get("ragged") and (
+                dtype == torch.bfloat16 or (dtype == torch.float32
+                                            and name.startswith("unimo")))
+            cases.append(run_flash_bwd_case(rng, f"{name} {dn}",
+                                            dtype=dtype, timed=timed, **kw))
+    return cases
+
+
+def _train_batch(cfg, rng, B, S):
+    """A numpy batch of random tokens (codebooks for an audio model) and,
+    for a vision model, prefix embeddings."""
+    shape = (B, S, cfg.num_codebooks) if cfg.num_codebooks else (B, S)
+    vocab = min(cfg.vocab_size, 400)
+    b = {"tokens": rng.integers(4, vocab, size=shape).astype(np.int32),
+         "labels": rng.integers(4, vocab, size=shape).astype(np.int32),
+         "loss_mask": np.ones((B, S), np.float32)}
+    if cfg.num_prefix_embeds:
+        b["prefix_embeds"] = (0.02 * rng.normal(size=(
+            B, cfg.num_prefix_embeds, cfg.d_model))).astype(np.float32)
+    return b
+
+
+def phase_train_parity():
+    """Reduced configs in fp32 (TF32 off), on the card and on the CPU from
+    the same parameters and batch: the gradient of ``loss_fn`` (every leaf
+    within TRAIN_GRAD_TOL of its largest magnitude, the CPU tests'
+    tolerance against the reference), then one ``make_train_step`` (full
+    AdamW, remat): loss and gnorm within TRAIN_PARITY_TOL, and every
+    parameter after the step within TRAIN_PARITY_TOL of its leaf's
+    largest magnitude plus the gradient's tolerance carried through the
+    first update (lr x TRAIN_GRAD_TOL x the leaf's largest gradient / eps:
+    g / (|g| + eps) has slope at most 1 / eps).  On the card the
+    attention ran through the flash forward and backward kernels.  Then
+    reduced xlstm-125m's step on the card must raise for the mLSTM
+    kernel's missing backward."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.precision import FP32, map_params
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, eps=TRAIN_PARITY_EPS)
+    lr1 = OPT.lr_at(ocfg, 1)
+    failed = []
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_reduced(arch)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+        batch = _train_batch(cfg, np.random.default_rng(11), 2, 48)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            # copies: the step updates its parameters in place
+            b = TL.to_device(batch, dev)
+            _, _, grads = TL._grads(
+                map_params(lambda t: t.to(dev, copy=True), params), cfg, b,
+                FP32, True)
+            p = map_params(lambda t: t.to(dev, copy=True), params)
+            ops.reset_launch_counts()
+            p, _, m = TL.make_train_step(cfg, ocfg, FP32)(
+                p, OPT.init_state(p), b)
+            if dev == "cuda":
+                counts = ops.launch_counts()
+            res[dev] = (float(m["loss"]), float(m["gnorm"]),
+                        {k: t.detach().cpu()
+                         for k, t in OPT.flatten(p).items()},
+                        {k: g.cpu() for k, g in grads.items()})
+        rel = {n: abs(res["cuda"][i] - res["cpu"][i]) / abs(res["cpu"][i])
+               for i, n in enumerate(("loss", "gnorm"))}
+        worst = {"grad": (0.0, None), "param": (0.0, None)}
+        ok = True
+        for k, w in res["cpu"][3].items():
+            gmax = w.abs().max().item()
+            e = (res["cuda"][3][k] - w).abs().max().item() / max(gmax,
+                                                                  1e-30)
+            if e > worst["grad"][0]:
+                worst["grad"] = (e, k)
+            ok &= e <= TRAIN_GRAD_TOL
+            pw = res["cpu"][2][k]
+            tol = (TRAIN_PARITY_TOL * pw.abs().max().item()
+                   + lr1 * TRAIN_GRAD_TOL * gmax / ocfg.eps)
+            e = (res["cuda"][2][k] - pw).abs().max().item()
+            if e / max(tol, 1e-30) > worst["param"][0]:
+                worst["param"] = (e / max(tol, 1e-30), k)
+            ok &= e <= tol
+        ok &= (all(v <= TRAIN_PARITY_TOL for v in rel.values())
+               and counts["flash_attention_bwd"] > 0)
+        emit("train_parity", arch=arch, loss=res["cuda"][0],
+             loss_cpu=res["cpu"][0], rel_err=rel,
+             worst_grad_rel_err=worst["grad"],
+             worst_param_err_over_tol=worst["param"],
+             tol={"loss_gnorm_param": TRAIN_PARITY_TOL,
+                  "grad": TRAIN_GRAD_TOL},
+             launches={k: v for k, v in counts.items() if v}, ok=bool(ok))
+        if not ok:
+            failed.append(arch)
+    cfg = get_reduced("xlstm-125m")
+    p = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      FP32)
+    batch = TL.to_device(_train_batch(cfg, np.random.default_rng(1), 2, 16),
+                         "cuda")
+    try:
+        TL.make_train_step(cfg, ocfg, FP32)(p, OPT.init_state(p), batch)
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    emit("train_parity", arch=cfg.name, raised=raised,
+         ok=raised is not None and "mlstm_chunked has no backward" in raised)
+    if raised is None or "mlstm_chunked" not in raised:
+        failed.append(cfg.name)
+    if failed:
+        raise SystemExit(f"train parity failed: {failed}")
+
+
+def _profile_step(step, label, wall):
+    """One more train step under torch.profiler (device activity): busy
+    time, its share of ``wall`` (the run's unprofiled seconds a step),
+    the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    busy = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    bwd = sum(us for k, (us, _) in by_name.items() if "attn_bwd_" in k)
+    fwd = sum(us for k, (us, _) in by_name.items() if "flash_" in k)
+    return {"label": label, "step_wall_s": wall, "device_busy_s": busy,
+            "device_idle_frac": max(0.0, 1.0 - busy / wall),
+            "kernels_launched": sum(n for _, n in by_name.values()),
+            "flash_fwd_ms": fwd / 1e3, "flash_bwd_ms": bwd / 1e3,
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                    for k, (us, n) in top]}
+
+
+def _train_run(cfg, params, batches, *, label, policy, policy_name, steps,
+               opt_cfg, grad_accum=1, check_moved=False):
+    """``steps`` train steps of full-width ``cfg`` on the card, then one
+    profiled step: loss per step, step seconds (host clock over the steps
+    after the first, one synchronize at the end), train tokens/s, peak
+    memory, kernel launches.  ``check_moved``: every leaf's first 4096
+    entries must have changed."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = OPT.init_state(params, factored=opt_cfg.factored, model_cfg=cfg)
+    step = TL.make_train_step(cfg, opt_cfg, policy, grad_accum=grad_accum)
+    before = ({k: t.detach().flatten()[:4096].clone()
+               for k, t in OPT.flatten(params).items()}
+              if check_moved else None)
+    ops.reset_launch_counts()
+    losses, gnorms, ms = [], [], []
+    t0 = t1 = time.perf_counter()
+    for i in range(steps):
+        b = TL.to_device(next(batches), "cuda")
+        params, state, m = step(params, state, b)
+        losses.append(m["loss"])
+        gnorms.append(m["gnorm"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = ops.launch_counts()
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    step_s = (t2 - t1) / max(steps - 1, 1)
+    tokens = TRAIN_B * TRAIN_S
+    moved = None
+    if check_moved:
+        moved = {k: not torch.equal(t.detach().flatten()[:4096], before[k])
+                 for k, t in OPT.flatten(params).items()}
+    nxt = TL.to_device(next(batches), "cuda")
+    prof = _profile_step(lambda: step(params, state, nxt), label, step_s)
+    out = {"label": label, "arch": cfg.name, "layers": cfg.num_layers,
+           "policy": policy_name, "factored": opt_cfg.factored,
+           "grad_accum": grad_accum, "steps": steps, "B": TRAIN_B,
+           "S": TRAIN_S, "losses": losses, "gnorms": gnorms,
+           "first_step_s": t1 - t0, "step_s": step_s,
+           "train_tokens_per_s": tokens / step_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9, "launches": {k: v for k, v in launches.items() if v},
+           "profile": prof}
+    if moved is not None:
+        out["leaves"] = len(moved)
+        out["leaves_not_moved"] = [k for k, v in moved.items() if not v]
+    emit("train", **out)
+    return out, launches
+
+
+def phase_train():
+    """Full-width training on the card: unimo-text (24 layers, 1024 wide,
+    the paper's model) on ``packed_batches`` over ``synthetic_corpus(2000)``,
+    8 x 128 tokens, 30 steps, lr 1e-3, warmup 5, under fp32 and under
+    mixed (fp32 master weights, bf16 compute): the loss must fall by
+    TRAIN_LOSS_DROP nats in each.  Then qwen3-4b at QWEN3_TRAIN_LAYERS
+    layers, mixed, factored AdamW, two microbatches of 4 rows, 3 steps:
+    finite losses and gnorms, every leaf moved.  Each run's attention ran
+    through the flash forward and backward kernels and nothing else of the
+    port's.  Returns (the unimo-text fp32 run's launch counts, each run's
+    launch counts by label)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import FP32, MIXED
+    from repro_torch.core.tokenizer import FastTokenizer
+    from repro_torch.data.pipeline import packed_batches, synthetic_corpus
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus = synthetic_corpus(2000)
+    seen, failed = {}, []
+    cfg = get_config("unimo-text")
+    tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
+    opt = OPT.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    for name, policy in (("fp32", FP32), ("mixed", MIXED)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = T.init_params(gen, cfg, policy)
+        batches = packed_batches(tok, corpus, batch_size=TRAIN_B,
+                                 seq_len=TRAIN_S)
+        label = f"unimo-text {name}"
+        out, seen[label] = _train_run(cfg, params, batches, label=label,
+                                      policy=policy, policy_name=name,
+                                      steps=TRAIN_STEPS, opt_cfg=opt)
+        drop = out["losses"][0] - out["losses"][-1]
+        n_attn = cfg.num_layers * TRAIN_STEPS
+        if not (drop >= TRAIN_LOSS_DROP
+                and seen[label]["flash_attention_bwd"] == n_attn
+                and seen[label]["flash_attention"] == 2 * n_attn
+                and sum(seen[label].values()) == 3 * n_attn):
+            failed.append((label, drop, seen[label]))
+        del params
+    cfg, params = _qwen3_train_model()
+    tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
+    batches = packed_batches(tok, corpus, batch_size=TRAIN_B,
+                             seq_len=TRAIN_S)
+    label = _depth("qwen3-4b mixed factored accum 2", cfg, 36)
+    out, seen[label] = _train_run(
+        cfg, params, batches, label=label, policy=MIXED,
+        policy_name="mixed", steps=QWEN3_TRAIN_STEPS, grad_accum=2, check_moved=True,
+        opt_cfg=OPT.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10,
+                                factored=True))
+    n_attn = cfg.num_layers * QWEN3_TRAIN_STEPS * 2
+    if not (all(np.isfinite(out["losses"] + out["gnorms"]))
+            and not out["leaves_not_moved"]
+            and seen[label]["flash_attention_bwd"] == n_attn):
+        failed.append((label, out["losses"], out["leaves_not_moved"][:5]))
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"training on the card failed: {failed}")
+    return seen["unimo-text fp32"], seen
+
+
+def _qwen3_train_model():
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import MIXED
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen3-4b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    if QWEN3_TRAIN_LAYERS != cfg.num_layers:
+        cfg = _cut(cfg, {"layers": []}, QWEN3_TRAIN_LAYERS)[0]
+    return cfg, T.init_params(gen, cfg, MIXED)
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3827,12 +4265,16 @@ def main(argv=None) -> int:
     phase_parity_families()
     phase_parity_moe_mm()
     phase_parity_hybrid_mla()
+    phase_train_parity()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
     family = phase_serves_families()
     family.update(phase_serves_moe_mm())
     family.update(phase_serves_hybrid_mla())
+    train_launches, train_runs = phase_train()
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    family.update(train_runs)
 
     kernels = []
     for name in REPLACES:
@@ -3855,7 +4297,7 @@ def main(argv=None) -> int:
             row["regimes"] = [
                 {k: r[k] for k in ("case", "M", "K", "N", "B", "S", "H",
                                    "dh", "T", "Sk", "rows", "D", "Dv",
-                                   "seconds",
+                                   "Hq", "Hkv", "seconds", "rel_errs",
                                    "max_abs_err", "errs", "gate_frac",
                                    "kernel_ms", "plain_ms", "library_ms", "device_ms",
                                    "device_kernels", "library_device_ms",

@@ -5,6 +5,7 @@ be fed to both packages.
 The reference stacks each stack's pattern positions over their scan
 repeats (a leading ``repeats`` dim on every leaf); the port keeps one
 entry per layer, in execution order (stack, repeat, pattern position).
+The optimizer state converts the same way (:func:`opt_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.training.optimizer import AdamWState, flatten, layer_groups
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -86,3 +88,53 @@ def pool_to_numpy(cache: dict, cfg: ModelConfig) -> dict:
             for pi in range(n)))
         base += stack.num_layers
     return {"layers": tuple(stacks)}
+
+
+def _jax_order(tree, path=()):
+    """(path, leaf) of a reference tree in ``jax.tree_util`` flatten
+    order: dict keys sorted, tuples and lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_order(tree[k], path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _jax_order(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def opt_state_from_jax(state, params_tree, cfg: ModelConfig):
+    """The port's ``training.optimizer.AdamWState`` from a reference
+    ``AdamWState`` whose leaves were converted to numpy, and the
+    reference parameter tree it belongs to (numpy too, for the factored
+    mode's leaf order).  Full mode: mu and nu unstacked like the
+    parameters.  Factored mode: the reference's nu tuple follows its
+    parameters' flatten order; a stacked leaf's statistics are split per
+    layer, except those of a leaf that is 1-D per layer, which stay one
+    (R,) x (n,) pair under the port's group key."""
+    step = int(np.asarray(state.step))
+    if state.mu is not None:
+        def per_layer(tree):
+            return flatten(params_from_jax(tree))
+        return AdamWState(step, per_layer(state.mu), per_layer(state.nu))
+    layers = layer_groups(cfg)
+    nu, groups = {}, {}
+    leaves = list(_jax_order(params_tree))
+    assert len(leaves) == len(state.nu), (len(leaves), len(state.nu))
+    for (path, leaf), v in zip(leaves, state.nu):
+        if path[0] != "stacks":
+            key = "/".join(map(str, path))
+            nu[key] = (_map(_to_torch, v) if isinstance(v, dict)
+                       else _to_torch(v))
+            continue
+        si, pi, rest = path[1], path[2], "/".join(map(str, path[3:]))
+        members = [f"layers/{l}/{rest}" for l in layers[si, pi]]
+        if np.ndim(leaf) == 2:          # 1-D per layer: one shared pair
+            key = f"stacks/{si}/{pi}/{rest}"
+            nu[key] = _map(_to_torch, v)
+            groups[key] = members
+            continue
+        for r, m in enumerate(members):
+            nu[m] = (_map(lambda a, r=r: _to_torch(np.asarray(a)[r]), v)
+                     if isinstance(v, dict) else _to_torch(np.asarray(v)[r]))
+    return AdamWState(step, None, nu, groups)

@@ -255,7 +255,7 @@ class InferenceEngine:
         t0 = time.perf_counter()
         for i in range(max_new):
             logits = T.forward_train(self.params, self.cfg, self._put(buf),
-                                     policy=self.policy)
+                                     policy=self.policy, remat=False)[0]
             last = logits[rows, self._put(lens - 1).long()]
             nxt = sample(last, self.gen, sp).cpu().numpy()
             if stop_at_eos:

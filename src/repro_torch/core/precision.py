@@ -2,7 +2,10 @@
 
 A policy is three dtypes — ``param_dtype`` (weight storage),
 ``compute_dtype`` (activations and matmuls) and ``output_dtype``
-(logits, fp32 for a stable softmax) — plus two storage axes for serving:
+(logits, fp32 for a stable softmax) — plus two storage axes for serving.
+``MIXED`` ("mixed") is the training policy: fp32 master weights, bf16
+compute, fp32 logits (the reference's ``MIXED_TRAIN``).  The serving
+axes:
 
   * ``kv_dtype`` — "auto" (= compute dtype), "bf16", "fp16" or "int8".
     int8 stores the paged K/V pages as int8 codes with per-entry,
@@ -212,8 +215,9 @@ class Policy:
 FP32 = Policy()
 BF16 = Policy(torch.bfloat16, torch.bfloat16, torch.float32)
 FP16 = Policy(torch.float16, torch.float16, torch.float32)
+MIXED = Policy(torch.float32, torch.bfloat16, torch.float32)
 
-_POLICIES = {"fp32": FP32, "bf16": BF16, "fp16": FP16}
+_POLICIES = {"fp32": FP32, "bf16": BF16, "fp16": FP16, "mixed": MIXED}
 
 
 def get_policy(name: str) -> Policy:

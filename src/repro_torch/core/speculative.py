@@ -129,7 +129,7 @@ class DraftModelDrafter(Drafter):
         b_idx = torch.arange(buf.shape[0], device=buf.device)
         for j in range(self.k):
             logits = T.forward_train(self.params, self.cfg, buf,
-                                     policy=self.policy)
+                                     policy=self.policy, remat=False)[0]
             buf[b_idx, lens + j] = torch.argmax(
                 logits[b_idx, lens - 1 + j], dim=-1).to(buf.dtype)
         pos = lens[:, None] + torch.arange(self.k, device=buf.device)

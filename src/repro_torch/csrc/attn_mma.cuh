@@ -74,6 +74,7 @@ constexpr int kMmaWindow = 512;   // keys whose positions are staged at once
 constexpr int kMmaMaxSplits = 16; // splits of one walk (the merge's smem)
 constexpr int kTileInts = kMmaKeys + 4;  // a tile's positions, its flag
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct MmaArgs {
   const void* q;          // (B, NQ, Hq, D)
@@ -95,6 +96,7 @@ struct MmaArgs {
   int row_tiles, splits, keys_per_split;
   float scale, softcap;   // softcap <= 0: none
   int window;             // window <= 0: none
+  float* lse;             // flash for training: (B, Hq, NQ) fp32; else null
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
@@ -590,6 +592,14 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
       if (r >= nrows) continue;
       // a row with no visible key has l == 0 and o == 0: it writes 0
       const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
+      if (a.lse != nullptr && tig == 0) {
+        // natural log-sum-exp of the row's scores (m * to2 is the base-2
+        // exponent of its max); +inf where it saw no key
+        const int rg = r0 + r;
+        a.lse[((long long)slot * a.Hq + (long long)h * a.g + rg % a.g) *
+                  a.NQ + rg / a.g] =
+            l[rr] > 0.f ? (m[rr] * to2 + log2f(l[rr])) * kLn2 : INFINITY;
+      }
       T* orow = out + mma_row(a, lane0, h, r0 + r) * Dv;
 #pragma unroll
       for (int nt = 0; nt < DMAX / 8; ++nt) {

@@ -10,7 +10,11 @@
 // kp > qp - window with a window), an optional softcap, and an fp32 online
 // softmax.  The output is at q's dtype; a row that sees no key is 0.  Any
 // Sq and Sk: the ragged last tiles are masked here, so the TPU wrapper's
-// "Sq divisible by the block" limit does not carry over.
+// "Sq divisible by the block" limit does not carry over.  For training the
+// launcher also takes an lse buffer (B, Hq, Sq) fp32: each row's
+// log-sum-exp of its visible scores, +inf for a row that sees no key (so
+// the backward's exp(s - lse) is exactly 0 there), which
+// flash_attention_bwd.cu reads; serving calls pass null and store nothing.
 //
 // Two bodies, chosen by q's dtype in the launcher (not a fallback):
 //
@@ -59,6 +63,7 @@ struct Params {
   const int* q_pos;   // (B,Sq)
   const int* k_pos;   // (B,Sk)
   void* out;          // (B,Sq,Hq,Dv)
+  float* lse;         // (B,Hq,Sq) or null
   int Sq, Sk, Hq, Hkv, g, D, Dv;
   float scale, softcap;  // softcap <= 0: none
   int window;            // window <= 0: none
@@ -183,6 +188,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     o[(((long)b * p.Sq + q0 + r) * p.Hq + h) * Dv + d] =
         acc[i] / fmaxf(ls[r], 1e-37f);
   }
+  if (p.lse != nullptr)
+    for (int r = tid; r < nq; r += kThreads)
+      p.lse[((long)b * p.Hq + h) * p.Sq + q0 + r] =
+          ls[r] > 0.f ? ms[r] + logf(ls[r]) : INFINITY;
 }
 
 cudaError_t launch_fp32(int B, const Params& p, cudaStream_t stream) {
@@ -215,6 +224,7 @@ cudaError_t launch_mma(int B, const Params& p, cudaStream_t stream) {
   a.kpos = p.k_pos;
   a.q_pos = p.q_pos;
   a.out = p.out;
+  a.lse = p.lse;
   a.NQ = p.Sq;
   a.Sk = p.Sk;
   a.Hq = p.Hq;
@@ -237,16 +247,16 @@ cudaError_t launch_mma(int B, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core body), 1 = float16, 2 = bfloat16 (the
-// tensor-core body), for q, k, v and out.
+// tensor-core body), for q, k, v and out; lse: (B, Hq, Sq) fp32 or null.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* k_pos, void* out, int dtype, int B, int Sq, int Sk, int Hq,
-    int Hkv, int D, int Dv, float scale, float softcap, int window,
-    void* stream) {
+    const void* k_pos, void* out, void* lse, int dtype, int B, int Sq,
+    int Sk, int Hq, int Hkv, int D, int Dv, float scale, float softcap,
+    int window, void* stream) {
   Params p{q, k, v, static_cast<const int*>(q_pos),
-           static_cast<const int*>(k_pos), out, Sq, Sk, Hq, Hkv, Hq / Hkv,
-           D, Dv, scale, softcap, window};
+           static_cast<const int*>(k_pos), out, static_cast<float*>(lse),
+           Sq, Sk, Hq, Hkv, Hq / Hkv, D, Dv, scale, softcap, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return (int)launch_fp32(B, p, s);

@@ -116,8 +116,11 @@ def load() -> ctypes.CDLL:
     lib.paged_mixed_attention_q8_launch.argtypes = (
         [P] * 11 + [I] * 11 + [F, F, I, P])
     lib.paged_mixed_attention_q8_launch.restype = I
-    lib.flash_attention_launch.argtypes = [P] * 6 + [I] * 8 + [F, F, I, P]
+    lib.flash_attention_launch.argtypes = [P] * 7 + [I] * 8 + [F, F, I, P]
     lib.flash_attention_launch.restype = I
+    lib.flash_attention_bwd_launch.argtypes = ([P] * 12 + [I] * 8
+                                               + [F, F, I, P])
+    lib.flash_attention_bwd_launch.restype = I
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.quant_matmul_launch.argtypes = [P] * 6 + [I] * 7 + [P]

@@ -7,8 +7,17 @@ unsupported shape).  Nothing falls back to the plain version on the card.
 Attention over an int8 pool (``k_scale``/``v_scale`` given) goes to the
 ``_q8`` kernels.  Each wrapper counts its launches; :func:`launch_counts`
 reads them all.
+
+Training: on the CPU the plain versions are differentiated by autograd.
+On the card ``flash_attention`` with grad enabled and an input that
+requires it runs :class:`FlashAttentionFn`, whose backward is the
+hand-written backward kernel; every other kernel here has no backward, so
+its dispatcher raises in that case (:func:`no_backward`) rather than
+return a tensor that silently carries no gradient.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
@@ -16,6 +25,46 @@ from repro_torch.kernels import mlstm_chunk as MC
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors (None
+    entries are skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(name: str, *tensors) -> None:
+    """Raise for a kernel without a backward reached with grad enabled and
+    an input that requires it: its output would carry no gradient."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"the CUDA kernel {name} has no backward: it cannot be "
+            f"differentiated on the card (run under torch.no_grad, or on "
+            f"the CPU, where the plain version is differentiable)")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention on the card with a gradient: the forward kernel
+    (keeping its log-sum-exp), and the backward kernel
+    (:func:`flash_attention.flash_attention_bwd`) for dq, dk and dv; the
+    positions take none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window, scale, attn_softcap):
+        out, lse = FA.flash_attention(q, k, v, q_pos, k_pos, window=window,
+                                      scale=scale, attn_softcap=attn_softcap,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = FA.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse,
+                                            do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
@@ -28,6 +77,7 @@ def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
         return ref.paged_decode_attention_ref(
             q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
             v_scale=v_scale, **kw)
+    no_backward("paged_decode_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
         return DA.paged_decode_attention_q8(
             q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
@@ -47,6 +97,7 @@ def paged_mixed_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
         return ref.paged_mixed_attention_ref(
             q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
             v_scale=v_scale, **kw)
+    no_backward("paged_mixed_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
         return DA.paged_mixed_attention_q8(
             q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
@@ -66,6 +117,7 @@ def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
         return ref.paged_packed_attention_ref(
             q, kpool, vpool, ppos, block_tables, q_pos, slot_ids,
             k_scale=k_scale, v_scale=v_scale, **kw)
+    no_backward("paged_packed_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
         return DA.paged_packed_attention_q8(
             q, kpool, k_scale, vpool, v_scale, ppos, block_tables, q_pos,
@@ -77,10 +129,15 @@ def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
 def flash_attention(q, k, v, q_pos, k_pos, *, window, scale,
                     attn_softcap=None):
     """Dense attention driven by positions: q (B,Sq,Hq,D) against k/v
-    (B,Sk,Hkv,D); see :func:`flash_attention.flash_attention`."""
+    (B,Sk,Hkv,D); see :func:`flash_attention.flash_attention`.  On the
+    card with grad enabled and an input requiring it, through
+    :class:`FlashAttentionFn` (forward and backward kernels)."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, window, scale,
+                                      attn_softcap)
     return FA.flash_attention(q, k, v, q_pos, k_pos, **kw)
 
 
@@ -89,6 +146,7 @@ def quant_matmul(x, q, s):
     :func:`quant_matmul.quant_matmul`."""
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, q, s)
+    no_backward("quant_matmul", x, s)
     return QM.quant_matmul(x, q, s)
 
 
@@ -97,6 +155,7 @@ def mlstm_chunked(q, k, v, i_pre, logf, state):
     fp32, final state); see :func:`mlstm_chunk.mlstm_chunked`."""
     if q.device.type == "cpu":
         return ref.mlstm_chunked_ref(q, k, v, i_pre, logf, state)
+    no_backward("mlstm_chunked", q, k, v, i_pre, logf, *state.values())
     return MC.mlstm_chunked(q, k, v, i_pre, logf, state)
 
 
@@ -106,6 +165,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
     reference)."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
+    no_backward("fused_rmsnorm", x, w)
     return RN.fused_rmsnorm(x, w, eps=eps)
 
 
@@ -119,11 +179,12 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+    no_backward("decode_attention", q, k, v)
     return DA.decode_attention(q, k, v, k_pos, q_pos, **kw)
 
 
-_SINGLE = (FA.flash_attention, QM.quant_matmul, MC.mlstm_chunked,
-           RN.fused_rmsnorm)
+_SINGLE = (FA.flash_attention, FA.flash_attention_bwd, QM.quant_matmul,
+           MC.mlstm_chunked, RN.fused_rmsnorm)
 
 
 def reset_launch_counts() -> None:

@@ -38,6 +38,69 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: Optional[int],
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
+def _scores(q, k, q_pos, k_pos, window, scale, attn_softcap):
+    """fp32 scores (B, Hkv, g, Sq, Sk) of q (B,Sq,Hq,D) against k, softcapped
+    where asked, with tanh(s / cap) (None without a softcap), and the
+    visibility mask (B, 1, 1, Sq, Sk)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    t = None
+    if attn_softcap is not None:
+        t = torch.tanh(s / attn_softcap)
+        s = t * attn_softcap
+    return s, t, _mask(q_pos, k_pos, window)[:, None, None]
+
+
+def flash_attention_lse_ref(q, k, v, q_pos, k_pos, *,
+                            window: Optional[int], scale: float,
+                            attn_softcap: Optional[float] = None):
+    """The forward with what its backward keeps: (out (B,Sq,Hq,Dv) at q's
+    dtype, lse (B,Hq,Sq) fp32), lse the log-sum-exp of each row's visible
+    scores, +inf for a row that sees no key (so that ``exp(s - lse)`` is
+    exactly 0 there)."""
+    s, _, mask = _scores(q, k, q_pos, k_pos, window, scale, attn_softcap)
+    lse = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    lse = torch.where(mask.any(-1), lse, torch.inf)
+    out = flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                              scale=scale, attn_softcap=attn_softcap)
+    B, Sq, Hq, _ = q.shape
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, q_pos, k_pos, o, lse, do, *,
+                            window: Optional[int], scale: float,
+                            attn_softcap: Optional[float] = None):
+    """Plain backward of :func:`flash_attention_ref` from what the forward
+    kernel keeps (o and lse (B,Hq,Sq)) and the output's gradient do
+    (B,Sq,Hq,Dv), in fp32: P = exp(S - lse) on visible entries (0 on
+    masked ones and on rows that see no key), D = rowsum(dO o),
+    dP = dO V^T, dS = P (dP - D), times 1 - tanh^2(s / cap) under a
+    softcap and the scale; dQ = dS K, dK = dS^T Q and dV = P^T dO, the
+    last two summed over the g query heads of each kv head.  Returns
+    (dq, dk, dv) at q's, k's and v's dtypes."""
+    B, Sq, Hq, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    s, t, mask = _scores(q, k, q_pos, k_pos, window, scale, attn_softcap)
+    lse_g = lse.float().reshape(B, Hkv, g, Sq, 1)
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dof = do.float().reshape(B, Sq, Hkv, g, Dv)
+    delta = (dof * o.float().reshape(B, Sq, Hkv, g, Dv)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    qg = q.reshape(B, Sq, Hkv, g, D).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention_ref(q, k, v, k_pos, q_pos, *, window: Optional[int],
                          scale: float, attn_softcap: Optional[float] = None):
     """q: (B,1,Hq,D) vs cache k/v: (B,Sk,Hkv,D) -> (B,1,Hq,Dv)."""

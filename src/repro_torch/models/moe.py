@@ -16,8 +16,11 @@ them, with no atomics, so a serve gives the same stream twice on the
 card; the shared experts' output is added after.  Nothing here reads a
 value back to the host.
 
-The load-balance auxiliary loss is its own function over the router's
-outputs (:func:`load_balance_loss`): the serving forwards never call it.
+:func:`moe_apply` also returns the reference's load-balance auxiliary
+loss (:func:`load_balance_loss` over the router's outputs), which training
+adds to its loss and the serving forwards drop.  The router's top-k
+weights stay differentiable, as in the reference: the gradient reaches
+the router through them and through the auxiliary loss.
 """
 from __future__ import annotations
 
@@ -103,17 +106,17 @@ def load_balance_loss(cfg: ModelConfig, probs, tope):
 
 
 def moe_apply(cfg: ModelConfig, p, x):
-    """x: (B, S, d) -> (B, S, d), routed by the config's kind
-    (:func:`route`).
-    Every one of the B x S tokens, padding lanes too, is routed and counts
-    towards the capacity, as in the reference."""
+    """x: (B, S, d) -> (out (B, S, d), the load-balance loss, a scalar),
+    routed by the config's kind (:func:`route`).  Every one of the B x S
+    tokens, padding lanes too, is routed and counts towards the capacity,
+    as in the reference."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     C = _capacity(T, cfg)
     dev = x.device
     xf = x.reshape(T, d)
-    _, topw, tope = route(cfg, p, xf)
+    probs, topw, tope = route(cfg, p, xf)
 
     # sort-based dispatch: assignment i of token i // k, stable by expert
     e_flat = tope.reshape(-1)
@@ -144,4 +147,4 @@ def moe_apply(cfg: ModelConfig, p, x):
         out = out + eo[slot_of[:, j]]
     if "shared" in p:
         out = out + L.ffn_apply(cfg, p["shared"], xf)
-    return out.reshape(B, S, d)
+    return out.reshape(B, S, d), load_balance_loss(cfg, probs, tope)

@@ -3,7 +3,8 @@ selective SSM branch of Hymba's hybrid layers (the port's counterpart of
 ``repro.models.ssm``).
 
 The xLSTM mixers expose ``*_apply(cfg, p, x, state, mode) -> (y,
-new_state)`` with ``mode`` in {"prefill", "decode"}; the Mamba branch
+new_state)`` with ``mode`` in {"prefill", "decode", "train"} ("train"
+runs whole rows as "prefill" does, from the zero state); the Mamba branch
 ``mamba_apply(cfg, p, x, state, conv_state, mode) -> (y, state,
 conv_state)``, also in "train" (from zero state).  States are fp32 (the
 Mamba conv state at the activations' dtype) and take the place of the KV
@@ -284,11 +285,14 @@ def _mamba_chunked(xh, Bt, Ct, dt, logdec, h0):
         Fc = torch.cumsum(lb, dim=1)                             # (B,L,H)
         Ftot = Fc[:, -1]
         Ft = Fc.transpose(1, 2)                                  # (B,H,L)
-        # intra-chunk weights exp(F_i - F_j) for j <= i; above the
-        # diagonal the exponent is positive and may overflow, so pick 0
-        # there (a product with the mask would make inf * 0 = NaN)
-        w = torch.where(tri, torch.exp(Ft[..., :, None] - Ft[..., None, :]),
-                        0.0)
+        # intra-chunk weights exp(F_i - F_j) for j <= i, 0 above the
+        # diagonal, where the exponent is positive and may overflow: the
+        # exponent is masked to -inf before exp, so neither the forward
+        # (inf * 0) nor the backward (where's zero gradient times exp's
+        # inf) makes a NaN.  The reference masks after exp: the same
+        # forward, NaN gradients once a chunk overflows.
+        w = torch.exp(torch.where(tri, Ft[..., :, None] - Ft[..., None, :],
+                                  -torch.inf))
         scores = torch.einsum("bln,bmn->blm", cb, bb)[:, None] * w \
             * db.transpose(1, 2)[:, :, None, :]                  # (B,H,L,L)
         y_intra = torch.einsum("bhlm,bmhd->blhd", scores, xb)

@@ -29,8 +29,10 @@ reference stacks each pattern position over its scan repeats instead
   ``"packed"`` only for pure attention layers;
 * against a dense per-slot cache (:func:`init_cache`): ``"prefill"``
   (optionally attending what the cache already holds) and ``"decode"``;
-* ``"train"``: a full causal forward with no cache (the no-cache baseline
-  and the draft model of speculative decoding).
+* ``"train"``: a full causal forward with no cache, recurrent layers from
+  the zero state (:func:`forward_train`: training, which differentiates
+  it; the no-cache baseline and the draft model of speculative decoding,
+  which run it under ``torch.no_grad``).
 
 Per-slot state (recurrent layers, the hybrid layers' SSM and conv state,
 MLA's latent cache) lives in the layer's cache dict, dense, one row per
@@ -43,6 +45,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, DENSE_FFN, HYBRID, MLA, MLSTM,
                                       MOE_FFN, NO_FFN, SLSTM, LayerSpec,
@@ -196,9 +199,10 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
     ``cache_pos`` (B, S): where prefill writes each token (-1 = padding,
     the dump slot or page); ``attend_cache``: the prefill resumes after
     entries already in the cache and attends them too.  ``"train"`` takes
-    no cache: every token attends the earlier ones directly."""
+    no cache: every token attends the earlier ones directly.  Returns (x,
+    the MoE load-balance loss of the layer, or None without MoE)."""
     if spec.mixer in RECURRENT:
-        return _recurrent_apply(cfg, spec, p, x, cache, mode)
+        return _recurrent_apply(cfg, spec, p, x, cache, mode), None
     if mode in ("verify", "packed") and (
             spec.mixer != ATTN or cache is None or "pk" not in cache):
         # multi-token windows are defined over paged pure-attention layers
@@ -222,12 +226,15 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         out = L.apply_norm(cfg, p["norm1_post"], out)
     x = x + out
     h = L.apply_norm(cfg, p["norm2"], x)
-    # MoE routes by the config's kind (sigmoid where the model has MLA)
-    out = (MOE.moe_apply(cfg, p["ffn"], h) if spec.ffn == MOE_FFN
-           else L.ffn_apply(cfg, p["ffn"], h))
+    aux = None
+    if spec.ffn == MOE_FFN:
+        # routed by the config's kind (sigmoid where the model has MLA)
+        out, aux = MOE.moe_apply(cfg, p["ffn"], h)
+    else:
+        out = L.ffn_apply(cfg, p["ffn"], h)
     if cfg.sandwich_norm:
         out = L.apply_norm(cfg, p["norm2_post"], out)
-    return x + out
+    return x + out, aux
 
 
 def _attention_apply(cfg, p, h, *, positions, cache, mode, paged,
@@ -350,26 +357,43 @@ def _mla_apply(cfg, p, h, *, positions, cache, mode, paged, cache_pos,
 def _recurrent_apply(cfg, spec, p, x, cache, mode):
     """An mLSTM / sLSTM block (no FFN): ``"prefill"`` runs whole rows from
     the state in ``cache`` (a fresh slot view at admission), ``"decode"``
-    one token per slot; the new state replaces the old in ``cache``."""
-    if mode not in ("prefill", "decode"):
+    one token per slot, and the new state replaces the old in ``cache``;
+    ``"train"`` runs whole rows from the zero state and keeps none."""
+    if mode not in ("prefill", "decode", "train"):
         raise NotImplementedError(
             f"layer mode {mode!r} is not ported for recurrent layers")
-    fn = SSM.mlstm_apply if spec.mixer == MLSTM else SSM.slstm_apply
+    mlstm = spec.mixer == MLSTM
+    fn = SSM.mlstm_apply if mlstm else SSM.slstm_apply
+    if mode == "train":
+        zero = SSM.mlstm_zero_state if mlstm else SSM.slstm_zero_state
+        cache = zero(cfg, x.shape[0], device=x.device)
     out, state = fn(cfg, p["mixer"], L.apply_norm(cfg, p["norm1"], x),
                     cache, mode)
-    cache.update(state)
+    if mode != "train":
+        cache.update(state)
     return x + out
 
 
 def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged,
-             cache_pos=None, attend_cache=False):
+             cache_pos=None, attend_cache=False, remat=False):
+    """Every layer in execution order; returns (x, the layers' summed MoE
+    load-balance loss, None without MoE).  ``remat`` (training)
+    recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    over its scan body."""
     caches = cache["layers"] if cache is not None \
         else [None] * len(params["layers"])
+    aux = None
     for spec, p, c in zip(layer_specs(cfg), params["layers"], caches):
-        x = layer_apply(cfg, spec, p, x, positions=positions, cache=c,
-                        mode=mode, max_len=max_len, paged=paged,
-                        cache_pos=cache_pos, attend_cache=attend_cache)
-    return x
+        def run(x, spec=spec, p=p, c=c):
+            return layer_apply(cfg, spec, p, x, positions=positions,
+                               cache=c, mode=mode, max_len=max_len,
+                               paged=paged, cache_pos=cache_pos,
+                               attend_cache=attend_cache)
+        x, a = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _cache_max_len(cfg: ModelConfig, cache) -> int:
@@ -442,9 +466,9 @@ def forward_prefill(params, cfg: ModelConfig, tokens, prompt_lengths,
         positions < start + prompt_lengths.to(torch.int32)[:, None],
         positions, -1)
     x = _embed(cfg, params, tokens, positions, policy, prefix_embeds)
-    x = _run_all(cfg, params, x, positions=positions, cache=cache,
-                 mode="prefill", max_len=max_len, paged=paged,
-                 cache_pos=cache_pos, attend_cache=attend)
+    x, _ = _run_all(cfg, params, x, positions=positions, cache=cache,
+                    mode="prefill", max_len=max_len, paged=paged,
+                    cache_pos=cache_pos, attend_cache=attend)
     if last_only:
         last = (prompt_lengths.long() - 1).clamp_min(0)
         x = x[torch.arange(B, device=dev), last][:, None]
@@ -462,8 +486,8 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
     max_len = max_len or _cache_max_len(cfg, cache)
     positions = lengths.to(torch.int32)[:, None]
     x = _embed(cfg, params, tokens, positions, policy)
-    x = _run_all(cfg, params, x, positions=positions, cache=cache,
-                 mode="decode", max_len=max_len, paged=paged)
+    x, _ = _run_all(cfg, params, x, positions=positions, cache=cache,
+                    mode="decode", max_len=max_len, paged=paged)
     return _logits(cfg, params, x, policy), cache
 
 
@@ -485,8 +509,8 @@ def forward_verify(params, cfg: ModelConfig, tokens, cache, lengths, *,
     positions = lengths.to(torch.int32)[:, None] + torch.arange(
         K1, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens, positions, policy)
-    x = _run_all(cfg, params, x, positions=positions, cache=cache,
-                 mode="verify", max_len=max_len, paged=paged)
+    x, _ = _run_all(cfg, params, x, positions=positions, cache=cache,
+                    mode="verify", max_len=max_len, paged=paged)
     return _logits(cfg, params, x, policy), cache
 
 
@@ -513,37 +537,64 @@ def forward_mixed(params, cfg: ModelConfig, tokens, cache, row_start, n_q,
     paged = dict(paged or {})
     paged["active"] = valid
     x = _embed(cfg, params, tokens, positions, policy)
-    x = _run_all(cfg, params, x, positions=positions, cache=cache,
-                 mode="verify", max_len=max_len, paged=paged)
+    x, _ = _run_all(cfg, params, x, positions=positions, cache=cache,
+                    mode="verify", max_len=max_len, paged=paged)
     last = (n_q.long() - 1).clamp_min(0)
     x = x[torch.arange(B, device=x.device), last][:, None]
     return _logits(cfg, params, x, policy), cache
 
 
 def forward_train(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
-                  policy: Policy = FP32):
-    """A full causal forward with no cache: tokens (B, S) (or (B, S, C)),
-    after ``prefix_embeds`` (B, P, d) where given, at positions 0 ..
-    P+S-1 -> logits (B, P+S, V) (or (B, S, C, V)).  Inference only here
-    (callers run it under ``torch.no_grad``): the no-cache baseline and
-    the draft model's greedy drafting; the MoE load-balance loss is
-    ``moe.load_balance_loss``, which no forward calls."""
-    x, _ = _trunk(params, cfg, tokens, prefix_embeds, policy)
-    return _logits(cfg, params, x, policy)
+                  policy: Policy = FP32, remat: bool = True):
+    """A full causal forward with no cache (the reference's
+    ``forward_train``): tokens (B, S) (or (B, S, C)), after
+    ``prefix_embeds`` (B, P, d) where given, at positions 0 .. P+S-1.
+    Returns (logits (B, P+S, V) (or (B, S, C, V)), aux): ``aux["moe_aux"]``
+    the layers' summed load-balance loss (a zero fp32 scalar without MoE)
+    and, where the config has multi-token prediction and the params its
+    module, ``aux["mtp_logits"]`` (B, S-1, V) from the same trunk.
+    ``remat`` recomputes each layer in the backward.  Training
+    differentiates it; the no-cache baseline and the draft model call it
+    under ``torch.no_grad``."""
+    x, positions, aux = _trunk(params, cfg, tokens, prefix_embeds, policy,
+                               remat)
+    aux_d = {"moe_aux": aux}
+    if cfg.mtp and "mtp" in params:
+        aux_d["mtp_logits"] = _mtp_logits(params, cfg, x, tokens, positions,
+                                          policy)
+    return _logits(cfg, params, x, policy), aux_d
 
 
-def _trunk(params, cfg, tokens, prefix_embeds, policy):
+def _trunk(params, cfg, tokens, prefix_embeds, policy, remat=False):
     """The no-cache forward up to the final norm: (hidden states (B,
-    P+S, d), positions (B, P+S))."""
+    P+S, d), positions (B, P+S), the summed MoE load-balance loss)."""
     B, S = tokens.shape[:2]
     if prefix_embeds is not None:
         S += prefix_embeds.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _embed(cfg, params, tokens, positions, policy, prefix_embeds)
-    x = _run_all(cfg, params, x, positions=positions, cache=None,
-                 mode="train", max_len=S, paged=None)
-    return x, positions
+    x, aux = _run_all(cfg, params, x, positions=positions, cache=None,
+                      mode="train", max_len=S, paged=None, remat=remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, positions, aux
+
+
+def _mtp_logits(params, cfg, x, tokens, positions, policy):
+    """DeepSeek's multi-token prediction from the trunk's hidden states x
+    (B, S, d): the state at i, normed, beside the normed embedding of
+    token i + 1, merged by ``mtp["proj"]`` and run through the MTP layer
+    (attention + dense FFN) to predict token i + 2 -> (B, S - 1, V)."""
+    p = params["mtp"]
+    emb_next = L.embed_tokens(cfg, params, tokens[:, 1:]).to(x.dtype)
+    merged = torch.cat([L.apply_norm(cfg, p["norm_h"], x[:, :-1]),
+                        L.apply_norm(cfg, p["norm_e"], emb_next)], dim=-1)
+    h, _ = layer_apply(cfg, MTP_SPEC, p["layer"],
+                       merged @ p["proj"].to(x.dtype),
+                       positions=positions[:, :-1], cache=None, mode="train",
+                       max_len=positions.shape[1], paged=None)
+    return _logits(cfg, params, h, policy)
 
 
 def forward_mtp(params, cfg: ModelConfig, tokens, *, policy: Policy = FP32):
@@ -556,17 +607,9 @@ def forward_mtp(params, cfg: ModelConfig, tokens, *, policy: Policy = FP32):
     serving path calls it, as in the reference."""
     if not cfg.mtp or "mtp" not in params:
         raise ValueError(f"{cfg.name} has no multi-token prediction head")
-    x, positions = _trunk(params, cfg, tokens, None, policy)
-    p = params["mtp"]
-    emb_next = L.embed_tokens(cfg, params, tokens[:, 1:]).to(x.dtype)
-    merged = torch.cat([L.apply_norm(cfg, p["norm_h"], x[:, :-1]),
-                        L.apply_norm(cfg, p["norm_e"], emb_next)], dim=-1)
-    h = layer_apply(cfg, MTP_SPEC, p["layer"],
-                    merged @ p["proj"].to(x.dtype),
-                    positions=positions[:, :-1], cache=None, mode="train",
-                    max_len=positions.shape[1], paged=None)
+    x, positions, _ = _trunk(params, cfg, tokens, None, policy)
     return (_logits(cfg, params, x, policy),
-            _logits(cfg, params, h, policy))
+            _mtp_logits(params, cfg, x, tokens, positions, policy))
 
 
 def forward_packed(params, cfg: ModelConfig, tokens, cache, slot_ids,
@@ -586,7 +629,7 @@ def forward_packed(params, cfg: ModelConfig, tokens, cache, slot_ids,
     paged = dict(paged or {})
     paged["slot_ids"] = slot_ids
     x = _embed(cfg, params, tokens, pos2, policy)
-    x = _run_all(cfg, params, x, positions=pos2, cache=cache, mode="packed",
-                 max_len=max_len, paged=paged)
+    x, _ = _run_all(cfg, params, x, positions=pos2, cache=cache,
+                    mode="packed", max_len=max_len, paged=paged)
     x = x[:, seg_last.long()]
     return _logits(cfg, params, x, policy), cache

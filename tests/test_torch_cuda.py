@@ -1798,8 +1798,9 @@ def test_moe_apply_on_card_matches_cpu(dev):
     equals the CPU's within 1e-5 (the products' summation order)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     M, cfg, p, x = _moe_case()
-    ref = M.moe_apply(cfg, p, x)
-    out = M.moe_apply(cfg, {k: v.to(dev) for k, v in p.items()}, x.to(dev))
+    ref = M.moe_apply(cfg, p, x)[0]
+    out = M.moe_apply(cfg, {k: v.to(dev) for k, v in p.items()},
+                      x.to(dev))[0]
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
@@ -1815,8 +1816,8 @@ def test_moe_apply_on_card_is_deterministic_without_host_sync(dev, dtype):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        a = M.moe_apply(cfg, pd, xd)
-        b = M.moe_apply(cfg, pd, xd)
+        a = M.moe_apply(cfg, pd, xd)[0]
+        b = M.moe_apply(cfg, pd, xd)[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(a, b)
@@ -1894,7 +1895,7 @@ def test_hybrid_mla_forwards_on_card_match_cpu(dev, arch):
         p = map_params(lambda t: t.to(d), params)
         t, n = toks.to(d), lens.to(d)
         with torch.no_grad():
-            res = [T.forward_train(p, cfg, t)]
+            res = [T.forward_train(p, cfg, t)[0]]
             cache = T.init_cache(cfg, 2, 128, torch.float32, device=d)
             res.append(T.forward_prefill(p, cfg, t[:, :90], n, cache,
                                          max_len=128, last_only=True)[0])
@@ -1920,8 +1921,9 @@ def test_sigmoid_shared_moe_on_card_matches_cpu(dev):
         size=(4, 24, cfg.d_model)).astype(np.float32))
     col = p["router"][:, 0]
     x += 2.0 * col / col.norm() * cfg.d_model ** 0.5 / 4
-    ref = M.moe_apply(cfg, p, x)
-    out = M.moe_apply(cfg, map_params(lambda t: t.to(dev), p), x.to(dev))
+    ref = M.moe_apply(cfg, p, x)[0]
+    out = M.moe_apply(cfg, map_params(lambda t: t.to(dev), p),
+                      x.to(dev))[0]
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
@@ -1952,3 +1954,181 @@ def test_hybrid_mla_serve_on_card_matches_cpu(dev, arch):
     assert m.scheduler == "bucketed"
     n_paged = cfg.num_layers if cfg.mla is None else 0
     assert DA.launch_counts()["paged_decode_attention"] == n_paged * m.steps
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernel, autograd through it, train steps
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, Hq, Hkv, D, Dv, window, softcap, ragged)
+BWD_CASES = [(2, 77, 77, 4, 4, 64, 64, None, None, False),
+             (2, 130, 130, 8, 2, 128, 128, None, None, False),
+             (2, 100, 100, 4, 2, 256, 256, 48, 50.0, False),
+             (1, 70, 70, 8, 8, 192, 128, None, None, False),
+             (3, 45, 45, 8, 2, 32, 32, 16, 30.0, True),
+             (2, 20, 90, 4, 1, 64, 64, None, None, True)]
+
+
+def _bwd_inputs(dev, dtype, B, Sq, Sk, Hq, Hkv, D, Dv, ragged, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    q, k, v, do = t(B, Sq, Hq, D), t(B, Sk, Hkv, D), t(B, Sk, Hkv, Dv), \
+        t(B, Sq, Hq, Dv)
+    kp = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    qp = kp[:, Sk - Sq:].copy()
+    if ragged:
+        kp[1, 3:9] = -1
+        qp[1, -5:] = -1
+        qp[-1] = -1
+    return q, k, v, do, torch.from_numpy(qp).to(dev), \
+        torch.from_numpy(kp).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,window,softcap,ragged",
+                         BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(dev, dtype, B, Sq, Sk, Hq, Hkv, D,
+                                        Dv, window, softcap, ragged):
+    """The backward kernel (from the forward kernel's o and lse) against
+    the plain backward on the same o and lse, within 1e-4 (fp32) / 2e-2
+    (bf16, fp16) of each gradient's largest magnitude; the forward's lse
+    within the same of the plain version's, +inf where a row sees no key;
+    padding queries get zero dq."""
+    q, k, v, do, qp, kp = _bwd_inputs(dev, dtype, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                      ragged)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    _, lse_ref = FA.flash_attention_lse_ref(q, k, v, qp, kp, **kw)
+    got = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_ref(q, k, v, qp, kp, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    rel = TOL[dtype]
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=rel, atol=rel)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= rel * scale
+    assert not got[0][qp < 0].any()
+
+
+def test_flash_attention_grads_through_ops_on_card(dev):
+    """``ops.flash_attention`` with grad on the card runs the forward and
+    backward kernels (one launch each, none of the forward-only path) and
+    gives autograd's gradient of the plain version (fp32)."""
+    from repro_torch.kernels import ref
+    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.float32,
+                                      *BWD_CASES[1][:7], False)
+    kw = dict(window=None, scale=128 ** -0.5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, qp, kp, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*cpu, qp.cpu(), kp.cpu(), **kw), cpu,
+        do.cpu())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["unimo-text", "qwen3-4b",
+                                  "deepseek-v3-671b"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """One fp32 train step (TF32 off) of the reduced config on the card
+    equals the CPU's: loss and gnorm within 1e-5, every parameter within
+    1e-5 of its leaf's largest magnitude plus a gradient error of 1e-4 of
+    the leaf's largest gradient carried through the first update (lr /
+    eps times it: g / (|g| + eps) has slope at most 1 / eps; eps 1e-3, as
+    in ``tests/test_torch_train.py``); attention ran through the forward
+    and backward kernels (deepseek-v3: MLA's naive form at D 192 / Dv
+    128, the MTP layer, the MoE's load-balance loss)."""
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(4, 400, size=(2, 48)).astype(np.int32),
+             "labels": rng.integers(4, 400, size=(2, 48)).astype(np.int32),
+             "loss_mask": np.ones((2, 48), np.float32)}
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, eps=1e-3)
+    res = {}
+    for d in ("cpu", "cuda"):
+        # a copy on each device: the step updates its parameters in place
+        _, _, grads = TL._grads(map_params(lambda t: t.to(d, copy=True),
+                                           params), cfg,
+                                TL.to_device(batch, d), FP32, True)
+        p = map_params(lambda t: t.to(d, copy=True), params)
+        st = OPT.init_state(p)
+        ops.reset_launch_counts()
+        p, st, m = TL.make_train_step(cfg, ocfg, FP32)(
+            p, st, TL.to_device(batch, d))
+        res[d] = (float(m["loss"]), float(m["gnorm"]),
+                  {k: t.detach().cpu() for k, t in OPT.flatten(p).items()},
+                  {k: g.abs().max().item() for k, g in grads.items()})
+    # one backward per attention layer (and the MTP layer); the forward
+    # once more per rematerialised layer
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd"] == cfg.num_layers + cfg.mtp
+    assert counts["flash_attention"] == 2 * cfg.num_layers + cfg.mtp
+    for a, b in zip(res["cuda"][:2], res["cpu"][:2]):
+        assert a == pytest.approx(b, rel=1e-5)
+    lr1 = OPT.lr_at(ocfg, 1)
+    for k, w in res["cpu"][2].items():
+        tol = 1e-5 * w.abs().max().item() \
+            + lr1 * 1e-4 * res["cpu"][3][k] / ocfg.eps
+        assert (res["cuda"][2][k] - w).abs().max().item() <= tol, k
+
+
+def test_xlstm_training_raises_on_card(dev):
+    """The mLSTM kernel has no backward: a train step of reduced xlstm on
+    the card raises, naming it, instead of returning gradients that skip
+    its layers."""
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    cfg = get_reduced("xlstm-125m")
+    p = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg, FP32)
+    b = {"tokens": torch.full((2, 16), 5, dtype=torch.int32, device=dev),
+         "labels": torch.full((2, 16), 6, dtype=torch.int32, device=dev),
+         "loss_mask": torch.ones(2, 16, device=dev)}
+    with pytest.raises(NotImplementedError,
+                       match="mlstm_chunked has no backward"):
+        TL.make_train_step(cfg, OPT.AdamWConfig(), FP32)(
+            p, OPT.init_state(p), b)
+
+
+def test_train_step_on_card_reads_nothing_back(dev):
+    """A train step of reduced qwen3-4b on the card (factored AdamW, two
+    microbatches, mixed precision) makes no host sync once warm: CUDA's
+    sync debug mode raises on any."""
+    from repro_torch.core.precision import MIXED
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    cfg = get_reduced("qwen3-4b")
+    p = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                      MIXED)
+    st = OPT.init_state(p, factored=True, model_cfg=cfg)
+    step = TL.make_train_step(cfg, OPT.AdamWConfig(factored=True), MIXED,
+                              grad_accum=2)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(4, 400, size=(4, 32)).astype(np.int32),
+             "labels": rng.integers(4, 400, size=(4, 32)).astype(np.int32),
+             "loss_mask": np.ones((4, 32), np.float32)}
+    b = TL.to_device(batch, dev)
+    p, st, _ = step(p, st, b)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, st, m = step(p, st, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(m["loss"]).item() and st.step == 2

@@ -199,7 +199,7 @@ def test_forwards_match_reference(arch):
                                                   policy=JP.FP32))(
         jparams, jnp.asarray(toks))
     with torch.no_grad():
-        tl = T.forward_train(params, cfg, torch.from_numpy(toks))
+        tl = T.forward_train(params, cfg, torch.from_numpy(toks))[0]
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
                                atol=TOL)
 
@@ -280,7 +280,8 @@ def test_long_context_override_ring():
                            for sp in st.pattern), st.repeats)
             for st in c.stacks))
     with torch.no_grad():
-        full = T.forward_train(params, windowed(cfg), torch.from_numpy(toks))
+        full = T.forward_train(params, windowed(cfg),
+                               torch.from_numpy(toks))[0]
     np.testing.assert_allclose(torch.stack(outs, 1).numpy(),
                                full[:, 1:].numpy(), rtol=TOL, atol=TOL)
     jfull, _ = JT.forward_train(jparams, windowed(jcfg), jnp.asarray(toks),

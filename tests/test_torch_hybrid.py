@@ -243,7 +243,7 @@ def test_hybrid_forwards_match_reference_past_the_window():
     cache = T.init_cache(cfg, 2, 128, torch.float32)
     assert cache["layers"][1]["pos"].shape[1] == 65          # the ring
     with torch.no_grad():
-        tl = T.forward_train(params, cfg, torch.from_numpy(toks))
+        tl = T.forward_train(params, cfg, torch.from_numpy(toks))[0]
         lp, _ = T.forward_prefill(params, cfg, torch.from_numpy(toks[:, :90]),
                                   t_lens, cache, max_len=128)
         ssm = cache["layers"][1]["ssm"].clone()

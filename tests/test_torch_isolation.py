@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     assert {"kernels/quant_matmul.py", "configs/qwen3_4b.py",
             "kernels/decode_attention.py", "core/precision.py",
-            "kernels/flash_attention.py", "core/speculative.py"} <= names
+            "kernels/flash_attention.py", "core/speculative.py",
+            "training/optimizer.py", "training/train_loop.py",
+            "training/checkpoint.py", "launch/train.py",
+            "data/pipeline.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert bad == []
@@ -66,6 +69,22 @@ def test_every_module_imports_without_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_flash_backward_wrapper_refuses_non_cuda_tensors(device):
+    """The flash backward wrapper raises for a non-CUDA tensor, and the
+    forward wrapper does so with ``return_lse`` too; no launch."""
+    z = torch.zeros(2, 3, 2, 16, device=device)
+    pos = torch.zeros(2, 3, dtype=torch.int32, device=device)
+    lse = torch.zeros(2, 2, 3, device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        FA.flash_attention_bwd(z, z, z, pos, pos, z, lse, z, window=None,
+                               scale=0.25)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        FA.flash_attention(z, z, z, pos, pos, window=None, scale=0.25,
+                           return_lse=True)
+    assert _no_launches()
 
 
 def test_engine_default_device_raises_without_cuda():

@@ -337,7 +337,7 @@ def test_forward_train_matches_reference(model):
     jlogits, _ = JT.forward_train(jparams, jcfg, jnp.asarray(toks),
                                   policy=J_FP32, remat=False)
     with torch.no_grad():
-        logits = T.forward_train(params, cfg, _t(toks), policy=FP32)
+        logits = T.forward_train(params, cfg, _t(toks), policy=FP32)[0]
     assert logits.shape == (2, 13, cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=0,
                                atol=1e-4)

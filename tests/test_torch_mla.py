@@ -253,7 +253,7 @@ def test_sigmoid_shared_moe_matches_reference(factor):
     assert (dropped > 0) == (factor is None)
     jout, jaux = jax.jit(lambda p_, x_: JM.moe_apply_capacity(
         jcfg, p_, x_, "sigmoid"))(jp, jnp.asarray(x.numpy()))
-    _close(M.moe_apply(cfg, p, x), jout)
+    _close(M.moe_apply(cfg, p, x)[0], jout)
     jscores = jax.nn.sigmoid(jnp.asarray(xf.numpy())
                              @ jnp.asarray(p["router"].numpy()))
     np.testing.assert_array_equal(tope.numpy(), np.asarray(

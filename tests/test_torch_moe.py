@@ -223,7 +223,7 @@ def test_moe_apply_matches_reference(case):
         jcfg, p_, x_))(jax.tree.map(lambda a: a.astype(jdt), jp),
                        jnp.asarray(x.numpy()).astype(jdt))
     pd = {k: v.to(dt) for k, v in p.items()}
-    out = M.moe_apply(cfg, pd, x.to(dt))
+    out = M.moe_apply(cfg, pd, x.to(dt))[0]
     assert out.dtype == dt
     tol = 2e-2 if case == "bf16" else TOL
     np.testing.assert_allclose(out.float().numpy(),
@@ -258,7 +258,7 @@ def test_moe_matches_dense_oracle():
     p = M.moe_init(torch.Generator().manual_seed(3), cfg)
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(2, 16, cfg.d_model)).astype(np.float32)) * 0.3
-    torch.testing.assert_close(M.moe_apply(cfg, p, x), _oracle(cfg, p, x),
+    torch.testing.assert_close(M.moe_apply(cfg, p, x)[0], _oracle(cfg, p, x),
                                rtol=5e-4, atol=5e-4)
 
 
@@ -271,7 +271,7 @@ def test_moe_capacity_drops_and_aux():
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(4, 32, cfg.d_model)).astype(np.float32))
     assert _dropped(cfg, p, x) > 0
-    assert torch.isfinite(M.moe_apply(cfg, p, x)).all()
+    assert torch.isfinite(M.moe_apply(cfg, p, x)[0]).all()
     # inputs of positive sum, so the collapsed router's column of 50s
     # sends every token to expert 0
     xf = x.reshape(-1, cfg.d_model).abs()
@@ -316,7 +316,7 @@ def test_forwards_match_reference():
     t_toks, t_lens = torch.from_numpy(toks), torch.from_numpy(lens)
     cache = T.init_cache(cfg, 2, 64, torch.float32)
     with torch.no_grad():
-        tl = T.forward_train(params, cfg, t_toks)
+        tl = T.forward_train(params, cfg, t_toks)[0]
         lp, _ = T.forward_prefill(params, cfg, t_toks, t_lens, cache,
                                   max_len=64)
         ld = [T.forward_decode(params, cfg, torch.from_numpy(

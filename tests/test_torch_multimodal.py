@@ -130,7 +130,8 @@ def test_forwards_match_reference(arch):
     tpre = None if pre is None else torch.from_numpy(pre)
     cache = T.init_cache(cfg, 2, MAX_LEN, torch.float32)
     with torch.no_grad():
-        tl = T.forward_train(params, cfg, t_toks[:, :12], prefix_embeds=tpre)
+        tl = T.forward_train(params, cfg, t_toks[:, :12],
+                             prefix_embeds=tpre)[0]
         lp, _ = T.forward_prefill(params, cfg, t_toks[:, :12], t_lens, cache,
                                   prefix_embeds=tpre, max_len=MAX_LEN)
         ld = [T.forward_decode(params, cfg, t_toks[:, 12 + i:13 + i], cache,
@@ -165,7 +166,7 @@ def test_decode_equals_teacher_forcing(arch):
     P_ = cfg.num_prefix_embeds
     cache = T.init_cache(cfg, 1, MAX_LEN, torch.float32)
     with torch.no_grad():
-        full = T.forward_train(params, cfg, t, prefix_embeds=tpre)[0]
+        full = T.forward_train(params, cfg, t, prefix_embeds=tpre)[0][0]
         lp, _ = T.forward_prefill(
             params, cfg, t[:, :12], torch.tensor([12 + P_]), cache,
             prefix_embeds=tpre, max_len=MAX_LEN, last_only=True)

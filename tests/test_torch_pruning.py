@@ -117,9 +117,9 @@ def test_kept_token_logits_invariant(models, arch):
     rng = np.random.default_rng(0)
     toks = rng.choice(maps.keep_ids[:100], size=(2, 8))
     with torch.no_grad():
-        lg1 = T.forward_train(params, cfg, torch.from_numpy(toks))
+        lg1 = T.forward_train(params, cfg, torch.from_numpy(toks))[0]
         lg2 = T.forward_train(p2, cfg2, torch.from_numpy(
-            PR.remap_tokens(toks, maps)))
+            PR.remap_tokens(toks, maps)))[0]
     assert lg2.shape[-1] == maps.new_vocab
     torch.testing.assert_close(lg1[..., torch.from_numpy(maps.keep_ids)],
                                lg2, rtol=1e-5, atol=1e-5)
@@ -133,8 +133,8 @@ def test_position_trim_invariance(models):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         4, cfg.vocab_size, size=(2, 16)))
     with torch.no_grad():
-        torch.testing.assert_close(T.forward_train(params, cfg, toks),
-                                   T.forward_train(p2, cfg2, toks),
+        torch.testing.assert_close(T.forward_train(params, cfg, toks)[0],
+                                   T.forward_train(p2, cfg2, toks)[0],
                                    rtol=1e-6, atol=1e-6)
 
 
