@@ -119,8 +119,11 @@ def load() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = [P] * 7 + [I] * 8 + [F, F, I, P]
     lib.flash_attention_launch.restype = I
     lib.flash_attention_bwd_launch.argtypes = ([P] * 12 + [I] * 8
-                                               + [F, F, I, P])
+                                               + [F, F] + [I] * 7 + [P, P])
     lib.flash_attention_bwd_launch.restype = I
+    lib.flash_attention_bwd_kernel_attrs.argtypes = [
+        I, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_bwd_kernel_attrs.restype = ctypes.c_char_p
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.quant_matmul_launch.argtypes = [P] * 6 + [I] * 7 + [P]

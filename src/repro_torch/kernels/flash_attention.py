@@ -23,6 +23,14 @@ For training, ``return_lse=True`` also returns each row's log-sum-exp,
 and :func:`flash_attention_bwd` is the gradient: the hand-written kernels
 of ``repro_torch/csrc/flash_attention_bwd.cu`` (the reference's Pallas
 kernel has none; it trains by differentiating its plain attention).
+bf16/fp16 run its tensor-core body in the geometry of :func:`bwd_plan`: a
+dQ kernel over blocks of 64 (query, head) rows (which also writes
+D = rowsum(dO o)), then a dK/dV kernel over blocks of 16 keys a warp that
+walk their kv head's (query, head) pairs, the g heads split over blocks
+where the grid would be under one wave (their fp32 partials added in
+order by a third launch), all on mma.sync with cp.async rings; no
+atomics, so two calls give the same bits.  fp32 keeps the CUDA-core body
+(three launches: D, dK/dV, dQ), whose fp32 products equal the CPU's.
 ``ops.FlashAttentionFn`` ties the two together for autograd.
 
 The wrappers take CUDA tensors only: they check device, dtype, layout and
@@ -34,7 +42,8 @@ launches in ``flash_attention.launches`` and
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,7 +52,109 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: F401
                                      flash_attention_ref)
 
 MAX_HEAD_DIM = 256
+MAX_SMEM = 232448          # bytes of shared memory a block may take (H100)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# the backward's tensor-core body (csrc/flash_attention_bwd.cu)
+BWD_TILE = 32              # keys (dQ) or (query, head) pairs (dK/dV) a tile
+BWD_WIN_TILES = 32         # tiles whose positions are read at once
+BWD_WARPS = 4              # warps of a block of either kernel
+BWD_DQ_ROWS = 16 * BWD_WARPS   # (query, head) rows of a dQ block
+BWD_SIMT_TILE = 32         # the fp32 body's keys or queries a block
+_BWD_BODIES = {"simt": 0, "mma": 1}
+
+
+class BwdPlan(NamedTuple):
+    """The launch geometry of :func:`flash_attention_bwd`, all of which the
+    launcher takes (``flash_attention_bwd_launch``): it sizes the grids and
+    the blocks' shared memory from it, and refuses a plan its kernels were
+    not built for."""
+    body: str          # "simt": fp32 on CUDA cores; "mma": tensor cores
+    block_keys: int    # keys of a dK/dV block
+    dq_rows: int       # rows of a dQ block: queries (simt), (query, head)
+    head_splits: int   # dK/dV blocks over the g query heads of a kv head
+    smem_dq: int       # shared-memory bytes of a dQ block
+    smem_dkdv: int     # ... and of a dK/dV block
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def bwd_dmax(D: int, Dv: int) -> int:
+    """The head-dim bucket of (D, Dv), as the forward's: the widest
+    accumulator a warp may need, which picks the tensor-core kernels."""
+    d = _round16(max(D, Dv))
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def bwd_block_keys(dmax: int) -> int:
+    """Keys of a dK/dV block: 16 a warp; above a head dim of 128 two warps
+    share 16 keys and split dK's and dV's columns, so that the two
+    accumulators stay within 128 registers a lane."""
+    return BWD_WARPS * 16 if dmax <= 128 else BWD_WARPS // 2 * 16
+
+
+def bwd_smem_bytes(D: int, Dv: int) -> tuple[int, int]:
+    """Shared-memory bytes of a (dQ, dK/dV) block of the tensor-core body:
+    the layouts ``DqSmem`` / ``DkdvSmem`` of
+    ``csrc/flash_attention_bwd.cu``, which the launcher holds this figure
+    to (rows of 2-byte elements padded to a multiple of 16, plus 16
+    bytes; a ring of 3 tiles, 2 in the 256 bucket so that two dK/dV blocks
+    fit an SM).  dQ: its 64 rows' Q, dO and o, then per stage a key tile's
+    K and V and its positions, then the rows' positions, lse and D, the
+    position window and the warps' live bits.  dK/dV: its keys' K and V,
+    then per stage a pair tile's Q and dO, lse, D and positions, then the
+    keys' positions, the window, the bits."""
+    kstr, vstr = (_round16(D) + 8) * 2, (_round16(Dv) + 8) * 2
+    dmax = bwd_dmax(D, Dv)
+    stages = 2 if dmax > 128 else 3
+    walk = BWD_WIN_TILES * BWD_TILE + BWD_WARPS
+    dq = (BWD_DQ_ROWS * (kstr + 2 * vstr)
+          + stages * (BWD_TILE * (kstr + vstr) + (BWD_TILE + 4) * 4)
+          + (3 * BWD_DQ_ROWS + walk) * 4)
+    keys = bwd_block_keys(dmax)
+    dkdv = (keys * (kstr + vstr)
+            + stages * (BWD_TILE * (kstr + vstr) + (3 * BWD_TILE + 4) * 4)
+            + (keys + walk) * 4)
+    return dq, dkdv
+
+
+def bwd_simt_smem_bytes(D: int, Dv: int) -> int:
+    """Shared-memory bytes of a block of the fp32 body: its 32 x 32 tiles
+    (``bwd_smem_floats`` in the source, which the launcher holds this
+    figure to)."""
+    t = BWD_SIMT_TILE
+    return 4 * (2 * t * (D + 1) + 2 * t * (Dv + 1) + t * (D + Dv)
+                + 2 * t * (t + 1) + 4 * t)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, Dv: int,
+             dtype: torch.dtype, sm_count: int) -> BwdPlan:
+    """The launch plan of :func:`flash_attention_bwd` on a card of
+    ``sm_count`` SMs.  fp32 keeps the CUDA-core body (TF32 tensor cores
+    would break the card-vs-CPU fp32 parity of training): 32 keys a dK/dV
+    block, 32 queries of one head a dQ block.  bf16/fp16: a dQ block takes
+    BWD_DQ_ROWS (query, head) rows of one kv head, a dK/dV block
+    :func:`bwd_block_keys`, and where the dK/dV grid (ceil(Sk / keys) x
+    Hkv x B blocks) is under one wave, its kv head's g query heads are
+    split over the fewest blocks that fill it (a divisor of g; g itself if
+    none does): each split then writes fp32 partials, added in split order
+    by a third launch.  Cached: a train step asks for the same few plans
+    every layer."""
+    if dtype == torch.float32:
+        s = bwd_simt_smem_bytes(D, Dv)
+        return BwdPlan("simt", BWD_SIMT_TILE, BWD_SIMT_TILE, 1, s, s)
+    keys = bwd_block_keys(bwd_dmax(D, Dv))
+    g = Hq // Hkv
+    blocks = -(-Sk // keys) * Hkv * B
+    head_splits = 1
+    if blocks < sm_count:
+        head_splits = next((d for d in range(1, g + 1)
+                            if g % d == 0 and blocks * d >= sm_count), g)
+    return BwdPlan("mma", keys, BWD_DQ_ROWS, head_splits,
+                   *bwd_smem_bytes(D, Dv))
 
 
 def _check(name, q, k, v, q_pos, k_pos, *extra):
@@ -136,9 +247,11 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *,
     forward's inputs, its output o and log-sum-exp lse (B, Hq, Sq) fp32,
     and the output's gradient do (B, Sq, Hq, Dv) at q's dtype, (dq, dk,
     dv) at q's dtype, summed over each kv head's query heads for dk and
-    dv.  Three launches (D = rowsum(do o), then dk / dv, then dq), counted
-    as one call; deterministic (no atomics)."""
-    from repro_torch.kernels import build
+    dv.  Two or three launches (fp32: D = rowsum(do o), dk / dv, dq;
+    bf16/fp16: dq with D, dk / dv, and the head splits' sum where
+    :func:`bwd_plan` splits), counted as one call;
+    deterministic (no atomics)."""
+    from repro_torch.kernels import build, scratch
     B, Sq, Sk, Hq, Hkv, D, Dv = _check("flash-attention backward", q, k, v,
                                        q_pos, k_pos, o, lse, do)
     if o.shape != (B, Sq, Hq, Dv) or do.shape != o.shape \
@@ -151,18 +264,30 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *,
     if not (o.is_contiguous() and do.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("the flash backward needs contiguous o, do and lse")
+    if q.dtype != torch.float32 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, o, do)):
+        raise ValueError("the tensor-core flash backward needs q, k, v, o "
+                         "and do 16-byte aligned")
     lib = build.load()
     dev = q.device
+    plan = bwd_plan(B, Sq, Sk, Hq, Hkv, D, Dv, q.dtype,
+                    scratch.sm_count(dev.index))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        part = (scratch.split_scratch(dev, stream, B * Sk * Hkv
+                                      * plan.head_splits * (D + Dv))
+                if plan.head_splits > 1 else None)
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, Sq, Sk,
             Hq, Hkv, D, Dv, *_mask_args(window, scale, attn_softcap),
-            torch.cuda.current_stream().cuda_stream)
+            _BWD_BODIES[plan.body], plan.block_keys, plan.dq_rows,
+            plan.head_splits, plan.smem_dq, plan.smem_dkdv,
+            part.data_ptr() if part is not None else None, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

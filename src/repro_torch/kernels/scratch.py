@@ -5,8 +5,10 @@ A launch that splits its reduction over several blocks (the tensor-core
 paged attention bodies, the bf16/fp16 ``quant_matmul`` bodies) writes each
 split's partial result to an fp32 scratch buffer, and the last block of a
 group to arrive, found with an int32 arrival counter, merges them and
-resets the counter.  Both buffers are allocated once per (device, stream)
-and grown as needed, so a launch allocates nothing.  Launches on one stream
+resets the counter.  The flash backward's split dK/dV blocks write their
+partials to the same buffer and a second launch adds them, in order.
+Both buffers are allocated once per (device, stream) and grown as
+needed, so a launch allocates nothing.  Launches on one stream
 run in order, so they may share the buffers; two streams never do, since
 two launches in flight at once would count their arrivals in the same
 counters.  A buffer that is grown is replaced by a larger one made on the

@@ -1966,7 +1966,16 @@ BWD_CASES = [(2, 77, 77, 4, 4, 64, 64, None, None, False),
              (2, 100, 100, 4, 2, 256, 256, 48, 50.0, False),
              (1, 70, 70, 8, 8, 192, 128, None, None, False),
              (3, 45, 45, 8, 2, 32, 32, 16, 30.0, True),
-             (2, 20, 90, 4, 1, 64, 64, None, None, True)]
+             (2, 20, 90, 4, 1, 64, 64, None, None, True),
+             # phi3-mini's head dim 96 (the 128 bucket's general kernels)
+             (2, 70, 70, 4, 4, 96, 96, None, None, False),
+             # internvl2-1b's g = 7 (14 / 2 heads) at D 64
+             (2, 50, 50, 14, 2, 64, 64, None, None, False),
+             # one query against Sk = 77, not a multiple of a key block
+             (3, 1, 77, 4, 2, 64, 64, None, None, False),
+             # a dK/dV grid under one wave: 2 x 8 x 1 blocks, the g = 4
+             # heads split over blocks and their partials summed
+             (1, 128, 128, 32, 8, 128, 128, None, None, False)]
 
 
 def _bwd_inputs(dev, dtype, B, Sq, Sk, Hq, Hkv, D, Dv, ragged, seed=0):
@@ -2015,6 +2024,78 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, B, Sq, Sk, Hq, Hkv, D,
         scale = w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() <= rel * scale
     assert not got[0][qp < 0].any()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,window,softcap,ragged",
+                         BWD_CASES)
+def test_flash_bwd_kernel_is_deterministic(dev, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                           window, softcap, ragged):
+    """Two calls of the bf16 backward on the same inputs give bit-identical
+    dq, dk and dv: no atomics, and a head split's partials are added in
+    split order."""
+    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, Sq, Sk, Hq,
+                                      Hkv, D, Dv, ragged)
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    first = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
+    second = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("head_splits", [1, 2, 4])
+@pytest.mark.parametrize("D,Dv", [(128, 128), (192, 128), (40, 40)])
+def test_flash_bwd_plans_match_plain(dev, head_splits, D, Dv):
+    """Every split of the g = 4 heads over dK/dV blocks (none, two, four)
+    gives the plain backward's gradients at bf16, at a head dim of each
+    bucket (a fixed-dim kernel, MLA's and a general one): the batch is the
+    fewest rows (two at least: the ragged inputs) whose own plan on this
+    card picks the split."""
+    from repro_torch.kernels import scratch
+    S, Hq, Hkv = 100, 8, 2
+    sm = scratch.sm_count(torch.cuda.current_device())
+    B = next(b for b in range(2, 4 * sm)
+             if FA.bwd_plan(b, S, S, Hq, Hkv, D, Dv, torch.bfloat16,
+                            sm).head_splits == head_splits)
+    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, S, S, Hq, Hkv,
+                                      D, Dv, True)
+    kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    got = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_ref(q, k, v, qp, kp, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() \
+            <= TOL[torch.bfloat16] * scale
+    assert not got[0][qp < 0].any()
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_flash_kernels_refuse_misaligned_views(dev, offset):
+    """The tensor-core bodies copy with 16-byte cp.async: a bf16 view whose
+    storage starts ``offset`` elements into its buffer (2 or 8 bytes off)
+    is refused by the forward's and the backward's wrappers before any
+    launch."""
+    B, S, H, D = 1, 16, 2, 64
+    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, S, S, H, H,
+                                      D, D, False)
+    kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    buf = torch.zeros(q.numel() + offset, dtype=q.dtype, device=dev)
+    bad = buf[offset:].view(q.shape)
+    bad.copy_(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    launches = (FA.flash_attention.launches,
+                FA.flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(bad, k, v, qp, kp, **kw)
+    for args in ((bad, k, v, qp, kp, o, lse, do),
+                 (q, k, v, qp, kp, o, lse, bad)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            FA.flash_attention_bwd(*args, **kw)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == launches
 
 
 def test_flash_attention_grads_through_ops_on_card(dev):
