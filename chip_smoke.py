@@ -14,8 +14,8 @@ that two versions are timed in one call on one card):
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
               ``dense_decode.cu``, ``flash_attention.cu``,
-              ``quant_matmul.cu``, ``mlstm_chunk.cu``, ``rmsnorm.cu`` and
-              ``flash_attention_bwd.cu``)
+              ``quant_matmul.cu``, ``mlstm_chunk.cu``, ``rmsnorm.cu``,
+              ``flash_attention_bwd.cu`` and ``mlstm_chunk_bwd.cu``)
               and report the build seconds and ptxas resource use
               (registers, spills)
   3. kernels  each kernel against its plain PyTorch version on the card at
@@ -220,18 +220,25 @@ that two versions are timed in one call on one card):
               window 4096, softcap 50), MLA's naive form (1 x 128, 128
               heads, D 192 / Dv 128) and a ragged case with rows that see
               no key, at fp32, bf16 and fp16 (timed against SDPA's
-              backward); ``train_parity``: one fp32 ``make_train_step`` of
-              each of eight reduced configs on the card equals the CPU's
-              (loss, gnorm, every parameter), and reduced xlstm-125m's
-              raises for the mLSTM kernel's missing backward; ``train``:
-              full-width unimo-text (24 layers) on packed batches of 8 x
-              128 over the Zipf corpus, 30 steps at fp32 and at mixed
-              precision, whose loss must fall by 0.3 nats, and qwen3-4b at
-              all 36 layers, mixed, factored AdamW, two microbatches, 3
-              steps (finite, every leaf moved), each with step seconds,
+              backward); the mLSTM backward kernel (from the forward
+              kernel's chunk states and h) against the plain backward at
+              xlstm-125m's width (8 rows, 4 heads x 384: S = 128 from the
+              zero state, S = 300 from a nonzero one), fp32 and bf16, two
+              calls bit-identical (S = 128 timed at both, S = 300 at bf16);
+              ``train_parity``: one fp32 ``make_train_step`` of each of
+              nine reduced configs (xlstm-125m's through both mLSTM
+              kernels) on the card equals the CPU's (loss, gnorm, every
+              gradient and parameter); ``train``: full-width unimo-text
+              (24 layers) on packed batches of 8 x 128 over the Zipf
+              corpus, 30 steps at fp32 and at mixed precision, whose loss
+              must fall by 0.3 nats, qwen3-4b at all 36 layers, mixed,
+              factored AdamW, two microbatches, 3 steps (finite, every
+              leaf moved), and xlstm-125m (12 layers, mixed) 10 steps
+              whose loss must fall by 0.3 nats, each with step seconds,
               train tokens/s, peak memory, launches (flash forward twice a
-              layer and step, the backward once, nothing else) and one
-              profiled step
+              layer and step, its backward once; xlstm: the mLSTM forward
+              twice an mLSTM layer and step, its backward once; nothing
+              else) and one profiled step
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -267,8 +274,10 @@ REPLACES = {
     "mlstm_chunked": "src/repro/kernels/mlstm_chunk.py:94",
     "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:37",
     "decode_attention": "src/repro/kernels/decode_attention.py:821",
-    # no TPU kernel: the reference's flash kernel has no backward
+    # no TPU kernel: the reference's flash and mLSTM kernels have no
+    # backward
     "flash_attention_bwd": None,
+    "mlstm_chunked_bwd": None,
 }
 SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
           for name in REPLACES}
@@ -278,6 +287,7 @@ SOURCE["mlstm_chunked"] = "src/repro_torch/csrc/mlstm_chunk.cu"
 SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
 SOURCE["decode_attention"] = "src/repro_torch/csrc/dense_decode.cu"
 SOURCE["flash_attention_bwd"] = "src/repro_torch/csrc/flash_attention_bwd.cu"
+SOURCE["mlstm_chunked_bwd"] = "src/repro_torch/csrc/mlstm_chunk_bwd.cu"
 # the device kernels each wrapper launches, by a part of their names
 KERNEL_SYMBOLS = {
     "paged_decode_attention": ("paged_decode_",),
@@ -292,6 +302,7 @@ KERNEL_SYMBOLS = {
     "fused_rmsnorm": ("rmsnorm_",),
     "decode_attention": ("dense_decode_",),
     "flash_attention_bwd": ("attn_bwd_",),
+    "mlstm_chunked_bwd": ("mlstm_bwd_",),
 }
 # the tensor-core bodies that bf16 must reach in the redesigned kernels
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
@@ -321,6 +332,15 @@ NOTES = {
                            "dK/dV, dQ), two or three at bf16 / fp16 (dQ "
                            "with D, dK/dV, and the head splits' sum where "
                            "the plan splits)",
+    "mlstm_chunked_bwd": "replaces null: the reference differentiates its "
+                         "jnp path (its Pallas mLSTM kernel has no "
+                         "backward); library_ms null: no single PyTorch "
+                         "call computes the chunkwise mLSTM's gradient; "
+                         "launches: the full-width xlstm-125m mixed "
+                         "training run (one per mLSTM layer and step); one "
+                         "call is two launches (the chunk walk per column "
+                         "tile, the tiles' ordered sums); timed case: the "
+                         "train shape 8 x 128 at bf16",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -1238,7 +1258,8 @@ def phase_kernels(check_bodies=True):
             "xlstm-125m S=300 nonzero state bfloat16", "4096 x 2560 bf16",
             "qwen3-4b heads 8 x 256 bf16",
             "qwen3-4b 2560->151936 M=8 bf16",
-            "unimo-text train 8 x 128 float32"}
+            "unimo-text train 8 x 128 float32",
+            "xlstm-125m train 8 x 128 bfloat16"}
     summary = {c["kernel"]: c for c in cases
                if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"]["regimes"] = [
@@ -1268,9 +1289,9 @@ def phase_kernels(check_bodies=True):
     summary["fused_rmsnorm"]["regimes"] = [
         c for c in cases if c["case"] in ("4096 x 2560 bf16",
                                           "4096 x 2560 fp32")]
-    summary["flash_attention_bwd"]["regimes"] = [
-        c for c in cases if c["kernel"] == "flash_attention_bwd"
-        and "kernel_ms" in c]
+    for name in ("flash_attention_bwd", "mlstm_chunked_bwd"):
+        summary[name]["regimes"] = [
+            c for c in cases if c["kernel"] == name and "kernel_ms" in c]
     return summary
 
 
@@ -3815,10 +3836,12 @@ def phase_serves_hybrid_mla():
 
 BWD_SYMBOLS = ("attn_bwd_",)
 # the reduced configs whose fp32 train step on the card must equal the
-# CPU's; xlstm-125m's must raise (the mLSTM kernel has no backward)
+# CPU's (xlstm-125m's through the mLSTM forward and backward kernels, the
+# rest through flash's)
 TRAIN_PARITY_ARCHS = ("unimo-text", "qwen3-4b", "gemma2-2b",
                       "qwen3-moe-235b-a22b", "deepseek-v3-671b",
-                      "hymba-1.5b", "internvl2-1b", "musicgen-medium")
+                      "hymba-1.5b", "internvl2-1b", "musicgen-medium",
+                      "xlstm-125m")
 TRAIN_PARITY_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 # full AdamW's first update g / (|g| + eps) has slope 1 / eps at g = 0: at
@@ -3833,6 +3856,10 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 8, 128
 TRAIN_LOSS_DROP = 0.3
 QWEN3_TRAIN_LAYERS = 36
 QWEN3_TRAIN_STEPS = 3
+# full-width xlstm-125m (all 12 layers, mixed): 10 steps (3.0 s each on
+# the H100: the sLSTM's per-step recurrence launches ~88k kernels a step)
+# take the loss down ~8 nats, far past TRAIN_LOSS_DROP
+XLSTM_TRAIN_STEPS = 10
 
 
 @timed_case
@@ -3935,15 +3962,113 @@ def bwd_kernel_attrs(lib):
     return out
 
 
+@timed_case
+def run_mlstm_bwd_case(rng, name, *, B, S, H, dh, dtype, state=False,
+                       timed=False):
+    """The mLSTM backward kernel on random q, k (scaled by dh^-1/2), v,
+    gates, h's gradient and (with ``state``) a nonzero initial state, from
+    the chunk states and h of the forward kernel's training launch, which
+    must give the serving launch's h bit for bit and the plain version's
+    chunk states (MLSTM_REL_TOL["C"]); against the plain backward on the
+    same states and h: dq, dk, dv within TOL of their dtype and di, dlogf
+    within TOL["float32"] of each gradient's largest magnitude; two calls
+    bit-identical.  ``timed``: the kernel and the plain backward (no
+    PyTorch call computes it), and the bound: q, k, v, the gates, the
+    chunk states, h and dh read, the five gradients written once, or the
+    backward's products (per step the four dh x dh state products and
+    five causal intra-chunk ones of dh each), the larger."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as MC
+    dev = torch.device("cuda")
+
+    def r(*shape):
+        return torch.randn(*shape, generator=rng, device=dev)
+    q, k, v = (r(B, S, H, dh).to(dtype) for _ in range(3))
+    k = (k.float() * dh ** -0.5).to(dtype)
+    i_pre = r(B, S, H)
+    logf = torch.nn.functional.logsigmoid(r(B, S, H) + 2)
+    st = {"C": r(B, H, dh, dh) * 0.1 if state else
+          torch.zeros(B, H, dh, dh, device=dev),
+          "n": r(B, H, dh).abs() if state else torch.zeros(B, H, dh,
+                                                           device=dev),
+          "m": r(B, H) if state else torch.zeros(B, H, device=dev)}
+    dh_out = r(B, S, H, dh)
+    args = (q, k, v, i_pre, logf)
+    h_serve, _ = MC.mlstm_chunked(*args, st)
+    h, _, states = MC.mlstm_chunked(*args, st, return_states=True)
+    got = MC.mlstm_chunked_bwd(*args, states, h, dh_out)
+    again = MC.mlstm_chunked_bwd(*args, states, h, dh_out)
+    plain = MC.mlstm_chunked_bwd_ref(*args, states, h, dh_out,
+                                     chunk=MC.CHUNK)
+    _, _, plain_st = MC.mlstm_chunked_ref(*args, st, chunk=MC.CHUNK,
+                                          return_states=True)
+    torch.cuda.synchronize()
+    st_err = {key: (states[key] - plain_st[key]).abs().max().item()
+              / max(plain_st[key].abs().max().item(), 1.0)
+              for key in ("C", "n", "m")}
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    errs, rels = {}, {}
+    for i, (n, g, w) in enumerate(zip(("dq", "dk", "dv", "di", "dlogf"),
+                                      got, plain)):
+        errs[n] = (g.float() - w.float()).abs().max().item()
+        rels[n] = errs[n] / max(w.float().abs().max().item(), 1e-30)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (deterministic and torch.equal(h, h_serve)
+          and all(e <= MLSTM_REL_TOL["C"] for e in st_err.values())
+          and all(rels[n] <= (tol if i < 3 else TOL["float32"])
+                  for i, n in enumerate(rels)))
+    res = {"case": name, "kernel": "mlstm_chunked_bwd", "B": B, "S": S,
+           "H": H, "dh": dh, "max_abs_err": max(errs.values()),
+           "errs": errs, "rel_errs": rels, "state_rel_errs": st_err,
+           "tol": {"dq_dk_dv": tol, "di_dlogf": TOL["float32"],
+                   "chunk_states": MLSTM_REL_TOL["C"]},
+           "deterministic": deterministic,
+           "h_equals_serving_launch": torch.equal(h, h_serve),
+           "ok": bool(ok)}
+    if timed:
+        res.update(timings(
+            "mlstm_chunked_bwd",
+            lambda: MC.mlstm_chunked_bwd(*args, states, h, dh_out),
+            lambda: MC.mlstm_chunked_bwd_ref(*args, states, h, dh_out,
+                                             chunk=MC.CHUNK), None))
+        L = MC.CHUNK
+        flops = 2 * B * H * S * dh * (4 * dh + 5 * (L + 1) / 2)
+        el = q.element_size()
+        nbytes = (2 * 3 * q.numel() * el + 4 * 4 * i_pre.numel()
+                  + 4 * sum(t.numel() for t in states.values())
+                  + 4 * (h.numel() + dh_out.numel()))
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, dtype)
+    return res
+
+
+def mlstm_bwd_cases(rng):
+    """The mLSTM backward kernel at xlstm-125m's width (8 rows, 4 heads x
+    384): the train shape S = 128 from the zero state, and a ragged S =
+    300 from a nonzero state (which takes no gradient), at fp32 and bf16;
+    S = 128 timed at both, S = 300 at bf16."""
+    import torch
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_mlstm_bwd_case(
+            rng, f"xlstm-125m train 8 x 128 {dn}", B=8, S=128, H=4, dh=384,
+            dtype=dtype, timed=True))
+        cases.append(run_mlstm_bwd_case(
+            rng, f"xlstm-125m 8 x 300 nonzero state {dn}", B=8, S=300, H=4,
+            dh=384, dtype=dtype, state=True, timed=dtype == torch.bfloat16))
+    return cases
+
+
 def train_kernel_cases(rng):
-    """The backward kernel at the train shapes: unimo-text (8 x 128, 16 x
-    64, MHA), qwen3-4b's microbatch (4 x 128, 32 / 8 x 128), gemma2-2b (4
-    x 256, 8 / 4 x 256, window 4096, softcap 50), MLA's naive form (1 x
-    128, 128 heads, D 192 / Dv 128) and a ragged case with -1 positions
-    and rows that see no key; each at fp32, bf16 and fp16, the train
-    shapes timed at bf16 (and unimo-text at fp32, the fp32 run's dtype,
-    and qwen3-4b at fp16).  Every case runs the kernel twice and must get
-    the same bits."""
+    """The backward kernels at the train shapes.  Flash: unimo-text (8 x
+    128, 16 x 64, MHA), qwen3-4b's microbatch (4 x 128, 32 / 8 x 128),
+    gemma2-2b (4 x 256, 8 / 4 x 256, window 4096, softcap 50), MLA's naive
+    form (1 x 128, 128 heads, D 192 / Dv 128) and a ragged case with -1
+    positions and rows that see no key; each at fp32, bf16 and fp16, the
+    train shapes timed at bf16 (and unimo-text at fp32, the fp32 run's
+    dtype, and qwen3-4b at fp16).  Then the mLSTM backward
+    (:func:`mlstm_bwd_cases`).  Every case runs the kernel twice and must
+    get the same bits."""
     import torch
     shapes = {
         "unimo-text train 8 x 128": dict(B=8, S=128, Hq=16, Hkv=16, D=64),
@@ -3965,7 +4090,7 @@ def train_kernel_cases(rng):
                 or (dtype == torch.float16 and name.startswith("qwen3")))
             cases.append(run_flash_bwd_case(rng, f"{name} {dn}",
                                             dtype=dtype, timed=timed, **kw))
-    return cases
+    return cases + mlstm_bwd_cases(rng)
 
 
 def _train_batch(cfg, rng, B, S):
@@ -3992,9 +4117,8 @@ def phase_train_parity():
     largest magnitude plus the gradient's tolerance carried through the
     first update (lr x TRAIN_GRAD_TOL x the leaf's largest gradient / eps:
     g / (|g| + eps) has slope at most 1 / eps).  On the card the
-    attention ran through the flash forward and backward kernels.  Then
-    reduced xlstm-125m's step on the card must raise for the mLSTM
-    kernel's missing backward."""
+    attention ran through the flash forward and backward kernels, and
+    xlstm-125m's mLSTM layers through the mLSTM ones."""
     import torch
     from repro_torch.configs.registry import get_reduced
     from repro_torch.core.precision import FP32, map_params
@@ -4046,8 +4170,10 @@ def phase_train_parity():
             if e / max(tol, 1e-30) > worst["param"][0]:
                 worst["param"] = (e / max(tol, 1e-30), k)
             ok &= e <= tol
+        bwd = ("mlstm_chunked_bwd" if arch == "xlstm-125m"
+               else "flash_attention_bwd")
         ok &= (all(v <= TRAIN_PARITY_TOL for v in rel.values())
-               and counts["flash_attention_bwd"] > 0)
+               and counts[bwd] > 0)
         emit("train_parity", arch=arch, loss=res["cuda"][0],
              loss_cpu=res["cpu"][0], rel_err=rel,
              worst_grad_rel_err=worst["grad"],
@@ -4057,20 +4183,6 @@ def phase_train_parity():
              launches={k: v for k, v in counts.items() if v}, ok=bool(ok))
         if not ok:
             failed.append(arch)
-    cfg = get_reduced("xlstm-125m")
-    p = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
-                      FP32)
-    batch = TL.to_device(_train_batch(cfg, np.random.default_rng(1), 2, 16),
-                         "cuda")
-    try:
-        TL.make_train_step(cfg, ocfg, FP32)(p, OPT.init_state(p), batch)
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    emit("train_parity", arch=cfg.name, raised=raised,
-         ok=raised is not None and "mlstm_chunked has no backward" in raised)
-    if raised is None or "mlstm_chunked" not in raised:
-        failed.append(cfg.name)
     if failed:
         raise SystemExit(f"train parity failed: {failed}")
 
@@ -4078,6 +4190,7 @@ def phase_train_parity():
 def _profile_step(step, label, wall):
     """One more train step under torch.profiler (device activity): busy
     time, its share of ``wall`` (the run's unprofiled seconds a step),
+    the device ms of the flash and mLSTM forward and backward kernels,
     the top device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4092,12 +4205,14 @@ def _profile_step(step, label, wall):
             by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     busy = sum(us for us, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    bwd = sum(us for k, (us, _) in by_name.items() if "attn_bwd_" in k)
-    fwd = sum(us for k, (us, _) in by_name.items() if "flash_" in k)
+    def ms(part):
+        return sum(us for k, (us, _) in by_name.items() if part in k) / 1e3
     return {"label": label, "step_wall_s": wall, "device_busy_s": busy,
             "device_idle_frac": max(0.0, 1.0 - busy / wall),
             "kernels_launched": sum(n for _, n in by_name.values()),
-            "flash_fwd_ms": fwd / 1e3, "flash_bwd_ms": bwd / 1e3,
+            "flash_fwd_ms": ms("flash_"), "flash_bwd_ms": ms("attn_bwd_"),
+            "mlstm_fwd_ms": ms("mlstm_chunk_"),
+            "mlstm_bwd_ms": ms("mlstm_bwd_"),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, (us, n) in top]}
 
@@ -4169,14 +4284,19 @@ def phase_train():
     layers, mixed, factored AdamW, two microbatches of 4 rows, 3 steps:
     finite losses and gnorms, every leaf moved.  Each run's attention ran
     through the flash forward and backward kernels and nothing else of the
-    port's.  Returns (the unimo-text fp32 run's launch counts, each run's
-    launch counts by label)."""
+    port's.  Last, xlstm-125m (all 12 layers, mixed) as unimo-text,
+    XLSTM_TRAIN_STEPS steps: the loss must fall by TRAIN_LOSS_DROP, its
+    six mLSTM layers through the mLSTM forward kernel (twice a layer and
+    step: remat) and the backward kernel (once), nothing else of the
+    port's.  Returns (the unimo-text fp32 run's launch counts, the
+    xlstm-125m run's, each run's launch counts by label)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import FP32, MIXED
     from repro_torch.core.tokenizer import FastTokenizer
     from repro_torch.data.pipeline import packed_batches, synthetic_corpus
     from repro_torch.models import transformer as T
+    from repro_torch.configs.base import MLSTM, layer_specs
     from repro_torch.training import optimizer as OPT
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = synthetic_corpus(2000)
@@ -4219,9 +4339,32 @@ def phase_train():
         failed.append((label, out["losses"], out["leaves_not_moved"][:5]))
     del params
     torch.cuda.empty_cache()
+    cfg = get_config("xlstm-125m")
+    n_mlstm = sum(s.mixer == MLSTM for s in layer_specs(cfg))
+    tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, MIXED)
+    batches = packed_batches(tok, corpus, batch_size=TRAIN_B,
+                             seq_len=TRAIN_S)
+    label = "xlstm-125m mixed"
+    out, seen[label] = _train_run(
+        cfg, params, batches, label=label, policy=MIXED, policy_name="mixed",
+        steps=XLSTM_TRAIN_STEPS,
+        opt_cfg=OPT.AdamWConfig(lr=1e-3, warmup_steps=5,
+                                total_steps=XLSTM_TRAIN_STEPS))
+    drop = out["losses"][0] - out["losses"][-1]
+    n = n_mlstm * XLSTM_TRAIN_STEPS
+    if not (drop >= TRAIN_LOSS_DROP
+            and seen[label]["mlstm_chunked_bwd"] == n
+            and seen[label]["mlstm_chunked"] == 2 * n
+            and sum(seen[label].values()) == 3 * n):
+        failed.append((label, drop, seen[label]))
+    del params
+    torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"training on the card failed: {failed}")
-    return seen["unimo-text fp32"], seen
+    return seen["unimo-text fp32"], seen[label], seen
 
 
 def _qwen3_train_model():
@@ -4303,8 +4446,9 @@ def main(argv=None) -> int:
     family = phase_serves_families()
     family.update(phase_serves_moe_mm())
     family.update(phase_serves_hybrid_mla())
-    train_launches, train_runs = phase_train()
+    train_launches, xlstm_train, train_runs = phase_train()
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches["mlstm_chunked_bwd"] = xlstm_train["mlstm_chunked_bwd"]
     family.update(train_runs)
 
     kernels = []

@@ -58,6 +58,13 @@
 //    must keep equalling the CPU's; fp16's 11-bit values would need two
 //    bf16 parts each).  Each block keeps its dh x 64 slice of C in shared
 //    memory; every product is a serial fp32 dot product.
+//
+// For training, mlstm_chunk_states_launch runs the same bodies, compiled
+// with kStates, which also write the state (C, n, m) at the start of every
+// chunk for the backward (mlstm_chunk_bwd.cu) to read instead of
+// recomputing it: each column tile block writes its columns of C, tile 0 n
+// and m, as for the final state.  The serving path (mlstm_chunk_launch)
+// runs the bodies without kStates, whose code is the same as before.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,6 +98,9 @@ struct Params {
   float* m;
   int B, S, H, dh;
   int te;             // tensor-core body: value columns per block
+  float* Cst;         // null, or the state at each chunk's start:
+  float* nst;         //   (B,H,NC,dh,dh), (B,H,NC,dh), (B,H,NC) with
+  float* mst;         //   NC = ceil(S / L)
 };
 
 __host__ __device__ inline size_t smem_floats(int dh) {
@@ -103,7 +113,7 @@ __host__ __device__ inline size_t smem_floats(int dh) {
 
 // grid (B * H, ceil(dh / kTileE)): block (bh, y) owns C[b, h][:, cols]
 // with cols = [y * kTileE, y * kTileE + te) and walks every chunk.
-template <typename T>
+template <typename T, bool kStates>
 __global__ void __launch_bounds__(kThreads) mlstm_chunk_kernel(Params p) {
   extern __shared__ float smem[];
   __shared__ float m_prev, m_next, decay;
@@ -139,6 +149,17 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunk_kernel(Params p) {
   for (int c0 = 0; c0 < p.S; c0 += L) {
     const int Lc = min(L, p.S - c0);             // ragged last chunk
     const long row0 = ((long)b * p.S + c0) * p.H + hh;  // (b, c0, h)
+    if constexpr (kStates) {                     // the chunk's start state
+      const long cs = sbh * ((p.S + L - 1) / L) + c0 / L;
+      for (int i = tid; i < dh * kTileE; i += kThreads) {
+        const int d = i / kTileE, e = i % kTileE;
+        if (e < te) p.Cst[(cs * dh + d) * dh + e0 + e] = Cs[i];
+      }
+      if (blockIdx.y == 0) {
+        for (int d = tid; d < dh; d += kThreads) p.nst[cs * dh + d] = ns[d];
+        if (tid == 0) p.mst[cs] = m_prev;
+      }
+    }
     for (int i = tid; i < Lc * dh; i += kThreads) {
       const int t = i / dh, d = i % dh;
       const long src = (row0 + (long)t * p.H) * dh + d;
@@ -344,10 +365,27 @@ __device__ __forceinline__ void split_store(float x, __nv_bfloat16* dst,
   }
 }
 
+// A warp's fragments of C^T (columns d = d0 + 8 nt, + 1 with d0 = d_lo +
+// 2 tig; rows e = ea, ea + 8) into a (dh, dh) state, columns e < e_end.
+__device__ __forceinline__ void store_ct(const float (&c)[kMmaMaxNT][4],
+                                         float* Cout, int dh, int d0, int ea,
+                                         int ntiles, int e_end) {
+#pragma unroll
+  for (int nt = 0; nt < kMmaMaxNT; ++nt) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int d = d0 + nt * 8 + (x & 1);
+      const int e = ea + (x >> 1) * 8;
+      if (nt < ntiles && d < dh && e < e_end) Cout[(long)d * dh + e] = c[nt][x];
+    }
+  }
+}
+
 // grid (B * H, ceil(dh / te)), (te / 16) x groups warps: warp (eg, dg)
 // holds C^T[e][d] for the block's columns e0 + 16 eg .. + 15 and d in
 // column group dg as accumulator fragments c[nt] (rows e = gid, gid + 8;
 // columns d = d_lo + 8 nt + 2 tig, + 1) from the first chunk to the last.
+template <bool kStates>
 __global__ void __launch_bounds__(kMmaMaxWarps * 32, 1)
     mlstm_chunk_mma_kernel(Params p) {
   extern __shared__ __align__(16) char sm[];
@@ -448,6 +486,15 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32, 1)
     const long row0 = ((long)b * p.S + c0) * p.H + hh;
     cp_async_wait<0>();
     __syncthreads();             // this chunk's stage is in; the other free
+    if constexpr (kStates) {     // the chunk's start state (n, m: tile 0)
+      const long cs = sbh * ((p.S + L - 1) / L) + c0 / L;
+      store_ct(c, p.Cst + cs * dh * dh, dh, d_lo + 2 * tig,
+               e0 + eg * 16 + gid, ntiles, e0 + te_valid);
+      if (blockIdx.y == 0) {
+        for (int d = tid; d < dh; d += nthreads) p.nst[cs * dh + d] = ns[d];
+        if (tid == 0) p.mst[cs] = scal[0];
+      }
+    }
     if (c0 + L < p.S) issue(c0 + L, st ^ 1);
     cp_async_commit();
     const char* qs = sm + Ls.q + st * L * qst;
@@ -737,6 +784,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32, 1)
 // The tensor-core body's launch, if its plan fits: bf16 q/k/v rows of dh
 // (a multiple of 8, at most 2 x kMmaMaxDW) elements, te a multiple of 16,
 // at most kMmaMaxWarps warps, the layout within 227 KB.
+template <bool kStates>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   if (p.dh % 8 || p.dh > 2 * kMmaMaxDW || p.te < 16 || p.te % 16)
     return cudaErrorInvalidValue;
@@ -744,21 +792,53 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   const int warps = p.te / 16 * Ls.groups;
   if (warps > kMmaMaxWarps || Ls.total > 227 * 1024)
     return cudaErrorInvalidValue;
-  cudaError_t e = opt_in_smem((const void*)mlstm_chunk_mma_kernel, Ls.total);
+  cudaError_t e =
+      opt_in_smem((const void*)mlstm_chunk_mma_kernel<kStates>, Ls.total);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.B * p.H, (p.dh + p.te - 1) / p.te);
-  mlstm_chunk_mma_kernel<<<grid, warps * 32, Ls.total, stream>>>(p);
+  mlstm_chunk_mma_kernel<kStates><<<grid, warps * 32, Ls.total, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kStates>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_floats(p.dh) * sizeof(float);
-  cudaError_t e = opt_in_smem((const void*)mlstm_chunk_kernel<T>, smem);
+  cudaError_t e =
+      opt_in_smem((const void*)mlstm_chunk_kernel<T, kStates>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.B * p.H, (p.dh + kTileE - 1) / kTileE);
-  mlstm_chunk_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  mlstm_chunk_kernel<T, kStates><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The body's launch (checked against q's dtype), with or without the
+// chunk states.
+template <bool kStates>
+int launch_body(const Params& p, int dtype, int body, cudaStream_t s) {
+  if (body == 1)
+    return dtype == 2 ? (int)launch_mma<kStates>(p, s)
+                      : (int)cudaErrorInvalidValue;
+  if (body != 0) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return (int)launch<float, kStates>(p, s);
+    case 1: return (int)launch<__half, kStates>(p, s);
+    case 2: return (int)launch<__nv_bfloat16, kStates>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* ig, const void* lf, const void* C0,
+                   const void* n0, const void* m0, void* h, void* C, void* n,
+                   void* m, void* Cst, void* nst, void* mst, int B, int S,
+                   int H, int dh, int te) {
+  return Params{q, k, v, static_cast<const float*>(ig),
+                static_cast<const float*>(lf), static_cast<const float*>(C0),
+                static_cast<const float*>(n0), static_cast<const float*>(m0),
+                static_cast<float*>(h), static_cast<float*>(C),
+                static_cast<float*>(n), static_cast<float*>(m), B, S, H, dh,
+                te, static_cast<float*>(Cst), static_cast<float*>(nst),
+                static_cast<float*>(mst)};
 }
 
 }  // namespace
@@ -773,21 +853,26 @@ extern "C" int mlstm_chunk_launch(const void* q, const void* k, const void* v,
                                   const void* m0, void* h, void* C, void* n,
                                   void* m, int dtype, int B, int S, int H,
                                   int dh, int body, int te, void* stream) {
-  Params p{q, k, v, static_cast<const float*>(ig),
-           static_cast<const float*>(lf), static_cast<const float*>(C0),
-           static_cast<const float*>(n0), static_cast<const float*>(m0),
-           static_cast<float*>(h), static_cast<float*>(C),
-           static_cast<float*>(n), static_cast<float*>(m), B, S, H, dh, te};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == 1)
-    return dtype == 2 ? (int)launch_mma(p, s) : (int)cudaErrorInvalidValue;
-  if (body != 0) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return (int)launch<float>(p, s);
-    case 1: return (int)launch<__half>(p, s);
-    case 2: return (int)launch<__nv_bfloat16>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_body<false>(
+      make_params(q, k, v, ig, lf, C0, n0, m0, h, C, n, m, nullptr, nullptr,
+                  nullptr, B, S, H, dh, te),
+      dtype, body, static_cast<cudaStream_t>(stream));
+}
+
+// The forward for training: mlstm_chunk_launch's arguments, then the
+// state at the start of every chunk (Cst (B,H,NC,dh,dh), nst (B,H,NC,dh),
+// mst (B,H,NC) fp32, NC = ceil(S / 32)), written beside h and the final
+// state by the kStates bodies.
+extern "C" int mlstm_chunk_states_launch(
+    const void* q, const void* k, const void* v, const void* ig,
+    const void* lf, const void* C0, const void* n0, const void* m0, void* h,
+    void* C, void* n, void* m, void* Cst, void* nst, void* mst, int dtype,
+    int B, int S, int H, int dh, int body, int te, void* stream) {
+  if (!Cst || !nst || !mst) return (int)cudaErrorInvalidValue;
+  return launch_body<true>(
+      make_params(q, k, v, ig, lf, C0, n0, m0, h, C, n, m, Cst, nst, mst, B,
+                  S, H, dh, te),
+      dtype, body, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared-memory bytes a launch of ``body`` needs at head dim dh

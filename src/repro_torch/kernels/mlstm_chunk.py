@@ -17,12 +17,20 @@ block carries: bf16 q/k/v run on the tensor cores (bf16 parts of the
 fp32 operands summed in fp32), fp32 and fp16 on CUDA cores (see
 ``csrc/mlstm_chunk.cu``).
 
-The wrapper takes CUDA tensors only: it checks device, dtype, layout,
-shapes and the shared memory the launch needs, allocates the outputs,
-launches on the current stream and raises if the launch failed.  It never
-falls back to the plain version; dispatch by device lives in
-:mod:`repro_torch.kernels.ops`.  It counts its launches in
-``mlstm_chunked.launches``.
+:func:`mlstm_chunked_bwd` is its backward, the hand-written kernel in
+``repro_torch/csrc/mlstm_chunk_bwd.cu`` (the reference has none: it
+differentiates its jnp path with ``jax.grad``).  It takes the state at
+the start of every chunk, which the forward keeps when asked
+(``return_states=True``), h and h's gradient, and returns the gradients
+of q, k, v and both gates; ``ops.MlstmChunkedFn`` ties the two together
+for autograd.
+
+The wrappers take CUDA tensors only: they check device, dtype, layout,
+shapes and the shared memory the launch needs, allocate the outputs,
+launch on the current stream and raise if the launch failed.  They never
+fall back to the plain version; dispatch by device lives in
+:mod:`repro_torch.kernels.ops`.  They count their launches in
+``mlstm_chunked.launches`` and ``mlstm_chunked_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -31,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import scratch
-from repro_torch.kernels.ref import mlstm_chunked_ref  # noqa: F401
+from repro_torch.kernels.ref import (mlstm_chunked_bwd_ref,  # noqa: F401
+                                     mlstm_chunked_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 BODIES = ("simt", "mma")      # codes 0, 1 in the kernel
@@ -42,6 +51,8 @@ MMA_MAX_DW = 192              # columns of C^T a warp holds (kMmaMaxDW)
 # bf16 parts of the fp32 operands (kPartsC/S/W): C in q C, the weighted
 # scores in S V, w_j v_j in the update of C
 MMA_PARTS = {"C": 2, "S": 2, "W": 3}
+BWD_TILE_E = 32               # value columns per backward block (kTE)
+BWD_THREADS = 256
 
 
 class MlstmPlan(NamedTuple):
@@ -112,41 +123,62 @@ def mlstm_plan(B: int, H: int, dh: int, dtype: torch.dtype, aligned: bool,
     return MlstmPlan("simt", SIMT_TILE_E, CHUNK, simt_smem_bytes(dh))
 
 
-def mlstm_chunked(q, k, v, i_pre, logf, state):
-    """q, k, v: (B, S, H, dh) at one of fp32, fp16, bf16; i_pre / logf:
-    (B, S, H) fp32; state: {"C": (B,H,dh,dh), "n": (B,H,dh), "m": (B,H)}
-    fp32.  Returns h (B, S, H, dh) fp32 and the final state (new tensors;
-    the initial state is not written)."""
-    from repro_torch.kernels import build
-    C0, n0, m0 = state["C"], state["n"], state["m"]
-    tensors = (q, k, v, i_pre, logf, C0, n0, m0)
+def _check(name, q, k, v, i_pre, logf, C0, n0, m0, *more):
+    """The common checks of both wrappers: CUDA tensors on one device,
+    contiguous, q/k/v of one kernel dtype, the rest fp32, the shapes of
+    (B, S, H, dh) heads and a (B, H, dh, dh) state (C0: the initial state,
+    or the chunk states (B, H, NC, dh, dh) with ``n0`` / ``m0`` likewise);
+    ``more`` are fp32 (B, S, H, dh) tensors.  Returns (B, S, H, dh)."""
+    tensors = (q, k, v, i_pre, logf, C0, n0, m0, *more)
     if not all(t.is_cuda for t in tensors):
-        raise ValueError("the CUDA mLSTM kernel takes CUDA tensors only "
+        raise ValueError(f"the CUDA {name} kernel takes CUDA tensors only "
                          "(CPU tensors go to the plain version through "
                          "repro_torch.kernels.ops)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the mLSTM kernel needs contiguous inputs")
+        raise ValueError(f"the {name} kernel needs contiguous inputs")
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q/k/v must share one of fp32, fp16, bf16 (got "
                          f"{q.dtype}, {k.dtype}, {v.dtype})")
-    if not all(t.dtype == torch.float32 for t in (i_pre, logf, C0, n0, m0)):
+    if not all(t.dtype == torch.float32
+               for t in (i_pre, logf, C0, n0, m0, *more)):
         raise ValueError("gates and state must be fp32")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, S, H, dh), got {tuple(q.shape)}")
     B, S, H, dh = q.shape
+    lead = C0.shape[:-2]
     if k.shape != q.shape or v.shape != q.shape \
             or i_pre.shape != (B, S, H) or logf.shape != (B, S, H) \
-            or C0.shape != (B, H, dh, dh) or n0.shape != (B, H, dh) \
-            or m0.shape != (B, H):
+            or lead[:2] != (B, H) or C0.shape[-2:] != (dh, dh) \
+            or n0.shape != (*lead, dh) or m0.shape != lead \
+            or any(t.shape != q.shape for t in more):
         raise ValueError(f"shapes do not fit q {tuple(q.shape)}: k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, gates "
                          f"{tuple(i_pre.shape)}/{tuple(logf.shape)}, state "
                          f"{tuple(C0.shape)}/{tuple(n0.shape)}/"
-                         f"{tuple(m0.shape)}")
+                         f"{tuple(m0.shape)}, "
+                         f"{[tuple(t.shape) for t in more]}")
     if S < 1 or dh < 1:
         raise ValueError(f"S={S}, dh={dh}: both must be at least 1")
+    return B, S, H, dh
+
+
+def mlstm_chunked(q, k, v, i_pre, logf, state, *, return_states=False):
+    """q, k, v: (B, S, H, dh) at one of fp32, fp16, bf16; i_pre / logf:
+    (B, S, H) fp32; state: {"C": (B,H,dh,dh), "n": (B,H,dh), "m": (B,H)}
+    fp32.  Returns h (B, S, H, dh) fp32 and the final state (new tensors;
+    the initial state is not written).  With ``return_states`` (training)
+    also the state at the start of every 32-step chunk, {"C":
+    (B,H,NC,dh,dh), "n": (B,H,NC,dh), "m": (B,H,NC)}, NC = ceil(S / 32),
+    written by the same launch (what :func:`mlstm_chunked_bwd` takes);
+    without, the launch is the serving path's and writes none."""
+    from repro_torch.kernels import build
+    C0, n0, m0 = state["C"], state["n"], state["m"]
+    if C0.dim() != 4:
+        raise ValueError(f"the initial state C must be (B, H, dh, dh), got "
+                         f"{tuple(C0.shape)}")
+    B, S, H, dh = _check("mLSTM", q, k, v, i_pre, logf, C0, n0, m0)
     lib = build.load()
     limit = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
@@ -158,19 +190,95 @@ def mlstm_chunked(q, k, v, i_pre, logf, state):
                          f"memory per block; the device allows {limit}")
     h = torch.empty((B, S, H, dh), dtype=torch.float32, device=q.device)
     C, n, m = (torch.empty_like(t) for t in (C0, n0, m0))
-    with torch.cuda.device(q.device):
-        err = lib.mlstm_chunk_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
             logf.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, S, H, dh, BODIES.index(plan.body),
+            h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr())
+    tail = (_DTYPE_CODES[q.dtype], B, S, H, dh, BODIES.index(plan.body),
             plan.te, torch.cuda.current_stream().cuda_stream)
-    if err:
-        msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"mlstm_chunked launch failed: CUDA error {err} "
-                           f"({msg})")
+    if return_states:
+        NC = -(-S // CHUNK)
+        states = {"C": q.new_empty((B, H, NC, dh, dh), dtype=torch.float32),
+                  "n": q.new_empty((B, H, NC, dh), dtype=torch.float32),
+                  "m": q.new_empty((B, H, NC), dtype=torch.float32)}
+    with torch.cuda.device(q.device):
+        if return_states:
+            err = lib.mlstm_chunk_states_launch(
+                *args, *(states[key].data_ptr() for key in ("C", "n", "m")),
+                *tail)
+        else:
+            err = lib.mlstm_chunk_launch(*args, *tail)
+    _raise_on(lib, err, "mlstm_chunked")
     mlstm_chunked.launches += 1
+    if return_states:
+        return h, {"C": C, "n": n, "m": m}, states
     return h, {"C": C, "n": n, "m": m}
 
 
 mlstm_chunked.launches = 0
+
+
+def _raise_on(lib, err, name):
+    if err:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def bwd_smem_bytes(dh: int) -> int:
+    """Shared memory of a backward block (``chunk_smem_floats`` in
+    ``csrc/mlstm_chunk_bwd.cu``): the chunk's q and k rows (odd row
+    stride), the block's 32 columns of the carried cotangent G (dh rows of
+    33), n and its cotangent, five 32 x 33 tiles (v, dN, the raw scores,
+    their weights, dS), 11 per-row values and the warps' partial sums."""
+    L, S, warps = CHUNK, BWD_TILE_E + 1, BWD_THREADS // 32
+    return 4 * (2 * L * (dh | 1) + dh * S + 2 * dh + 5 * L * S + 11 * L
+                + 2 * warps * L + 2 * warps)
+
+
+def mlstm_chunked_bwd(q, k, v, i_pre, logf, states, h, dh):
+    """The backward of :func:`mlstm_chunked` on the card: q, k, v, i_pre,
+    logf as the forward took them, ``states`` the chunk states its
+    ``return_states`` gave, h its output and dh h's gradient (B, S, H, dh)
+    fp32.  Returns (dq, dk, dv) at q's dtype and (di, dlogf) (B, S, H)
+    fp32, the gradient of h alone (no cotangent of the final state; the
+    initial state takes none); see :func:`ref.mlstm_chunked_bwd_ref`, its
+    plain version at ``chunk=CHUNK``.  One call is two launches (the
+    chunk walk per column tile, the tiles' ordered sums) and counts one."""
+    from repro_torch.kernels import build
+    Cs, ns, ms = states["C"], states["n"], states["m"]
+    if Cs.dim() != 5:
+        raise ValueError(f"the chunk states C must be (B, H, NC, dh, dh), "
+                         f"got {tuple(Cs.shape)}")
+    B, S, H, D = _check("mLSTM backward", q, k, v, i_pre, logf, Cs, ns, ms,
+                        h, dh)
+    if Cs.shape[2] != -(-S // CHUNK):
+        raise ValueError(f"{Cs.shape[2]} chunk states for S={S}: the "
+                         f"forward keeps one per {CHUNK} steps")
+    lib = build.load()
+    limit = torch.cuda.get_device_properties(
+        q.device).shared_memory_per_block_optin
+    if bwd_smem_bytes(D) > limit:
+        raise ValueError(f"dh={D} needs {bwd_smem_bytes(D)} bytes of shared "
+                         f"memory per backward block; the device allows "
+                         f"{limit}")
+    nt = -(-D // BWD_TILE_E)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di, dlogf = torch.empty_like(i_pre), torch.empty_like(logf)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_part = torch.empty((nt, B * H, D, S), **f32)
+    dk_part = torch.empty_like(dq_part)
+    di_part = torch.empty((nt, B * H, S), **f32)
+    dF_part = torch.empty_like(di_part)
+    with torch.cuda.device(q.device):
+        err = lib.mlstm_chunk_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, i_pre, logf, Cs, ns, ms, h, dh,
+                                     dq, dk, dv, di, dlogf, dq_part, dk_part,
+                                     di_part, dF_part)),
+            _DTYPE_CODES[q.dtype], B, S, H, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "mlstm_chunked_bwd")
+    mlstm_chunked_bwd.launches += 1
+    return dq, dk, dv, di, dlogf
+
+
+mlstm_chunked_bwd.launches = 0

@@ -9,11 +9,13 @@ Attention over an int8 pool (``k_scale``/``v_scale`` given) goes to the
 reads them all.
 
 Training: on the CPU the plain versions are differentiated by autograd.
-On the card ``flash_attention`` with grad enabled and an input that
-requires it runs :class:`FlashAttentionFn`, whose backward is the
-hand-written backward kernel; every other kernel here has no backward, so
-its dispatcher raises in that case (:func:`no_backward`) rather than
-return a tensor that silently carries no gradient.
+On the card, with grad enabled and an input that requires it,
+``flash_attention`` runs :class:`FlashAttentionFn` and ``mlstm_chunked``
+:class:`MlstmChunkedFn`, whose backwards are hand-written kernels; every
+other kernel here (the paged and dense decode attention, ``quant_matmul``,
+``fused_rmsnorm``) has no backward, so its dispatcher raises in that case
+(:func:`no_backward`) rather than return a tensor that silently carries
+no gradient.
 """
 from __future__ import annotations
 
@@ -65,6 +67,49 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = FA.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse,
                                             do.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None, None
+
+
+class MlstmChunkedFn(torch.autograd.Function):
+    """The chunkwise mLSTM on the card with a gradient: the forward kernel
+    (keeping the state at every chunk's start) and the backward kernel
+    (:func:`mlstm_chunk.mlstm_chunked_bwd`) for q, k, v, i_pre and logf.
+    Outputs h and the final C, n, m.  Only h's gradient is taken: a
+    cotangent that reaches the final state, or an initial state that
+    requires grad, raises.  Training never does either: every train step
+    (``transformer.forward_train`` through ``_recurrent_apply``, as the
+    reference's ``_layer_apply`` in "train" mode) starts each mLSTM layer
+    from ``ssm.mlstm_zero_state`` and drops its final state.  Unused
+    cotangents arrive as None (``set_materialize_grads(False)``), so
+    telling them apart reads no tensor on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, logf, C0, n0, m0):
+        h, final, states = MC.mlstm_chunked(
+            q, k, v, i_pre, logf, {"C": C0, "n": n0, "m": m0},
+            return_states=True)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i_pre, logf, states["C"],
+                              states["n"], states["m"], h)
+        return h, final["C"], final["n"], final["m"]
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        if any(ctx.needs_input_grad[5:]):
+            raise NotImplementedError(
+                "the CUDA kernel mlstm_chunked_bwd takes no gradient of the "
+                "initial state (C, n, m): train from the zero state, as "
+                "forward_train does")
+        if dC is not None or dn is not None or dm is not None:
+            raise NotImplementedError(
+                "the CUDA kernel mlstm_chunked_bwd takes no cotangent of the "
+                "final state (C, n, m): only h may be differentiated")
+        if dh is None:
+            return (None,) * 8
+        q, k, v, i_pre, logf, Cs, ns, ms, h = ctx.saved_tensors
+        grads = MC.mlstm_chunked_bwd(q, k, v, i_pre, logf,
+                                     {"C": Cs, "n": ns, "m": ms}, h,
+                                     dh.contiguous())
+        return (*grads, None, None, None)
 
 
 def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
@@ -152,10 +197,15 @@ def quant_matmul(x, q, s):
 
 def mlstm_chunked(q, k, v, i_pre, logf, state):
     """Chunkwise stabilised mLSTM over a whole sequence: (h (B,S,H,dh)
-    fp32, final state); see :func:`mlstm_chunk.mlstm_chunked`."""
+    fp32, final state); see :func:`mlstm_chunk.mlstm_chunked`.  On the
+    card with grad enabled and an input requiring it, through
+    :class:`MlstmChunkedFn` (forward and backward kernels)."""
     if q.device.type == "cpu":
         return ref.mlstm_chunked_ref(q, k, v, i_pre, logf, state)
-    no_backward("mlstm_chunked", q, k, v, i_pre, logf, *state.values())
+    if needs_grad(q, k, v, i_pre, logf, *state.values()):
+        h, C, n, m = MlstmChunkedFn.apply(q, k, v, i_pre, logf, state["C"],
+                                          state["n"], state["m"])
+        return h, {"C": C, "n": n, "m": m}
     return MC.mlstm_chunked(q, k, v, i_pre, logf, state)
 
 
@@ -184,7 +234,7 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
 
 
 _SINGLE = (FA.flash_attention, FA.flash_attention_bwd, QM.quant_matmul,
-           MC.mlstm_chunked, RN.fused_rmsnorm)
+           MC.mlstm_chunked, MC.mlstm_chunked_bwd, RN.fused_rmsnorm)
 
 
 def reset_launch_counts() -> None:

@@ -21,7 +21,13 @@ def _mask(q_pos, k_pos, window):
 
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: Optional[int],
                         scale: float, attn_softcap: Optional[float] = None):
-    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D) -> (B,Sq,Hq,Dv)."""
+    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D) -> (B,Sq,Hq,Dv).  Scores and
+    probabilities in fp32, as ``repro.kernels.ref.flash_attention_ref``;
+    the reference's model path at its default precision (``attn_bf16``)
+    and the tensor-core kernels round the probabilities to v's dtype
+    before the product with v, so at bf16 / fp16 they differ from this by
+    up to one unit of the output's type (the kernels are held to it at
+    2e-2)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -192,7 +198,7 @@ def rmsnorm_ref(x, w, eps: float = 1e-6):
 
 
 def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
-                      chunk: int = MLSTM_CHUNK):
+                      chunk: int = MLSTM_CHUNK, return_states: bool = False):
     """Chunkwise-parallel stabilised mLSTM (the reference's
     ``ssm.mlstm_chunked``).
 
@@ -204,7 +210,9 @@ def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
     chunks the carried state.  The stabiliser m is a running max over the
     same terms however the sequence is cut, so every chunk length gives
     the same result up to fp32 rounding.  Returns h (B,S,H,dh) fp32 and
-    the final state."""
+    the final state; with ``return_states`` also the state at the start of
+    every chunk, {"C": (B,H,NC,dh,dh), "n": (B,H,NC,dh), "m": (B,H,NC)}
+    (what :func:`mlstm_chunked_bwd_ref` takes)."""
     B, S, H, dh = q.shape
     pad = (-S) % chunk
     qf, kf, vf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
@@ -214,8 +222,9 @@ def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
     tri = torch.ones(chunk, chunk, dtype=torch.bool,
                      device=q.device).tril()
     C, n, m = state["C"], state["n"], state["m"]
-    hs = []
+    hs, starts = [], []
     for c0 in range(0, S + pad, chunk):
+        starts.append((C, n, m))
         qb, kb, vb, ib, fb = (t[:, c0:c0 + chunk]
                               for t in (qf, kf, vf, ig, lf))
         Fc = torch.cumsum(fb, dim=1)                             # (B,L,H)
@@ -244,4 +253,97 @@ def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
             "blh,blhd,blhe->bhde", wk, kb, vb)
         n = decay[..., None] * n + torch.einsum("blh,blhd->bhd", wk, kb)
         m = m_new
-    return torch.cat(hs, 1)[:, :S], {"C": C, "n": n, "m": m}
+    h, final = torch.cat(hs, 1)[:, :S], {"C": C, "n": n, "m": m}
+    if not return_states:
+        return h, final
+    return h, final, {key: torch.stack([st[i] for st in starts], 2)
+                      for i, key in enumerate(("C", "n", "m"))}
+
+
+def mlstm_chunked_bwd_ref(q, k, v, i_pre, logf, states, h, dh, *,
+                          chunk: int):
+    """Plain backward of :func:`mlstm_chunked_ref` from the state at the
+    start of every chunk of ``chunk`` steps (``states``, as its
+    ``return_states`` gives them), its output h and h's gradient dh
+    (B,S,H,dh), in fp32, chunk by chunk from the last.  No cotangent
+    reaches the final state, and the initial state takes none.
+
+    It differentiates h, not the stabiliser: within a chunk, with F the
+    cumulative log forget gate, D_ij = e^{F_i - F_j + i_j} (j <= i),
+    b_i = e^{F_i} and the unscaled state (e^{m_prev} C, e^{m_prev} n),
+    h_i = N_i / max(|Den_i|, 1) with N_i = sum_j (q_i.k_j) D_ij v_j +
+    b_i C~^T q_i and Den_i likewise with 1 for v_j and n~ for C~, and
+    every e^{-m} of the stabilised formulas cancels; so m is a constant
+    here, and each exponential is taken relative to the forward's m_i
+    (scores), m_prev (state path) and m_new (key weights, carried
+    cotangents), which keeps all of them at most 1.  Per chunk, dN_i =
+    dh_i / r_i (r_i the stabilised floor max(|den_i|, e^{-m_i})), dDen_i
+    = -sign(den_i) (dh_i.h_i) / r_i where |den_i| passes the floor, dS_ij
+    = (dN_i.v_j + dDen_i) w_ij; dq, dk, dv from dS, the scores P and the
+    cotangent G of the carried C (dh_k x dh_v) and g of n; each log gate
+    weight takes its cotangent times its value (the scores dS_ij qk_ij,
+    the state path q_i.dq_state_i, the key weights k_j.dk_state_j, the
+    decay e^{F_L} (<G, C> + <g, n>)); the input gate sums its columns and
+    key weight, the forget gate collects +F_i / -F_j of every term and
+    +F_L of the carried ones, and dlogf is the reverse cumulative sum of
+    dF within the chunk.  Returns (dq, dk, dv) at q's, k's and v's dtypes
+    and (di, dlogf) fp32 (B,S,H)."""
+    B, S, H, dh_ = q.shape
+    pad = (-S) % chunk
+    qf, kf, vf, hf, gf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                          for t in (q, k, v, h, dh))
+    ig = F.pad(i_pre.float(), (0, 0, 0, pad), value=-1e30)
+    lf = F.pad(logf.float(), (0, 0, 0, pad), value=0.0)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=q.device).tril()
+    G = torch.zeros(B, H, dh_, dh_, device=q.device)
+    g = torch.zeros(B, H, dh_, device=q.device)
+    grads = []
+    for c in reversed(range((S + pad) // chunk)):
+        c0 = c * chunk
+        qb, kb, vb, hb, gb = (t[:, c0:c0 + chunk].transpose(1, 2)
+                              for t in (qf, kf, vf, hf, gf))  # (B,H,L,dh)
+        ib, fb = (t[:, c0:c0 + chunk].transpose(1, 2) for t in (ig, lf))
+        C, n, m = (states[key][:, :, c] for key in ("C", "n", "m"))
+        Fc = torch.cumsum(fb, dim=-1)                            # (B,H,L)
+        Ftot = Fc[..., -1]
+        logw = torch.where(tri, Fc[..., :, None] - Fc[..., None, :]
+                           + ib[..., None, :], -torch.inf)
+        logst = Fc + m[..., None]
+        m_i = torch.maximum(logw.amax(-1), logst)
+        m_i = torch.where(torch.isfinite(m_i), m_i, 0.0)
+        w = torch.exp(logw - m_i[..., None])                     # (B,H,L,L)
+        sw = torch.exp(logst - m_i)
+        qk = qb @ kb.transpose(-1, -2)
+        P = qk * w
+        den = P.sum(-1) + sw * (qb @ n[..., None])[..., 0]
+        floor = torch.exp(-m_i)
+        r = torch.maximum(den.abs(), floor)
+        m_new = torch.maximum(m + Ftot, (Ftot[..., None] - Fc + ib).amax(-1))
+        decay = torch.exp(m + Ftot - m_new)
+        wk = torch.exp(Ftot[..., None] - Fc + ib - m_new[..., None])
+        dN = gb / r[..., None]
+        dDen = torch.where(den.abs() > floor,
+                           -torch.sign(den) * (gb * hb).sum(-1) / r, 0.0)
+        dS = (dN @ vb.transpose(-1, -2) + dDen[..., None]) * w
+        dlogD = dS * qk
+        dq_st = sw[..., None] * (dN @ C.transpose(-1, -2)
+                                 + dDen[..., None] * n[..., None, :])
+        dk_st = wk[..., None] * (vb @ G.transpose(-1, -2) + g[..., None, :])
+        dq = dS @ kb + dq_st
+        dk = dS.transpose(-1, -2) @ qb + dk_st
+        dv = P.transpose(-1, -2) @ dN + wk[..., None] * (kb @ G)
+        dlogw = (kb * dk_st).sum(-1)
+        di = dlogD.sum(-2) + dlogw
+        dF = dlogD.sum(-1) + (qb * dq_st).sum(-1) - di
+        dF[..., -1] += dlogw.sum(-1) + decay * (
+            (G * C).sum((-2, -1)) + (g * n).sum(-1))
+        dlf = dF.flip(-1).cumsum(-1).flip(-1)
+        grads.append((dq, dk, dv, di, dlf))
+        G = (sw[..., None] * qb).transpose(-1, -2) @ dN \
+            + decay[..., None, None] * G
+        g = ((sw * dDen)[..., None] * qb).sum(-2) + decay[..., None] * g
+    dq, dk, dv, di, dlf = (torch.cat([gr[i] for gr in reversed(grads)], 2)
+                           .transpose(1, 2)[:, :S] for i in range(5))
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            di.contiguous(), dlf.contiguous())

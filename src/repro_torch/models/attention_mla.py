@@ -10,9 +10,13 @@ Two forms, as in the reference:
   * **absorbed** (:func:`mla_decode`): only the normalised latent ``ckv``
     (kv_lora_rank) and the shared rotated key ``kr`` are cached; a decode
     step absorbs the query through the key decompression and attends in
-    latent space.  It is plain PyTorch over an fp32 copy of the cache, as
-    the reference's default path (its ``attn_bf16`` flag, off by default,
-    would skip the copy), which has no Pallas kernel for it.
+    latent space, in plain PyTorch (the reference has no Pallas kernel for
+    it).  It follows the reference's default precision (its ``attn_bf16``
+    flag, on by default): the scores and the context are products at the
+    cache's dtype with fp32 accumulation, the absorbed query, the rotated
+    query and the probabilities rounded to that dtype first, and no fp32
+    copy of the cache is made.  The reference's ``REPRO_PERF_OPTS=""``
+    baseline (fp32 copies) is not ported.
 
 The cache of an MLA layer is dense, one row per slot: ``{"ckv": (B, S, r),
 "kr": (B, S, rope), "pos": (B, S)}`` (``kv_cache.layer_cache_shape``),
@@ -110,10 +114,26 @@ def mla_prefill_cached(cfg: ModelConfig, p, x, cache, positions, cache_pos,
                          positions, cache["pos"], window, x.dtype)
 
 
+def _f32_bmm(a, b):
+    """The batched product a @ b summed in fp32, as the reference's
+    ``preferred_element_type=float32``: fp32 operands multiply as they
+    are; bf16 / fp16 ones multiply at their own dtype into an fp32 result
+    (on the card cuBLAS's product with an fp32 output, so b, the latent
+    cache, is not copied; the CPU has no such product, and multiplies the
+    same values upcast, which gives the same fp32 sum)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     """The absorbed form: one token per row (x (B, 1, d)) at positions
     ``lengths`` (B,), written into the latent cache, then attended in
-    latent space over an fp32 copy of the cache.  Returns (B, 1, d)."""
+    latent space at the cache's dtype with fp32 accumulation (the
+    reference's default; see the module's docstring).  Returns (B, 1,
+    d)."""
     m, H = cfg.mla, cfg.num_heads
     B = x.shape[0]
     positions = lengths[:, None]
@@ -124,15 +144,15 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     wk, wv = wukv[..., :m.nope_head_dim], wukv[..., m.nope_head_dim:]
     # absorb q through the key decompression: (B,H,nope) x (r,H,nope)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk)
-    ckv_f, kr_f = cache["ckv"].float(), cache["kr"].float()
-    scores = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_f)
-              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr_f)) \
-        * mla_scale(cfg)
+    ckv, kr = cache["ckv"], cache["kr"]
+    scores = (_f32_bmm(q_lat.to(ckv.dtype), ckv.transpose(1, 2))
+              + _f32_bmm(q_rope[:, 0].to(kr.dtype), kr.transpose(1, 2))) \
+        * mla_scale(cfg)                                         # (B,H,Sc)
     mask = KV.cache_mask(cache["pos"], positions, None)[:, 0]   # (B, Sc)
     scores = torch.where(mask[:, None, :], scores,
                          torch.tensor(L.NEG_INF, device=x.device))
     probs = torch.softmax(scores, dim=-1)
-    ctx_lat = torch.einsum("bhs,bsr->bhr", probs, ckv_f)          # (B,H,r)
+    ctx_lat = _f32_bmm(probs.to(ckv.dtype), ckv)                  # (B,H,r)
     ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, wv)               # (B,H,v)
     return _mm(ctx.reshape(B, H * m.v_head_dim).to(x.dtype),
                p["wo"])[:, None, :]

@@ -109,7 +109,12 @@ def position_mask(q_pos, k_pos, window: Optional[int]):
 def attention_ref(q, k, v, q_pos, k_pos, *, window, scale,
                   attn_softcap=None):
     """Causal GQA attention driven by absolute positions, fp32 scores.
-    q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D), -1 positions mark invalid keys."""
+    q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D), -1 positions mark invalid keys.
+    The probabilities stay fp32 in the product with v (the reference's
+    ``REPRO_PERF_OPTS=""`` baseline); its default (``attn_bf16``) rounds
+    them to v's dtype first, as the port's tensor-core kernels do, so at
+    bf16 / fp16 the two differ by up to one unit of the output's type
+    (``tests/test_torch_attention.py`` holds them to 2e-2)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv

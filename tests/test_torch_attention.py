@@ -12,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels import decode_attention as JDA
 from repro.kernels import ref as JREF
+from repro.models import layers as JL
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, PAGE, NPAGES, HKV, D = 14, 8, 4, 2, 16
@@ -126,3 +130,41 @@ def test_packed_meta_table_matches_reference(seed):
     ref = JDA.packed_meta_table(starts, lens, slots, T, n_work)
     np.testing.assert_array_equal(ours, ref)
     assert DA.PACKED_BLOCK_Q == JDA.PACKED_BLOCK_Q
+
+
+# (B, Sq, Sk, Hq, Hkv, D, window, softcap): a prefill, a decode step with a
+# window and a softcap, a prefill with a window
+DENSE_BF16 = [(2, 24, 24, 4, 2, 32, None, None),
+              (2, 1, 40, 8, 2, 64, 16, 30.0),
+              (2, 33, 33, 4, 4, 16, 8, None)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,softcap", DENSE_BF16)
+def test_dense_attention_bf16_within_tolerance_of_reference_default(
+        monkeypatch, B, Sq, Sk, Hq, Hkv, D, window, softcap):
+    """The port's dense attention on the CPU (``layers.mha_attention``:
+    the kernels' plain versions, which take the probabilities in fp32,
+    as ``repro.kernels.ref`` does) against the reference's model path at
+    its default precision (``REPRO_PERF_OPTS`` unset: ``attn_bf16`` on,
+    which rounds the probabilities to v's dtype before the fp32-accumulated
+    product with v), bf16 q, k, v: within the bf16 tolerance the kernels
+    are held to against the plain versions (2e-2; the outputs differ by
+    one bf16 unit at most, in about a third of them)."""
+    monkeypatch.delenv("REPRO_PERF_OPTS", raising=False)
+    rng = np.random.default_rng(Sq + D)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    kp = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    qp = kp[:, Sk - Sq:].copy()
+    kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
+    want = jax.jit(lambda *a: JL.mha_attention(*a, **kw))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(qp), jnp.asarray(kp))
+    got = L.mha_attention(*(torch.from_numpy(a).bfloat16()
+                            for a in (q, k, v)),
+                          torch.from_numpy(qp), torch.from_numpy(kp), **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)

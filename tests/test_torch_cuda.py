@@ -1057,6 +1057,90 @@ def test_mlstm_shared_memory_figures_agree_with_the_kernel(dev):
         for te in (16, 32, 48, 96):
             assert lib.mlstm_chunk_smem_bytes(1, dh, te) == \
                 MC.mma_smem_bytes(dh, te)
+        assert lib.mlstm_chunk_bwd_smem_bytes(dh) == MC.bwd_smem_bytes(dh)
+
+
+# -- the mLSTM backward ------------------------------------------------------
+# The backward kernel against its plain version on the same chunk states
+# and h (the forward kernel's): fp32 arithmetic in both, so di and dlogf
+# and the fp32 gradients differ only in summation order, amplified where a
+# denominator passes near zero (1e-4 of each gradient's largest
+# magnitude); bf16 / fp16 dq, dk, dv are rounded to their type by both
+# (2e-2).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,S,H,dh,state", [(2, 128, 4, 384, False),
+                                            (2, 300, 4, 384, True),
+                                            (3, 37, 2, 128, True),
+                                            (2, 5, 3, 72, False),
+                                            (1, 1, 1, 8, True)])
+def test_mlstm_bwd_kernel_matches_plain(dev, dtype, B, S, H, dh, state):
+    """The forward kept the state at every chunk's start (to the plain
+    version's, and its h bit-equal to the serving launch's); the backward
+    kernel gives the plain backward's dq, dk, dv (at q's dtype), di and
+    dlogf from them; two calls give the same bits; one launch each
+    counted."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(S + dh)
+    args, st = _mlstm_inputs(rng, B, S, H, dh, dtype, dev, state)
+    dh_out = torch.from_numpy(rng.normal(size=(B, S, H, dh)).astype(
+        np.float32)).to(dev)
+    h_serve, _ = MC.mlstm_chunked(*args, st)
+    n0 = (MC.mlstm_chunked.launches, MC.mlstm_chunked_bwd.launches)
+    h, final, states = MC.mlstm_chunked(*args, st, return_states=True)
+    got = MC.mlstm_chunked_bwd(*args, states, h, dh_out)
+    again = MC.mlstm_chunked_bwd(*args, states, h, dh_out)
+    torch.cuda.synchronize()
+    assert (MC.mlstm_chunked.launches, MC.mlstm_chunked_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 2)
+    assert torch.equal(h, h_serve)
+    _, _, want_st = MC.mlstm_chunked_ref(*args, st, chunk=MC.CHUNK,
+                                         return_states=True)
+    for key in ("C", "n", "m"):
+        scale = max(want_st[key].abs().max().item(), 1.0)
+        assert (states[key] - want_st[key]).abs().max().item() \
+            <= 1e-5 * scale, key
+    want = MC.mlstm_chunked_bwd_ref(*args, states, h, dh_out,
+                                    chunk=MC.CHUNK)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = TOL[dtype] if i < 3 else 1e-4
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale, i
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_mlstm_grads_through_ops_on_card(dev):
+    """``ops.mlstm_chunked`` with grad on the card runs the forward and
+    backward kernels (one launch each) and gives autograd's gradient of
+    the plain version for q, k, v and both gates (fp32, 1e-4 of each
+    gradient's largest magnitude); an initial state that requires grad
+    raises naming the backward kernel."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(7)
+    args, st = _mlstm_inputs(rng, 2, 70, 4, 128, torch.float32, dev, False)
+    dh_out = torch.from_numpy(rng.normal(size=(2, 70, 4, 128)).astype(
+        np.float32)).to(dev)
+    leaves = [t.clone().requires_grad_() for t in args]
+    ops.reset_launch_counts()
+    h, _ = ops.mlstm_chunked(*leaves, st)
+    got = torch.autograd.grad(h, leaves, dh_out)
+    counts = ops.launch_counts()
+    assert counts["mlstm_chunked"] == 1 and counts["mlstm_chunked_bwd"] == 1
+    cpu = [t.detach().cpu().requires_grad_() for t in args]
+    want = torch.autograd.grad(
+        ref.mlstm_chunked_ref(*cpu, {k: v.cpu() for k, v in st.items()})[0],
+        cpu, dh_out.cpu())
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale
+    grown = {k: v.clone().requires_grad_() for k, v in st.items()}
+    h, _ = ops.mlstm_chunked(*leaves, grown)
+    with pytest.raises(NotImplementedError, match="mlstm_chunked_bwd"):
+        torch.autograd.grad(h, leaves, dh_out)
 
 
 # -- the packed pair on the tensor-core core (bf16 / fp16 q): one block per
@@ -1877,6 +1961,38 @@ def test_flash_mla_head_dims_match_plain(dev, B, S, dtype):
                                rtol=TOL[dtype])
 
 
+def test_mla_decode_bf16_on_card_matches_cpu(dev):
+    """MLA's absorbed decode over a bf16 latent cache (reduced deepseek-v3,
+    bf16 parameters and activations): on the card the scores and context
+    are bf16 products with fp32 outputs (no fp32 copy of the cache), on
+    the CPU the same rounded values upcast; the two agree to the bf16
+    tolerance, and the cache stays bf16."""
+    from repro_torch.configs.base import MLA as MLA_MIXER, layer_specs
+    from repro_torch.core.precision import BF16
+    from repro_torch.models import attention_mla as MLA
+    cfg = get_reduced("deepseek-v3-671b")
+    spec = next(s for s in layer_specs(cfg) if s.mixer == MLA_MIXER)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, BF16)
+    p = params["layers"][0]["attn"]
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(3, 13, cfg.d_model)).astype(
+        np.float32)).bfloat16()
+    lens = torch.tensor([12, 5, 9], dtype=torch.int32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        c = KV.layer_cache_shape(cfg, spec, 3, 32, torch.bfloat16, device=d)
+        pos = torch.arange(12, dtype=torch.int32).repeat(3, 1)
+        cpos = torch.where(pos < lens[:, None], pos, -1)
+        pd = map_params(lambda t: t.to(d), p)
+        _, new = MLA.mla_full(cfg, pd, x[:, :12].to(d), pos.to(d), pos.to(d))
+        KV.write_prefill(c, new, cpos.to(d))
+        out[d] = MLA.mla_decode(cfg, pd, x[:, 12:].to(d), c, lens.to(d))
+        assert c["ckv"].dtype == torch.bfloat16
+    assert out["cuda"].dtype == torch.bfloat16
+    torch.testing.assert_close(out["cuda"].float().cpu(), out["cpu"].float(),
+                               atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-v3-671b"])
 def test_hybrid_mla_forwards_on_card_match_cpu(dev, arch):
     """Reduced hymba (a Mamba branch beside attention; window 64, rows of
@@ -2170,31 +2286,63 @@ def test_train_step_on_card_matches_cpu(dev, arch):
         assert (res["cuda"][2][k] - w).abs().max().item() <= tol, k
 
 
-def test_xlstm_training_raises_on_card(dev):
-    """The mLSTM kernel has no backward: a train step of reduced xlstm on
-    the card raises, naming it, instead of returning gradients that skip
-    its layers."""
+def test_xlstm_training_on_card_matches_cpu(dev):
+    """One fp32 train step (TF32 off) of reduced xlstm-125m on the card
+    equals the CPU's, under the tolerances of
+    ``test_train_step_on_card_matches_cpu``: the mLSTM layers ran through
+    the forward kernel (twice: the step rematerialises each layer) and the
+    backward kernel, once a layer; sLSTM in plain torch."""
+    from repro_torch.configs.base import MLSTM, layer_specs
     from repro_torch.training import optimizer as OPT
     from repro_torch.training import train_loop as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_reduced("xlstm-125m")
-    p = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg, FP32)
-    b = {"tokens": torch.full((2, 16), 5, dtype=torch.int32, device=dev),
-         "labels": torch.full((2, 16), 6, dtype=torch.int32, device=dev),
-         "loss_mask": torch.ones(2, 16, device=dev)}
-    with pytest.raises(NotImplementedError,
-                       match="mlstm_chunked has no backward"):
-        TL.make_train_step(cfg, OPT.AdamWConfig(), FP32)(
-            p, OPT.init_state(p), b)
+    n_mlstm = sum(s.mixer == MLSTM for s in layer_specs(cfg))
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(4, 400, size=(2, 48)).astype(np.int32),
+             "labels": rng.integers(4, 400, size=(2, 48)).astype(np.int32),
+             "loss_mask": np.ones((2, 48), np.float32)}
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, eps=1e-3)
+    res = {}
+    for d in ("cpu", "cuda"):
+        _, _, grads = TL._grads(map_params(lambda t: t.to(d, copy=True),
+                                           params), cfg,
+                                TL.to_device(batch, d), FP32, True)
+        p = map_params(lambda t: t.to(d, copy=True), params)
+        ops.reset_launch_counts()
+        p, _, m = TL.make_train_step(cfg, ocfg, FP32)(
+            p, OPT.init_state(p), TL.to_device(batch, d))
+        res[d] = (float(m["loss"]), float(m["gnorm"]),
+                  {k: t.detach().cpu() for k, t in OPT.flatten(p).items()},
+                  {k: g.abs().max().item() for k, g in grads.items()},
+                  {k: g.cpu() for k, g in grads.items()})
+    counts = ops.launch_counts()
+    assert n_mlstm > 0 and counts["mlstm_chunked_bwd"] == n_mlstm
+    assert counts["mlstm_chunked"] == 2 * n_mlstm
+    assert sum(counts.values()) == 3 * n_mlstm
+    for a, b in zip(res["cuda"][:2], res["cpu"][:2]):
+        assert a == pytest.approx(b, rel=1e-5)
+    for k, w in res["cpu"][4].items():
+        assert (res["cuda"][4][k] - w).abs().max().item() \
+            <= 1e-4 * max(res["cpu"][3][k], 1e-30), k
+    lr1 = OPT.lr_at(ocfg, 1)
+    for k, w in res["cpu"][2].items():
+        tol = 1e-5 * w.abs().max().item() \
+            + lr1 * 1e-4 * res["cpu"][3][k] / ocfg.eps
+        assert (res["cuda"][2][k] - w).abs().max().item() <= tol, k
 
 
-def test_train_step_on_card_reads_nothing_back(dev):
-    """A train step of reduced qwen3-4b on the card (factored AdamW, two
-    microbatches, mixed precision) makes no host sync once warm: CUDA's
-    sync debug mode raises on any."""
+@pytest.mark.parametrize("arch", ["qwen3-4b", "xlstm-125m"])
+def test_train_step_on_card_reads_nothing_back(dev, arch):
+    """A train step of reduced qwen3-4b or xlstm-125m (the mLSTM kernels'
+    forward and backward) on the card (factored AdamW, two microbatches,
+    mixed precision) makes no host sync once warm: CUDA's sync debug mode
+    raises on any."""
     from repro_torch.core.precision import MIXED
     from repro_torch.training import optimizer as OPT
     from repro_torch.training import train_loop as TL
-    cfg = get_reduced("qwen3-4b")
+    cfg = get_reduced(arch)
     p = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                       MIXED)
     st = OPT.init_state(p, factored=True, model_cfg=cfg)

@@ -150,10 +150,6 @@ def _meta_calls():
             z(3, 4, **i32), **kw),
         "quant_matmul": lambda g: ops.quant_matmul(
             z(3, 16, grad=g), z(16, 8, dtype=torch.int8), z(8)),
-        "mlstm_chunked": lambda g: ops.mlstm_chunked(
-            z(1, 4, 2, 8, grad=g), z(1, 4, 2, 8), z(1, 4, 2, 8), z(1, 4, 2),
-            z(1, 4, 2), {"C": z(1, 2, 8, 8), "n": z(1, 2, 8),
-                         "m": z(1, 2)}),
         "fused_rmsnorm": lambda g: ops.rmsnorm(z(3, 16, grad=g), z(16)),
         "decode_attention": lambda g: ops.decode_attention(
             z(2, 1, 4, 16, grad=g), z(2, 5, 2, 16), z(2, 5, 2, 16),

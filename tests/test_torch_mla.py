@@ -40,6 +40,7 @@ from repro_torch import bridge
 from repro_torch.configs import registry as R
 from repro_torch.core import kv_cache as KV
 from repro_torch.core import precision as P
+from repro_torch.core.precision import map_params
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.scheduler import Request
 from repro_torch.core.speculative import SpecConfig
@@ -220,6 +221,58 @@ def test_mla_prefill_cached_and_decode_match_reference():
     _close(dec, jdec)
     for k in ("ckv", "kr", "pos"):
         _close(c[k].float(), jc[k])
+
+
+@pytest.mark.parametrize("activations", ["fp32", "bf16"])
+def test_mla_decode_follows_reference_default_precision(monkeypatch,
+                                                        activations):
+    """A bf16 latent cache (8 tokens; row 1 holds 5) and one absorbed
+    ``mla_decode`` step against the reference's default precision
+    (``REPRO_PERF_OPTS`` unset: ``attn_bf16`` on), which attends at the
+    cache's dtype with fp32 accumulation, rounding the absorbed query, the
+    rotated query and the probabilities to bf16 first.  With fp32
+    activations and parameters the two agree to TOL; with bf16 ones
+    (outputs rounded to bf16) at most 2% of the outputs may differ, by
+    one bf16 unit at most (the same fp32 sums rounded; none differ here).
+    Attending over an fp32 copy of the cache misses both (3.6e-3, and 271
+    of the 512 bf16 outputs)."""
+    monkeypatch.delenv("REPRO_PERF_OPTS", raising=False)
+    jcfg, jp, cfg, p, x = _mla_case()
+    spec = cfg.stacks[0].pattern[0]
+    if activations == "bf16":
+        jp = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp)
+        p = map_params(lambda t: t.to(torch.bfloat16), p)
+    jdt, tdt = ((jnp.float32, torch.float32) if activations == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    lens = np.asarray([8, 5], np.int32)
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8))
+    cpos = np.where(pos < lens[:, None], pos, -1).astype(np.int32)
+
+    @jax.jit
+    def jrun(p_, x_):
+        jc = JKV.layer_cache_shape(jcfg, spec, 2, 32, jnp.bfloat16)
+        _, jnew = JMLA.mla_full(jcfg, p_, x_[:, :8], jnp.asarray(pos),
+                                jnp.asarray(pos))
+        jc = JKV.write_prefill(jc, jnew, jnp.asarray(cpos))
+        return JMLA.mla_decode(jcfg, p_, x_[:, 8:9], jc, jnp.asarray(lens))
+    jdec, jc = jrun(jp, jnp.asarray(x).astype(jdt))
+    c = KV.layer_cache_shape(cfg, spec, 2, 32, torch.bfloat16)
+    tx = torch.from_numpy(x).to(tdt)
+    tp = torch.from_numpy(np.array(pos))
+    _, new = MLA.mla_full(cfg, p, tx[:, :8], tp, tp)
+    KV.write_prefill(c, new, torch.from_numpy(cpos))
+    dec = MLA.mla_decode(cfg, p, tx[:, 8:9], c, torch.from_numpy(lens))
+    assert dec.dtype == tdt and c["ckv"].dtype == torch.bfloat16
+    for k in ("ckv", "kr"):
+        _close(c[k].float(), jnp.asarray(jc[k], jnp.float32))
+    ref = np.asarray(jdec, np.float32)
+    if activations == "fp32":
+        _close(dec, ref)
+    else:
+        got = dec.float().numpy()
+        ulp = np.spacing(np.abs(ref).astype(np.float32)) * 2 ** 16
+        assert (np.abs(got - ref) <= ulp).all()
+        assert (got != ref).mean() <= 0.02
 
 
 def _moe_input(cfg, p):
