@@ -211,7 +211,9 @@ that two versions are timed in one call on one card):
               ``moe_expert_bound`` (512 experts, 45.1 GB a forward), then
               the fp32 check of the absorbed decode against the naive full
               forward at 1 dense + 1 MoE layer (2 rows x 64 tokens)
- 10. train    the build includes ``flash_attention_bwd.cu``; the kernel
+ 10. train    the build includes ``flash_attention_bwd.cu`` (its and
+              ``mlstm_chunk_bwd.cu``'s kernels' registers and spills on
+              the ``bwd_kernels`` line); the kernel
               phase also holds the flash backward kernel (from the forward
               kernel's o and log-sum-exp) against the plain backward and
               against autograd through the plain forward at unimo-text's
@@ -223,12 +225,15 @@ that two versions are timed in one call on one card):
               backward); the mLSTM backward kernel (from the forward
               kernel's chunk states and h) against the plain backward at
               xlstm-125m's width (8 rows, 4 heads x 384: S = 128 from the
-              zero state, S = 300 from a nonzero one), fp32 and bf16, two
-              calls bit-identical (S = 128 timed at both, S = 300 at bf16);
+              zero state, S = 300 from a nonzero one), fp32 and bf16, and
+              the long training context 4 x 2048 at bf16, two calls
+              bit-identical (S = 128 timed at both, S = 300 and 2048 at
+              bf16, each of its kernels' device ms);
               ``train_parity``: one fp32 ``make_train_step`` of each of
               nine reduced configs (xlstm-125m's through both mLSTM
               kernels) on the card equals the CPU's (loss, gnorm, every
-              gradient and parameter); ``train``: full-width unimo-text
+              gradient and parameter; the step's peak memory, xlstm-125m's
+              mLSTM kernels' device ms); ``train``: full-width unimo-text
               (24 layers) on packed batches of 8 x 128 over the Zipf
               corpus, 30 steps at fp32 and at mixed precision, whose loss
               must fall by 0.3 nats, qwen3-4b at all 36 layers, mixed,
@@ -338,9 +343,10 @@ NOTES = {
                          "call computes the chunkwise mLSTM's gradient; "
                          "launches: the full-width xlstm-125m mixed "
                          "training run (one per mLSTM layer and step); one "
-                         "call is two launches (the chunk walk per column "
-                         "tile, the tiles' ordered sums); timed case: the "
-                         "train shape 8 x 128 at bf16",
+                         "call is up to four chunk-parallel launches (per "
+                         "chunk dq and the increments, their reverse scan, "
+                         "per chunk dk / dv, dlogf; device_ms_by_kernel); "
+                         "timed case: the train shape 8 x 128 at bf16",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -420,7 +426,7 @@ def time_ms(fn, reps=20, warmup=3):
 def device_ms(fn, symbols=None, reps=20):
     """Device time per call of ``fn``: the durations of the CUDA kernels it
     launches over ``reps`` calls under ``torch.profiler``, divided by
-    ``reps``, the names of those kernels, and the number of profiles it
+    ``reps``, the same per kernel name, and the number of profiles it
     took (a profile that catches no device event at all is taken again,
     up to PROFILE_ATTEMPTS times).  With ``symbols`` only
     kernels whose name holds one of them count (a wrapper's own kernel,
@@ -442,12 +448,14 @@ def device_ms(fn, symbols=None, reps=20):
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         names |= {e.name[:80] for e in dev}
-        mine = [e for e in dev
-                if symbols is None or any(s in e.name for s in symbols)]
-        if mine:
-            return (sum(e.time_range.elapsed_us() for e in mine) / 1e3
-                    / reps, sorted({e.name[:80] for e in mine}),
-                    attempt + 1)
+        by_name = {}
+        for e in dev:
+            if symbols is None or any(s in e.name for s in symbols):
+                by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
+                                        + e.time_range.elapsed_us() / 1e3
+                                        / reps)
+        if by_name:
+            return sum(by_name.values()), by_name, attempt + 1
     raise SystemExit(f"device_ms: no device kernel matching {symbols} in "
                      f"{PROFILE_ATTEMPTS} profiles (device events: "
                      f"{sorted(names)})")
@@ -456,17 +464,19 @@ def device_ms(fn, symbols=None, reps=20):
 def timings(kname, kernel, plain, library):
     """The timed figures of a kernel case: ``kernel_ms`` / ``plain_ms`` /
     ``library_ms`` (CUDA events around each call) and the device time per
-    call of the kernel alone (``device_ms``) and of the library call
+    call of the kernel alone (``device_ms``; by device function,
+    ``device_ms_by_kernel``) and of the library call
     (``library_device_ms``), with the names of the kernel's device
     functions that ran (``device_kernels``) and the profiles each device
     time took (``profile_attempts``: kernel, library); ``library`` None
     gives nulls."""
-    ms, names, tries = device_ms(kernel, KERNEL_SYMBOLS[kname])
+    ms, by_name, tries = device_ms(kernel, KERNEL_SYMBOLS[kname])
     lib_ms, _, lib_tries = (device_ms(library) if library
                             else (None, None, None))
     return {"kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": time_ms(library) if library else None,
-            "device_ms": ms, "device_kernels": names,
+            "device_ms": ms, "device_kernels": sorted(by_name),
+            "device_ms_by_kernel": by_name,
             "library_device_ms": lib_ms,
             "profile_attempts": [tries, lib_tries]}
 
@@ -3949,16 +3959,21 @@ def run_flash_bwd_case(rng, name, *, B, S, Hq, Hkv, D, dtype, Dv=None,
 
 
 def bwd_kernel_attrs(lib):
-    """Registers and local memory (spills) a thread of each kernel of
-    ``flash_attention_bwd.cu``, from cudaFuncGetAttributes."""
+    """Registers and local memory (spills) a thread of each kernel of the
+    two backward files, ``flash_attention_bwd.cu`` and
+    ``mlstm_chunk_bwd.cu``, from cudaFuncGetAttributes."""
     import ctypes
     out, attrs = [], (ctypes.c_int * 2)()
-    while True:
-        name = lib.flash_attention_bwd_kernel_attrs(len(out), attrs)
-        if name is None:
-            break
-        out.append({"kernel": name.decode(), "registers": attrs[0],
-                    "local_bytes": attrs[1]})
+    for query in (lib.flash_attention_bwd_kernel_attrs,
+                  lib.mlstm_chunk_bwd_kernel_attrs):
+        i = 0
+        while True:
+            name = query(i, attrs)
+            if name is None:
+                break
+            out.append({"kernel": name.decode(), "registers": attrs[0],
+                        "local_bytes": attrs[1]})
+            i += 1
     return out
 
 
@@ -4042,10 +4057,12 @@ def run_mlstm_bwd_case(rng, name, *, B, S, H, dh, dtype, state=False,
 
 
 def mlstm_bwd_cases(rng):
-    """The mLSTM backward kernel at xlstm-125m's width (8 rows, 4 heads x
-    384): the train shape S = 128 from the zero state, and a ragged S =
-    300 from a nonzero state (which takes no gradient), at fp32 and bf16;
-    S = 128 timed at both, S = 300 at bf16."""
+    """The mLSTM backward kernel at xlstm-125m's width (4 heads x 384): the
+    train shape 8 x 128 from the zero state, a ragged 8 x 300 from a
+    nonzero state (which takes no gradient), at fp32 and bf16 (8 x 128
+    timed at both, 8 x 300 at bf16), and the long training context 4 x
+    2048 from the zero state at bf16, timed (64 chunks: the chunk-parallel
+    passes' case)."""
     import torch
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -4056,6 +4073,9 @@ def mlstm_bwd_cases(rng):
         cases.append(run_mlstm_bwd_case(
             rng, f"xlstm-125m 8 x 300 nonzero state {dn}", B=8, S=300, H=4,
             dh=384, dtype=dtype, state=True, timed=dtype == torch.bfloat16))
+    cases.append(run_mlstm_bwd_case(
+        rng, "xlstm-125m train 4 x 2048 bfloat16", B=4, S=2048, H=4, dh=384,
+        dtype=torch.bfloat16, timed=True))
     return cases
 
 
@@ -4118,7 +4138,9 @@ def phase_train_parity():
     first update (lr x TRAIN_GRAD_TOL x the leaf's largest gradient / eps:
     g / (|g| + eps) has slope at most 1 / eps).  On the card the
     attention ran through the flash forward and backward kernels, and
-    xlstm-125m's mLSTM layers through the mLSTM ones."""
+    xlstm-125m's mLSTM layers through the mLSTM ones.  Each line has the
+    card step's peak memory, xlstm-125m's also the mLSTM kernels' device
+    ms of one more step, profiled."""
     import torch
     from repro_torch.configs.registry import get_reduced
     from repro_torch.core.precision import FP32, map_params
@@ -4144,10 +4166,22 @@ def phase_train_parity():
                 FP32, True)
             p = map_params(lambda t: t.to(dev, copy=True), params)
             ops.reset_launch_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
             p, _, m = TL.make_train_step(cfg, ocfg, FP32)(
                 p, OPT.init_state(p), b)
             if dev == "cuda":
                 counts = ops.launch_counts()
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                if arch == "xlstm-125m":
+                    # one more step, profiled, from a copy of the weights
+                    pc = map_params(lambda t: t.to(dev, copy=True), params)
+                    prof = _profile_step(
+                        lambda: TL.make_train_step(cfg, ocfg, FP32)(
+                            pc, OPT.init_state(pc), b), arch, 1.0)
+                    extra = {"mlstm_fwd_ms": prof["mlstm_fwd_ms"],
+                             "mlstm_bwd_ms": prof["mlstm_bwd_ms"]}
             res[dev] = (float(m["loss"]), float(m["gnorm"]),
                         {k: t.detach().cpu()
                          for k, t in OPT.flatten(p).items()},
@@ -4175,6 +4209,7 @@ def phase_train_parity():
         ok &= (all(v <= TRAIN_PARITY_TOL for v in rel.values())
                and counts[bwd] > 0)
         emit("train_parity", arch=arch, loss=res["cuda"][0],
+             peak_gb=peak_gb, **(extra if arch == "xlstm-125m" else {}),
              loss_cpu=res["cpu"][0], rel_err=rel,
              worst_grad_rel_err=worst["grad"],
              worst_param_err_over_tol=worst["param"],

@@ -338,33 +338,6 @@ struct MlstmMmaSmem {
   }
 };
 
-// (x0, x1) as P bf16 pairs (x0 in the low halves) whose sums are x0 and
-// x1 to 2^-8P of their size: each part is the bf16 rounding of what the
-// parts before it left (exact fp32 differences)
-template <int P>
-__device__ __forceinline__ void split_bf16(float x0, float x1,
-                                           uint32_t (&out)[P]) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    out[p] = pack2<__nv_bfloat16>(x0, x1);
-    x0 -= __uint_as_float(out[p] << 16);
-    x1 -= __uint_as_float(out[p] & 0xffff0000u);
-  }
-}
-
-// one fp32 value as P bf16 parts at dst[0], dst[stride], ...
-template <int P>
-__device__ __forceinline__ void split_store(float x, __nv_bfloat16* dst,
-                                            int stride) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const __nv_bfloat16 b = __float2bfloat16_rn(x);
-    *dst = b;
-    x -= __bfloat162float(b);
-    dst += stride;
-  }
-}
-
 // A warp's fragments of C^T (columns d = d0 + 8 nt, + 1 with d0 = d_lo +
 // 2 tig; rows e = ea, ea + 8) into a (dh, dh) state, columns e < e_end.
 __device__ __forceinline__ void store_ct(const float (&c)[kMmaMaxNT][4],

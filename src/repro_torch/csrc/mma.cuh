@@ -1,8 +1,10 @@
 // Tensor-core and copy primitives for Hopper (sm_90a), shared by the
-// attention core (attn_mma.cuh), quant_matmul.cu and mlstm_chunk.cu:
+// attention core (attn_mma.cuh), quant_matmul.cu, mlstm_chunk.cu and
+// mlstm_chunk_bwd.cu:
 // cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 with fp32
-// accumulators for bf16 / fp16, fp32 pairs rounded to bf16 / fp16, and
-// exact int8 -> fp32 without I2F.
+// accumulators for bf16 / fp16, fp32 pairs rounded to bf16 / fp16, fp32
+// values cut into bf16 parts whose sum is the value (the mLSTM kernels'
+// operands), and exact int8 -> fp32 without I2F.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -133,6 +135,33 @@ template <>
 __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as P bf16 pairs (x0 in the low halves) whose sums are x0 and
+// x1 to 2^-8P of their size: each part is the bf16 rounding of what the
+// parts before it left (exact fp32 differences)
+template <int P>
+__device__ __forceinline__ void split_bf16(float x0, float x1,
+                                           uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    out[p] = pack2<__nv_bfloat16>(x0, x1);
+    x0 -= __uint_as_float(out[p] << 16);
+    x1 -= __uint_as_float(out[p] & 0xffff0000u);
+  }
+}
+
+// one fp32 value as P bf16 parts at dst[0], dst[stride], ...
+template <int P>
+__device__ __forceinline__ void split_store(float x, __nv_bfloat16* dst,
+                                            int stride) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(x);
+    *dst = b;
+    x -= __bfloat162float(b);
+    dst += stride;
+  }
 }
 
 // Exact fp32 values of int8 codes without I2F: the byte c + 128 (c ^ 0x80)

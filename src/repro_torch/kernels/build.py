@@ -134,10 +134,13 @@ def load() -> ctypes.CDLL:
     lib.mlstm_chunk_launch.restype = I
     lib.mlstm_chunk_states_launch.argtypes = [P] * 15 + [I] * 7 + [P]
     lib.mlstm_chunk_states_launch.restype = I
-    lib.mlstm_chunk_bwd_launch.argtypes = [P] * 19 + [I] * 5 + [P]
+    lib.mlstm_chunk_bwd_launch.argtypes = [P] * 23 + [I] * 11 + [P]
     lib.mlstm_chunk_bwd_launch.restype = I
-    lib.mlstm_chunk_bwd_smem_bytes.argtypes = [I]
+    lib.mlstm_chunk_bwd_smem_bytes.argtypes = [I, I, I]
     lib.mlstm_chunk_bwd_smem_bytes.restype = ctypes.c_long
+    lib.mlstm_chunk_bwd_kernel_attrs.argtypes = [
+        I, ctypes.POINTER(ctypes.c_int)]
+    lib.mlstm_chunk_bwd_kernel_attrs.restype = ctypes.c_char_p
     lib.mlstm_chunk_smem_bytes.argtypes = [I, I, I]
     lib.mlstm_chunk_smem_bytes.restype = ctypes.c_long
     lib.rmsnorm_launch.argtypes = ([P] * 3 + [I, I, ctypes.c_long, I, F]

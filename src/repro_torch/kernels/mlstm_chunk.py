@@ -17,13 +17,14 @@ block carries: bf16 q/k/v run on the tensor cores (bf16 parts of the
 fp32 operands summed in fp32), fp32 and fp16 on CUDA cores (see
 ``csrc/mlstm_chunk.cu``).
 
-:func:`mlstm_chunked_bwd` is its backward, the hand-written kernel in
+:func:`mlstm_chunked_bwd` is its backward, the hand-written kernels in
 ``repro_torch/csrc/mlstm_chunk_bwd.cu`` (the reference has none: it
 differentiates its jnp path with ``jax.grad``).  It takes the state at
 the start of every chunk, which the forward keeps when asked
 (``return_states=True``), h and h's gradient, and returns the gradients
 of q, k, v and both gates; ``ops.MlstmChunkedFn`` ties the two together
-for autograd.
+for autograd.  :func:`mlstm_bwd_plan` gives its launch: chunk-parallel
+passes on the tensor cores, the operands cut into bf16 parts by dtype.
 
 The wrappers take CUDA tensors only: they check device, dtype, layout,
 shapes and the shared memory the launch needs, allocate the outputs,
@@ -51,8 +52,13 @@ MMA_MAX_DW = 192              # columns of C^T a warp holds (kMmaMaxDW)
 # bf16 parts of the fp32 operands (kPartsC/S/W): C in q C, the weighted
 # scores in S V, w_j v_j in the update of C
 MMA_PARTS = {"C": 2, "S": 2, "W": 3}
-BWD_TILE_E = 32               # value columns per backward block (kTE)
-BWD_THREADS = 256
+BWD_THREADS = 512             # the backward's chunk passes (kThreads)
+BWD_MAX_DIM = 384             # kMaxDim: dq's 48 n-tiles over 16 warps
+# bf16 parts of the backward's operands by q's dtype (Parts in
+# csrc/mlstm_chunk_bwd.cu): q/k/v, the chunk-local fp32 operands (dh, P /
+# r, dS), the state products' fp32 operands (sw dN / r, C, G)
+BWD_PARTS = {torch.bfloat16: (1, 2, 2), torch.float16: (2, 2, 2),
+             torch.float32: (3, 3, 3)}
 
 
 class MlstmPlan(NamedTuple):
@@ -224,15 +230,59 @@ def _raise_on(lib, err, name):
                            f"({msg})")
 
 
-def bwd_smem_bytes(dh: int) -> int:
-    """Shared memory of a backward block (``chunk_smem_floats`` in
-    ``csrc/mlstm_chunk_bwd.cu``): the chunk's q and k rows (odd row
-    stride), the block's 32 columns of the carried cotangent G (dh rows of
-    33), n and its cotangent, five 32 x 33 tiles (v, dN, the raw scores,
-    their weights, dS), 11 per-row values and the warps' partial sums."""
-    L, S, warps = CHUNK, BWD_TILE_E + 1, BWD_THREADS // 32
-    return 4 * (2 * L * (dh | 1) + dh * S + 2 * dh + 5 * L * S + 11 * L
-                + 2 * warps * L + 2 * warps)
+class MlstmBwdPlan(NamedTuple):
+    threads: int         # a block of the chunk passes (1 and 3)
+    parts: tuple         # bf16 parts: q/k/v, chunk-local, state operands
+    smem_bytes: tuple    # dynamic shared memory of passes 1 and 3
+
+
+def bwd_smem_bytes(dh: int, dtype: torch.dtype) -> tuple:
+    """Shared memory of the backward's two chunk passes (``BwdSmem`` in
+    ``csrc/mlstm_chunk_bwd.cu``), rows of dh padded to a multiple of 16
+    plus 8 elements.  Pass 1: the chunk's Q, K, V at their type, dh in
+    fp32, three 32 x 40 fp32 tiles (the scores, P / r, dS), n, 12 per-row
+    values, the warps' row sums and the decay.  Pass 3: K and V, g, two
+    per-row values and the warps' row sums."""
+    L, dp = CHUNK, _round16(dh)
+    row_t = L * (dp + 8) * dtype.itemsize
+    row_f = L * (dp + 8) * 4
+    warps = BWD_THREADS // 32
+    pass1 = (3 * row_t + row_f + 3 * L * (L + 8) * 4 + dp * 4 + 12 * L * 4
+             + warps * L * 4 + 16)
+    pass3 = 2 * row_t + dp * 4 + 2 * L * 4 + warps * L * 4
+    return pass1, pass3
+
+
+def mlstm_bwd_plan(dh: int, dtype: torch.dtype,
+                   smem_limit: int) -> MlstmBwdPlan:
+    """The launch plan of :func:`mlstm_chunked_bwd` for heads of dim dh
+    and q/k/v of ``dtype`` on a card whose blocks may take ``smem_limit``
+    bytes of shared memory.  One body for every dtype: chunk-parallel
+    passes whose products run on the tensor cores, each operand cut into
+    BWD_PARTS[dtype] bf16 parts (bf16 q/k/v exact in one; fp32 in three,
+    which holds the plain fp32 backward to 1e-4); blocks of BWD_THREADS
+    (16 warps, one block per SM), one per (chunk, batch row, head).
+    Raises ValueError for a dh that is not a multiple of 8 up to
+    BWD_MAX_DIM, or whose passes need more shared memory than the card
+    gives a block."""
+    if dtype not in BWD_PARTS:
+        raise ValueError(f"the mLSTM backward takes fp32, fp16 or bf16 "
+                         f"q/k/v, not {dtype}")
+    if dh % 8 or not 8 <= dh <= BWD_MAX_DIM:
+        raise ValueError(f"dh={dh}: the mLSTM backward takes head dims that "
+                         f"are multiples of 8 up to {BWD_MAX_DIM}")
+    smem = bwd_smem_bytes(dh, dtype)
+    if max(smem) > smem_limit:
+        raise ValueError(f"dh={dh} at {dtype} needs {max(smem)} bytes of "
+                         f"shared memory per backward block; the device "
+                         f"allows {smem_limit}")
+    return MlstmBwdPlan(BWD_THREADS, BWD_PARTS[dtype], smem)
+
+
+def _aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary (the kernels read rows
+    16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def mlstm_chunked_bwd(q, k, v, i_pre, logf, states, h, dh):
@@ -242,8 +292,12 @@ def mlstm_chunked_bwd(q, k, v, i_pre, logf, states, h, dh):
     fp32.  Returns (dq, dk, dv) at q's dtype and (di, dlogf) (B, S, H)
     fp32, the gradient of h alone (no cotangent of the final state; the
     initial state takes none); see :func:`ref.mlstm_chunked_bwd_ref`, its
-    plain version at ``chunk=CHUNK``.  One call is two launches (the
-    chunk walk per column tile, the tiles' ordered sums) and counts one."""
+    plain version at ``chunk=CHUNK``.  One call is up to four launches
+    (per chunk dq and the chunk's increments, their reverse scan, per
+    chunk dk and dv, dlogf; :func:`mlstm_bwd_plan`) and counts one.  Its
+    scratch is fp32: the increments and carried cotangents, B x H x NC x
+    dh x (dh + 1) (the size of the chunk states), the chunk-local dk and
+    dv, and a few values per step and per chunk."""
     from repro_torch.kernels import build
     Cs, ns, ms = states["C"], states["n"], states["m"]
     if Cs.dim() != 5:
@@ -251,31 +305,30 @@ def mlstm_chunked_bwd(q, k, v, i_pre, logf, states, h, dh):
                          f"got {tuple(Cs.shape)}")
     B, S, H, D = _check("mLSTM backward", q, k, v, i_pre, logf, Cs, ns, ms,
                         h, dh)
-    if Cs.shape[2] != -(-S // CHUNK):
+    NC = -(-S // CHUNK)
+    if Cs.shape[2] != NC:
         raise ValueError(f"{Cs.shape[2]} chunk states for S={S}: the "
                          f"forward keeps one per {CHUNK} steps")
+    plan = mlstm_bwd_plan(D, q.dtype, torch.cuda.get_device_properties(
+        q.device).shared_memory_per_block_optin)
     lib = build.load()
-    limit = torch.cuda.get_device_properties(
-        q.device).shared_memory_per_block_optin
-    if bwd_smem_bytes(D) > limit:
-        raise ValueError(f"dh={D} needs {bwd_smem_bytes(D)} bytes of shared "
-                         f"memory per backward block; the device allows "
-                         f"{limit}")
-    nt = -(-D // BWD_TILE_E)
+    q, k, v, Cs, h, dh = map(_aligned, (q, k, v, Cs, h, dh))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     di, dlogf = torch.empty_like(i_pre), torch.empty_like(logf)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dq_part = torch.empty((nt, B * H, D, S), **f32)
-    dk_part = torch.empty_like(dq_part)
-    di_part = torch.empty((nt, B * H, S), **f32)
-    dF_part = torch.empty_like(di_part)
+    # one fp32 scratch, each piece on a 16-byte boundary
+    sizes = (B * H * NC * D * (D + 1), B * S * H * D, B * S * H * D,
+             B * S * H, B * S * H, B * H * NC, B * H * NC, B * H * NC)
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 4) * 4)
+    scratch = torch.empty(starts[-1], dtype=torch.float32, device=q.device)
+    pieces = [scratch[a:a + n] for a, n in zip(starts, sizes)]
     with torch.cuda.device(q.device):
         err = lib.mlstm_chunk_bwd_launch(
             *(t.data_ptr() for t in (q, k, v, i_pre, logf, Cs, ns, ms, h, dh,
-                                     dq, dk, dv, di, dlogf, dq_part, dk_part,
-                                     di_part, dF_part)),
-            _DTYPE_CODES[q.dtype], B, S, H, D,
-            torch.cuda.current_stream().cuda_stream)
+                                     dq, dk, dv, di, dlogf, *pieces)),
+            _DTYPE_CODES[q.dtype], B, S, H, D, plan.threads, *plan.parts,
+            *plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "mlstm_chunked_bwd")
     mlstm_chunked_bwd.launches += 1
     return dq, dk, dv, di, dlogf

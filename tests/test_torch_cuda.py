@@ -1057,7 +1057,11 @@ def test_mlstm_shared_memory_figures_agree_with_the_kernel(dev):
         for te in (16, 32, 48, 96):
             assert lib.mlstm_chunk_smem_bytes(1, dh, te) == \
                 MC.mma_smem_bytes(dh, te)
-        assert lib.mlstm_chunk_bwd_smem_bytes(dh) == MC.bwd_smem_bytes(dh)
+        for dtype, code in [(torch.float32, 0), (torch.float16, 1),
+                            (torch.bfloat16, 2)]:
+            assert (lib.mlstm_chunk_bwd_smem_bytes(dh, code, 0),
+                    lib.mlstm_chunk_bwd_smem_bytes(dh, code, 1)) == \
+                MC.mlstm_bwd_plan(dh, dtype, 232448).smem_bytes
 
 
 # -- the mLSTM backward ------------------------------------------------------
@@ -1069,13 +1073,19 @@ def test_mlstm_shared_memory_figures_agree_with_the_kernel(dev):
 # (2e-2).
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("B,S,H,dh,state", [(2, 128, 4, 384, False),
-                                            (2, 300, 4, 384, True),
-                                            (3, 37, 2, 128, True),
-                                            (2, 5, 3, 72, False),
-                                            (1, 1, 1, 8, True)])
+# every dtype at each shape, and the long training context (4 x 2048) at
+# the mixed policy's bf16
+MLSTM_BWD_CASES = [(dtype, *shape) for shape in [(2, 128, 4, 384, False),
+                                                 (2, 300, 4, 384, True),
+                                                 (3, 37, 2, 128, True),
+                                                 (2, 5, 3, 72, False),
+                                                 (1, 1, 1, 8, True)]
+                   for dtype in (torch.float32, torch.bfloat16,
+                                 torch.float16)] + \
+    [(torch.bfloat16, 4, 2048, 4, 384, False)]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,dh,state", MLSTM_BWD_CASES)
 def test_mlstm_bwd_kernel_matches_plain(dev, dtype, B, S, H, dh, state):
     """The forward kept the state at every chunk's start (to the plain
     version's, and its h bit-equal to the serving launch's); the backward
@@ -1110,6 +1120,86 @@ def test_mlstm_bwd_kernel_matches_plain(dev, dtype, B, S, H, dh, state):
         scale = w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() <= tol * scale, i
     for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_mlstm_bwd_kernels_in_the_profile(dev):
+    """One backward call launches its four chunk-parallel kernels (per
+    chunk dq, the reverse scan, per chunk dk and dv, dlogf) at q's dtype,
+    and no other kernel of its own; one chunk needs no scan."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(8)
+    for dtype, tag in [(torch.bfloat16, "__nv_bfloat16"),
+                       (torch.float16, "__half"), (torch.float32, "float")]:
+        for S, scan in [(70, True), (20, False)]:
+            args, st = _mlstm_inputs(rng, 2, S, 4, 384, dtype, dev, False)
+            h, _, states = MC.mlstm_chunked(*args, st, return_states=True)
+            dh_out = torch.randn(h.shape, device=dev)
+            names = _device_kernels(
+                lambda: MC.mlstm_chunked_bwd(*args, states, h, dh_out))
+            ours = [n for n in names if "mlstm_bwd_" in n]
+            want = ["mlstm_bwd_dq_kernel<" + tag,
+                    "mlstm_bwd_dkdv_kernel<" + tag, "mlstm_bwd_dlogf_kernel"]
+            want += ["mlstm_bwd_scan_kernel"] if scan else []
+            assert len(ours) == len(want) and all(
+                sum(w in n for n in ours) == 1 for w in want), (dtype, names)
+
+
+def test_mlstm_bwd_launcher_refuses_a_bad_plan(dev):
+    """The C launcher checks the plan it is handed against what its
+    kernels were built for: 512 threads, the dtype's bf16 parts, both
+    passes' shared memory, dh a multiple of 8 up to 384."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(6)
+    B, S, H, dh = 1, 40, 2, 64
+    args, st = _mlstm_inputs(rng, B, S, H, dh, torch.bfloat16, dev, False)
+    h, _, states = MC.mlstm_chunked(*args, st, return_states=True)
+    g = torch.randn(h.shape, device=dev)
+    lib = build.load()
+    NC = -(-S // MC.CHUNK)
+    outs = [torch.empty_like(t) for t in args[:3]] + \
+        [torch.empty_like(args[3]), torch.empty_like(args[4])]
+    scratch = [torch.zeros(n, device=dev) for n in (
+        B * H * NC * dh * (dh + 1), B * S * H * dh, B * S * H * dh,
+        B * S * H, B * S * H, B * H * NC, B * H * NC, B * H * NC)]
+    plan = MC.mlstm_bwd_plan(dh, torch.bfloat16, 232448)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(threads=plan.threads, parts=plan.parts,
+               smem=plan.smem_bytes, D=dh):
+        return lib.mlstm_chunk_bwd_launch(
+            *(t.data_ptr() for t in (*args, states["C"], states["n"],
+                                     states["m"], h, g, *outs, *scratch)),
+            2, B, S, H, D, threads, *parts, *smem, stream)
+    assert launch() == 0
+    assert launch(threads=256) != 0
+    assert launch(parts=(3, 3, 3)) != 0          # fp32's parts at bf16
+    assert launch(smem=(plan.smem_bytes[0] + 16, plan.smem_bytes[1])) != 0
+    assert launch(D=60) != 0
+    torch.cuda.synchronize()
+
+
+def test_mlstm_bwd_takes_unaligned_inputs(dev):
+    """Inputs off a 16-byte boundary (contiguous views at an offset, as
+    the pieces of cat's gradient are) are copied onto one before the
+    kernels read their rows: the gradients equal the aligned call's bit
+    for bit."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    rng = np.random.default_rng(12)
+    args, st = _mlstm_inputs(rng, 2, 70, 2, 128, torch.bfloat16, dev, False)
+    h, _, states = MC.mlstm_chunked(*args, st, return_states=True)
+    g = torch.randn(h.shape, device=dev)
+    want = MC.mlstm_chunked_bwd(*args, states, h, g)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+    q, k, v, gs = (shifted(t) for t in (*args[:3], g))
+    assert all(t.data_ptr() % 16 for t in (q, k, v, gs))
+    got = MC.mlstm_chunked_bwd(q, k, v, *args[3:], states, h, gs)
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

@@ -217,12 +217,21 @@ def test_mlstm_under_grad_goes_to_its_autograd_function(monkeypatch):
 
 
 def test_backward_shared_memory_fits_xlstm_widths():
-    """The backward block's shared memory (q and k rows, 32 columns of G,
-    the chunk tiles) fits a Hopper block at xlstm-125m's head dim 384 and
-    the reduced config's 128, and grows with dh as the kernel lays it
-    out."""
+    """Both chunk passes of the backward (the chunk's q, k, v rows at their
+    type and dh in fp32 for pass 1; k and v for pass 3) fit a Hopper block
+    at xlstm-125m's head dim 384 and the reduced config's 128 at every
+    dtype, grow with dh as the kernel lays them out, and the plan hands
+    the launcher exactly those figures."""
     limit = 227 * 1024
-    assert MC.bwd_smem_bytes(384) <= limit
-    assert MC.bwd_smem_bytes(128) < MC.bwd_smem_bytes(384)
-    # q / k rows of odd stride, G rows of 33 floats
-    assert MC.bwd_smem_bytes(385) - MC.bwd_smem_bytes(384) == 4 * (33 + 2)
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        small, big = MC.bwd_smem_bytes(128, dtype), MC.bwd_smem_bytes(384,
+                                                                     dtype)
+        assert max(big) <= limit and all(a < b for a, b in zip(small, big))
+        assert MC.mlstm_bwd_plan(384, dtype, limit).smem_bytes == big
+        # rows padded to a multiple of 16 (+ 8): dh 376 takes 384's
+        # layout, dh 368 16 elements fewer in each row of q, k, v and dh
+        # and in n
+        el = torch.empty((), dtype=dtype).element_size()
+        assert MC.bwd_smem_bytes(376, dtype) == big
+        assert big[0] - MC.bwd_smem_bytes(368, dtype)[0] == \
+            32 * 16 * (3 * el + 4) + 16 * 4
