@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --src OTHER_CHECKOUT/src
+    python3 chip_smoke.py --only flash --only train [--src ...]
 
 Phases, one JSON line each, each with its ``seconds`` (a kernel case's
 own time, else the time since the previous line) and ``elapsed_s``; any
 failure exits non-zero before the last line (``--src`` runs every phase on
 another checkout's port, such as a ``git archive`` of a parent commit, so
-that two versions are timed in one call on one card):
+that two versions are timed in one call on one card; ``--only flash``
+runs only the flash forward and backward cases at the train shapes,
+``--only train`` only the full-width unimo-text fp32 train run, for such
+an A/B):
 
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -45,12 +49,17 @@ that two versions are timed in one call on one card):
               at the paper's serving shapes: qwen3-4b's 8 x 128 bucket
               prefill (timed; a ragged variant) and the prefix-attend
               admission, 8 suffix buckets of 32 lanes against 256
-              gathered keys with -1 holes (timed; fp32 too).  Flash, the mixed,
+              gathered keys with -1 holes (timed; fp32 too).  The mixed,
               decode and packed pairs, dense decode and ``quant_matmul``
               run their tensor-core bodies at bf16 / fp16 and their
-              CUDA-core bodies at fp32; ``mlstm_chunked`` its tensor-core
-              body at bf16 (every timed case of it and of the packed pair
-              must show that body in the profile).  Times the
+              CUDA-core bodies at fp32; flash (forward and backward) its
+              tensor-core bodies at every dtype, fp32 as bf16 parts, each
+              fp32 case's error also against the plain version evaluated
+              in fp64, beside the plain fp32 version's own (gated at 4x
+              that, or 1e-6 of the output's scale); ``mlstm_chunked`` its
+              tensor-core body at bf16 (every timed case of it and of the
+              packed pair at bf16, and of flash at fp32, must show that
+              body in the profile).  Times the
               kernel, the plain version and a PyTorch yardstick the port
               never calls (``library_ms``) with CUDA events around each
               call (host path included), and the device time per call of
@@ -200,11 +209,12 @@ that two versions are timed in one call on one card):
               configs in fp32, bucketed ``serve_continuous`` and
               ``generate_batch`` with and without the cache, card == CPU,
               and deepseek's equal-length batched admission (== single
-              requests); full-width hymba (32 layers): bucketed at bf16
-              and int8 / int8 (the int8 KV request warns, the pool stays
-              bf16), pipelined over the dense cache, no-cache, sampled,
-              ``long_serve`` past its window and the fp32
-              ``teacher_forced`` check past it (1400 tokens); deepseek-v3
+              requests); full-width hymba: bucketed at bf16 (32 layers);
+              at its first 8 layers (the global one and 7 windowed) int8
+              / int8 (the int8 KV request warns, the pool stays bf16),
+              pipelined over the dense cache, no-cache, sampled and
+              ``long_serve`` past its window; the fp32
+              ``teacher_forced`` check past it (32 layers, 1400 tokens); deepseek-v3
               at full width, 1 dense + 2 MoE layers of 61 (53 GB of bf16
               weights, drawn a 1 GB expert slice at a time): bucketed at
               bf16 and int8 / int8, pipelined, sampled,
@@ -222,7 +232,10 @@ that two versions are timed in one call on one card):
               window 4096, softcap 50), MLA's naive form (1 x 128, 128
               heads, D 192 / Dv 128) and a ragged case with rows that see
               no key, at fp32, bf16 and fp16 (timed against SDPA's
-              backward); the mLSTM backward kernel (from the forward
+              backward), and the forward with its log-sum-exp at
+              unimo-text's train shape, fp32 and bf16 (timed against
+              SDPA's forward with the same mask, TF32 off); the mLSTM
+              backward kernel (from the forward
               kernel's chunk states and h) against the plain backward at
               xlstm-125m's width (8 rows, 4 heads x 384: S = 128 from the
               zero state, S = 300 from a nonzero one), fp32 and bf16, and
@@ -313,6 +326,19 @@ KERNEL_SYMBOLS = {
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
               "paged_packed_attention": "paged_packed_mma_kernel",
               "paged_packed_attention_q8": "paged_packed_mma_kernel"}
+# ... and that fp32 must reach in flash's: every device kernel of a timed
+# fp32 case holds one of these (the split bodies' fp32 instances)
+REDESIGNED_FP32 = {"flash_attention": ("flash_mma_kernel<float",),
+                   "flash_attention_bwd": ("attn_bwd_dq_mma_kernel<float",
+                                           "attn_bwd_dkdv_mma_kernel<float",
+                                           "attn_bwd_dkdv_sum_kernel<float")}
+# fp32 flash cases against the plain version evaluated in fp64: the
+# kernel's error at most FP64_GATE_FACTOR times the plain fp32 version's,
+# or FP64_GATE_FLOOR of the output's largest magnitude, the larger
+FP64_GATE_FACTOR = 4.0
+FP64_GATE_FLOOR = 1e-6
+# the split bodies' own floor: each fp32 product as six bf16 products
+SPLIT_PRODUCTS = 6
 NOTES = {
     "mlstm_chunked": "library_ms null: no single PyTorch call computes the "
                      "chunkwise mLSTM",
@@ -333,10 +359,10 @@ NOTES = {
                            "backward); launches: the full-width unimo-text "
                            "fp32 training run (one per layer and step); "
                            "library: SDPA's backward with the same boolean "
-                           "mask; one call is three launches at fp32 (D, "
-                           "dK/dV, dQ), two or three at bf16 / fp16 (dQ "
-                           "with D, dK/dV, and the head splits' sum where "
-                           "the plan splits)",
+                           "mask; one call is two or three launches at "
+                           "every dtype (dQ with D, dK/dV, and the head "
+                           "splits' sum where the plan splits; fp32 the "
+                           "split body's instances)",
     "mlstm_chunked_bwd": "replaces null: the reference differentiates its "
                          "jnp path (its Pallas mLSTM kernel has no "
                          "backward); library_ms null: no single PyTorch "
@@ -522,6 +548,74 @@ def visible(kp, qp, window):
     if window is not None:
         m &= kp > qp - window
     return m
+
+
+def _flash_fwd64(q, k, v, qp, kp, window, scale, softcap):
+    """The plain forward (kernels/ref.py's formulas) evaluated in fp64:
+    (out (B, Sq, Hq, Dv), lse (B, Hq, Sq), +inf where a row sees no key)."""
+    import torch
+    B, Sq, Hq, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.double().reshape(B, Sq, Hkv, g, D), k.double()) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    mask = visible(kp[:, None, :], qp[:, :, None], window)[:, None, None]
+    s = s.masked_fill(~mask, -torch.inf)
+    lse = torch.logsumexp(s, -1)
+    seen = mask.any(-1)
+    p = torch.where(mask, torch.exp(s - torch.where(seen, lse, 0.0)[
+        ..., None]), 0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.double())
+    lse = torch.where(seen.expand_as(lse), lse, torch.inf)
+    return out.reshape(B, Sq, Hq, Dv), lse.reshape(B, Hq, Sq)
+
+
+def _flash_bwd64(q, k, v, qp, kp, o, lse, do, window, scale, softcap):
+    """The plain backward (kernels/ref.py's flash_attention_bwd_ref)
+    evaluated in fp64 from the same o and lse: (dq, dk, dv)."""
+    import torch
+    B, Sq, Hq, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    qg = q.double().reshape(B, Sq, Hkv, g, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    mask = visible(kp[:, None, :], qp[:, :, None], window)[:, None, None]
+    p = torch.where(mask, torch.exp(
+        s - lse.double().reshape(B, Hkv, g, Sq, 1)), 0.0)
+    dof = do.double().reshape(B, Sq, Hkv, g, Dv)
+    delta = (dof * o.double().reshape(B, Sq, Hkv, g, Dv)).sum(-1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof, v.double())
+              - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    return (torch.einsum("bhgqk,bkhd->bqhgd", ds, k.double()).reshape(
+                B, Sq, Hq, D),
+            torch.einsum("bhgqk,bqhgd->bkhd", ds, qg),
+            torch.einsum("bhgqk,bqhgd->bkhd", p, dof))
+
+
+def _fp64_errors(names, got, plain, truth):
+    """Each output's error against the fp64 evaluation ``truth``, the
+    plain fp32 version's beside it, both as fractions of the output's
+    largest magnitude (finite entries), and whether the kernel's is at
+    most FP64_GATE_FACTOR times the plain version's or FP64_GATE_FLOOR."""
+    import torch
+    out = {}
+    for n, g, p, t in zip(names, got, plain, truth):
+        fin = torch.isfinite(t)
+        scale = max(t[fin].abs().max().item(), 1e-30)
+        e = (g.double()[fin] - t[fin]).abs().max().item() / scale
+        pe = (p.double()[fin] - t[fin]).abs().max().item() / scale
+        out[n] = {"err": e, "plain_err": pe,
+                  "ok": e <= max(FP64_GATE_FACTOR * pe, FP64_GATE_FLOOR)}
+    return out
 
 
 def _bound(nbytes, flops, dtype):
@@ -765,11 +859,16 @@ def run_mixed_case(rng, name, *, Hq, Hkv, D, dtype, W, n_q, before,
 
 @timed_case
 def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
-                   window=None, softcap=None, timed=False, Dv=None):
+                   window=None, softcap=None, timed=False, Dv=None,
+                   lse=False):
     """Flash attention over (B, S) tokens at positions 0 .. S-1, as the
     draft model's forwards run it; ``ragged`` right-pads the rows with -1
     positions and leaves the last row wholly invalid; ``Dv``: a value
-    head dim other than D (MLA's naive form)."""
+    head dim other than D (MLA's naive form).  ``lse``: the training
+    forward, which also returns each row's log-sum-exp (timed that way,
+    against the plain version's and SDPA's forward).  fp32: the output's
+    (and lse's) error against the plain version evaluated in fp64, beside
+    the plain fp32 version's own (``fp64``; gated)."""
     Dv = Dv or D
     import torch
     import torch.nn.functional as F
@@ -784,35 +883,63 @@ def run_flash_case(rng, name, *, B, S, Hq, Hkv, D, dtype, ragged=False,
             pos[b, S - 3 * b - 1 if b < B - 1 else 0:] = -1
     p = torch.from_numpy(pos).to(dev)
     kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
-    out = FA.flash_attention(q, k, v, p, p, **kw)
-    ref = FA.flash_attention_ref(q, k, v, p, p, **kw)
+    out, got_lse = FA.flash_attention(q, k, v, p, p, return_lse=True, **kw)
+    ref, ref_lse = FA.flash_attention_lse_ref(q, k, v, p, p, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[str(dtype).removeprefix("torch.")]
+    dn = str(dtype).removeprefix("torch.")
+    tol = TOL[dn]
+    fin = torch.isfinite(ref_lse)
     ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) \
-        and not out[p < 0].any().item()
+        and not out[p < 0].any().item() \
+        and torch.equal(torch.isfinite(got_lse), fin) \
+        and torch.allclose(got_lse[fin], ref_lse[fin], atol=tol, rtol=tol)
     res = {"case": name, "kernel": "flash_attention", "max_abs_err": err,
-           "tol": tol, "ok": bool(ok), "B": B, "S": S, "D": D, "Dv": Dv}
+           "tol": tol, "ok": bool(ok), "B": B, "S": S, "D": D, "Dv": Dv,
+           "Hq": Hq, "Hkv": Hkv, "dtype": dn}
+    if dtype == torch.float32:
+        res["fp64"] = _fp64_errors(
+            ("out", "lse"), (out, got_lse), (ref, ref_lse),
+            _flash_fwd64(q, k, v, p, p, window, D ** -0.5, softcap))
+        res["ok"] &= all(e["ok"] for e in res["fp64"].values())
     if timed:
         g = Hq // Hkv
         mask = visible(p[:, None, None, :], p[:, None, :, None], window)
         qs = q.transpose(1, 2)
         ks = k.repeat_interleave(g, 2).transpose(1, 2)
         vs = v.repeat_interleave(g, 2).transpose(1, 2)
-        res.update(timings(
-            "flash_attention",
-            lambda: FA.flash_attention(q, k, v, p, p, **kw),
-            lambda: FA.flash_attention_ref(q, k, v, p, p, **kw),
-            lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        # SDPA at fp32 with TF32 off (PyTorch's default for matmul, set
+        # here for cuDNN too)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            res.update(timings(
+                "flash_attention",
+                lambda: FA.flash_attention(q, k, v, p, p, return_lse=lse,
+                                           **kw),
+                (lambda: FA.flash_attention_lse_ref(q, k, v, p, p, **kw))
+                if lse else (lambda: FA.flash_attention_ref(q, k, v, p, p,
+                                                            **kw)),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, scale=D ** -0.5)))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        res["lse"] = lse
         # the visible (query, key) pairs of this run's positions, 2 D + 2
         # Dv flops each per query head (QK^T and PV); bytes: q, k, v, out
-        # and positions once
+        # (and lse) and positions once
         pairs = int(visible(pos[:, None, :], pos[:, :, None], window).sum())
+        flops = 2 * (D + Dv) * Hq * pairs
         nbytes = (q.numel() * (D + Dv) // D + k.numel() + v.numel()) \
-            * q.element_size() + 2 * pos.nbytes
-        res["bound_ms"], res["bound_by"] = _bound(
-            nbytes, 2 * (D + Dv) * Hq * pairs, dtype)
+            * q.element_size() + 2 * pos.nbytes \
+            + (got_lse.numel() * 4 if lse else 0)
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, dtype)
+        if dtype == torch.float32:
+            res["split_floor_ms"] = (SPLIT_PRODUCTS * flops
+                                     / PEAK_FLOPS["bfloat16"] * 1e3)
     return res
 
 
@@ -845,7 +972,13 @@ def run_flash_prefix_case(rng, name, *, B, Sq, npages, page, prefix, lens,
     tol = TOL[str(dtype).removeprefix("torch.")]
     ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
     res = {"case": name, "kernel": "flash_attention", "max_abs_err": err,
-           "tol": tol, "ok": bool(ok), "B": B, "S": Sq, "Sk": Sk}
+           "tol": tol, "ok": bool(ok), "B": B, "S": Sq, "Sk": Sk,
+           "dtype": str(dtype).removeprefix("torch.")}
+    if dtype == torch.float32:
+        res["fp64"] = _fp64_errors(
+            ("out",), (out,), (ref,),
+            _flash_fwd64(q, k, v, q_pos, k_pos, None, D ** -0.5, None)[:1])
+        res["ok"] &= all(e["ok"] for e in res["fp64"].values())
     if timed:
         g = Hq // Hkv
         mask = visible(k_pos[:, None, None, :], q_pos[:, None, :, None],
@@ -1255,9 +1388,14 @@ def phase_kernels(check_bodies=True):
              and "device_kernels" in c
              and not all(REDESIGNED[c["kernel"]] in n
                          for n in c["device_kernels"])]
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+              if check_bodies and c["kernel"] in REDESIGNED_FP32
+              and c.get("dtype") == "float32" and "device_kernels" in c
+              and not all(any(s in n for s in REDESIGNED_FP32[c["kernel"]])
+                          for n in c["device_kernels"])]
     if stale:
-        raise SystemExit(f"bf16 case did not run the tensor-core body: "
-                         f"{stale}")
+        raise SystemExit(f"bf16 (or flash's fp32) case did not run the "
+                         f"tensor-core body: {stale}")
     # each kernel's timed case at its main path's shape: qwen3-4b for the
     # paged kernels (its verify window for the mixed pair), the tied head
     # for quant_matmul (its M = 256 prefill stream beside it), the draft
@@ -1316,8 +1454,9 @@ def family_kernel_cases(rng):
     over 192-byte rows; its untied head), gemma2-2b (8 / 4 x 256, the
     local layers' window 4096 and softcap 50; its tied head of 256000
     rows) and gemma3-27b (32 / 16 x 128, window 1024).  bf16 cases at the
-    serves' shapes are timed; fp32 (the CUDA-core bodies) and the cases
-    past a window check values only.  The packed pair at gemma2's heads
+    serves' shapes are timed; fp32 (the CUDA-core bodies; flash's split
+    body, also against fp64) and the cases past a window check values
+    only.  The packed pair at gemma2's heads
     and dense decode at phi3's run in no serve of theirs (gemma2 serves
     bucketed, phi3 is served packed) but give each kernel both new head
     dims."""
@@ -2327,7 +2466,7 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
     for name in ("paged_decode_kernel", "paged_decode_mma_kernel",
                  "paged_packed_kernel", "paged_packed_mma_kernel",
                  "paged_mixed_kernel", "paged_mixed_mma_kernel",
-                 "flash_kernel", "flash_mma_kernel",
+                 "flash_mma_kernel",
                  "dense_decode_kernel", "dense_decode_mma_kernel",
                  "quant_matmul_kernel", "quant_matmul_reduce_kernel",
                  "quant_matmul_mma_decode_kernel",
@@ -3119,7 +3258,8 @@ def moe_mm_kernel_cases(rng):
     flash over 256 prefix embeddings + 64 text tokens at internvl2's; flash
     over 8 x 64 steps and dense decode over the 97-row cache of max_len 96
     at musicgen's.  bf16 cases on a path are timed; fp32 (the CUDA-core
-    bodies) and int8 pools off any serve check values only."""
+    bodies; flash's split body, also against fp64) and int8 pools off any
+    serve check values only."""
     import torch
     bf16, fp32 = torch.bfloat16, torch.float32
     moe = dict(Hq=64, Hkv=4, D=128)
@@ -3536,6 +3676,26 @@ DEEPSEEK_DENSE, DEEPSEEK_MOE = 1, 2
 DS_TEACHER = (2, 48, 16)
 INT8_KV_WARNING = ("kv_dtype=int8 requested but no attention layer has a "
                    "paged pool to quantize")
+# the depth of hymba-1.5b's secondary serves (int8 / int8, pipelined,
+# no-cache, sampled, the long serve): its first 8 of 32 layers, the global
+# layer and 7 windowed ones (each of its ~5,350-kernel forwards is host
+# bound; at 32 layers these serves took ~170 s of the smoke on a slow host)
+HYMBA_CUT_LAYERS = 8
+
+
+def _cut_keep_specs(cfg, params, layers):
+    """``cfg`` and its ``params`` cut to their first ``layers`` layers,
+    each keeping its own spec (hymba's global and windowed layers), runs of
+    equal specs as one stack; the tensors are shared."""
+    from repro_torch.configs.base import Stack, layer_specs
+    stacks = []
+    for spec in list(layer_specs(cfg))[:layers]:
+        if stacks and stacks[-1].pattern == (spec,):
+            stacks[-1] = Stack((spec,), stacks[-1].repeats + 1)
+        else:
+            stacks.append(Stack((spec,), 1))
+    return (cfg.replace(stacks=tuple(stacks)),
+            {**params, "layers": params["layers"][:layers]})
 
 
 def _deepseek_cut(moe_layers=DEEPSEEK_MOE, **kw):
@@ -3558,8 +3718,8 @@ def hybrid_mla_kernel_cases(rng):
     exact-length admissions 1 x 77 and 8 x 78 for both; dense decode over
     ``generate_batch``'s cache at hymba's heads; ``quant_matmul`` at
     hymba's tied head (1600 -> 32001) and deepseek's untied head (7168 ->
-    129280).  bf16 cases are timed; fp32 (the CUDA-core bodies) check
-    values only."""
+    129280).  bf16 cases are timed; fp32 (the CUDA-core bodies; flash's
+    split body, also against fp64) check values only."""
     import torch
     bf16, fp32 = torch.bfloat16, torch.float32
     hymba = dict(Hq=25, Hkv=5, D=64, window=1024)
@@ -3753,15 +3913,17 @@ def phase_teacher_forced_mla():
 
 
 def phase_serves_hybrid_mla():
-    """hymba-1.5b (all 32 layers) and deepseek-v3 (DEEPSEEK_DENSE dense +
-    DEEPSEEK_MOE MoE layers) at full width, random bf16 weights from a
-    seeded torch.Generator.  hymba: bucketed at exact lengths at bf16 and
-    at int8 KV + int8 weights (the KV request warns and the pool stays
-    bf16; attention, FFN and the tied head through ``quant_matmul``, 7
-    records a layer and the head, never the Mamba branch), pipelined over
-    the dense cache, the no-cache baseline, a sampled serve, the long
-    serve past its 1024 window at max_len 2048, then the fp32
-    teacher-forced check past the window.  deepseek: bucketed at bf16 and
+    """hymba-1.5b and deepseek-v3 (DEEPSEEK_DENSE dense + DEEPSEEK_MOE MoE
+    layers) at full width, random bf16 weights from a seeded
+    torch.Generator.  hymba: bucketed at exact lengths at bf16 at all 32
+    layers; at its first HYMBA_CUT_LAYERS (labels say so) at int8 KV +
+    int8 weights (the KV request warns and the pool stays bf16; attention,
+    FFN and the tied head through ``quant_matmul``, 7 records a layer and
+    the head, never the Mamba branch), pipelined over the dense cache, the
+    no-cache baseline (both matched against the cut model's bucketed
+    streams), a sampled serve, the long serve past its 1024 window at
+    max_len 2048; then the fp32 teacher-forced check past the window at all
+    32 layers.  deepseek: bucketed at bf16 and
     int8 / int8 (the KV request warns: MLA keeps its latent cache; the
     dense FFN, the shared experts and the head through ``quant_matmul``,
     3 records a layer and the head), pipelined over the dense latent
@@ -3780,21 +3942,24 @@ def phase_serves_hybrid_mla():
     gen.manual_seed(0)
     cfg = get_config(HYMBA_ARCH)
     params = T.init_params(gen, cfg, BF16)
-    _, seen["hymba bucketed"], s_b, _, _ = phase_serve(
+    _, seen["hymba bucketed"], _, _, _ = phase_serve(
         HYMBA_ARCH, params, mode="bucketed", profile=True)
+    cut, pc = _cut_keep_specs(cfg, params, HYMBA_CUT_LAYERS)
+    lab = functools.partial(_depth, cfg=cut, of=cfg.num_layers)
     _, seen["hymba bucketed int8"], _, _, _ = phase_serve(
-        HYMBA_ARCH, params, kv_dtype="int8", weights_dtype="int8",
-        mode="bucketed", profile=True, label="bucketed int8",
+        HYMBA_ARCH, pc, cfg=cut, kv_dtype="int8", weights_dtype="int8",
+        mode="bucketed", profile=True, label=lab("bucketed int8"),
         expect_warnings=(INT8_KV_WARNING,))
-    seen["hymba pipelined"], _ = phase_dense(HYMBA_ARCH, params,
-                                             "pipelined", base=s_b)
+    s_b = _greedy_streams(cut, pc)
+    seen["hymba pipelined"], _ = phase_dense(
+        HYMBA_ARCH, pc, lab("pipelined"), cfg=cut, base=s_b)
     seen["hymba nocache"], _ = phase_dense(
-        HYMBA_ARCH, params, "nocache", pipelined=False, use_kv_cache=False,
-        max_new=8, base=s_b)
-    phase_sampled(params, cfg, "hymba bucketed", mode="bucketed",
+        HYMBA_ARCH, pc, lab("nocache"), pipelined=False, use_kv_cache=False,
+        max_new=8, cfg=cut, base=s_b)
+    phase_sampled(pc, cut, lab("hymba bucketed"), mode="bucketed",
                   policy=BF16)
-    phase_long_serve(params, cfg)
-    del params
+    phase_long_serve(pc, cut)
+    del params, pc
     torch.cuda.empty_cache()
     phase_teacher_forced(HYMBA_ARCH, n_prompt=1400)
     torch.cuda.empty_cache()
@@ -3928,7 +4093,14 @@ def run_flash_bwd_case(rng, name, *, B, S, Hq, Hkv, D, dtype, Dv=None,
            "max_abs_err": max(e[0] for e in errs.values()),
            "errs": errs, "rel_errs": rels, "tol": tol, "ok": bool(ok),
            "deterministic": deterministic, "plan": plan._asdict(),
-           "B": B, "S": S, "D": D, "Dv": Dv, "Hq": Hq, "Hkv": Hkv}
+           "B": B, "S": S, "D": D, "Dv": Dv, "Hq": Hq, "Hkv": Hkv,
+           "dtype": str(dtype).removeprefix("torch.")}
+    if dtype == torch.float32:
+        res["fp64"] = _fp64_errors(
+            ("dq", "dk", "dv"), got, plain,
+            _flash_bwd64(q, k, v, qp, kp, o, lse, do, window, D ** -0.5,
+                         softcap))
+        res["ok"] &= all(e["ok"] for e in res["fp64"].values())
     if timed:
         g = Hq // Hkv
         mask = visible(kp[:, None, None, :], qp[:, None, :, None], window)
@@ -3948,13 +4120,21 @@ def run_flash_bwd_case(rng, name, *, B, S, Hq, Hkv, D, dtype, Dv=None,
             # the tensor-core kernels ran, and nothing else of the port's
             res["ok"] &= all("_mma_" in n or "_sum_" in n
                              for n in res["device_kernels"])
+        elif plan.body == "split":
+            # the fp32 instances of the same kernels, and nothing else
+            res["ok"] &= all(any(s in n for s in
+                                 REDESIGNED_FP32["flash_attention_bwd"])
+                             for n in res["device_kernels"])
         pairs = int(visible(pos[:, None, :], qpos[:, :, None], window).sum())
         el = q.element_size()
         nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + 2 * o.numel()) * el + lse.numel() * 4 \
             + pos.nbytes + qpos.nbytes
-        res["bound_ms"], res["bound_by"] = _bound(
-            nbytes, 2.5 * 2 * (D + Dv) * Hq * pairs, dtype)
+        flops = 2.5 * 2 * (D + Dv) * Hq * pairs
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, dtype)
+        if dtype == torch.float32:
+            res["split_floor_ms"] = (SPLIT_PRODUCTS * flops
+                                     / PEAK_FLOPS["bfloat16"] * 1e3)
     return res
 
 
@@ -4080,16 +4260,28 @@ def mlstm_bwd_cases(rng):
 
 
 def train_kernel_cases(rng):
-    """The backward kernels at the train shapes.  Flash: unimo-text (8 x
-    128, 16 x 64, MHA), qwen3-4b's microbatch (4 x 128, 32 / 8 x 128),
-    gemma2-2b (4 x 256, 8 / 4 x 256, window 4096, softcap 50), MLA's naive
-    form (1 x 128, 128 heads, D 192 / Dv 128) and a ragged case with -1
-    positions and rows that see no key; each at fp32, bf16 and fp16, the
-    train shapes timed at bf16 (and unimo-text at fp32, the fp32 run's
-    dtype, and qwen3-4b at fp16).  Then the mLSTM backward
-    (:func:`mlstm_bwd_cases`).  Every case runs the kernel twice and must
-    get the same bits."""
+    """The training kernels at the train shapes: flash's
+    (:func:`flash_train_cases`), then the mLSTM backward
+    (:func:`mlstm_bwd_cases`)."""
+    return flash_train_cases(rng) + mlstm_bwd_cases(rng)
+
+
+def flash_train_cases(rng):
+    """Flash at the train shapes.  The forward with its log-sum-exp at
+    unimo-text's (8 x 128, 16 x 64), fp32 (the default train policy's) and
+    bf16, timed.  The backward at unimo-text's, qwen3-4b's microbatch (4 x
+    128, 32 / 8 x 128), gemma2-2b's (4 x 256, 8 / 4 x 256, window 4096,
+    softcap 50), MLA's naive form (1 x 128, 128 heads, D 192 / Dv 128) and
+    a ragged case with -1 positions and rows that see no key; each at
+    fp32, bf16 and fp16, the train shapes timed at bf16 (and unimo-text at
+    fp32, the fp32 run's dtype, and qwen3-4b at fp16).  Every backward
+    case runs the kernel twice and must get the same bits."""
     import torch
+    cases = [run_flash_case(rng, f"unimo-text train 8 x 128 {dn} lse",
+                            B=8, S=128, Hq=16, Hkv=16, D=64, dtype=dtype,
+                            timed=True, lse=True)
+             for dtype, dn in ((torch.float32, "float32"),
+                               (torch.bfloat16, "bfloat16"))]
     shapes = {
         "unimo-text train 8 x 128": dict(B=8, S=128, Hq=16, Hkv=16, D=64),
         "qwen3-4b train 4 x 128": dict(B=4, S=128, Hq=32, Hkv=8, D=128),
@@ -4100,7 +4292,6 @@ def train_kernel_cases(rng):
         "ragged -1 + empty rows window 16 softcap 30": dict(
             B=3, S=45, Hq=8, Hkv=2, D=32, window=16, softcap=30.0,
             ragged=True)}
-    cases = []
     for name, kw in shapes.items():
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             dn = str(dtype).removeprefix("torch.")
@@ -4110,7 +4301,7 @@ def train_kernel_cases(rng):
                 or (dtype == torch.float16 and name.startswith("qwen3")))
             cases.append(run_flash_bwd_case(rng, f"{name} {dn}",
                                             dtype=dtype, timed=timed, **kw))
-    return cases + mlstm_bwd_cases(rng)
+    return cases
 
 
 def _train_batch(cfg, rng, B, S):
@@ -4310,7 +4501,7 @@ def _train_run(cfg, params, batches, *, label, policy, policy_name, steps,
     return out, launches
 
 
-def phase_train():
+def phase_train(unimo_fp32_only=False):
     """Full-width training on the card: unimo-text (24 layers, 1024 wide,
     the paper's model) on ``packed_batches`` over ``synthetic_corpus(2000)``,
     8 x 128 tokens, 30 steps, lr 1e-3, warmup 5, under fp32 and under
@@ -4324,7 +4515,9 @@ def phase_train():
     six mLSTM layers through the mLSTM forward kernel (twice a layer and
     step: remat) and the backward kernel (once), nothing else of the
     port's.  Returns (the unimo-text fp32 run's launch counts, the
-    xlstm-125m run's, each run's launch counts by label)."""
+    xlstm-125m run's, each run's launch counts by label).
+    ``unimo_fp32_only``: the unimo-text fp32 run alone (an A/B of the fp32
+    training path; the xlstm-125m counts are then None)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import FP32, MIXED
@@ -4339,7 +4532,9 @@ def phase_train():
     cfg = get_config("unimo-text")
     tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
     opt = OPT.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
-    for name, policy in (("fp32", FP32), ("mixed", MIXED)):
+    policies = (("fp32", FP32),) if unimo_fp32_only else (("fp32", FP32),
+                                                          ("mixed", MIXED))
+    for name, policy in policies:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         params = T.init_params(gen, cfg, policy)
@@ -4357,6 +4552,10 @@ def phase_train():
                 and sum(seen[label].values()) == 3 * n_attn):
             failed.append((label, drop, seen[label]))
         del params
+    if unimo_fp32_only:
+        if failed:
+            raise SystemExit(f"training on the card failed: {failed}")
+        return seen["unimo-text fp32"], None, seen
     cfg, params = _qwen3_train_model()
     tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
     batches = packed_batches(tok, corpus, batch_size=TRAIN_B,
@@ -4431,6 +4630,12 @@ def main(argv=None) -> int:
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src/ directory whose repro_torch is run "
                          "(default: this checkout's)")
+    ap.add_argument("--only", action="append", choices=("flash", "train"),
+                    help="run only these phases, for an A/B of the fp32 "
+                         "training path: the flash forward and backward "
+                         "cases at the train shapes (flash), the "
+                         "full-width unimo-text fp32 train run (train); "
+                         "no kernels summary line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4463,6 +4668,23 @@ def main(argv=None) -> int:
                 or "spill" in ln])
 
     emit("bwd_kernels", kernels=bwd_kernel_attrs(build.load()))
+    if args.only:
+        if "flash" in args.only:
+            cases = flash_train_cases(torch.Generator(device="cuda")
+                                      .manual_seed(0))
+            for c in cases:
+                emit("kernels", **c)
+            bad = [c["case"] for c in cases if not c["ok"]]
+            if bad:
+                raise SystemExit(f"flash disagrees with its plain version: "
+                                 f"{bad}")
+        if "train" in args.only:
+            phase_train(unimo_fp32_only=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     timed = phase_kernels(check_bodies=src == (ROOT / "src").resolve())
     phase_parity("unimo-text")
     phase_parity("qwen3-4b")

@@ -1,6 +1,9 @@
 // Tensor-core attention core for Hopper (sm_90a), shared by the bf16/fp16
 // bodies of flash_attention.cu (flash_mma_kernel) and paged_attention.cu
-// (paged_mixed_mma_kernel, paged_decode_mma_kernel, paged_packed_mma_kernel).
+// (paged_mixed_mma_kernel, paged_decode_mma_kernel, paged_packed_mma_kernel),
+// and by flash's fp32 body (flash_mma_kernel<float, ...>: the same walk over
+// fp32 tiles, every product's operands cut into bf16 parts; its own
+// instantiation, chosen at compile time, so the 2-byte ones are unchanged).
 //
 // A block owns up to 64 rows, where a row is one (query, head of the kv
 // group) pair: row r of the block is global row r0 + r = qi * g + hi, query
@@ -29,15 +32,16 @@
 //     written as zeros by the copies themselves (cp.async's zero fill).
 //   * Q.K^T and P.V on the tensor cores: mma.sync.m16n8k16 with fp32
 //     accumulators, fed by ldmatrix from shared memory (Q and K as stored,
-//     V transposed).  Over int8 pools the codes and their fp32 scales are
+//     V transposed); at fp32 by fp32 loads cut into three bf16 parts each
+//     (mma_abt_split, mma_xb_split below), P kept in fp32.  Over int8 pools the codes and their fp32 scales are
 //     staged as stored; each element is dequantized as code x scale in
 //     fp32 and rounded to q's type while the B fragments are built, which
 //     is exactly what the plain version's gather computes.
 //   * The online softmax in registers: scores to base 2 (log2 e folded
 //     into the exponent's FFMA), running max and denominator per row,
 //     -inf-safe rescaling (skipped when no row max of the warp moved); P
-//     is rounded to q's type for the P.V product, as FlashAttention-2
-//     does.  On a tile that every valid row sees whole only padding rows
+//     is rounded to q's type for the P.V product at bf16 / fp16, as
+//     FlashAttention-2 does.  On a tile that every valid row sees whole only padding rows
 //     are masked.  A row that sees no key writes 0.
 //
 // Only addresses differ between the users.  A key: flash reads key j of
@@ -62,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dtype.cuh"
 #include "mma.cuh"
 
@@ -75,6 +81,10 @@ constexpr int kMmaMaxSplits = 16; // splits of one walk (the merge's smem)
 constexpr int kTileInts = kMmaKeys + 4;  // a tile's positions, its flag
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// bf16 parts of each fp32 operand of flash attention's fp32 bodies (the
+// forward here, the backward in flash_attention_bwd.cu): part products
+// (i, j) with i + j < 3, six mma a k-step (mma_parts_apart)
+constexpr int kSplitParts = 3;
 
 struct MmaArgs {
   const void* q;          // (B, NQ, Hq, D)
@@ -102,32 +112,63 @@ struct MmaArgs {
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
 // Blocks an SM should hold at once (the register budget of __launch_bounds__):
-// as many as the shared memory of a 64-row block at that head dim allows.
-constexpr int mma_min_blocks(int dmax) {
-  return dmax <= 64 ? 5 : dmax <= 128 ? 3 : 1;
+// as many as the shared memory of a 64-row block at that head dim allows
+// (esz: q's bytes an element; fp32 tiles take twice the room).
+constexpr int mma_min_blocks(int dmax, int esz = 2) {
+  return esz == 4 ? (dmax <= 64 ? 2 : 1)
+                  : dmax <= 64 ? 5 : dmax <= 128 ? 3 : 1;
+}
+
+// Stages of the ring: 3, but 2 for fp32 tiles in the 256 bucket (three of
+// 32 keys of K and V would not fit beside the block's Q rows).
+__host__ __device__ constexpr int mma_stages(int dmax, int kv_bytes) {
+  return kv_bytes == 4 && dmax > 128 ? 2 : kMmaStages;
+}
+
+// Row strides (bytes) of fp32 tiles in shared memory.  Rows read along
+// themselves as float2 pairs (Q and K: a fragment's half-warp reads four
+// rows) start 8 floats past a multiple of 16, so the four fall in distinct
+// 8-bank groups; rows read down their columns (V in P.V: lanes read rows
+// 2 tig and 2 tig + 1 at column gid) 4 floats past, so those 32 reads
+// fall in 32 banks.
+__host__ __device__ inline int f32_rows_bytes(int dim) {
+  return (round16(dim) + 8) * 4;
+}
+__host__ __device__ inline int f32_cols_bytes(int dim) {
+  return (round16(dim) + 4) * 4;
 }
 
 // Shared-memory layout (bytes): Q rows; per stage the K tile, the V tile,
 // the tile's key positions and (int8 pools) its K and V scales; then the
 // position window (positions and entries of kMmaWindow keys), the rows'
-// query positions and a few ints.  Row strides are padded by 16 bytes so
-// the 8 rows an ldmatrix reads fall in distinct banks.
+// query positions and a few ints.  Row strides of 2-byte elements are
+// padded by 16 bytes so the 8 rows an ldmatrix reads fall in distinct
+// banks; fp32 tiles (kv_bytes 4, q fp32 too) as f32_rows_bytes and
+// f32_cols_bytes say.
 struct MmaSmem {
   int q_stride, k_stride, v_stride, q_bytes, k_bytes, v_bytes, sc_bytes;
+  int stages;
   __host__ __device__ MmaSmem(int D, int Dv, int rows, int kv_bytes) {
-    q_stride = (round16(D) + 8) * 2;
-    k_stride = kv_bytes == 1 ? round16(D) + 16 : (round16(D) + 8) * 2;
-    v_stride = kv_bytes == 1 ? round16(Dv) + 16 : (round16(Dv) + 8) * 2;
+    if (kv_bytes == 4) {
+      q_stride = k_stride = f32_rows_bytes(D);
+      v_stride = f32_cols_bytes(Dv);
+    } else {
+      q_stride = (round16(D) + 8) * 2;
+      k_stride = kv_bytes == 1 ? round16(D) + 16 : (round16(D) + 8) * 2;
+      v_stride = kv_bytes == 1 ? round16(Dv) + 16 : (round16(Dv) + 8) * 2;
+    }
     q_bytes = rows * q_stride;
     k_bytes = kMmaKeys * k_stride;
     v_bytes = kMmaKeys * v_stride;
     sc_bytes = kv_bytes == 1 ? 2 * kMmaKeys * 4 : 0;
+    const int d = round16(D > Dv ? D : Dv);
+    stages = mma_stages(d <= 64 ? 64 : d <= 128 ? 128 : 256, kv_bytes);
   }
   __host__ __device__ int stage_bytes() const {
     return k_bytes + v_bytes + kTileInts * 4 + sc_bytes;
   }
   __host__ __device__ int misc_offset() const {
-    return q_bytes + kMmaStages * stage_bytes();
+    return q_bytes + stages * stage_bytes();
   }
   __host__ __device__ int total() const {
     return misc_offset() + (2 * kMmaWindow + kMmaRows) * 4 + 16;
@@ -158,9 +199,9 @@ __device__ __forceinline__ long long mma_row(const MmaArgs& a, long long lane0,
 struct MmaCopyPlan {
   int key0, step, col, chunk, row_bytes;
   __device__ MmaCopyPlan(int dim, int esz) {
-    chunk = (esz == 2 || dim % 16 == 0) ? 16 : 8;
+    chunk = (esz != 1 || dim % 16 == 0) ? 16 : 8;
     row_bytes = dim * esz;
-    const int per_row = round16(dim) * esz / chunk;   // <= 32
+    const int per_row = round16(dim) * esz / chunk;   // <= 64
     step = blockDim.x / per_row;
     key0 = threadIdx.x / per_row;
     col = (threadIdx.x % per_row) * chunk;
@@ -323,9 +364,120 @@ struct MmaBlock {
   }
 };
 
+// fp32 operands on the bf16 tensor cores (flash attention's fp32 bodies):
+// each operand cut into kSplitParts parts as its fragment loads from fp32
+// rows in shared memory (load_a / load_b), or from the accumulators that
+// hold it (split_acc_a).
+
+// acc (16 x 32 a warp) = A (the warp's 16 rows of fp32 `a_rows`, kpad
+// columns) . B^T (32 fp32 rows of `b_rows`), kpad a multiple of 16: Q.K^T
+// in the forward, the scores and dO.V^T in the backward.  The leading
+// parts' products and the rest go to separate accumulators, added once.
+template <int DMAX>
+__device__ __forceinline__ void mma_abt_split(float (&acc)[4][4],
+                                              const float* a_rows, int a_ld,
+                                              const float* b_rows, int b_ld,
+                                              int kpad) {
+  constexpr int P = kSplitParts;
+  float lo[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i / 4][i % 4] = lo[i / 4][i % 4] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (kk * 16 >= kpad) break;
+    uint32_t a[P][4];
+    load_a<P, true>(a, a_rows, a_ld, 0, kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t b[P][2];
+      load_b<P, true>(b, b_rows, b_ld, kk * 16, nt * 8);
+      mma_parts_apart<P, P>(acc[nt], lo[nt], a, b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i / 4][i % 4] += lo[i / 4][i % 4];
+}
+
+// The same with A's parts held in registers for every k-step (KS of them):
+// a warp that multiplies its own rows by every tile cuts them once.
+template <int KS>
+__device__ __forceinline__ void mma_abt_split(
+    float (&acc)[4][4], const uint32_t (&a)[KS][kSplitParts][4],
+    const float* b_rows, int b_ld, int kpad) {
+  constexpr int P = kSplitParts;
+  float lo[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i / 4][i % 4] = lo[i / 4][i % 4] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if (kk * 16 >= kpad) break;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t b[P][2];
+      load_b<P, true>(b, b_rows, b_ld, kk * 16, nt * 8);
+      mma_parts_apart<P, P>(acc[nt], lo[nt], a[kk], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i / 4][i % 4] += lo[i / 4][i % 4];
+}
+
+// Every k-step's A parts of the warp's 16 fp32 rows of `a_rows`.
+template <int KS>
+__device__ __forceinline__ void split_rows_a(uint32_t (&a)[KS][kSplitParts][4],
+                                             const float* a_rows, int a_ld,
+                                             int kpad) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    if (kk * 16 < kpad) load_a<kSplitParts, true>(a[kk], a_rows, a_ld, 0, kk * 16);
+}
+
+// acc (16 x up to NP * 16 a warp, from column c0) += X (16 x 32, fp32 in
+// the accumulators of a 16 x 32 product) . B (32 fp32 rows of `b_rows`,
+// read down columns c0 ..., up to `width` of the padded `dpad`): P.V in
+// the forward, dS.K, P^T.dO and dS^T.Q in the backward.  Each 16-column
+// group's products over the tile go to fresh accumulators (the leading
+// parts' apart from the rest), added to acc with fp32 adds: acc's sums
+// over many tiles never pass through the tensor cores' truncation.
+template <int NP, bool WHOLE>
+__device__ __forceinline__ void mma_xb_split(float (&acc)[NP * 2][4],
+                                             const float (&x)[4][4],
+                                             const float* b_rows, int b_ld,
+                                             int c0, int width, int dpad) {
+  constexpr int P = kSplitParts;
+  uint32_t xa[2][P][4];
+  split_acc_a<P>(xa[0], x[0], x[1]);
+  split_acc_a<P>(xa[1], x[2], x[3]);
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    const int c = c0 + np * 16;
+    if (np * 16 < width && (WHOLE || c < dpad)) {
+      float hi[2][4], lo[2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hi[i / 4][i % 4] = lo[i / 4][i % 4] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < 2; ++kq) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          uint32_t b[P][2];
+          load_b<P, false>(b, b_rows, b_ld, kq * 16, c + hf * 8);
+          mma_parts_apart<P, P>(hi[hf], lo[hf], xa[kq], b);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[np * 2 + i / 4][i % 4] += hi[i / 4][i % 4] + lo[i / 4][i % 4];
+    }
+  }
+}
+
 template <typename T, typename KV, int DMAX>
 __device__ void mma_attend(const MmaArgs& a, char* smem) {
   constexpr bool kQ8 = sizeof(KV) == 1;
+  // fp32 q / k / v (flash only): the split products above
+  constexpr bool kSplit = std::is_same_v<T, float>;
+  static_assert(!kSplit || std::is_same_v<KV, float>, "fp32 q takes fp32 K/V");
+  constexpr int S = mma_stages(DMAX, sizeof(KV));
   // the last row tile first: under a causal mask it sees the most keys,
   // so the longest blocks start in the first wave
   const int tile = a.row_tiles - 1 - (int)blockIdx.x / a.splits;
@@ -360,13 +512,14 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
   // Q rows (zeros past nrows and in the padding of D), the rows' query
   // positions and the first position window, all in flight together
   {
-    const int per_row = DP / 8, step = nthreads / per_row;
-    const int col = (tid % per_row) * 8;
+    constexpr int kVec = 16 / sizeof(T);      // elements a 16-byte copy
+    const int per_row = DP / kVec, step = nthreads / per_row;
+    const int col = (tid % per_row) * kVec;
     for (int r = tid / per_row; r < rows_alloc && tid < step * per_row;
          r += step) {
       const bool ok = r < nrows && col < D;
       const T* src = ok ? q + mma_row(a, lane0, h, r0 + r) * D + col : q;
-      cp_async16(blk.q_s + r * L.q_stride + col * 2, src, ok);
+      cp_async16(blk.q_s + r * L.q_stride + col * (int)sizeof(T), src, ok);
     }
   }
   for (int r = tid; r < kMmaRows; r += nthreads) {
@@ -412,25 +565,43 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
   for (int i = 0; i < DMAX / 8; ++i)
     o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // fp32 up to a head dim of 64: the warp's Q parts stay in registers for
+  // the whole walk
+  constexpr bool kHoldQ = kSplit && DMAX <= 64;
+  uint32_t qh[kHoldQ ? DMAX / 16 : 1][kSplitParts][4];
+  if constexpr (kHoldQ) {   // Q landed with the first window
+    split_rows_a(qh, reinterpret_cast<const float*>(
+                         blk.q_s + warp * 16 * L.q_stride),
+                 L.q_stride / 4, DP);
+  }
 
-  // the ring: tile t_cur in stage st, t_nxt in the next; each iteration
-  // requests the tile after t_nxt into the third
+  // the ring: tile t_cur in stage st, t_nxt in the next; with three stages
+  // each iteration requests the tile after t_nxt into the third, with two
+  // t_nxt itself into the other
   const int k_stop = blk.k_stop;
   int t_cur = blk.next_tile(k_begin);
   if (t_cur < k_stop) blk.issue<KV>(t_cur, blk.stages);
   cp_async_commit();
   int t_nxt = t_cur < k_stop ? blk.next_tile(t_cur + kMmaKeys) : k_stop;
-  if (t_nxt < k_stop) blk.issue<KV>(t_nxt, blk.stages + L.stage_bytes());
-  cp_async_commit();
+  if constexpr (S == 3) {
+    if (t_nxt < k_stop) blk.issue<KV>(t_nxt, blk.stages + L.stage_bytes());
+    cp_async_commit();
+  }
   int st = 0;
   while (t_cur < k_stop) {
-    const int t_new = t_nxt < k_stop ? blk.next_tile(t_nxt + kMmaKeys)
-                                     : k_stop;
-    if (t_new < k_stop)
-      blk.issue<KV>(t_new, blk.stages + ((st + 2) % kMmaStages) *
-                               L.stage_bytes());
+    int t_new = k_stop;
+    if constexpr (S == 3) {
+      t_new = t_nxt < k_stop ? blk.next_tile(t_nxt + kMmaKeys) : k_stop;
+      if (t_new < k_stop)
+        blk.issue<KV>(t_new, blk.stages + ((st + 2) % kMmaStages) *
+                                 L.stage_bytes());
+    } else {
+      static_assert(S == 2, "a ring of two or three stages");
+      if (t_nxt < k_stop)
+        blk.issue<KV>(t_nxt, blk.stages + (st ^ 1) * L.stage_bytes());
+    }
     cp_async_commit();
-    cp_async_wait<kMmaStages - 1>();
+    cp_async_wait<S - 1>();
     __syncthreads();
     if (has_rows) {
       const char* kst = blk.stages + st * L.stage_bytes();
@@ -440,6 +611,15 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
       const bool full = tkp[kMmaKeys] != 0;
       // S = Q K^T: 16 rows x 32 keys per warp
       float s[4][4];
+      if constexpr (kSplit) {
+        const float* kf = reinterpret_cast<const float*>(kst);
+        if constexpr (kHoldQ)
+          mma_abt_split(s, qh, kf, L.k_stride / 4, DP);
+        else
+          mma_abt_split<DMAX>(s, reinterpret_cast<const float*>(
+                                     blk.q_s + warp * 16 * L.q_stride),
+                              L.q_stride / 4, kf, L.k_stride / 4, DP);
+      } else {
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -472,6 +652,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
           mma16816<T>(s[np * 2], qa, kb[0], kb[1]);
           mma16816<T>(s[np * 2 + 1], qa, kb[2], kb[3]);
         }
+      }
       }
       // scale (and softcap) into base 2, then the mask: on a tile every
       // valid row sees whole, only padding rows are masked
@@ -532,6 +713,11 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
           o[nt][3] *= alpha[1];
         }
       }
+      if constexpr (kSplit) {
+        // O += P V, P in fp32 (as the plain version keeps it)
+        mma_xb_split<DMAX / 16, false>(o, s, reinterpret_cast<const float*>(vst),
+                                      L.v_stride / 4, 0, DVP, DVP);
+      } else {
       // O += P V, P rounded to T
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
@@ -570,11 +756,18 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
           }
         }
       }
+      }
     }
     __syncthreads();
-    t_cur = t_nxt;
-    t_nxt = t_new;
-    st = (st + 1) % kMmaStages;
+    if constexpr (S == 3) {
+      t_cur = t_nxt;
+      t_nxt = t_new;
+      st = (st + 1) % kMmaStages;
+    } else {
+      t_cur = t_nxt;
+      t_nxt = t_nxt < k_stop ? blk.next_tile(t_nxt + kMmaKeys) : k_stop;
+      st ^= 1;
+    }
   }
   cp_async_wait<0>();
 #pragma unroll
@@ -605,8 +798,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
       for (int nt = 0; nt < DMAX / 8; ++nt) {
         const int col = nt * 8 + tig * 2;
         if (col < Dv)
-          *reinterpret_cast<uint32_t*>(orow + col) =
-              pack2<T>(o[nt][rr * 2] * inv, o[nt][rr * 2 + 1] * inv);
+          store2<T>(orow + col, o[nt][rr * 2] * inv, o[nt][rr * 2 + 1] * inv);
       }
     }
     return;
@@ -703,8 +895,8 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
       const int i = i0 + u * nthreads;
       if (i >= n4) break;
       T* orow = out + mma_row(a, lane0, h, r0 + rw[u]) * Dv + i * 4 % Dv;
-      *reinterpret_cast<uint32_t*>(orow) = pack2<T>(acc[u].x, acc[u].y);
-      *reinterpret_cast<uint32_t*>(orow + 2) = pack2<T>(acc[u].z, acc[u].w);
+      store2<T>(orow, acc[u].x, acc[u].y);
+      store2<T>(orow + 2, acc[u].z, acc[u].w);
     }
   }
   if (tid == 0) a.counters[group] = 0;
@@ -715,8 +907,8 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
 // 4 by default, and warps without rows load tiles and merge splits).
 inline cudaError_t mma_launch(void (*kernel)(MmaArgs), const MmaArgs& a,
                               int units, cudaStream_t stream,
-                              int warps = kMmaRows / 16) {
-  const int kv_bytes = a.kscale != nullptr ? 1 : 2;
+                              int warps = kMmaRows / 16, bool fp32 = false) {
+  const int kv_bytes = fp32 ? 4 : a.kscale != nullptr ? 1 : 2;
   const size_t smem = MmaSmem(a.D, a.Dv, warps * 16, kv_bytes).total();
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t e = opt_in_smem((const void*)kernel, smem);

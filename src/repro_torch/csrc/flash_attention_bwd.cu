@@ -36,64 +36,69 @@
 // fill the card; the design keeps every product on the tensor cores,
 // every intermediate in registers, and the copies in flight behind them.
 //
-// Two bodies, chosen by q's dtype in the host-side plan (not a fallback),
-// whose block sizes and shared memory the launcher takes after checking
-// them against what its kernels were built for:
-//
-//  * bf16 / fp16: the tensor cores, mma.sync.m16n8k16 with fp32
-//    accumulators fed by ldmatrix from shared memory, two kernels (three
-//    with a head split):
-//    - attn_bwd_dq_mma_kernel, grid (ceil(Sq g / 64), Hkv, B).  A block
-//      owns 64 rows of (query, head of the kv group) pairs, as the
-//      forward's blocks do (attn_mma.cuh), so the g heads of a kv head
-//      read each K / V tile once; a warp owns 16 rows.  It first writes
-//      D = rowsum(dO o) of its rows (delta, which the dK / dV kernel
-//      reads; no launch of its own), then walks 32-key tiles: S = Q K^T
-//      and dP = dO V^T, then P and dS in registers, then dQ += dS K with
-//      dS re-packed from the accumulators as the A operand and K through
-//      ldmatrix.trans.  dQ stays in registers.  A separate dQ pass that
-//      recomputes S and dP (7 products where FlashAttention-2's takes 5)
-//      is what keeps its sums free of atomics.
-//    - attn_bwd_dkdv_mma_kernel, grid (ceil(Sk / Bc) x head splits, Hkv,
-//      B): FlashAttention-2's backward with the keys as the M dimension of
-//      every product.  A block owns Bc keys of one kv head, keeps their K
-//      and V in shared memory at q's type and walks tiles of 32 (query,
-//      head) pairs of its heads: S^T = K Q^T and dP^T = V dO^T, P^T and
-//      dS^T in registers, then dV += P^T dO and dK += dS^T Q with P^T and
-//      dS^T re-packed from the accumulators as A operands and dO / Q
-//      through ldmatrix.trans.  A warp owns 16 keys; above a head dim of
-//      128 two warps share 16 keys and split dK's and dV's columns (both
-//      recompute S^T and dP^T), so dK and dV stay within 128 registers a
-//      lane.  Where the grid would be under one wave, the plan splits the
-//      g query heads over blocks: each writes fp32 partials, and
-//      attn_bwd_dkdv_sum_kernel adds them in split order.
-//    Both walks read positions first: a tile in which nothing can be
-//    visible (past the causal diagonal, outside the window, -1) is never
-//    requested.  The rest come through a cp.async ring (three stages; two
-//    in the 256 bucket, so that two dK/dV blocks fit an SM) with one
-//    barrier a tile; a block's own rows, its positions and its first
-//    tiles are all in flight before it waits.  A warp's fixed A operand
-//    (Q and dO rows in dQ up to a head dim of 128, K and V rows in dK/dV
-//    at 64) stays in registers for the whole walk.  P and dS are rounded
-//    to q's type for their products, as FlashAttention-2 does; every sum
-//    is fp32.
-//    What measured best (chip_smoke.py, PERF.md): nothing checked at
-//    run time inside a tile's unrolled work.  The train shapes' head dims
-//    (64, 128, 256, MLA's 192 / 128) have kernels of their own with
-//    constant loop bounds, the rest their bucket's general ones, and the
-//    softcap and the mask each select their own copy of the
-//    probabilities' loop.  At these shapes the kernels are bound by their
-//    registers (dK and dV take 128 a lane above a head dim of 64: two
-//    blocks an SM) and each block's fixed cost (its first copies and
-//    positions, one launch), not by bytes or the tensor cores.
-//  * fp32: attn_bwd_{delta,dkdv,dq}_kernel on CUDA cores, fp32 products,
-//    so the card's fp32 gradients equal the CPU's within summation order
-//    (tensor cores would multiply in TF32).  A dK/dV block owns 32 keys of
-//    one kv head and walks the g query heads of that kv head and every
-//    32-query tile in a fixed order, summing in shared memory; a dQ block
-//    owns 32 queries of one query head and walks the 32-key tiles; both
-//    skip a tile pair in which no key is visible.  Bound by shared-memory
-//    traffic: each fma reads one operand from it.
+// One design for every dtype, on the tensor cores (mma.sync.m16n8k16 with
+// fp32 accumulators), its block sizes and shared memory taken from the
+// host-side plan after checking them against what the kernels were built
+// for; two kernels (three with a head split):
+//  - attn_bwd_dq_mma_kernel, grid (ceil(Sq g / 64), Hkv, B).  A block owns
+//    64 rows of (query, head of the kv group) pairs, as the forward's
+//    blocks do (attn_mma.cuh), so the g heads of a kv head read each K / V
+//    tile once; a warp owns 16 rows.  It first writes D = rowsum(dO o) of
+//    its rows (delta, which the dK / dV kernel reads; no launch of its
+//    own), then walks 32-key tiles: S = Q K^T and dP = dO V^T, then P and
+//    dS in registers, then dQ += dS K with dS re-packed from the
+//    accumulators as the A operand.  dQ stays in registers.  A separate dQ
+//    pass that recomputes S and dP (7 products where FlashAttention-2's
+//    takes 5) is what keeps its sums free of atomics.
+//  - attn_bwd_dkdv_mma_kernel, grid (ceil(Sk / Bc) x head splits, Hkv, B):
+//    FlashAttention-2's backward with the keys as the M dimension of every
+//    product.  A block owns Bc keys of one kv head, keeps their K and V in
+//    shared memory and walks tiles of 32 (query, head) pairs of its heads:
+//    S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers, then dV +=
+//    P^T dO and dK += dS^T Q with P^T and dS^T re-packed from the
+//    accumulators as A operands.  A warp owns 16 keys; above a head dim of
+//    128 two warps share 16 keys and split dK's and dV's columns (both
+//    recompute S^T and dP^T), so dK and dV stay within 128 registers a
+//    lane.  Where the grid would be under one wave, the plan splits the g
+//    query heads over blocks: each writes fp32 partials, and
+//    attn_bwd_dkdv_sum_kernel adds them in split order.
+// Both walks read positions first: a tile in which nothing can be visible
+// (past the causal diagonal, outside the window, -1) is never requested.
+// The rest come through a cp.async ring with one barrier a tile; a block's
+// own rows, its positions and its first tiles are all in flight before it
+// waits.  Every sum is fp32.  Two bodies of this design, chosen by q's
+// dtype in the plan (flash_attention.py:bwd_plan, bodies "mma" and
+// "split"; not a fallback):
+//  * bf16 / fp16 ("mma"): operands at q's type in shared memory, fragments
+//    by ldmatrix (K, Q and dO through ldmatrix.trans as B of the dQ, dK
+//    and dV products); P and dS rounded to q's type for their products, as
+//    FlashAttention-2 does.  A warp's fixed A operand (Q and dO rows in dQ
+//    up to a head dim of 128, K and V rows in dK/dV at 64) stays in
+//    registers for the whole walk.  Rings of three stages, two in the 256
+//    bucket so that two dK/dV blocks fit an SM.
+//  * fp32 ("split"): the same kernels over fp32 tiles, every operand of
+//    every product cut into three bf16 parts whose sum is the value as its
+//    fragment loads (attn_mma.cuh: mma_abt_split, mma_xb_split; the part
+//    pairs i + j < 3, six mma a k-step), P and dS kept in fp32 and cut as
+//    well, as the plain version keeps them: the products are exact to
+//    ~2^-24 of their size, as fp32 FMAs are, where TF32 would keep three
+//    decimal digits.  At a head dim of 64 a warp holds its fixed side's
+//    first operand cut (Q's parts in dQ, K's in dK/dV) for the whole
+//    walk; the second (dO, V) is cut again every tile.  The leading parts' products and the rest sum in
+//    separate accumulators, and dQ's, dK's and dV's sums over each tile in
+//    fresh ones added with fp32 adds (the tensor cores add with
+//    truncation).  fp32 rows take twice the room: the dQ block computes D
+//    from o in device memory instead of staging it, and the 256 bucket's
+//    rings hold one tile (dQ) or two (dK/dV).
+// What measured best at bf16 (chip_smoke.py, PERF.md): nothing checked at
+// run time inside a tile's unrolled work.  The train shapes' head dims
+// (64, 128, 256, MLA's 192 / 128) have kernels of their own with constant
+// loop bounds (fp32: 64, the fp32 train step's), the rest their bucket's
+// general ones, and the softcap and the mask each select their own copy of
+// the probabilities' loop.  At these shapes the kernels are bound by their
+// registers (dK and dV take 128 a lane above a head dim of 64: two blocks
+// an SM) and each block's fixed cost (its first copies and positions, one
+// launch), not by bytes or the tensor cores.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -105,9 +110,6 @@
 
 namespace {
 
-// fp32: the CUDA-core bodies
-constexpr int kThreads = 256;
-constexpr int kTile = 32;          // queries or keys per tile
 constexpr size_t kMaxSmem = 227 * 1024;
 
 struct BwdParams {
@@ -126,8 +128,8 @@ struct BwdParams {
   int B, Sq, Sk, Hq, Hkv, g, D, Dv;
   float scale, softcap;  // softcap <= 0: none
   int window;            // window <= 0: none
-  // the tensor-core body's plan: the dK/dV blocks' split of each kv
-  // head's query heads and, with more than one, their fp32 partials
+  // the plan's split of each kv head's query heads over dK/dV blocks and,
+  // with more than one, their fp32 partials
   int head_splits;
   float* part;
 };
@@ -138,275 +140,10 @@ struct BwdParams {
 // built for this geometry (a plan they were not: an error).
 struct BwdPlan {
   int block_keys;     // keys of a dK/dV block
-  int dq_rows;        // rows of a dQ block: queries (fp32), (query, head) pairs
+  int dq_rows;        // (query, head) rows of a dQ block
   int smem_dq;        // shared-memory bytes of a dQ block
   int smem_dkdv;      // ... and of a dK/dV block
 };
-
-// Shared-memory floats of either tile kernel: Q and K tiles (rows padded
-// to D + 1 so that 32 threads reading 32 rows hit 32 banks), dO and V
-// tiles (Dv + 1), the block's two accumulators (dK and dV, or dQ and a
-// spare of Dv), P and dS (32 x 33), lse and D per query, then the 2 x 32
-// positions as ints.
-inline size_t bwd_smem_floats(int D, int Dv) {
-  return 2 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * (Dv + 1) +
-         (size_t)kTile * D + (size_t)kTile * Dv +
-         2 * (size_t)kTile * (kTile + 1) + 4 * (size_t)kTile;
-}
-
-struct BwdSmem {
-  float *qs, *ks, *dos, *vs, *acc_a, *acc_b, *ps, *dss, *lse, *dl;
-  int *qp, *kp;
-  int sD, sV;
-  __device__ BwdSmem(float* s, int D, int Dv) {
-    sD = D + 1;
-    sV = Dv + 1;
-    qs = s;
-    ks = qs + kTile * sD;
-    dos = ks + kTile * sD;
-    vs = dos + kTile * sV;
-    acc_a = vs + kTile * sV;        // dK [32][D] or dQ [32][D]
-    acc_b = acc_a + kTile * D;      // dV [32][Dv]
-    ps = acc_b + kTile * Dv;        // [32][33]
-    dss = ps + kTile * (kTile + 1);
-    lse = dss + kTile * (kTile + 1);
-    dl = lse + kTile;
-    qp = reinterpret_cast<int*>(dl + kTile);
-    kp = qp + kTile;
-  }
-};
-
-// Rows [0, n) of a (rows, H, dim) tensor at row `row0`, head h, into
-// `dst` as fp32 with row stride `stride`; rows past n are zeros.
-template <typename T>
-__device__ void stage_rows(float* dst, int stride, const T* src, long long row0,
-                           int H, int h, int dim, int n) {
-  for (int i = threadIdx.x; i < kTile * dim; i += kThreads) {
-    const int r = i / dim, d = i % dim;
-    dst[r * stride + d] =
-        r < n ? to_f(src[((row0 + r) * H + h) * (long long)dim + d]) : 0.f;
-  }
-}
-
-// Query rows [q0, q0 + nq) of head h: positions (-1 past nq), Q, dO, lse
-// and D.
-template <typename T>
-__device__ void stage_queries(const BwdParams& p, const BwdSmem& s, int b,
-                              int h, int q0, int nq) {
-  const long long row0 = (long long)b * p.Sq + q0;
-  stage_rows(s.qs, s.sD, static_cast<const T*>(p.q), row0, p.Hq, h, p.D, nq);
-  stage_rows(s.dos, s.sV, static_cast<const T*>(p.dout), row0, p.Hq, h,
-             p.Dv, nq);
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const long long i = ((long long)b * p.Hq + h) * p.Sq + q0 + r;
-    s.lse[r] = r < nq ? p.lse[i] : INFINITY;
-    s.dl[r] = r < nq ? p.delta[i] : 0.f;
-  }
-}
-
-// Key rows [k0, k0 + nk) of kv head hk: K and V.
-template <typename T>
-__device__ void stage_keys(const BwdParams& p, const BwdSmem& s, int b,
-                           int hk, int k0, int nk) {
-  const long long row0 = (long long)b * p.Sk + k0;
-  stage_rows(s.ks, s.sD, static_cast<const T*>(p.k), row0, p.Hkv, hk, p.D,
-             nk);
-  stage_rows(s.vs, s.sV, static_cast<const T*>(p.v), row0, p.Hkv, hk, p.Dv,
-             nk);
-}
-
-// Positions of 32 rows from `pos` (n of them, -1 after).
-__device__ void stage_pos(int* dst, const int* pos, long long row0, int n) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
-    dst[r] = r < n ? pos[row0 + r] : -1;
-}
-
-// Whether some query of the staged tile sees some staged key; the whole
-// block takes the same answer.
-__device__ bool any_visible(const BwdSmem& s, int window) {
-  int any = 0;
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads)
-    any |= visible(s.kp[i % kTile], s.qp[i / kTile], window);
-  return __syncthreads_or(any) != 0;
-}
-
-// P and dS of every (query r, key t) pair of the staged tiles: the scores
-// recomputed from Q and K, P from the forward's lse, dS from dO.V^T and D.
-__device__ void pair_grads(const BwdParams& p, const BwdSmem& s,
-                           bool keep_p) {
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile, t = i % kTile;
-    float pr = 0.f, ds = 0.f;
-    if (visible(s.kp[t], s.qp[r], p.window)) {
-      const float* qr = s.qs + r * s.sD;
-      const float* kt = s.ks + t * s.sD;
-      float dot = 0.f;
-      for (int d = 0; d < p.D; ++d) dot = fmaf(qr[d], kt[d], dot);
-      float sc = dot * p.scale, chain = p.scale;
-      if (p.softcap > 0.f) {
-        const float th = tanhf(sc / p.softcap);
-        sc = th * p.softcap;
-        chain *= 1.f - th * th;
-      }
-      pr = expf(sc - s.lse[r]);          // lse = +inf: 0
-      const float* dor = s.dos + r * s.sV;
-      const float* vt = s.vs + t * s.sV;
-      float dp = 0.f;
-      for (int d = 0; d < p.Dv; ++d) dp = fmaf(dor[d], vt[d], dp);
-      ds = pr * (dp - s.dl[r]) * chain;
-    }
-    if (keep_p) s.ps[r * (kTile + 1) + t] = pr;
-    s.dss[r * (kTile + 1) + t] = ds;
-  }
-}
-
-// grid (ceil(B * Sq * Hq / 8)): one warp per (batch row, query, head) row
-// of o, in memory order; D = rowsum(dO o) into delta (B, Hq, Sq).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(BwdParams p) {
-  const long long row =
-      ((long long)blockIdx.x * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)p.B * p.Sq * p.Hq) return;
-  const T* o = static_cast<const T*>(p.o) + row * p.Dv;
-  const T* d = static_cast<const T*>(p.dout) + row * p.Dv;
-  float acc = 0.f;
-  for (int i = lane; i < p.Dv; i += 32) acc = fmaf(to_f(o[i]), to_f(d[i]), acc);
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const int h = (int)(row % p.Hq);
-    const long long bq = row / p.Hq;            // b * Sq + q
-    const long long b = bq / p.Sq, q = bq % p.Sq;
-    p.delta[(b * p.Hq + h) * p.Sq + q] = acc;
-  }
-}
-
-// grid (ceil(Sk / 32), Hkv, B): dK and dV of 32 keys of kv head hk,
-// summed over its g query heads and every query tile, in that order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdParams p) {
-  extern __shared__ float smem[];
-  BwdSmem s(smem, p.D, p.Dv);
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int nk = min(kTile, p.Sk - k0), D = p.D, Dv = p.Dv;
-  stage_keys<T>(p, s, b, hk, k0, nk);
-  stage_pos(s.kp, p.k_pos, (long long)b * p.Sk + k0, nk);
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) s.acc_a[i] = 0.f;
-  for (int i = threadIdx.x; i < kTile * Dv; i += kThreads) s.acc_b[i] = 0.f;
-  for (int hi = 0; hi < p.g; ++hi) {
-    const int h = hk * p.g + hi;
-    for (int q0 = 0; q0 < p.Sq; q0 += kTile) {
-      const int nq = min(kTile, p.Sq - q0);
-      __syncthreads();                  // the last pair's tiles are read
-      stage_pos(s.qp, p.q_pos, (long long)b * p.Sq + q0, nq);
-      __syncthreads();
-      if (!any_visible(s, p.window)) continue;
-      stage_queries<T>(p, s, b, h, q0, nq);
-      __syncthreads();
-      pair_grads(p, s, true);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q (rows past nq hold P = dS = 0)
-      for (int i = threadIdx.x; i < nk * Dv; i += kThreads) {
-        const int t = i / Dv, d = i % Dv;
-        float a = s.acc_b[i];
-        for (int r = 0; r < nq; ++r)
-          a = fmaf(s.ps[r * (kTile + 1) + t], s.dos[r * s.sV + d], a);
-        s.acc_b[i] = a;
-      }
-      for (int i = threadIdx.x; i < nk * D; i += kThreads) {
-        const int t = i / D, d = i % D;
-        float a = s.acc_a[i];
-        for (int r = 0; r < nq; ++r)
-          a = fmaf(s.dss[r * (kTile + 1) + t], s.qs[r * s.sD + d], a);
-        s.acc_a[i] = a;
-      }
-    }
-  }
-  __syncthreads();
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
-  const long long row0 = (long long)b * p.Sk + k0;
-  for (int i = threadIdx.x; i < nk * D; i += kThreads)
-    dk[((row0 + i / D) * p.Hkv + hk) * D + i % D] = from_f<T>(s.acc_a[i]);
-  for (int i = threadIdx.x; i < nk * Dv; i += kThreads)
-    dv[((row0 + i / Dv) * p.Hkv + hk) * Dv + i % Dv] = from_f<T>(s.acc_b[i]);
-}
-
-// grid (ceil(Sq / 32), Hq, B): dQ of 32 queries of head h over every key
-// tile of its kv head, in order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(BwdParams p) {
-  extern __shared__ float smem[];
-  BwdSmem s(smem, p.D, p.Dv);
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int nq = min(kTile, p.Sq - q0), hk = h / p.g, D = p.D;
-  stage_queries<T>(p, s, b, h, q0, nq);
-  stage_pos(s.qp, p.q_pos, (long long)b * p.Sq + q0, nq);
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) s.acc_a[i] = 0.f;
-  for (int k0 = 0; k0 < p.Sk; k0 += kTile) {
-    const int nk = min(kTile, p.Sk - k0);
-    __syncthreads();
-    stage_pos(s.kp, p.k_pos, (long long)b * p.Sk + k0, nk);
-    __syncthreads();
-    if (!any_visible(s, p.window)) continue;
-    stage_keys<T>(p, s, b, hk, k0, nk);
-    __syncthreads();
-    pair_grads(p, s, false);
-    __syncthreads();
-    // dQ += dS K (keys past nk hold dS = 0)
-    for (int i = threadIdx.x; i < nq * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      float a = s.acc_a[i];
-      for (int t = 0; t < nk; ++t)
-        a = fmaf(s.dss[r * (kTile + 1) + t], s.ks[t * s.sD + d], a);
-      s.acc_a[i] = a;
-    }
-  }
-  __syncthreads();
-  T* dq = static_cast<T*>(p.dq);
-  const long long row0 = (long long)b * p.Sq + q0;
-  for (int i = threadIdx.x; i < nq * D; i += kThreads)
-    dq[((row0 + i / D) * p.Hq + h) * D + i % D] = from_f<T>(s.acc_a[i]);
-}
-
-template <typename T>
-cudaError_t launch_bwd(const BwdParams& p, const BwdPlan& plan,
-                       cudaStream_t stream) {
-  const size_t need = bwd_smem_floats(p.D, p.Dv) * sizeof(float);
-  if (plan.block_keys != kTile || plan.dq_rows != kTile ||
-      p.head_splits != 1 || (size_t)plan.smem_dq < need ||
-      (size_t)plan.smem_dkdv < need || plan.smem_dq > (int)kMaxSmem ||
-      plan.smem_dkdv > (int)kMaxSmem)
-    return cudaErrorInvalidValue;
-  if (p.B == 0 || (p.Sq == 0 && p.Sk == 0)) return cudaSuccess;
-  cudaError_t e =
-      opt_in_smem((const void*)attn_bwd_dkdv_kernel<T>, plan.smem_dkdv);
-  if (e == cudaSuccess)
-    e = opt_in_smem((const void*)attn_bwd_dq_kernel<T>, plan.smem_dq);
-  if (e != cudaSuccess) return e;
-  const long long rows = (long long)p.B * p.Sq * p.Hq;
-  if (rows > 0) {
-    const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
-    attn_bwd_delta_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  if (p.Sk > 0) {
-    const dim3 grid((p.Sk + plan.block_keys - 1) / plan.block_keys, p.Hkv,
-                    p.B);
-    attn_bwd_dkdv_kernel<T><<<grid, kThreads, plan.smem_dkdv, stream>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  if (p.Sq > 0) {
-    const dim3 grid((p.Sq + plan.dq_rows - 1) / plan.dq_rows, p.Hq, p.B);
-    attn_bwd_dq_kernel<T><<<grid, kThreads, plan.smem_dq, stream>>>(p);
-  }
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16 / fp16: the tensor-core bodies
-// ---------------------------------------------------------------------------
 
 constexpr int kWalkN = 32;        // items a walked tile: keys, or (query, head) pairs
 constexpr int kWinTiles = 32;     // tiles whose positions are read at once
@@ -414,11 +151,13 @@ constexpr int kWarps = 4;         // of either kernel's block
 constexpr int kWinPer = kWinTiles / kWarps;   // a warp's tiles of a window
 constexpr int kDqRows = kWarps * 16;     // (query, head) rows of a dQ block
 
-// Bytes of a row of `dim` 2-byte elements in shared memory: zeros up to a
-// multiple of 16 elements, then 16 bytes more, so that the 8 rows an
-// ldmatrix reads fall in distinct banks.
-__host__ __device__ inline int smem_row_bytes(int dim) {
-  return (round16(dim) + 8) * 2;
+// Bytes of a row of `dim` elements of esz bytes in shared memory: zeros up
+// to a multiple of 16 elements, then 16 bytes more (2-byte elements), so
+// that the 8 rows an ldmatrix reads fall in distinct banks; fp32 rows as
+// attn_mma.cuh's f32_rows_bytes (four rows read as float2 pairs fall in
+// distinct bank groups; read down columns, 2-way conflicts).
+__host__ __device__ inline int smem_row_bytes(int dim, int esz = 2) {
+  return esz == 4 ? f32_rows_bytes(dim) : (round16(dim) + 8) * 2;
 }
 
 // The head-dim bucket of a (D, Dv) pair: the widest accumulator a warp
@@ -430,8 +169,13 @@ __host__ __device__ inline int bwd_dmax(int D, int Dv) {
 
 // Stages of a block's ring of tiles: 3 (two tiles in flight while one is
 // multiplied), 2 in the 256 bucket, so that two dK/dV blocks fit an SM.
+// fp32 rows (esz 4) take twice the room: in the 256 bucket a dQ block
+// holds one tile (its 64 rows' Q and dO take 132 KB) and a dK/dV block two.
 __host__ __device__ constexpr int walk_stages(int dmax) {
   return dmax > 128 ? 2 : 3;
+}
+__host__ __device__ constexpr int dq_stages(int dmax, int esz) {
+  return esz == 4 && dmax > 128 ? 1 : walk_stages(dmax);
 }
 
 // Warps that share 16 keys of a dK/dV block and split its columns, and
@@ -459,8 +203,8 @@ __host__ __device__ constexpr int dkdv_keys(int dmax) {
 // of positions and each warp's live bits.
 struct DkdvSmem {
   int kstr, vstr, keys, stages, kv, stage;
-  __host__ __device__ DkdvSmem(int D, int Dv)
-      : kstr(smem_row_bytes(D)), vstr(smem_row_bytes(Dv)),
+  __host__ __device__ DkdvSmem(int D, int Dv, int esz)
+      : kstr(smem_row_bytes(D, esz)), vstr(smem_row_bytes(Dv, esz)),
         keys(dkdv_keys(bwd_dmax(D, Dv))),
         stages(walk_stages(bwd_dmax(D, Dv))) {
     kv = keys * (kstr + vstr);
@@ -472,36 +216,37 @@ struct DkdvSmem {
   }
 };
 
-// Shared memory of a dQ block (bytes): its rows' Q, dO and o; per stage a key
-// tile's K and V rows, its positions and a flag; then the rows'
-// positions, lse (base 2) and D, the walk's window and the live bits.
+// Shared memory of a dQ block (bytes): its rows' Q, dO and (2-byte
+// elements) o; per stage a key tile's K and V rows, its positions and a
+// flag; then the rows' positions, lse (base 2) and D, the walk's window
+// and the live bits.
 struct DqSmem {
-  int kstr, vstr, stages, stage;
-  __host__ __device__ DqSmem(int D, int Dv)
-      : kstr(smem_row_bytes(D)), vstr(smem_row_bytes(Dv)),
-        stages(walk_stages(bwd_dmax(D, Dv))) {
+  int kstr, vstr, stages, stage, vrows;
+  __host__ __device__ DqSmem(int D, int Dv, int esz)
+      : kstr(smem_row_bytes(D, esz)), vstr(smem_row_bytes(Dv, esz)),
+        stages(dq_stages(bwd_dmax(D, Dv), esz)), vrows(esz == 4 ? 1 : 2) {
     stage = kWalkN * (kstr + vstr) + (kWalkN + 4) * 4;
   }
   __host__ __device__ int misc() const {
-    return kDqRows * (kstr + 2 * vstr) + stages * stage;
+    return kDqRows * (kstr + vrows * vstr) + stages * stage;
   }
   __host__ __device__ int total() const {
     return misc() + (3 * kDqRows + kWinTiles * kWalkN + kWarps) * 4;
   }
 };
 
-// How the block's threads copy rows of `dim` 2-byte elements into shared
-// rows with 16-byte cp.async: thread t takes chunk `col` of rows r0,
-// r0 + step, ... (one division a copy, none a row).  Row r comes from
+// How the block's threads copy rows of `dim` elements of esz bytes into
+// shared rows with 16-byte cp.async: thread t takes chunk `col` of rows
+// r0, r0 + step, ... (one division a copy, none a row).  Row r comes from
 // src + off(r) * dim for r < n; zeros after n and in the padding of dim
 // up to a multiple of 16.
 struct RowCopy {
-  int r0, step, col, dim;
-  __device__ explicit RowCopy(int d) : dim(d) {
-    const int per_row = round16(d) / 8;      // <= 32
+  int r0, step, col, dim, esz;
+  __device__ RowCopy(int d, int e) : dim(d), esz(e) {
+    const int per_row = round16(d) * e / 16;   // <= 64
     step = blockDim.x / per_row;
     r0 = threadIdx.x / per_row;
-    col = (threadIdx.x - r0 * per_row) * 8;
+    col = (threadIdx.x - r0 * per_row) * (16 / e);
     if (r0 >= step) r0 = INT_MAX;            // the spare threads
   }
   template <typename T, typename Off>
@@ -510,7 +255,7 @@ struct RowCopy {
     const bool in = col < dim;
     for (int r = r0; r < rows; r += step) {
       const bool ok = in && r < n;
-      cp_async16(dst + r * stride + col * 2,
+      cp_async16(dst + r * stride + col * esz,
                  ok ? src + off(r) * dim + col : src, ok);
     }
   }
@@ -631,8 +376,10 @@ __device__ __forceinline__ void span(const int* ps, int m, int& lo, int& hi,
 // The ring over a walk's live tiles, S stages: start() requests the first
 // S - 1 tiles (one cp.async group each), and each iteration of run()
 // requests the next into the stage the last one multiplied, behind the
-// iteration's one barrier.  issue(t, stage) and compute(stage) are the
-// kernel's; every thread runs both.
+// iteration's one barrier.  With one stage nothing overlaps: each tile is
+// requested, waited for and multiplied in turn, behind two barriers.
+// issue(t, stage) and compute(stage) are the kernel's; every thread runs
+// both.
 template <int S, typename Issue>
 struct Ring {
   Walk& w;
@@ -659,9 +406,21 @@ struct Ring {
 
   template <typename Compute>
   __device__ __forceinline__ void run(Compute compute) {
+    if constexpr (S == 1) {
+      while (t < w.tiles) {
+        issue(t, stages);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        compute(stages);
+        __syncthreads();      // the stage has been read
+        t = w.next(t + 1);
+      }
+      return;
+    }
     int st = 0;
     for (int done = 0; done < issued; ++done) {
-      cp_async_wait<S - 2>();
+      cp_async_wait<(S > 1 ? S - 2 : 0)>();
       __syncthreads();      // stage st has landed; the last one is free
       if (t < w.tiles) {
         issue(t, stages + ((st + S - 1) % S) * stage_bytes);
@@ -855,13 +614,15 @@ __device__ __forceinline__ void mma_xb(float (&acc)[NP * 2][4],
 // kv head hk, over every live key tile, in order; also D of those rows.
 // DK, DV > 0: the head dims, fixed at compile time (then every loop bound
 // below is a constant: a bound checked at run time inside the unrolled
-// products costs more than the products); 0: read from p.
+// products costs more than the products); 0: read from p.  T float: the
+// split body.
 template <typename T, int DMAX, int DK, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dq_mma_kernel(BwdParams p) {
   extern __shared__ __align__(16) char mma_smem[];
   char* smem = mma_smem;
-  constexpr int S = walk_stages(DMAX);
+  constexpr bool kSplit = std::is_same_v<T, float>;
+  constexpr int S = dq_stages(DMAX, sizeof(T));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int g = p.g, hk = blockIdx.y, b = blockIdx.z;
@@ -871,11 +632,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int nrows = min(kDqRows, p.Sq * g - r0);
   const int D = DK > 0 ? DK : p.D, Dv = DV > 0 ? DV : p.Dv;
   const int DP = round16(D), DVP = round16(Dv);
-  const DqSmem L(D, Dv);
+  const DqSmem L(D, Dv, sizeof(T));
   char* qs = smem;
   char* dos = qs + kDqRows * L.kstr;
-  char* os = dos + kDqRows * L.vstr;
-  char* stages = os + kDqRows * L.vstr;
+  char* os = dos + kDqRows * L.vstr;       // 2-byte elements only
+  char* stages = (kSplit ? dos : os) + kDqRows * L.vstr;
   int* row_qp = reinterpret_cast<int*>(smem + L.misc());
   float* row_l2 = reinterpret_cast<float*>(row_qp + kDqRows);
   float* row_dl = row_l2 + kDqRows;
@@ -890,14 +651,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     return ((long long)b * p.Hq + (long long)hk * g + rg - qi * g) * p.Sq + qi;
   };
 
-  // Q, dO and o rows, the rows' positions and lse, and the key positions
-  // of the walk's first window: every load in flight at once
+  // Q, dO and (2-byte elements) o rows, the rows' positions and lse, and
+  // the key positions of the walk's first window: every load in flight at
+  // once
   {
-    const RowCopy kcp(D), vcp(Dv);
+    const RowCopy kcp(D, sizeof(T)), vcp(Dv, sizeof(T));
     kcp.run(qs, L.kstr, static_cast<const T*>(p.q), nrows, kDqRows, row_off);
     vcp.run(dos, L.vstr, static_cast<const T*>(p.dout), nrows, kDqRows,
             row_off);
-    vcp.run(os, L.vstr, static_cast<const T*>(p.o), nrows, kDqRows, row_off);
+    if constexpr (!kSplit)
+      vcp.run(os, L.vstr, static_cast<const T*>(p.o), nrows, kDqRows,
+              row_off);
   }
   cp_async_commit();
   Walk w;
@@ -931,10 +695,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int nk = min(kWalkN, p.Sk - j0);
     const long long row0 = ((long long)b * p.Sk + j0) * p.Hkv + hk;
     auto key_off = [&](int r) -> long long { return row0 + (long long)r * p.Hkv; };
-    RowCopy(D).run(st, L.kstr, static_cast<const T*>(p.k), nk, kWalkN,
-                   key_off);
-    RowCopy(Dv).run(st + kWalkN * L.kstr, L.vstr, static_cast<const T*>(p.v),
-                    nk, kWalkN, key_off);
+    RowCopy(D, sizeof(T)).run(st, L.kstr, static_cast<const T*>(p.k), nk,
+                              kWalkN, key_off);
+    RowCopy(Dv, sizeof(T)).run(st + kWalkN * L.kstr, L.vstr,
+                               static_cast<const T*>(p.v), nk, kWalkN,
+                               key_off);
     int* sp = reinterpret_cast<int*>(st + kWalkN * (L.kstr + L.vstr));
     if (tid < kWalkN) {
       const int kp = w.at(t, tid);
@@ -949,14 +714,30 @@ __global__ void __launch_bounds__(kWarps * 32)
   cp_async_wait<S - 1>();                  // Q, dO and o have landed
   __syncthreads();
   // D = rowsum(dO o): two threads a row, the two halves added in order
+  // (fp32: o read from device memory, 4 columns of each 8 a thread)
   {
     const int r = tid >> 1, half = tid & 1;
     float acc = 0.f;
-    const char* orow = os + r * L.vstr;
     const char* drow = dos + r * L.vstr;
-    for (int c = half * 8; c < Dv; c += 16)
-      acc = dot8<T>(*reinterpret_cast<const uint4*>(orow + c * 2),
-                    *reinterpret_cast<const uint4*>(drow + c * 2), acc);
+    if constexpr (kSplit) {
+      if (r < nrows) {
+        const float* orow = static_cast<const float*>(p.o) + row_off(r) * Dv;
+        const float* dr = reinterpret_cast<const float*>(drow);
+        for (int c = half * 4; c < Dv; c += 8) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(orow + c));
+          const float4 y = *reinterpret_cast<const float4*>(dr + c);
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+          acc = fmaf(x.z, y.z, acc);
+          acc = fmaf(x.w, y.w, acc);
+        }
+      }
+    } else {
+      const char* orow = os + r * L.vstr;
+      for (int c = half * 8; c < Dv; c += 16)
+        acc = dot8<T>(*reinterpret_cast<const uint4*>(orow + c * 2),
+                      *reinterpret_cast<const uint4*>(drow + c * 2), acc);
+    }
     const float other = __shfl_xor_sync(~0u, acc, 1);
     if (half == 0) {
       acc += other;
@@ -977,13 +758,19 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
   for (int i = 0; i < DMAX / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
   // up to a head dim of 128 the warp's Q and dO fragments stay in
-  // registers for the whole walk
-  constexpr bool HOLD = DMAX <= 128;
+  // registers for the whole walk; fp32 holds Q's parts at 64 (dO's are cut
+  // from shared memory every tile: both would pass 255 registers)
+  constexpr bool HOLD = !kSplit && DMAX <= 128;
+  constexpr bool HOLD_SPLIT = kSplit && DMAX <= 64;
   uint32_t qf[HOLD ? DMAX / 16 : 1][4], df[HOLD ? DMAX / 16 : 1][4];
+  uint32_t qh[HOLD_SPLIT ? DMAX / 16 : 1][kSplitParts][4];
   if constexpr (HOLD) {
     frags_a(qf, qs + warp * 16 * L.kstr, L.kstr, DP);
     frags_a(df, dos + warp * 16 * L.vstr, L.vstr, DVP);
   }
+  if constexpr (HOLD_SPLIT)
+    split_rows_a(qh, reinterpret_cast<const float*>(qs + warp * 16 * L.kstr),
+                 L.kstr / 4, DP);
 
   ring.run([&](const char* kst) {
     if (!has_rows) return;
@@ -991,9 +778,21 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int* sp = reinterpret_cast<const int*>(vst + kWalkN * L.vstr);
     const bool full = sp[kWalkN] != 0;
     float s[4][4], dp[4][4];
+    // S = Q K^T, dP = dO V^T: 16 rows x 32 keys a warp
+    if constexpr (kSplit) {
+      const float* kf = reinterpret_cast<const float*>(kst);
+      if constexpr (HOLD_SPLIT)
+        mma_abt_split(s, qh, kf, L.kstr / 4, DP);
+      else
+        mma_abt_split<DMAX>(
+            s, reinterpret_cast<const float*>(qs + warp * 16 * L.kstr),
+            L.kstr / 4, kf, L.kstr / 4, DP);
+      mma_abt_split<DMAX>(
+          dp, reinterpret_cast<const float*>(dos + warp * 16 * L.vstr),
+          L.vstr / 4, reinterpret_cast<const float*>(vst), L.vstr / 4, DVP);
+    } else {
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i / 4][i % 4] = dp[i / 4][i % 4] = 0.f;
-    // S = Q K^T, dP = dO V^T: 16 rows x 32 keys a warp
     if constexpr (HOLD) {
       mma_abt<T>(s, qf, kst, L.kstr, DP);
       mma_abt<T>(dp, df, vst, L.vstr, DVP);
@@ -1002,6 +801,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       mma_abt<T, DMAX>(dp, dos + warp * 16 * L.vstr, L.vstr, vst, L.vstr,
                        DVP);
     }
+    }
     auto l2f = [&](int rr, int) { return l2[rr]; };
     auto dlf = [&](int rr, int) { return dl[rr]; };
     auto vis = [&](int rr, int c) {
@@ -1009,7 +809,12 @@ __global__ void __launch_bounds__(kWarps * 32)
     };
     probs_of(cap > 0.f, full, s, dp, p.scale, cap, to2, l2f, dlf, vis);
     // dQ += dS K
-    mma_xb<T, DMAX / 16, parts_whole(DK, 1)>(dq, dp, kst, L.kstr, 0, DP, DP);
+    if constexpr (kSplit)
+      mma_xb_split<DMAX / 16, parts_whole(DK, 1)>(
+          dq, dp, reinterpret_cast<const float*>(kst), L.kstr / 4, 0, DP, DP);
+    else
+      mma_xb<T, DMAX / 16, parts_whole(DK, 1)>(dq, dp, kst, L.kstr, 0, DP,
+                                               DP);
   });
   if (!has_rows) return;
   const float sc = p.scale;
@@ -1021,9 +826,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int nt = 0; nt < DMAX / 8; ++nt) {
       const int c = nt * 8 + tig * 2;
-      if (c < D)
-        *reinterpret_cast<uint32_t*>(out + c) =
-            pack2<T>(dq[nt][rr * 2] * sc, dq[nt][rr * 2 + 1] * sc);
+      if (c < D) store2<T>(out + c, dq[nt][rr * 2] * sc, dq[nt][rr * 2 + 1] * sc);
     }
   }
 }
@@ -1031,11 +834,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 // grid (ceil(Sk / Bc) x head_splits, Hkv, B), 4 warps: dK and dV of Bc
 // keys of kv head hk (dkdv_keys), summed over the block's g / head_splits
 // query heads and every live tile of their (query, head) pairs, in order.
+// T float: the split body.
 template <typename T, int DMAX, int DK, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dkdv_mma_kernel(BwdParams p) {
   extern __shared__ __align__(16) char mma_smem[];
   char* smem = mma_smem;
+  constexpr bool kSplit = std::is_same_v<T, float>;
   constexpr int CS = col_split(DMAX);
   constexpr int NP = DMAX / CS / 16;   // 16-column groups of a warp's part
   constexpr int S = walk_stages(DMAX);
@@ -1049,7 +854,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int h0 = hk * p.g + split * gs;      // the block's first query head
   const int D = DK > 0 ? DK : p.D, Dv = DV > 0 ? DV : p.Dv;
   const int DP = round16(D), DVP = round16(Dv);
-  const DkdvSmem L(D, Dv);
+  const DkdvSmem L(D, Dv, sizeof(T));
   char* ks = smem;
   char* vs = smem + keys * L.kstr;
   char* stages = smem + L.kv;
@@ -1060,8 +865,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   {
     const long long row0 = ((long long)b * p.Sk + k0) * p.Hkv + hk;
     auto key_off = [&](int r) -> long long { return row0 + (long long)r * p.Hkv; };
-    RowCopy(D).run(ks, L.kstr, static_cast<const T*>(p.k), nk, keys, key_off);
-    RowCopy(Dv).run(vs, L.vstr, static_cast<const T*>(p.v), nk, keys, key_off);
+    RowCopy(D, sizeof(T)).run(ks, L.kstr, static_cast<const T*>(p.k), nk,
+                              keys, key_off);
+    RowCopy(Dv, sizeof(T)).run(vs, L.vstr, static_cast<const T*>(p.v), nk,
+                               keys, key_off);
     cp_async_commit();
   }
   Walk w;
@@ -1109,9 +916,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int pr0 = t * kWalkN;
     const int np = min(kWalkN, w.n - pr0);
     auto off = [&](int r) -> long long { return pair_off(pr0 + r); };
-    RowCopy(D).run(st, L.kstr, static_cast<const T*>(p.q), np, kWalkN, off);
-    RowCopy(Dv).run(st + kWalkN * L.kstr, L.vstr,
-                    static_cast<const T*>(p.dout), np, kWalkN, off);
+    RowCopy(D, sizeof(T)).run(st, L.kstr, static_cast<const T*>(p.q), np,
+                              kWalkN, off);
+    RowCopy(Dv, sizeof(T)).run(st + kWalkN * L.kstr, L.vstr,
+                               static_cast<const T*>(p.dout), np, kWalkN,
+                               off);
     float* sl = reinterpret_cast<float*>(st + kWalkN * (L.kstr + L.vstr));
     int* sp = reinterpret_cast<int*>(sl + 2 * kWalkN);
     if (tid < kWalkN) {
@@ -1132,15 +941,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   Ring<S, decltype(issue)> ring(w, stages, L.stage, issue);
   ring.start();
   // at a head dim of 64 the warp's K and V fragments stay in registers for
-  // the whole walk (above it dK and dV leave no room)
-  constexpr bool HOLD = DMAX <= 64;
+  // the whole walk (above it dK and dV leave no room); fp32 holds K's parts
+  // (V's are cut from shared memory every tile: both would pass 255
+  // registers)
+  constexpr bool HOLD = !kSplit && DMAX <= 64;
+  constexpr bool HOLD_SPLIT = kSplit && DMAX <= 64;
   uint32_t kf[HOLD ? DMAX / 16 : 1][4], vf[HOLD ? DMAX / 16 : 1][4];
-  if constexpr (HOLD) {
+  uint32_t kh[HOLD_SPLIT ? DMAX / 16 : 1][kSplitParts][4];
+  if constexpr (HOLD || HOLD_SPLIT) {
     cp_async_wait<S - 1>();                // K and V have landed
     __syncthreads();
+  }
+  if constexpr (HOLD) {
     frags_a(kf, ks + kg * 16 * L.kstr, L.kstr, DP);
     frags_a(vf, vs + kg * 16 * L.vstr, L.vstr, DVP);
   }
+  if constexpr (HOLD_SPLIT)
+    split_rows_a(kh, reinterpret_cast<const float*>(ks + kg * 16 * L.kstr),
+                 L.kstr / 4, DP);
   ring.run([&](const char* sq) {
     if (!has_keys) return;
     const char* sdo = sq + kWalkN * L.kstr;
@@ -1148,15 +966,28 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int* sp = reinterpret_cast<const int*>(sl + 2 * kWalkN);
     const bool full = sp[kWalkN] != 0;
     float s[4][4], dp[4][4];
+    // S^T = K Q^T, dP^T = V dO^T: 16 keys x 32 pairs a warp
+    if constexpr (kSplit) {
+      const float* qf = reinterpret_cast<const float*>(sq);
+      if constexpr (HOLD_SPLIT)
+        mma_abt_split(s, kh, qf, L.kstr / 4, DP);
+      else
+        mma_abt_split<DMAX>(
+            s, reinterpret_cast<const float*>(ks + kg * 16 * L.kstr),
+            L.kstr / 4, qf, L.kstr / 4, DP);
+      mma_abt_split<DMAX>(
+          dp, reinterpret_cast<const float*>(vs + kg * 16 * L.vstr),
+          L.vstr / 4, reinterpret_cast<const float*>(sdo), L.vstr / 4, DVP);
+    } else {
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i / 4][i % 4] = dp[i / 4][i % 4] = 0.f;
-    // S^T = K Q^T, dP^T = V dO^T: 16 keys x 32 pairs a warp
     if constexpr (HOLD) {
       mma_abt<T>(s, kf, sq, L.kstr, DP);
       mma_abt<T>(dp, vf, sdo, L.vstr, DVP);
     } else {
       mma_abt<T, DMAX>(s, ks + kg * 16 * L.kstr, L.kstr, sq, L.kstr, DP);
       mma_abt<T, DMAX>(dp, vs + kg * 16 * L.vstr, L.vstr, sdo, L.vstr, DVP);
+    }
     }
     auto l2f = [&](int, int c) { return sl[c] * kLog2e; };
     auto dlf = [&](int, int c) { return sl[kWalkN + c]; };
@@ -1165,8 +996,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     };
     probs_of(cap > 0.f, full, s, dp, p.scale, cap, to2, l2f, dlf, vis);
     // dV += P^T dO, dK += dS^T Q: this warp's columns
-    mma_xb<T, NP, parts_whole(DV, CS)>(dv, s, sdo, L.vstr, cv0, cwv, DVP);
-    mma_xb<T, NP, parts_whole(DK, CS)>(dk, dp, sq, L.kstr, ck0, cwk, DP);
+    if constexpr (kSplit) {
+      mma_xb_split<NP, parts_whole(DV, CS)>(
+          dv, s, reinterpret_cast<const float*>(sdo), L.vstr / 4, cv0, cwv,
+          DVP);
+      mma_xb_split<NP, parts_whole(DK, CS)>(
+          dk, dp, reinterpret_cast<const float*>(sq), L.kstr / 4, ck0, cwk,
+          DP);
+    } else {
+      mma_xb<T, NP, parts_whole(DV, CS)>(dv, s, sdo, L.vstr, cv0, cwv, DVP);
+      mma_xb<T, NP, parts_whole(DK, CS)>(dk, dp, sq, L.kstr, ck0, cwk, DP);
+    }
   });
   if (!has_keys) return;
   const float sc = p.scale;
@@ -1186,7 +1026,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         if (part_r)
           *reinterpret_cast<float2*>(part_r + c) = make_float2(x, y);
         else
-          *reinterpret_cast<uint32_t*>(dkr + c) = pack2<T>(x, y);
+          store2<T>(dkr + c, x, y);
       }
       const int cv = cv0 + nt * 8 + tig * 2;
       if (nt * 8 < cwv && cv < Dv) {
@@ -1194,7 +1034,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         if (part_r)
           *reinterpret_cast<float2*>(part_r + D + cv) = make_float2(x, y);
         else
-          *reinterpret_cast<uint32_t*>(dvr + cv) = pack2<T>(x, y);
+          store2<T>(dvr + cv, x, y);
       }
     }
   }
@@ -1218,11 +1058,9 @@ __global__ void __launch_bounds__(256) attn_bwd_dkdv_sum_kernel(BwdParams p) {
     y += v.y;
   }
   if (c < p.D)
-    *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + row * p.D + c) =
-        pack2<T>(x, y);
+    store2<T>(static_cast<T*>(p.dk) + row * p.D + c, x, y);
   else
-    *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + row * p.Dv + c -
-                                 p.D) = pack2<T>(x, y);
+    store2<T>(static_cast<T*>(p.dv) + row * p.Dv + c - p.D, x, y);
 }
 
 template <typename T, int DMAX, int DK, int DV>
@@ -1231,8 +1069,8 @@ cudaError_t launch_mma_body(const BwdParams& p, const BwdPlan& plan,
   const int hs = p.head_splits;
   if (plan.block_keys != dkdv_keys(DMAX) || plan.dq_rows != kDqRows ||
       hs < 1 || p.g % hs || (hs > 1 && p.part == nullptr) ||
-      plan.smem_dq < DqSmem(p.D, p.Dv).total() ||
-      plan.smem_dkdv < DkdvSmem(p.D, p.Dv).total() ||
+      plan.smem_dq < DqSmem(p.D, p.Dv, sizeof(T)).total() ||
+      plan.smem_dkdv < DkdvSmem(p.D, p.Dv, sizeof(T)).total() ||
       plan.smem_dq > (int)kMaxSmem || plan.smem_dkdv > (int)kMaxSmem)
     return cudaErrorInvalidValue;
   auto dq_kernel = attn_bwd_dq_mma_kernel<T, DMAX, DK, DV>;
@@ -1263,19 +1101,22 @@ cudaError_t launch_mma_body(const BwdParams& p, const BwdPlan& plan,
 }
 
 // The kernels for (D, Dv): fixed-dim ones at the train shapes' head dims
-// (64, 128, 256 and MLA's 192 / 128), else the bucket's general ones.
+// (64, 128, 256 and MLA's 192 / 128; fp32: 64, the fp32 train step's),
+// else the bucket's general ones.
 template <typename T>
 cudaError_t launch_mma(const BwdParams& p, const BwdPlan& plan,
                        cudaStream_t stream) {
   if (p.B == 0 || (p.Sq == 0 && p.Sk == 0)) return cudaSuccess;
   if (p.D == p.Dv && p.D == 64)
     return launch_mma_body<T, 64, 64, 64>(p, plan, stream);
-  if (p.D == p.Dv && p.D == 128)
-    return launch_mma_body<T, 128, 128, 128>(p, plan, stream);
-  if (p.D == p.Dv && p.D == 256)
-    return launch_mma_body<T, 256, 256, 256>(p, plan, stream);
-  if (p.D == 192 && p.Dv == 128)
-    return launch_mma_body<T, 256, 192, 128>(p, plan, stream);
+  if constexpr (!std::is_same_v<T, float>) {
+    if (p.D == p.Dv && p.D == 128)
+      return launch_mma_body<T, 128, 128, 128>(p, plan, stream);
+    if (p.D == p.Dv && p.D == 256)
+      return launch_mma_body<T, 256, 256, 256>(p, plan, stream);
+    if (p.D == 192 && p.Dv == 128)
+      return launch_mma_body<T, 256, 192, 128>(p, plan, stream);
+  }
   switch (bwd_dmax(p.D, p.Dv)) {
     case 64: return launch_mma_body<T, 64, 0, 0>(p, plan, stream);
     case 128: return launch_mma_body<T, 128, 0, 0>(p, plan, stream);
@@ -1302,31 +1143,33 @@ struct NamedKernel {
 const NamedKernel kBwdKernels[] = {
     BWD_MMA_TYPE(__nv_bfloat16, "bf16"),
     BWD_MMA_TYPE(__half, "fp16"),
+    BWD_MMA_ENTRIES(float, "fp32", 64, 64, 64),
+    BWD_MMA_ENTRIES(float, "fp32", 64, 0, 0),
+    BWD_MMA_ENTRIES(float, "fp32", 128, 0, 0),
+    BWD_MMA_ENTRIES(float, "fp32", 256, 0, 0),
     {"attn_bwd_dkdv_sum_kernel<bf16>",
      (const void*)attn_bwd_dkdv_sum_kernel<__nv_bfloat16>},
     {"attn_bwd_dkdv_sum_kernel<fp16>",
      (const void*)attn_bwd_dkdv_sum_kernel<__half>},
-    {"attn_bwd_delta_kernel<fp32>", (const void*)attn_bwd_delta_kernel<float>},
-    {"attn_bwd_dkdv_kernel<fp32>", (const void*)attn_bwd_dkdv_kernel<float>},
-    {"attn_bwd_dq_kernel<fp32>", (const void*)attn_bwd_dq_kernel<float>},
+    {"attn_bwd_dkdv_sum_kernel<fp32>",
+     (const void*)attn_bwd_dkdv_sum_kernel<float>},
 };
 #undef BWD_MMA_TYPE
 #undef BWD_MMA_ENTRIES
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core body), 1 = float16, 2 = bfloat16 (the
-// tensor-core body), for q, k, v, o, dout and the gradients; lse (B, Hq,
-// Sq) from the forward and delta (B, Hq, Sq), a scratch buffer, are fp32.
-// The launch plan (flash_attention.py:bwd_plan): `body` (0: the CUDA-core
-// body, fp32 only; 1: the tensor-core body, bf16 / fp16 only), the keys of
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16, for q, k, v, o, dout and
+// the gradients; lse (B, Hq, Sq) from the forward and delta (B, Hq, Sq), a
+// scratch buffer, are fp32.  The launch plan (flash_attention.py:bwd_plan):
+// `body` (1: "mma", bf16 / fp16 only; 2: "split", fp32 only), the keys of
 // a dK/dV block and the rows of a dQ block, which size the grids,
-// `head_splits` of each kv head's query heads over dK/dV blocks (1 at
-// fp32), and each block's shared-memory bytes; with more than one split
-// `part`, fp32 scratch of B * Sk * Hkv * head_splits * (D + Dv).  A plan
-// the kernels were not built for is cudaErrorInvalidValue.  Launches on
-// `stream`: fp32 D, dK / dV, dQ; bf16 / fp16 dQ (with D), dK / dV, and the
-// splits' sum.  Returns cudaGetLastError() after them (0 on success).
+// `head_splits` of each kv head's query heads over dK/dV blocks, and each
+// block's shared-memory bytes; with more than one split `part`, fp32
+// scratch of B * Sk * Hkv * head_splits * (D + Dv).  A plan the kernels
+// were not built for is cudaErrorInvalidValue.  Launches on `stream`: dQ
+// (with D), dK / dV, and the splits' sum.  Returns cudaGetLastError()
+// after them (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, const void* k_pos,
@@ -1341,9 +1184,9 @@ extern "C" int flash_attention_bwd_launch(
               static_cast<float*>(part)};
   const BwdPlan plan{block_keys, dq_rows, smem_dq, smem_dkdv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body != (dtype == 0 ? 0 : 1)) return (int)cudaErrorInvalidValue;
+  if (body != (dtype == 0 ? 2 : 1)) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_bwd<float>(p, plan, s);
+    case 0: return (int)launch_mma<float>(p, plan, s);
     case 1: return (int)launch_mma<__half>(p, plan, s);
     case 2: return (int)launch_mma<__nv_bfloat16>(p, plan, s);
     default: return (int)cudaErrorInvalidValue;

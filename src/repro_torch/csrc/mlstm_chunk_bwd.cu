@@ -170,58 +170,9 @@ struct BwdSmem {
 };
 
 // ---------------------------------------------------------------------------
-// Fragments of mma.m16n8k16 from fp32 or T values, cut into P bf16 parts
+// State fragments from device memory (the rest of the fragments and
+// mma_parts are in mma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float2 ld_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 ld_pair(const __half* p) {
-  return __half22float2(*reinterpret_cast<const __half2*>(p));
-}
-template <typename E>
-__device__ __forceinline__ float2 ld_pair_strided(const E* p, int stride) {
-  return make_float2(to_f(p[0]), to_f(p[stride]));
-}
-
-// A (16 x 16 from row m0, column k0) of X as P parts: kRowMajor, X[m][k] at
-// p[m * ld + k]; else X[m][k] at p[k * ld + m]
-template <int P, bool kRowMajor, typename E>
-__device__ __forceinline__ void load_a(uint32_t (&a)[P][4], const E* p,
-                                       int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int m = m0 + gid + (x & 1) * 8, k = k0 + 2 * tig + (x >> 1) * 8;
-    const float2 f = kRowMajor ? ld_pair(p + m * ld + k)
-                               : ld_pair_strided(p + k * ld + m, ld);
-    uint32_t s[P];
-    split_bf16<P>(f.x, f.y, s);
-#pragma unroll
-    for (int pp = 0; pp < P; ++pp) a[pp][x] = s[pp];
-  }
-}
-
-// B (16 x 8 from row k0, column n0) of Y as P parts: kNK, Y[k][n] at
-// p[n * ld + k]; else Y[k][n] at p[k * ld + n]
-template <int P, bool kNK, typename E>
-__device__ __forceinline__ void load_b(uint32_t (&b)[P][2], const E* p,
-                                       int ld, int k0, int n0) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int k = k0 + 2 * tig + x * 8, n = n0 + gid;
-    const float2 f = kNK ? ld_pair(p + n * ld + k)
-                         : ld_pair_strided(p + k * ld + n, ld);
-    uint32_t s[P];
-    split_bf16<P>(f.x, f.y, s);
-#pragma unroll
-    for (int pp = 0; pp < P; ++pp) b[pp][x] = s[pp];
-  }
-}
 
 // The raw values of a B fragment of a D x D fp32 state matrix M (row stride
 // D) in device memory, zeros past D: kNK, Y[k][n] = M[n][k] (a float2 per
@@ -252,19 +203,6 @@ __device__ __forceinline__ void split_b(uint32_t (&b)[P][2],
 #pragma unroll
     for (int pp = 0; pp < P; ++pp) b[pp][x] = s[pp];
   }
-}
-
-// d += a b over the part pairs (i, j) with i + j below the larger count
-template <int PA, int PB>
-__device__ __forceinline__ void mma_parts(float (&d)[4],
-                                          const uint32_t (&a)[PA][4],
-                                          const uint32_t (&b)[PB][2]) {
-  constexpr int top = PA > PB ? PA : PB;
-#pragma unroll
-  for (int i = 0; i < PA; ++i)
-#pragma unroll
-    for (int j = 0; j < PB; ++j)
-      if (i + j < top) mma16816<__nv_bfloat16>(d, a[i], b[j][0], b[j][1]);
 }
 
 // acc[u][mt] += A (32 rows x Dp, row-major in shared memory, PA parts) times

@@ -1,10 +1,11 @@
 // Tensor-core and copy primitives for Hopper (sm_90a), shared by the
-// attention core (attn_mma.cuh), quant_matmul.cu, mlstm_chunk.cu and
-// mlstm_chunk_bwd.cu:
+// attention core (attn_mma.cuh), flash_attention_bwd.cu, quant_matmul.cu,
+// mlstm_chunk.cu and mlstm_chunk_bwd.cu:
 // cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 with fp32
 // accumulators for bf16 / fp16, fp32 pairs rounded to bf16 / fp16, fp32
-// values cut into bf16 parts whose sum is the value (the mLSTM kernels'
-// operands), and exact int8 -> fp32 without I2F.
+// values cut into bf16 parts whose sum is the value and the products of
+// such parts (the fp32 operands of the mLSTM kernels and of flash
+// attention's fp32 bodies), and exact int8 -> fp32 without I2F.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,6 +163,117 @@ __device__ __forceinline__ void split_store(float x, __nv_bfloat16* dst,
     x -= __bfloat162float(b);
     dst += stride;
   }
+}
+
+// Fragments of mma.m16n8k16 from fp32 or T values in shared memory, cut
+// into P bf16 parts (split_bf16), and products over the part pairs: the
+// operands of the mLSTM backward and of flash attention's fp32 bodies.
+
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+template <typename E>
+__device__ __forceinline__ float2 ld_pair_strided(const E* p, int stride) {
+  return make_float2(to_f(p[0]), to_f(p[stride]));
+}
+
+// A (16 x 16 from row m0, column k0) of X as P parts: kRowMajor, X[m][k] at
+// p[m * ld + k]; else X[m][k] at p[k * ld + m]
+template <int P, bool kRowMajor, typename E>
+__device__ __forceinline__ void load_a(uint32_t (&a)[P][4], const E* p,
+                                       int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int m = m0 + gid + (x & 1) * 8, k = k0 + 2 * tig + (x >> 1) * 8;
+    const float2 f = kRowMajor ? ld_pair(p + m * ld + k)
+                               : ld_pair_strided(p + k * ld + m, ld);
+    uint32_t s[P];
+    split_bf16<P>(f.x, f.y, s);
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp) a[pp][x] = s[pp];
+  }
+}
+
+// B (16 x 8 from row k0, column n0) of Y as P parts: kNK, Y[k][n] at
+// p[n * ld + k]; else Y[k][n] at p[k * ld + n]
+template <int P, bool kNK, typename E>
+__device__ __forceinline__ void load_b(uint32_t (&b)[P][2], const E* p,
+                                       int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int k = k0 + 2 * tig + x * 8, n = n0 + gid;
+    const float2 f = kNK ? ld_pair(p + n * ld + k)
+                         : ld_pair_strided(p + k * ld + n, ld);
+    uint32_t s[P];
+    split_bf16<P>(f.x, f.y, s);
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp) b[pp][x] = s[pp];
+  }
+}
+
+// d += a b over the part pairs (i, j) with i + j below the larger count
+template <int PA, int PB>
+__device__ __forceinline__ void mma_parts(float (&d)[4],
+                                          const uint32_t (&a)[PA][4],
+                                          const uint32_t (&b)[PB][2]) {
+  constexpr int top = PA > PB ? PA : PB;
+#pragma unroll
+  for (int i = 0; i < PA; ++i)
+#pragma unroll
+    for (int j = 0; j < PB; ++j)
+      if (i + j < top) mma16816<__nv_bfloat16>(d, a[i], b[j][0], b[j][1]);
+}
+
+// mma_parts with the product of the leading parts in `hi` and every other
+// pair in `lo`: the tensor cores add into their accumulator with
+// truncation at the size of the largest term, so the small pairs summed
+// into hi would each cost it an ulp; the caller adds lo to hi once
+template <int PA, int PB>
+__device__ __forceinline__ void mma_parts_apart(float (&hi)[4], float (&lo)[4],
+                                                const uint32_t (&a)[PA][4],
+                                                const uint32_t (&b)[PB][2]) {
+  constexpr int top = PA > PB ? PA : PB;
+  mma16816<__nv_bfloat16>(hi, a[0], b[0][0], b[0][1]);
+#pragma unroll
+  for (int i = 0; i < PA; ++i)
+#pragma unroll
+    for (int j = 0; j < PB; ++j)
+      if (i + j > 0 && i + j < top)
+        mma16816<__nv_bfloat16>(lo, a[i], b[j][0], b[j][1]);
+}
+
+// The A fragment (16 rows x 16, P parts) of a k-step held in the fp32
+// accumulators of two 16 x 8 tiles: columns 0-7 in c0, 8-15 in c1
+template <int P>
+__device__ __forceinline__ void split_acc_a(uint32_t (&a)[P][4],
+                                            const float (&c0)[4],
+                                            const float (&c1)[4]) {
+  const float v[8] = {c0[0], c0[1], c0[2], c0[3],
+                      c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    uint32_t s[P];
+    split_bf16<P>(v[2 * r], v[2 * r + 1], s);
+#pragma unroll
+    for (int p = 0; p < P; ++p) a[p][r] = s[p];
+  }
+}
+
+// Two adjacent fp32 values stored at T (rounded to nearest even)
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y) {
+  if constexpr (std::is_same_v<T, float>)
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(x, y);
 }
 
 // Exact fp32 values of int8 codes without I2F: the byte c + 128 (c ^ 0x80)

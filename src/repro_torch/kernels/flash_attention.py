@@ -13,24 +13,25 @@ port it carries every dense attention call of more than one query
 admission prefill and its prefix-attend variant over gathered pages, and
 the draft model's full forwards in speculative decoding
 (``core.speculative.DraftModelDrafter``).  Unlike the reference's wrapper,
-any Sq and Sk are taken: the kernel masks the ragged tiles itself.
-bf16/fp16 run the tensor-core body (``csrc/attn_mma.cuh``: all g query
-heads of a kv head in one block, mma.sync, a cp.async ring); fp32 keeps
-the CUDA-core body, whose fp32 products equal the CPU's where TF32 tensor
-cores would not.
+any Sq and Sk are taken: the kernel masks the ragged tiles itself.  Every
+dtype runs the tensor-core body (``csrc/attn_mma.cuh``: all g query heads
+of a kv head in one block, mma.sync, a cp.async ring); at fp32 each
+operand of each product is cut into three bf16 parts whose sum is the
+value, so its products are as exact as fp32 FMAs, where TF32 tensor cores
+would keep about three decimal digits.
 
 For training, ``return_lse=True`` also returns each row's log-sum-exp,
 and :func:`flash_attention_bwd` is the gradient: the hand-written kernels
 of ``repro_torch/csrc/flash_attention_bwd.cu`` (the reference's Pallas
-kernel has none; it trains by differentiating its plain attention).
-bf16/fp16 run its tensor-core body in the geometry of :func:`bwd_plan`: a
-dQ kernel over blocks of 64 (query, head) rows (which also writes
-D = rowsum(dO o)), then a dK/dV kernel over blocks of 16 keys a warp that
-walk their kv head's (query, head) pairs, the g heads split over blocks
-where the grid would be under one wave (their fp32 partials added in
-order by a third launch), all on mma.sync with cp.async rings; no
-atomics, so two calls give the same bits.  fp32 keeps the CUDA-core body
-(three launches: D, dK/dV, dQ), whose fp32 products equal the CPU's.
+kernel has none; it trains by differentiating its plain attention), in
+the geometry of :func:`bwd_plan`: a dQ kernel over blocks of 64 (query,
+head) rows (which also writes D = rowsum(dO o)), then a dK/dV kernel over
+blocks of 16 keys a warp that walk their kv head's (query, head) pairs,
+the g heads split over blocks where the grid would be under one wave
+(their fp32 partials added in order by a third launch), all on mma.sync
+with cp.async rings; no atomics, so two calls give the same bits.
+bf16/fp16 take the "mma" body (operands at their type), fp32 the "split"
+body (every operand, P and dS included, cut into three bf16 parts).
 ``ops.FlashAttentionFn`` ties the two together for autograd.
 
 The wrappers take CUDA tensors only: they check device, dtype, layout and
@@ -55,13 +56,13 @@ MAX_HEAD_DIM = 256
 MAX_SMEM = 232448          # bytes of shared memory a block may take (H100)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-# the backward's tensor-core body (csrc/flash_attention_bwd.cu)
+# the backward's kernels (csrc/flash_attention_bwd.cu)
 BWD_TILE = 32              # keys (dQ) or (query, head) pairs (dK/dV) a tile
 BWD_WIN_TILES = 32         # tiles whose positions are read at once
 BWD_WARPS = 4              # warps of a block of either kernel
 BWD_DQ_ROWS = 16 * BWD_WARPS   # (query, head) rows of a dQ block
-BWD_SIMT_TILE = 32         # the fp32 body's keys or queries a block
-_BWD_BODIES = {"simt": 0, "mma": 1}
+SPLIT_PARTS = 3            # bf16 parts of each fp32 operand ("split" body)
+_BWD_BODIES = {"mma": 1, "split": 2}
 
 
 class BwdPlan(NamedTuple):
@@ -69,9 +70,9 @@ class BwdPlan(NamedTuple):
     launcher takes (``flash_attention_bwd_launch``): it sizes the grids and
     the blocks' shared memory from it, and refuses a plan its kernels were
     not built for."""
-    body: str          # "simt": fp32 on CUDA cores; "mma": tensor cores
+    body: str          # "mma": bf16 / fp16; "split": fp32 as bf16 parts
     block_keys: int    # keys of a dK/dV block
-    dq_rows: int       # rows of a dQ block: queries (simt), (query, head)
+    dq_rows: int       # (query, head) rows of a dQ block
     head_splits: int   # dK/dV blocks over the g query heads of a kv head
     smem_dq: int       # shared-memory bytes of a dQ block
     smem_dkdv: int     # ... and of a dK/dV block
@@ -95,57 +96,51 @@ def bwd_block_keys(dmax: int) -> int:
     return BWD_WARPS * 16 if dmax <= 128 else BWD_WARPS // 2 * 16
 
 
-def bwd_smem_bytes(D: int, Dv: int) -> tuple[int, int]:
-    """Shared-memory bytes of a (dQ, dK/dV) block of the tensor-core body:
-    the layouts ``DqSmem`` / ``DkdvSmem`` of
-    ``csrc/flash_attention_bwd.cu``, which the launcher holds this figure
-    to (rows of 2-byte elements padded to a multiple of 16, plus 16
-    bytes; a ring of 3 tiles, 2 in the 256 bucket so that two dK/dV blocks
-    fit an SM).  dQ: its 64 rows' Q, dO and o, then per stage a key tile's
-    K and V and its positions, then the rows' positions, lse and D, the
-    position window and the warps' live bits.  dK/dV: its keys' K and V,
-    then per stage a pair tile's Q and dO, lse, D and positions, then the
-    keys' positions, the window, the bits."""
-    kstr, vstr = (_round16(D) + 8) * 2, (_round16(Dv) + 8) * 2
+def bwd_smem_bytes(D: int, Dv: int,
+                   fp32: bool = False) -> tuple[int, int]:
+    """Shared-memory bytes of a (dQ, dK/dV) block: the layouts ``DqSmem`` /
+    ``DkdvSmem`` of ``csrc/flash_attention_bwd.cu``, which the launcher
+    holds this figure to.  Rows of 2-byte elements are padded to a
+    multiple of 16 elements plus 16 bytes, fp32 rows (``fp32``, the split
+    body) to a multiple of 16 plus 8 floats.  Rings of 3 tiles, 2 in the
+    256 bucket so that two dK/dV blocks fit an SM; at fp32 a dQ block of
+    the 256 bucket holds one (its 64 rows' Q and dO take 132 KB).  dQ: its
+    64 rows' Q, dO and (2-byte elements; fp32 reads o from device memory)
+    o, then per stage a key tile's K and V and its positions, then the
+    rows' positions, lse and D, the position window and the warps' live
+    bits.  dK/dV: its keys' K and V, then per stage a pair tile's Q and
+    dO, lse, D and positions, then the keys' positions, the window, the
+    bits."""
+    esz = 4 if fp32 else 2
+    kstr, vstr = (_round16(D) + 8) * esz, (_round16(Dv) + 8) * esz
     dmax = bwd_dmax(D, Dv)
-    stages = 2 if dmax > 128 else 3
+    dq_st, kv_st = ((3, 3) if dmax <= 128 else (1 if fp32 else 2, 2))
     walk = BWD_WIN_TILES * BWD_TILE + BWD_WARPS
-    dq = (BWD_DQ_ROWS * (kstr + 2 * vstr)
-          + stages * (BWD_TILE * (kstr + vstr) + (BWD_TILE + 4) * 4)
+    dq = (BWD_DQ_ROWS * (kstr + (1 if fp32 else 2) * vstr)
+          + dq_st * (BWD_TILE * (kstr + vstr) + (BWD_TILE + 4) * 4)
           + (3 * BWD_DQ_ROWS + walk) * 4)
     keys = bwd_block_keys(dmax)
     dkdv = (keys * (kstr + vstr)
-            + stages * (BWD_TILE * (kstr + vstr) + (3 * BWD_TILE + 4) * 4)
+            + kv_st * (BWD_TILE * (kstr + vstr) + (3 * BWD_TILE + 4) * 4)
             + (keys + walk) * 4)
     return dq, dkdv
-
-
-def bwd_simt_smem_bytes(D: int, Dv: int) -> int:
-    """Shared-memory bytes of a block of the fp32 body: its 32 x 32 tiles
-    (``bwd_smem_floats`` in the source, which the launcher holds this
-    figure to)."""
-    t = BWD_SIMT_TILE
-    return 4 * (2 * t * (D + 1) + 2 * t * (Dv + 1) + t * (D + Dv)
-                + 2 * t * (t + 1) + 4 * t)
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, Dv: int,
              dtype: torch.dtype, sm_count: int) -> BwdPlan:
     """The launch plan of :func:`flash_attention_bwd` on a card of
-    ``sm_count`` SMs.  fp32 keeps the CUDA-core body (TF32 tensor cores
-    would break the card-vs-CPU fp32 parity of training): 32 keys a dK/dV
-    block, 32 queries of one head a dQ block.  bf16/fp16: a dQ block takes
-    BWD_DQ_ROWS (query, head) rows of one kv head, a dK/dV block
-    :func:`bwd_block_keys`, and where the dK/dV grid (ceil(Sk / keys) x
-    Hkv x B blocks) is under one wave, its kv head's g query heads are
-    split over the fewest blocks that fill it (a divisor of g; g itself if
-    none does): each split then writes fp32 partials, added in split order
-    by a third launch.  Cached: a train step asks for the same few plans
-    every layer."""
-    if dtype == torch.float32:
-        s = bwd_simt_smem_bytes(D, Dv)
-        return BwdPlan("simt", BWD_SIMT_TILE, BWD_SIMT_TILE, 1, s, s)
+    ``sm_count`` SMs.  The body by dtype: "mma" at bf16/fp16, "split" at
+    fp32 (every operand cut into SPLIT_PARTS bf16 parts: TF32 tensor cores
+    would break the card-vs-CPU fp32 parity of training).  Either way a
+    dQ block takes BWD_DQ_ROWS (query, head) rows of one kv head, a dK/dV
+    block :func:`bwd_block_keys`, and where the dK/dV grid (ceil(Sk /
+    keys) x Hkv x B blocks) is under one wave, its kv head's g query heads
+    are split over the fewest blocks that fill it (a divisor of g; g
+    itself if none does): each split then writes fp32 partials, added in
+    split order by a third launch.  Shared memory: :func:`bwd_smem_bytes`.
+    Cached: a train step asks for the same few plans every layer."""
+    fp32 = dtype == torch.float32
     keys = bwd_block_keys(bwd_dmax(D, Dv))
     g = Hq // Hkv
     blocks = -(-Sk // keys) * Hkv * B
@@ -153,8 +148,8 @@ def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, Dv: int,
     if blocks < sm_count:
         head_splits = next((d for d in range(1, g + 1)
                             if g % d == 0 and blocks * d >= sm_count), g)
-    return BwdPlan("mma", keys, BWD_DQ_ROWS, head_splits,
-                   *bwd_smem_bytes(D, Dv))
+    return BwdPlan("split" if fp32 else "mma", keys, BWD_DQ_ROWS,
+                   head_splits, *bwd_smem_bytes(D, Dv, fp32))
 
 
 def _check(name, q, k, v, q_pos, k_pos, *extra):
@@ -216,8 +211,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
     from repro_torch.kernels import build
     B, Sq, Sk, Hq, Hkv, D, Dv = _check("flash-attention", q, k, v, q_pos,
                                        k_pos)
-    if q.dtype != torch.float32 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core flash kernel needs q, k and v "
                          "16-byte aligned")
     lib = build.load()
@@ -247,9 +241,8 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *,
     forward's inputs, its output o and log-sum-exp lse (B, Hq, Sq) fp32,
     and the output's gradient do (B, Sq, Hq, Dv) at q's dtype, (dq, dk,
     dv) at q's dtype, summed over each kv head's query heads for dk and
-    dv.  Two or three launches (fp32: D = rowsum(do o), dk / dv, dq;
-    bf16/fp16: dq with D, dk / dv, and the head splits' sum where
-    :func:`bwd_plan` splits), counted as one call;
+    dv.  Two or three launches (dq with D = rowsum(do o), dk / dv, and the
+    head splits' sum where :func:`bwd_plan` splits), counted as one call;
     deterministic (no atomics)."""
     from repro_torch.kernels import build, scratch
     B, Sq, Sk, Hq, Hkv, D, Dv = _check("flash-attention backward", q, k, v,
@@ -264,8 +257,7 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *,
     if not (o.is_contiguous() and do.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("the flash backward needs contiguous o, do and lse")
-    if q.dtype != torch.float32 and any(t.data_ptr() % 16
-                                         for t in (q, k, v, o, do)):
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError("the tensor-core flash backward needs q, k, v, o "
                          "and do 16-byte aligned")
     lib = build.load()

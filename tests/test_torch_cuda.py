@@ -2232,15 +2232,16 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, B, Sq, Sk, Hq, Hkv, D,
     assert not got[0][qp < 0].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,window,softcap,ragged",
                          BWD_CASES)
-def test_flash_bwd_kernel_is_deterministic(dev, B, Sq, Sk, Hq, Hkv, D, Dv,
-                                           window, softcap, ragged):
-    """Two calls of the bf16 backward on the same inputs give bit-identical
-    dq, dk and dv: no atomics, and a head split's partials are added in
-    split order."""
-    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, Sq, Sk, Hq,
-                                      Hkv, D, Dv, ragged)
+def test_flash_bwd_kernel_is_deterministic(dev, dtype, B, Sq, Sk, Hq, Hkv, D,
+                                           Dv, window, softcap, ragged):
+    """Two calls of the bf16 (mma) or fp32 (split) backward on the same
+    inputs give bit-identical dq, dk and dv: no atomics, and a head split's
+    partials are added in split order."""
+    q, k, v, do, qp, kp = _bwd_inputs(dev, dtype, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                      ragged)
     kw = dict(window=window, scale=D ** -0.5, attn_softcap=softcap)
     o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
     first = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
@@ -2249,22 +2250,23 @@ def test_flash_bwd_kernel_is_deterministic(dev, B, Sq, Sk, Hq, Hkv, D, Dv,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_splits", [1, 2, 4])
 @pytest.mark.parametrize("D,Dv", [(128, 128), (192, 128), (40, 40)])
-def test_flash_bwd_plans_match_plain(dev, head_splits, D, Dv):
+def test_flash_bwd_plans_match_plain(dev, dtype, head_splits, D, Dv):
     """Every split of the g = 4 heads over dK/dV blocks (none, two, four)
-    gives the plain backward's gradients at bf16, at a head dim of each
-    bucket (a fixed-dim kernel, MLA's and a general one): the batch is the
-    fewest rows (two at least: the ragged inputs) whose own plan on this
-    card picks the split."""
+    gives the plain backward's gradients at bf16 (mma body) and fp32
+    (split body), at a head dim of each bucket (a fixed-dim kernel at bf16,
+    MLA's and a general one): the batch is the fewest rows (two at least:
+    the ragged inputs) whose own plan on this card picks the split."""
     from repro_torch.kernels import scratch
     S, Hq, Hkv = 100, 8, 2
     sm = scratch.sm_count(torch.cuda.current_device())
     B = next(b for b in range(2, 4 * sm)
-             if FA.bwd_plan(b, S, S, Hq, Hkv, D, Dv, torch.bfloat16,
+             if FA.bwd_plan(b, S, S, Hq, Hkv, D, Dv, dtype,
                             sm).head_splits == head_splits)
-    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, S, S, Hq, Hkv,
-                                      D, Dv, True)
+    q, k, v, do, qp, kp = _bwd_inputs(dev, dtype, B, S, S, Hq, Hkv, D, Dv,
+                                      True)
     kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
     o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
     got = FA.flash_attention_bwd(q, k, v, qp, kp, o, lse, do, **kw)
@@ -2273,19 +2275,22 @@ def test_flash_bwd_plans_match_plain(dev, head_splits, D, Dv):
     for g, w in zip(got, want):
         scale = w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() \
-            <= TOL[torch.bfloat16] * scale
+            <= TOL[dtype] * scale
     assert not got[0][qp < 0].any()
 
 
-@pytest.mark.parametrize("offset", [1, 4])
-def test_flash_kernels_refuse_misaligned_views(dev, offset):
-    """The tensor-core bodies copy with 16-byte cp.async: a bf16 view whose
-    storage starts ``offset`` elements into its buffer (2 or 8 bytes off)
-    is refused by the forward's and the backward's wrappers before any
-    launch."""
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1),
+                                          (torch.bfloat16, 4),
+                                          (torch.float32, 1),
+                                          (torch.float32, 2)])
+def test_flash_kernels_refuse_misaligned_views(dev, dtype, offset):
+    """The tensor-core bodies copy with 16-byte cp.async: a bf16 or fp32
+    view whose storage starts ``offset`` elements into its buffer (2, 8,
+    4 or 8 bytes off) is refused by the forward's and the backward's
+    wrappers before any launch."""
     B, S, H, D = 1, 16, 2, 64
-    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.bfloat16, B, S, S, H, H,
-                                      D, D, False)
+    q, k, v, do, qp, kp = _bwd_inputs(dev, dtype, B, S, S, H, H, D, D,
+                                      False)
     kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
     o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
     buf = torch.zeros(q.numel() + offset, dtype=q.dtype, device=dev)
@@ -2302,6 +2307,34 @@ def test_flash_kernels_refuse_misaligned_views(dev, offset):
             FA.flash_attention_bwd(*args, **kw)
     assert (FA.flash_attention.launches,
             FA.flash_attention_bwd.launches) == launches
+
+
+def test_flash_fp32_launches_only_split_kernels(dev):
+    """At fp32 the forward and the backward (with a head split, so its sum
+    kernel too) launch only the tensor-core kernels' fp32 (split)
+    instances, by their profiled names: no CUDA-core body is left."""
+    from repro_torch.kernels import scratch
+    S, Hq, Hkv, D = 100, 8, 2, 64
+    sm = scratch.sm_count(torch.cuda.current_device())
+    B = next(b for b in range(2, 4 * sm)
+             if FA.bwd_plan(b, S, S, Hq, Hkv, D, D, torch.float32,
+                            sm).head_splits > 1)
+    q, k, v, do, qp, kp = _bwd_inputs(dev, torch.float32, B, S, S, Hq, Hkv,
+                                      D, D, True)
+    kw = dict(window=None, scale=D ** -0.5, attn_softcap=None)
+    o, lse = FA.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    # the names of three profiles each (a profile may miss an event)
+    fwd, bwd = set(), set()
+    for _ in range(3):
+        fwd |= _device_kernels(lambda: FA.flash_attention(q, k, v, qp, kp,
+                                                          **kw))
+        bwd |= _device_kernels(lambda: FA.flash_attention_bwd(
+            q, k, v, qp, kp, o, lse, do, **kw))
+    assert fwd and all("flash_mma_kernel<float" in n for n in fwd), fwd
+    parts = ("attn_bwd_dq_mma_kernel<float", "attn_bwd_dkdv_mma_kernel<float",
+             "attn_bwd_dkdv_sum_kernel<float")
+    assert all(any(s in n for n in bwd) for s in parts), bwd
+    assert all(any(s in n for s in parts) for n in bwd), bwd
 
 
 def test_flash_attention_grads_through_ops_on_card(dev):
