@@ -265,8 +265,10 @@ CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -296,6 +298,10 @@ REPLACES = {
     # backward
     "flash_attention_bwd": None,
     "mlstm_chunked_bwd": None,
+    # no TPU kernel: the reference's moe_apply_ragged computes its grouped
+    # products with jax.lax.ragged_dot (src/repro/models/moe.py:102-110)
+    "ragged_matmul": None,
+    "ragged_matmul_bwd": None,
 }
 SOURCE = {name: "src/repro_torch/csrc/paged_attention.cu"
           for name in REPLACES}
@@ -306,6 +312,8 @@ SOURCE["fused_rmsnorm"] = "src/repro_torch/csrc/rmsnorm.cu"
 SOURCE["decode_attention"] = "src/repro_torch/csrc/dense_decode.cu"
 SOURCE["flash_attention_bwd"] = "src/repro_torch/csrc/flash_attention_bwd.cu"
 SOURCE["mlstm_chunked_bwd"] = "src/repro_torch/csrc/mlstm_chunk_bwd.cu"
+SOURCE["ragged_matmul"] = SOURCE["ragged_matmul_bwd"] = \
+    "src/repro_torch/csrc/ragged_matmul.cu"
 # the device kernels each wrapper launches, by a part of their names
 KERNEL_SYMBOLS = {
     "paged_decode_attention": ("paged_decode_",),
@@ -321,6 +329,8 @@ KERNEL_SYMBOLS = {
     "decode_attention": ("dense_decode_",),
     "flash_attention_bwd": ("attn_bwd_",),
     "mlstm_chunked_bwd": ("mlstm_bwd_",),
+    "ragged_matmul": ("ragged_mm_kernel",),
+    "ragged_matmul_bwd": ("ragged_mm_kernel", "ragged_dw_kernel"),
 }
 # the tensor-core bodies that bf16 must reach in the redesigned kernels
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
@@ -373,6 +383,24 @@ NOTES = {
                          "chunk dq and the increments, their reverse scan, "
                          "per chunk dk / dv, dlogf; device_ms_by_kernel); "
                          "timed case: the train shape 8 x 128 at bf16",
+    "ragged_matmul": "replaces null: the reference's moe_apply_ragged "
+                     "(REPRO_PERF_OPTS=moe_ragged) computes its grouped "
+                     "products with jax.lax.ragged_dot, "
+                     "src/repro/models/moe.py:102-110, outside Pallas; "
+                     "launches: the full-width qwen3-moe bucketed serve "
+                     "under moe_ragged (three a MoE layer and forward); "
+                     "library: torch._grouped_mm where it runs at the "
+                     "dtype, else null with the reason; timed case: a "
+                     "decode step's 64 rows through wi, the other shapes "
+                     "in regimes",
+    "ragged_matmul_bwd": "replaces null: the gradient of jax.lax.ragged_dot "
+                         "(the reference differentiates XLA's); "
+                         "library_ms null: no single PyTorch call computes "
+                         "both gradients; launches: train_parity of "
+                         "reduced qwen3-moe under moe_ragged (one a "
+                         "grouped product a backward); one call is two "
+                         "launches (dRows through ragged_mm_kernel reading "
+                         "w transposed, dW through ragged_dw_kernel)",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -1376,6 +1404,7 @@ def phase_kernels(check_bodies=True):
     cases += moe_mm_kernel_cases(rng)
     cases += hybrid_mla_kernel_cases(rng)
     cases += train_kernel_cases(rng)
+    cases += ragged_kernel_cases(rng)
     for c in cases:
         emit("kernels", **c)
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
@@ -1407,7 +1436,10 @@ def phase_kernels(check_bodies=True):
             "qwen3-4b heads 8 x 256 bf16",
             "qwen3-4b 2560->151936 M=8 bf16",
             "unimo-text train 8 x 128 float32",
-            "xlstm-125m train 8 x 128 bfloat16"}
+            "xlstm-125m train 8 x 128 bfloat16",
+            "ragged qwen3-moe decode 64 rows 4096->1536 bf16",
+            "ragged qwen3-moe train 4 x 128, 4096 rows 4096->1536 "
+            "bfloat16"}
     summary = {c["kernel"]: c for c in cases
                if "kernel_ms" in c and c["case"] in main}
     summary["quant_matmul"]["regimes"] = [
@@ -1437,7 +1469,8 @@ def phase_kernels(check_bodies=True):
     summary["fused_rmsnorm"]["regimes"] = [
         c for c in cases if c["case"] in ("4096 x 2560 bf16",
                                           "4096 x 2560 fp32")]
-    for name in ("flash_attention_bwd", "mlstm_chunked_bwd"):
+    for name in ("flash_attention_bwd", "mlstm_chunked_bwd",
+                 "ragged_matmul", "ragged_matmul_bwd"):
         summary[name]["regimes"] = [
             c for c in cases if c["kernel"] == name and "kernel_ms" in c]
     return summary
@@ -2064,7 +2097,12 @@ def _launch_checks(mode, m, launches, cfg, q8, weights_dtype, drafts,
         # an admission dispatch
         admissions = m.host_syncs - m.steps // 4
         forwards = admissions + m.steps
+        # under moe_ragged: three grouped products a MoE layer and forward
+        ragged = 3 * sum(s.ffn == "moe" for s in layer_specs(cfg)) \
+            if _ragged_on() else 0
         return {
+            f"ragged_matmul ran {ragged} x forwards": (
+                launches.get("ragged_matmul", 0) == ragged * forwards),
             "bucketed admission": m.scheduler == "bucketed"
             and m.mixed_iters == 0,
             f"flash ran {n_layers} x admission dispatches ({admissions})": (
@@ -2471,7 +2509,8 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
                  "quant_matmul_kernel", "quant_matmul_reduce_kernel",
                  "quant_matmul_mma_decode_kernel",
                  "quant_matmul_mma_tiled_kernel", "mlstm_chunk_kernel",
-                 "mlstm_chunk_mma_kernel"):
+                 "mlstm_chunk_mma_kernel", "ragged_mm_kernel",
+                 "ragged_dw_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
                 ours[k[:90]] = {"ms": us / 1e3, "count": n,
@@ -3610,6 +3649,9 @@ def phase_serves_moe_mm():
     m, seen["qwen3-moe bucketed"], s_b, wall, busy = phase_serve(
         MOE_ARCH, params, cfg=cfg, mode="bucketed", profile=True,
         label=_depth("bucketed", cfg, 94))
+    seen["qwen3-moe bucketed moe_ragged"] = phase_serve_ragged(
+        MOE_ARCH, params, cfg, _depth("bucketed moe_ragged", cfg, 94), s_b,
+        busy, wall)
     # the int8 and pipelined serves at MOE_CUT_LAYERS layers
     cut, pc = _cut(cfg, params, MOE_CUT_LAYERS)
     _, seen["qwen3-moe bucketed int8"], _, _, _ = phase_serve(
@@ -3979,6 +4021,9 @@ def phase_serves_hybrid_mla():
     m, seen["deepseek bucketed"], s_b, wall, busy = phase_serve(
         DEEPSEEK_ARCH, params, cfg=cfg, mode="bucketed", profile=True,
         label=lab("bucketed"))
+    seen["deepseek bucketed moe_ragged"] = phase_serve_ragged(
+        DEEPSEEK_ARCH, params, cfg, lab("bucketed moe_ragged"), s_b, busy,
+        wall)
     _, seen["deepseek bucketed int8"], _, _, _ = phase_serve(
         DEEPSEEK_ARCH, params, cfg=cfg, kv_dtype="int8",
         weights_dtype="int8", mode="bucketed", profile=True,
@@ -4003,6 +4048,393 @@ def phase_serves_hybrid_mla():
     phase_teacher_forced_mla()
     torch.cuda.empty_cache()
     return seen
+
+
+# ---------------------------------------------------------------------------
+# REPRO_PERF_OPTS: moe_ragged's grouped product and attn_bf16's baseline
+# ---------------------------------------------------------------------------
+
+# the ragged path's device kernels (forward and dRows; dW)
+RAGGED_SYMBOLS = ("ragged_mm_kernel", "ragged_dw_kernel")
+
+
+@contextlib.contextmanager
+def perf_opts(value):
+    """``REPRO_PERF_OPTS`` set to ``value`` inside, restored after (the
+    port reads it at each call)."""
+    old = os.environ.get("REPRO_PERF_OPTS")
+    os.environ["REPRO_PERF_OPTS"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PERF_OPTS", None)
+        else:
+            os.environ["REPRO_PERF_OPTS"] = old
+
+
+def _ragged_on():
+    return "moe_ragged" in os.environ.get("REPRO_PERF_OPTS", "").split(",")
+
+
+def _routed(rng, T, E, k, K, dtype):
+    """T tokens routed as the model routes them (top-k of random router
+    scores): their rows (T k, K) stably sorted by expert and the int32
+    group sizes (E,)."""
+    import torch
+    dev = torch.device("cuda")
+    x = torch.randn(T, K, generator=rng, device=dev).to(dtype)
+    scores = torch.randn(T, E, generator=rng, device=dev)
+    tope = scores.topk(k, dim=-1).indices.reshape(-1)
+    order = torch.argsort(tope, stable=True)
+    sizes = torch.bincount(tope, minlength=E).to(torch.int32)
+    return x[order // k].contiguous(), sizes
+
+
+def _grouped_mm(rows, w, sizes, want):
+    """``torch._grouped_mm`` (offs: the groups' cumulative ends) on these
+    inputs, the yardstick the port never calls: (a function of no
+    arguments, its max abs error against ``want``, None), or (None, None,
+    the reason it does not run).  Tried with w as stored, then with w
+    column-major (a copy made here, outside the timing)."""
+    import torch
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    reasons = []
+    for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+        def f(b=b):
+            return torch._grouped_mm(rows, b, offs=offs)
+        try:
+            got = f()
+            torch.cuda.synchronize()
+        except Exception as e:                 # the reason goes in the row
+            reasons.append(f"{type(e).__name__}: {str(e)[:160]}")
+            continue
+        return f, (got.float() - want.float()).abs().max().item(), None
+    return None, None, "torch._grouped_mm refused: " + " | ".join(reasons)
+
+
+def _ragged_bytes(rows, w, sizes):
+    """Bytes a grouped product must move: the weights of the experts that
+    received rows (counted from the sizes here, outside any timing), the
+    rows in, the output and the sizes."""
+    E, K, N = w.shape
+    routed = int((sizes > 0).sum().item())
+    return (routed * K * N + rows.shape[0] * (K + N)) * w.element_size() \
+        + E * 4, routed
+
+
+@timed_case
+def run_ragged_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
+    """``ragged_matmul`` over T tokens' top-k assignments (rows sorted by
+    expert) and an (E, K, N) stack at ``dtype`` (entries ~ N(0, 1 / K)),
+    against its plain version; two calls bit-identical; fp32 also against
+    the plain version in fp64 (``fp64``; gated as fp32 flash is).  Timed
+    cases add ``torch._grouped_mm`` where it runs at the dtype (else
+    null, with the reason)."""
+    import torch
+    from repro_torch.kernels import ragged_matmul as RM
+    dev = torch.device("cuda")
+    rows, sizes = _routed(rng, T, E, k, K, dtype)
+    w = torch.randn(E, K, N, generator=rng, device=dev,
+                    dtype=dtype).mul_(K ** -0.5)
+    out = RM.ragged_matmul(rows, w, sizes)
+    again = RM.ragged_matmul(rows, w, sizes)
+    ref = RM.ragged_matmul_ref(rows, w, sizes)
+    torch.cuda.synchronize()
+    dn = str(dtype).removeprefix("torch.")
+    tol = TOL[dn]
+    err = (out.float() - ref.float()).abs().max().item()
+    nbytes, routed = _ragged_bytes(rows, w, sizes)
+    res = {"case": name, "kernel": "ragged_matmul", "T": T, "E": E,
+           "k": k, "K": K, "N": N, "rows": rows.shape[0],
+           "experts_routed": routed, "dtype": dn, "max_abs_err": err,
+           "tol": tol, "bit_identical_twice": torch.equal(out, again),
+           "ok": bool(torch.allclose(out.float(), ref.float(), atol=tol,
+                                     rtol=tol) and torch.equal(out, again))}
+    if dtype == torch.float32:
+        truth = RM.ragged_matmul_ref(rows.double(), w.double(), sizes)
+        res["fp64"] = _fp64_errors(("out",), (out,), (ref,), (truth,))
+        res["ok"] &= res["fp64"]["out"]["ok"]
+        del truth
+    if timed:
+        lib, lib_err, why = _grouped_mm(rows, w, sizes, ref)
+        res.update(timings("ragged_matmul",
+                           lambda: RM.ragged_matmul(rows, w, sizes),
+                           lambda: RM.ragged_matmul_ref(rows, w, sizes),
+                           lib))
+        res["library"] = "torch._grouped_mm" if lib else why
+        res["library_max_abs_err"] = lib_err
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, 2 * rows.shape[0] * K * N, dtype)
+    return res
+
+
+@timed_case
+def run_ragged_bwd_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
+    """``ragged_matmul_bwd`` (dRows through the forward kernel reading w
+    transposed, dW over each group's rows) against autograd of the plain
+    version; two calls bit-identical.  No single PyTorch call computes
+    both gradients: library null."""
+    import torch
+    from repro_torch.kernels import ragged_matmul as RM
+    dev = torch.device("cuda")
+    rows, sizes = _routed(rng, T, E, k, K, dtype)
+    w = torch.randn(E, K, N, generator=rng, device=dev,
+                    dtype=dtype).mul_(K ** -0.5)
+    dout = torch.randn(rows.shape[0], N, generator=rng, device=dev,
+                       dtype=dtype)
+    got = RM.ragged_matmul_bwd(rows, w, sizes, dout)
+    again = RM.ragged_matmul_bwd(rows, w, sizes, dout)
+    r, ww = rows.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def plain():
+        return torch.autograd.grad(RM.ragged_matmul_ref(r, ww, sizes),
+                                   (r, ww), dout)
+    want = plain()
+    torch.cuda.synchronize()
+    dn = str(dtype).removeprefix("torch.")
+    tol = TOL[dn]
+    errs, ok = {}, True
+    for n, g, p in zip(("drows", "dw"), got, want):
+        scale = max(1.0, p.float().abs().max().item())
+        errs[n] = (g.float() - p.float()).abs().max().item()
+        ok &= errs[n] <= tol * scale
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    res = {"case": name, "kernel": "ragged_matmul_bwd", "T": T, "E": E,
+           "k": k, "K": K, "N": N, "rows": rows.shape[0], "dtype": dn,
+           "errs": errs, "max_abs_err": max(errs.values()), "tol": tol,
+           "bit_identical_twice": twice, "ok": bool(ok and twice)}
+    del got, again, want
+    if timed:
+        res.update(timings(
+            "ragged_matmul_bwd",
+            lambda: RM.ragged_matmul_bwd(rows, w, sizes, dout), plain,
+            None))
+        res["library"] = ("null: no single PyTorch call computes both "
+                          "gradients")
+        # inputs rows, dout, the routed experts' weights (dRows) and the
+        # sizes once; outputs drows and the whole dw (zeros included)
+        nbytes, _ = _ragged_bytes(rows, w, sizes)
+        nbytes += (rows.numel() + E * K * N) * w.element_size()
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, 4 * rows.shape[0] * K * N, dtype)
+    return res
+
+
+def ragged_kernel_cases(rng):
+    """The grouped product at the main path's shapes, routing from random
+    router scores (top-8): qwen3-moe (E 128, d 4096, f 1536) and
+    deepseek-v3 (E 256, d 7168, f 2048) at a decode step (8 slots x top-8
+    = 64 rows) through wi / wg (d -> f) and wo (f -> d), and at an 8 x 78
+    admission (4,992 rows) through wi, bf16, timed; the backward at
+    qwen3-moe's widths over 4 x 128 tokens (4,096 rows) at bf16 and fp32,
+    timed; the forward at fp32 (also against fp64) and fp16."""
+    import torch
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    qwen = dict(E=128, k=8)
+    ds = dict(E=256, k=8)
+    cases = []
+    for arch, m, d, f in (("qwen3-moe", qwen, 4096, 1536),
+                          ("deepseek-v3", ds, 7168, 2048)):
+        cases.append(run_ragged_case(
+            rng, f"ragged {arch} decode 64 rows {d}->{f} bf16", T=8, K=d,
+            N=f, dtype=bf16, timed=True, **m))
+        cases.append(run_ragged_case(
+            rng, f"ragged {arch} decode 64 rows {f}->{d} bf16", T=8, K=f,
+            N=d, dtype=bf16, timed=True, **m))
+        cases.append(run_ragged_case(
+            rng, f"ragged {arch} admission 8 x 78, 4992 rows {d}->{f} bf16",
+            T=8 * 78, K=d, N=f, dtype=bf16, timed=True, **m))
+        torch.cuda.empty_cache()
+    for dtype in (fp32, fp16):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_ragged_case(
+            rng, f"ragged qwen3-moe decode 64 rows 4096->1536 {dn}", T=8,
+            K=4096, N=1536, dtype=dtype, **qwen))
+    for dtype in (bf16, fp32):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_ragged_bwd_case(
+            rng, f"ragged qwen3-moe train 4 x 128, 4096 rows 4096->1536 "
+            f"{dn}", T=512, K=4096, N=1536, dtype=dtype, timed=True,
+            **qwen))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _moe_prompts(rng, lens):
+    """Prompts of ``lens`` tokens, every other one a single repeated token
+    (whose tokens route alike, so that capacity dispatch would drop)."""
+    return [[2] + ([int(rng.integers(4, 400))] * (n - 1) if i % 2 else
+                   [int(t) for t in rng.integers(4, 400, size=n - 1)])
+            for i, n in enumerate(lens)]
+
+
+def phase_parity_ragged():
+    """Reduced qwen3-moe and deepseek-v3 in fp32 (TF32 off) under
+    ``REPRO_PERF_OPTS=moe_ragged``, card against CPU: a bucketed
+    ``serve_continuous`` of 8 requests x 8 new (half of them one
+    repeated token: the CPU run counts the assignments capacity dispatch
+    would drop, which must be some) and ``generate_batch`` with the KV
+    cache; streams and counters equal, the card's serve through the
+    grouped product (3 launches a MoE layer and forward).  Then deepseek
+    under ``REPRO_PERF_OPTS=""`` (MLA's absorbed decode over fp32 copies
+    of the latent cache): the same serve and ``generate_batch``, card ==
+    CPU.  Then ``train_parity`` of reduced qwen3-moe under moe_ragged
+    (its experts' gradients through the backward kernels).  Returns the
+    card's ragged serve's launch counts."""
+    import torch
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import FP32
+    from repro_torch.core.scheduler import Request
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(29)
+    lens = (20, 31, 9, 40, 20, 14, 33, 7)
+    seen = {}
+    for opts, arch in (("moe_ragged", MOE_ARCH),
+                       ("moe_ragged", DEEPSEEK_ARCH), ("", DEEPSEEK_ARCH)):
+        cfg = get_reduced(arch)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
+        prompts = _moe_prompts(rng, lens)
+        batch = rng.integers(4, 400, size=(3, 40)).astype(np.int32)
+        blens = np.asarray([40, 23, 6], np.int32)
+        out, drops = {}, []
+        apply = MOE.moe_apply_ragged
+
+        def counting(c, p, x):
+            drops.append(_moe_dropped(c, p, x))
+            return apply(c, p, x)
+        with perf_opts(opts):
+            for dev in ("cuda", "cpu"):
+                if dev == "cpu":            # counted off the card: no sync
+                    MOE.moe_apply_ragged = counting
+                try:
+                    ops.reset_launch_counts()
+                    done, m = InferenceEngine(
+                        cfg, params, policy=FP32, max_len=64, max_batch=4,
+                        device=dev).serve_continuous(
+                        [Request(uid=i, tokens=list(p), max_new_tokens=8)
+                         for i, p in enumerate(prompts)], page_size=8)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        counts = ops.launch_counts()
+                        forwards = m.host_syncs - m.steps // 4 + m.steps
+                    out[dev, "serve"] = [r.result for r in done]
+                    out[dev, "counters"] = [
+                        m.scheduler, m.admitted, m.retired,
+                        m.prefill_tokens, m.prefill_padded, m.host_syncs,
+                        m.steps, m.generated_tokens, m.peak_pages_in_use]
+                    out[dev, "kv=True"] = InferenceEngine(
+                        cfg, params, policy=FP32, max_len=64, max_batch=4,
+                        device=dev).generate_batch(batch.copy(), blens,
+                                                   6).tolist()
+                finally:
+                    MOE.moe_apply_ragged = apply
+        moe_layers = sum(s.ffn == "moe" for st in cfg.stacks
+                         for s in st.pattern * st.repeats)
+        want = 3 * moe_layers * forwards if opts else 0
+        keys = sorted({k for _, k in out})
+        card_eq_cpu = {k: out["cuda", k] == out["cpu", k] for k in keys}
+        checks = {**card_eq_cpu,
+                  f"ragged_matmul ran {want} times": counts["ragged_matmul"]
+                  == want,
+                  "capacity dispatch would drop": (sum(drops) > 0
+                                                   or not opts)}
+        emit("parity_ragged", arch=arch, perf_opts=opts,
+             dropped_by_capacity_cpu=sum(drops), checks=checks,
+             counters=out["cuda", "counters"],
+             launches={k: v for k, v in counts.items() if v},
+             tokens=sum(map(len, out["cpu", "serve"])))
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise SystemExit(f"{arch} under REPRO_PERF_OPTS={opts!r}: "
+                             f"reduced parity failed: {failed}")
+        if opts:
+            seen[arch] = counts
+    with perf_opts("moe_ragged"):
+        seen["train"] = phase_train_parity(archs=(MOE_ARCH,),
+                                           phase="train_parity_ragged")
+    return seen
+
+
+def _routed_expert_bytes(cfg, params, mode="bucketed"):
+    """The smoke's serve (16 prompts x 32 new, bf16) once more under
+    moe_ragged, each grouped product's read of expert weights counted on
+    the device (the experts with rows times their slab's bytes) and
+    copied back once at the end: (bytes summed over the serve's forwards,
+    the MoE layers' forwards, its greedy streams).  Not timed."""
+    import torch
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.precision import BF16
+    from repro_torch.core.scheduler import Request
+    from repro_torch.kernels import ops
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    calls = [0]
+    ragged = ops.ragged_matmul
+
+    def counting(rows, w, sizes):
+        nonlocal total
+        total = total + (sizes > 0).sum() * (w[0].numel()
+                                             * w.element_size())
+        calls[0] += 1
+        return ragged(rows, w, sizes)
+    ops.ragged_matmul = counting
+    try:
+        done, _ = InferenceEngine(cfg, params, policy=BF16, max_batch=8,
+                                  max_len=256, device="cuda") \
+            .serve_continuous([Request(uid=i, tokens=list(t),
+                                       max_new_tokens=32)
+                               for i, t in enumerate(_smoke_prompts())],
+                              **_serve_kw(mode))
+    finally:
+        ops.ragged_matmul = ragged
+    return int(total.item()), calls[0] // 3, [r.result for r in done]
+
+
+def phase_serve_ragged(arch, params, cfg, label, cap_streams, cap_busy,
+                       cap_wall):
+    """The capacity serve of ``params`` once more under moe_ragged (its
+    launch gates: the grouped product 3 x the MoE layers x the forwards),
+    profiled; then the expert bytes it actually read per forward
+    (``_routed_expert_bytes``) beside the capacity path's (every expert,
+    every forward), its busy time beside that bound and the capacity
+    serve's, and the greedy match with the capacity serve (recorded: bf16
+    sums differ).  Returns the ragged serve's launch counts."""
+    mo = cfg.moe
+    moe_layers = sum(s.ffn == "moe" for st in cfg.stacks
+                     for s in st.pattern * st.repeats)
+    cap_bytes = moe_layers * 3 * mo.num_experts * cfg.d_model \
+        * mo.d_ff_expert * 2
+    with perf_opts("moe_ragged"):
+        m, launches, streams, wall, busy = phase_serve(
+            arch, params, cfg=cfg, mode="bucketed", profile=True,
+            label=label)
+        read, layer_forwards, again = _routed_expert_bytes(cfg, params)
+    forwards = layer_forwards // moe_layers
+    pairs = [(a, b) for s, t in zip(streams, cap_streams)
+             for a, b in zip(s, t)]
+    emit("moe_ragged", arch=cfg.name, layers=cfg.num_layers,
+         moe_layers=moe_layers, mode=label, forwards=forwards,
+         expert_bytes_read=read,
+         expert_bytes_read_per_forward=read / max(forwards, 1),
+         capacity_expert_bytes_per_forward=cap_bytes,
+         read_over_capacity=read / max(forwards, 1) / cap_bytes,
+         bound_s=read / HBM_BYTES_PER_S, device_busy_s=busy,
+         busy_over_bound=busy / (read / HBM_BYTES_PER_S),
+         capacity_device_busy_s=cap_busy, wall_s=wall,
+         capacity_wall_s=cap_wall, tokens_per_s=m.generated_tokens / wall,
+         ragged_matmul_launches=launches["ragged_matmul"],
+         greedy_match_with_capacity=(sum(a == b for a, b in pairs)
+                                     / max(len(pairs), 1)),
+         streams_repeat=again == streams)
+    if again != streams:
+        raise SystemExit(f"{arch} moe_ragged: a second serve gave other "
+                         f"streams")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4318,8 +4750,9 @@ def _train_batch(cfg, rng, B, S):
     return b
 
 
-def phase_train_parity():
-    """Reduced configs in fp32 (TF32 off), on the card and on the CPU from
+def phase_train_parity(archs=TRAIN_PARITY_ARCHS, phase="train_parity"):
+    """Reduced configs (``archs``) in fp32 (TF32 off), on the card and on
+    the CPU from
     the same parameters and batch: the gradient of ``loss_fn`` (every leaf
     within TRAIN_GRAD_TOL of its largest magnitude, the CPU tests'
     tolerance against the reference), then one ``make_train_step`` (full
@@ -4329,9 +4762,11 @@ def phase_train_parity():
     first update (lr x TRAIN_GRAD_TOL x the leaf's largest gradient / eps:
     g / (|g| + eps) has slope at most 1 / eps).  On the card the
     attention ran through the flash forward and backward kernels, and
-    xlstm-125m's mLSTM layers through the mLSTM ones.  Each line has the
-    card step's peak memory, xlstm-125m's also the mLSTM kernels' device
-    ms of one more step, profiled."""
+    xlstm-125m's mLSTM layers through the mLSTM ones, and under
+    moe_ragged the experts through the grouped product's forward and
+    backward kernels.  Each line has the card step's peak memory,
+    xlstm-125m's also the mLSTM kernels' device ms of one more step,
+    profiled.  Returns the launch counts of the card's steps, summed."""
     import torch
     from repro_torch.configs.registry import get_reduced
     from repro_torch.core.precision import FP32, map_params
@@ -4343,8 +4778,8 @@ def phase_train_parity():
     torch.backends.cudnn.allow_tf32 = False
     ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, eps=TRAIN_PARITY_EPS)
     lr1 = OPT.lr_at(ocfg, 1)
-    failed = []
-    for arch in TRAIN_PARITY_ARCHS:
+    failed, total = [], {}
+    for arch in archs:
         cfg = get_reduced(arch)
         params = T.init_params(torch.Generator().manual_seed(0), cfg, FP32)
         batch = _train_batch(cfg, np.random.default_rng(11), 2, 48)
@@ -4399,7 +4834,11 @@ def phase_train_parity():
                else "flash_attention_bwd")
         ok &= (all(v <= TRAIN_PARITY_TOL for v in rel.values())
                and counts[bwd] > 0)
-        emit("train_parity", arch=arch, loss=res["cuda"][0],
+        if _ragged_on() and cfg.moe is not None:
+            ok &= counts["ragged_matmul_bwd"] > 0
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        emit(phase, arch=arch, loss=res["cuda"][0],
              peak_gb=peak_gb, **(extra if arch == "xlstm-125m" else {}),
              loss_cpu=res["cpu"][0], rel_err=rel,
              worst_grad_rel_err=worst["grad"],
@@ -4410,7 +4849,8 @@ def phase_train_parity():
         if not ok:
             failed.append(arch)
     if failed:
-        raise SystemExit(f"train parity failed: {failed}")
+        raise SystemExit(f"{phase} failed: {failed}")
+    return total
 
 
 def _profile_step(step, label, wall):
@@ -4697,6 +5137,7 @@ def main(argv=None) -> int:
     phase_parity_moe_mm()
     phase_parity_hybrid_mla()
     phase_train_parity()
+    ragged = phase_parity_ragged()
     launches = phase_serves()
     xl = phase_serve_xlstm()
     launches.update({k: xl[k] for k in ("mlstm_chunked", "fused_rmsnorm")})
@@ -4706,6 +5147,10 @@ def main(argv=None) -> int:
     train_launches, xlstm_train, train_runs = phase_train()
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     launches["mlstm_chunked_bwd"] = xlstm_train["mlstm_chunked_bwd"]
+    launches["ragged_matmul"] = family[
+        "qwen3-moe bucketed moe_ragged"]["ragged_matmul"]
+    launches["ragged_matmul_bwd"] = ragged["train"]["ragged_matmul_bwd"]
+    family["train_parity_ragged"] = ragged["train"]
     family.update(train_runs)
 
     kernels = []

@@ -10,8 +10,9 @@ reads them all.
 
 Training: on the CPU the plain versions are differentiated by autograd.
 On the card, with grad enabled and an input that requires it,
-``flash_attention`` runs :class:`FlashAttentionFn` and ``mlstm_chunked``
-:class:`MlstmChunkedFn`, whose backwards are hand-written kernels; every
+``flash_attention`` runs :class:`FlashAttentionFn`, ``mlstm_chunked``
+:class:`MlstmChunkedFn` and ``ragged_matmul`` :class:`RaggedMatmulFn`,
+whose backwards are hand-written kernels; every
 other kernel here (the paged and dense decode attention, ``quant_matmul``,
 ``fused_rmsnorm``) has no backward, so its dispatcher raises in that case
 (:func:`no_backward`) rather than return a tensor that silently carries
@@ -25,6 +26,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mlstm_chunk as MC
 from repro_torch.kernels import quant_matmul as QM
+from repro_torch.kernels import ragged_matmul as RM
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
 
@@ -112,6 +114,27 @@ class MlstmChunkedFn(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class RaggedMatmulFn(torch.autograd.Function):
+    """The grouped product on the card with a gradient: the forward kernel
+    and :func:`ragged_matmul.ragged_matmul_bwd` (the same kernel reading w
+    transposed for rows, a kernel over w's tiles for w); the group sizes
+    take none."""
+
+    @staticmethod
+    def forward(ctx, rows, w, sizes):
+        ctx.save_for_backward(rows, w, sizes)
+        return RM.ragged_matmul(rows, w, sizes)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, w, sizes = ctx.saved_tensors
+        drows, dw = RM.ragged_matmul_bwd(
+            rows, w, sizes, dout.contiguous(),
+            need_rows=ctx.needs_input_grad[0],
+            need_w=ctx.needs_input_grad[1])
+        return drows, dw, None
+
+
 def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
                            window, scale, attn_softcap=None, k_scale=None,
                            v_scale=None):
@@ -195,6 +218,18 @@ def quant_matmul(x, q, s):
     return QM.quant_matmul(x, q, s)
 
 
+def ragged_matmul(rows, w, sizes):
+    """Grouped product: rows (R, K) sorted by group, group e's ``sizes[e]``
+    rows times w[e] (K, N) -> (R, N) at rows' dtype; see
+    :func:`ragged_matmul.ragged_matmul`.  On the card with grad enabled and
+    rows or w requiring it, through :class:`RaggedMatmulFn`."""
+    if rows.device.type == "cpu":
+        return ref.ragged_matmul_ref(rows, w, sizes)
+    if needs_grad(rows, w):
+        return RaggedMatmulFn.apply(rows, w, sizes)
+    return RM.ragged_matmul(rows, w, sizes)
+
+
 def mlstm_chunked(q, k, v, i_pre, logf, state):
     """Chunkwise stabilised mLSTM over a whole sequence: (h (B,S,H,dh)
     fp32, final state); see :func:`mlstm_chunk.mlstm_chunked`.  On the
@@ -234,7 +269,8 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
 
 
 _SINGLE = (FA.flash_attention, FA.flash_attention_bwd, QM.quant_matmul,
-           MC.mlstm_chunked, MC.mlstm_chunked_bwd, RN.fused_rmsnorm)
+           MC.mlstm_chunked, MC.mlstm_chunked_bwd, RN.fused_rmsnorm,
+           RM.ragged_matmul, RM.ragged_matmul_bwd)
 
 
 def reset_launch_counts() -> None:

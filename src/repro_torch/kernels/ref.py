@@ -189,6 +189,25 @@ def quant_matmul_ref(x, q, s):
     return (x.float() @ q.float()) * s.float()
 
 
+def ragged_matmul_ref(rows, w, sizes):
+    """Plain version of the grouped product (``jax.lax.ragged_dot``): rows
+    (R, K) sorted by group, group e owning the ``sizes[e]`` (E,) rows after
+    those of the groups before it, each times w[e] (K, N); rows past the
+    last group are zeros.  Returns (R, N) at rows' dtype.  It reads the
+    sizes on the host and runs a product an expert, so it serves the CPU
+    and the tests; autograd gives its gradients."""
+    R, N = rows.shape[0], w.shape[2]
+    ends = torch.cumsum(sizes.long().clamp(0, R), 0).clamp(max=R).tolist()
+    pieces, start = [], 0
+    for e, end in enumerate(ends):
+        if end > start:
+            pieces.append(rows[start:end] @ w[e])
+            start = end
+    if start < R:
+        pieces.append(rows.new_zeros(R - start, N))
+    return torch.cat(pieces) if pieces else rows.new_zeros(R, N)
+
+
 def rmsnorm_ref(x, w, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, in
     fp32, returned at x's dtype."""

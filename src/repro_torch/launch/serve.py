@@ -16,7 +16,9 @@ mixed path, ``--chunked-prefill off`` for bucketed whole-prompt admission
 ``hymba-1.5b`` or ``deepseek-v3-671b``, are always admitted that way).  ``--preemption
 lru|priority --host-kv-bytes N`` survives pool pressure by preempting
 slots into a host KV tier, ``--trace-out PATH`` writes the serve loop's
-event trace, ``--metrics-json PATH`` every metric; it prints one JSON line
+event trace, ``--metrics-json PATH`` every metric and the active
+``REPRO_PERF_OPTS`` flags (``perf_flags``, read by the model code: e.g.
+``moe_ragged`` for the MoE archs); it prints one JSON line
 of throughput, latency and scheduler metrics.  ``--prune-coverage`` /
 ``--prune-vocab`` serve a pruned vocabulary (the paper's embedding-layer
 pruning) on either path.
@@ -34,6 +36,7 @@ import time
 
 import torch
 
+from repro_torch import perf_flags
 from repro_torch.configs.registry import get_config, get_reduced, list_archs
 from repro_torch.core import pruning as PR
 from repro_torch.core import trace as TR
@@ -240,7 +243,8 @@ def main(argv=None):
         with open(args.metrics_json, "w") as f:
             json.dump({"requests": len(done), "wall_s": dt,
                        "tokens_per_s": metrics.generated_tokens / dt,
-                       "mode": "continuous-paged", **metrics.to_dict()},
+                       "mode": "continuous-paged",
+                       "perf_opts": perf_flags.active(), **metrics.to_dict()},
                       f, indent=1)
         print(f"metrics: {args.metrics_json}")
     print(json.dumps({

@@ -15,8 +15,10 @@ Two forms, as in the reference:
     flag, on by default): the scores and the context are products at the
     cache's dtype with fp32 accumulation, the absorbed query, the rotated
     query and the probabilities rounded to that dtype first, and no fp32
-    copy of the cache is made.  The reference's ``REPRO_PERF_OPTS=""``
-    baseline (fp32 copies) is not ported.
+    copy of the cache is made.  With the flag off (``REPRO_PERF_OPTS=""``,
+    the reference's baseline) it attends over fp32 copies of ``ckv`` and
+    ``kr`` with the fp32 absorbed query and probabilities, as the
+    reference does.
 
 The cache of an MLA layer is dense, one row per slot: ``{"ckv": (B, S, r),
 "kr": (B, S, rope), "pos": (B, S)}`` (``kv_cache.layer_cache_shape``),
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache as KV
 from repro_torch.models import layers as L
@@ -132,8 +135,8 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     """The absorbed form: one token per row (x (B, 1, d)) at positions
     ``lengths`` (B,), written into the latent cache, then attended in
     latent space at the cache's dtype with fp32 accumulation (the
-    reference's default; see the module's docstring).  Returns (B, 1,
-    d)."""
+    reference's default), or over fp32 copies of the cache with
+    ``attn_bf16`` off (see the module's docstring).  Returns (B, 1, d)."""
     m, H = cfg.mla, cfg.num_heads
     B = x.shape[0]
     positions = lengths[:, None]
@@ -145,6 +148,8 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     # absorb q through the key decompression: (B,H,nope) x (r,H,nope)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk)
     ckv, kr = cache["ckv"], cache["kr"]
+    if not perf_flags.flag("attn_bf16"):
+        ckv, kr = ckv.float(), kr.float()
     scores = (_f32_bmm(q_lat.to(ckv.dtype), ckv.transpose(1, 2))
               + _f32_bmm(q_rope[:, 0].to(kr.dtype), kr.transpose(1, 2))) \
         * mla_scale(cfg)                                         # (B,H,Sc)

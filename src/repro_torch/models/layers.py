@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
@@ -110,11 +111,11 @@ def attention_ref(q, k, v, q_pos, k_pos, *, window, scale,
                   attn_softcap=None):
     """Causal GQA attention driven by absolute positions, fp32 scores.
     q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D), -1 positions mark invalid keys.
-    The probabilities stay fp32 in the product with v (the reference's
-    ``REPRO_PERF_OPTS=""`` baseline); its default (``attn_bf16``) rounds
-    them to v's dtype first, as the port's tensor-core kernels do, so at
-    bf16 / fp16 the two differ by up to one unit of the output's type
-    (``tests/test_torch_attention.py`` holds them to 2e-2)."""
+    It follows the reference's ``attn_bf16`` flag (``perf_flags``, on by
+    default): on, the probabilities are rounded to v's dtype before the
+    product with v, as the port's tensor-core kernels do; off
+    (``REPRO_PERF_OPTS=""``), they stay fp32.  The scores are exact
+    either way (products of bf16 / fp16 values are exact in fp32)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -127,6 +128,8 @@ def attention_ref(q, k, v, q_pos, k_pos, *, window, scale,
     p = torch.softmax(logits, dim=-1)
     # rows with no valid key (all masked) -> softmax gives uniform; zero them
     p = torch.where(mask.any(-1)[:, None, None, :, None], p, 0.0)
+    if perf_flags.flag("attn_bf16"):
+        p = p.to(v.dtype).float()
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 

@@ -1,16 +1,26 @@
-"""Mixture-of-Experts FFN, the port's counterpart of ``repro.models.moe``'s
-default path: softmax top-k routing (Qwen3-MoE) or sigmoid scores
-normalised over the chosen top-k (DeepSeek-V3), and optional shared
-experts, a dense FFN every token runs.
+"""Mixture-of-Experts FFN, the port's counterpart of ``repro.models.moe``:
+softmax top-k routing (Qwen3-MoE) or sigmoid scores normalised over the
+chosen top-k (DeepSeek-V3), and optional shared experts, a dense FFN every
+token runs.  :func:`moe_apply` dispatches as the reference does, by the
+``moe_ragged`` flag of ``REPRO_PERF_OPTS`` (``perf_flags``), read at each
+call:
 
-Dispatch is sort-based with a static capacity (GShard-style): each
-expert takes at most C = :func:`_capacity` of the batch's (token, expert)
-assignments, in the order of a stable sort by expert (so, for one
-expert, by token), and drops the rest.  The kept tokens are gathered
-into an (E, C, d) buffer and run through the expert stacks by the dense
-FFN's code (``layers.ffn_apply``), whose products become batched ones
-(the reference leaves them to XLA as einsums, outside any Pallas
-kernel).  Each token then sums its kept contributions in ascending
+  * capacity (the default, :func:`moe_apply_capacity`): sort-based with a
+    static capacity (GShard-style).  Each expert takes at most C =
+    :func:`_capacity` of the batch's (token, expert) assignments, in the
+    order of a stable sort by expert (so, for one expert, by token), and
+    drops the rest.  The kept tokens are gathered into an (E, C, d)
+    buffer and run through the expert stacks by the dense FFN's code
+    (``layers.ffn_apply``), whose products become batched ones (the
+    reference leaves them to XLA as einsums, outside any Pallas kernel),
+    so every expert's weights are read on every forward.
+  * ragged (``moe_ragged``, :func:`moe_apply_ragged`): no capacity and no
+    drops.  The assignments, stably sorted by expert, are gathered as rows
+    and run through three grouped products (``ops.ragged_matmul``; the
+    reference's ``jax.lax.ragged_dot``), which on the card read only the
+    experts that received rows.
+
+Either way each token then sums its contributions from zero in ascending
 expert order, the order in which the reference's scatter-add applies
 them, with no atomics, so a serve gives the same stream twice on the
 card; the shared experts' output is added after.  Nothing here reads a
@@ -25,8 +35,11 @@ the router through them and through the auxiliary loss.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -107,9 +120,66 @@ def load_balance_loss(cfg: ModelConfig, probs, tope):
 
 def moe_apply(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (out (B, S, d), the load-balance loss, a scalar),
-    routed by the config's kind (:func:`route`).  Every one of the B x S
-    tokens, padding lanes too, is routed and counts towards the capacity,
-    as in the reference."""
+    routed by the config's kind (:func:`route`): through
+    :func:`moe_apply_ragged` under the ``moe_ragged`` flag, else
+    :func:`moe_apply_capacity`."""
+    if perf_flags.flag("moe_ragged"):
+        return moe_apply_ragged(cfg, p, x)
+    return moe_apply_capacity(cfg, p, x)
+
+
+def _combine(eo, pos):
+    """out (T, d): row t the sum, from zero, of eo's rows pos[t, 0],
+    pos[t, 1], ... in that order (pos (T, k), each row in ascending expert
+    order)."""
+    out = torch.zeros(pos.shape[0], eo.shape[1], dtype=eo.dtype,
+                      device=eo.device)
+    for j in range(pos.shape[1]):
+        out = out + eo[pos[:, j]]
+    return out
+
+
+def moe_apply_ragged(cfg: ModelConfig, p, x):
+    """The reference's ``moe_apply_ragged``: every one of the B x S x k
+    assignments, stably sorted by expert, is a row of three grouped
+    products over the expert stacks at x's dtype (sizes counted on the
+    device), scaled by its top-k weight at that dtype and summed into its
+    token in ascending expert order."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E, k = B * S, m.num_experts, m.top_k
+    dev = x.device
+    xf = x.reshape(T, d)
+    probs, topw, tope = route(cfg, p, xf)
+    e_flat = tope.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    sizes = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+        0, e_flat, torch.ones(T * k, dtype=torch.int32, device=dev))
+    rows = xf[order // k]                                      # (T k, d)
+    L._check_activation(cfg)
+    h = ops.ragged_matmul(rows, p["wi"].to(x.dtype), sizes)
+    if cfg.activation in ("swiglu", "geglu"):
+        g = ops.ragged_matmul(rows, p["wg"].to(x.dtype), sizes)
+        h = (F.silu(g) if cfg.activation == "swiglu"
+             else F.gelu(g, approximate="tanh")) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    eo = ops.ragged_matmul(h, p["wo"].to(x.dtype), sizes)       # (T k, d)
+    eo = eo * topw.reshape(-1)[order][:, None].to(eo.dtype)
+    # a token's k rows sit in expert order in the sorted stream (its
+    # experts are distinct), so their positions sorted are that order
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * k, device=dev)).view(T, k)
+    out = _combine(eo, pos.sort(dim=1).values)
+    if "shared" in p:
+        out = out + L.ffn_apply(cfg, p["shared"], xf)
+    return out.reshape(B, S, d), load_balance_loss(cfg, probs, tope)
+
+
+def moe_apply_capacity(cfg: ModelConfig, p, x):
+    """Capacity dispatch (see the module's docstring).  Every one of the
+    B x S tokens, padding lanes too, is routed and counts towards the
+    capacity, as in the reference."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
@@ -141,10 +211,8 @@ def moe_apply(cfg: ModelConfig, p, x):
     # summed from zero in ascending expert order
     slot_of = torch.empty_like(slot).scatter_(0, order, slot).view(T, k)
     slot_of = slot_of.gather(1, torch.argsort(tope, dim=1))
-    eo = torch.cat([eo.reshape(E * C, d), eo.new_zeros(1, d)])
-    out = torch.zeros(T, d, dtype=eo.dtype, device=dev)
-    for j in range(k):
-        out = out + eo[slot_of[:, j]]
+    out = _combine(torch.cat([eo.reshape(E * C, d), eo.new_zeros(1, d)]),
+                   slot_of)
     if "shared" in p:
         out = out + L.ffn_apply(cfg, p["shared"], xf)
     return out.reshape(B, S, d), load_balance_loss(cfg, probs, tope)

@@ -36,6 +36,7 @@ import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -189,17 +190,24 @@ def _f32(x) -> torch.Tensor:
 
 
 def lr_at(cfg: AdamWConfig, step: int) -> float:
-    """Linear warmup, then cosine decay to ``min_lr_frac`` of ``lr``,
-    computed in fp32 as the reference does (returned as a Python float
-    holding that fp32 value)."""
-    s = _f32(step)
+    """Linear warmup, then cosine decay to ``min_lr_frac`` of ``lr``, in
+    fp32 as the reference's jitted train step computes it (returned as a
+    Python float holding that fp32 value).  XLA folds the constants
+    (``lr / warmup`` and the schedule's divisions become products with
+    fp32 reciprocals) and fuses ``min_lr_frac + c (1 + cos)`` into one
+    rounding; the cosine is the correctly rounded fp32 value.  The
+    eager formula differs from it by an fp32 unit at some steps."""
+    f = np.float32
+    s = f(step)
     if step < cfg.warmup_steps:
-        return float(cfg.lr * s / max(cfg.warmup_steps, 1))
-    prog = torch.clamp((s - cfg.warmup_steps)
-                       / max(cfg.total_steps - cfg.warmup_steps, 1),
-                       0.0, 1.0)
-    return float(cfg.lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5
-                           * (1 + torch.cos(math.pi * prog))))
+        return float(s * f(f(cfg.lr) * f(f(1) / f(max(cfg.warmup_steps, 1)))))
+    span = f(max(cfg.total_steps - cfg.warmup_steps, 1))
+    prog = min(max(f(f(s - f(cfg.warmup_steps)) * f(f(1) / span)), f(0)),
+               f(1))
+    cos = f(math.cos(float(f(f(math.pi) * prog))))
+    inner = f(np.float64(f((1 - cfg.min_lr_frac) * 0.5))
+              * np.float64(f(1) + cos) + np.float64(f(cfg.min_lr_frac)))
+    return float(f(cfg.lr) * inner)
 
 
 def global_norm(grads) -> torch.Tensor:

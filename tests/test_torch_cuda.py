@@ -2484,3 +2484,182 @@ def test_train_step_on_card_reads_nothing_back(dev, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(m["loss"]).item() and st.step == 2
+
+
+# ---------------------------------------------------------------------------
+# ragged_matmul: the grouped product of moe_ragged (forward, dRows, dW)
+# ---------------------------------------------------------------------------
+
+# (group sizes, K, N): empty experts, one-row experts and tiles cut by a
+# group's end; K and N off the 64-wide tiles, off 8 (the element copies),
+# and one group holding every row
+RAGGED_CASES = [([1, 0, 17, 0, 3, 33, 0, 10], 64, 128),
+                ([0, 0, 40, 0], 100, 70),
+                ([5, 0, 0, 11], 96, 72),
+                ([2] * 32, 256, 192)]
+RAGGED_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _ragged_inputs(sizes, K, N, dtype, dev, seed=0, tail=0):
+    """rows (sum(sizes) + tail, K) ~ N(0, 1), w (E, K, N) ~ N(0, 1 / K)
+    (outputs of order one), int32 sizes, all on ``dev``."""
+    rng = np.random.default_rng(seed)
+    R = sum(sizes) + tail
+    rows = torch.from_numpy(rng.normal(size=(R, K)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(len(sizes), K, N)).astype(
+        np.float32) / K ** 0.5)
+    return (rows.to(dev, dtype), w.to(dev, dtype),
+            torch.tensor(sizes, dtype=torch.int32, device=dev))
+
+
+def _close_scaled(got, want, tol):
+    """Within ``tol`` of the larger of 1 and want's largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+@pytest.mark.parametrize("sizes,K,N", RAGGED_CASES)
+def test_ragged_matmul_matches_plain(dev, sizes, K, N, dtype):
+    """The forward kernel against ``ragged_matmul_ref`` at the same dtype
+    (TF32 off): 1e-4 at fp32, 2e-2 at bf16 / fp16; 5 rows past the last
+    group come out zero."""
+    from repro_torch.kernels import ragged_matmul as RM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev, tail=5)
+    n0 = RM.ragged_matmul.launches
+    out = RM.ragged_matmul(rows, w, sz)
+    torch.cuda.synchronize()
+    assert RM.ragged_matmul.launches == n0 + 1 and out.dtype == dtype
+    _close_scaled(out, RM.ragged_matmul_ref(rows, w, sz), TOL[dtype])
+    assert (out[sum(sizes):] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+@pytest.mark.parametrize("sizes,K,N", RAGGED_CASES)
+def test_ragged_matmul_bwd_matches_plain_autograd(dev, sizes, K, N, dtype):
+    """dRows (the kernel reading w transposed) and dW (summed over each
+    group's rows; zeros for an empty expert) against autograd of the
+    plain version, through ``ops.ragged_matmul`` (``RaggedMatmulFn``)."""
+    from repro_torch.kernels import ragged_matmul as RM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev, seed=1)
+    cot = torch.randn(rows.shape[0], N, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev).to(dtype)
+    grads = []
+    for fn in (ops.ragged_matmul, RM.ragged_matmul_ref):
+        r, ww = (t.clone().requires_grad_() for t in (rows, w))
+        fn(r, ww, sz).backward(cot)
+        grads.append((r.grad, ww.grad))
+    (dr, dw), (pr, pw) = grads
+    _close_scaled(dr, pr, TOL[dtype])
+    _close_scaled(dw, pw, TOL[dtype])
+    for e in np.flatnonzero(np.asarray(sizes) == 0):
+        assert (dw[e] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+def test_ragged_matmul_bit_identical_twice(dev, dtype):
+    """No atomics: two calls of the forward and of the backward give the
+    same bits."""
+    from repro_torch.kernels import ragged_matmul as RM
+    rows, w, sz = _ragged_inputs(*RAGGED_CASES[0], dtype, dev)
+    dout = torch.randn(rows.shape[0], w.shape[2], device=dev).to(dtype)
+    a = [RM.ragged_matmul(rows, w, sz),
+         *RM.ragged_matmul_bwd(rows, w, sz, dout)]
+    b = [RM.ragged_matmul(rows, w, sz),
+         *RM.ragged_matmul_bwd(rows, w, sz, dout)]
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+def test_ragged_matmul_never_reads_unrouted_experts(dev, dtype):
+    """Every expert that received no rows has its slab of w filled with
+    NaN: the forward and dRows stay finite and equal to the same call
+    with zeros there, and those experts' dW is zero."""
+    from repro_torch.kernels import ragged_matmul as RM
+    sizes, K, N = RAGGED_CASES[0]
+    rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev)
+    empty = torch.from_numpy(np.asarray(sizes) == 0).to(dev)
+    w_nan = w.clone()
+    w_nan[empty] = float("nan")
+    w_zero = w.clone()
+    w_zero[empty] = 0
+    dout = torch.randn(rows.shape[0], N, device=dev).to(dtype)
+    out = RM.ragged_matmul(rows, w_nan, sz)
+    dr, dw = RM.ragged_matmul_bwd(rows, w_nan, sz, dout)
+    assert torch.isfinite(out).all() and torch.isfinite(dr).all()
+    assert torch.equal(out, RM.ragged_matmul(rows, w_zero, sz))
+    assert torch.equal(dr, RM.ragged_matmul_bwd(rows, w_zero, sz, dout)[0])
+    assert (dw[empty] == 0).all()
+
+
+def test_ragged_matmul_wrapper_rejects_bad_inputs(dev):
+    """Wrong device, dtype, sizes dtype, shape or layout raise; nothing
+    falls back to the plain version."""
+    from repro_torch.kernels import ragged_matmul as RM
+    rows, w, sz = _ragged_inputs([3, 5], 16, 8, torch.bfloat16, dev)
+    bad = [(rows.cpu(), w, sz), (rows.float(), w, sz),
+           (rows, w, sz.long()), (rows[:, :8], w, sz),
+           (rows, w.transpose(1, 2).contiguous().transpose(1, 2), sz),
+           (rows, w, sz[:1])]
+    for args in bad:
+        with pytest.raises(ValueError):
+            RM.ragged_matmul(*args)
+    with pytest.raises(ValueError):
+        RM.ragged_matmul_bwd(rows, w, sz, torch.zeros(7, 8, device=dev,
+                                                      dtype=rows.dtype))
+
+
+def _ragged_moe(monkeypatch):
+    monkeypatch.setenv("REPRO_PERF_OPTS", "moe_ragged")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _moe_case()
+
+
+def test_moe_apply_ragged_on_card_matches_cpu(dev, monkeypatch):
+    """``moe_apply`` under ``moe_ragged``, fp32, at the capacity factor
+    1.5 (where capacity dispatch would drop): the card's output equals the
+    CPU's within 1e-5, two calls are bit-equal, neither reads a value back
+    to the host (CUDA sync debug mode raises on one), and each runs the
+    three grouped products through the kernel."""
+    from repro_torch.kernels import ragged_matmul as RM
+    M, cfg, p, x = _ragged_moe(monkeypatch)
+    want = M.moe_apply(cfg, p, x)[0]
+    pd = {k: v.to(dev) for k, v in p.items()}
+    xd = x.to(dev)
+    M.moe_apply(cfg, pd, xd)                     # warm-up: the build
+    torch.cuda.synchronize()
+    n0 = RM.ragged_matmul.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = M.moe_apply(cfg, pd, xd)[0]
+        b = M.moe_apply(cfg, pd, xd)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert RM.ragged_matmul.launches == n0 + 6
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_moe_apply_ragged_grads_on_card_match_cpu(dev, monkeypatch):
+    """The gradients of ``sum(out * c) + aux`` under ``moe_ragged``, fp32,
+    for every parameter and x: card (``RaggedMatmulFn``: one backward call
+    a product) == CPU within 1e-5 of each leaf's largest magnitude."""
+    from repro_torch.kernels import ragged_matmul as RM
+    M, cfg, p, x = _ragged_moe(monkeypatch)
+    cot = torch.from_numpy(np.random.default_rng(6).normal(
+        size=x.shape).astype(np.float32))
+    grads = {}
+    n0 = RM.ragged_matmul_bwd.launches
+    for d in ("cpu", "cuda"):
+        pd = {k: v.to(d, copy=True).requires_grad_() for k, v in p.items()}
+        xd = x.to(d, copy=True).requires_grad_()
+        out, aux = M.moe_apply(cfg, pd, xd)
+        ((out * cot.to(d)).sum() + aux).backward()
+        grads[d] = {"x": xd.grad, **{k: v.grad for k, v in pd.items()}}
+    assert RM.ragged_matmul_bwd.launches == n0 + 3
+    for k, want in grads["cpu"].items():
+        _close_scaled(grads["cuda"][k].cpu() / want.abs().max(),
+                      want / want.abs().max(), 1e-5)

@@ -175,6 +175,20 @@ def test_lr_at_matches_reference(step):
         JOPT.lr_at(JOPT.AdamWConfig(**c), jnp.asarray(step)))
 
 
+@pytest.mark.parametrize("lr,warmup,total", [
+    (1e-4, 1, 10), (3e-3, 2, 10), (3e-4, 5, 30), (1e-3, 7, 100)])
+def test_lr_at_matches_jitted_reference(lr, warmup, total):
+    """Every step's learning rate equals the one the reference's jitted
+    train step computes, bit for bit (XLA folds and fuses the schedule's
+    fp32 arithmetic; the eager formula differs by a unit at some of
+    these steps, e.g. step 2 at lr 1e-4, warmup 1)."""
+    c = dict(lr=lr, warmup_steps=warmup, total_steps=total)
+    jlr = jax.jit(lambda s: JOPT.lr_at(JOPT.AdamWConfig(**c), s))
+    for step in range(total + 2):
+        assert OPT.lr_at(OPT.AdamWConfig(**c), step) == float(
+            jlr(jnp.asarray(step))), step
+
+
 @pytest.mark.parametrize("arch", ["unimo-text", "deepseek-v3-671b"])
 @pytest.mark.parametrize("factored", [False, True])
 def test_apply_updates_matches_reference(arch, factored):
@@ -265,19 +279,25 @@ def test_loss_fn_and_grads_match_reference(arch):
 # ---------------------------------------------------------------------------
 
 
-STEPS = {"unimo-text full": ("unimo-text", False, 1, 1e-3),
-         "qwen3-4b factored accum 2": ("qwen3-4b", True, 2, 1e-8)}
+# (arch, factored, microbatches, eps, lr, warmup_steps, steps)
+STEPS = {"unimo-text full": ("unimo-text", False, 1, 1e-3, 3e-3, 2, 2),
+         "qwen3-4b factored accum 2": ("qwen3-4b", True, 2, 1e-8, 3e-3, 2,
+                                       2),
+         # the optimizer settings of chip_smoke.py's full-width qwen3-4b
+         # run, whose loss rose at its third step on the card
+         "qwen3-4b factored accum 2, 3 steps at lr 1e-4": (
+             "qwen3-4b", True, 2, 1e-8, 1e-4, 1, 3)}
 
 
 @pytest.mark.parametrize("case", list(STEPS))
 def test_train_steps_match_reference(case):
-    """Two ``make_train_step`` steps on packed batches of 4 x 32: full
-    AdamW on unimo-text; factored AdamW with two microbatches of 2 rows
-    on qwen3-4b.  Loss, ce, lr and gnorm of each step and every parameter
-    after them equal the reference's."""
-    arch, factored, accum, eps = STEPS[case]
+    """``make_train_step`` steps on packed batches of 4 x 32: two of full
+    AdamW on unimo-text; two and three of factored AdamW with two
+    microbatches of 2 rows on qwen3-4b.  Loss, ce, lr and gnorm of each
+    step and every parameter after them equal the reference's."""
+    arch, factored, accum, eps, lr, warmup, steps = STEPS[case]
     jcfg, cfg, jp, _ = _weights(arch)
-    ocfg = dict(lr=3e-3, warmup_steps=2, total_steps=10, eps=eps,
+    ocfg = dict(lr=lr, warmup_steps=warmup, total_steps=10, eps=eps,
                 factored=factored)
     corpus = D.synthetic_corpus(80, seed=2)
     tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 400))
@@ -289,7 +309,7 @@ def test_train_steps_match_reference(case):
     params = _params(arch)
     state = OPT.init_state(params, factored=factored, model_cfg=cfg)
     jstate = JOPT.init_state(jp, factored=factored)
-    for _ in range(2):
+    for _ in range(steps):
         b = next(batches)
         jp, jstate, jm = jstep(jp, jstate, {k: jnp.asarray(v)
                                             for k, v in b.items()})
