@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --src OTHER_CHECKOUT/src
     python3 chip_smoke.py --only flash --only train [--src ...]
+    python3 chip_smoke.py --only ragged [--src ...]
 
 Phases, one JSON line each, each with its ``seconds`` (a kernel case's
 own time, else the time since the previous line) and ``elapsed_s``; any
@@ -11,17 +12,18 @@ failure exits non-zero before the last line (``--src`` runs every phase on
 another checkout's port, such as a ``git archive`` of a parent commit, so
 that two versions are timed in one call on one card; ``--only flash``
 runs only the flash forward and backward cases at the train shapes,
-``--only train`` only the full-width unimo-text fp32 train run, for such
-an A/B):
+``--only train`` only the full-width unimo-text fp32 train run, ``--only
+ragged`` only the grouped product's kernel cases, for such an A/B):
 
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
               ``dense_decode.cu``, ``flash_attention.cu``,
               ``quant_matmul.cu``, ``mlstm_chunk.cu``, ``rmsnorm.cu``,
-              ``flash_attention_bwd.cu`` and ``mlstm_chunk_bwd.cu``)
-              and report the build seconds and ptxas resource use
-              (registers, spills)
+              ``flash_attention_bwd.cu``, ``mlstm_chunk_bwd.cu`` and
+              ``ragged_matmul.cu``) and report the build seconds and
+              ptxas resource use (registers, spills; the grouped
+              product's kernels again on the ``ragged_kernels`` line)
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
@@ -329,13 +331,19 @@ KERNEL_SYMBOLS = {
     "decode_attention": ("dense_decode_",),
     "flash_attention_bwd": ("attn_bwd_",),
     "mlstm_chunked_bwd": ("mlstm_bwd_",),
-    "ragged_matmul": ("ragged_mm_kernel",),
-    "ragged_matmul_bwd": ("ragged_mm_kernel", "ragged_dw_kernel"),
+    "ragged_matmul": ("ragged_mm_",),
+    "ragged_matmul_bwd": ("ragged_mm_", "ragged_dw_"),
 }
+# the grouped product's halves of the backward, timed apart
+RAGGED_BWD_PARTS = {"drows": ("ragged_mm_",), "dw": ("ragged_dw_",)}
 # the tensor-core bodies that bf16 must reach in the redesigned kernels
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
               "paged_packed_attention": "paged_packed_mma_kernel",
               "paged_packed_attention_q8": "paged_packed_mma_kernel"}
+# ... and that every bf16 / fp16 grouped product at the models' widths
+# must reach: the wgmma + TMA bodies (forward, dRows and dW)
+REDESIGNED_16BIT = {"ragged_matmul": "_tma_kernel",
+                    "ragged_matmul_bwd": "_tma_kernel"}
 # ... and that fp32 must reach in flash's: every device kernel of a timed
 # fp32 case holds one of these (the split bodies' fp32 instances)
 REDESIGNED_FP32 = {"flash_attention": ("flash_mma_kernel<float",),
@@ -389,6 +397,10 @@ NOTES = {
                      "src/repro/models/moe.py:102-110, outside Pallas; "
                      "launches: the full-width qwen3-moe bucketed serve "
                      "under moe_ragged (three a MoE layer and forward); "
+                     "bodies: bf16 / fp16 at K, N multiples of 8 "
+                     "ragged_mm_tma_kernel (wgmma fed by TMA), other "
+                     "16-bit shapes ragged_mm_kernel (mma.sync), fp32 "
+                     "ragged_mm_kernel (CUDA cores); "
                      "library: torch._grouped_mm where it runs at the "
                      "dtype, else null with the reason; timed case: a "
                      "decode step's 64 rows through wi, the other shapes "
@@ -396,11 +408,14 @@ NOTES = {
     "ragged_matmul_bwd": "replaces null: the gradient of jax.lax.ragged_dot "
                          "(the reference differentiates XLA's); "
                          "library_ms null: no single PyTorch call computes "
-                         "both gradients; launches: train_parity of "
-                         "reduced qwen3-moe under moe_ragged (one a "
-                         "grouped product a backward); one call is two "
-                         "launches (dRows through ragged_mm_kernel reading "
-                         "w transposed, dW through ragged_dw_kernel)",
+                         "both gradients (each half's torch._grouped_mm is "
+                         "in its regime's drows / dw); launches: "
+                         "train_parity of reduced qwen3-moe under "
+                         "moe_ragged (one a grouped product a backward); "
+                         "one call is two launches (dRows through "
+                         "ragged_mm_tma_kernel reading w transposed, dW "
+                         "through ragged_dw_tma_kernel; fp32: "
+                         "ragged_mm_kernel, ragged_dw_kernel)",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -1422,6 +1437,14 @@ def phase_kernels(check_bodies=True):
               and c.get("dtype") == "float32" and "device_kernels" in c
               and not all(any(s in n for s in REDESIGNED_FP32[c["kernel"]])
                           for n in c["device_kernels"])]
+    # every bf16 / fp16 grouped product at the models' widths: the wgmma
+    # bodies alone
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+              if check_bodies and c["kernel"] in REDESIGNED_16BIT
+              and c.get("dtype") in ("bfloat16", "float16")
+              and (c.get("body") != "wgmma_tma" or "device_kernels" in c
+                   and not all(REDESIGNED_16BIT[c["kernel"]] in n
+                               for n in c["device_kernels"]))]
     if stale:
         raise SystemExit(f"bf16 (or flash's fp32) case did not run the "
                          f"tensor-core body: {stale}")
@@ -2510,7 +2533,8 @@ def phase_profile(eng, reqs, wall, arch, kv_dtype, weights_dtype, mode,
                  "quant_matmul_mma_decode_kernel",
                  "quant_matmul_mma_tiled_kernel", "mlstm_chunk_kernel",
                  "mlstm_chunk_mma_kernel", "ragged_mm_kernel",
-                 "ragged_dw_kernel"):
+                 "ragged_dw_kernel", "ragged_mm_tma_kernel",
+                 "ragged_dw_tma_kernel"):
         for k, (us, n) in by_name.items():
             if name + "<" in k or k.endswith(name) or name + "(" in k:
                 ours[k[:90]] = {"ms": us / 1e3, "count": n,
@@ -4054,10 +4078,6 @@ def phase_serves_hybrid_mla():
 # REPRO_PERF_OPTS: moe_ragged's grouped product and attn_bf16's baseline
 # ---------------------------------------------------------------------------
 
-# the ragged path's device kernels (forward and dRows; dW)
-RAGGED_SYMBOLS = ("ragged_mm_kernel", "ragged_dw_kernel")
-
-
 @contextlib.contextmanager
 def perf_opts(value):
     """``REPRO_PERF_OPTS`` set to ``value`` inside, restored after (the
@@ -4091,18 +4111,23 @@ def _routed(rng, T, E, k, K, dtype):
     return x[order // k].contiguous(), sizes
 
 
-def _grouped_mm(rows, w, sizes, want):
-    """``torch._grouped_mm`` (offs: the groups' cumulative ends) on these
-    inputs, the yardstick the port never calls: (a function of no
-    arguments, its max abs error against ``want``, None), or (None, None,
-    the reason it does not run).  Tried with w as stored, then with w
-    column-major (a copy made here, outside the timing)."""
+def _grouped_mm(a, b, sizes, want):
+    """``torch._grouped_mm(a, b, offs=...)`` (offs: the groups' cumulative
+    ends) on these inputs, the yardstick the port never calls: (a function
+    of no arguments, its max abs error against ``want``, None), or (None,
+    None, the reason it does not run).  Tried with each operand as given,
+    then as a contiguous copy of its transpose, transposed back (a copy
+    made here, outside the timing): the other memory order."""
     import torch
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+
+    def other(t):
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
     reasons = []
-    for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
-        def f(b=b):
-            return torch._grouped_mm(rows, b, offs=offs)
+    for x, y in ((a, b), (a, other(b)), (other(a), b), (other(a),
+                                                        other(b))):
+        def f(x=x, y=y):
+            return torch._grouped_mm(x, y, offs=offs)
         try:
             got = f()
             torch.cuda.synchronize()
@@ -4110,7 +4135,8 @@ def _grouped_mm(rows, w, sizes, want):
             reasons.append(f"{type(e).__name__}: {str(e)[:160]}")
             continue
         return f, (got.float() - want.float()).abs().max().item(), None
-    return None, None, "torch._grouped_mm refused: " + " | ".join(reasons)
+    return None, None, "torch._grouped_mm refused: " + " | ".join(
+        dict.fromkeys(reasons))
 
 
 def _ragged_bytes(rows, w, sizes):
@@ -4123,13 +4149,39 @@ def _ragged_bytes(rows, w, sizes):
         + E * 4, routed
 
 
+def _ragged_body(RM, dtype, K, N):
+    """The body the wrapper picks for these operands (a checkout before
+    the wgmma bodies has no plan: its 16-bit body was mma.sync)."""
+    if hasattr(RM, "ragged_body"):
+        return RM.ragged_body(dtype, K, N)
+    return "cuda_cores" if str(dtype) == "torch.float32" else "mma_sync"
+
+
+def _ragged_fp64(rows, w, sizes):
+    """The grouped product evaluated in fp64, one routed expert at a time
+    (the sizes read on the host, outside any timing)."""
+    import torch
+    out = torch.zeros(rows.shape[0], w.shape[2], dtype=torch.float64,
+                      device=rows.device)
+    start = 0
+    for e, n in enumerate(sizes.tolist()):
+        if n:
+            out[start:start + n] = rows[start:start + n].double() \
+                @ w[e].double()
+        start += n
+    return out
+
+
 @timed_case
-def run_ragged_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
+def run_ragged_case(rng, name, *, T, E, k, K, N, dtype, timed=False,
+                    fp64=False):
     """``ragged_matmul`` over T tokens' top-k assignments (rows sorted by
     expert) and an (E, K, N) stack at ``dtype`` (entries ~ N(0, 1 / K)),
     against its plain version; two calls bit-identical; fp32 also against
-    the plain version in fp64 (``fp64``; gated as fp32 flash is).  Timed
-    cases add ``torch._grouped_mm`` where it runs at the dtype (else
+    the plain version in fp64 (``fp64``; gated as fp32 flash is), bf16 /
+    fp16 with ``fp64`` too (recorded beside the plain version's: both
+    round the output to the dtype).  ``body``: the one the wrapper picked.
+    Timed cases add ``torch._grouped_mm`` where it runs at the dtype (else
     null, with the reason)."""
     import torch
     from repro_torch.kernels import ragged_matmul as RM
@@ -4147,7 +4199,8 @@ def run_ragged_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
     nbytes, routed = _ragged_bytes(rows, w, sizes)
     res = {"case": name, "kernel": "ragged_matmul", "T": T, "E": E,
            "k": k, "K": K, "N": N, "rows": rows.shape[0],
-           "experts_routed": routed, "dtype": dn, "max_abs_err": err,
+           "experts_routed": routed, "dtype": dn,
+           "body": _ragged_body(RM, dtype, K, N), "max_abs_err": err,
            "tol": tol, "bit_identical_twice": torch.equal(out, again),
            "ok": bool(torch.allclose(out.float(), ref.float(), atol=tol,
                                      rtol=tol) and torch.equal(out, again))}
@@ -4156,6 +4209,11 @@ def run_ragged_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
         res["fp64"] = _fp64_errors(("out",), (out,), (ref,), (truth,))
         res["ok"] &= res["fp64"]["out"]["ok"]
         del truth
+    elif fp64:
+        f = _fp64_errors(("out",), (out,), (ref,),
+                         (_ragged_fp64(rows, w, sizes),))["out"]
+        res["fp64"] = {"out": {"err": f["err"], "plain_err": f["plain_err"],
+                               "gated": False}}
     if timed:
         lib, lib_err, why = _grouped_mm(rows, w, sizes, ref)
         res.update(timings("ragged_matmul",
@@ -4174,7 +4232,11 @@ def run_ragged_bwd_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
     """``ragged_matmul_bwd`` (dRows through the forward kernel reading w
     transposed, dW over each group's rows) against autograd of the plain
     version; two calls bit-identical.  No single PyTorch call computes
-    both gradients: library null."""
+    both gradients: library null.  Timed cases also time each half alone
+    (``drows``, ``dw``: the wrapper with the other gradient off, its
+    kernel's device time, its bound) beside its own
+    ``torch._grouped_mm`` (dRows: dOut x w^T by group; dW: rows^T x dOut
+    with the groups along K)."""
     import torch
     from repro_torch.kernels import ragged_matmul as RM
     dev = torch.device("cuda")
@@ -4202,9 +4264,9 @@ def run_ragged_bwd_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
     twice = all(torch.equal(a, b) for a, b in zip(got, again))
     res = {"case": name, "kernel": "ragged_matmul_bwd", "T": T, "E": E,
            "k": k, "K": K, "N": N, "rows": rows.shape[0], "dtype": dn,
-           "errs": errs, "max_abs_err": max(errs.values()), "tol": tol,
+           "body": _ragged_body(RM, dtype, K, N), "errs": errs,
+           "max_abs_err": max(errs.values()), "tol": tol,
            "bit_identical_twice": twice, "ok": bool(ok and twice)}
-    del got, again, want
     if timed:
         res.update(timings(
             "ragged_matmul_bwd",
@@ -4214,10 +4276,34 @@ def run_ragged_bwd_case(rng, name, *, T, E, k, K, N, dtype, timed=False):
                           "gradients")
         # inputs rows, dout, the routed experts' weights (dRows) and the
         # sizes once; outputs drows and the whole dw (zeros included)
-        nbytes, _ = _ragged_bytes(rows, w, sizes)
-        nbytes += (rows.numel() + E * K * N) * w.element_size()
+        wbytes, _ = _ragged_bytes(rows, w, sizes)
+        nbytes = wbytes + (rows.numel() + E * K * N) * w.element_size()
         res["bound_ms"], res["bound_by"] = _bound(
             nbytes, 4 * rows.shape[0] * K * N, dtype)
+        el, R = w.element_size(), rows.shape[0]
+        halves = {
+            # dRows: dout and the routed experts' weights in, drows out
+            "drows": (dict(need_w=False), (dout, w.transpose(1, 2)),
+                      want[0], wbytes),
+            # dW: rows and dout in, every expert's dw out
+            "dw": (dict(need_rows=False), (rows.t(), dout), want[1],
+                   (R * (K + N) + E * K * N) * el + E * 4)}
+        for part, (kw, lib_args, ref, part_bytes) in halves.items():
+            def fn(kw=kw):
+                return RM.ragged_matmul_bwd(rows, w, sizes, dout, **kw)
+            lib, lib_err, why = _grouped_mm(*lib_args, sizes, ref)
+            dms, by_name, tries = device_ms(fn, RAGGED_BWD_PARTS[part])
+            lib_dms = device_ms(lib)[0] if lib else None
+            bms, bby = _bound(part_bytes, 2 * R * K * N, dtype)
+            res[part] = {"kernel_ms": time_ms(fn), "device_ms": dms,
+                         "device_ms_by_kernel": by_name,
+                         "library_ms": time_ms(lib) if lib else None,
+                         "library_device_ms": lib_dms,
+                         "library": "torch._grouped_mm" if lib else why,
+                         "library_max_abs_err": lib_err,
+                         "bound_ms": bms, "bound_by": bby,
+                         "profile_attempts": tries}
+    del got, again, want
     return res
 
 
@@ -4226,9 +4312,11 @@ def ragged_kernel_cases(rng):
     router scores (top-8): qwen3-moe (E 128, d 4096, f 1536) and
     deepseek-v3 (E 256, d 7168, f 2048) at a decode step (8 slots x top-8
     = 64 rows) through wi / wg (d -> f) and wo (f -> d), and at an 8 x 78
-    admission (4,992 rows) through wi, bf16, timed; the backward at
-    qwen3-moe's widths over 4 x 128 tokens (4,096 rows) at bf16 and fp32,
-    timed; the forward at fp32 (also against fp64) and fp16."""
+    admission (4,992 rows) through wi, bf16, timed (deepseek's admission's
+    error against fp64 recorded); qwen3-moe at 8 x 1,024 tokens (65,536
+    rows); the backward at qwen3-moe's widths over 4 x 128 tokens (4,096
+    rows) at bf16 and fp32, timed, each half apart; the forward at fp32
+    (also against fp64) and fp16."""
     import torch
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     qwen = dict(E=128, k=8)
@@ -4244,8 +4332,15 @@ def ragged_kernel_cases(rng):
             N=d, dtype=bf16, timed=True, **m))
         cases.append(run_ragged_case(
             rng, f"ragged {arch} admission 8 x 78, 4992 rows {d}->{f} bf16",
-            T=8 * 78, K=d, N=f, dtype=bf16, timed=True, **m))
+            T=8 * 78, K=d, N=f, dtype=bf16, timed=True,
+            fp64=arch == "deepseek-v3", **m))
         torch.cuda.empty_cache()
+    # the reference's long-prompt trace (--long-prompt-len 1024): 8 x 1024
+    # tokens, ~512 rows an expert, where the tensor cores decide
+    cases.append(run_ragged_case(
+        rng, "ragged qwen3-moe admission 8 x 1024, 65536 rows 4096->1536 "
+        "bf16", T=8 * 1024, K=4096, N=1536, dtype=bf16, timed=True, **qwen))
+    torch.cuda.empty_cache()
     for dtype in (fp32, fp16):
         dn = str(dtype).removeprefix("torch.")
         cases.append(run_ragged_case(
@@ -4568,6 +4663,36 @@ def run_flash_bwd_case(rng, name, *, B, S, Hq, Hkv, D, dtype, Dv=None,
             res["split_floor_ms"] = (SPLIT_PRODUCTS * flops
                                      / PEAK_FLOPS["bfloat16"] * 1e3)
     return res
+
+
+def ptxas_report(log, part):
+    """Registers, spills and static shared memory of each kernel whose
+    (mangled) name matches the pattern ``part``, from nvcc's ``-Xptxas
+    -v`` log: entries {"kernel": its name from the match on, mangled
+    template arguments cut at 48 characters, "registers", "spill_stores",
+    "spill_loads", "smem_bytes"}."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(f"(?:{part})\\w*", m.group(1))
+            cur = {"kernel": k.group(0)[:48]} if k else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def bwd_kernel_attrs(lib):
@@ -5070,12 +5195,13 @@ def main(argv=None) -> int:
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src/ directory whose repro_torch is run "
                          "(default: this checkout's)")
-    ap.add_argument("--only", action="append", choices=("flash", "train"),
-                    help="run only these phases, for an A/B of the fp32 "
-                         "training path: the flash forward and backward "
-                         "cases at the train shapes (flash), the "
-                         "full-width unimo-text fp32 train run (train); "
-                         "no kernels summary line")
+    ap.add_argument("--only", action="append",
+                    choices=("flash", "train", "ragged"),
+                    help="run only these phases, for an A/B: the flash "
+                         "forward and backward cases at the train shapes "
+                         "(flash), the full-width unimo-text fp32 train "
+                         "run (train), the grouped product's kernel cases "
+                         "(ragged); no kernels summary line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5108,6 +5234,9 @@ def main(argv=None) -> int:
                 or "spill" in ln])
 
     emit("bwd_kernels", kernels=bwd_kernel_attrs(build.load()))
+    # the grouped product's kernels as ptxas reported them (when built here)
+    emit("ragged_kernels", kernels=ptxas_report(info["log"],
+                                                "ragged_mm_|ragged_dw_"))
     if args.only:
         if "flash" in args.only:
             cases = flash_train_cases(torch.Generator(device="cuda")
@@ -5120,6 +5249,15 @@ def main(argv=None) -> int:
                                  f"{bad}")
         if "train" in args.only:
             phase_train(unimo_fp32_only=True)
+        if "ragged" in args.only:
+            cases = ragged_kernel_cases(torch.Generator(device="cuda")
+                                        .manual_seed(0))
+            for c in cases:
+                emit("kernels", **c)
+            bad = [c["case"] for c in cases if not c["ok"]]
+            if bad:
+                raise SystemExit(f"ragged_matmul disagrees with its plain "
+                                 f"version: {bad}")
         print(smi, flush=True)
         print(json.dumps({"ok": True, "only": args.only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5179,7 +5317,8 @@ def main(argv=None) -> int:
                                    "kernel_ms", "plain_ms", "library_ms", "device_ms",
                                    "device_kernels", "library_device_ms",
                                    "profile_attempts", "bound_ms",
-                                   "bound_by") if k in r}
+                                   "bound_by", "body", "fp64", "drows",
+                                   "dw") if k in r}
                 for r in c["regimes"]]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

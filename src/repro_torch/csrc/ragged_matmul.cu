@@ -10,52 +10,84 @@
 //
 // the rows sorted by group: group e owns rows [off_e, off_e + sizes_e),
 // off the exclusive prefix sum of sizes (int32, on the device); rows past
-// the last group come out zero.  Two products of one kernel template:
+// the last group come out zero.  Two products of each forward kernel
+// template (ragged_mm_tma_kernel, ragged_mm_kernel):
 //
-//  * ragged_mm_kernel<T, false>: B_e = w[e] (K, N), the forward;
-//  * ragged_mm_kernel<T, true>: B_e = w[e]^T, read in w's own layout: the
-//    gradient of rows, dOut (R, N) x w[e]^T -> (R, K).
+//  * <T, false>: B_e = w[e] (K, N), the forward;
+//  * <T, true>: B_e = w[e]^T, read in w's own layout: the gradient of rows,
+//    dOut (R, N) x w[e]^T -> (R, K).
 //
-// and one more for the gradient of w:
+// and one more kernel for the gradient of w (ragged_dw_tma_kernel,
+// ragged_dw_kernel): dw[e] (K, N) = rows_e^T dOut_e, summed over the
+// group's rows in order; an expert with no rows gets zeros.
 //
-//  * ragged_dw_kernel<T>: dw[e] (K, N) = rows_e^T dOut_e, summed over the
-//    group's rows in order; an expert with no rows gets zeros.
+// What bounds it: the bytes of the experts that received rows.  At a decode
+// step each routed expert owns about one row (8 slots x top-8 = 64 rows
+// over 128 or 256 experts): a weight-streaming GEMV per expert.  At an
+// 8 x 78 admission every expert owns ~20-60 rows (4,992 rows): still bound
+// by reading each routed slab once.  dW at training sizes (~32 rows an
+// expert) is bound by writing dw (all E experts, zeros included).  Only
+// long prompts (~512 rows an expert) reach the tensor cores' bound.  An
+// expert with no rows gets no work item and its weights are never read.
+// Every block finds its work on the device (a block scan of the sizes,
+// per-expert tile counts and their prefix, a binary search), so nothing
+// is read back to the host.
 //
-// What bounds it: at a decode step each routed expert owns about one row
-// (8 slots x top-8 = 64 rows over 128 or 256 experts), so the product is a
-// weight-streaming GEMV per expert, bound by the bytes of the experts that
-// received rows.  The point of the design is that an expert with no rows
-// gets no tile and its weights are never read: each block of
-// ragged_mm_kernel finds its work on the device (a scan of sizes into
-// per-expert 16-row tile counts, then a binary search of its tile index
-// in their prefix), the host sizes the grid to the static bound
-// ceil(R / 16) + min(E, R) row tiles x ceil(Nout / 64) column tiles, and a
-// block past the last real tile exits at once.  Nothing is read back to
-// the host.  A 16-row tile reads its expert's (Kin x 64) weight slab once
-// through a four-stage cp.async ring; the row tiles of one expert run
-// next to each other in the grid and share the slab in L2.
+// Bodies, chosen on the host by dtype, shape and alignment (the wrapper's
+// ragged_body; each launcher refuses operands its body cannot take):
 //
-// Bodies by dtype (one of each template, no fallback):
-//  * bf16 / fp16: mma.sync.m16n8k16 with fp32 accumulators, A by ldmatrix,
-//    B by ldmatrix (.trans for the row-major forward slab and for dOut),
-//    4 warps of 16 output columns each (ragged_mm) or 16 rows of dw each
-//    (ragged_dw); each 64-deep K tile (32 rows for dw) sums into fresh
-//    accumulators added to the running ones with round-to-nearest adds
-//    (the tensor cores' own accumulation truncates).
-//  * fp32: CUDA-core FMA tiles (a tensor-core body would multiply in TF32,
-//    and the card's fp32 greedy streams must equal the CPU's); each thread
-//    owns 8 (ragged_mm) or 32 (ragged_dw) outputs of one column, each K
-//    tile (row chunk) summed apart and added to the running sums.
+//  * wgmma + TMA (bf16 / fp16, K and N positive multiples of 8 -- TMA's
+//    16-byte row strides -- and 16-byte aligned operands: every MoE width
+//    of the eleven archs): ragged_mm_tma_kernel, ragged_dw_tma_kernel in
+//    namespace wg.  Persistent blocks, two an SM (grid sized on the host
+//    to the static bound on items), of one consumer warpgroup running
+//    wgmma.m64n128k16 from shared memory and one producer warp starting
+//    TMA loads into a 3-stage mbarrier ring (128-byte swizzled boxes;
+//    tensor maps from cuTensorMapEncodeTiled, reached through the
+//    runtime's cudaGetDriverEntryPoint: the library links without
+//    -lcuda; wgmma.cuh).  A forward work item is one expert's 64 rows x
+//    128 output columns, so an expert with up to 64 rows (every admission
+//    of the smoke) reads its (K x 128) slab from device memory once a
+//    product; a longer group's row tiles are adjacent items, run side by
+//    side, and share the slab through L2.  The rows tile is loaded as only
+//    as many 16-row boxes as the item has rows (a decode item: one).  The
+//    output tile is staged in shared memory and written with 16-byte
+//    stores, rows past the group's end (the next group's) masked.  dW's
+//    work item is a 64 x 128 tile of dw[e] (all experts, e-major): the
+//    group's rows arrive in chunks of up to 64 (16-row boxes of rows and
+//    dOut from the group's first row), the rows past its end are zeroed
+//    in shared memory in both operands and fenced for the async proxy
+//    before wgmma reads them, and the tile is staged as bf16 / fp16 in the
+//    swizzled layout and written by TMA stores, double-buffered so one
+//    tile's stores drain while the next tile is summed (the store rate is
+//    dW's bound).  An expert with no rows stores zeros, reads nothing.
+//  * mma.sync (other bf16 / fp16 shapes: K or N off 8, unaligned
+//    operands): ragged_mm_kernel / ragged_dw_kernel, 16-row tiles through
+//    a four-stage cp.async ring, the grid at the static bound ceil(R / 16)
+//    + min(E, R) row tiles x ceil(Nout / 64), a block past the last real
+//    tile exiting at once; dW a block per 64 x 64 tile of each expert.
+//  * fp32: the same two kernels' CUDA-core FMA tiles (a tensor-core body
+//    would multiply in TF32, and the card's fp32 greedy streams must equal
+//    the CPU's); each thread owns 8 (ragged_mm) or 32 (ragged_dw) outputs
+//    of one column, each K tile (row chunk) summed apart and added to the
+//    running sums.
 //
-// No atomics: every output is written by one block, in a fixed order, so
-// two calls give the same bits.
+// Accumulation: fp32.  The wgmma bodies sum every 4 stages (256 of K, or
+// of dW's rows) into fresh accumulators (the first wgmma of each run with
+// scale-d = 0) and add those sums to the running ones with round-to-nearest
+// adds (the tensor cores' own accumulation truncates); mma.sync does the
+// same per 64-deep tile (32 rows for dW).  No split over K and no atomics:
+// every output is written by one block, in a fixed order, so two calls
+// give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "dtype.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -90,11 +122,11 @@ __host__ __device__ inline int cdiv(long long a, long long b) {
 // s[0..n]: exclusive prefix sums of v(0..n-1), s[n] the total; every
 // thread of the block calls it.  Each thread sums a run of consecutive
 // entries, the runs are scanned across the block, then written out.
-template <typename F>
+template <int kNT = kThreads, typename F>
 __device__ void block_scan(int* s, int n, F v) {
-  __shared__ int warp_tot[kThreads / 32];
+  __shared__ int warp_tot[kNT / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = cdiv(n, kThreads), b = threadIdx.x * per;
+  const int per = cdiv(n, kNT), b = threadIdx.x * per;
   const int end = min(n, b + per);
   int local = 0;
   for (int i = b; i < end; ++i) local += v(i);
@@ -113,7 +145,7 @@ __device__ void block_scan(int* s, int n, F v) {
     s[i] = run;
     run += v(i);
   }
-  if (threadIdx.x == kThreads - 1) s[n] = run;
+  if (threadIdx.x == kNT - 1) s[n] = run;
   __syncthreads();
 }
 
@@ -567,15 +599,378 @@ __global__ void __launch_bounds__(kThreads) ragged_dw_kernel(DwArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma + TMA bodies (bf16 / fp16; K, N multiples of 8; 16-byte aligned)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int kConsumers = 128;            // one warpgroup runs the wgmmas
+constexpr int kThreads = kConsumers + 32;  // and one warp starts the loads
+constexpr int kBM = 64;                    // rows of a forward work item
+constexpr int kBN = 128;                   // output columns of an item
+constexpr int kBK = 64;                    // depth of a stage (dw: rows)
+constexpr int kPiece = 16;                 // rows of a 2-D operand box
+constexpr int kStages = 3;
+constexpr int kFresh = 4;                  // stages summed apart
+constexpr int kBox = 64 * 128;             // 64 rows of 128 bytes
+constexpr int kStage = 3 * kBox;           // A, then B as two boxes
+constexpr int kOutStride = kBN + 8;        // staged forward row (elements)
+constexpr int kMmOut = kBM * kOutStride * 2;
+constexpr int kDwOut = 2 * kBox;           // one staged dw tile
+constexpr int kBlocksPerSm = 2;
+
+__device__ __forceinline__ char* align1k(char* p) {
+  return reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+struct MmItem {
+  int e, m0, rows, n0;   // e == E: rows past the last group (zeros)
+};
+
+// Work item i of the forward: for each expert with rows (in order), each
+// tile of kBN output columns, each tile of kBM of its rows innermost, so
+// the row tiles that read one weight slab run side by side (the slab comes
+// from L2 for all but the first); then the zero tiles of the rows past the
+// last group.  s_off: the groups' row offsets, s_tile: the prefix of their
+// row-tile counts (both over E + 1 entries), NT: column tiles.
+__device__ __forceinline__ MmItem mm_item(int i, const int* s_off,
+                                          const int* s_tile, int E, int R,
+                                          int NT) {
+  MmItem it;
+  const int q = i / NT;
+  if (q < s_tile[E]) {
+    int lo = 0, hi = E - 1;      // the last e with s_tile[e] <= q
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_tile[mid] <= q) lo = mid; else hi = mid - 1;
+    }
+    const int tiles = s_tile[lo + 1] - s_tile[lo];
+    const int local = i - s_tile[lo] * NT;
+    const int g1 = min(s_off[lo + 1], R);
+    it.e = lo;
+    it.n0 = local / tiles * kBN;
+    it.m0 = min(s_off[lo], R) + local % tiles * kBM;
+    it.rows = min(kBM, g1 - it.m0);
+  } else {
+    const int tail = min(s_off[E], R);
+    const int tiles = cdiv(R - tail, kBM);
+    const int local = i - s_tile[E] * NT;
+    it.e = E;
+    it.n0 = local / tiles * kBN;
+    it.m0 = tail + local % tiles * kBM;
+    it.rows = min(kBM, R - it.m0);
+  }
+  return it;
+}
+
+// Persistent blocks (the host sizes the grid to at most kBlocksPerSm an SM
+// and the static bound on items), 160 threads: warps 0-3 run the wgmmas
+// and the epilogue, lane 0 of warp 4 starts the TMA loads into a ring of
+// kStages (A: the item's rows, as many 16-row boxes as it has rows; B: the
+// weight slab's 64 x 128 tile as two boxes), both walking the same items.
+// Forward: A (rows x k) K-major, B = w[e] (k x n) MN-major; kTransB (the
+// gradient of rows): A = dOut (rows x n) K-major, B = w[e]^T, K-major.
+// Each tile of 128 output columns is written by one block, its kFresh
+// stages (256 deep) summed into fresh accumulators and those sums added in
+// order; the bf16 / fp16 tile is staged in shared memory and written with
+// 16-byte stores, rows past the group's end masked (the next group's).
+template <typename T, bool kTransB>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    ragged_mm_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         RmArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align1k(smem_raw);
+  T* so = reinterpret_cast<T*>(smem + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage +
+                                               kMmOut);
+  uint64_t* empty = full + kStages;
+  int* s_off = reinterpret_cast<int*>(empty + kStages);
+  int* s_tile = s_off + a.E + 1;
+  const int R = a.R, E = a.E;
+  const int Kin = kTransB ? a.N : a.K, Nout = kTransB ? a.K : a.N;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  block_scan<kThreads>(s_off, E,
+                       [&](int e) { return clamped_size(a.sizes, e, R); });
+  block_scan<kThreads>(s_tile, E, [&](int e) {
+    return cdiv(min(s_off[e + 1], R) - min(s_off[e], R), kBM);
+  });
+  const int NT = cdiv(Nout, kBN), nk = cdiv(Kin, kBK);
+  const int total = (s_tile[E] + cdiv(R - min(s_off[E], R), kBM)) * NT;
+
+  if (warp == kConsumers / 32) {               // the producer
+    if (lane != 0) return;
+    int stage = 0, phase = 0;
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      const MmItem it = mm_item(i, s_off, s_tile, E, R, NT);
+      if (it.e == E) continue;
+      const int pieces = cdiv(it.rows, kPiece);
+      const bool b1 = it.n0 + 64 < Nout;     // the slab's second box
+      const uint32_t bytes = pieces * kPiece * 128 + (b1 ? 2 : 1) * kBox;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, bytes);
+        char* st = smem + stage * kStage;
+        char* sb = st + kBox;
+        const int k0 = kt * kBK;
+        for (int p = 0; p < pieces; ++p)
+          tma_load_2d(st + p * kPiece * 128, &tm_a, full + stage, k0,
+                      it.m0 + p * kPiece);
+        if (kTransB) {
+          tma_load_3d(sb, &tm_w, full + stage, k0, it.n0, it.e);
+          if (b1)
+            tma_load_3d(sb + kBox, &tm_w, full + stage, k0, it.n0 + 64,
+                        it.e);
+        } else {
+          tma_load_3d(sb, &tm_w, full + stage, it.n0, k0, it.e);
+          if (b1)
+            tma_load_3d(sb + kBox, &tm_w, full + stage, it.n0 + 64, k0,
+                        it.e);
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  T* out = static_cast<T*>(a.out);
+  const uint32_t base = smem_u32(smem);
+  float acc[64], tacc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) tacc[j] = 0.f;
+  int stage = 0, phase = 0;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    const MmItem it = mm_item(i, s_off, s_tile, E, R, NT);
+    if (it.e == E) {                  // rows past the last group: zeros
+      for (int x = tid; x < kBM * (kBN / 8); x += kConsumers) {
+        const int r = x / (kBN / 8), c = it.n0 + x % (kBN / 8) * 8;
+        if (r < it.rows && c < Nout)
+          *reinterpret_cast<uint4*>(out + (long long)(it.m0 + r) * Nout +
+                                    c) = make_uint4(0, 0, 0, 0);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    int held = -1;               // a stage whose wgmmas may still be running
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(full + stage, phase);
+      const uint32_t sa = base + stage * kStage, sb = sa + kBox;
+      fence_regs(tacc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kBK / 16; ++s) {
+        const uint64_t da = gmma_desc(sa + s * 32, 16, 1024);
+        const uint64_t db = kTransB ? gmma_desc(sb + s * 32, 16, 1024)
+                                    : gmma_desc(sb + s * 2048, kBox, 1024);
+        wgmma_m64n128k16<T, 0, kTransB ? 0 : 1>(
+            tacc, da, db, kt % kFresh != 0 || s != 0);
+      }
+      wgmma_commit();
+      const bool flush = kt % kFresh == kFresh - 1 || kt == nk - 1;
+      if (flush)
+        wgmma_wait<0>();
+      else
+        wgmma_wait<1>();
+      fence_regs(tacc);
+      if (held >= 0 && lane == 0) mbar_arrive(empty + held);
+      held = stage;
+      if (flush) {
+        if (lane == 0) mbar_arrive(empty + stage);
+        held = -1;
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[j] += tacc[j];
+      }
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    // stage the tile (row r at kOutStride elements: the fragment writes
+    // fall in distinct banks), then 16-byte stores of its rows in range
+    named_bar_sync<kConsumers>(1);
+    const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<uint32_t*>(so + r0 * kOutStride + 8 * j + c0) =
+          pack2<T>(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(so + (r0 + 8) * kOutStride + 8 * j + c0) =
+          pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    named_bar_sync<kConsumers>(1);
+    for (int x = tid; x < kBM * (kBN / 8); x += kConsumers) {
+      const int r = x / (kBN / 8), cc = x % (kBN / 8) * 8;
+      if (r < it.rows && it.n0 + cc < Nout)
+        *reinterpret_cast<uint4*>(out + (long long)(it.m0 + r) * Nout +
+                                  it.n0 + cc) =
+            *reinterpret_cast<const uint4*>(so + r * kOutStride + cc);
+    }
+  }
+}
+
+// dw: persistent blocks as above over the work items (e, 64 rows of dw's K,
+// 128 of its N), e-major, every expert's tiles included.  The producer
+// loads each item's group in chunks of up to 64 rows (16-row boxes: rows'
+// 64 columns, dOut's 128), starting at the group's first row; the consumer
+// zeroes the boxes' rows past the group's end (the next group's, or past R:
+// zeros already) in all three boxes, fences them for the async proxy, and
+// runs A = rows_e^T, B = dOut_e (both MN-major) over the chunk's 16-row
+// steps, kFresh chunks (256 rows) summed apart.  The tile is staged as
+// bf16 / fp16 in the 128-byte swizzled layout and written by two TMA
+// stores, double-buffered: one tile's stores drain while the next tile is
+// loaded and summed.  An expert with no rows loads nothing and stores
+// zeros.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    ragged_dw_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_d,
+                         const __grid_constant__ CUtensorMap tm_dw,
+                         DwArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align1k(smem_raw);
+  char* so = smem + kStages * kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + 2 * kDwOut);
+  uint64_t* empty = full + kStages;
+  int* s_off = reinterpret_cast<int*>(empty + kStages);
+  const int R = a.R, E = a.E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  block_scan<kThreads>(s_off, E,
+                       [&](int e) { return clamped_size(a.sizes, e, R); });
+  const int NKt = cdiv(a.K, 64), NNt = cdiv(a.N, kBN);
+  const int total = E * NKt * NNt;
+
+  if (warp == kConsumers / 32) {               // the producer
+    if (lane != 0) return;
+    int stage = 0, phase = 0;
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      const int e = i / (NKt * NNt), rem = i % (NKt * NNt);
+      const int k0 = rem / NNt * 64, n0 = rem % NNt * kBN;
+      const int g0 = min(s_off[e], R), g1 = min(s_off[e + 1], R);
+      const bool b1 = n0 + 64 < a.N;
+      for (int r0 = g0; r0 < g1; r0 += kBK) {
+        const int pieces = cdiv(min(kBK, g1 - r0), kPiece);
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, pieces * kPiece * 128 * (b1 ? 3 : 2));
+        char* st = smem + stage * kStage;
+        for (int p = 0; p < pieces; ++p) {
+          const int off = p * kPiece * 128, y = r0 + p * kPiece;
+          tma_load_2d(st + off, &tm_x, full + stage, k0, y);
+          tma_load_2d(st + kBox + off, &tm_d, full + stage, n0, y);
+          if (b1)
+            tma_load_2d(st + 2 * kBox + off, &tm_d, full + stage, n0 + 64, y);
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const uint32_t base = smem_u32(smem);
+  float acc[64], tacc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) tacc[j] = 0.f;
+  int stage = 0, phase = 0, done = 0;
+  for (int i = blockIdx.x; i < total; i += gridDim.x, ++done) {
+    const int e = i / (NKt * NNt), rem = i % (NKt * NNt);
+    const int k0 = rem / NNt * 64, n0 = rem % NNt * kBN;
+    const int g0 = min(s_off[e], R), g1 = min(s_off[e + 1], R);
+    const bool b1 = n0 + 64 < a.N;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int y0 = g0, c = 0; y0 < g1; y0 += kBK, ++c) {
+      const int valid = min(kBK, g1 - y0), v16 = cdiv(valid, kPiece) * kPiece;
+      mbar_wait(full + stage, phase);
+      char* st = smem + stage * kStage;
+      if (valid < v16) {           // the next group's rows: zeros
+        const int per = (v16 - valid) * 8;   // 16-byte pieces a box
+        for (int x = tid; x < per * (b1 ? 3 : 2); x += kConsumers)
+          *reinterpret_cast<uint4*>(st + x / per * kBox +
+                                    (valid + x % per / 8) * 128 +
+                                    x % 8 * 16) = make_uint4(0, 0, 0, 0);
+        fence_proxy_async();
+        named_bar_sync<kConsumers>(1);
+      }
+      const uint32_t sa = base + stage * kStage, sb = sa + kBox;
+      fence_regs(tacc);
+      wgmma_fence();
+      for (int s = 0; s < v16 / kPiece; ++s)
+        wgmma_m64n128k16<T, 1, 1>(tacc, gmma_desc(sa + s * 2048, kBox, 1024),
+                                  gmma_desc(sb + s * 2048, kBox, 1024),
+                                  c % kFresh != 0 || s != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(tacc);
+      if (lane == 0) mbar_arrive(empty + stage);
+      if (c % kFresh == kFresh - 1 || y0 + kBK >= g1) {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[j] += tacc[j];
+      }
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    // stage the tile in the swizzled layout the store map reads (16-byte
+    // piece q of row r at piece q ^ (r % 8): the fragment writes fall in
+    // distinct banks), then two TMA stores of 64 x 64
+    char* buf = so + (done & 1) * kDwOut;
+    if (tid == 0) bulk_wait_read<1>();       // buf's last stores have read it
+    named_bar_sync<kConsumers>(1);
+    const int r0 = 16 * warp + (lane >> 2), c4 = (lane & 3) * 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      char* half = buf + (j >> 3) * kBox;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = r0 + 8 * x;
+        *reinterpret_cast<uint32_t*>(half + r * 128 +
+                                     ((j & 7) ^ (r & 7)) * 16 + c4) =
+            pack2<T>(acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync<kConsumers>(1);
+    if (tid == 0) {
+      tma_store_3d(&tm_dw, buf, n0, k0, e);
+      if (b1) tma_store_3d(&tm_dw, buf + kBox, n0 + 64, k0, e);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+enum Body { kCudaCores = 0, kMmaSync = 1, kWgmmaTma = 2 };
+
 template <typename T>
 int mm_smem(int E) {
   return kStages * Tile<T>::kMmStage + 2 * (E + 1) * (int)sizeof(int);
 }
+int mm_tma_smem(int E) {
+  return 1024 + wg::kStages * wg::kStage + wg::kMmOut +
+         2 * wg::kStages * 8 + 2 * (E + 1) * (int)sizeof(int);
+}
+int dw_tma_smem(int E) {
+  return 1024 + wg::kStages * wg::kStage + 2 * wg::kDwOut +
+         2 * wg::kStages * 8 + (E + 1) * (int)sizeof(int);
+}
 
 template <typename T, bool kTransB>
-cudaError_t launch_mm(const RmArgs& a, cudaStream_t stream) {
-  const int Nout = kTransB ? a.K : a.N;
-  const dim3 grid(cdiv(a.R, kBM) + min(a.E, a.R), cdiv(Nout, kBN));
+cudaError_t launch_mm(const RmArgs& a, dim3 grid, cudaStream_t stream) {
   const int smem = mm_smem<T>(a.E);
   cudaError_t e =
       opt_in_smem((const void*)ragged_mm_kernel<T, kTransB>, smem);
@@ -584,9 +979,30 @@ cudaError_t launch_mm(const RmArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, bool kTransB>
+cudaError_t launch_mm_tma(const RmArgs& a, int grid, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  const int Kin = kTransB ? a.N : a.K;
+  const cuuint64_t da[2] = {(cuuint64_t)Kin, (cuuint64_t)a.R};
+  const cuuint32_t ba[2] = {64, wg::kPiece};
+  const cuuint64_t dw[3] = {(cuuint64_t)a.N, (cuuint64_t)a.K,
+                            (cuuint64_t)a.E};
+  const cuuint32_t bw[3] = {64, 64, 1};
+  CUtensorMap ta, tw;
+  if (!tensor_map16(&ta, a.a, kBf16, 2, da, ba) ||
+      !tensor_map16(&tw, a.w, kBf16, 3, dw, bw))
+    return cudaErrorInvalidValue;
+  const int smem = mm_tma_smem(a.E);
+  const void* kernel = (const void*)wg::ragged_mm_tma_kernel<T, kTransB>;
+  cudaError_t e = opt_in_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  wg::ragged_mm_tma_kernel<T, kTransB>
+      <<<grid, wg::kThreads, smem, stream>>>(ta, tw, a);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_dw(const DwArgs& a, cudaStream_t stream) {
-  const dim3 grid(cdiv(a.N, 64), cdiv(a.K, 64), a.E);
+cudaError_t launch_dw(const DwArgs& a, dim3 grid, cudaStream_t stream) {
   const int smem = kStages * Tile<T>::kDwStage;
   cudaError_t e = opt_in_smem((const void*)ragged_dw_kernel<T>, smem);
   if (e != cudaSuccess) return e;
@@ -594,8 +1010,45 @@ cudaError_t launch_dw(const DwArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_dw_tma(const DwArgs& a, int grid, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  const cuuint64_t dx[2] = {(cuuint64_t)a.K, (cuuint64_t)a.R};
+  const cuuint64_t dd[2] = {(cuuint64_t)a.N, (cuuint64_t)a.R};
+  const cuuint32_t b2[2] = {64, wg::kPiece};
+  const cuuint64_t dw[3] = {(cuuint64_t)a.N, (cuuint64_t)a.K,
+                            (cuuint64_t)a.E};
+  const cuuint32_t bw[3] = {64, 64, 1};
+  CUtensorMap tx, td, tw;
+  if (!tensor_map16(&tx, a.a, kBf16, 2, dx, b2) ||
+      !tensor_map16(&td, a.d, kBf16, 2, dd, b2) ||
+      !tensor_map16(&tw, a.dw, kBf16, 3, dw, bw))
+    return cudaErrorInvalidValue;
+  const int smem = dw_tma_smem(a.E);
+  cudaError_t e =
+      opt_in_smem((const void*)wg::ragged_dw_tma_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  wg::ragged_dw_tma_kernel<T>
+      <<<grid, wg::kThreads, smem, stream>>>(tx, td, tw, a);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The body may serve these operands: fp32 only on CUDA cores, 16-bit on
+// mma.sync (any shape) or on wgmma + TMA (K, N positive multiples of 8, the
+// given pointers 16-byte aligned).
+bool body_fits(int body, int dtype, int K, int N,
+               std::initializer_list<const void*> ptrs) {
+  if (body == kCudaCores) return dtype == 0;
+  if (dtype == 0) return false;
+  if (body == kMmaSync) return true;
+  if (body != kWgmmaTma || K < 8 || N < 8 || K % 8 || N % 8) return false;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
 }
 
 }  // namespace
@@ -603,47 +1056,75 @@ bool aligned16(const void* p) {
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16, of a, w and out.  a (R,
 // Kin), w (E, K, N), sizes (E,) int32, out (R, Nout), all contiguous;
 // trans = 0: Kin = K, Nout = N (out = a_e w[e]); trans = 1: Kin = N, Nout =
-// K (out = a_e w[e]^T).  R, E, Nout >= 1, K, N >= 0.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// K (out = a_e w[e]^T).  R, E, Nout >= 1, K, N >= 0.  body (Body) and the
+// grid come from the wrapper's plan (repro_torch/kernels/ragged_matmul.py):
+// the wgmma body takes gx persistent blocks (gy = 1), the others a grid of
+// at least (ceil(R / 16) + min(E, R), ceil(Nout / 64)).  Returns
+// cudaGetLastError() after the launch (0 on success), cudaErrorInvalidValue
+// for arguments the body does not take.
 extern "C" int ragged_matmul_launch(const void* a, const void* w,
                                     const void* sizes, void* out, int dtype,
                                     int R, int E, int K, int N, int trans,
-                                    void* stream) {
+                                    int body, int gx, int gy, void* stream) {
   const int Nout = trans ? K : N;
   if (dtype < 0 || dtype > 2 || R < 1 || E < 1 || K < 0 || N < 0 ||
-      Nout < 1 || cdiv(Nout, kBN) > 65535 || (trans != 0 && trans != 1))
+      Nout < 1 || (trans != 0 && trans != 1) || gx < 1 || gy < 1 ||
+      gy > 65535 || !body_fits(body, dtype, K, N, {a, w, out}))
     return (int)cudaErrorInvalidValue;
   RmArgs args{a, w, static_cast<const int*>(sizes), out, R, E, K, N,
               K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(w)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype == 0 ? mm_smem<float>(E) : mm_smem<__half>(E)) > kMaxSmem)
+  if (body == kWgmmaTma) {
+    if (mm_tma_smem(E) > kMaxSmem) return (int)cudaErrorInvalidValue;
+    switch (dtype * 2 + trans) {
+      case 2: return (int)launch_mm_tma<__half, false>(args, gx, st);
+      case 3: return (int)launch_mm_tma<__half, true>(args, gx, st);
+      case 4: return (int)launch_mm_tma<__nv_bfloat16, false>(args, gx, st);
+      default: return (int)launch_mm_tma<__nv_bfloat16, true>(args, gx, st);
+    }
+  }
+  if (gx < cdiv(R, kBM) + min(E, R) || gy < cdiv(Nout, kBN) ||
+      (dtype == 0 ? mm_smem<float>(E) : mm_smem<__half>(E)) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(gx, gy);
   switch (dtype * 2 + trans) {
-    case 0: return (int)launch_mm<float, false>(args, st);
-    case 1: return (int)launch_mm<float, true>(args, st);
-    case 2: return (int)launch_mm<__half, false>(args, st);
-    case 3: return (int)launch_mm<__half, true>(args, st);
-    case 4: return (int)launch_mm<__nv_bfloat16, false>(args, st);
-    default: return (int)launch_mm<__nv_bfloat16, true>(args, st);
+    case 0: return (int)launch_mm<float, false>(args, grid, st);
+    case 1: return (int)launch_mm<float, true>(args, grid, st);
+    case 2: return (int)launch_mm<__half, false>(args, grid, st);
+    case 3: return (int)launch_mm<__half, true>(args, grid, st);
+    case 4: return (int)launch_mm<__nv_bfloat16, false>(args, grid, st);
+    default: return (int)launch_mm<__nv_bfloat16, true>(args, grid, st);
   }
 }
 
 // dw (E, K, N) = per group e, rows_e^T (K, s_e) x dout_e (s_e, N); a (R,
 // K), dout (R, N), sizes (E,) int32, all contiguous, of dtype as above.
-// R >= 0, E, K, N >= 1.  Returns cudaGetLastError() after the launch.
+// R >= 0, E, K, N >= 1.  The wgmma body takes gx persistent blocks (and R
+// >= 1), the others the grid (ceil(N / 64), ceil(K / 64), E).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int ragged_matmul_dw_launch(const void* a, const void* dout,
                                        const void* sizes, void* dw,
                                        int dtype, int R, int E, int K, int N,
+                                       int body, int gx, int gy, int gz,
                                        void* stream) {
-  if (dtype < 0 || dtype > 2 || R < 0 || E < 1 || E > 65535 || K < 1 ||
-      N < 1 || cdiv(K, 64) > 65535)
+  if (dtype < 0 || dtype > 2 || R < 0 || E < 1 || K < 1 || N < 1 ||
+      gx < 1 || !body_fits(body, dtype, K, N, {a, dout, dw}))
     return (int)cudaErrorInvalidValue;
   DwArgs args{a, dout, static_cast<const int*>(sizes), dw, R, E, K, N,
               K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(dout)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == kWgmmaTma) {
+    if (R < 1 || dw_tma_smem(E) > kMaxSmem) return (int)cudaErrorInvalidValue;
+    return dtype == 1 ? (int)launch_dw_tma<__half>(args, gx, st)
+                      : (int)launch_dw_tma<__nv_bfloat16>(args, gx, st);
+  }
+  if (gx != cdiv(N, 64) || gy != cdiv(K, 64) || gz != E || gy > 65535 ||
+      gz > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(gx, gy, gz);
   switch (dtype) {
-    case 0: return (int)launch_dw<float>(args, st);
-    case 1: return (int)launch_dw<__half>(args, st);
-    default: return (int)launch_dw<__nv_bfloat16>(args, st);
+    case 0: return (int)launch_dw<float>(args, grid, st);
+    case 1: return (int)launch_dw<__half>(args, grid, st);
+    default: return (int)launch_dw<__nv_bfloat16>(args, grid, st);
   }
 }

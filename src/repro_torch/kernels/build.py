@@ -146,9 +146,9 @@ def load() -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = ([P] * 3 + [I, I, ctypes.c_long, I, F]
                                    + [I] * 4 + [P])
     lib.rmsnorm_launch.restype = I
-    lib.ragged_matmul_launch.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.ragged_matmul_launch.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.ragged_matmul_launch.restype = I
-    lib.ragged_matmul_dw_launch.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.ragged_matmul_dw_launch.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.ragged_matmul_dw_launch.restype = I
     lib.dense_decode_mma_launch.argtypes = ([P] * 8 + [I] * 9
                                             + [F, F, I, P])

@@ -7,11 +7,32 @@ PyTorch version beside it.
 reference's ``moe_apply_ragged`` (``REPRO_PERF_OPTS=moe_ragged``; XLA's
 product, no Pallas kernel): rows (R, K) sorted by group, group e owning
 the ``sizes[e]`` rows after those of the groups before it, each times its
-own w[e] (K, N); rows past the last group come out zero.  The kernel finds
-each tile's group on the device, so nothing is read back to the host, and
-an expert that received no rows is never read.  :func:`ragged_matmul_bwd`
-gives the gradients of rows (the same kernel reading w transposed) and of
-w (a kernel over w's tiles that sums each group's rows in order).
+own w[e] (K, N); rows past the last group come out zero.  The kernels find
+each work item's group on the device, so nothing is read back to the host,
+and an expert that received no rows is never read.
+:func:`ragged_matmul_bwd` gives the gradients of rows (the forward kernel
+reading w transposed) and of w (a kernel over w's tiles that sums each
+group's rows in order).
+
+Bodies, chosen here on the host by dtype, shape and alignment
+(:func:`ragged_body`), each raising on failure:
+
+* ``wgmma_tma`` (bf16 / fp16, K and N positive multiples of 8, 16-byte
+  aligned tensors: every MoE width of the eleven archs): persistent blocks
+  of one wgmma warpgroup fed by a TMA producer warp through an mbarrier
+  ring.  A forward work item is an expert's 64 rows times 128 output
+  columns, so an admission's expert (up to 64 rows) reads its weight slab
+  once a product, and the row tiles of a larger group run side by side;
+  dW's item is a 64 x 128 tile of dw[e], staged in shared memory and
+  written by TMA stores that drain while the next tile is summed.
+* ``mma_sync`` (other bf16 / fp16 shapes): 16-row tiles on
+  ``mma.sync`` through a cp.async ring, dW a block per 64 x 64 tile.
+* ``cuda_cores`` (fp32): FMA tiles, so the card's fp32 greedy streams
+  equal the CPU's.
+
+Every output is written by one block in a fixed order (no split over K, no
+atomics): two calls give the same bits.  :func:`ragged_grid` and
+:func:`ragged_dw_grid` size each body's grid.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 layout, allocate the outputs, launch on the current stream and raise if a
@@ -24,10 +45,68 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import scratch
 from repro_torch.kernels.ref import ragged_matmul_ref  # noqa: F401
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-ROW_TILE, COL_TILE = 16, 64     # a ragged_mm block's rows and columns
+# the bodies, by the codes the launchers take
+BODIES = {"cuda_cores": 0, "mma_sync": 1, "wgmma_tma": 2}
+# a forward tile's rows and output columns: the mma.sync / CUDA-core
+# blocks', the wgmma work items' (dW's item: 64 of K x 128 of N)
+MMA_TILE = (16, 64)
+WGMMA_TILE = (64, 128)
+WGMMA_DW_TILE = (64, 128)
+# the wgmma bodies' persistent blocks on each SM
+BLOCKS_PER_SM = 2
+
+
+def ragged_body(dtype, K, N, aligned=True):
+    """The body that runs a grouped product of (K, N) weights at
+    ``dtype`` (``aligned``: every operand 16-byte aligned): fp32 on CUDA
+    cores; bf16 / fp16 on wgmma fed by TMA where TMA can describe the
+    operands (K and N positive multiples of 8, row strides of 16 bytes,
+    aligned), else on mma.sync."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if K > 0 and N > 0 and K % 8 == 0 and N % 8 == 0 and aligned:
+        return "wgmma_tma"
+    return "mma_sync"
+
+
+def tiles_bound(R, E, rows):
+    """The most row tiles of ``rows`` rows that group sizes summing to at
+    most R over E groups can make, the tiles of the rows past the last
+    group included: each of at most min(E + 1, R) nonempty parts adds at
+    most one partial tile."""
+    return -(-R // rows) + min(E, R)
+
+
+def ragged_grid(body, R, E, Nout, sms):
+    """(gx, gy) of a forward / dRows launch with Nout output columns on a
+    card of ``sms`` SMs: the wgmma body's persistent blocks (at most
+    BLOCKS_PER_SM an SM and one a work item), else a block per 16-row tile
+    (the static bound) and 64 columns."""
+    if body == "wgmma_tma":
+        rows, cols = WGMMA_TILE
+        items = tiles_bound(R, E, rows) * -(-Nout // cols)
+        return min(items, BLOCKS_PER_SM * sms), 1
+    rows, cols = MMA_TILE
+    return tiles_bound(R, E, rows), -(-Nout // cols)
+
+
+def ragged_dw_grid(body, E, K, N, sms):
+    """(gx, gy, gz) of a dW launch: the wgmma body's persistent blocks over
+    the E x (K / 64) x (N / 128) tiles, else a block per 64 x 64 tile of
+    each expert."""
+    if body == "wgmma_tma":
+        kr, nc = WGMMA_DW_TILE
+        items = E * -(-K // kr) * -(-N // nc)
+        return min(items, BLOCKS_PER_SM * sms), 1, 1
+    return -(-N // 64), -(-K // 64), E
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check(name, rows, w, sizes, other=None):
@@ -73,10 +152,13 @@ def ragged_matmul(rows, w, sizes):
         return out
     lib = build.load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
+    body = ragged_body(rows.dtype, K, N, _aligned(rows, w))
+    gx, gy = ragged_grid(body, R, E, N, scratch.sm_count(rows.device.index))
     with torch.cuda.device(rows.device):
         err = lib.ragged_matmul_launch(
             rows.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[rows.dtype], R, E, K, N, 0, stream)
+            _DTYPE_CODES[rows.dtype], R, E, K, N, 0, BODIES[body], gx, gy,
+            stream)
     _raise_on(err, "ragged_matmul", lib)
     ragged_matmul.launches += 1
     return out
@@ -98,22 +180,29 @@ def ragged_matmul_bwd(rows, w, sizes, dout, *, need_rows=True,
     lib = build.load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     code = _DTYPE_CODES[rows.dtype]
+    sms = scratch.sm_count(rows.device.index)
     drows = dw = None
     with torch.cuda.device(rows.device):
         if need_rows:
             drows = torch.empty_like(rows)
             if R and K:
+                body = ragged_body(rows.dtype, K, N, _aligned(dout, w))
+                gx, gy = ragged_grid(body, R, E, K, sms)
                 _raise_on(lib.ragged_matmul_launch(
                     dout.data_ptr(), w.data_ptr(), sizes.data_ptr(),
-                    drows.data_ptr(), code, R, E, K, N, 1, stream),
-                    "ragged_matmul_bwd (rows)", lib)
+                    drows.data_ptr(), code, R, E, K, N, 1, BODIES[body], gx,
+                    gy, stream), "ragged_matmul_bwd (rows)", lib)
         if need_w:
             dw = torch.empty_like(w)
             if K and N:
+                # no rows: nothing for a tensor map to describe
+                body = ragged_body(rows.dtype, K, N, R > 0
+                                   and _aligned(rows, dout))
+                grid = ragged_dw_grid(body, E, K, N, sms)
                 _raise_on(lib.ragged_matmul_dw_launch(
                     rows.data_ptr(), dout.data_ptr(), sizes.data_ptr(),
-                    dw.data_ptr(), code, R, E, K, N, stream),
-                    "ragged_matmul_bwd (w)", lib)
+                    dw.data_ptr(), code, R, E, K, N, BODIES[body], *grid,
+                    stream), "ragged_matmul_bwd (w)", lib)
     ragged_matmul_bwd.launches += 1
     return drows, dw
 

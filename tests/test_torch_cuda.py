@@ -2612,6 +2612,112 @@ def test_ragged_matmul_wrapper_rejects_bad_inputs(dev):
                                                       dtype=rows.dtype))
 
 
+# the wgmma bodies' edges: groups of more than 64 and 128 rows (several
+# 64-row items of one expert, dW's chunks), group starts off 8 and 16
+# rows, K and N multiples of 8 but not of 64 (partial TMA boxes, a second
+# B box past N), E = 256 with most experts empty, 5 rows past the groups
+RAGGED_EDGE_CASES = [([70, 0, 130, 5], 256, 192),
+                     ([3, 13, 7, 21, 0, 9, 1], 128, 128),
+                     ([10, 37, 0, 70], 200, 136),
+                     ([0] * 100 + [3] + [0] * 100 + [40] + [0] * 50
+                      + [1, 2, 0, 5], 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+@pytest.mark.parametrize("sizes,K,N", RAGGED_EDGE_CASES)
+def test_ragged_matmul_edges_match_plain(dev, sizes, K, N, dtype):
+    """Forward, dRows and dW at the wgmma bodies' edges against the plain
+    version (autograd through it for the gradients), as the cases above;
+    zeros past the groups and for the empty experts' dW."""
+    from repro_torch.kernels import ragged_matmul as RM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev, tail=5)
+    out = RM.ragged_matmul(rows, w, sz)
+    _close_scaled(out, RM.ragged_matmul_ref(rows, w, sz), TOL[dtype])
+    assert (out[sum(sizes):] == 0).all()
+    dout = torch.randn(rows.shape[0], N, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev).to(dtype)
+    dr, dw = RM.ragged_matmul_bwd(rows, w, sz, dout)
+    r, ww = rows.clone().requires_grad_(), w.clone().requires_grad_()
+    pr, pw = torch.autograd.grad(RM.ragged_matmul_ref(r, ww, sz), (r, ww),
+                                 dout)
+    _close_scaled(dr, pr, TOL[dtype])
+    _close_scaled(dw, pw, TOL[dtype])
+    empty = torch.from_numpy(np.asarray(sizes) == 0).to(dev)
+    assert (dw[empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+@pytest.mark.parametrize("sizes,K,N", RAGGED_EDGE_CASES[:3])
+def test_ragged_matmul_dw_reads_no_row_of_the_next_group(dev, sizes, K, N,
+                                                         dtype):
+    """dW sums each group over its own rows only: with the rows and dOut
+    of every group after the first set to NaN, the first group's dw[e]
+    stays finite and equal to the call with those rows finite (the wgmma
+    body loads 16-row boxes past a group's end and zeroes them)."""
+    from repro_torch.kernels import ragged_matmul as RM
+    rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev, seed=4)
+    dout = torch.randn(rows.shape[0], N, device=dev).to(dtype)
+    e = next(i for i, n in enumerate(sizes) if n)
+    end = sum(sizes[:e + 1])
+    dw = RM.ragged_matmul_bwd(rows, w, sz, dout, need_rows=False)[1]
+    rn, dn = rows.clone(), dout.clone()
+    rn[end:] = float("nan")
+    dn[end:] = float("nan")
+    got = RM.ragged_matmul_bwd(rn, w, sz, dn, need_rows=False)[1]
+    assert torch.isfinite(got[e]).all()
+    assert torch.equal(got[e], dw[e])
+
+
+@pytest.mark.parametrize("dtype", RAGGED_DTYPES)
+def test_ragged_matmul_edges_bit_identical_without_host_sync(dev, dtype):
+    """Every edge shape twice: the same bits, and no call reads a value
+    back to the host (CUDA sync debug mode raises on one)."""
+    from repro_torch.kernels import ragged_matmul as RM
+    runs = []
+    for sizes, K, N in RAGGED_EDGE_CASES:
+        rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev)
+        dout = torch.randn(rows.shape[0], N, device=dev).to(dtype)
+        RM.ragged_matmul(rows, w, sz)                # the build, warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                runs.append([RM.ragged_matmul(rows, w, sz),
+                             *RM.ragged_matmul_bwd(rows, w, sz, dout)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(runs[::2], runs[1::2]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_matmul_16bit_runs_the_wgmma_bodies(dev, dtype):
+    """At K, N multiples of 8 the forward, dRows and dW launch the wgmma +
+    TMA kernels alone; at K = 100 the mma.sync ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ragged_matmul as RM
+
+    def names(sizes, K, N):
+        rows, w, sz = _ragged_inputs(sizes, K, N, dtype, dev)
+        dout = torch.randn(rows.shape[0], N, device=dev).to(dtype)
+        RM.ragged_matmul(rows, w, sz)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            RM.ragged_matmul(rows, w, sz)
+            RM.ragged_matmul_bwd(rows, w, sz, dout)
+            torch.cuda.synchronize()
+        return {e.name for e in prof.events() if "ragged_" in e.name}
+    tma = names(*RAGGED_EDGE_CASES[0])
+    assert any("ragged_mm_tma_kernel" in n for n in tma)
+    assert any("ragged_dw_tma_kernel" in n for n in tma)
+    assert all("_tma_kernel" in n for n in tma), tma
+    mma = names([0, 0, 40, 0], 100, 70)
+    assert mma and not any("_tma_kernel" in n for n in mma), mma
+
+
 def _ragged_moe(monkeypatch):
     monkeypatch.setenv("REPRO_PERF_OPTS", "moe_ragged")
     torch.backends.cuda.matmul.allow_tf32 = False
