@@ -253,12 +253,28 @@ ragged`` only the grouped product's kernel cases, for such an A/B):
               corpus, 30 steps at fp32 and at mixed precision, whose loss
               must fall by 0.3 nats, qwen3-4b at all 36 layers, mixed,
               factored AdamW, two microbatches, 3 steps (finite, every
-              leaf moved), and xlstm-125m (12 layers, mixed) 10 steps
+              leaf moved), and xlstm-125m (12 layers, mixed) 6 steps
               whose loss must fall by 0.3 nats, each with step seconds,
               train tokens/s, peak memory, launches (flash forward twice a
               layer and step, its backward once; xlstm: the mLSTM forward
               twice an mLSTM layer and step, its backward once; nothing
               else) and one profiled step
+ 11. mesh     the sharding rules and the dry run (``--only mesh`` runs it
+              alone): ``dryrun`` lines, the production combos qwen3-4b
+              train_4k and decode_32k and deepseek-v3-671b decode_32k on
+              the fake 16 x 16 mesh (this host's CPU, nothing allocated):
+              per-device parameter, optimizer and cache bytes, the peak,
+              FLOPs, bytes, collectives by type; gated on FLOPs and bytes,
+              the train step's collectives and the parameter bytes the
+              rules give each device; then full-width qwen3-4b through
+              ``make_target`` on the card's real (1, 1) mesh (nccl, one
+              rank): a factored mixed train step (2 x 1024), a prefill (8
+              x 2048) and one decode step, each bit-identical to the same
+              step unmeshed on the same parameters with equal launches
+              (``mesh_truth``), and the dry run's predicted peak (a fake
+              (1, 1) mesh) within MESH_PEAK_BAND of the card's
+              ``max_memory_allocated``; the dry runs and the predictions
+              run in spawned child processes beside the card's part
 
 It then prints the kernels' JSON summary, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It needs one
@@ -4558,10 +4574,11 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 8, 128
 TRAIN_LOSS_DROP = 0.3
 QWEN3_TRAIN_LAYERS = 36
 QWEN3_TRAIN_STEPS = 3
-# full-width xlstm-125m (all 12 layers, mixed): 10 steps (3.0 s each on
-# the H100: the sLSTM's per-step recurrence launches ~88k kernels a step)
-# take the loss down ~8 nats, far past TRAIN_LOSS_DROP
-XLSTM_TRAIN_STEPS = 10
+# full-width xlstm-125m (all 12 layers, mixed): 6 steps (3.0-3.6 s each
+# on the H100: the sLSTM's per-step recurrence launches ~88k kernels a
+# step) take the loss down ~4 nats, far past TRAIN_LOSS_DROP (10 steps
+# until PR 31, whose mesh phase needed the time)
+XLSTM_TRAIN_STEPS = 6
 
 
 @timed_case
@@ -5190,18 +5207,317 @@ def _tensors(tree):
         yield tree
 
 
+# the mesh phase: the dry run's production combos on the fake 16 x 16
+# mesh, then full-width qwen3-4b through make_target on the card's real
+# (1, 1) mesh against the same steps unmeshed, at shapes cut to one card
+MESH_DRYRUNS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"),
+                ("deepseek-v3-671b", "decode_32k"))
+MESH_SHAPES = {"train": {"kind": "train", "seq": 1024, "batch": 2},
+               "prefill": {"kind": "prefill", "seq": 2048, "batch": 8},
+               "decode": {"kind": "decode", "seq": 2048, "batch": 8}}
+# the dry run's predicted peak over the card's max_memory_allocated
+MESH_PEAK_BAND = (0.75, 1.25)
+# updated leaves compared after the train step
+MESH_SAMPLE = ("embed/tokens", "layers/0/attn/wq", "layers/17/ffn/wo",
+               "layers/35/attn/k_norm/w", "layers/35/norm2/w",
+               "final_norm/w")
+
+
+def _mesh_train_target(cfg, mesh):
+    """The card's train target: mixed precision, factored, remat (the
+    switches make_target reserves for archs above LOW_MEM_OPT_THRESHOLD,
+    set here for qwen3-4b)."""
+    import torch
+    from repro_torch.core.precision import MIXED
+    from repro_torch.launch import specs as SPC
+    return SPC.train_target(cfg, mesh, MESH_SHAPES["train"], policy=MIXED,
+                            factored=True, grad_accum=1,
+                            moment_dtype=torch.float32, fsdp=False,
+                            meta={"arch": cfg.name, "kind": "train"})
+
+
+def _rule_param_bytes(params, cfg, fsdp, mesh):
+    """Per-device parameter bytes from the rules alone: every leaf's
+    sanitized local shard, from the (DTensor) parameters' global
+    shapes."""
+    import math
+    from repro_torch.sharding import partition as SH
+    from repro_torch.training import optimizer as OPT
+    flat = SH.flat_specs(SH.param_pspecs(params, cfg, fsdp=fsdp, mesh=mesh))
+    return sum(math.prod(SH.local_shape(t.shape, flat[p], mesh))
+               * t.element_size() for p, t in OPT.flatten(params).items())
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _mesh_dryrun(arch, shape):
+    """One production combo on the fake 16 x 16 mesh (this host's CPU,
+    nothing allocated): (its record, the rules' parameter bytes, its
+    seconds)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SPC
+    from repro_torch.sharding import partition as SH
+    t0 = time.perf_counter()
+    target = []
+
+    def make(cfg, mesh):
+        target.append(SPC.make_target(cfg, shape, mesh))
+        return target[0]
+    rec = DR.run_one(arch, shape, make=make)
+    want = _rule_param_bytes(target[0].args[0], get_config(arch),
+                             rec["fsdp"], SH.current_mesh())
+    return rec, want, time.perf_counter() - t0
+
+
+def _emit_dryrun(arch, shape, rec, want, seconds):
+    """The ``dryrun`` line of a combo, and its gates."""
+    train = rec["kind"] == "train"
+    mem, coll, hlo = rec["memory"], rec["collectives"], rec["hlo"]
+    emit("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+         fsdp=rec["fsdp"], param_bytes=mem["parameter_bytes"],
+         rule_param_bytes=want, optimizer_bytes=mem["optimizer_bytes"],
+         cache_bytes=mem["cache_bytes"],
+         argument_bytes=mem["argument_size_in_bytes"],
+         peak_bytes=mem["peak_memory_in_bytes"], flops=hlo["flops"],
+         bytes=hlo["bytes"], n_dots=hlo["n_dots"],
+         bytes_by_op=hlo["bytes_by_op"], collectives=coll["counts"],
+         collective_bytes=coll["per_op_bytes"],
+         collective_total_bytes=coll["total_bytes"],
+         model_flops=rec["model_flops"]["flops"], build_s=rec["build_s"],
+         trace_s=rec["trace_s"], seconds=seconds)
+    if not (hlo["flops"] > 0 and hlo["bytes"] > 0):
+        raise SystemExit(f"dryrun {arch} {shape}: no flops or bytes")
+    if train and not coll["total_bytes"] > 0:
+        raise SystemExit(f"dryrun {arch} {shape}: a sharded train step "
+                         f"without collectives")
+    if mem["parameter_bytes"] != want:
+        raise SystemExit(f"dryrun {arch} {shape}: parameter bytes "
+                         f"{mem['parameter_bytes']} != the rules' {want}")
+
+
+def _mesh_predictions():
+    """The dry run's predicted per-device memory of each card target
+    (full-width qwen3-4b), on a fake (1, 1) mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as DR
+    DR.init_fake_group(1)
+    mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                      mesh_dim_names=("data", "model"))
+    cfg, pred = get_config("qwen3-4b"), {}
+    for kind, info in MESH_SHAPES.items():
+        make = _mesh_train_target if kind == "train" else None
+        pred[kind] = DR.run_one("qwen3-4b", kind, cfg=cfg, mesh=mesh,
+                                info=info, make=make)["memory"]
+    return pred
+
+
+_SRC = [None]      # the src/ directory main() runs (children import it)
+
+
+def _in_child(src, name, args, conn):
+    sys.path.insert(0, src)
+    try:
+        conn.send(("ok", globals()[name](*args)))
+    except BaseException as e:                      # reported by _finish
+        import traceback
+        conn.send(("error", f"{type(e).__name__}: {e}\n"
+                            f"{traceback.format_exc()[-3000:]}"))
+    conn.close()
+
+
+def _start(name, *args):
+    """``name(*args)`` of this module in a child process (spawned: its
+    own torch, its own process group)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    p = ctx.Process(target=_in_child, args=(_SRC[0], name, args, send),
+                    daemon=True)
+    p.start()
+    send.close()
+    return p, recv, name
+
+
+def _finish(job):
+    p, recv, name = job
+    status, value = recv.recv()
+    p.join()
+    if status != "ok":
+        raise SystemExit(f"mesh phase: {name} failed in its child: {value}")
+    return value
+
+
+def phase_mesh():
+    """The production dry runs (``_mesh_dryrun``) and the predictions
+    (``_mesh_predictions``), each in a child process on this host's CPU,
+    beside full-width qwen3-4b on the card's
+    real (1, 1) mesh (``make_host_mesh``: nccl, one rank) through
+    ``make_target`` against the same steps unmeshed on the same
+    parameters: a factored mixed train step (2 x 1024), a prefill (8 x
+    2048) and one decode step.  Every shard is whole, so loss, the
+    sampled updated leaves and the logits must be bit-identical and the
+    kernel launches equal; the dry run's predicted peak (a fake (1, 1)
+    mesh) over ``max_memory_allocated`` must lie in MESH_PEAK_BAND."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import BF16, MIXED
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as SPC
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import partition as SH
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    # the CPU-only parts (fake tensors) run in child processes beside the
+    # card's part: the three production dry runs and the predictions
+    jobs = [_start("_mesh_dryrun", arch, shape)
+            for arch, shape in MESH_DRYRUNS]
+    t0 = time.perf_counter()
+    pred_job = _start("_mesh_predictions")
+    cfg = get_config("qwen3-4b")
+    mesh = M.make_host_mesh()
+    SH.set_current_mesh(mesh)
+    results = {}
+
+    start = {}
+
+    def measured(kind, fn):
+        """(fn's result, the card's peak bytes, the launches) of a
+        meshed step, the peak counted from the step's arguments up (what
+        was allocated when it started: ``start``)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start[kind] = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(), ops.launch_counts()
+
+    def unmeshed(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    pred = {}
+
+    def record(kind, diff, peak, l_mesh, l_plain, **kw):
+        if not pred:
+            pred.update(_finish(pred_job))
+            emit("mesh_predictions", arch=cfg.name,
+                 peak_bytes={k: v["peak_memory_in_bytes"]
+                             for k, v in pred.items()},
+                 argument_bytes={k: v["argument_size_in_bytes"]
+                                 for k, v in pred.items()},
+                 seconds=time.perf_counter() - t0)
+        p = pred[kind]["peak_memory_in_bytes"]
+        ratio = p / peak
+        results[kind] = dict(
+            max_abs_diff=diff, launches=l_mesh,
+            launches_equal=l_mesh == l_plain, predicted_peak_bytes=p,
+            card_peak_bytes=peak, peak_ratio=ratio,
+            predicted_argument_bytes=pred[kind]["argument_size_in_bytes"],
+            card_start_bytes=start[kind], **kw)
+        emit("mesh_truth", target=kind, **results[kind])
+        if diff != 0:
+            raise SystemExit(f"mesh {kind}: the (1, 1) mesh differs from "
+                             f"the unmeshed step by {diff}")
+        if l_mesh != l_plain:
+            raise SystemExit(f"mesh {kind}: launches {l_mesh} != unmeshed "
+                             f"{l_plain}")
+        if not MESH_PEAK_BAND[0] <= ratio <= MESH_PEAK_BAND[1]:
+            raise SystemExit(f"mesh {kind}: predicted peak {p} / card peak "
+                             f"{peak} = {ratio:.3f} outside "
+                             f"{MESH_PEAK_BAND}")
+
+    # -- train --------------------------------------------------------------
+    t = _mesh_train_target(cfg, mesh)
+    params, _, batch = t.args
+    flat = OPT.flatten(params)
+    host = {p: _local(x).to("cpu", copy=True) for p, x in flat.items()}
+    skeleton = SH.map_tree(lambda n, x: None, params)
+    hbatch = {k: _local(v).clone() for k, v in batch.items()}
+    (_, _, m), peak, l_mesh = measured("train", lambda: t.fn(*t.args))
+    loss_mesh = _local(m["loss"]).detach().item()
+    sample = {p: _local(flat[p]).to("cpu", copy=True) for p in MESH_SAMPLE}
+    del t, params, batch, flat, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    params_u = OPT.unflatten_like(skeleton, {p: x.to(mesh.device_type)
+                                             for p, x in host.items()})
+    del host
+    state_u = OPT.init_state(params_u, factored=True, model_cfg=cfg)
+    step = make_train_step(cfg, OPT.AdamWConfig(factored=True),
+                           policy=MIXED, remat=True)
+    (_, _, m_u), l_plain = unmeshed(lambda: step(params_u, state_u, hbatch))
+    flat_u = OPT.flatten(params_u)
+    diff = max([abs(loss_mesh - float(m_u["loss"]))]
+               + [float((sample[p] - flat_u[p].detach().cpu()).abs().max())
+                  for p in MESH_SAMPLE])
+    record("train", diff, peak, l_mesh, l_plain, loss=loss_mesh)
+    del params_u, state_u, m_u, flat_u, hbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- prefill, then one decode step --------------------------------------
+    before = torch.cuda.memory_allocated()     # left from the train part
+    tp = SPC.make_target(cfg, "prefill", mesh, info=MESH_SHAPES["prefill"])
+    params = tp.args[0]
+    (lp, cache), peak_p, lm_p = measured("prefill", lambda: tp.fn(*tp.args))
+    td = SPC.make_target(cfg, "decode", mesh, info=MESH_SHAPES["decode"],
+                         params=params, cache=cache)
+    (ld, _), peak_d, lm_d = measured("decode", lambda: td.fn(*td.args))
+    lp, ld = _local(lp).float().cpu(), _local(ld).float().cpu()
+    plocal = SH.map_tree(lambda n, x: _local(x), params)
+    ins_p = [_local(x) for x in tp.args[1:3]]
+    ins_d = (_local(td.args[1]), _local(td.args[3]))
+    del tp, td, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    S, B = MESH_SHAPES["prefill"]["seq"], MESH_SHAPES["prefill"]["batch"]
+    cache_u = T.init_cache(cfg, B, S, torch.bfloat16,
+                           device=mesh.device_type)
+    (lpu, cache_u), lu_p = unmeshed(lambda: T.forward_prefill(
+        plocal, cfg, ins_p[0], ins_p[1], cache_u, policy=BF16, max_len=S,
+        last_only=True))
+    (ldu, _), lu_d = unmeshed(lambda: T.forward_decode(
+        plocal, cfg, ins_d[0], cache_u, ins_d[1], policy=BF16, max_len=S))
+    record("prefill", float((lp - lpu.float().cpu()).abs().max()), peak_p,
+           lm_p, lu_p, card_before_target_bytes=before)
+    record("decode", float((ld - ldu.float().cpu()).abs().max()), peak_d,
+           lm_d, lu_d)
+    del params, plocal, cache_u
+    SH.set_current_mesh(None)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for (arch, shape), job in zip(MESH_DRYRUNS, jobs):
+        _emit_dryrun(arch, shape, *_finish(job))
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src/ directory whose repro_torch is run "
                          "(default: this checkout's)")
     ap.add_argument("--only", action="append",
-                    choices=("flash", "train", "ragged"),
+                    choices=("flash", "train", "ragged", "mesh"),
                     help="run only these phases, for an A/B: the flash "
                          "forward and backward cases at the train shapes "
                          "(flash), the full-width unimo-text fp32 train "
                          "run (train), the grouped product's kernel cases "
-                         "(ragged); no kernels summary line")
+                         "(ragged), the sharding and dry-run phase (mesh); "
+                         "no kernels summary line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5217,6 +5533,7 @@ def main(argv=None) -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    _SRC[0] = str(src)
     from repro_torch.kernels import build
 
     smi = nvidia_smi()
@@ -5258,6 +5575,8 @@ def main(argv=None) -> int:
             if bad:
                 raise SystemExit(f"ragged_matmul disagrees with its plain "
                                  f"version: {bad}")
+        if "mesh" in args.only:
+            phase_mesh()
         print(smi, flush=True)
         print(json.dumps({"ok": True, "only": args.only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5283,6 +5602,7 @@ def main(argv=None) -> int:
     family.update(phase_serves_moe_mm())
     family.update(phase_serves_hybrid_mla())
     train_launches, xlstm_train, train_runs = phase_train()
+    phase_mesh()
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     launches["mlstm_chunked_bwd"] = xlstm_train["mlstm_chunked_bwd"]
     launches["ragged_matmul"] = family[

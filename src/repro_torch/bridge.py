@@ -68,6 +68,43 @@ def params_from_jax(tree) -> dict:
     return out
 
 
+def _unstack_specs(stacks, cfg: ModelConfig) -> list:
+    """Per-layer spec trees, execution order, from the reference's stacked
+    pattern positions: each spec loses its leading repeats entry."""
+    from repro_torch.sharding.partition import P
+    layers = []
+    for stack, pats in zip(cfg.stacks, stacks):
+        for _ in range(stack.repeats):
+            layers.extend(_map(lambda s: P(*tuple(s)[1:]), pat)
+                          for pat in pats)
+    return layers
+
+
+def pspecs_from_jax(specs, cfg: ModelConfig) -> dict:
+    """The port's parameter spec tree (a ``sharding.partition.P`` a leaf,
+    one tree a layer) from the reference's ``param_pspecs`` of its
+    ``init_params`` tree: a layer's spec is its stack's spec without the
+    leading repeats entry; ``embed`` / ``final_norm`` / ``mtp`` as they
+    are."""
+    from repro_torch.sharding.partition import P
+
+    def conv(s):
+        return P(*tuple(s))
+    out = {"embed": _map(conv, specs["embed"]),
+           "final_norm": _map(conv, specs["final_norm"]),
+           "layers": _unstack_specs(specs["stacks"], cfg)}
+    if "mtp" in specs:
+        out["mtp"] = _map(conv, specs["mtp"])
+    return out
+
+
+def cache_pspecs_from_jax(specs, cfg: ModelConfig) -> dict:
+    """The port's dense-cache spec tree from the reference's
+    ``cache_pspecs`` of its ``cache_struct`` (stacked like its
+    parameters)."""
+    return {"layers": _unstack_specs(specs["layers"], cfg)}
+
+
 def pool_from_numpy(tree) -> dict:
     """The port's paged cache ``{"layers": [pool per layer]}`` from a
     reference paged cache whose leaves are numpy arrays."""

@@ -146,6 +146,76 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # -- parameter count (the dry run's model flops, use_fsdp) --------------
+    def param_counts(self) -> dict:
+        """{'total': N, 'active': N_active, 'embed': ...}, the reference's
+        formula with its approximations (the mLSTM and sLSTM lines)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        embed = self.vocab_size * d
+        if not self.tie_embeddings:
+            embed *= 2
+        if self.pos_emb == "learned":
+            embed += self.max_seq_len * d
+        if self.num_codebooks:
+            embed += self.num_codebooks * self.vocab_size * d
+
+        def attn_params():
+            return d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+
+        def mla_params():
+            m = self.mla
+            p = d * m.q_lora_rank
+            p += m.q_lora_rank * nq * (m.nope_head_dim + m.rope_head_dim)
+            p += d * (m.kv_lora_rank + m.rope_head_dim)
+            p += m.kv_lora_rank * nq * (m.nope_head_dim + m.v_head_dim)
+            p += nq * m.v_head_dim * d
+            return p
+
+        def ffn_params(width):
+            mult = 3 if self.activation in ("swiglu", "geglu") else 2
+            return mult * d * width
+
+        def ssm_inner():
+            s = self.ssm
+            di = s.expand * d
+            # in-proj (x, z), conv, dt/B/C proj, out-proj
+            return (2 * d * di + s.conv_size * di
+                    + di * (2 * s.state_size + 1) + di * d)
+
+        total = active = embed
+        for st in self.stacks:
+            for spec in st.pattern:
+                lt = 0
+                if spec.mixer == ATTN:
+                    lt = attn_params()
+                elif spec.mixer == MLA:
+                    lt = mla_params()
+                elif spec.mixer == MLSTM:
+                    di = 2 * d
+                    lt = 2 * d * di + di * d + 3 * d * di  # approx
+                elif spec.mixer == SLSTM:
+                    lt = 8 * d * d    # 4 gates x (W + R), approx
+                elif spec.mixer == HYBRID:
+                    lt = attn_params() + ssm_inner()
+                la = lt
+                if spec.ffn == DENSE_FFN:
+                    lt += ffn_params(self.d_ff)
+                    la += ffn_params(self.d_ff)
+                elif spec.ffn == MOE_FFN:
+                    m = self.moe
+                    router = d * m.num_experts
+                    shared = m.num_shared_experts * ffn_params(m.d_ff_expert)
+                    lt += (router + shared
+                           + m.num_experts * ffn_params(m.d_ff_expert))
+                    la += router + shared + m.top_k * ffn_params(
+                        m.d_ff_expert)
+                lt += 2 * d                                  # norms
+                la += 2 * d
+                total += lt * st.repeats
+                active += la * st.repeats
+        return {"total": total, "active": active, "embed": embed}
+
 
 def layer_specs(cfg: ModelConfig) -> Iterator[LayerSpec]:
     """Every layer's spec in execution order (stack, repeat, position)."""

@@ -21,6 +21,10 @@ _MODULES = {
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
+# the archs the dry run sweeps (``launch/dryrun.py --all``): every one but
+# the paper's own unimo-text, as in the reference
+ASSIGNED: List[str] = [a for a in _MODULES if a != "unimo-text"]
+
 
 def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_MODULES[arch]).config()

@@ -55,6 +55,7 @@ from repro_torch.configs.base import (ATTN, HYBRID, MLA, MLSTM, SLSTM,
                                       LayerSpec, ModelConfig)
 from repro_torch.core.precision import kv_store_dtype
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding import spmd as SP
 
 PAGED_KEYS = ("pk", "pv", "ppos", "pk_scale", "pv_scale")
 PAGED_DATA_KEYS = ("pk", "pv", "pk_scale", "pv_scale")
@@ -128,13 +129,18 @@ def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return out
 
 
-def write_prefill(cache: dict, new: dict, positions) -> dict:
+def write_prefill(cache: dict, new: dict, positions, shard=None) -> dict:
     """Write whole prompts into a (possibly ring) dense cache, in place.
 
     new: {"k"/"v": (B, S, H, D)} aligned with ``positions`` (B, S); a
     position of -1 marks right-padding and goes to the dump slot.  A ring
-    (fewer slots than S) keeps only each row's last valid tokens."""
-    ring = cache["pos"].shape[1] - 1                       # last = dump
+    (fewer slots than S) keeps only each row's last valid tokens.  A
+    DTensor cache is written shard by shard (``sharding.spmd.write_cache``:
+    ``shard`` = (the cache's rows, this shard's first row) where its
+    sequence dim is split)."""
+    if shard is None and SP.is_dtensor(cache["pos"]):
+        return SP.write_cache(write_prefill, cache, new, positions)
+    ring = (shard[0] if shard else cache["pos"].shape[1]) - 1  # last = dump
     B, S = positions.shape
     take = min(S, ring)
     pos = positions.long()
@@ -148,22 +154,55 @@ def write_prefill(cache: dict, new: dict, positions) -> dict:
     pos_w = pos[b_idx, idx]
     slots = torch.where(pos_w >= 0, pos_w % ring, ring)
     for key, val in new.items():
-        cache[key][b_idx, slots] = val[b_idx, idx].to(cache[key].dtype)
-    cache["pos"][b_idx, slots] = pos_w.to(torch.int32)
+        _put(cache[key], b_idx, slots, val[b_idx, idx], shard)
+    _put(cache["pos"], b_idx, slots, pos_w, shard)
     return cache
 
 
-def write_decode(cache: dict, new: dict, lengths) -> dict:
+def write_decode(cache: dict, new: dict, lengths, shard=None) -> dict:
     """Write one token per row at absolute position ``lengths`` (B,), in
-    place; ``new``: {"k"/"v": (B, 1, H, D)}."""
-    ring = cache["pos"].shape[1] - 1
+    place; ``new``: {"k"/"v": (B, 1, H, D)}.  A DTensor cache as in
+    :func:`write_prefill`."""
+    if shard is None and SP.is_dtensor(cache["pos"]):
+        return SP.write_cache(write_decode, cache, new, lengths)
+    ring = (shard[0] if shard else cache["pos"].shape[1]) - 1
     lengths = lengths.long()
     slots = lengths % ring
     b_idx = torch.arange(lengths.shape[0], device=lengths.device)
     for key, val in new.items():
-        cache[key][b_idx, slots] = val[:, 0].to(cache[key].dtype)
-    cache["pos"][b_idx, slots] = lengths.to(torch.int32)
+        _put(cache[key], b_idx, slots, val[:, 0], shard)
+    _put(cache["pos"], b_idx, slots, lengths, shard)
     return cache
+
+
+def _put(t, b_idx, slots, vals, shard) -> None:
+    """``t[b_idx, slots] = vals`` (at t's dtype).  With ``shard`` = (rows,
+    first row), t holds rows [first, first + t.shape[1]) of the cache, and
+    a write to a row outside them is replaced by a repeat of a kept write
+    of the same batch row (or, where it keeps none, by a write of its own
+    row 0's value back), so that no value lands twice on one row unless
+    it is the same value."""
+    vals = vals.to(t.dtype)
+    if shard is None:
+        t[b_idx, slots] = vals
+        return
+    two_d = slots.dim() == 2
+    if not two_d:                           # one token a batch row
+        b_idx, slots, vals = b_idx[:, None], slots[:, None], vals[:, None]
+    rel = slots - shard[1]
+    ok = (rel >= 0) & (rel < t.shape[1])
+    has = ok.any(1, keepdim=True)
+    first = ok.to(torch.int32).argmax(1, keepdim=True)
+    a_idx = torch.where(has, rel.gather(1, first), 0)
+    tail = (1,) * (vals.dim() - 2)
+    pick = first.reshape(first.shape + tail).expand(
+        (-1, 1) + vals.shape[2:])
+    b1 = b_idx.expand_as(rel)[:, :1]
+    a_val = torch.where(has.reshape(has.shape + tail), vals.gather(1, pick),
+                        t[b1, torch.zeros_like(a_idx)])
+    okv = ok.reshape(ok.shape + tail)
+    t[b_idx.expand_as(rel), torch.where(ok, rel, a_idx)] = torch.where(
+        okv, vals, a_val)
 
 
 def cache_mask(cache_pos, q_pos, window: Optional[int]):

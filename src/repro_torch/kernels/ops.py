@@ -31,6 +31,18 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
 
 
+# set by the dry run's op analysis (``launch.op_analysis``) while it
+# counts: it then runs a kernel's plain version as one op, as the kernel
+kernel_scope = None
+
+
+def _plain(name: str, fn, *args, **kwargs):
+    """A kernel's plain version on CPU tensors."""
+    if kernel_scope is None:
+        return fn(*args, **kwargs)
+    return kernel_scope(name, fn, *args, **kwargs)
+
+
 def needs_grad(*tensors) -> bool:
     """Whether autograd would record a call on these tensors (None
     entries are skipped)."""
@@ -142,8 +154,9 @@ def paged_decode_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
     pages; see :func:`decode_attention.paged_decode_attention`."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
-        return ref.paged_decode_attention_ref(
-            q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
+        return _plain(
+            "paged_decode_attention", ref.paged_decode_attention_ref, q,
+            kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
             v_scale=v_scale, **kw)
     no_backward("paged_decode_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
@@ -162,8 +175,9 @@ def paged_mixed_attention(q, kpool, vpool, ppos, block_tables, q_pos, *,
     :func:`decode_attention.paged_mixed_attention`."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
-        return ref.paged_mixed_attention_ref(
-            q, kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
+        return _plain(
+            "paged_mixed_attention", ref.paged_mixed_attention_ref, q,
+            kpool, vpool, ppos, block_tables, q_pos, k_scale=k_scale,
             v_scale=v_scale, **kw)
     no_backward("paged_mixed_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
@@ -182,8 +196,9 @@ def paged_packed_attention(q, kpool, vpool, ppos, block_tables, q_pos,
     ``meta`` work table (:func:`decode_attention.packed_meta_table`)."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
-        return ref.paged_packed_attention_ref(
-            q, kpool, vpool, ppos, block_tables, q_pos, slot_ids,
+        return _plain(
+            "paged_packed_attention", ref.paged_packed_attention_ref, q,
+            kpool, vpool, ppos, block_tables, q_pos, slot_ids,
             k_scale=k_scale, v_scale=v_scale, **kw)
     no_backward("paged_packed_attention", q, kpool, vpool, k_scale, v_scale)
     if k_scale is not None:
@@ -202,7 +217,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window, scale,
     :class:`FlashAttentionFn` (forward and backward kernels)."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, **kw)
+        return _plain("flash_attention", ref.flash_attention_ref, q, k, v,
+                      q_pos, k_pos, **kw)
     if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, window, scale,
                                       attn_softcap)
@@ -213,7 +229,7 @@ def quant_matmul(x, q, s):
     """``(x @ q) * s`` in fp32 for int8 weight records; see
     :func:`quant_matmul.quant_matmul`."""
     if x.device.type == "cpu":
-        return ref.quant_matmul_ref(x, q, s)
+        return _plain("quant_matmul", ref.quant_matmul_ref, x, q, s)
     no_backward("quant_matmul", x, s)
     return QM.quant_matmul(x, q, s)
 
@@ -224,7 +240,8 @@ def ragged_matmul(rows, w, sizes):
     :func:`ragged_matmul.ragged_matmul`.  On the card with grad enabled and
     rows or w requiring it, through :class:`RaggedMatmulFn`."""
     if rows.device.type == "cpu":
-        return ref.ragged_matmul_ref(rows, w, sizes)
+        return _plain("ragged_matmul", ref.ragged_matmul_ref, rows, w,
+                      sizes)
     if needs_grad(rows, w):
         return RaggedMatmulFn.apply(rows, w, sizes)
     return RM.ragged_matmul(rows, w, sizes)
@@ -236,7 +253,8 @@ def mlstm_chunked(q, k, v, i_pre, logf, state):
     card with grad enabled and an input requiring it, through
     :class:`MlstmChunkedFn` (forward and backward kernels)."""
     if q.device.type == "cpu":
-        return ref.mlstm_chunked_ref(q, k, v, i_pre, logf, state)
+        return _plain("mlstm_chunked", ref.mlstm_chunked_ref, q, k, v,
+                      i_pre, logf, state)
     if needs_grad(q, k, v, i_pre, logf, *state.values()):
         h, C, n, m = MlstmChunkedFn.apply(q, k, v, i_pre, logf, state["C"],
                                           state["n"], state["m"])
@@ -249,7 +267,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
     :func:`rmsnorm.fused_rmsnorm`.  No model code calls it (as in the
     reference)."""
     if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, w, eps)
+        return _plain("rmsnorm", ref.rmsnorm_ref, x, w, eps)
     no_backward("fused_rmsnorm", x, w)
     return RN.fused_rmsnorm(x, w, eps=eps)
 
@@ -263,7 +281,8 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window, scale,
     where the reference computes the same function in plain jnp."""
     kw = dict(window=window, scale=scale, attn_softcap=attn_softcap)
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, k_pos, q_pos, **kw)
+        return _plain("decode_attention", ref.decode_attention_ref, q, k,
+                      v, k_pos, q_pos, **kw)
     no_backward("decode_attention", q, k, v)
     return DA.decode_attention(q, k, v, k_pos, q_pos, **kw)
 

@@ -32,6 +32,7 @@ from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache as KV
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd as SP
 
 
 def mla_init(gen: torch.Generator, cfg: ModelConfig):
@@ -62,8 +63,7 @@ def _project(cfg: ModelConfig, p, x, positions):
     m, H = cfg.mla, cfg.num_heads
     B, S, _ = x.shape
     cq = L.rmsnorm(_mm(x, p["wdq"]), p["q_norm"]["w"])
-    q = _mm(cq, p["wuq"]).reshape(B, S, H, m.nope_head_dim
-                                  + m.rope_head_dim)
+    q = SP.split_last(_mm(cq, p["wuq"]), H)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     q_rope = L.rope(q_rope, positions, cfg.rope_theta)
     ckv = L.rmsnorm(_mm(x, p["wdkv"]), p["kv_norm"]["w"])
@@ -84,8 +84,7 @@ def _naive_attend(cfg, p, q_nope, q_rope, ckv, kr, q_pos, k_pos, window,
     projection (B, Sq, d)."""
     m, H = cfg.mla, cfg.num_heads
     B, Sk = ckv.shape[:2]
-    kv = _mm(ckv.to(dtype), p["wukv"]).reshape(
-        B, Sk, H, m.nope_head_dim + m.v_head_dim)
+    kv = SP.split_last(_mm(ckv.to(dtype), p["wukv"]), H)
     k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
     k = torch.cat([k_nope, kr.to(dtype)[:, :, None, :].expand(
         B, Sk, H, m.rope_head_dim)], dim=-1)
@@ -142,8 +141,7 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     positions = lengths[:, None]
     q_nope, q_rope, ckv_new, kr_new = _project(cfg, p, x, positions)
     KV.write_decode(cache, {"ckv": ckv_new, "kr": kr_new}, lengths)
-    wukv = p["wukv"].float().reshape(m.kv_lora_rank, H,
-                                     m.nope_head_dim + m.v_head_dim)
+    wukv = SP.split_last(p["wukv"].float(), H)
     wk, wv = wukv[..., :m.nope_head_dim], wukv[..., m.nope_head_dim:]
     # absorb q through the key decompression: (B,H,nope) x (r,H,nope)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk)
@@ -159,5 +157,6 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     probs = torch.softmax(scores, dim=-1)
     ctx_lat = _f32_bmm(probs.to(ckv.dtype), ckv)                  # (B,H,r)
     ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, wv)               # (B,H,v)
+    ctx = SP.batch_layout(ctx)            # a mesh: heads whole a device
     return _mm(ctx.reshape(B, H * m.v_head_dim).to(x.dtype),
                p["wo"])[:, None, :]

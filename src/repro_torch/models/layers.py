@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding import spmd as SP
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable; safe in fp32 too
 
@@ -51,7 +52,7 @@ def dense_matmul(x, w):
     ``ops.quant_matmul`` and comes back at ``x.dtype``."""
     if isinstance(w, dict):
         return ops.quant_matmul(x, w["q"], w["s"]).to(x.dtype)
-    return x @ w.to(x.dtype)
+    return SP.gather_rows_for(x, w) @ w.to(x.dtype)
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
@@ -142,7 +143,14 @@ def mha_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
     against a dense cache) goes to ``ops.decode_attention``, every other
     shape (prefill, prefix-attend, full forwards) to
     ``ops.flash_attention``: the kernels on the card, their plain
-    versions on the CPU."""
+    versions on the CPU.  DTensors (a meshed forward) attend on their
+    local shards (``sharding.spmd.attention``) and come back with their
+    heads merged, (B, Sq, Hq * D)."""
+    if SP.is_dtensor(q):
+        return SP.attention(mha_attention, q, k, v, q_pos, k_pos,
+                            window=window, scale=scale,
+                            attn_softcap=attn_softcap)
+
     def i32(t):
         return t.to(torch.int32).contiguous()
     qkv = (q.contiguous(), k.contiguous(), v.contiguous())
@@ -214,9 +222,9 @@ def attn_qkv(cfg: ModelConfig, p, x, positions,
     B, S, _ = x.shape
     theta = theta if theta is not None else cfg.rope_theta
     hd = cfg.resolved_head_dim
-    q = dense_matmul(x, p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = dense_matmul(x, p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = dense_matmul(x, p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = SP.split_last(dense_matmul(x, p["wq"]), cfg.num_heads)
+    k = SP.split_last(dense_matmul(x, p["wk"]), cfg.num_kv_heads)
+    v = SP.split_last(dense_matmul(x, p["wv"]), cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["w"])
         k = rmsnorm(k, p["k_norm"]["w"])
@@ -290,11 +298,11 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     from its (V, d) table of the (C, V, d) ``tokens``."""
     emb = params["embed"]["tokens"]
     if cfg.num_codebooks:
-        x = emb[0][tokens[..., 0].long()]
+        x = SP.gather_rows(emb[0], tokens[..., 0].long())
         for c in range(1, cfg.num_codebooks):
-            x = x + emb[c][tokens[..., c].long()]
+            x = x + SP.gather_rows(emb[c], tokens[..., c].long())
     else:
-        x = emb[tokens.long()]
+        x = SP.gather_rows(emb, tokens.long())
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -313,6 +321,12 @@ def unembed(cfg: ModelConfig, params, x):
         # (B,S,C,V): through (C, V, d) output heads where present, else
         # the tied codebook tables
         heads = embed.get("heads", embed["tokens"])
+        if SP.is_dtensor(x):
+            # one vocab-sharded product a codebook (DTensor has no rule
+            # for the batched one over a sharded vocabulary)
+            return softcap(torch.stack(
+                [x.float() @ heads[c].float().T
+                 for c in range(heads.shape[0])], dim=2), cfg.final_softcap)
         return softcap(torch.einsum("bsd,cvd->bscv", x.float(),
                                     heads.float()), cfg.final_softcap)
     head = embed.get("head") if not cfg.tie_embeddings \
@@ -322,8 +336,7 @@ def unembed(cfg: ModelConfig, params, x):
         # products equal those of x.float(), and quant_matmul returns fp32
         # logits either way (bf16 / fp16 x runs its tensor-core body)
         logits = ops.quant_matmul(x.contiguous(), head["q"], head["s"])
-    elif head is not None:
-        logits = x.float() @ head.float()
     else:
-        logits = x.float() @ embed["tokens"].float().T
+        w = head.float() if head is not None else embed["tokens"].float().T
+        logits = SP.gather_rows_for(x, w).float() @ w
     return softcap(logits, cfg.final_softcap)

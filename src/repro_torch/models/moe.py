@@ -31,6 +31,17 @@ loss (:func:`load_balance_loss` over the router's outputs), which training
 adds to its loss and the serving forwards drop.  The router's top-k
 weights stay differentiable, as in the reference: the gradient reaches
 the router through them and through the auxiliary loss.
+
+On a mesh (DTensor parameters, ``sharding.partition``: expert stacks over
+``model``) the reference leaves the communication to GSPMD; the port's
+scheme (:func:`_moe_apply_sharded`) is this: every device gathers all
+tokens of the batch and the whole router, routes them all (so capacity
+and drops are those of the unsharded layer), runs only its own experts on
+them, and its partial combine is summed over ``model`` (an all-reduce or
+reduce-scatter back to the tokens' layout).  The token gather and that
+sum are the scheme's collectives.  The shared experts run as a dense FFN
+on the tokens' own layout.  Under ``moe_ragged`` the experts must be
+whole on every device (a model axis of one).
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import partition as SH
+from repro_torch.sharding import spmd as SP
 
 
 # fp32 bytes of the expert slices moe_init draws at a time: a full-width
@@ -122,10 +135,58 @@ def moe_apply(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (out (B, S, d), the load-balance loss, a scalar),
     routed by the config's kind (:func:`route`): through
     :func:`moe_apply_ragged` under the ``moe_ragged`` flag, else
-    :func:`moe_apply_capacity`."""
+    :func:`moe_apply_capacity`; a DTensor x (a meshed forward) through
+    :func:`_moe_apply_sharded`."""
+    if SP.is_dtensor(x):
+        return _moe_apply_sharded(cfg, p, x)
     if perf_flags.flag("moe_ragged"):
         return moe_apply_ragged(cfg, p, x)
     return moe_apply_capacity(cfg, p, x)
+
+
+def _moe_apply_sharded(cfg: ModelConfig, p, x):
+    """The module docstring's scheme for DTensor x and parameters: each
+    device routes every token and runs its own slab of experts, the
+    partial outputs are summed over ``model``, the shared experts added
+    after."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    E = cfg.moe.num_experts
+    tp = SH.axis_size(mesh, "model")
+    split = tp > 1 and E % tp == 0
+    if perf_flags.flag("moe_ragged") and tp > 1:
+        raise NotImplementedError(
+            "moe_ragged on a mesh with a model axis > 1 is not ported: "
+            "its grouped product takes all of an expert's rows")
+    rep = [Replicate()] * mesh.ndim
+    # a slab of experts a device: its outputs, and the gradients of the
+    # tokens and the router it gives, are partial sums over model; the
+    # load-balance loss (the same on every device) counts on the first
+    part = SP.with_model(rep, mesh, Partial()) if split else rep
+    w_pl = SP.with_model(rep, mesh, Shard(0)) if split else rep
+    coord = SP.coordinate(mesh, "model")
+    first = coord * (E // tp) if split else 0
+    experts = {k: p[k] for k in ("wi", "wg", "wo") if k in p}
+    ragged = perf_flags.flag("moe_ragged")
+
+    def local(x, router, *ws):
+        q = {"router": router, **dict(zip(experts, ws))}
+        if ragged:
+            return moe_apply_ragged(cfg, q, x, shared=False)
+        out, aux = moe_apply_capacity(cfg, q, x, first=first, shared=False)
+        return out, (aux * (coord == 0) if split else aux)
+
+    pls = (rep, rep) + (w_pl,) * len(experts)
+    out, aux = local_map(
+        local, out_placements=(part, part), in_placements=pls,
+        in_grad_placements=(part, part) + (w_pl,) * len(experts),
+        device_mesh=mesh, redistribute_inputs=True)(
+        x, p["router"], *experts.values())
+    out = out.redistribute(mesh, x.placements)
+    if "shared" in p:
+        out = out + L.ffn_apply(cfg, p["shared"], x)
+    return out, aux
 
 
 def _combine(eo, pos):
@@ -139,7 +200,7 @@ def _combine(eo, pos):
     return out
 
 
-def moe_apply_ragged(cfg: ModelConfig, p, x):
+def moe_apply_ragged(cfg: ModelConfig, p, x, shared: bool = True):
     """The reference's ``moe_apply_ragged``: every one of the B x S x k
     assignments, stably sorted by expert, is a row of three grouped
     products over the expert stacks at x's dtype (sizes counted on the
@@ -171,18 +232,23 @@ def moe_apply_ragged(cfg: ModelConfig, p, x):
     pos = torch.empty_like(order).scatter_(
         0, order, torch.arange(T * k, device=dev)).view(T, k)
     out = _combine(eo, pos.sort(dim=1).values)
-    if "shared" in p:
+    if shared and "shared" in p:
         out = out + L.ffn_apply(cfg, p["shared"], xf)
     return out.reshape(B, S, d), load_balance_loss(cfg, probs, tope)
 
 
-def moe_apply_capacity(cfg: ModelConfig, p, x):
+def moe_apply_capacity(cfg: ModelConfig, p, x, first: int = 0,
+                       shared: bool = True):
     """Capacity dispatch (see the module's docstring).  Every one of the
     B x S tokens, padding lanes too, is routed and counts towards the
-    capacity, as in the reference."""
+    capacity, as in the reference.  The expert stacks in ``p`` may be a
+    slab of ``p["wi"].shape[0]`` experts from expert ``first`` on (one
+    device's, :func:`_moe_apply_sharded`): the others' assignments then
+    add nothing.  ``shared=False`` leaves the shared experts out."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
+    n_loc = p["wi"].shape[0]
     C = _capacity(T, cfg)
     dev = x.device
     xf = x.reshape(T, d)
@@ -202,17 +268,22 @@ def moe_apply_capacity(cfg: ModelConfig, p, x):
     wtab = torch.zeros(E * C + 1, device=dev)
     wtab.scatter_(0, slot, topw.reshape(-1)[order])
     xpad = torch.cat([xf, xf.new_zeros(1, d)])                 # sentinel row
-    gathered = xpad[table[:-1].view(E, C)]                     # (E, C, d)
+    lo, hi = first * C, (first + n_loc) * C
+    gathered = xpad[table[lo:hi].view(n_loc, C)]               # (E, C, d)
 
     eo = L.ffn_apply(cfg, p, gathered)                         # (E, C, d)
-    eo = eo * wtab[:-1].view(E, C, 1).to(eo.dtype)
+    eo = eo * wtab[lo:hi].view(n_loc, C, 1).to(eo.dtype)
 
-    # combine: each token's k slots (the sentinel row for a dropped one),
-    # summed from zero in ascending expert order
+    # combine: each token's k slots (the sentinel row for a dropped one,
+    # or for another device's expert), summed from zero in ascending
+    # expert order
     slot_of = torch.empty_like(slot).scatter_(0, order, slot).view(T, k)
     slot_of = slot_of.gather(1, torch.argsort(tope, dim=1))
-    out = _combine(torch.cat([eo.reshape(E * C, d), eo.new_zeros(1, d)]),
-                   slot_of)
-    if "shared" in p:
+    if n_loc != E:
+        slot_of = torch.where((slot_of >= lo) & (slot_of < hi),
+                              slot_of - lo, n_loc * C)
+    out = _combine(torch.cat([eo.reshape(n_loc * C, d),
+                              eo.new_zeros(1, d)]), slot_of)
+    if shared and "shared" in p:
         out = out + L.ffn_apply(cfg, p["shared"], xf)
     return out.reshape(B, S, d), load_balance_loss(cfg, probs, tope)

@@ -17,12 +17,15 @@ for them.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd as SP
 
 CHUNK = 128
 
@@ -75,12 +78,13 @@ def _mlstm_qkvgates(cfg: ModelConfig, p, x):
     xi = x @ p["w_up"].to(x.dtype)
     z = x @ p["w_gate"].to(x.dtype)
     dh = xi.shape[-1] // H
-    q = (xi @ p["wq"].to(x.dtype)).reshape(B, S, H, dh)
-    k = (xi @ p["wk"].to(x.dtype)).reshape(B, S, H, dh) * dh ** -0.5
-    v = (xi @ p["wv"].to(x.dtype)).reshape(B, S, H, dh)
-    gates = xi.float() @ p["w_if"].float() + p["b_if"].float()
+    q = SP.split_last(xi @ p["wq"].to(x.dtype), H)
+    k = SP.split_last(xi @ p["wk"].to(x.dtype), H) * dh ** -0.5
+    v = SP.split_last(xi @ p["wv"].to(x.dtype), H)
+    gates = SP.batch_layout(xi.float() @ p["w_if"].float()) \
+        + p["b_if"].float()
     i_pre, f_pre = gates[..., :H], gates[..., H:]               # (B,S,H)
-    return q, k, v, i_pre, F.logsigmoid(f_pre), z
+    return q, k, v, i_pre, SP.pointwise(F.logsigmoid, f_pre), z
 
 
 def mlstm_step(q, k, v, i_pre, logf, state):
@@ -102,15 +106,18 @@ def mlstm_step(q, k, v, i_pre, logf, state):
 
 
 def mlstm_apply(cfg: ModelConfig, p, x, state, mode: str):
-    B, S, _ = x.shape
     q, k, v, i_pre, logf, z = _mlstm_qkvgates(cfg, p, x)
-    if mode == "decode":
-        h, new_state = mlstm_step(q, k, v, i_pre, logf, state)
-    else:
-        h, new_state = ops.mlstm_chunked(
-            q.contiguous(), k.contiguous(), v.contiguous(),
+    step = mlstm_step if mode == "decode" else ops.mlstm_chunked
+
+    def fn(*args):
+        h, new_state = step(*args)
+        return h.flatten(2), new_state
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
             i_pre.contiguous(), logf.contiguous(), state)
-    h = h.reshape(B, S, z.shape[-1]).to(x.dtype)
+    # a meshed forward runs the recurrence (the kernel) on batch shards
+    h, new_state = (SP.batch_local(fn, 4, *args) if SP.is_dtensor(q)
+                    else fn(*args))
+    h = h.to(x.dtype)
     h = L.rmsnorm(h, p["out_norm"]["w"])
     return (h * F.silu(z)) @ p["w_down"].to(x.dtype), new_state
 
@@ -160,19 +167,28 @@ def _slstm_cell(cfg: ModelConfig, p, wx_t, st):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
+def _slstm_scan(cfg: ModelConfig, r, b, wx, state):
+    """The sLSTM cell over wx's steps from ``state``: (the h of every
+    step (B, S, H * dh), the final state)."""
+    p = {"r": r, "b": b}
+    st, hs = state, []
+    for t in range(wx.shape[1]):
+        st = _slstm_cell(cfg, p, wx[:, t], st)
+        hs.append(st["h"])
+    return torch.stack(hs, 1).flatten(2), st
+
+
 def slstm_apply(cfg: ModelConfig, p, x, state, mode: str):
-    B, S, d = x.shape
+    """The sLSTM block (``"decode"`` is one step of the same scan).  On a
+    mesh the recurrence runs on batch shards, its weights whole on every
+    device (``sharding.spmd.batch_local``)."""
     wx = x.float() @ p["w_in"].float()                           # (B,S,4d)
-    if mode == "decode":
-        st = _slstm_cell(cfg, p, wx[:, 0], state)
-        hs = [st["h"]]
+    if SP.is_dtensor(wx):
+        h, st = SP.batch_local(functools.partial(_slstm_scan, cfg), 5,
+                               p["r"], p["b"], wx, state, weights=2)
     else:
-        st, hs = state, []
-        for t in range(S):
-            st = _slstm_cell(cfg, p, wx[:, t], st)
-            hs.append(st["h"])
-    h = torch.stack(hs, 1).reshape(B, -1, d).to(x.dtype)
-    h = L.rmsnorm(h, p["out_norm"]["w"])
+        h, st = _slstm_scan(cfg, p["r"], p["b"], wx, state)
+    h = L.rmsnorm(h.to(x.dtype), p["out_norm"]["w"])
     return h @ p["w_out"].to(x.dtype), st
 
 
@@ -231,8 +247,7 @@ def mamba_apply(cfg: ModelConfig, p, x, state, conv_state, mode: str):
     "decode" (S == 1), chunkwise otherwise.  Returns (y (B, S, d) at x's
     dtype, the new state, the new conv state)."""
     s = cfg.ssm
-    B, S, d = x.shape
-    di = s.expand * d
+    di = s.expand * x.shape[-1]
     Hs = s.num_ssm_heads or cfg.num_heads
     dh = di // Hs
     N = s.state_size
@@ -241,24 +256,35 @@ def mamba_apply(cfg: ModelConfig, p, x, state, conv_state, mode: str):
     z = x @ p["w_gate"].to(x.dtype)
     xi, new_conv = _causal_conv(xi, p["conv"], conv_state)
     xi = F.silu(xi)
-    bc = xi @ p["w_bc"].to(x.dtype)
+    bc = SP.batch_layout(xi @ p["w_bc"].to(x.dtype))
     Bt, Ct = bc[..., :N].float(), bc[..., N:].float()
     # fp32 throughout (jnp promotes a bf16 w_dt silently; torch would not)
-    dt = F.softplus(xi.float() @ p["w_dt"].float() + p["dt_bias"].float())
+    dt = F.softplus(SP.batch_layout(xi.float() @ p["w_dt"].float())
+                    + p["dt_bias"].float())
     logdec = dt * -torch.exp(p["a_log"]).float()  # exp at a_log's dtype
-    xh = xi.float().reshape(B, S, Hs, dh)
-    h_state = state.reshape(B, Hs, dh, N)
-    if mode == "decode":
-        dec = torch.exp(logdec[:, 0])                            # (B,Hs)
-        upd = torch.einsum("bhd,bn,bh->bhdn", xh[:, 0], Bt[:, 0], dt[:, 0])
-        h_final = dec[..., None, None] * h_state + upd
-        y = torch.einsum("bhdn,bn->bhd", h_final, Ct[:, 0])[:, None]
-    else:
-        y, h_final = _mamba_chunked(xh, Bt, Ct, dt, logdec, h_state)
-    y = y + xh * p["skip_d"].float()[:, None]
-    y = L.rmsnorm(y.reshape(B, S, di).to(x.dtype), p["out_norm"]["w"])
+
+    def scan(skip_d, xi, Bt, Ct, dt, logdec, state):
+        # (y (B, S, di), the final state (B, di, N))
+        Bl, Sl = xi.shape[:2]
+        xh = xi.reshape(Bl, Sl, Hs, dh)
+        h_state = state.reshape(Bl, Hs, dh, N)
+        if mode == "decode":
+            dec = torch.exp(logdec[:, 0])                        # (B,Hs)
+            upd = torch.einsum("bhd,bn,bh->bhdn", xh[:, 0], Bt[:, 0],
+                               dt[:, 0])
+            h_final = dec[..., None, None] * h_state + upd
+            y = torch.einsum("bhdn,bn->bhd", h_final, Ct[:, 0])[:, None]
+        else:
+            y, h_final = _mamba_chunked(xh, Bt, Ct, dt, logdec, h_state)
+        y = y + xh * skip_d.float()[:, None]
+        return y.flatten(2), h_final.flatten(1, 2)
+    args = (p["skip_d"], xi.float(), Bt, Ct, dt, logdec, state)
+    # a meshed forward runs the recurrence on batch shards
+    y, h_final = (SP.batch_local(scan, 2, *args, weights=1)
+                  if SP.is_dtensor(x) else scan(*args))
+    y = L.rmsnorm(y.to(x.dtype), p["out_norm"]["w"])
     out = (y * F.silu(z)) @ p["w_out"].to(x.dtype)
-    return out, h_final.reshape(B, di, N), new_conv
+    return out, h_final, new_conv
 
 
 def _pad_steps(t, pad):

@@ -56,6 +56,7 @@ from repro_torch.models import attention_mla as MLAT
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding import spmd as SP
 
 RECURRENT = (MLSTM, SLSTM)
 # the FFNs each mixer is ported with (the reference's configs use no other)
@@ -222,6 +223,7 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         out = _attention_apply(cfg, p["attn"], h, **kw)
         if spec.mixer == HYBRID:
             out = _hybrid_mix(cfg, p, h, out, cache, mode)
+    out = SP.like(out, x)
     if cfg.sandwich_norm:
         out = L.apply_norm(cfg, p["norm1_post"], out)
     x = x + out
@@ -232,6 +234,7 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, p, x, *, positions,
         out, aux = MOE.moe_apply(cfg, p["ffn"], h)
     else:
         out = L.ffn_apply(cfg, p["ffn"], h)
+    out = SP.like(out, x)
     if cfg.sandwich_norm:
         out = L.apply_norm(cfg, p["norm2_post"], out)
     return x + out, aux
@@ -330,8 +333,8 @@ def _hybrid_mix(cfg, p, h, attn_out, cache, mode):
                                          mode)
     if mode != "train":
         cache["ssm"], cache["conv"] = ssm, conv
-    return 0.5 * (L.apply_norm(cfg, p["bn_attn"], attn_out)
-                  + L.apply_norm(cfg, p["bn_ssm"], ssm_out))
+    return 0.5 * (L.apply_norm(cfg, p["bn_attn"], SP.like(attn_out, h))
+                  + L.apply_norm(cfg, p["bn_ssm"], SP.like(ssm_out, h)))
 
 
 def _mla_apply(cfg, p, h, *, positions, cache, mode, paged, cache_pos,
@@ -371,7 +374,7 @@ def _recurrent_apply(cfg, spec, p, x, cache, mode):
                     cache, mode)
     if mode != "train":
         cache.update(state)
-    return x + out
+    return x + SP.like(out, x)
 
 
 def _run_all(cfg, params, x, *, positions, cache, mode, max_len, paged,
@@ -419,7 +422,16 @@ def _embed(cfg, params, tokens, positions, policy, prefix_embeds=None):
                           * math.log(10000.0))
         ang = positions[..., None].float() * freqs
         x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(x.dtype)
-    return x.to(policy.compute_dtype)
+    return _maybe_seq_parallel(SP.batch_layout(x.to(policy.compute_dtype)))
+
+
+def _maybe_seq_parallel(x):
+    """seq_parallel (perf flag): shard the token / sequence dim of
+    activations over the ``model`` axis of the current mesh instead of
+    tensor-parallel weights, the scheme for head counts that do not
+    divide the TP degree (``sharding.spmd.seq_parallel``: a DTensor x
+    whose sequence divides the axis; anything else passes)."""
+    return SP.seq_parallel(x)
 
 
 def _logits(cfg, params, x, policy):
@@ -591,7 +603,7 @@ def _mtp_logits(params, cfg, x, tokens, positions, policy):
     merged = torch.cat([L.apply_norm(cfg, p["norm_h"], x[:, :-1]),
                         L.apply_norm(cfg, p["norm_e"], emb_next)], dim=-1)
     h, _ = layer_apply(cfg, MTP_SPEC, p["layer"],
-                       merged @ p["proj"].to(x.dtype),
+                       SP.batch_layout(merged @ p["proj"].to(x.dtype)),
                        positions=positions[:, :-1], cache=None, mode="train",
                        max_len=positions.shape[1], paged=None)
     return _logits(cfg, params, h, policy)

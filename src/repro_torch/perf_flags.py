@@ -12,12 +12,19 @@ so a caller may change them between calls:
   moe_ragged      MoE dispatch as grouped products over expert-sorted
                   tokens (``moe.moe_apply_ragged``: no capacity, no
                   drops) instead of the capacity path
-  tp_attn_guard, seq_parallel, coll_bf16
-                  sharding switches: parsed, and read by nothing in the
-                  port (it has no mesh)
+  tp_attn_guard   attention weights replicated when the head count does
+                  not divide the mesh's model axis
+                  (``sharding.partition.param_pspecs``)
+  seq_parallel    the embedded activations' sequence over the model axis
+                  of the current mesh (``transformer._maybe_seq_parallel``
+                  -> ``sharding.spmd.seq_parallel``)
   bf16_params, factored_opt, grad_accum=N
-                  switches of the reference's dry-run specs: parsed, and
-                  read by nothing in the port
+                  the dry run's train target for archs above
+                  ``launch.specs.LOW_MEM_OPT_THRESHOLD``: bf16 parameter
+                  storage, factored second moments, N microbatches
+                  (``launch.specs.make_target``)
+  coll_bf16       parsed only: the reference documents it and reads it
+                  nowhere
 
 ``REPRO_PERF_OPTS`` unset means the defaults (``attn_bf16``); set to
 ``""`` it means none at all, the paper-faithful baseline.

@@ -180,6 +180,38 @@ def init_state(params, moment_dtype=torch.float32, factored: bool = False,
     return AdamWState(0, None, nu, groups)
 
 
+def factored_nu_pspecs(param_specs, params, cfg: ModelConfig) -> dict:
+    """Partition specs of the factored state's ``nu``, keyed as
+    :func:`init_state` keys it, from the parameters' specs (a tree of
+    ``sharding.partition.P`` shaped like ``params``): a statistic drops
+    the dim it reduces over.  Factoring follows the reference's rank, as
+    ``init_state`` does: a leaf of two or more dims per layer keeps its
+    spec's rows ([:-1]) and columns ([:-2] + [-1:]); a 1-D layer leaf's
+    shared (R,) x (n,) pair takes the reference's spec of the stacked (R,
+    n) leaf (the repeats dim, never sharded, then the leaf's own); any
+    other 1-D leaf keeps its spec."""
+    from repro_torch.sharding.partition import P, flat_specs
+    specs = flat_specs(param_specs)
+    leaves = _float_leaves(params)
+
+    def padded(path):
+        t = tuple(specs[path])
+        return t + (None,) * (leaves[path].ndim - len(t))
+    groups = _shared_groups(params, cfg)
+    shared = {m for ms in groups.values() for m in ms}
+    out = {}
+    for path, t in leaves.items():
+        if path in shared:
+            continue
+        sp = padded(path)
+        out[path] = ({"r": P(*sp[:-1]), "c": P(*(sp[:-2] + sp[-1:]))}
+                     if reference_ndim(path, t) >= 2 else P(*sp))
+    for key, members in groups.items():
+        sp = (None,) + padded(members[0])
+        out[key] = {"r": P(*sp[:-1]), "c": P(*(sp[:-2] + sp[-1:]))}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Schedule, norm, update
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import MIXED, Policy
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd as SP
 from repro_torch.training import optimizer as OPT
 
 MTP_WEIGHT = 0.3
@@ -30,8 +31,7 @@ MTP_WEIGHT = 0.3
 def cross_entropy(logits, labels, mask):
     """logits (B,S,V) fp32, labels (B,S) int, mask (B,S) -> mean nats over
     the masked positions."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    logz, gold = SP.logsumexp_gold(logits, labels)
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
@@ -39,8 +39,7 @@ def cross_entropy(logits, labels, mask):
 def _codebook_ce(logits, labels, mask):
     """Audio: logits (B,S,C,V), labels (B,S,C); the mean over positions
     and codebooks."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    logz, gold = SP.logsumexp_gold(logits, labels)
     nll = ((logz - gold) * mask[..., None]).sum(-1)
     return nll.sum() / torch.clamp_min(mask.sum() * labels.shape[-1], 1.0)
 
@@ -80,7 +79,9 @@ def _grads(params, cfg, batch, policy, remat):
         t.requires_grad_(True)
     loss, parts = loss_fn(params, cfg, batch, policy, remat)
     gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    grads = {p: torch.zeros_like(t) if g is None else g
+    # on a mesh each gradient is reduced once into its parameter's layout
+    # (partial sums over the batch axes: the data-parallel all-reduce)
+    grads = {p: torch.zeros_like(t) if g is None else SP.like(g, t)
              for (p, t), g in zip(leaves.items(), gs)}
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 

@@ -2769,3 +2769,61 @@ def test_moe_apply_ragged_grads_on_card_match_cpu(dev, monkeypatch):
     for k, want in grads["cpu"].items():
         _close_scaled(grads["cuda"][k].cpu() / want.abs().max(),
                       want / want.abs().max(), 1e-5)
+
+
+def test_host_mesh_targets_match_unmeshed(dev):
+    """Reduced qwen3-4b through ``specs.make_target`` on the card's real
+    (1, 1) mesh (``make_host_mesh``: nccl, one rank): a train step and a
+    prefill equal the same steps unmeshed on the same parameters, bit for
+    bit (every shard is whole), with the same kernel launches."""
+    import torch.distributed as dist
+    from repro_torch.core.precision import BF16, MIXED
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as SPC
+    from repro_torch.sharding import partition as SH
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    cfg = get_reduced("qwen3-4b")
+    mesh = M.make_host_mesh()
+    try:
+        t = SPC.train_target(cfg, mesh, {"kind": "train", "seq": 64,
+                                         "batch": 2}, policy=MIXED,
+                             factored=True, grad_accum=1,
+                             moment_dtype=torch.float32, fsdp=False)
+        params, _, batch = t.args
+        plain = SH.map_tree(lambda n, x: local(x).clone(), params)
+        pbatch = {k: local(v).clone() for k, v in batch.items()}
+        ops.reset_launch_counts()
+        _, _, m = t.fn(*t.args)
+        l_mesh = ops.launch_counts()
+        step = make_train_step(cfg, OPT.AdamWConfig(factored=True),
+                               policy=MIXED, remat=True)
+        ops.reset_launch_counts()
+        _, _, mu = step(plain, OPT.init_state(plain, factored=True,
+                                              model_cfg=cfg), pbatch)
+        assert ops.launch_counts() == l_mesh
+        assert l_mesh["flash_attention"] > 0
+        assert float(local(m["loss"])) == float(mu["loss"])
+        for path, p in OPT.flatten(params).items():
+            assert torch.equal(local(p), OPT.flatten(plain)[path]), path
+
+        tp = SPC.make_target(cfg, "prefill", mesh,
+                             info={"kind": "prefill", "seq": 64, "batch": 4})
+        ops.reset_launch_counts()
+        lp, _ = tp.fn(*tp.args)
+        l_mesh = ops.launch_counts()
+        pl = SH.map_tree(lambda n, x: local(x), tp.args[0])
+        cache = T.init_cache(cfg, 4, 64, torch.bfloat16, device=dev)
+        ops.reset_launch_counts()
+        lu, _ = T.forward_prefill(pl, cfg, local(tp.args[1]),
+                                  local(tp.args[2]), cache, policy=BF16,
+                                  max_len=64, last_only=True)
+        assert ops.launch_counts() == l_mesh
+        assert torch.equal(local(lp), lu)
+    finally:
+        SH.set_current_mesh(None)
+        dist.destroy_process_group()
