@@ -5,6 +5,8 @@
     python3 chip_smoke.py --src OTHER_CHECKOUT/src
     python3 chip_smoke.py --only flash --only train [--src ...]
     python3 chip_smoke.py --only ragged [--src ...]
+    python3 chip_smoke.py --only mlstm [--src ...]
+    python3 chip_smoke.py --only attn [--src ...]
 
 Phases, one JSON line each, each with its ``seconds`` (a kernel case's
 own time, else the time since the previous line) and ``elapsed_s``; any
@@ -13,17 +15,24 @@ another checkout's port, such as a ``git archive`` of a parent commit, so
 that two versions are timed in one call on one card; ``--only flash``
 runs only the flash forward and backward cases at the train shapes,
 ``--only train`` only the full-width unimo-text fp32 train run, ``--only
-ragged`` only the grouped product's kernel cases, for such an A/B):
+ragged`` only the grouped product's kernel cases, ``--only mlstm`` only the
+mLSTM forward's kernel cases and the full-width xlstm-125m train runs
+(fp32 and mixed), ``--only attn`` only the timed bf16 cases of the flash
+forward and the paged decode, packed and mixed kernels, for such an A/B):
 
   1. device   the card's name, power limit, torch / CUDA versions
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, in parallel, sm_90a: ``paged_attention.cu``,
+              ``paged_{decode,mixed,packed}_mma.cu``,
               ``dense_decode.cu``, ``flash_attention.cu``,
               ``quant_matmul.cu``, ``mlstm_chunk.cu``, ``rmsnorm.cu``,
-              ``flash_attention_bwd.cu``, ``mlstm_chunk_bwd.cu`` and
-              ``ragged_matmul.cu``) and report the build seconds and
-              ptxas resource use (registers, spills; the grouped
-              product's kernels again on the ``ragged_kernels`` line)
+              ``flash_attention_bwd.cu`` and its kernels in
+              ``flash_attention_bwd_{bf16,fp16,fp32}.cu``,
+              ``mlstm_chunk_bwd.cu`` and ``ragged_matmul.cu``) and
+              report the build seconds, each
+              source's nvcc seconds (``source_seconds``) and ptxas
+              resource use (registers, spills; the grouped product's
+              kernels again on the ``ragged_kernels`` line)
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes: the paged attention kernels at
               unimo-text's (Hq = Hkv = 16, D = 64) and qwen3-4b's (Hq 32,
@@ -39,10 +48,11 @@ ragged`` only the grouped product's kernel cases, for such an A/B):
               shape (8 x 260, 16 heads x 64), at qwen3-4b's GQA heads and
               on a small case with -1 positions, a window and a softcap;
               ``mlstm_chunked`` at xlstm-125m's width (8 rows, 4 heads x
-              384; S = 300 from a nonzero state and S = 64, both timed at
-              bf16) and at the reduced head dim 128, q/k/v at bf16 and
-              fp32, each output's error also as a fraction of its gate
-              (``gate_frac``); the unwired
+              384; S = 300 from a nonzero state and S = 64, timed at bf16
+              and fp32, S = 300 at fp16) and at the reduced head dim 128,
+              q/k/v at bf16, fp32 and fp16, each output's error also as a
+              fraction of its gate (``gate_frac``), fp32's also against
+              the plain version in fp64; the unwired
               ``fused_rmsnorm`` (4096 x 2560 bf16 and fp32, both timed, a
               ragged row count) and dense ``decode_attention`` (qwen3-4b's
               heads over 8 x 256 and 8 x 4096 keys, both timed; fp16, a
@@ -54,14 +64,15 @@ ragged`` only the grouped product's kernel cases, for such an A/B):
               gathered keys with -1 holes (timed; fp32 too).  The mixed,
               decode and packed pairs, dense decode and ``quant_matmul``
               run their tensor-core bodies at bf16 / fp16 and their
-              CUDA-core bodies at fp32; flash (forward and backward) its
-              tensor-core bodies at every dtype, fp32 as bf16 parts, each
-              fp32 case's error also against the plain version evaluated
-              in fp64, beside the plain fp32 version's own (gated at 4x
-              that, or 1e-6 of the output's scale); ``mlstm_chunked`` its
-              tensor-core body at bf16 (every timed case of it and of the
-              packed pair at bf16, and of flash at fp32, must show that
-              body in the profile).  Times the
+              CUDA-core bodies at fp32; flash (forward and backward),
+              ``mlstm_chunked`` and the grouped product their tensor-core
+              bodies at every dtype, fp32 as bf16 parts, each fp32 case's
+              error also against the plain version evaluated in fp64,
+              beside the plain fp32 version's own (gated at 4x that, or
+              1e-6 of the output's scale); every timed case of the mLSTM
+              forward, of the packed pair at bf16 and of flash, the mLSTM
+              forward and the grouped product at fp32 must show that body
+              (its fp32 instance) in the profile.  Times the
               kernel, the plain version and a PyTorch yardstick the port
               never calls (``library_ms``) with CUDA events around each
               call (host path included), and the device time per call of
@@ -253,8 +264,11 @@ ragged`` only the grouped product's kernel cases, for such an A/B):
               corpus, 30 steps at fp32 and at mixed precision, whose loss
               must fall by 0.3 nats, qwen3-4b at all 36 layers, mixed,
               factored AdamW, two microbatches, 3 steps (finite, every
-              leaf moved), and xlstm-125m (12 layers, mixed) 6 steps
-              whose loss must fall by 0.3 nats, each with step seconds,
+              leaf moved), and xlstm-125m (12 layers) at fp32 (the
+              trainer's default) and at mixed precision, 6 steps each
+              whose loss must fall by 0.3 nats (each profiled step's
+              mLSTM forward the tensor-core body's instance at its
+              dtype: fp32, bf16), each with step seconds,
               train tokens/s, peak memory, launches (flash forward twice a
               layer and step, its backward once; xlstm: the mLSTM forward
               twice an mLSTM layer and step, its backward once; nothing
@@ -352,20 +366,33 @@ KERNEL_SYMBOLS = {
 }
 # the grouped product's halves of the backward, timed apart
 RAGGED_BWD_PARTS = {"drows": ("ragged_mm_",), "dw": ("ragged_dw_",)}
-# the tensor-core bodies that bf16 must reach in the redesigned kernels
+# the tensor-core bodies that the timed cases must reach in the
+# redesigned kernels (the packed pair's at bf16, the mLSTM forward's at
+# every dtype)
 REDESIGNED = {"mlstm_chunked": "mlstm_chunk_mma_kernel",
               "paged_packed_attention": "paged_packed_mma_kernel",
               "paged_packed_attention_q8": "paged_packed_mma_kernel"}
-# ... and that every bf16 / fp16 grouped product at the models' widths
-# must reach: the wgmma + TMA bodies (forward, dRows and dW)
+# ... and that every grouped product at the models' widths must reach: the
+# wgmma + TMA bodies (forward, dRows and dW; bf16, fp16 and fp32)
 REDESIGNED_16BIT = {"ragged_matmul": "_tma_kernel",
                     "ragged_matmul_bwd": "_tma_kernel"}
-# ... and that fp32 must reach in flash's: every device kernel of a timed
-# fp32 case holds one of these (the split bodies' fp32 instances)
+# ... and that fp32 must reach: every device kernel of a timed fp32 case
+# holds one of these (the bodies' fp32 instances, operands as bf16 parts)
 REDESIGNED_FP32 = {"flash_attention": ("flash_mma_kernel<float",),
                    "flash_attention_bwd": ("attn_bwd_dq_mma_kernel<float",
                                            "attn_bwd_dkdv_mma_kernel<float",
-                                           "attn_bwd_dkdv_sum_kernel<float")}
+                                           "attn_bwd_dkdv_sum_kernel<float"),
+                   "mlstm_chunked": ("mlstm_chunk_mma_kernel<float",),
+                   "ragged_matmul": ("ragged_mm_f32_tma_kernel",),
+                   "ragged_matmul_bwd": ("ragged_mm_f32_tma_kernel",
+                                         "ragged_dw_f32_tma_kernel")}
+# ... and the CUDA-core bodies that fp32 shapes the tensor-core bodies
+# refuse still run (head dims off 8; K or N off 4): a case held on them
+# runs every one of these and nothing else
+CUDA_CORE_FP32 = {"mlstm_chunked": ("mlstm_chunk_kernel<float",),
+                  "ragged_matmul": ("ragged_mm_kernel<float",),
+                  "ragged_matmul_bwd": ("ragged_mm_kernel<float",
+                                        "ragged_dw_kernel<float")}
 # fp32 flash cases against the plain version evaluated in fp64: the
 # kernel's error at most FP64_GATE_FACTOR times the plain fp32 version's,
 # or FP64_GATE_FLOOR of the output's largest magnitude, the larger
@@ -401,8 +428,9 @@ NOTES = {
                          "jnp path (its Pallas mLSTM kernel has no "
                          "backward); library_ms null: no single PyTorch "
                          "call computes the chunkwise mLSTM's gradient; "
-                         "launches: the full-width xlstm-125m mixed "
-                         "training run (one per mLSTM layer and step); one "
+                         "launches: the full-width xlstm-125m fp32 "
+                         "training run (one per mLSTM layer and step; the "
+                         "mixed run beside it launches as many); one "
                          "call is up to four chunk-parallel launches (per "
                          "chunk dq and the increments, their reverse scan, "
                          "per chunk dk / dv, dlogf; device_ms_by_kernel); "
@@ -415,7 +443,9 @@ NOTES = {
                      "under moe_ragged (three a MoE layer and forward); "
                      "bodies: bf16 / fp16 at K, N multiples of 8 "
                      "ragged_mm_tma_kernel (wgmma fed by TMA), other "
-                     "16-bit shapes ragged_mm_kernel (mma.sync), fp32 "
+                     "16-bit shapes ragged_mm_kernel (mma.sync), fp32 at "
+                     "K, N multiples of 4 ragged_mm_f32_tma_kernel (wgmma "
+                     "on three bf16 parts an operand), other fp32 shapes "
                      "ragged_mm_kernel (CUDA cores); "
                      "library: torch._grouped_mm where it runs at the "
                      "dtype, else null with the reason; timed case: a "
@@ -431,7 +461,8 @@ NOTES = {
                          "one call is two launches (dRows through "
                          "ragged_mm_tma_kernel reading w transposed, dW "
                          "through ragged_dw_tma_kernel; fp32: "
-                         "ragged_mm_kernel, ragged_dw_kernel)",
+                         "ragged_mm_f32_tma_kernel, "
+                         "ragged_dw_f32_tma_kernel)",
 }
 SPEC_K = 4
 # quant_matmul sums the plain version's fp32 products in another order:
@@ -1101,7 +1132,8 @@ def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
                    timed=False):
     """``mlstm_chunked`` on random q, k (scaled by dh^-1/2 as the model
     does), v, gates and (with ``state``) a nonzero initial state, against
-    its plain version: h, C, n and m."""
+    its plain version: h, C, n and m (fp32 also against the plain version
+    in fp64); two calls bit-identical."""
     import torch
     from repro_torch.kernels import mlstm_chunk as MC
     dev = torch.device("cuda")
@@ -1119,18 +1151,39 @@ def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
           "m": r(B, H) if state else torch.zeros(B, H, device=dev)}
     args = (q, k, v, i_pre, logf, st)
     h, out = MC.mlstm_chunked(*args)
+    h2, out2 = MC.mlstm_chunked(*args)
     h_r, ref = MC.mlstm_chunked_ref(*args)
     torch.cuda.synchronize()
+    twice = torch.equal(h, h2) and all(torch.equal(out[n], out2[n])
+                                       for n in out)
+    del h2, out2
     errs, gate_frac = {}, {}
     for key, a, b in [("h", h, h_r)] + [(n, out[n], ref[n])
                                          for n in ("C", "n", "m")]:
         errs[key] = (a - b).abs().max().item()
         gate_frac[key] = errs[key] / (MLSTM_REL_TOL[key]
                                       * max(b.abs().max().item(), 1.0))
+    dn = str(dtype).removeprefix("torch.")
     res = {"case": name, "kernel": "mlstm_chunked", "B": B, "S": S, "H": H,
-           "dh": dh, "max_abs_err": max(errs.values()), "errs": errs,
-           "tol": MLSTM_REL_TOL, "gate_frac": gate_frac,
-           "ok": all(f <= 1.0 for f in gate_frac.values())}
+           "dh": dh, "dtype": dn, "max_abs_err": max(errs.values()),
+           "errs": errs, "tol": MLSTM_REL_TOL, "gate_frac": gate_frac,
+           "body": _mlstm_body(MC, B, H, dh, dtype),
+           "bit_identical_twice": twice,
+           "ok": twice and all(f <= 1.0 for f in gate_frac.values())}
+    if dtype == torch.float32 and _SRC[0] == str((ROOT / "src").resolve()):
+        # against the plain version in fp64, gated as fp32 flash is (this
+        # checkout's plain version computes in fp64 on fp64 inputs; another
+        # checkout's, an A/B's parent, need not: no fp64 figure there)
+        h64, ref64 = MC.mlstm_chunked_ref(
+            *(t.double() for t in args[:5]),
+            {key: t.double() for key, t in st.items()})
+        names = ("h", "C", "n", "m")
+        res["fp64"] = _fp64_errors(
+            names, [h] + [out[n] for n in names[1:]],
+            [h_r] + [ref[n] for n in names[1:]],
+            [h64] + [ref64[n] for n in names[1:]])
+        res["ok"] &= all(f["ok"] for f in res["fp64"].values())
+        del h64, ref64
     if timed:
         res.update(timings("mlstm_chunked", lambda: MC.mlstm_chunked(*args),
                            lambda: MC.mlstm_chunked_ref(*args), None))
@@ -1145,7 +1198,60 @@ def run_mlstm_case(rng, name, *, B, S, H, dh, dtype, state=False,
                   + 4 * h.numel()
                   + 2 * 4 * sum(t.numel() for t in st.values()))
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, dtype)
+        if dtype != torch.bfloat16:
+            # the split body's own floor: each product as bf16 part pairs
+            # (six at fp32, three at fp16) at the bf16 peak
+            pairs = SPLIT_PRODUCTS if dtype == torch.float32 else 3
+            res["split_floor_ms"] = (pairs * flops
+                                     / PEAK_FLOPS["bfloat16"] * 1e3)
     return res
+
+
+def _mlstm_body(MC, B, H, dh, dtype):
+    """The body the wrapper plans for these heads on this card (a
+    checkout before the fp32 / fp16 tensor-core bodies planned them the
+    same way: its plan is asked the same question)."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    return MC.mlstm_plan(B, H, dh, dtype, True, props.multi_processor_count,
+                         props.shared_memory_per_block_optin).body
+
+
+def mlstm_kernel_cases(rng):
+    """``mlstm_chunked`` at xlstm-125m's width (4 heads x 384) over 8 rows:
+    a ragged 300-step prompt from a nonzero state and a 64-step one, q/k/v
+    at bf16 and fp32 (the trainer's default policy; fp32 also against the
+    plain version in fp64), all timed; the 300-step prompt at fp16, timed;
+    the reduced config's head dim 128 at each; last, the CUDA-core body
+    that fp32 shapes the tensor cores refuse still run (head dim 380, off
+    8), timed, on inputs of its own generator (the cases drawn after these
+    keep their inputs)."""
+    import torch
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        dn = str(dtype).removeprefix("torch.")
+        cases.append(run_mlstm_case(
+            rng, f"xlstm-125m S=300 nonzero state {dn}", B=8, S=300, H=4,
+            dh=384, dtype=dtype, state=True, timed=True))
+        if dtype != torch.float16:
+            cases.append(run_mlstm_case(
+                rng, f"xlstm-125m S=64 {dn}", B=8, S=64, H=4, dh=384,
+                dtype=dtype, timed=True))
+        cases.append(run_mlstm_case(rng, f"reduced dh=128 S=37 {dn}", B=3,
+                                    S=37, H=2, dh=128, dtype=dtype,
+                                    state=True))
+    own = torch.Generator(device="cuda").manual_seed(380)
+    cases.append(held_on_cuda_cores(run_mlstm_case(
+        own, "head dim off 8: 8 x 300 dh=380 nonzero state float32", B=8,
+        S=300, H=4, dh=380, dtype=torch.float32, state=True, timed=True)))
+    return cases
+
+
+def held_on_cuda_cores(case):
+    """Marks a case whose point is a CUDA-core body (a shape the tensor-core
+    bodies refuse): :func:`_check_bodies` requires that body of it."""
+    case["held_body"] = "cuda_cores"
+    return case
 
 
 @timed_case
@@ -1371,20 +1477,7 @@ def phase_kernels(check_bodies=True):
         rng, "qwen3-4b prefix-attend 4 x 32 vs 256 fp32", B=4, Sq=32,
         npages=16, page=16, prefix=32, lens=[32, 5, 17, 1], dtype=fp32,
         **qwen3))
-    # mlstm_chunked at xlstm-125m's width (4 heads x 384) over 8 rows: a
-    # ragged 300-step prompt from a nonzero state, a 64-step one, and the
-    # reduced config's head dim 128; q/k/v at bf16 and fp32
-    for dtype in (bf16, fp32):
-        dn = str(dtype).removeprefix("torch.")
-        cases.append(run_mlstm_case(
-            rng, f"xlstm-125m S=300 nonzero state {dn}", B=8, S=300, H=4,
-            dh=384, dtype=dtype, state=True, timed=dtype == bf16))
-        cases.append(run_mlstm_case(rng, f"xlstm-125m S=64 {dn}", B=8, S=64,
-                                    H=4, dh=384, dtype=dtype,
-                                    timed=dtype == bf16))
-        cases.append(run_mlstm_case(rng, f"reduced dh=128 S=37 {dn}", B=3,
-                                    S=37, H=2, dh=128, dtype=dtype,
-                                    state=True))
+    cases += mlstm_kernel_cases(rng)
     # fused_rmsnorm (no model call site): qwen3-4b's width over 4096 rows,
     # and a ragged row count with fp32 w
     cases.append(run_rmsnorm_case(rng, "4096 x 2560 bf16", rows=4096,
@@ -1441,29 +1534,8 @@ def phase_kernels(check_bodies=True):
     bad = [c["case"] + " / " + c["kernel"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
-    # every timed case of the redesigned kernels is bf16: it must have run
-    # the tensor-core body
-    stale = [c["case"] + " / " + c["kernel"] for c in cases
-             if check_bodies and c["kernel"] in REDESIGNED
-             and "device_kernels" in c
-             and not all(REDESIGNED[c["kernel"]] in n
-                         for n in c["device_kernels"])]
-    stale += [c["case"] + " / " + c["kernel"] for c in cases
-              if check_bodies and c["kernel"] in REDESIGNED_FP32
-              and c.get("dtype") == "float32" and "device_kernels" in c
-              and not all(any(s in n for s in REDESIGNED_FP32[c["kernel"]])
-                          for n in c["device_kernels"])]
-    # every bf16 / fp16 grouped product at the models' widths: the wgmma
-    # bodies alone
-    stale += [c["case"] + " / " + c["kernel"] for c in cases
-              if check_bodies and c["kernel"] in REDESIGNED_16BIT
-              and c.get("dtype") in ("bfloat16", "float16")
-              and (c.get("body") != "wgmma_tma" or "device_kernels" in c
-                   and not all(REDESIGNED_16BIT[c["kernel"]] in n
-                               for n in c["device_kernels"]))]
-    if stale:
-        raise SystemExit(f"bf16 (or flash's fp32) case did not run the "
-                         f"tensor-core body: {stale}")
+    if check_bodies:
+        _check_bodies(cases)
     # each kernel's timed case at its main path's shape: qwen3-4b for the
     # paged kernels (its verify window for the mixed pair), the tied head
     # for quant_matmul (its M = 256 prefill stream beside it), the draft
@@ -1493,9 +1565,8 @@ def phase_kernels(check_bodies=True):
         c for c in cases if c["kernel"] == "flash_attention"
         and "kernel_ms" in c]
     summary["mlstm_chunked"]["regimes"] = [
-        c for c in cases if c["case"] in (
-            "xlstm-125m S=300 nonzero state bfloat16",
-            "xlstm-125m S=64 bfloat16")]
+        c for c in cases if c["kernel"] == "mlstm_chunked"
+        and "kernel_ms" in c]
     summary["paged_packed_attention"]["regimes"] = [
         c for c in cases if c["kernel"] == "paged_packed_attention"
         and "kernel_ms" in c]
@@ -1513,6 +1584,76 @@ def phase_kernels(check_bodies=True):
         summary[name]["regimes"] = [
             c for c in cases if c["kernel"] == name and "kernel_ms" in c]
     return summary
+
+
+def attention_kernel_cases(rng):
+    """The timed bf16 cases of the kernels built on the paged and flash
+    attention core (``csrc/attn_mma.cuh``), at phase 3's shapes: the
+    paged decode and packed kernels at unimo-text's and qwen3-4b's heads,
+    the mixed kernel at qwen3-4b's verify window and (1, 256) chunk, and
+    the flash forward at unimo-text's draft, qwen3-4b's GQA and its 8 x 128
+    prefill.  An A/B of that core (``--only attn``)."""
+    import torch
+    bf16 = torch.bfloat16
+    unimo = dict(Hq=16, Hkv=16, D=64)
+    qwen3 = dict(Hq=32, Hkv=8, D=128)
+    cases = []
+    for run in (run_decode_case, run_packed_case):
+        for name, heads in (("unimo-text", unimo), ("qwen3-4b", qwen3)):
+            cases.append(run(rng, f"{name} bf16", dtype=bf16, timed=True,
+                             **heads))
+    ctx = [int(x) for x in torch.randint(0, 256 - SPEC_K, (8,),
+                                         generator=rng, device="cuda")]
+    cases.append(run_mixed_case(
+        rng, "qwen3-4b verify bf16 q", dtype=bf16, timed=True,
+        W=SPEC_K + 1, n_q=[SPEC_K + 1] * 8, before=ctx, **qwen3))
+    cases.append(run_mixed_case(
+        rng, "qwen3-4b chunk (1, 256) bf16 q", dtype=bf16, timed=True,
+        W=256, n_q=[230], before=[20], **qwen3))
+    for name, B, S, heads in (("unimo-text draft 8 x 260", 8, 256 + SPEC_K,
+                               unimo),
+                              ("qwen3-4b GQA 8 x 256", 8, 256, qwen3),
+                              ("qwen3-4b prefill 8 x 128", 8, 128, qwen3)):
+        cases.append(run_flash_case(rng, f"{name} bf16", B=B, S=S,
+                                    dtype=bf16, timed=True, **heads))
+    return cases
+
+
+def _check_bodies(cases):
+    """Every timed case of the redesigned kernels ran its tensor-core body
+    (the packed pair's at bf16; the mLSTM forward's at every dtype), fp32
+    flash, mLSTM and grouped-product cases their fp32 instances (bf16
+    parts), and every grouped product at the models' widths (bf16, fp16,
+    fp32) the wgmma bodies alone; the cases held on the CUDA-core bodies
+    (``held_body``) planned those bodies and ran each of their kernels
+    (CUDA_CORE_FP32) and nothing else; raises otherwise."""
+    def ran(c, parts):
+        return all(any(s in n for s in parts) for n in c["device_kernels"])
+    held = [c for c in cases if c.get("held_body") == "cuda_cores"]
+    stale = [c["case"] + " / " + c["kernel"] for c in held
+             if c["body"] not in ("simt", "cuda_cores")
+             or not c.get("device_kernels")
+             or not ran(c, CUDA_CORE_FP32[c["kernel"]])
+             or not all(any(s in n for n in c["device_kernels"])
+                        for s in CUDA_CORE_FP32[c["kernel"]])]
+    cases = [c for c in cases if c.get("held_body") != "cuda_cores"]
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+             if c["kernel"] in REDESIGNED and "device_kernels" in c
+             and not ran(c, (REDESIGNED[c["kernel"]],))]
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+              if c["kernel"] in REDESIGNED_FP32
+              and c.get("dtype") == "float32" and "device_kernels" in c
+              and not ran(c, REDESIGNED_FP32[c["kernel"]])]
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+              if c["kernel"] in REDESIGNED_16BIT
+              and (c.get("body") != "wgmma_tma" or "device_kernels" in c
+                   and not ran(c, (REDESIGNED_16BIT[c["kernel"]],)))]
+    stale += [c["case"] + " / " + c["kernel"] for c in cases
+              if c["kernel"] == "mlstm_chunked" and c["dh"] % 8 == 0
+              and c["body"] != "mma"]
+    if stale:
+        raise SystemExit(f"case did not run the redesigned tensor-core "
+                         f"body: {stale}")
 
 
 FAMILY_CASES = ("phi3-mini", "gemma2-2b", "gemma3-27b", "qwen3-moe",
@@ -4330,9 +4471,13 @@ def ragged_kernel_cases(rng):
     = 64 rows) through wi / wg (d -> f) and wo (f -> d), and at an 8 x 78
     admission (4,992 rows) through wi, bf16, timed (deepseek's admission's
     error against fp64 recorded); qwen3-moe at 8 x 1,024 tokens (65,536
-    rows); the backward at qwen3-moe's widths over 4 x 128 tokens (4,096
-    rows) at bf16 and fp32, timed, each half apart; the forward at fp32
-    (also against fp64) and fp16."""
+    rows); the forward at fp32 (against fp64 too) at the decode and
+    admission shapes, timed, and at fp16; the backward at qwen3-moe's
+    widths over 4 x 128 tokens (4,096 rows) at bf16 and fp32, timed, each
+    half apart; last, the CUDA-core bodies that fp32 shapes TMA cannot
+    describe still run (K 100, N 70: rows of 400 and 280 bytes), forward
+    and backward over 64 tokens, timed, on inputs of their own
+    generator."""
     import torch
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     qwen = dict(E=128, k=8)
@@ -4357,11 +4502,17 @@ def ragged_kernel_cases(rng):
         rng, "ragged qwen3-moe admission 8 x 1024, 65536 rows 4096->1536 "
         "bf16", T=8 * 1024, K=4096, N=1536, dtype=bf16, timed=True, **qwen))
     torch.cuda.empty_cache()
+    # fp32 (the default train policy's; fp64-gated) timed at the decode and
+    # admission shapes, fp16 checked
     for dtype in (fp32, fp16):
         dn = str(dtype).removeprefix("torch.")
         cases.append(run_ragged_case(
             rng, f"ragged qwen3-moe decode 64 rows 4096->1536 {dn}", T=8,
-            K=4096, N=1536, dtype=dtype, **qwen))
+            K=4096, N=1536, dtype=dtype, timed=dtype == fp32, **qwen))
+    cases.append(run_ragged_case(
+        rng, "ragged qwen3-moe admission 8 x 78, 4992 rows 4096->1536 "
+        "float32", T=8 * 78, K=4096, N=1536, dtype=fp32, timed=True, **qwen))
+    torch.cuda.empty_cache()
     for dtype in (bf16, fp32):
         dn = str(dtype).removeprefix("torch.")
         cases.append(run_ragged_bwd_case(
@@ -4369,6 +4520,11 @@ def ragged_kernel_cases(rng):
             f"{dn}", T=512, K=4096, N=1536, dtype=dtype, timed=True,
             **qwen))
         torch.cuda.empty_cache()
+    own = torch.Generator(device="cuda").manual_seed(100)
+    for run in (run_ragged_case, run_ragged_bwd_case):
+        cases.append(held_on_cuda_cores(run(
+            own, "ragged K, N off 4: 512 rows 100->70 float32", T=64, K=100,
+            N=70, dtype=fp32, timed=True, **qwen)))
     return cases
 
 
@@ -4574,10 +4730,10 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 8, 128
 TRAIN_LOSS_DROP = 0.3
 QWEN3_TRAIN_LAYERS = 36
 QWEN3_TRAIN_STEPS = 3
-# full-width xlstm-125m (all 12 layers, mixed): 6 steps (3.0-3.6 s each
-# on the H100: the sLSTM's per-step recurrence launches ~88k kernels a
-# step) take the loss down ~4 nats, far past TRAIN_LOSS_DROP (10 steps
-# until PR 31, whose mesh phase needed the time)
+# full-width xlstm-125m (all 12 layers) at fp32, the trainer's default
+# policy, and at mixed precision: 6 steps each (2.2-3.6 s a step on the
+# H100: the sLSTM's per-step recurrence launches ~89k kernels a step) take
+# the loss down ~4-6.6 nats, far past TRAIN_LOSS_DROP
 XLSTM_TRAIN_STEPS = 6
 
 
@@ -5021,6 +5177,8 @@ def _profile_step(step, label, wall):
             "flash_fwd_ms": ms("flash_"), "flash_bwd_ms": ms("attn_bwd_"),
             "mlstm_fwd_ms": ms("mlstm_chunk_"),
             "mlstm_bwd_ms": ms("mlstm_bwd_"),
+            "mlstm_fwd_kernels": sorted({k[:90] for k in by_name
+                                         if "mlstm_chunk_" in k}),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, (us, n) in top]}
 
@@ -5083,7 +5241,7 @@ def _train_run(cfg, params, batches, *, label, policy, policy_name, steps,
     return out, launches
 
 
-def phase_train(unimo_fp32_only=False):
+def phase_train(unimo_fp32_only=False, check_bodies=True):
     """Full-width training on the card: unimo-text (24 layers, 1024 wide,
     the paper's model) on ``packed_batches`` over ``synthetic_corpus(2000)``,
     8 x 128 tokens, 30 steps, lr 1e-3, warmup 5, under fp32 and under
@@ -5092,21 +5250,21 @@ def phase_train(unimo_fp32_only=False):
     layers, mixed, factored AdamW, two microbatches of 4 rows, 3 steps:
     finite losses and gnorms, every leaf moved.  Each run's attention ran
     through the flash forward and backward kernels and nothing else of the
-    port's.  Last, xlstm-125m (all 12 layers, mixed) as unimo-text,
-    XLSTM_TRAIN_STEPS steps: the loss must fall by TRAIN_LOSS_DROP, its
-    six mLSTM layers through the mLSTM forward kernel (twice a layer and
-    step: remat) and the backward kernel (once), nothing else of the
-    port's.  Returns (the unimo-text fp32 run's launch counts, the
-    xlstm-125m run's, each run's launch counts by label).
-    ``unimo_fp32_only``: the unimo-text fp32 run alone (an A/B of the fp32
-    training path; the xlstm-125m counts are then None)."""
+    port's.  Last, xlstm-125m (all 12 layers) at fp32 and at mixed
+    precision as unimo-text, XLSTM_TRAIN_STEPS steps each: the loss must
+    fall by TRAIN_LOSS_DROP, its six mLSTM layers through the mLSTM
+    forward kernel (twice a layer and step: remat) and the backward
+    kernel (once), nothing else of the port's (:func:`_xlstm_train_run`).
+    Returns (the unimo-text fp32 run's launch counts, the xlstm-125m fp32
+    run's, each run's launch counts by label).  ``unimo_fp32_only``: the
+    unimo-text fp32 run alone (an A/B of the fp32 training path; the
+    xlstm-125m counts are then None)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.precision import FP32, MIXED
     from repro_torch.core.tokenizer import FastTokenizer
     from repro_torch.data.pipeline import packed_batches, synthetic_corpus
     from repro_torch.models import transformer as T
-    from repro_torch.configs.base import MLSTM, layer_specs
     from repro_torch.training import optimizer as OPT
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = synthetic_corpus(2000)
@@ -5155,32 +5313,69 @@ def phase_train(unimo_fp32_only=False):
         failed.append((label, out["losses"], out["leaves_not_moved"][:5]))
     del params
     torch.cuda.empty_cache()
+    for name in ("fp32", "mixed"):
+        label, seen[label], bad = _xlstm_train_run(corpus, check_bodies,
+                                                   name)
+        failed += bad
+    if failed:
+        raise SystemExit(f"training on the card failed: {failed}")
+    return seen["unimo-text fp32"], seen["xlstm-125m fp32"], seen
+
+
+# the mLSTM forward's tensor-core instance that each train policy's
+# compute dtype runs (MIXED computes in bf16)
+XLSTM_TRAIN_BODIES = {"fp32": "mlstm_chunk_mma_kernel<float",
+                      "mixed": "mlstm_chunk_mma_kernel<__nv_bfloat16"}
+
+
+def _xlstm_train_run(corpus, check_bodies=True, policy_name="fp32"):
+    """Full-width xlstm-125m (all 12 layers) on packed batches of TRAIN_B
+    x TRAIN_S, XLSTM_TRAIN_STEPS steps under ``policy_name`` (``fp32``,
+    the trainer's default, or ``mixed``), lr 1e-3: the loss must fall by
+    TRAIN_LOSS_DROP, its six mLSTM layers through the mLSTM forward kernel
+    (twice a layer and step: remat) and the backward kernel (once),
+    nothing else of the port's; with ``check_bodies`` the profiled step's
+    mLSTM forward kernels must be the tensor-core body's instance at the
+    policy's compute dtype (XLSTM_TRAIN_BODIES).  Returns (label, launch
+    counts, failures)."""
+    import torch
+    from repro_torch.configs.base import MLSTM, layer_specs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.core.tokenizer import FastTokenizer
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
     cfg = get_config("xlstm-125m")
     n_mlstm = sum(s.mixer == MLSTM for s in layer_specs(cfg))
     tok = FastTokenizer.train(corpus, min(cfg.vocab_size, 4000))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    params = T.init_params(gen, cfg, MIXED)
+    policy = get_policy(policy_name)
+    params = T.init_params(gen, cfg, policy)
     batches = packed_batches(tok, corpus, batch_size=TRAIN_B,
                              seq_len=TRAIN_S)
-    label = "xlstm-125m mixed"
-    out, seen[label] = _train_run(
-        cfg, params, batches, label=label, policy=MIXED, policy_name="mixed",
-        steps=XLSTM_TRAIN_STEPS,
+    label = f"xlstm-125m {policy_name}"
+    out, seen = _train_run(
+        cfg, params, batches, label=label, policy=policy,
+        policy_name=policy_name, steps=XLSTM_TRAIN_STEPS,
         opt_cfg=OPT.AdamWConfig(lr=1e-3, warmup_steps=5,
                                 total_steps=XLSTM_TRAIN_STEPS))
     drop = out["losses"][0] - out["losses"][-1]
     n = n_mlstm * XLSTM_TRAIN_STEPS
+    body = XLSTM_TRAIN_BODIES[policy_name]
+    fwd = out["profile"]["mlstm_fwd_kernels"]
+    failed = []
     if not (drop >= TRAIN_LOSS_DROP
-            and seen[label]["mlstm_chunked_bwd"] == n
-            and seen[label]["mlstm_chunked"] == 2 * n
-            and sum(seen[label].values()) == 3 * n):
-        failed.append((label, drop, seen[label]))
+            and seen["mlstm_chunked_bwd"] == n
+            and seen["mlstm_chunked"] == 2 * n
+            and sum(seen.values()) == 3 * n
+            and (not check_bodies
+                 or fwd and all(body in k for k in fwd))):
+        failed.append((label, drop, seen, fwd))
     del params
     torch.cuda.empty_cache()
-    if failed:
-        raise SystemExit(f"training on the card failed: {failed}")
-    return seen["unimo-text fp32"], seen[label], seen
+    return label, seen, failed
 
 
 def _qwen3_train_model():
@@ -5511,12 +5706,19 @@ def main(argv=None) -> int:
                     help="the src/ directory whose repro_torch is run "
                          "(default: this checkout's)")
     ap.add_argument("--only", action="append",
-                    choices=("flash", "train", "ragged", "mesh"),
+                    choices=("flash", "train", "ragged", "mlstm", "attn",
+                             "mesh"),
                     help="run only these phases, for an A/B: the flash "
                          "forward and backward cases at the train shapes "
                          "(flash), the full-width unimo-text fp32 train "
                          "run (train), the grouped product's kernel cases "
-                         "(ragged), the sharding and dry-run phase (mesh); "
+                         "at bf16, fp16 and fp32 (ragged), the mLSTM "
+                         "forward's kernel cases at bf16, fp32 and fp16 "
+                         "and the full-width xlstm-125m train runs, fp32 "
+                         "and mixed (mlstm), the timed bf16 cases of the "
+                         "flash forward and the paged decode, packed and "
+                         "mixed kernels (attn), the sharding and dry-run "
+                         "phase (mesh); "
                          "no kernels summary line")
     args = ap.parse_args(argv)
     try:
@@ -5546,6 +5748,7 @@ def main(argv=None) -> int:
     build.load()
     emit("build", seconds=time.perf_counter() - t0, built=info["built"],
          library=Path(info["path"]).name,
+         source_seconds=info.get("source_seconds"),
          ptxas=[ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln])
@@ -5554,6 +5757,7 @@ def main(argv=None) -> int:
     # the grouped product's kernels as ptxas reported them (when built here)
     emit("ragged_kernels", kernels=ptxas_report(info["log"],
                                                 "ragged_mm_|ragged_dw_"))
+    check_bodies = src == (ROOT / "src").resolve()
     if args.only:
         if "flash" in args.only:
             cases = flash_train_cases(torch.Generator(device="cuda")
@@ -5566,15 +5770,29 @@ def main(argv=None) -> int:
                                  f"{bad}")
         if "train" in args.only:
             phase_train(unimo_fp32_only=True)
-        if "ragged" in args.only:
-            cases = ragged_kernel_cases(torch.Generator(device="cuda")
-                                        .manual_seed(0))
+        for part, fn in (("ragged", ragged_kernel_cases),
+                         ("mlstm", mlstm_kernel_cases),
+                         ("attn", attention_kernel_cases)):
+            if part not in args.only:
+                continue
+            cases = fn(torch.Generator(device="cuda").manual_seed(0))
             for c in cases:
                 emit("kernels", **c)
             bad = [c["case"] for c in cases if not c["ok"]]
             if bad:
-                raise SystemExit(f"ragged_matmul disagrees with its plain "
+                raise SystemExit(f"{part}: kernel disagrees with its plain "
                                  f"version: {bad}")
+            if check_bodies:
+                _check_bodies(cases)
+        if "mlstm" in args.only:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            from repro_torch.data.pipeline import synthetic_corpus
+            bad = []
+            for name in ("fp32", "mixed"):
+                bad += _xlstm_train_run(synthetic_corpus(2000),
+                                        check_bodies, name)[2]
+            if bad:
+                raise SystemExit(f"training on the card failed: {bad}")
         if "mesh" in args.only:
             phase_mesh()
         print(smi, flush=True)
@@ -5582,7 +5800,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    timed = phase_kernels(check_bodies=src == (ROOT / "src").resolve())
+    timed = phase_kernels(check_bodies=check_bodies)
     phase_parity("unimo-text")
     phase_parity("qwen3-4b")
     phase_parity("qwen3-4b", kv_dtype="int8", weights_dtype="int8")
@@ -5601,7 +5819,8 @@ def main(argv=None) -> int:
     family = phase_serves_families()
     family.update(phase_serves_moe_mm())
     family.update(phase_serves_hybrid_mla())
-    train_launches, xlstm_train, train_runs = phase_train()
+    train_launches, xlstm_train, train_runs = phase_train(
+        check_bodies=check_bodies)
     phase_mesh()
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     launches["mlstm_chunked_bwd"] = xlstm_train["mlstm_chunked_bwd"]
@@ -5637,8 +5856,8 @@ def main(argv=None) -> int:
                                    "kernel_ms", "plain_ms", "library_ms", "device_ms",
                                    "device_kernels", "library_device_ms",
                                    "profile_attempts", "bound_ms",
-                                   "bound_by", "body", "fp64", "drows",
-                                   "dw") if k in r}
+                                   "bound_by", "split_floor_ms", "dtype",
+                                   "body", "fp64", "drows", "dw") if k in r}
                 for r in c["regimes"]]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

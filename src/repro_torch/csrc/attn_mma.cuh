@@ -71,20 +71,10 @@
 #include "dtype.cuh"
 #include "mma.cuh"
 
-namespace {
-
-constexpr int kMmaRows = 64;      // rows per block: up to 4 warps x 16
-constexpr int kMmaKeys = 32;      // keys per tile
-constexpr int kMmaStages = 3;     // tiles in flight: the ring's depth
-constexpr int kMmaWindow = 512;   // keys whose positions are staged at once
-constexpr int kMmaMaxSplits = 16; // splits of one walk (the merge's smem)
-constexpr int kTileInts = kMmaKeys + 4;  // a tile's positions, its flag
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-// bf16 parts of each fp32 operand of flash attention's fp32 bodies (the
-// forward here, the backward in flash_attention_bwd.cu): part products
-// (i, j) with i + j < 3, six mma a k-step (mma_parts_apart)
-constexpr int kSplitParts = 3;
+// The arguments of every kernel of this core, in a named namespace so that
+// the paged kernels' launchers in other translation units
+// (paged_{decode,mixed,packed}_mma.cu, paged_mma.cuh) can take them.
+namespace repro_attn {
 
 struct MmaArgs {
   const void* q;          // (B, NQ, Hq, D)
@@ -108,6 +98,25 @@ struct MmaArgs {
   int window;             // window <= 0: none
   float* lse;             // flash for training: (B, Hq, NQ) fp32; else null
 };
+
+}  // namespace repro_attn
+
+namespace {
+
+using repro_attn::MmaArgs;
+
+constexpr int kMmaRows = 64;      // rows per block: up to 4 warps x 16
+constexpr int kMmaKeys = 32;      // keys per tile
+constexpr int kMmaStages = 3;     // tiles in flight: the ring's depth
+constexpr int kMmaWindow = 512;   // keys whose positions are staged at once
+constexpr int kMmaMaxSplits = 16; // splits of one walk (the merge's smem)
+constexpr int kTileInts = kMmaKeys + 4;  // a tile's positions, its flag
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// bf16 parts of each fp32 operand of flash attention's fp32 bodies (the
+// forward here, the backward in flash_attention_bwd.cu): part products
+// (i, j) with i + j < 3, six mma a k-step (mma_parts_apart)
+constexpr int kSplitParts = 3;
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
@@ -688,8 +697,12 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
         mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(~0u, mx[rr], 1));
         mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(~0u, mx[rr], 2));
         const float m_new = fmaxf(m[rr], mx[rr]);
-        const float m_use = m_new == -INFINITY ? 0.f : m_new * to2;
-        alpha[rr] = exp2_approx(fmaf(m[rr], to2, -m_use));  // 0 from -inf
+        const float m_use = m_new == -INFINITY ? 0.f : __fmul_rn(m_new, to2);
+        // the exponents so far were taken against the rounded m * to2 the
+        // last tile used (never contracted into an FMA): rescale from that
+        // exact value, or l drifts by its rounding at every new max (~3e-6
+        // of a long row's log-sum-exp at fp32); 0 from -inf
+        alpha[rr] = exp2_approx(__fmul_rn(m[rr], to2) - m_use);
         m[rr] = m_new;
         float sum = 0.f;
 #pragma unroll
@@ -791,7 +804,8 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
         const int rg = r0 + r;
         a.lse[((long long)slot * a.Hq + (long long)h * a.g + rg % a.g) *
                   a.NQ + rg / a.g] =
-            l[rr] > 0.f ? (m[rr] * to2 + log2f(l[rr])) * kLn2 : INFINITY;
+            l[rr] > 0.f ? (__fmul_rn(m[rr], to2) + log2f(l[rr])) * kLn2
+                        : INFINITY;
       }
       T* orow = out + mma_row(a, lane0, h, r0 + r) * Dv;
 #pragma unroll
@@ -823,7 +837,7 @@ __device__ void mma_attend(const MmaArgs& a, char* smem) {
               make_float2(o[nt][rr * 2], o[nt][rr * 2 + 1]);
       }
       if (tig == 0) {
-        pml[r * 2] = m[rr] * to2;                  // base 2, or -inf
+        pml[r * 2] = __fmul_rn(m[rr], to2);        // base 2, or -inf
         pml[r * 2 + 1] = l[rr];
       }
     }

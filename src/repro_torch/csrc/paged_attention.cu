@@ -42,7 +42,9 @@
 // Bodies by q's dtype (chosen in the launcher, not a fallback):
 //
 //  * bf16 / fp16, the decode, mixed and packed kernels: the tensor-core
-//    core of attn_mma.cuh.  A block takes up to 64 rows of (window lane,
+//    core of attn_mma.cuh, each kind's kernels built in a translation
+//    unit of their own (paged_{decode,mixed,packed}_mma.cu, paged_mma.cuh).
+//    A block takes up to 64 rows of (window lane,
 //    head of the kv group) pairs of one slot and kv head (at decode the g
 //    heads of one token, in ceil(g / 16) warps: one at qwen3-4b's g = 4 and
 //    unimo-text's g = 1; packed, the up to 8 lanes of one work row times g
@@ -82,6 +84,7 @@
 
 #include "attn_mma.cuh"
 #include "dtype.cuh"
+#include "paged_mma.cuh"
 
 namespace {
 
@@ -342,70 +345,7 @@ cudaError_t dispatch_dense(int dtype, int blocks, int max_rows,
   }
 }
 
-// grid (row_tiles * splits, Hkv, B): rows [64 t, 64 t + 64) of slot b's
-// W lanes x g heads against the keys of split s (tensor cores, bf16 /
-// fp16 q; pools at q's dtype or int8)
-template <typename T, typename KV, int DMAX>
-__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
-    paged_mixed_mma_kernel(MmaArgs a) {
-  extern __shared__ float smem[];
-  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
-}
-
-// grid (row_tiles * splits, Hkv, B), ceil(min(g, 64) / 16) warps: slot
-// b's single query token, the g heads of kv head h, against the keys of
-// split s (tensor cores, bf16 / fp16 q; pools at q's dtype or int8).  Its
-// own symbol keeps decode launches apart from mixed ones in a profile.
-template <typename T, typename KV, int DMAX>
-__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
-    paged_decode_mma_kernel(MmaArgs a) {
-  extern __shared__ float smem[];
-  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
-}
-
-// grid (row_tiles * splits, Hkv, n_work), ceil(min(8 g, 64) / 16) warps:
-// rows [64 t, 64 t + 64) of work row w's lanes x the g heads of kv head h
-// against the keys of split s of its slot (tensor cores, bf16 / fp16 q;
-// pools at q's dtype or int8).
-template <typename T, typename KV, int DMAX>
-__global__ void __launch_bounds__(kThreads, mma_min_blocks(DMAX))
-    paged_packed_mma_kernel(MmaArgs a) {
-  extern __shared__ float smem[];
-  mma_attend<T, KV, DMAX>(a, reinterpret_cast<char*>(smem));
-}
-
 enum Kind { kDecode, kMixed, kPacked };
-
-// The mixed, decode or packed kernel at the head-dim bucket of max(D, Dv),
-// over ``units`` batch rows (packed: work rows); the decode and packed
-// kernels run only the warps their rows fill.
-template <typename T, typename KV>
-cudaError_t launch_mma(Kind kind, const MmaArgs& a, int units,
-                       cudaStream_t stream) {
-  if (units == 0 || a.NQ == 0) return cudaSuccess;
-  const int dvp = round16(a.D > a.Dv ? a.D : a.Dv);   // head-dim bucket
-  const int warps = (min(a.NQ * a.g, kMmaRows) + 15) / 16;
-  if (kind == kDecode)
-    return dvp <= 64 ? mma_launch(paged_decode_mma_kernel<T, KV, 64>, a,
-                                  units, stream, warps)
-           : dvp <= 128 ? mma_launch(paged_decode_mma_kernel<T, KV, 128>, a,
-                                     units, stream, warps)
-                        : mma_launch(paged_decode_mma_kernel<T, KV, 256>, a,
-                                     units, stream, warps);
-  if (kind == kPacked)
-    return dvp <= 64 ? mma_launch(paged_packed_mma_kernel<T, KV, 64>, a,
-                                  units, stream, warps)
-           : dvp <= 128 ? mma_launch(paged_packed_mma_kernel<T, KV, 128>, a,
-                                     units, stream, warps)
-                        : mma_launch(paged_packed_mma_kernel<T, KV, 256>, a,
-                                     units, stream, warps);
-  return dvp <= 64 ? mma_launch(paged_mixed_mma_kernel<T, KV, 64>, a, units,
-                                stream)
-         : dvp <= 128 ? mma_launch(paged_mixed_mma_kernel<T, KV, 128>, a,
-                                   units, stream)
-                      : mma_launch(paged_mixed_mma_kernel<T, KV, 256>, a,
-                                   units, stream);
-}
 
 // The decode, mixed and packed launches over ``units`` (decode and mixed:
 // batch rows of p.W lanes, one at decode; packed: the n_work rows of
@@ -470,16 +410,16 @@ cudaError_t launch_windows(Kind kind, int dtype, bool quant, const Params& p,
     a.part_ml = scratch + parts * p.Dv;
     a.counters = counters;
   }
-  switch (dtype) {
-    case 1:
-      return quant ? launch_mma<__half, int8_t>(kind, a, units, stream)
-                   : launch_mma<__half, __half>(kind, a, units, stream);
-    case 2:
-      return quant ? launch_mma<__nv_bfloat16, int8_t>(kind, a, units,
-                                                        stream)
-                   : launch_mma<__nv_bfloat16, __nv_bfloat16>(kind, a, units,
-                                                              stream);
-    default: return cudaErrorInvalidValue;
+  switch (kind) {
+    case kDecode:
+      return repro_attn::paged_decode_mma_launch(dtype, quant, a, units,
+                                                 stream);
+    case kPacked:
+      return repro_attn::paged_packed_mma_launch(dtype, quant, a, units,
+                                                 stream);
+    default:
+      return repro_attn::paged_mixed_mma_launch(dtype, quant, a, units,
+                                                stream);
   }
 }
 

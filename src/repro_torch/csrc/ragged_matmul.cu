@@ -21,7 +21,8 @@
 // ragged_dw_kernel): dw[e] (K, N) = rows_e^T dOut_e, summed over the
 // group's rows in order; an expert with no rows gets zeros.
 //
-// What bounds it: the bytes of the experts that received rows.  At a decode
+// What bounds it: the bytes of the experts that received rows (at fp32
+// twice as many).  At a decode
 // step each routed expert owns about one row (8 slots x top-8 = 64 rows
 // over 128 or 256 experts): a weight-streaming GEMV per expert.  At an
 // 8 x 78 admission every expert owns ~20-60 rows (4,992 rows): still bound
@@ -66,17 +67,27 @@
 //    a four-stage cp.async ring, the grid at the static bound ceil(R / 16)
 //    + min(E, R) row tiles x ceil(Nout / 64), a block past the last real
 //    tile exiting at once; dW a block per 64 x 64 tile of each expert.
-//  * fp32: the same two kernels' CUDA-core FMA tiles (a tensor-core body
-//    would multiply in TF32, and the card's fp32 greedy streams must equal
-//    the CPU's); each thread owns 8 (ragged_mm) or 32 (ragged_dw) outputs
-//    of one column, each K tile (row chunk) summed apart and added to the
-//    running sums.
+//  * wgmma + TMA at fp32 (K and N multiples of 4, 16-byte aligned: every
+//    MoE width again): ragged_mm_f32_tma_kernel, ragged_dw_f32_tma_kernel,
+//    the same items, producer and persistent blocks (one an SM: their
+//    shared memory), TMA bringing raw fp32 tiles into a 2-stage ring; the
+//    consumer warpgroup cuts each stage into three bf16 planes in the
+//    swizzled layouts above and runs the six part pairs i + j < 3 on
+//    wgmma, the leading pair's sums apart from the rest (each operand to
+//    2^-24 of its size, the products' sums not truncated into the leading
+//    one), so fp32 keeps its own accuracy (held to the plain version in
+//    fp64 on the card); the output is written from the fragments.
+//  * fp32 at other shapes: the mma.sync kernels' CUDA-core FMA tiles;
+//    each thread owns 8 (ragged_mm) or 32 (ragged_dw) outputs of one
+//    column, each K tile (row chunk) summed apart and added to the running
+//    sums.
 //
-// Accumulation: fp32.  The wgmma bodies sum every 4 stages (256 of K, or
-// of dW's rows) into fresh accumulators (the first wgmma of each run with
-// scale-d = 0) and add those sums to the running ones with round-to-nearest
-// adds (the tensor cores' own accumulation truncates); mma.sync does the
-// same per 64-deep tile (32 rows for dW).  No split over K and no atomics:
+// Accumulation: fp32.  The 16-bit wgmma bodies sum every 4 stages (256 of
+// K, or of dW's rows) into fresh accumulators (the first wgmma of each run
+// with scale-d = 0) and add those sums to the running ones with
+// round-to-nearest adds (the tensor cores' own accumulation truncates); the
+// fp32 ones every stage; mma.sync does the same per 64-deep tile (32 rows
+// for dW).  No split over K and no atomics:
 // every output is written by one block, in a fixed order, so two calls
 // give the same bits.
 #include <cuda_runtime.h>
@@ -948,6 +959,324 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   if (tid == 0) bulk_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on wgmma: every operand tile as three bf16 parts
+// ---------------------------------------------------------------------------
+//
+// The same persistent blocks, work items and producer as above, at fp32.
+// TMA brings each stage's raw fp32 tiles (unswizzled boxes; K and N need
+// only be multiples of 4 for 16-byte row strides) into a 2-stage ring; the
+// consumer warpgroup cuts them into three bf16 planes each, in the 128-byte
+// swizzled layouts the 16-bit bodies' descriptors read (split_tile), frees
+// the raw stage, fences the planes for the async proxy and runs wgmma over
+// the part pairs (i, j) with i + j < 3: six products a k16 step, the
+// leading pair's into its own fresh accumulators, the other five into
+// another, so that the tensor cores' truncating sums cost the fp32 result
+// nothing (as flash attention's fp32 bodies do).  Both are added to the
+// running sums, rounded to nearest, after every stage; no atomics, so two
+// calls give the same bits.  Not TF32: its 10-bit products are too coarse
+// for the fp32 gates.  The output is written from the fragments as fp32
+// pairs (every 32-byte sector whole).  Shared memory: two raw stages of 48
+// KB, one set of planes (72 KB): one block an SM.
+constexpr int kSplitParts = 3;
+constexpr int kF32Stages = 2;
+constexpr int kRawA = 64 * 64 * 4;          // 64 rows x 64 fp32
+constexpr int kRawB = 64 * 128 * 4;         // 64 x 128 (or 128 x 64) fp32
+constexpr int kRawStage = kRawA + kRawB;
+constexpr int kPlaneA = kBox;               // 64 rows x 64 bf16, swizzled
+constexpr int kPlaneB = 2 * kBox;           // 64 x 128 (or 128 x 64)
+constexpr int kF32Planes = kSplitParts * (kPlaneA + kPlaneB);
+constexpr int kF32BlocksPerSm = 1;
+
+// The raw fp32 tile at raw (rows of `cols` floats, cols 64 or 128), its
+// first `rows` rows, as three bf16 planes at planes + p * plane_bytes in
+// the swizzled layout of a tile of `plane_rows` rows of 64-element boxes
+// (element (r, c) at box c / 64, row r, 16-byte piece (c % 64) / 8 ^ r %
+// 8); rows from `valid` on come out zero.  Four values a thread a step:
+// conflict-free 16-byte reads, 8-byte writes a plane.
+__device__ __forceinline__ void split_tile(const char* raw, int cols,
+                                           int plane_rows, int rows,
+                                           int valid, char* planes,
+                                           int plane_bytes) {
+  const int per = cols / 4;
+  for (int x = threadIdx.x; x < rows * per; x += kConsumers) {
+    const int r = x / per, c = x % per * 4;
+    const float4 f = r < valid
+        ? *reinterpret_cast<const float4*>(raw + (r * cols + c) * 4)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint32_t a[kSplitParts], b[kSplitParts];
+    split_bf16<kSplitParts>(f.x, f.y, a);
+    split_bf16<kSplitParts>(f.z, f.w, b);
+    const int off = (c >> 6) * plane_rows * 128 + r * 128 +
+                    (((c & 63) >> 3) ^ (r & 7)) * 16 + (c & 7) * 2;
+#pragma unroll
+    for (int p = 0; p < kSplitParts; ++p)
+      *reinterpret_cast<uint2*>(planes + p * plane_bytes + off) =
+          make_uint2(a[p], b[p]);
+  }
+}
+
+// One k16 step of the six part products: A part i's and B part j's
+// descriptors are da + i * sa, db + j * sb (the plane strides >> 4, as the
+// descriptors' address field counts 16-byte units); the leading pair into
+// hi, the rest into lo, each starting fresh where `fresh` says.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_parts(float (&hi)[64], float (&lo)[64],
+                                            uint64_t da, uint64_t db,
+                                            uint64_t sa, uint64_t sb,
+                                            bool fresh) {
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(hi, da, db, !fresh);
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(lo, da, db + sb, !fresh);
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(lo, da + sa, db, 1);
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(lo, da, db + 2 * sb, 1);
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(lo, da + sa, db + sb, 1);
+  wgmma_m64n128k16<__nv_bfloat16, kTA, kTB>(lo, da + 2 * sa, db, 1);
+}
+
+// One stage's products over k16 steps [0, steps) of the planes, summed
+// into acc: hi and lo fresh, then acc += hi + lo (rounded to nearest).
+// kTA / kTB as wgmma_m64n128k16's; a_step / b_step: bytes a k16 step moves
+// each operand's start; lbo_a / lbo_b the descriptors' leading offsets.
+template <int kTA, int kTB>
+__device__ __forceinline__ void stage_products(
+    float (&acc)[64], float (&hi)[64], float (&lo)[64], uint32_t pa,
+    uint32_t pb, int steps, int a_step, int b_step, int lbo_a, int lbo_b) {
+  fence_regs(hi);
+  fence_regs(lo);
+  wgmma_fence();
+  for (int s = 0; s < steps; ++s)
+    wgmma_parts<kTA, kTB>(hi, lo, gmma_desc(pa + s * a_step, lbo_a, 1024),
+                          gmma_desc(pb + s * b_step, lbo_b, 1024),
+                          kPlaneA >> 4, kPlaneB >> 4, s == 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(hi);
+  fence_regs(lo);
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] += hi[j] + lo[j];
+}
+
+// The forward (kTransB false: A = rows K-major, B = w[e] MN-major) and dRows
+// (A = dOut, B = w[e]^T K-major) at fp32: the 16-bit kernel's items and
+// producer, each stage 64 deep (A: as many 16-row boxes of 64 floats as
+// the item has rows; B: one box, 128 x 64 of w or 64 x 128 of w^T).
+template <bool kTransB>
+__global__ void __launch_bounds__(kThreads, kF32BlocksPerSm)
+    ragged_mm_f32_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                             const __grid_constant__ CUtensorMap tm_w,
+                             RmArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align1k(smem_raw);
+  char* planes = smem + kF32Stages * kRawStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(planes + kF32Planes);
+  uint64_t* empty = full + kF32Stages;
+  int* s_off = reinterpret_cast<int*>(empty + kF32Stages);
+  int* s_tile = s_off + a.E + 1;
+  const int R = a.R, E = a.E;
+  const int Kin = kTransB ? a.N : a.K, Nout = kTransB ? a.K : a.N;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  block_scan<kThreads>(s_off, E,
+                       [&](int e) { return clamped_size(a.sizes, e, R); });
+  block_scan<kThreads>(s_tile, E, [&](int e) {
+    return cdiv(min(s_off[e + 1], R) - min(s_off[e], R), kBM);
+  });
+  const int NT = cdiv(Nout, kBN), nk = cdiv(Kin, kBK);
+  const int total = (s_tile[E] + cdiv(R - min(s_off[E], R), kBM)) * NT;
+
+  if (warp == kConsumers / 32) {               // the producer
+    if (lane != 0) return;
+    int stage = 0, phase = 0;
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      const MmItem it = mm_item(i, s_off, s_tile, E, R, NT);
+      if (it.e == E) continue;
+      const int pieces = cdiv(it.rows, kPiece);
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, pieces * kPiece * 64 * 4 + kRawB);
+        char* st = smem + stage * kRawStage;
+        const int k0 = kt * kBK;
+        for (int p = 0; p < pieces; ++p)
+          tma_load_2d(st + p * kPiece * 64 * 4, &tm_a, full + stage, k0,
+                      it.m0 + p * kPiece);
+        if (kTransB)
+          tma_load_3d(st + kRawA, &tm_w, full + stage, k0, it.n0, it.e);
+        else
+          tma_load_3d(st + kRawA, &tm_w, full + stage, it.n0, k0, it.e);
+        if (++stage == kF32Stages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  float* out = static_cast<float*>(a.out);
+  const uint32_t pa = smem_u32(planes);
+  const uint32_t pb = pa + kSplitParts * kPlaneA;
+  float acc[64], hi[64], lo[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) hi[j] = lo[j] = 0.f;
+  int stage = 0, phase = 0;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    const MmItem it = mm_item(i, s_off, s_tile, E, R, NT);
+    if (it.e == E) {                  // rows past the last group: zeros
+      for (int x = tid; x < kBM * (kBN / 4); x += kConsumers) {
+        const int r = x / (kBN / 4), c = it.n0 + x % (kBN / 4) * 4;
+        if (r < it.rows && c < Nout)
+          *reinterpret_cast<float4*>(out + (long long)(it.m0 + r) * Nout +
+                                     c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      continue;
+    }
+    const int rows16 = cdiv(it.rows, kPiece) * kPiece;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(full + stage, phase);
+      named_bar_sync<kConsumers>(1);     // the last stage's wgmmas are done
+      const char* st = smem + stage * kRawStage;
+      split_tile(st, 64, 64, rows16, rows16, planes, kPlaneA);
+      if (kTransB)
+        split_tile(st + kRawA, 64, 128, 128, 128,
+                   planes + kSplitParts * kPlaneA, kPlaneB);
+      else
+        split_tile(st + kRawA, 128, 64, 64, 64,
+                   planes + kSplitParts * kPlaneA, kPlaneB);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + stage);   // the raw stage is read
+      fence_proxy_async();
+      named_bar_sync<kConsumers>(1);
+      if (kTransB)
+        stage_products<0, 0>(acc, hi, lo, pa, pb, kBK / 16, 32, 32, 16, 16);
+      else
+        stage_products<0, 1>(acc, hi, lo, pa, pb, kBK / 16, 32, 2048, 16,
+                             kBox);
+      if (++stage == kF32Stages) stage = 0, phase ^= 1;
+    }
+    // d[4 j + x]: row 16 warp + lane / 4 (+ 8 for x >= 2), column 8 j + 2
+    // (lane % 4) (+ 1 for odd x); Nout is a multiple of 4, so a pair is
+    // inside or past it whole
+    const int r0 = 16 * warp + (lane >> 2), c0 = it.n0 + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = r0 + 8 * x;
+        if (r < it.rows && c < Nout)
+          *reinterpret_cast<float2*>(out + (long long)(it.m0 + r) * Nout +
+                                     c) =
+              make_float2(acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
+      }
+    }
+  }
+}
+
+// dW at fp32: the 16-bit kernel's items and producer (chunks of up to 64
+// of the group's rows: 16-row boxes of rows' 64 columns and dOut's 128);
+// the rows past the group's end are zeroed as the planes are cut, A =
+// rows_e^T and B = dOut_e both MN-major; the tile written from the
+// fragments (an expert with no rows: zeros).
+__global__ void __launch_bounds__(kThreads, kF32BlocksPerSm)
+    ragged_dw_f32_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_d,
+                             DwArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align1k(smem_raw);
+  char* planes = smem + kF32Stages * kRawStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(planes + kF32Planes);
+  uint64_t* empty = full + kF32Stages;
+  int* s_off = reinterpret_cast<int*>(empty + kF32Stages);
+  const int R = a.R, E = a.E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  block_scan<kThreads>(s_off, E,
+                       [&](int e) { return clamped_size(a.sizes, e, R); });
+  const int NKt = cdiv(a.K, 64), NNt = cdiv(a.N, kBN);
+  const int total = E * NKt * NNt;
+
+  if (warp == kConsumers / 32) {               // the producer
+    if (lane != 0) return;
+    int stage = 0, phase = 0;
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      const int e = i / (NKt * NNt), rem = i % (NKt * NNt);
+      const int k0 = rem / NNt * 64, n0 = rem % NNt * kBN;
+      const int g0 = min(s_off[e], R), g1 = min(s_off[e + 1], R);
+      for (int r0 = g0; r0 < g1; r0 += kBK) {
+        const int pieces = cdiv(min(kBK, g1 - r0), kPiece);
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, pieces * kPiece * (64 + kBN) * 4);
+        char* st = smem + stage * kRawStage;
+        for (int p = 0; p < pieces; ++p) {
+          const int y = r0 + p * kPiece;
+          tma_load_2d(st + p * kPiece * 64 * 4, &tm_x, full + stage, k0, y);
+          tma_load_2d(st + kRawA + p * kPiece * kBN * 4, &tm_d, full + stage,
+                      n0, y);
+        }
+        if (++stage == kF32Stages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  float* dw = static_cast<float*>(a.dw);
+  const uint32_t pa = smem_u32(planes);
+  const uint32_t pb = pa + kSplitParts * kPlaneA;
+  float acc[64], hi[64], lo[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) hi[j] = lo[j] = 0.f;
+  int stage = 0, phase = 0;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    const int e = i / (NKt * NNt), rem = i % (NKt * NNt);
+    const int k0 = rem / NNt * 64, n0 = rem % NNt * kBN;
+    const int g0 = min(s_off[e], R), g1 = min(s_off[e + 1], R);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int y0 = g0; y0 < g1; y0 += kBK) {
+      const int valid = min(kBK, g1 - y0), v16 = cdiv(valid, kPiece) * kPiece;
+      mbar_wait(full + stage, phase);
+      named_bar_sync<kConsumers>(1);     // the last chunk's wgmmas are done
+      const char* st = smem + stage * kRawStage;
+      split_tile(st, 64, 64, v16, valid, planes, kPlaneA);
+      split_tile(st + kRawA, kBN, 64, v16, valid,
+                 planes + kSplitParts * kPlaneA, kPlaneB);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + stage);
+      fence_proxy_async();
+      named_bar_sync<kConsumers>(1);
+      stage_products<1, 1>(acc, hi, lo, pa, pb, v16 / kPiece, 2048, 2048,
+                           kBox, kBox);
+      if (++stage == kF32Stages) stage = 0, phase ^= 1;
+    }
+    // d[4 j + x]: K row 16 warp + lane / 4 (+ 8 for x >= 2), N column 8 j
+    // + 2 (lane % 4) (+ 1 for odd x)
+    float* tile = dw + (long long)e * a.K * a.N;
+    const int r0 = k0 + 16 * warp + (lane >> 2), c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = r0 + 8 * x;
+        if (r < a.K && c < a.N)
+          *reinterpret_cast<float2*>(tile + (long long)r * a.N + c) =
+              make_float2(acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
+      }
+    }
+  }
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -967,6 +1296,14 @@ int mm_tma_smem(int E) {
 int dw_tma_smem(int E) {
   return 1024 + wg::kStages * wg::kStage + 2 * wg::kDwOut +
          2 * wg::kStages * 8 + (E + 1) * (int)sizeof(int);
+}
+int mm_f32_smem(int E) {
+  return 1024 + wg::kF32Stages * wg::kRawStage + wg::kF32Planes +
+         2 * wg::kF32Stages * 8 + 2 * (E + 1) * (int)sizeof(int);
+}
+int dw_f32_smem(int E) {
+  return 1024 + wg::kF32Stages * wg::kRawStage + wg::kF32Planes +
+         2 * wg::kF32Stages * 8 + (E + 1) * (int)sizeof(int);
 }
 
 template <typename T, bool kTransB>
@@ -998,6 +1335,48 @@ cudaError_t launch_mm_tma(const RmArgs& a, int grid, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   wg::ragged_mm_tma_kernel<T, kTransB>
       <<<grid, wg::kThreads, smem, stream>>>(ta, tw, a);
+  return cudaGetLastError();
+}
+
+template <bool kTransB>
+cudaError_t launch_mm_f32_tma(const RmArgs& a, int grid, cudaStream_t stream) {
+  const int Kin = kTransB ? a.N : a.K;
+  const cuuint64_t da[2] = {(cuuint64_t)Kin, (cuuint64_t)a.R};
+  const cuuint32_t ba[2] = {64, wg::kPiece};
+  // w (E, K, N): a stage's 64 of K x 128 of N (forward) or, read
+  // transposed, its 128 of K (output columns) x 64 of N
+  const cuuint64_t dw[3] = {(cuuint64_t)a.N, (cuuint64_t)a.K,
+                            (cuuint64_t)a.E};
+  const cuuint32_t bw[3] = {kTransB ? 64u : 128u, kTransB ? 128u : 64u, 1};
+  CUtensorMap ta, tw;
+  if (!tensor_map_f32(&ta, a.a, 2, da, ba) ||
+      !tensor_map_f32(&tw, a.w, 3, dw, bw))
+    return cudaErrorInvalidValue;
+  const int smem = mm_f32_smem(a.E);
+  const void* kernel = (const void*)wg::ragged_mm_f32_tma_kernel<kTransB>;
+  cudaError_t e = opt_in_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  wg::ragged_mm_f32_tma_kernel<kTransB>
+      <<<grid, wg::kThreads, smem, stream>>>(ta, tw, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw_f32_tma(const DwArgs& a, int grid,
+                              cudaStream_t stream) {
+  const cuuint64_t dx[2] = {(cuuint64_t)a.K, (cuuint64_t)a.R};
+  const cuuint64_t dd[2] = {(cuuint64_t)a.N, (cuuint64_t)a.R};
+  const cuuint32_t bx[2] = {64, wg::kPiece};
+  const cuuint32_t bd[2] = {wg::kBN, wg::kPiece};
+  CUtensorMap tx, td;
+  if (!tensor_map_f32(&tx, a.a, 2, dx, bx) ||
+      !tensor_map_f32(&td, a.d, 2, dd, bd))
+    return cudaErrorInvalidValue;
+  const int smem = dw_f32_smem(a.E);
+  cudaError_t e =
+      opt_in_smem((const void*)wg::ragged_dw_f32_tma_kernel, smem);
+  if (e != cudaSuccess) return e;
+  wg::ragged_dw_f32_tma_kernel<<<grid, wg::kThreads, smem, stream>>>(tx, td,
+                                                                      a);
   return cudaGetLastError();
 }
 
@@ -1037,15 +1416,16 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The body may serve these operands: fp32 only on CUDA cores, 16-bit on
-// mma.sync (any shape) or on wgmma + TMA (K, N positive multiples of 8, the
-// given pointers 16-byte aligned).
+// The body may serve these operands: CUDA cores fp32 only, mma.sync 16-bit
+// only (any shape), wgmma + TMA either (K and N positive multiples of 16
+// bytes' elements -- 4 at fp32, 8 at 16 bits -- and the given pointers
+// 16-byte aligned).
 bool body_fits(int body, int dtype, int K, int N,
                std::initializer_list<const void*> ptrs) {
   if (body == kCudaCores) return dtype == 0;
-  if (dtype == 0) return false;
-  if (body == kMmaSync) return true;
-  if (body != kWgmmaTma || K < 8 || N < 8 || K % 8 || N % 8) return false;
+  if (body == kMmaSync) return dtype != 0;
+  const int q = dtype == 0 ? 4 : 8;
+  if (body != kWgmmaTma || K < q || N < q || K % q || N % q) return false;
   for (const void* p : ptrs)
     if (!aligned16(p)) return false;
   return true;
@@ -1074,6 +1454,11 @@ extern "C" int ragged_matmul_launch(const void* a, const void* w,
   RmArgs args{a, w, static_cast<const int*>(sizes), out, R, E, K, N,
               K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(w)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == kWgmmaTma && dtype == 0) {
+    if (mm_f32_smem(E) > kMaxSmem) return (int)cudaErrorInvalidValue;
+    return trans ? (int)launch_mm_f32_tma<true>(args, gx, st)
+                 : (int)launch_mm_f32_tma<false>(args, gx, st);
+  }
   if (body == kWgmmaTma) {
     if (mm_tma_smem(E) > kMaxSmem) return (int)cudaErrorInvalidValue;
     switch (dtype * 2 + trans) {
@@ -1114,9 +1499,13 @@ extern "C" int ragged_matmul_dw_launch(const void* a, const void* dout,
               K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(dout)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == kWgmmaTma) {
-    if (R < 1 || dw_tma_smem(E) > kMaxSmem) return (int)cudaErrorInvalidValue;
-    return dtype == 1 ? (int)launch_dw_tma<__half>(args, gx, st)
-                      : (int)launch_dw_tma<__nv_bfloat16>(args, gx, st);
+    if (R < 1 || (dtype == 0 ? dw_f32_smem(E) : dw_tma_smem(E)) > kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    switch (dtype) {
+      case 0: return (int)launch_dw_f32_tma(args, gx, st);
+      case 1: return (int)launch_dw_tma<__half>(args, gx, st);
+      default: return (int)launch_dw_tma<__nv_bfloat16>(args, gx, st);
+    }
   }
   if (gx != cdiv(N, 64) || gy != cdiv(K, 64) || gz != E || gy > 65535 ||
       gz > 65535)

@@ -3,7 +3,8 @@
 //
 //  * host: tensor maps (cuTensorMapEncodeTiled, reached through the runtime's
 //    cudaGetDriverEntryPoint, so the library links without -lcuda), 128-byte
-//    swizzled boxes of 64 16-bit elements on the innermost dimension;
+//    swizzled boxes of 64 16-bit elements on the innermost dimension, or
+//    unswizzled fp32 boxes;
 //  * mbarrier: init, arrive, arrive with an expected byte count, parity wait
 //    (which traps after seconds rather than hang on a phase that never
 //    completes);
@@ -81,6 +82,26 @@ inline bool tensor_map16(CUtensorMap* map, const void* ptr, bool bf16,
                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
             (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box,
             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a row-major fp32 tensor of ``rank`` dims (innermost first),
+// boxes of box[] elements landing unswizzled (rows of box[0] x 4 bytes,
+// box[0] at most 256), zeros outside the tensor: the raw tiles the fp32
+// bodies cut into bf16 parts themselves.  Returns false if the encoding is
+// refused.
+inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t strides[2];
+  cuuint64_t s = 4;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+            const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

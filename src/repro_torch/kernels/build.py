@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a``, one ``nvcc`` per source, all started together, and linked
+``sm_90a``, one ``nvcc`` per source, all started together (each one's
+seconds reported), and linked
 into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout, and the
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -52,13 +54,25 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(src: Path, obj: Path):
+    """One nvcc of ``src`` into ``obj``: (return code, output, seconds)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([_nvcc(), *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    return p.returncode, p.stdout, time.perf_counter() - t0
+
+
 def build() -> dict:
     """Compile the kernels if the library for these sources is missing.
-    Returns {"path", "seconds", "built", "log"} (``log`` holds nvcc's
-    register / shared-memory report when it built)."""
+    Returns {"path", "seconds", "built", "log", "source_seconds"} (``log``
+    holds nvcc's register / shared-memory report when it built;
+    ``source_seconds`` each source's nvcc wall seconds, all started
+    together, the longest first)."""
     path = library_path()
     if path.exists():
-        return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
+        return {"path": str(path), "seconds": 0.0, "built": False, "log": "",
+                "source_seconds": {}}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tag = f"{os.getpid()}.tmp"
@@ -66,13 +80,10 @@ def build() -> dict:
     tmp = path.with_suffix(f".{tag}")
     t0 = time.perf_counter()
     try:
-        procs = [subprocess.Popen([_nvcc(), *COMPILE_FLAGS, "-o", str(o),
-                                   str(f)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for f, o in zip(cu, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        failed = [(f.name, log) for f, p, log in zip(cu, procs, logs)
-                  if p.returncode != 0]
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            results = list(pool.map(_compile, cu, objs))
+        failed = [(f.name, log) for f, (rc, log, _) in zip(cu, results)
+                  if rc != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{name}:\n{log}" for name, log in failed))
@@ -86,8 +97,11 @@ def build() -> dict:
     finally:
         for f in objs + [tmp]:
             f.unlink(missing_ok=True)
+    seconds = sorted(((f.name, s) for f, (_, _, s) in zip(cu, results)),
+                     key=lambda x: -x[1])
     return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "built": True, "log": "".join(logs)}
+            "built": True, "log": "".join(log for _, log, _ in results),
+            "source_seconds": dict(seconds)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,7 +155,7 @@ def load() -> ctypes.CDLL:
     lib.mlstm_chunk_bwd_kernel_attrs.argtypes = [
         I, ctypes.POINTER(ctypes.c_int)]
     lib.mlstm_chunk_bwd_kernel_attrs.restype = ctypes.c_char_p
-    lib.mlstm_chunk_smem_bytes.argtypes = [I, I, I]
+    lib.mlstm_chunk_smem_bytes.argtypes = [I, I, I, I]
     lib.mlstm_chunk_smem_bytes.restype = ctypes.c_long
     lib.rmsnorm_launch.argtypes = ([P] * 3 + [I, I, ctypes.c_long, I, F]
                                    + [I] * 4 + [P])

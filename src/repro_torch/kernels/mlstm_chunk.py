@@ -13,9 +13,10 @@ chunk itself, and its chunk length (32) is its own choice (the result
 does not depend on it beyond fp32 rounding).
 
 :func:`mlstm_plan` picks the body and the tile of value columns each
-block carries: bf16 q/k/v run on the tensor cores (bf16 parts of the
-fp32 operands summed in fp32), fp32 and fp16 on CUDA cores (see
-``csrc/mlstm_chunk.cu``).
+block carries: q/k/v at every dtype run on the tensor cores, each fp32 or
+fp16 operand cut into bf16 parts (MMA_PARTS) and the part pairs' products
+summed in fp32; only shapes that body does not take stay on CUDA cores
+(see ``csrc/mlstm_chunk.cu``).
 
 :func:`mlstm_chunked_bwd` is its backward, the hand-written kernels in
 ``repro_torch/csrc/mlstm_chunk_bwd.cu`` (the reference has none: it
@@ -49,9 +50,13 @@ CHUNK = 32                    # L, both bodies
 SIMT_TILE_E = 64              # value columns per CUDA-core block
 MMA_MAX_WARPS = 12            # kMmaMaxWarps in csrc/mlstm_chunk.cu
 MMA_MAX_DW = 192              # columns of C^T a warp holds (kMmaMaxDW)
-# bf16 parts of the fp32 operands (kPartsC/S/W): C in q C, the weighted
-# scores in S V, w_j v_j in the update of C
-MMA_PARTS = {"C": 2, "S": 2, "W": 3}
+# bf16 parts of the tensor-core body's operands by q's dtype (MmaParts in
+# csrc/mlstm_chunk.cu): q/k/v themselves (Q), C in q C, the weighted
+# scores in S V, w_j v_j in the update of C; the products run over the
+# part pairs (i, j) with i + j < 3
+MMA_PARTS = {torch.bfloat16: {"Q": 1, "C": 2, "S": 2, "W": 3},
+             torch.float16: {"Q": 2, "C": 2, "S": 2, "W": 3},
+             torch.float32: {"Q": 3, "C": 3, "S": 3, "W": 3}}
 BWD_THREADS = 512             # the backward's chunk passes (kThreads)
 BWD_MAX_DIM = 384             # kMaxDim: dq's 48 n-tiles over 16 warps
 # bf16 parts of the backward's operands by q's dtype (Parts in
@@ -72,20 +77,23 @@ def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def mma_smem_bytes(dh: int, te: int) -> int:
+def mma_smem_bytes(dh: int, te: int, dtype: torch.dtype) -> int:
     """Shared memory of a tensor-core block (``MlstmMmaSmem`` in
-    ``csrc/mlstm_chunk.cu``): two stages of Q and K rows (dh padded to a
-    multiple of 16, plus 8) and of V columns and gates, n's bf16 parts as
-    an 8-row key tile, the raw scores, the bf16 parts of the scores and
-    of w_j v_j, the other column groups' partial h, n and the per-row
-    values."""
+    ``csrc/mlstm_chunk.cu``) for q/k/v of ``dtype``: at bf16 two stages of
+    Q and K rows (dh padded to a multiple of 16, plus 8), of V columns and
+    of gates; at fp16 / fp32 one stage of Q, K and V, each as bf16 planes
+    (one a part), and of gates; then n's bf16 parts as an 8-row key tile,
+    the raw scores, the bf16 parts of the scores and of w_j v_j, the other
+    column groups' partial h, n and the per-row values."""
     L, dhp = CHUNK, _round16(dh)
+    parts = MMA_PARTS[dtype]
+    bufs, gate_stages = (2, 2) if parts["Q"] == 1 else (parts["Q"], 1)
     groups = -(-dhp // MMA_MAX_DW)
     q_stride, v_stride = (dhp + 8) * 2, (te + 8) * 2
-    return (4 * L * q_stride + 2 * L * v_stride + 2 * 2 * L * 4
+    return (bufs * L * (2 * q_stride + v_stride) + gate_stages * 2 * L * 4
             + 8 * q_stride
-            + L * (L + 4) * 4 + MMA_PARTS["S"] * L * (L + 8) * 2
-            + MMA_PARTS["W"] * L * v_stride
+            + L * (L + 4) * 4 + parts["S"] * L * (L + 8) * 2
+            + parts["W"] * L * v_stride
             + (groups - 1) * L * (te + 4) * 4 + dhp * 4 + 7 * L * 4 + 16)
 
 
@@ -103,21 +111,23 @@ def mlstm_plan(B: int, H: int, dh: int, dtype: torch.dtype, aligned: bool,
     """The launch plan of :func:`mlstm_chunked` for B x H heads of dim dh,
     q/k/v of ``dtype`` (16-byte ``aligned`` or not) on a card of
     ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
-    memory.  bf16, aligned, dh a multiple of 8 up to 2 x MMA_MAX_DW: the
-    tensor-core body; else (fp32, fp16, other shapes) the CUDA-core body
-    with its 64 columns.  The tensor-core block holds te columns of C in
-    te / 16 x ceil(dh / MMA_MAX_DW) warps (at most MMA_MAX_WARPS), one
-    block per SM; te is the multiple of 16 that makes the fewest waves of
-    blocks, each weighed by its warps beyond one per SM sub-partition
-    (ties to the larger te, which recomputes the scores fewer times).  At
-    xlstm-125m's B = 8, H = 4, dh = 384: te = 96, 128 blocks, one wave."""
-    if dtype == torch.bfloat16 and aligned and dh % 8 == 0 \
+    memory.  Aligned, dh a multiple of 8 up to 2 x MMA_MAX_DW: the
+    tensor-core body at every dtype (fp16 / fp32 as bf16 parts); else the
+    CUDA-core body with its 64 columns.  The tensor-core block holds te
+    columns of C in te / 16 x ceil(dh / MMA_MAX_DW) warps (at most
+    MMA_MAX_WARPS), one block per SM; te is the multiple of 16 that makes
+    the fewest waves of blocks, each weighed by its warps beyond one per
+    SM sub-partition (ties to the larger te, which recomputes the scores
+    fewer times), among those whose shared memory (``mma_smem_bytes`` at
+    ``dtype``) fits.  At xlstm-125m's B = 8, H = 4, dh = 384: te = 96, 128
+    blocks, one wave, at every dtype (fp32: 224,528 bytes a block)."""
+    if dtype in MMA_PARTS and aligned and dh % 8 == 0 \
             and dh <= 2 * MMA_MAX_DW:
         groups = -(-_round16(dh) // MMA_MAX_DW)
         best = None
         for te in range(16, _round16(dh) + 1, 16):
             warps = te // 16 * groups
-            smem = mma_smem_bytes(dh, te)
+            smem = mma_smem_bytes(dh, te, dtype)
             if warps > MMA_MAX_WARPS or smem > smem_limit:
                 break
             waves = -(-(B * H * -(-dh // te)) // sm_count)

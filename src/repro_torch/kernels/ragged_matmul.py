@@ -17,18 +17,21 @@ group's rows in order).
 Bodies, chosen here on the host by dtype, shape and alignment
 (:func:`ragged_body`), each raising on failure:
 
-* ``wgmma_tma`` (bf16 / fp16, K and N positive multiples of 8, 16-byte
-  aligned tensors: every MoE width of the eleven archs): persistent blocks
-  of one wgmma warpgroup fed by a TMA producer warp through an mbarrier
-  ring.  A forward work item is an expert's 64 rows times 128 output
-  columns, so an admission's expert (up to 64 rows) reads its weight slab
-  once a product, and the row tiles of a larger group run side by side;
-  dW's item is a 64 x 128 tile of dw[e], staged in shared memory and
-  written by TMA stores that drain while the next tile is summed.
+* ``wgmma_tma`` (K and N positive multiples of 16 bytes' elements -- 8 at
+  bf16 / fp16, 4 at fp32 -- and 16-byte aligned tensors: every MoE width
+  of the eleven archs): persistent blocks of one wgmma warpgroup fed by a
+  TMA producer warp through an mbarrier ring.  A forward work item is an
+  expert's 64 rows times 128 output columns, so an admission's expert (up
+  to 64 rows) reads its weight slab once a product, and the row tiles of a
+  larger group run side by side; dW's item is a 64 x 128 tile of dw[e].
+  At 16 bits dW's tile is staged in shared memory and written by TMA
+  stores that drain while the next tile is summed.  At fp32 (one block an
+  SM: BLOCKS_PER_SM) TMA brings raw fp32 tiles, the warpgroup cuts each
+  into three bf16 planes and wgmma runs the six part pairs i + j < 3, the
+  leading pair's sums kept apart, so the fp32 result keeps fp32 accuracy.
 * ``mma_sync`` (other bf16 / fp16 shapes): 16-row tiles on
   ``mma.sync`` through a cp.async ring, dW a block per 64 x 64 tile.
-* ``cuda_cores`` (fp32): FMA tiles, so the card's fp32 greedy streams
-  equal the CPU's.
+* ``cuda_cores`` (other fp32 shapes): FMA tiles.
 
 Every output is written by one block in a fixed order (no split over K, no
 atomics): two calls give the same bits.  :func:`ragged_grid` and
@@ -56,21 +59,25 @@ BODIES = {"cuda_cores": 0, "mma_sync": 1, "wgmma_tma": 2}
 MMA_TILE = (16, 64)
 WGMMA_TILE = (64, 128)
 WGMMA_DW_TILE = (64, 128)
-# the wgmma bodies' persistent blocks on each SM
-BLOCKS_PER_SM = 2
+# the wgmma bodies' persistent blocks on each SM, by dtype (fp32: two raw
+# stages of 48 KB and 72 KB of bf16 planes, one block an SM)
+BLOCKS_PER_SM = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 2}
 
 
 def ragged_body(dtype, K, N, aligned=True):
     """The body that runs a grouped product of (K, N) weights at
-    ``dtype`` (``aligned``: every operand 16-byte aligned): fp32 on CUDA
-    cores; bf16 / fp16 on wgmma fed by TMA where TMA can describe the
-    operands (K and N positive multiples of 8, row strides of 16 bytes,
-    aligned), else on mma.sync."""
-    if dtype == torch.float32:
-        return "cuda_cores"
-    if K > 0 and N > 0 and K % 8 == 0 and N % 8 == 0 and aligned:
+    ``dtype`` (``aligned``: every operand 16-byte aligned): wgmma fed by
+    TMA where TMA can describe the operands (K and N positive multiples of
+    16 bytes' elements, 8 at bf16 / fp16 and 4 at fp32: row strides of 16
+    bytes; aligned), else mma.sync at bf16 / fp16 and CUDA cores at
+    fp32.  At fp32 the wgmma body is slower than the CUDA-core one at a
+    decode step's 64 rows (PERF.md, row 12j) and faster from an
+    admission's thousands of rows up; the fix is that body's redesign
+    (ROADMAP A5), not a switch back to CUDA cores by shape."""
+    q = 16 // dtype.itemsize
+    if K > 0 and N > 0 and K % q == 0 and N % q == 0 and aligned:
         return "wgmma_tma"
-    return "mma_sync"
+    return "cuda_cores" if dtype == torch.float32 else "mma_sync"
 
 
 def tiles_bound(R, E, rows):
@@ -81,27 +88,27 @@ def tiles_bound(R, E, rows):
     return -(-R // rows) + min(E, R)
 
 
-def ragged_grid(body, R, E, Nout, sms):
-    """(gx, gy) of a forward / dRows launch with Nout output columns on a
-    card of ``sms`` SMs: the wgmma body's persistent blocks (at most
-    BLOCKS_PER_SM an SM and one a work item), else a block per 16-row tile
-    (the static bound) and 64 columns."""
+def ragged_grid(body, R, E, Nout, sms, dtype):
+    """(gx, gy) of a forward / dRows launch with Nout output columns at
+    ``dtype`` on a card of ``sms`` SMs: the wgmma body's persistent blocks
+    (at most BLOCKS_PER_SM[dtype] an SM and one a work item), else a block
+    per 16-row tile (the static bound) and 64 columns."""
     if body == "wgmma_tma":
         rows, cols = WGMMA_TILE
         items = tiles_bound(R, E, rows) * -(-Nout // cols)
-        return min(items, BLOCKS_PER_SM * sms), 1
+        return min(items, BLOCKS_PER_SM[dtype] * sms), 1
     rows, cols = MMA_TILE
     return tiles_bound(R, E, rows), -(-Nout // cols)
 
 
-def ragged_dw_grid(body, E, K, N, sms):
-    """(gx, gy, gz) of a dW launch: the wgmma body's persistent blocks over
-    the E x (K / 64) x (N / 128) tiles, else a block per 64 x 64 tile of
-    each expert."""
+def ragged_dw_grid(body, E, K, N, sms, dtype):
+    """(gx, gy, gz) of a dW launch at ``dtype``: the wgmma body's
+    persistent blocks over the E x (K / 64) x (N / 128) tiles, else a block
+    per 64 x 64 tile of each expert."""
     if body == "wgmma_tma":
         kr, nc = WGMMA_DW_TILE
         items = E * -(-K // kr) * -(-N // nc)
-        return min(items, BLOCKS_PER_SM * sms), 1, 1
+        return min(items, BLOCKS_PER_SM[dtype] * sms), 1, 1
     return -(-N // 64), -(-K // 64), E
 
 
@@ -153,7 +160,8 @@ def ragged_matmul(rows, w, sizes):
     lib = build.load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     body = ragged_body(rows.dtype, K, N, _aligned(rows, w))
-    gx, gy = ragged_grid(body, R, E, N, scratch.sm_count(rows.device.index))
+    gx, gy = ragged_grid(body, R, E, N, scratch.sm_count(rows.device.index),
+                         rows.dtype)
     with torch.cuda.device(rows.device):
         err = lib.ragged_matmul_launch(
             rows.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
@@ -187,7 +195,7 @@ def ragged_matmul_bwd(rows, w, sizes, dout, *, need_rows=True,
             drows = torch.empty_like(rows)
             if R and K:
                 body = ragged_body(rows.dtype, K, N, _aligned(dout, w))
-                gx, gy = ragged_grid(body, R, E, K, sms)
+                gx, gy = ragged_grid(body, R, E, K, sms, rows.dtype)
                 _raise_on(lib.ragged_matmul_launch(
                     dout.data_ptr(), w.data_ptr(), sizes.data_ptr(),
                     drows.data_ptr(), code, R, E, K, N, 1, BODIES[body], gx,
@@ -198,7 +206,7 @@ def ragged_matmul_bwd(rows, w, sizes, dout, *, need_rows=True,
                 # no rows: nothing for a tensor map to describe
                 body = ragged_body(rows.dtype, K, N, R > 0
                                    and _aligned(rows, dout))
-                grid = ragged_dw_grid(body, E, K, N, sms)
+                grid = ragged_dw_grid(body, E, K, N, sms, rows.dtype)
                 _raise_on(lib.ragged_matmul_dw_launch(
                     rows.data_ptr(), dout.data_ptr(), sizes.data_ptr(),
                     dw.data_ptr(), code, R, E, K, N, BODIES[body], *grid,

@@ -231,13 +231,16 @@ def mlstm_chunked_ref(q, k, v, i_pre, logf, state, *,
     the same result up to fp32 rounding.  Returns h (B,S,H,dh) fp32 and
     the final state; with ``return_states`` also the state at the start of
     every chunk, {"C": (B,H,NC,dh,dh), "n": (B,H,NC,dh), "m": (B,H,NC)}
-    (what :func:`mlstm_chunked_bwd_ref` takes)."""
+    (what :func:`mlstm_chunked_bwd_ref` takes).  It computes in fp32, or
+    in fp64 where the gates are fp64 (with every other input: the
+    kernel's fp32 accuracy is held against that on the card)."""
     B, S, H, dh = q.shape
     pad = (-S) % chunk
-    qf, kf, vf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+    acc = torch.float64 if i_pre.dtype == torch.float64 else torch.float32
+    qf, kf, vf = (F.pad(t.to(acc), (0, 0, 0, 0, 0, pad))
                   for t in (q, k, v))
-    ig = F.pad(i_pre.float(), (0, 0, 0, pad), value=-1e30)
-    lf = F.pad(logf.float(), (0, 0, 0, pad), value=0.0)
+    ig = F.pad(i_pre.to(acc), (0, 0, 0, pad), value=-1e30)
+    lf = F.pad(logf.to(acc), (0, 0, 0, pad), value=0.0)
     tri = torch.ones(chunk, chunk, dtype=torch.bool,
                      device=q.device).tril()
     C, n, m = state["C"], state["n"], state["m"]

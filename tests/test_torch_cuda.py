@@ -977,10 +977,12 @@ def test_mlstm_wrapper_rejects_bad_inputs(dev):
 @pytest.mark.parametrize("state", [False, True])
 @pytest.mark.parametrize("dh", [128, 384])
 @pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 300])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_mlstm_body_by_dtype_matches_plain(dev, dtype, S, dh, state):
-    """bf16 runs the tensor-core body, fp16 the CUDA-core one: both to the
-    gates, from a zero and a nonzero state, over ragged chunks."""
+    """Every dtype runs the tensor-core body (fp16 / fp32 as bf16 parts):
+    each to the gates, from a zero and a nonzero state, over ragged
+    chunks."""
     from repro_torch.kernels import mlstm_chunk as MC
     rng = np.random.default_rng(S + dh + state)
     args, st = _mlstm_inputs(rng, 2, S, 4, dh, dtype, dev, state)
@@ -1007,21 +1009,25 @@ def _device_kernels(fn):
 
 
 def test_mlstm_bodies_in_the_profile(dev):
+    """xlstm-125m's width at every dtype: the tensor-core body's instance
+    of q's type; a head dim off 8: the CUDA-core body."""
     from repro_torch.kernels import mlstm_chunk as MC
     rng = np.random.default_rng(3)
-    for dtype, body in [(torch.bfloat16, "mlstm_chunk_mma_kernel"),
-                        (torch.float16, "mlstm_chunk_kernel"),
-                        (torch.float32, "mlstm_chunk_kernel")]:
-        args, st = _mlstm_inputs(rng, 2, 40, 4, 384, dtype, dev)
+    for dtype, dh, body in [
+            (torch.bfloat16, 384, "mlstm_chunk_mma_kernel<__nv_bfloat16"),
+            (torch.float16, 384, "mlstm_chunk_mma_kernel<__half"),
+            (torch.float32, 384, "mlstm_chunk_mma_kernel<float"),
+            (torch.float32, 20, "mlstm_chunk_kernel<float")]:
+        args, st = _mlstm_inputs(rng, 2, 40, 4, dh, dtype, dev)
         names = _device_kernels(lambda: MC.mlstm_chunked(*args, st))
         ours = [n for n in names if "mlstm_chunk_" in n]
-        assert len(ours) == 1 and any(body + c in ours[0] for c in "<("), \
-            (dtype, names)
+        assert len(ours) == 1 and body in ours[0], (dtype, dh, names)
 
 
 def test_mlstm_launcher_refuses_a_bad_plan(dev):
     """The C launcher checks the plan: te a multiple of 16 within the
-    block's warps, bf16 only on the tensor cores, known bodies."""
+    block's warps, q/k/v 16-byte aligned on the tensor cores (every dtype
+    there), known bodies and dtypes."""
     from repro_torch.kernels import build
     rng = np.random.default_rng(4)
     B, S, H, dh = 1, 8, 2, 64
@@ -1042,9 +1048,13 @@ def test_mlstm_launcher_refuses_a_bad_plan(dev):
     assert launch((q, k, v), 2, 1, 208) != 0    # 13 warps
     assert launch((q, k, v), 2, 2, 64) != 0     # no such body
     qf, kf, vf = (t.float() for t in (q, k, v))
-    assert launch((qf, kf, vf), 0, 1, 64) != 0  # fp32 on the tensor cores
+    assert launch((qf, kf, vf), 0, 1, 64) == 0  # fp32 on the tensor cores
     qh, kh, vh = (t.half() for t in (q, k, v))
-    assert launch((qh, kh, vh), 1, 1, 64) != 0  # fp16 on the tensor cores
+    assert launch((qh, kh, vh), 1, 1, 64) == 0  # fp16 on the tensor cores
+    assert launch((q, k, v), 3, 1, 64) != 0     # no such dtype
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
+    qo = off.view_as(q).copy_(q)
+    assert launch((qo, k, v), 2, 1, 64) != 0    # q off a 16-byte boundary
     torch.cuda.synchronize()
 
 
@@ -1053,15 +1063,49 @@ def test_mlstm_shared_memory_figures_agree_with_the_kernel(dev):
     from repro_torch.kernels import mlstm_chunk as MC
     lib = build.load()
     for dh in (8, 72, 128, 200, 384):
-        assert lib.mlstm_chunk_smem_bytes(0, dh, 0) == MC.simt_smem_bytes(dh)
-        for te in (16, 32, 48, 96):
-            assert lib.mlstm_chunk_smem_bytes(1, dh, te) == \
-                MC.mma_smem_bytes(dh, te)
+        assert lib.mlstm_chunk_smem_bytes(0, 2, dh, 0) == \
+            MC.simt_smem_bytes(dh)
         for dtype, code in [(torch.float32, 0), (torch.float16, 1),
                             (torch.bfloat16, 2)]:
+            for te in (16, 32, 48, 96):
+                assert lib.mlstm_chunk_smem_bytes(1, code, dh, te) == \
+                    MC.mma_smem_bytes(dh, te, dtype)
             assert (lib.mlstm_chunk_bwd_smem_bytes(dh, code, 0),
                     lib.mlstm_chunk_bwd_smem_bytes(dh, code, 1)) == \
                 MC.mlstm_bwd_plan(dh, dtype, 232448).smem_bytes
+
+
+def _mlstm_fp64(args, st):
+    """The plain mLSTM evaluated in fp64 on the same inputs."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    return MC.mlstm_chunked_ref(*(t.double() for t in args),
+                                {k: t.double() for k, t in st.items()})
+
+
+@pytest.mark.parametrize("B,S,H,dh,state", [(2, 300, 4, 384, True),
+                                            (2, 64, 4, 384, False),
+                                            (3, 37, 2, 128, True)])
+def test_mlstm_fp32_body_holds_fp64_gate(dev, B, S, H, dh, state):
+    """The tensor-core body at fp32 (three bf16 parts an operand) against
+    the plain version in fp64: h, C, n and m each within four times the
+    plain fp32 version's own error or 1e-6 of the output's scale; two
+    calls give the same bits."""
+    from repro_torch.kernels import mlstm_chunk as MC
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S + dh)
+    args, st = _mlstm_inputs(rng, B, S, H, dh, torch.float32, dev, state)
+    h, fin = MC.mlstm_chunked(*args, st)
+    h2, fin2 = MC.mlstm_chunked(*args, st)
+    h_p, fin_p = MC.mlstm_chunked_ref(*args, st)
+    h_t, fin_t = _mlstm_fp64(args, st)
+    assert torch.equal(h, h2) and all(torch.equal(fin[k], fin2[k])
+                                      for k in fin)
+    for got, plain, truth in [(h, h_p, h_t)] + [
+            (fin[k], fin_p[k], fin_t[k]) for k in ("C", "n", "m")]:
+        scale = max(truth.abs().max().item(), 1e-30)
+        err = (got.double() - truth).abs().max().item() / scale
+        perr = (plain.double() - truth).abs().max().item() / scale
+        assert err <= max(4 * perr, 1e-6), (err, perr)
 
 
 # -- the mLSTM backward ------------------------------------------------------
@@ -2716,6 +2760,66 @@ def test_ragged_matmul_16bit_runs_the_wgmma_bodies(dev, dtype):
     assert all("_tma_kernel" in n for n in tma), tma
     mma = names([0, 0, 40, 0], 100, 70)
     assert mma and not any("_tma_kernel" in n for n in mma), mma
+
+
+def test_ragged_matmul_fp32_runs_the_split_wgmma_bodies(dev):
+    """At fp32 with K, N multiples of 4 the forward, dRows and dW launch
+    the wgmma + TMA kernels that cut fp32 tiles into bf16 parts
+    (``_f32_tma_kernel``) alone; at N = 70 the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ragged_matmul as RM
+
+    def names(sizes, K, N):
+        rows, w, sz = _ragged_inputs(sizes, K, N, torch.float32, dev)
+        dout = torch.randn(rows.shape[0], N, device=dev)
+        RM.ragged_matmul(rows, w, sz)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            RM.ragged_matmul(rows, w, sz)
+            RM.ragged_matmul_bwd(rows, w, sz, dout)
+            torch.cuda.synchronize()
+        return {e.name for e in prof.events() if "ragged_" in e.name}
+    split = names(*RAGGED_EDGE_CASES[0])
+    assert any("ragged_mm_f32_tma_kernel" in n for n in split)
+    assert any("ragged_dw_f32_tma_kernel" in n for n in split)
+    assert all("_f32_tma_kernel" in n for n in split), split
+    cores = names([0, 0, 40, 0], 100, 70)
+    assert cores and not any("_tma_kernel" in n for n in cores), cores
+
+
+def _fp64_gate(got, plain, truth):
+    """The kernel's error against the fp64 evaluation at most four times
+    the plain fp32 version's, or 1e-6 of the output's scale."""
+    scale = max(truth.abs().max().item(), 1e-30)
+    err = (got.double() - truth).abs().max().item() / scale
+    perr = (plain.double() - truth).abs().max().item() / scale
+    assert err <= max(4 * perr, 1e-6), (err, perr)
+
+
+@pytest.mark.parametrize("sizes,K,N", RAGGED_EDGE_CASES + [
+    ([8] * 16, 512, 256)])
+def test_ragged_matmul_fp32_holds_fp64_gate(dev, sizes, K, N):
+    """The fp32 wgmma bodies (three bf16 parts an operand) against the
+    plain version in fp64: the forward, dRows and dW each within four
+    times the plain fp32 version's error or 1e-6 of the scale."""
+    from repro_torch.kernels import ragged_matmul as RM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, w, sz = _ragged_inputs(sizes, K, N, torch.float32, dev, tail=3)
+    dout = torch.randn(rows.shape[0], N, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    _fp64_gate(RM.ragged_matmul(rows, w, sz),
+               RM.ragged_matmul_ref(rows, w, sz),
+               RM.ragged_matmul_ref(rows.double(), w.double(), sz))
+    got = RM.ragged_matmul_bwd(rows, w, sz, dout)
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        r = rows.to(dt).requires_grad_()
+        ww = w.to(dt).requires_grad_()
+        grads.append(torch.autograd.grad(RM.ragged_matmul_ref(r, ww, sz),
+                                         (r, ww), dout.to(dt)))
+    for g, p, t in zip(got, *grads):
+        _fp64_gate(g, p, t)
 
 
 def _ragged_moe(monkeypatch):

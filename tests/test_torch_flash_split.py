@@ -127,7 +127,9 @@ def forward_split(q, k, v, qp, kp, scale, cap, window, n):
         m_use = np.where(m_new == -np.inf, np.float32(0),
                          m_new * to2).astype(np.float32)
         with np.errstate(invalid="ignore"):
-            alpha = np.exp2(_fma32(m, to2, -m_use))
+            # rescale from the rounded m * to2 the last tile's exponents
+            # used, not from the exact product
+            alpha = np.exp2((m * to2).astype(np.float32) - m_use)
             p = np.exp2(_fma32(s, to2, -m_use[:, None]))
         alpha = np.where(m == -np.inf, np.float32(0), alpha)
         p = np.where(s == -np.inf, np.float32(0), p).astype(np.float32)
@@ -294,6 +296,37 @@ def test_one_part_per_operand_misses(S, g, D, Dv, window, cap, ragged):
     # but the log-sum-exp, whose scores' errors largely cancel, misses
     errs = _run(S, g, D, Dv, window, cap, ragged, 1)
     assert all(errs[n] > TOL for n in ("out", "dq", "dk", "dv")), errs
+
+
+def test_long_row_lse_keeps_one_base():
+    """The last 64 rows over 4,096 keys at the fp32 body's arithmetic:
+    their log-sum-exp within the card's fp64 gate (four times the plain
+    fp32 version's error, or 1e-6 of the scale).  Rescaling the running
+    sum from the exact max times to2, where the exponents used its
+    rounding, drifts past it by that rounding at every new maximum."""
+    S, D, R = 4096, 64, 64
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(R, D)).astype(np.float32)
+    k = rng.normal(size=(S, D)).astype(np.float32)
+    v = rng.normal(size=(S, 8)).astype(np.float32)
+    kp = np.arange(S, dtype=np.int32)
+    qp = kp[-R:]
+    scale = D ** -0.5
+    _, lse = forward_split(q, k, v, qp, kp, scale, None, None,
+                           FA.SPLIT_PARTS)
+    vis = _visible(kp, qp, None)
+    s64 = np.where(vis, (q.astype(np.float64) @ k.T.astype(np.float64))
+                   * scale, -np.inf)
+    mx = s64.max(axis=1, keepdims=True)
+    truth = (mx + np.log(np.exp(s64 - mx).sum(axis=1, keepdims=True)))[:, 0]
+    s32 = np.where(vis, (q @ k.T) * np.float32(scale), -np.inf)
+    mx32 = s32.max(axis=1, keepdims=True)
+    plain = (mx32 + np.log(np.exp(s32 - mx32).sum(
+        axis=1, keepdims=True, dtype=np.float32)))[:, 0].astype(np.float32)
+    scale_t = np.abs(truth).max()
+    err = np.abs(lse - truth).max() / scale_t
+    perr = np.abs(plain - truth).max() / scale_t
+    assert err <= max(4 * perr, 1e-6), (err, perr)
 
 
 def test_parts_sum_to_the_value():
